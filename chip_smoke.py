@@ -18,10 +18,20 @@ toolkit. Phases, each printing one JSON line:
 5. slice   — the flagship ``qwen-image-edit-2509`` pipeline (60-layer MMDiT,
              7B VL encoder in path, full VAE; random weights from seed 0)
              answers a warm-up, three cache-miss and two cache-hit 1024²
-             2-step cond-only edits. Each request prints its wall seconds,
-             kernel launch counts, output shape and peak memory; K1 must run
-             120 times per request, K2 28 times per cache miss and 0 per hit,
-             K3 at least once.
+             2-step cond-only edits, then one edit with two 1024² condition
+             images (joint length ≈ 12.7k: the streaming role, K4). Each
+             request prints its wall seconds, kernel launch counts, output
+             shape and peak memory; K1 (or K4 for two images) must run 120
+             times per request, K2 28 times per cache miss and 0 per hit, K3
+             at least once;
+6. int8    — the bf16 pipeline dropped, the same preset rebuilt with
+             ``use_int8`` + ``use_int8_vl`` (quantized in place): warm-up,
+             three misses, two hits and one two-image edit; K5 and K6 must
+             run once per quantized linear the request executes (1200 in the
+             MMDiT, 358 more in the VL encoder per one-image miss);
+7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
+             miss; K5/K6 run only for the vision tower's 3420-wide ``down``
+             leaves, which take the int8 rung (32 per image per miss).
 
 Then it prints the kernels summary and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -29,6 +39,7 @@ before that line. Without a CUDA device, or outside a checkout, it exits
 non-zero and prints no result.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -44,6 +55,14 @@ TXT_LEN = 256      # the flagship's text bucket for PROMPT with one 384² image
 TXT_REAL = 208     # real text tokens in that bucket
 LM_LEN = 384       # the flagship LM's 128-bucket for the same request
 LM_REAL = 258
+STEPS = 2
+MMDIT_LAYERS = 60
+# int8 linears a request runs: 10 per MMDiT block and step; per VL miss 7 per
+# LM layer (28) and, per condition image, 5 per vision block (32) + 2 merger
+INT8_MMDIT = 10 * MMDIT_LAYERS * STEPS
+INT8_LM = 7 * 28
+INT8_VISION = 5 * 32 + 2
+INT4_VISION = 32   # under int4 only the 3420-wide vision `down` stays int8
 
 # Kernel tolerance: bf16 in and out on both sides, and the plain versions round
 # P and the output at other places than the kernels, so a kernel may differ
@@ -178,7 +197,117 @@ def phase_kernels():
     k3["max_abs_err"] = worst
     results["conv3x3"] = k3
     torch.cuda.empty_cache()
+    results.update(phase_stream_kernel())
+    results.update(phase_int8_kernels())
     return results
+
+
+def phase_stream_kernel():
+    """K4's role: the non-causal kernel at two-image joint lengths (text
+    bucket + 3 × 4096 image tokens) with the text-prefix mask, 24/24 heads
+    and, for its GQA, 28 q / 4 kv heads."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    img = 3 * (SIZE // 16) ** 2
+    rec0, worst = None, 0.0
+    for txt, h, hkv in ((256, 24, 24), (512, 24, 24), (256, 28, 4)):
+        lk = txt + img
+        q = randn((1, h, lk, 128), 12, bf16)
+        k, v = (randn((1, hkv, lk, 128), s, bf16) for s in (13, 14))
+        mask = torch.ones((1, lk), dtype=torch.bool, device="cuda")
+        mask[:, txt - 48:txt] = False
+        if not fa.streams_kv(k):
+            raise AssertionError(f"Lk={lk} is not in K4's streaming role")
+        out = fa.joint_attention(q, k, v, mask, txt)
+        rep = h // hkv
+        step = 4 if rep == 1 else rep  # heads per plain call: f32 scores are large
+
+        def plain():
+            return torch.cat([fa.joint_attention_plain(
+                q[:, h0:h0 + step], k[:, h0 // rep:(h0 + step) // rep],
+                v[:, h0 // rep:(h0 + step) // rep], mask)
+                for h0 in range(0, h, step)], dim=1)
+
+        ref = plain().float()
+        err = (out.float() - ref).abs().max().item()
+        tol = tolerance(ref)
+        rec = {"phase": "kernel", "name": "flash_attention_stream",
+               "shape": [1, h, hkv, lk], "max_abs_err": err, "tol": tol,
+               "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, txt), 10),
+               "plain_ms": cuda_ms(plain, 3)}
+        emit(rec)
+        if not err <= tol:
+            raise AssertionError(f"K4 error {err} > {tol} at {rec['shape']}")
+        worst = max(worst, err)
+        rec0 = rec0 or dict(rec)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    rec0["max_abs_err"] = worst
+    return {"flash_attention_stream": rec0}
+
+
+# (name, M, K, N): the int8 linears of the path
+INT8_SHAPES = (("img_qkv", 8192, 3072, 9216), ("img_mod", 1, 3072, 18432),
+               ("fc2", 8192, 12288, 3072), ("lm_down", 384, 18944, 3584),
+               ("vision_down", 784, 3420, 1280))
+
+
+def phase_int8_kernels():
+    """K5 and K6 at the path's shapes, bit-identical to their plain versions
+    (gate: max-abs error 0 for codes, scales and the GEMM output), with the
+    bf16 ``F.linear`` that the int8 rung replaces timed beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
+
+    bf16 = torch.bfloat16
+    recs = {}
+    worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    for name, m, k, n in INT8_SHAPES:
+        x = randn((m, k), 15, bf16)
+        w = randn((n, k), 16, torch.float32).mul_(0.02).to(bf16)
+        b = randn((n,), 17, bf16) * 0.1
+        wq, ws = int8.quantize_weight(w)
+        xq, xs = int8.quantize_rows(x)
+        xq_ref, xs_ref = int8.quantize_rows_plain(x)
+        err5 = max((xq.int() - xq_ref.int()).abs().max().item(),
+                   (xs - xs_ref).abs().max().item())
+        out = int8.int8_matmul(xq_ref, xs_ref, wq, ws, b)
+        ref = int8.int8_matmul_plain(xq_ref, xs_ref, wq, ws, b)
+        err6 = (out.float() - ref.float()).abs().max().item()
+        times = {
+            "k5_ms": cuda_ms(lambda: int8.quantize_rows(x), 20),
+            "k5_plain_ms": cuda_ms(lambda: int8.quantize_rows_plain(x), 10),
+            "k6_ms": cuda_ms(lambda: int8.int8_matmul(xq, xs, wq, ws, b), 20),
+            "k6_plain_ms": cuda_ms(
+                lambda: int8.int8_matmul_plain(xq, xs, wq, ws, b), 5),
+            "int8_linear_ms": cuda_ms(lambda: int8.int8_linear(
+                x, {"w_q": wq, "scale": ws, "bias": b}), 20),
+            "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w, b), 20),
+        }
+        rec = {"phase": "kernel", "name": "int8_linear", "shape": name,
+               "mkn": [m, k, n], "k5_max_abs_err": err5, "k6_max_abs_err": err6,
+               "tol": 0.0, **times}
+        emit(rec)
+        if err5 != 0 or err6 != 0:
+            raise AssertionError(f"{name}: K5 error {err5}, K6 error {err6}: "
+                                 "not bit-identical")
+        worst["quantize_rows"] = max(worst["quantize_rows"], err5)
+        worst["int8_gemm"] = max(worst["int8_gemm"], err6)
+        if name == "img_qkv":
+            recs["quantize_rows"] = {"ms": times["k5_ms"],
+                                     "plain_ms": times["k5_plain_ms"]}
+            recs["int8_gemm"] = {"ms": times["k6_ms"],
+                                 "plain_ms": times["k6_plain_ms"]}
+        del x, w, b, wq, ws, xq, xs, xq_ref, xs_ref, out, ref
+        torch.cuda.empty_cache()
+    for key in recs:
+        recs[key]["max_abs_err"] = worst[key]
+    return recs
 
 
 def phase_block_parity():
@@ -230,61 +359,132 @@ def distinct_image(i: int):
     return np.clip(base.astype(np.int32) + tint, 0, 255).astype(np.uint8)
 
 
-def phase_slice():
+def run_requests(pipe, requests, label: str):
+    """Serve ``requests`` (name, images, prompt, expected launches) one by
+    one; each prints its wall seconds, launch counts, output and peak bytes,
+    and raises unless every count and the output are as expected. Returns
+    the launches of the whole path, counted from 0 just before it."""
     import torch
 
-    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
-    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import param_count
-    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
-        EditPipeline,
-    )
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
-    config = StreamConfig(width=SIZE, height=SIZE, num_inference_steps=2,
-                          cfg_mode="none")
-    t0 = time.time()
-    pipe = EditPipeline.create("qwen-image-edit-2509", config, seed=0,
-                               device="cuda")
-    torch.cuda.synchronize()
-    emit({"phase": "create", "preset": "qwen-image-edit-2509",
-          "seconds": time.time() - t0,
-          "params_tfm": param_count(pipe.tfm_params),
-          "params_vl": param_count(pipe.encoder.params),
-          "params_vae": param_count(pipe.vae_params),
-          "device_bytes": torch.cuda.memory_allocated()})
-
-    requests = ([("warmup", distinct_image(1000), "warmup", True)]
-                + [(f"miss{i}", distinct_image(i), PROMPT, True) for i in range(3)]
-                + [(f"hit{i}", distinct_image(0), PROMPT, False) for i in range(2)])
     kernels.reset_launches()
-    for name, img, prompt, miss in requests:
+    for name, imgs, prompt, want in requests:
         before = dict(kernels.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.time()
-        res = pipe(img, prompt, num_inference_steps=2, seed=42)
+        res = pipe(imgs if len(imgs) > 1 else imgs[0], prompt,
+                   num_inference_steps=STEPS, seed=42)
         torch.cuda.synchronize()
         wall = time.time() - t0
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
         out = res.images[0]
         finite = bool(torch.isfinite(res.latents).all().item())
-        emit({"phase": "request", "name": name, "cache": "miss" if miss else "hit",
-              "seconds": wall, "launches": delta, "shape": list(out.shape),
-              "dtype": str(out.dtype), "latents": list(res.latents.shape),
-              "latents_finite": finite, "pixel_mean": float(out.mean()),
+        emit({"phase": "request", "path": label, "name": name,
+              "images": len(imgs), "seconds": wall, "launches": delta,
+              "shape": list(out.shape), "dtype": str(out.dtype),
+              "latents": list(res.latents.shape), "latents_finite": finite,
+              "pixel_mean": float(out.mean()),
               "peak_bytes": torch.cuda.max_memory_allocated()})
-        if delta["flash_joint"] != 120:
-            raise AssertionError(f"{name}: K1 ran {delta['flash_joint']} times, not 120")
-        want_k2 = 28 if miss else 0
-        if delta["flash_causal"] != want_k2:
-            raise AssertionError(
-                f"{name}: K2 ran {delta['flash_causal']} times, not {want_k2}")
+        for key, n in want.items():
+            if delta[key] != n:
+                raise AssertionError(f"{label}/{name}: {key} ran {delta[key]} "
+                                     f"times, not {n}")
         if delta["conv3x3"] <= 0:
-            raise AssertionError(f"{name}: K3 never ran")
+            raise AssertionError(f"{label}/{name}: K3 never ran")
         if out.shape != (SIZE, SIZE, 3) or str(out.dtype) != "uint8" or not finite:
-            raise AssertionError(f"{name}: bad output {out.shape} {out.dtype} "
-                                 f"finite={finite}")
+            raise AssertionError(f"{label}/{name}: bad output {out.shape} "
+                                 f"{out.dtype} finite={finite}")
     return dict(kernels.LAUNCHES)
+
+
+def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
+             int8_per_request: int = 0):
+    """Launches of one request: K1 (or K4 with two images) twice per MMDiT
+    layer, K2 per LM layer on a miss, K5/K6 per quantized linear."""
+    joint = "flash_joint_stream" if n_images > 1 else "flash_joint"
+    other = "flash_joint" if n_images > 1 else "flash_joint_stream"
+    q = int8_per_request + (int8_miss if miss else 0)
+    return {joint: MMDIT_LAYERS * STEPS, other: 0,
+            "flash_causal": 28 if miss else 0, "quantize_rows": q, "int8_gemm": q}
+
+
+def create_pipeline(label: str, **quant):
+    """The flagship pipeline on the card, quantized in place when asked;
+    prints its creation time, peak and resident device bytes and weight
+    bytes."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import param_count
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.quantize import (
+        quantized_bytes,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
+
+    config = StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                          cfg_mode="none", **quant)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe = EditPipeline.create("qwen-image-edit-2509", config, seed=0,
+                               device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "create", "path": label, "preset": "qwen-image-edit-2509",
+          "quant": quant, "seconds": time.time() - t0,
+          "params_tfm": param_count(pipe.tfm_params),
+          "params_vl": param_count(pipe.encoder.params),
+          "params_vae": param_count(pipe.vae_params),
+          "weight_bytes": {"tfm": quantized_bytes(pipe.tfm_params),
+                           "vl": quantized_bytes(pipe.encoder.params),
+                           "vae": quantized_bytes(pipe.vae_params)},
+          "device_bytes": torch.cuda.memory_allocated(),
+          "peak_bytes_during_create": torch.cuda.max_memory_allocated()})
+    return pipe
+
+
+def phase_slice():
+    """The bf16 flagship: one-image misses and hits, then a two-image edit."""
+    pipe = create_pipeline("bf16")
+    two = [distinct_image(2000), distinct_image(2001)]
+    requests = ([("warmup", [distinct_image(1000)], "warmup", expected(True))]
+                + [(f"miss{i}", [distinct_image(i)], PROMPT, expected(True))
+                   for i in range(3)]
+                + [(f"hit{i}", [distinct_image(0)], PROMPT, expected(False))
+                   for i in range(2)]
+                + [("two_images", two, PROMPT, expected(True, 2))])
+    return run_requests(pipe, requests, "bf16")
+
+
+def phase_int8():
+    """The int8 rung (MMDiT and VL): K5 → K6 for every quantized linear."""
+    pipe = create_pipeline("int8", use_int8=True, use_int8_vl=True)
+    one = dict(int8_per_request=INT8_MMDIT, int8_miss=INT8_LM + INT8_VISION)
+    two = [distinct_image(3000), distinct_image(3001)]
+    requests = ([("warmup", [distinct_image(1001)], "warmup", expected(True, **one))]
+                + [(f"miss{i}", [distinct_image(10 + i)], PROMPT, expected(True, **one))
+                   for i in range(3)]
+                + [(f"hit{i}", [distinct_image(10)], PROMPT, expected(False, **one))
+                   for i in range(2)]
+                + [("two_images", two, PROMPT,
+                    expected(True, 2, int8_per_request=INT8_MMDIT,
+                             int8_miss=INT8_LM + 2 * INT8_VISION))])
+    return run_requests(pipe, requests, "int8")
+
+
+def phase_int4():
+    """The int4 rung: dequantize + dense product; the vision `down` leaves
+    (in-dim 3420, not a multiple of 64) take the int8 rung."""
+    pipe = create_pipeline("int4", use_int4=True, use_int4_vl=True)
+    requests = [("warmup", [distinct_image(1002)], "warmup",
+                 expected(True, int8_miss=INT4_VISION)),
+                ("miss0", [distinct_image(20)], PROMPT,
+                 expected(True, int8_miss=INT4_VISION))]
+    return run_requests(pipe, requests, "int4")
 
 
 def main() -> int:
@@ -315,7 +515,13 @@ def main() -> int:
 
     per_kernel = phase_kernels()
     phase_block_parity()
-    launches = phase_slice()
+    launches = {}
+    for phase in (phase_slice, phase_int8, phase_int4):
+        for k, n in phase().items():  # each pipeline is dropped on return
+            launches[k] = launches.get(k, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "launches", "total": launches})
 
     sources = {
         "flash_attention_joint": ("csrc/flash_attention.cu", "flash_joint",
@@ -324,6 +530,12 @@ def main() -> int:
                                    "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:163"),
         "conv3x3": ("csrc/conv3x3.cu", "conv3x3",
                     "qwen_image_edit_streamdiffusion_tpu/ops/conv.py:44"),
+        "flash_attention_stream": ("csrc/flash_attention.cu", "flash_joint_stream",
+                                   "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:286"),
+        "quantize_rows": ("csrc/int8_gemm.cu", "quantize_rows",
+                          "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:139"),
+        "int8_gemm": ("csrc/int8_gemm.cu", "int8_gemm",
+                      "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:174"),
     }
     summary = []
     for name, (src, counter, replaces) in sources.items():

@@ -1,9 +1,14 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out, f32 softmax.
 //
-// Replaces two Pallas TPU kernels of qwen_image_edit_streamdiffusion_tpu:
+// Replaces three Pallas TPU kernels of qwen_image_edit_streamdiffusion_tpu:
 //   K1  ops/flash_attention.py::_flash_kernel         (CAUSAL = false)
 //       joint [txt ⊕ img] attention of the MMDiT, with a (B, Lk) key mask that
 //       only the text-prefix blocks [0, mask_len) and the tail block need;
+//   K4  ops/flash_attention.py::_flash_kernel_hbm     (CAUSAL = false)
+//       the same math with K/V streamed from HBM, for joint sequences whose
+//       K/V outgrow the TPU's VMEM (two 1024² condition images: Lk ≈ 12.7k),
+//       and GQA through kv_heads. This kernel streams K/V for any Lk, so K4
+//       is the same instance; q head h reads kv head h / (H / Hkv);
 //   K2  ops/flash_attention.py::_flash_kernel_causal  (CAUSAL = true)
 //       causal GQA attention of the Qwen2.5-VL language model; q head h reads
 //       kv head h / (H / Hkv); key blocks above the diagonal are never read and
@@ -344,8 +349,9 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* mask,
 
 }  // namespace
 
-// q (B, H, Lq, 128), k/v (B, Hkv, Lk, 128), out (B, H, Lq, 128), all bf16,
-// contiguous and 16-byte aligned; mask (B, Lk) uint8 (1 = attend) or null;
+// q (B, H, Lq, 128), k/v (B, Hkv, Lk, 128) with H % Hkv == 0, out (B, H, Lq,
+// 128), all bf16, contiguous and 16-byte aligned; mask (B, Lk) uint8 (1 =
+// attend) or null;
 // scale = d^-1/2. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int qie_flash_attention_bf16(const void* q, const void* k,
                                         const void* v, const void* mask,

@@ -6,7 +6,9 @@ two leaf kinds:
 
 - linear: ``{"weight": (out, in), "bias": (out,)}`` — torch's ``nn.Linear``
   layout (the JAX package stores ``w`` as (in, out); ``models/convert.py``
-  transposes);
+  transposes), or its int8 / int4 form from ``models/quantize.py``
+  (``{"w_q", "scale", "bias"}`` / ``{"w_q4", "scale4", "bias"}``, layouts in
+  ``ops/int8.py``);
 - conv: ``{"w": (kh, kw, in, out) HWIO, "b": (out,)}`` — the JAX layout, on
   NHWC activations.
 
@@ -22,6 +24,8 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8 as int8_ops
 
 Params = Dict[str, Any]
 
@@ -44,6 +48,12 @@ def linear_init(gen, in_dim: int, out_dim: int, dtype, device,
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Dispatch on the leaf's keys, as the JAX ``common.linear`` does: an
+    int8 leaf runs K5 → K6, an int4 leaf dequantizes, the rest ``F.linear``."""
+    if "w_q" in p:
+        return int8_ops.int8_linear(x, p)
+    if "w_q4" in p:
+        return int8_ops.int4_linear(x, p)
     return F.linear(x, p["weight"], p.get("bias"))
 
 
@@ -112,6 +122,21 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
                       / half)
     args = scale * t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """{dotted path: leaf} of a nested dict / list tree."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}."))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}."))
+        return out
+    return {prefix[:-1]: tree}
 
 
 def param_count(tree) -> int:

@@ -8,12 +8,18 @@ numpy leaves, and returns the port's nested dict of tensors:
   "bias"}``;
 - a conv leaf ``{"w": (kh, kw, in, out), "b"}`` keeps the HWIO layout the
   port's public conv functions take;
+- an int8 leaf ``{"w_q": (in, out) int8, "scale": (out,), "b"}`` becomes
+  ``{"w_q": (out, in) int8, "scale": (out,) f32, "bias"}``;
+- an int4 leaf ``{"w_q4": (in/2, out) uint8, "scale4": (in/64, out), "b"}``
+  becomes ``{"w_q4": (out, in/2) uint8, "scale4": (out, in/64) f32, "bias"}``:
+  a transpose, so each byte keeps its (2j, 2j + 1) nibble pair along ``in``;
 - every other array (norm scales, the VL embedding table) is copied.
 
 Like the JAX package's ``models/convert.py``, the conversion is total: the
 result is held against the port's own init (built on the meta device, so no
-memory is touched) and any missing or unused key, or any shape mismatch,
-raises with the lists.
+memory is touched; quantized as the tree is, with the JAX package's include
+sets) and any missing or unused key, or any shape mismatch, raises with the
+lists.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     VAEConfig,
     VLConfig,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.models import quantize
+from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -37,8 +45,28 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
 
+# quantized leaf key → (port key, transpose, dtype or None for the model's)
+_QUANT_KEYS = {
+    "w_q": ("w_q", True, torch.int8),
+    "scale": ("scale", False, torch.float32),
+    "w_q4": ("w_q4", True, torch.uint8),
+    "scale4": ("scale4", True, torch.float32),
+    "b": ("bias", False, None),
+}
+
+
 def _convert(node: Any, dtype, device) -> Any:
     if isinstance(node, dict):
+        if "w_q" in node or "w_q4" in node:
+            out = {}
+            for k, v in node.items():
+                if k not in _QUANT_KEYS:  # left for the totality check
+                    out[k] = _convert(v, dtype, device)
+                    continue
+                name, transpose, dt = _QUANT_KEYS[k]
+                a = np.asarray(v)
+                out[name] = _tensor(a.T if transpose else a, dt or dtype, device)
+            return out
         w = node.get("w")
         if w is not None and set(node) <= {"w", "b"} and np.ndim(w) == 2:
             out = {"weight": _tensor(np.asarray(w).T, dtype, device)}
@@ -51,41 +79,33 @@ def _convert(node: Any, dtype, device) -> Any:
     return _tensor(node, dtype, device)
 
 
-def _flatten(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}{k}."))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flatten(v, f"{prefix}{i}."))
-        return out
-    return {prefix[:-1]: tree}
-
-
-def _skeleton(cfg):
+def _skeleton(cfg, tree):
+    """The port's init of ``cfg`` on the meta device, quantized as ``tree``
+    is (with the JAX package's include sets)."""
     meta = torch.device("meta")
+    bits = quantize.saved_bits(tree)
     if isinstance(cfg, ModelConfig):
         from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer
-        return transformer.init(None, cfg, meta)
+        skel = transformer.init(None, cfg, meta)
+        return skel if bits is None else quantize.quantize_transformer(skel, bits=bits)
     if isinstance(cfg, VAEConfig):
         from qwen_image_edit_streamdiffusion_tpu_torch.models import vae
         return vae.init(None, cfg, meta)
     if isinstance(cfg, VLConfig):
         from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
-        return qwen_vl.init(None, cfg, meta)
+        skel = qwen_vl.init(None, cfg, meta)
+        return skel if bits is None else quantize.quantize_vl(skel, bits=bits)
     raise TypeError(f"from_jax: no model for config {type(cfg).__name__}")
 
 
 def from_jax(tree: Any, cfg, device="cpu") -> Dict[str, Any]:
     """JAX param tree (numpy leaves) for the model of ``cfg`` → the port's
-    params on ``device`` in ``cfg.dtype``."""
+    params on ``device`` in ``cfg.dtype`` (quantized codes and scales keep
+    their int8 / uint8 / f32)."""
     dtype = getattr(torch, cfg.dtype)
     out = _convert(tree, dtype, device)
-    got = {k: tuple(v.shape) for k, v in _flatten(out).items()}
-    want = {k: tuple(v.shape) for k, v in _flatten(_skeleton(cfg)).items()}
+    got = {k: tuple(v.shape) for k, v in flatten(out).items()}
+    want = {k: tuple(v.shape) for k, v in flatten(_skeleton(cfg, tree)).items()}
     missing = sorted(set(want) - set(got))
     unused = sorted(set(got) - set(want))
     bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])

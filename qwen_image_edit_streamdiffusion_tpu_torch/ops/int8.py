@@ -1,0 +1,228 @@
+"""Weight-only int8 and int4 linears: row quantize (K5) → int8 GEMM (K6).
+
+Counterpart of ``qwen_image_edit_streamdiffusion_tpu/ops/int8.py``:
+
+- weights: per-output-channel symmetric int8 (absmax), quantized offline
+  (:func:`quantize_weight`), or group-64 symmetric int4 (:func:`quantize_weight_int4`);
+- activations: per-row symmetric int8, quantized at run time by K5
+  (``quantize_rows``, replacing the Pallas ``_quantize_rows_kernel``);
+- accumulation: exact int32 in K6 (``int8_matmul``, replacing
+  ``_int8_gemm_v2_kernel``), then one f32 epilogue and one cast.
+
+The port follows ``int8_matmul_xla``, the path the JAX package takes by default
+and on the CPU, not the Pallas v2 entry:
+
+- row scale = max(absmax, 1e-8) · fl(1/127): the JAX source divides by 127,
+  but XLA compiles a division by a constant into a multiply by its f32
+  reciprocal, and the JAX package always runs this under ``jit`` (the Pallas
+  kernel in interpret mode too), so that is the arithmetic to match bit for
+  bit. Offline weight quantization runs eagerly in the JAX package, where
+  the division stays a division, and so it does here;
+- codes = clip(round-half-even(x / scale), −127, 127);
+- out = (((acc · x_scale) · w_scale) + bias) in f32, cast once to the
+  activation dtype. Pallas v2 (``int8_linear_v2``) adds the bias after the
+  cast; the port adds it before, as XLA does.
+
+There is no switch between the two: on a CUDA tensor every int8 linear is K5
+then K6. Each wrapper takes its plain version only for a tensor on the CPU;
+a CUDA tensor launches the kernel or the call raises.
+
+Layouts are the port's: an int8 leaf is ``{"w_q": (out, in) int8, "scale":
+(out,) f32, "bias"}``; an int4 leaf is ``{"w_q4": (out, in/2) uint8,
+"scale4": (out, in/64) f32, "bias"}``, where byte ``[o, j]`` holds input
+``2j`` in its low nibble and input ``2j + 1`` in its high nibble, each stored
+as code + 8 (codes in [−7, 7]). That is the JAX (in/2, out) / (in/64, out)
+layout transposed; the nibble pairs stay pairs along ``in``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+INT4_GROUP = 64  # input-dim group size of the int4 scales
+
+
+RCP127 = 0.007874015718698502  # fl32(1 / 127), exact in a float
+
+
+def _div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c as an IEEE division: on CUDA, PyTorch multiplies by the
+    reciprocal when it divides by a Python scalar, which can differ by an
+    ulp."""
+    return a / torch.full_like(a, c)
+
+
+# ---------------------------------------------------------------------------
+# Offline weight quantization (plain PyTorch, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) float weight → ((out, in) int8 codes, (out,) f32 scales),
+    symmetric per output channel."""
+    w32 = w.float()
+    scale = _div(w32.abs().amax(dim=1).clamp_min(1e-8), 127.0)
+    w_q = torch.round(w32 / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return w_q, scale
+
+
+def quantize_weight_int4(w: torch.Tensor, group: int = INT4_GROUP
+                         ) -> Dict[str, torch.Tensor]:
+    """(out, in) float → ``{"w_q4": (out, in/2) uint8, "scale4": (out,
+    in/group) f32}``: codes in [−7, 7] per (output channel, input group),
+    packed as described in the module docstring. ``in`` must be divisible by
+    max(group, 2)."""
+    out, kin = w.shape
+    if kin % group or kin % 2:
+        raise ValueError(f"in_dim {kin} not divisible by group {group}")
+    w32 = w.float().reshape(out, kin // group, group)
+    scale = _div(w32.abs().amax(dim=2).clamp_min(1e-8), 7.0)
+    q = torch.round(w32 / scale[:, :, None]).clamp(-7, 7)
+    q = (q.reshape(out, kin).to(torch.int8) + 8).to(torch.uint8)
+    return {"w_q4": q[:, 0::2] | (q[:, 1::2] << 4), "scale4": scale}
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, dtype,
+                    group: int = INT4_GROUP) -> torch.Tensor:
+    """Inverse of :func:`quantize_weight_int4` → (out, in) weight in
+    ``dtype``; the scale multiply runs in ``dtype``, as in the JAX package."""
+    out, half = packed.shape
+    lo = (packed & 0xF).to(torch.int8) - 8
+    hi = (packed >> 4).to(torch.int8) - 8
+    q = torch.stack([lo, hi], dim=-1).reshape(out, half * 2).to(dtype)
+    w = q.reshape(out, -1, group) * scale[:, :, None].to(dtype)
+    return w.reshape(out, half * 2)
+
+
+def int4_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Weight-only int4: dequantize in the activation dtype, then a dense
+    product. Saves memory, not time. Plain PyTorch, as XLA ran it."""
+    w = dequantize_int4(p["w_q4"], p["scale4"], x.dtype)
+    b = p.get("bias")
+    return F.linear(x, w, None if b is None else b.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the CPU path, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(M, K) float → ((M, K) int8 codes, (M, 1) f32 row scales)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * RCP127
+    return torch.round(x32 / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+def int8_matmul_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
+                      w_q: torch.Tensor, w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x_q (M, K) int8 · w_q (N, K) int8ᵀ → (M, N) ``out_dtype``. The integer
+    product is exact: a float64 matmul of the codes, whose partial sums stay
+    below 2⁵³ (|acc| ≤ 127² · K). Epilogue as in the module docstring."""
+    acc = torch.matmul(x_q.double(), w_q.double().t()).float()
+    out = acc * x_scale.float().reshape(-1, 1) * w_scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: (M, K) bf16 → ((M, K) int8, (M, 1) f32), bit-identical to
+    :func:`quantize_rows_plain`."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"quantize_rows: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"quantize_rows: x must be (M, K), got {tuple(x.shape)}")
+    _check("quantize_rows: x", x, torch.bfloat16, x.device)
+    m, k = x.shape
+    if m == 0 or k == 0:
+        raise ValueError(f"quantize_rows: empty x {tuple(x.shape)}")
+    lib = kernels.library()
+    x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    err = lib.qie_quantize_rows_bf16(x.data_ptr(), x_q.data_ptr(), scale.data_ptr(),
+                                     m, k, kernels.current_stream_handle(x.device))
+    kernels.check(err, "quantize_rows")
+    kernels.LAUNCHES["quantize_rows"] += 1
+    return x_q, scale
+
+
+def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+                w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K6: x_q (M, K) int8, x_scale (M, 1) f32, w_q (N, K) int8, w_scale (N,)
+    f32, bias (N,) bf16 or None → (M, N) bf16, bit-identical to
+    :func:`int8_matmul_plain`. K must be a multiple of 4 (16-byte copies when
+    K % 16 == 0, 4-byte copies otherwise)."""
+    if x_q.device.type == "cpu":
+        return int8_matmul_plain(x_q, x_scale, w_q, w_scale, bias, out_dtype)
+    dev = x_q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"int8_matmul: unsupported device {dev}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"int8_matmul: output must be bfloat16, got {out_dtype}")
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[1]:
+        raise ValueError(f"int8_matmul: x_q {tuple(x_q.shape)}, w_q {tuple(w_q.shape)}")
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    _check("int8_matmul: x_q", x_q, torch.int8, dev)
+    _check("int8_matmul: w_q", w_q, torch.int8, dev)
+    _check("int8_matmul: x_scale", x_scale, torch.float32, dev)
+    _check("int8_matmul: w_scale", w_scale, torch.float32, dev)
+    if x_scale.numel() != m or w_scale.numel() != n:
+        raise ValueError(f"int8_matmul: scales {tuple(x_scale.shape)}, "
+                         f"{tuple(w_scale.shape)} for M={m}, N={n}")
+    if bias is not None:
+        _check("int8_matmul: bias", bias, torch.bfloat16, dev)
+        if bias.numel() != n:
+            raise ValueError(f"int8_matmul: bias {tuple(bias.shape)} for N={n}")
+    if m == 0 or n == 0 or k == 0 or k % 4:
+        raise ValueError(f"int8_matmul: M={m}, N={n}, K={k}; K must be a "
+                         "positive multiple of 4")
+    if x_q.data_ptr() % 4 or w_q.data_ptr() % 4:
+        raise ValueError("int8_matmul: x_q and w_q must be 4-byte aligned")
+    if -(-m // 128) > 65535:  # grid.y = 128-row tiles
+        raise ValueError(f"int8_matmul: M={m} too large")
+    lib = kernels.library()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    err = lib.qie_int8_gemm_bf16(
+        x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(), m, n, k,
+        kernels.current_stream_handle(dev))
+    kernels.check(err, "int8_matmul")
+    kernels.LAUNCHES["int8_gemm"] += 1
+    return out
+
+
+def int8_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Quantized replacement for ``common.linear``: (..., in) → (..., out)
+    in x's dtype. K5 then K6 on a CUDA tensor; their plain versions on the
+    CPU."""
+    lead = x.shape[:-1]
+    x_q, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
+    out = int8_matmul(x_q, x_scale, p["w_q"], p["scale"], p.get("bias"),
+                      out_dtype=x.dtype)
+    return out.reshape(*lead, -1)

@@ -9,9 +9,11 @@ with the JAX package's prompt and latent caches in front of the two encodes.
 PyTorch runs eagerly, so each stage is a plain call on ``self.device``.
 
 This slice runs ``cfg_mode="none"`` with ``transfer_format="rgb"`` and the full
-decoder. The other CFG modes, yuv420, the tiny VAE pair, quantization,
-``edit_many`` and ``num_images_per_prompt > 1`` raise ``NotImplementedError``
-naming their ROADMAP item. Images come in as (H, W, 3) uint8 arrays (a PIL
+decoder, with one or more condition images, in bf16 or on the int8 / int4
+weight rungs (``use_int8``, ``use_int8_vl``, ``use_int4``, ``use_int4_vl``).
+The other CFG modes, yuv420, the tiny VAE pair, ``edit_many`` and
+``num_images_per_prompt > 1`` raise ``NotImplementedError`` naming their
+ROADMAP item. Images come in as (H, W, 3) uint8 arrays (a PIL
 image is accepted and converted, but PIL is never imported here) and go out
 as uint8 arrays.
 """
@@ -19,6 +21,7 @@ as uint8 arrays.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -40,7 +43,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     get_preset,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
-from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
+from qwen_image_edit_streamdiffusion_tpu_torch.models import quantize, qwen_vl
 from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
 from qwen_image_edit_streamdiffusion_tpu_torch.models import vae as vae_mod
@@ -80,13 +83,43 @@ def _not_ported(what: str, item: str):
 def check_config(config: StreamConfig) -> None:
     """Refuse, at construction, the options this slice does not run."""
     if config.transfer_format != "rgb":
-        _not_ported("transfer_format='yuv420'", "the stream (item 3)")
+        _not_ported("transfer_format='yuv420'", "the stream (item 4)")
     if config.decoder != "full" or config.encoder != "full":
-        _not_ported("the tiny VAE pair", "item 2")
-    if config.use_int8 or config.use_int8_vl or config.use_int4 or config.use_int4_vl:
-        _not_ported("quantized weights", "quantize (item 5)")
+        _not_ported("the tiny VAE pair", "item 3")
     if config.mesh_cfg_axis != 1 or config.mesh_model_axis != 1:
-        _not_ported("multi-device meshes", "multi-GPU (item 8)")
+        _not_ported("multi-device meshes", "multi-GPU (item 7)")
+
+
+def _quantized(params, want: Optional[int], saved: Optional[int], fn, what: str):
+    """Quantize ``params`` in place to ``want`` bits unless the tree is
+    already quantized; a saved rung other than the one requested is served
+    with a warning, as in the JAX package."""
+    if want is None:
+        return params
+    if saved is None:
+        return fn(params, bits=want)
+    if saved != want:
+        warnings.warn(f"config requests int{want} {what} but the weights are "
+                      f"pre-quantized int{saved}; serving the saved rung",
+                      stacklevel=3)
+    return params
+
+
+def prepare_transformer(params, config: StreamConfig):
+    """Fuse q/k/v (unless the tree is pre-quantized: its leaves stay in their
+    saved layout), then quantize — the JAX package's order."""
+    saved = quantize.saved_bits(params)
+    if config.fuse_qkv and saved is None:
+        params = fuse_qkv(params)
+    want = 4 if config.use_int4 else (8 if config.use_int8 else None)
+    return _quantized(params, want, saved, quantize.quantize_transformer,
+                      "transformer")
+
+
+def prepare_vl(params, config: StreamConfig):
+    want = 4 if config.use_int4_vl else (8 if config.use_int8_vl else None)
+    return _quantized(params, want, quantize.saved_bits(params),
+                      quantize.quantize_vl, "VL")
 
 
 @dataclass
@@ -128,15 +161,15 @@ class EditPipeline:
     @classmethod
     def from_weights(cls, preset: Preset, config: StreamConfig, tfm_params,
                      vae_params, vl_params=None, device="cpu") -> "EditPipeline":
-        """Construction from existing port params (e.g. ``convert.from_jax``);
-        q/k/v are fused here when ``config.fuse_qkv``."""
+        """Construction from existing port params (e.g. ``convert.from_jax``):
+        q/k/v fused when ``config.fuse_qkv``, then the transformer and the VL
+        params quantized IN PLACE on the requested rungs."""
         check_config(config)
         device = torch.device(device)
-        if config.fuse_qkv:
-            tfm_params = fuse_qkv(tfm_params)
+        tfm_params = prepare_transformer(tfm_params, config)
         if config.use_vl_encoder:
             encoder = qwen_vl.QwenVLEncoder(
-                preset.vl, vl_params, device=device,
+                preset.vl, prepare_vl(vl_params, config), device=device,
                 max_len=preset.vl.max_text_len,
                 use_flash=config.use_flash_attention)
         else:
@@ -242,7 +275,7 @@ class EditPipeline:
         seed = self.config.seed if seed is None else seed
         if negative_prompt is not None and cfg_scale > 1.0:
             _not_ported(f"true CFG (cfg_mode={self.config.cfg_mode!r})",
-                        "rcfg-self and the other cfg modes (item 1)")
+                        "rcfg-self and the other cfg modes (item 2)")
 
         out_h, out_w, vae_images, vl_images = self._prepare_images(
             images, height, width)

@@ -28,11 +28,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "conv3x3.cu")
+SOURCES = ("flash_attention.cu", "conv3x3.cu", "int8_gemm.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset
-LAUNCHES: Dict[str, int] = {"flash_joint": 0, "flash_causal": 0, "conv3x3": 0}
+# (flash_joint_stream counts the joint launches whose K/V per head exceed the
+# JAX package's resident budget: the role of its streaming kernel, K4)
+LAUNCHES: Dict[str, int] = {"flash_joint": 0, "flash_joint_stream": 0,
+                            "flash_causal": 0, "conv3x3": 0,
+                            "quantize_rows": 0, "int8_gemm": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -63,16 +67,32 @@ def _source_hash() -> str:
 
 
 def _build(out: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [out.parent / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+             "-fPIC", "-Xptxas", "-v", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_suffix(f".{tag}.so")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    failed = [c for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(link)
+    build_log = "".join(" ".join(c) + "\n" + log for c, log in zip(cmds, logs))
+    (out.parent / "build.log").write_text(build_log)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{build_log}")
     os.replace(tmp, out)
 
 
@@ -92,6 +112,10 @@ def library() -> ctypes.CDLL:
         lib.qie_flash_attention_bf16.restype = ci
         lib.qie_conv3x3.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.qie_conv3x3.restype = ci
+        lib.qie_quantize_rows_bf16.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.qie_quantize_rows_bf16.restype = ci
+        lib.qie_int8_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.qie_int8_gemm_bf16.restype = ci
         _lib = lib
         return lib
 

@@ -12,6 +12,7 @@ import torch
 
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
 from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +58,28 @@ def test_joint_kernel_matches_plain(dev, lq, lk, mask_len):
     assert err < ATT_TOL, err
 
 
+@pytest.mark.parametrize("h,hkv", [(24, 24), (28, 4)])
+def test_joint_kernel_streams_long_gqa_sequences(dev, h, hkv):
+    """K4's role at the two-image shape: Lk = 256 text + 3 × 4096 image
+    tokens, text-prefix mask, counted as a streaming launch."""
+    lk, txt_len = 12544, 256
+    q = _randn((1, h, lk, 128), 9, dev)
+    k = _randn((1, hkv, lk, 128), 10, dev)
+    v = _randn((1, hkv, lk, 128), 11, dev)
+    mask = torch.ones((1, lk), dtype=torch.bool, device=dev)
+    mask[:, 200:txt_len] = False
+    before = dict(kernels.LAUNCHES)
+    out = fa.joint_attention(q, k, v, mask, txt_len)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_joint_stream"] == before["flash_joint_stream"] + 1
+    assert kernels.LAUNCHES["flash_joint"] == before["flash_joint"]
+    for hq in range(h):  # the plain version's f32 scores, one head at a time
+        kv = slice(hq // (h // hkv), hq // (h // hkv) + 1)
+        ref = fa.joint_attention_plain(q[:, hq:hq + 1], k[:, kv], v[:, kv], mask)
+        err = (out[:, hq:hq + 1].float() - ref.float()).abs().max().item()
+        assert err < ATT_TOL, (hq, err)
+
+
 @pytest.mark.parametrize("h,hkv,l,n_real", [(4, 4, 128, 128), (28, 4, 384, 300),
                                             (8, 2, 200, 200)])
 def test_causal_kernel_matches_plain(dev, h, hkv, l, n_real):
@@ -100,3 +123,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = _randn((1, 8, 8, 12), 0, dev)
     with pytest.raises(ValueError):
         conv_ops.conv3x3(x, _randn((3, 3, 12, 4), 1, dev), _randn((4,), 2, dev))
+
+
+# K5 and K6 are bit-identical to their plain versions (see csrc/int8_gemm.cu).
+
+
+@pytest.mark.parametrize("k", [3072, 3420])
+@pytest.mark.parametrize("m", [1, 17, 256])
+def test_quantize_rows_kernel_is_bit_identical(dev, m, k):
+    x = _randn((m, k), 12, dev)
+    x[0, :5] = torch.tensor([0.5, 1.5, -2.5, 0.0, 3.0], dtype=torch.bfloat16)
+    before = kernels.LAUNCHES["quantize_rows"]
+    q, s = int8.quantize_rows(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantize_rows"] == before + 1
+    q_ref, s_ref = int8.quantize_rows_plain(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("k,n", [(3072, 264), (3420, 199)])
+@pytest.mark.parametrize("m", [1, 17, 256])
+def test_int8_gemm_kernel_is_bit_identical(dev, m, k, n, bias):
+    xq, xs = int8.quantize_rows_plain(_randn((m, k), 13, dev))
+    wq, ws = int8.quantize_weight(_randn((n, k), 14, dev) * 0.02)
+    b = _randn((n,), 15, dev) * 0.1 if bias else None
+    before = kernels.LAUNCHES["int8_gemm"]
+    out = int8.int8_matmul(xq, xs, wq, ws, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int8_gemm"] == before + 1
+    assert torch.equal(out, int8.int8_matmul_plain(xq, xs, wq, ws, b))
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = _randn((4, 64), 16, dev)
+    with pytest.raises(TypeError):
+        int8.quantize_rows(x.float())
+    with pytest.raises(ValueError):
+        int8.quantize_rows(_randn((64, 4), 16, dev).t())
+    xq, xs = int8.quantize_rows(x)
+    wq, ws = int8.quantize_weight(_randn((8, 64), 17, dev))
+    with pytest.raises(TypeError):
+        int8.int8_matmul(xq.float(), xs, wq, ws)
+    with pytest.raises(ValueError):
+        int8.int8_matmul(xq, xs, wq.t().contiguous().t(), ws)
+    with pytest.raises(ValueError):
+        int8.int8_matmul(xq[:, :62].contiguous(), xs, wq[:, :62].contiguous(), ws)

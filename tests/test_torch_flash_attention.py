@@ -51,6 +51,29 @@ def test_joint_plain_matches_pallas(lq, lk, mask_len, pad):
                                  torch.from_numpy(v), tmask).numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("h,hkv,lk", [(4, 2, 384), (6, 2, 300), (2, 2, 256)])
+def test_joint_gqa_plain_matches_streaming_pallas(h, hkv, lk):
+    """K4's role: the JAX streaming kernel (``_flash_kernel_hbm``, forced
+    with stream=True) with kv_heads < heads and a text-prefix mask."""
+    b, lq, mask_len = 2, 200, 128
+    q, k, v = _arr((b, h, lq, 128), 12), _arr((b, hkv, lk, 128), 13), _arr((b, hkv, lk, 128), 14)
+    mask = np.ones((b, lk), bool)
+    mask[0, 70:mask_len] = False
+    mask[1, 20:mask_len] = False
+    want = _jax(q, k, v, kv_mask=jnp.asarray(mask), mask_len=mask_len, stream=True)
+    got = fa.joint_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), torch.from_numpy(mask), mask_len)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_stream_role_follows_the_jax_resident_budget():
+    """flash_joint_stream counts where the JAX package would stream K/V:
+    2 · Lk · D · 2 bytes > 6 MiB, i.e. Lk > 12288 at D = 128 in bf16."""
+    kv = lambda lk: torch.empty((1, 24, lk, 128), dtype=torch.bfloat16, device="meta")
+    assert not fa.streams_kv(kv(8448)) and not fa.streams_kv(kv(12288))
+    assert fa.streams_kv(kv(12289)) and fa.streams_kv(kv(12736))
+
+
 @pytest.mark.parametrize("h,hkv,l", [(4, 2, 256), (2, 2, 384), (8, 2, 300)])
 def test_causal_plain_matches_pallas(h, hkv, l):
     q, k, v = _arr((1, h, l, 128), 4), _arr((1, hkv, l, 128), 5), _arr((1, hkv, l, 128), 6)

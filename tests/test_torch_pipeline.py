@@ -21,6 +21,7 @@ from PIL import Image
 from qwen_image_edit_streamdiffusion_tpu.core.config import StreamConfig, get_preset
 from qwen_image_edit_streamdiffusion_tpu.core.rng import key_from_seed
 from qwen_image_edit_streamdiffusion_tpu.core.rng import stream as jax_stream
+from qwen_image_edit_streamdiffusion_tpu.models import quantize as jquant
 from qwen_image_edit_streamdiffusion_tpu.models import qwen_vl as jvl
 from qwen_image_edit_streamdiffusion_tpu.models import transformer as jtfm
 from qwen_image_edit_streamdiffusion_tpu.models import vae as jvae
@@ -68,48 +69,78 @@ def _numpy_tree(init_fn, cfg, seed):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def _jax_pipeline(preset, trees):
+def _jax_pipeline(preset, trees, quant_bits=None):
+    """The JAX pipeline on the trees in the preset's dtypes; with quant_bits,
+    its transformer and VL trees quantized by the JAX package (unfused, as a
+    pre-quantized checkpoint is served)."""
     tfm_np, vae_np, vl_np = trees
     cast = lambda t, d: jax.tree_util.tree_map(lambda a: jax.numpy.asarray(a, d), t)
-    enc = jvl.QwenVLEncoder(preset.vl, params=cast(vl_np, preset.vl.dtype),
-                            max_len=preset.vl.max_text_len)
-    return jep.EditPipeline(
-        preset=preset, config=_config(fuse_qkv=False),
-        tfm_params=cast(tfm_np, preset.model.dtype),
+    tfm_p, vl_p = cast(tfm_np, preset.model.dtype), cast(vl_np, preset.vl.dtype)
+    if quant_bits:
+        tfm_p = jquant.quantize_transformer(tfm_p, bits=quant_bits)
+        vl_p = jquant.quantize_vl(vl_p, bits=quant_bits)
+    enc = jvl.QwenVLEncoder(preset.vl, params=vl_p, max_len=preset.vl.max_text_len)
+    pipe = jep.EditPipeline(
+        preset=preset, config=_config(fuse_qkv=False), tfm_params=tfm_p,
         vae_params=cast(vae_np, preset.vae.dtype), encoder=enc,
         prompt_cache=jcache.PromptCache(enc), latent_cache=jcache.LatentCache())
+    return pipe, tfm_p, vl_p
 
 
-def _run_both(f32: bool, monkeypatch):
+def _images(n: int):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (SIZE, SIZE, 3), np.uint8) for _ in range(n)]
+
+
+def _run_both(f32: bool, monkeypatch, n_images: int = 1, bridge_bits=None,
+              **port_config):
+    """Both pipelines on one request. bridge_bits: the JAX side quantizes and
+    the port takes its quantized trees through ``from_jax``; port_config:
+    StreamConfig options of the port (e.g. use_int4, which makes the port
+    fuse and quantize the dense trees itself)."""
     preset = _preset(f32)
     trees = (_numpy_tree(jtfm.init, preset.model, 0),
              _numpy_tree(jvae.init, preset.vae, 1),
              _numpy_tree(jvl._init_all, preset.vl, 2))
-    jpipe = _jax_pipeline(preset, trees)
-    img = np.random.default_rng(0).integers(0, 256, (SIZE, SIZE, 3), np.uint8)
-    jres = jpipe(Image.fromarray(img), PROMPT, num_inference_steps=2, seed=42)
+    jax_bits = bridge_bits or (4 if port_config.get("use_int4") else None)
+    jpipe, jtfm_p, jvl_p = _jax_pipeline(preset, trees, jax_bits)
+    imgs = _images(n_images)
+    jres = jpipe([Image.fromarray(i) for i in imgs], PROMPT, num_inference_steps=2,
+                 seed=42)
     zh = SIZE // 8
     x0 = jpipe._noise_fn((1, zh, zh, preset.vae.latent_channels))(
         jax_stream(key_from_seed(42), "latents"))
 
+    tfm_tree, vl_tree = trees[0], trees[2]
+    if bridge_bits:
+        to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)
+        tfm_tree, vl_tree = to_np(jtfm_p), to_np(jvl_p)
     tpipe = tep.EditPipeline.from_weights(
-        preset, _config(),
-        from_jax(trees[0], preset.model), from_jax(trees[1], preset.vae),
-        from_jax(trees[2], preset.vl), device="cpu")
+        preset, _config(**port_config),
+        from_jax(tfm_tree, preset.model), from_jax(trees[1], preset.vae),
+        from_jax(vl_tree, preset.vl), device="cpu")
     mdt = getattr(torch, preset.model.dtype)
     monkeypatch.setattr(
         tpipe, "_noise",
         lambda shape, seed: torch.from_numpy(np.array(x0, np.float32)).to(mdt))
     before = dict(kernels.LAUNCHES)
-    tres = tpipe(img, PROMPT, num_inference_steps=2, seed=42)
+    tres = tpipe(imgs if n_images > 1 else imgs[0], PROMPT, num_inference_steps=2,
+                 seed=42)
     assert kernels.LAUNCHES == before  # CPU tensors never reach a kernel
-    return jres, tres
+    return jres, tres, tpipe
+
+
+def _rel_l2(jres, tres):
+    jl = np.asarray(jres.latents, np.float32)
+    tl = tres.latents.float().numpy()
+    assert tl.shape == jl.shape and np.isfinite(tl).all()
+    return np.linalg.norm(tl - jl) / np.linalg.norm(jl)
 
 
 def test_slice_matches_jax_f32(monkeypatch):
     """f32 end to end: same algorithm, CPU sums in other orders → final
     latents within 1e-3 max-abs and pixels within 1 code."""
-    jres, tres = _run_both(True, monkeypatch)
+    jres, tres, _ = _run_both(True, monkeypatch)
     jl = np.asarray(jres.latents, np.float32)
     tl = tres.latents.numpy()
     assert tl.shape == jl.shape and np.isfinite(tl).all()
@@ -124,11 +155,47 @@ def test_slice_matches_jax_bf16(monkeypatch):
     """The preset's own dtypes (bf16 MMDiT and VL, f32 VAE): bf16 rounds at
     other places in the two frameworks, so the final latents are held to a
     relative L2 error of 3e-2."""
-    jres, tres = _run_both(False, monkeypatch)
-    jl = np.asarray(jres.latents, np.float32)
-    tl = tres.latents.float().numpy()
-    rel = np.linalg.norm(tl - jl) / np.linalg.norm(jl)
+    jres, tres, _ = _run_both(False, monkeypatch)
+    rel = _rel_l2(jres, tres)
     assert rel < 3e-2, rel
+
+
+def test_two_image_slice_matches_jax_f32(monkeypatch):
+    """Two condition images (the 2509 multi-image edit): both in the VL
+    prompt, both VAE-encoded into the joint sequence. f32, held as the
+    one-image f32 slice: latents within 1e-3 max-abs, pixels within 1 code."""
+    jres, tres, _ = _run_both(True, monkeypatch, n_images=2)
+    jl = np.asarray(jres.latents, np.float32)
+    assert np.abs(tres.latents.numpy() - jl).max() < 1e-3
+    jpx = np.asarray(jres.images[0]).astype(np.int32)
+    assert np.abs(tres.images[0].astype(np.int32) - jpx).max() <= 1
+
+
+def test_int8_slice_matches_jax(monkeypatch):
+    """use_int8 + use_int8_vl on the JAX package's quantized trees, bridged
+    with from_jax, in f32: the codes and scales are the same, but a sum taken
+    in another order can move one activation across a rounding boundary and
+    change one int8 code, a step of 1/127 of its row's absmax. Final latents
+    within rel-L2 1e-3 (measured 1.7e-7: no code moved at this size)."""
+    jres, tres, tpipe = _run_both(True, monkeypatch, bridge_bits=8,
+                                  use_int8=True, use_int8_vl=True)
+    assert "w_q" in tpipe.tfm_params["blocks"][0]["attn"]["img_q"]
+    assert "w_q" in tpipe.encoder.params["lm"]["blocks"][0]["q_proj"]
+    rel = _rel_l2(jres, tres)
+    assert rel < 1e-3, rel
+
+
+def test_int4_slice_matches_jax(monkeypatch):
+    """use_int4 + use_int4_vl: the port fuses q/k/v and quantizes the dense
+    trees itself, the JAX side quantizes its unfused trees. Per-channel
+    scales make the fused and the separate leaves equal, and the int4 path
+    is dequantize + a dense product, so in f32 only sum order differs, and
+    the leaves that fall back to int8 (in-dim % 64 != 0) may flip a code as
+    above. Final latents within rel-L2 1e-3."""
+    jres, tres, tpipe = _run_both(True, monkeypatch, use_int4=True, use_int4_vl=True)
+    assert "w_q4" in tpipe.tfm_params["blocks"][0]["attn"]["img_qkv"]
+    rel = _rel_l2(jres, tres)
+    assert rel < 1e-3, rel
 
 
 def test_port_imports_neither_jax_nor_pil():
@@ -172,7 +239,7 @@ def test_unported_call_options_raise(tiny_pipe, kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"transfer_format": "yuv420"}, {"decoder": "tiny"}, {"use_int8": True},
+    {"transfer_format": "yuv420"}, {"decoder": "tiny"}, {"mesh_cfg_axis": 2},
 ])
 def test_unported_config_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
