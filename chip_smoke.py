@@ -11,10 +11,17 @@ toolkit. Phases, each printing one JSON line:
              nvcc (sm_90a) and loads it;
 3. kernels — each hand-written kernel against its plain PyTorch version at the
              main path's shapes: max-abs error against the stated tolerance,
-             and the median CUDA-event time of both;
+             the median CUDA-event time of both and of the one PyTorch call
+             that computes the same function (SDPA, cuDNN's conv), and the
+             bound: the larger of bytes over HBM rate and operations over the
+             tensor-core peak. K7-K9 run at the train shape (2, 24, 8448,
+             128); K7's O must equal K1's bit for bit and masked keys must
+             get exactly zero dK and dV;
 4. block parity — a 2-block MMDiT at flagship width, one forward at the 1024²
              edit shape, ``use_flash_attention`` True (kernels) vs False
-             (plain), held to a relative L2 tolerance;
+             (plain), held to a relative L2 tolerance; then the same blocks
+             with rank-16 adapters: loss and every adapter gradient, kernels
+             (K7-K9) vs plain attention under autograd;
 5. slice   — the flagship ``qwen-image-edit-2509`` pipeline (60-layer MMDiT,
              7B VL encoder in path, full VAE; random weights from seed 0)
              answers a warm-up, three cache-miss and two cache-hit 1024²
@@ -24,6 +31,17 @@ toolkit. Phases, each printing one JSON line:
              shape and peak memory; K1 (or K4 for two images) must run 120
              times per request, K2 28 times per cache miss and 0 per hit, K3
              at least once;
+   train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
+             (default attention targets, ``remat``) over a batch of two
+             1024² (condition, prompt, target) rows from ``build_batch``; a
+             warm-up and three timed steps, each printing wall seconds, loss,
+             launches (K7 120, K8 60, K9 60, K1 0 exactly) and peak bytes, then
+             one profiled step (device time by kernel kind); losses and
+             gradients finite, gradients not all zero, adapters changed;
+   lora    — the trained adapters exported, written with the port's
+             .safetensors writer, read back, fused in place into the live
+             pipeline, and one cache-hit edit served again at the same seed:
+             K1 120, K7 0, latents finite and unlike the pre-LoRA edit's;
 6. int8    — the bf16 pipeline dropped, the same preset rebuilt with
              ``use_int8`` + ``use_int8_vl`` (quantized in place): warm-up,
              three misses, two hits and one two-image edit; K5 and K6 must
@@ -41,6 +59,7 @@ non-zero and prints no result.
 
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -70,6 +89,20 @@ INT4_VISION = 32   # under int4 only the 3420-wide vision `down` stays int8
 # max|got - ref| <= KERNEL_TOL * max(1, max|ref|).
 KERNEL_TOL = 8e-3
 BLOCK_TOL = 3e-2   # rel-L2 of a 2-block bf16 MMDiT forward, kernels vs plain
+# K8/K9 outputs are f32 sums over 8448 keys or rows of bf16 products whose
+# inputs (dS, P) the kernel and the plain version round to bf16 at slightly
+# different values: max|got - ref| <= GRAD_TOL * max|ref|.
+GRAD_TOL = 1e-2
+# rel-L2 of the loss and of each adapter gradient of a 2-block bf16 MMDiT,
+# kernels vs plain attention under autograd (bf16 rounding of both backwards)
+TRAIN_TOL = 5e-2
+TRAIN_ROWS = 2
+TRAIN_RANK = 16
+TRAIN_STEPS = 3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and int8 tensor cores, HBM3
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+HBM_RATE = 3.35e12
 
 
 def emit(obj) -> None:
@@ -105,6 +138,30 @@ def tolerance(ref) -> float:
     return KERNEL_TOL * max(1.0, ref.abs().max().item())
 
 
+def bound(ops: float, nbytes: float, peak: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the HBM rate and
+    the operations over the peak rate of their type."""
+    t_bytes, t_ops = nbytes / HBM_RATE * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "ops": ops, "bytes": nbytes}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def attention_bound(q, k, v, out, mask, flops_per_pair: int, extra=()) -> dict:
+    """Bound of a non-causal attention function over the keys the mask keeps:
+    flops_per_pair · d flops per (query row, kept key) pair and head."""
+    b, h, lq, d = q.shape
+    kept = k.shape[2] if mask is None else mask.sum(-1).float().mean().item()
+    return bound(flops_per_pair * b * h * lq * kept * d,
+                 nbytes(q, k, v, *out, *extra) + (0 if mask is None else mask.numel()),
+                 PEAK_BF16)
+
+
 def randn(shape, seed, dtype):
     import torch
 
@@ -112,8 +169,18 @@ def randn(shape, seed, dtype):
     return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
+def sdpa(q, k, v, mask=None, **kw):
+    """PyTorch's fused attention on the same inputs: the library yardstick
+    (the port never calls it)."""
+    import torch.nn.functional as F
+
+    m = None if mask is None else mask[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=m, **kw)
+
+
 def phase_kernels():
     import torch
+    import torch.nn.functional as F
 
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
@@ -140,7 +207,9 @@ def phase_kernels():
     rec = {"phase": "kernel", "name": "flash_attention_joint",
            "shape": list(q.shape), "max_abs_err": err, "tol": tol,
            "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, TXT_LEN), 10),
-           "plain_ms": cuda_ms(k1_plain, 3)}
+           "plain_ms": cuda_ms(k1_plain, 3),
+           "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask), 10),
+           **attention_bound(q, k, v, (out,), mask, 4)}
     emit(rec)
     if not err <= tol:
         raise AssertionError(f"K1 error {err} > {tol}")
@@ -164,7 +233,12 @@ def phase_kernels():
                "shape": [1, 28, 4, l], "n_real": n_real, "max_abs_err": err,
                "tol": tol,
                "ms": cuda_ms(lambda: fa.causal_attention(q, k, v), 20),
-               "plain_ms": cuda_ms(lambda: fa.causal_attention_plain(q, k, v, keep), 20)}
+               "plain_ms": cuda_ms(lambda: fa.causal_attention_plain(q, k, v, keep), 20),
+               "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                  enable_gqa=True), 20),
+               # causal: each row meets (row + 1) keys
+               **bound(4 * 28 * (l * (l + 1) / 2) * 128,
+                       nbytes(q, k, v) + nbytes(q), PEAK_BF16)}
         emit(rec)
         if not err <= tol:
             raise AssertionError(f"K2 error {err} > {tol} at L={l}")
@@ -185,10 +259,15 @@ def phase_kernels():
         err = (got - ref).abs().max().item()
         tol = tolerance(ref)
         worst = max(worst, err)
+        wl = w.permute(3, 2, 0, 1)  # the NHWC/HWIO operands as cuDNN's
         rec = {"phase": "kernel", "name": "conv3x3", "shape": [1, SIZE, SIZE, cin, f],
                "max_abs_err": err, "tol": tol,
                "ms": cuda_ms(lambda: conv_ops.conv3x3(x, w, b), 10),
-               "plain_ms": cuda_ms(lambda: conv_ops.conv3x3_plain(x, w, b), 10)}
+               "plain_ms": cuda_ms(lambda: conv_ops.conv3x3_plain(x, w, b), 10),
+               "library_ms": cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
+                                                      padding=1), 10),
+               **bound(2 * SIZE * SIZE * 9 * cin * f,
+                       nbytes(x, w, b) + SIZE * SIZE * f * 2, PEAK_BF16)}
         emit(rec)
         if not err <= tol:
             raise AssertionError(f"K3 error {err} > {tol} at {cin}->{f}")
@@ -199,6 +278,7 @@ def phase_kernels():
     torch.cuda.empty_cache()
     results.update(phase_stream_kernel())
     results.update(phase_int8_kernels())
+    results.update(phase_train_kernels())
     return results
 
 
@@ -237,7 +317,10 @@ def phase_stream_kernel():
         rec = {"phase": "kernel", "name": "flash_attention_stream",
                "shape": [1, h, hkv, lk], "max_abs_err": err, "tol": tol,
                "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, txt), 10),
-               "plain_ms": cuda_ms(plain, 3)}
+               "plain_ms": cuda_ms(plain, 3),
+               "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask,
+                                                  enable_gqa=rep > 1), 10),
+               **attention_bound(q, k, v, (out,), mask, 4)}
         emit(rec)
         if not err <= tol:
             raise AssertionError(f"K4 error {err} > {tol} at {rec['shape']}")
@@ -299,14 +382,126 @@ def phase_int8_kernels():
         worst["quantize_rows"] = max(worst["quantize_rows"], err5)
         worst["int8_gemm"] = max(worst["int8_gemm"], err6)
         if name == "img_qkv":
-            recs["quantize_rows"] = {"ms": times["k5_ms"],
-                                     "plain_ms": times["k5_plain_ms"]}
-            recs["int8_gemm"] = {"ms": times["k6_ms"],
-                                 "plain_ms": times["k6_plain_ms"]}
+            # no single PyTorch call computes either (torch._int_mm has no
+            # scaled epilogue); bf16 F.linear is K6's yardstick, printed above
+            recs["quantize_rows"] = {
+                "ms": times["k5_ms"], "plain_ms": times["k5_plain_ms"],
+                "library_ms": None,
+                **bound(0, nbytes(x, xq, xs), PEAK_INT8)}
+            recs["int8_gemm"] = {
+                "ms": times["k6_ms"], "plain_ms": times["k6_plain_ms"],
+                "library_ms": None,
+                **bound(2 * m * k * n, nbytes(xq, xs, wq, ws, b) + m * n * 2,
+                        PEAK_INT8)}
         del x, w, b, wq, ws, xq, xs, xq_ref, xs_ref, out, ref
         torch.cuda.empty_cache()
     for key in recs:
         recs[key]["max_abs_err"] = worst[key]
+    return recs
+
+
+def phase_train_kernels():
+    """K7, K8 and K9 at the train step's attention shape: 2 rows, 24 heads,
+    [256 text ⊕ 4096 target ⊕ 4096 condition] tokens, text padded after
+    TXT_REAL. The plain versions run a few heads at a time (f32 scores). The
+    library yardstick is SDPA: its forward for K7, its backward through
+    autograd (dQ, dK and dV in one call) for K8 and K9."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    b, h, l = TRAIN_ROWS, 24, TXT_LEN + 2 * (SIZE // 16) ** 2
+    q, k, v, do = (randn((b, h, l, 128), s, bf16) for s in (30, 31, 32, 33))
+    mask = torch.ones((b, l), dtype=torch.bool, device="cuda")
+    mask[:, TXT_REAL:TXT_LEN] = False
+    out, lse = fa.flash_fwd_lse(q, k, v, mask, TXT_LEN)
+    same_as_k1 = bool(torch.equal(out, fa.joint_attention(q, k, v, mask, TXT_LEN)))
+    delta = (do.float() * out.float()).sum(-1).reshape(b * h, l)
+    q_pre = fa.prescale_q(q)
+    dq = fa.flash_bwd_dq(q_pre, k, v, do, lse, delta, mask, TXT_LEN)
+    dk, dv = fa.flash_bwd_dkv(q_pre, k, v, do, lse, delta, mask, TXT_LEN)
+    dead = ~mask
+    dead_kv_nonzero = int(torch.count_nonzero(dk.transpose(1, 2)[dead])
+                          + torch.count_nonzero(dv.transpose(1, 2)[dead]))
+
+    g = 4  # heads per plain call
+    lse4 = lse.reshape(b, h, l)
+    dl4 = delta.reshape(b, h, l)
+
+    def heads(i):
+        s_ = slice(i, i + g)
+        return (q_pre[:, s_], k[:, s_], v[:, s_], do[:, s_],
+                lse4[:, s_].reshape(-1, l), dl4[:, s_].reshape(-1, l))
+
+    def k7_plain():
+        parts = [fa.flash_fwd_lse_plain(q[:, i:i + g], k[:, i:i + g], v[:, i:i + g],
+                                        mask) for i in range(0, h, g)]
+        return (torch.cat([o for o, _ in parts], 1),
+                torch.cat([x.reshape(b, g, l) for _, x in parts], 1).reshape(b * h, l))
+
+    def k8_plain():
+        return torch.cat([fa.flash_bwd_dq_plain(*heads(i), mask)
+                          for i in range(0, h, g)], 1)
+
+    def k9_plain():
+        parts = [fa.flash_bwd_dkv_plain(*heads(i), mask) for i in range(0, h, g)]
+        return torch.cat([a for a, _ in parts], 1), torch.cat([c for _, c in parts], 1)
+
+    ref_o, ref_lse = k7_plain()
+    err7 = (out.float() - ref_o.float()).abs().max().item()
+    err_lse = (lse - ref_lse).abs().max().item()
+    ref_dq = k8_plain()
+    err8 = (dq - ref_dq).abs().max().item()
+    tol8 = GRAD_TOL * ref_dq.abs().max().item()
+    ref_dk, ref_dv = k9_plain()
+    err9 = max((dk - ref_dk).abs().max().item(), (dv - ref_dv).abs().max().item())
+    tol9 = GRAD_TOL * max(ref_dk.abs().max().item(), ref_dv.abs().max().item())
+    del ref_o, ref_lse, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    o_lib = sdpa(qg, kg, vg, mask)
+    lib_fwd = cuda_ms(lambda: sdpa(q, k, v, mask), 5)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do,
+                                                  retain_graph=True), 5)
+    del o_lib, qg, kg, vg
+    torch.cuda.empty_cache()
+
+    recs = {
+        "flash_fwd_lse": {
+            "max_abs_err": err7, "tol": tolerance(out.float()), "lse_max_abs_err": err_lse,
+            "o_equals_k1": same_as_k1,
+            "ms": cuda_ms(lambda: fa.flash_fwd_lse(q, k, v, mask, TXT_LEN), 10),
+            "plain_ms": cuda_ms(k7_plain, 2), "library_ms": lib_fwd,
+            **attention_bound(q, k, v, (out, lse), mask, 4)},
+        "flash_bwd_dq": {
+            "max_abs_err": err8, "tol": tol8,
+            "ms": cuda_ms(lambda: fa.flash_bwd_dq(q_pre, k, v, do, lse, delta, mask,
+                                                  TXT_LEN), 10),
+            "plain_ms": cuda_ms(k8_plain, 2), "library_ms": lib_bwd,
+            **attention_bound(q_pre, k, v, (dq,), mask, 6, (do, lse, delta))},
+        "flash_bwd_dkv": {
+            "max_abs_err": err9, "tol": tol9, "masked_dkv_nonzero": dead_kv_nonzero,
+            "ms": cuda_ms(lambda: fa.flash_bwd_dkv(q_pre, k, v, do, lse, delta, mask,
+                                                   TXT_LEN), 10),
+            "plain_ms": cuda_ms(k9_plain, 2), "library_ms": lib_bwd,
+            **attention_bound(q_pre, k, v, (dk, dv), mask, 8, (do, lse, delta))},
+    }
+    for name, rec in recs.items():
+        emit({"phase": "kernel", "name": name, "shape": [b, h, l, 128], **rec})
+    if not same_as_k1:
+        raise AssertionError("K7's O differs from K1's")
+    if not err7 <= recs["flash_fwd_lse"]["tol"]:
+        raise AssertionError(f"K7 error {err7}")
+    if not err_lse <= 1e-3 * lse.abs().max().item():
+        raise AssertionError(f"K7 LSE error {err_lse}")
+    if not (err8 <= tol8 and err9 <= tol9):
+        raise AssertionError(f"K8 error {err8} (tol {tol8}), K9 {err9} (tol {tol9})")
+    if dead_kv_nonzero:
+        raise AssertionError(f"{dead_kv_nonzero} nonzero dK/dV entries at masked keys")
+    del q, k, v, do, out, lse, dq, dk, dv, q_pre, delta
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -346,6 +541,76 @@ def phase_block_parity():
     torch.cuda.empty_cache()
 
 
+def phase_train_parity():
+    """The trainer's loss and adapter gradients through a 2-block flagship-
+    width MMDiT at the 1024² edit shape, rank-16 adapters on the default
+    targets (b drawn nonzero, so every adapter has a gradient), remat on:
+    kernels (K7 forward, K8/K9 backward) vs plain attention under autograd."""
+    import dataclasses
+
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import ModelConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    cfg = dataclasses.replace(ModelConfig(), num_layers=2)
+    params = fuse_qkv(tfm.init(stream(0, "transformer", "cuda"), cfg, "cuda"))
+    tcfg = lt.TrainConfig(rank=TRAIN_RANK, alpha=16.0)
+    lora = lt.init_lora(params, tcfg, stream(0, "lora"))
+    leaves = lt.lora_leaves(lora)
+    with torch.no_grad():
+        gen = stream(1, "lora")
+        for t in leaves[1::2]:  # the b of each target
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.01)
+    g = SIZE // 16
+    img_shapes = ((1, g, g), (1, g, g))
+    ropes = tfm.make_rope(cfg, img_shapes, TXT_LEN, "cuda")
+    x0 = randn((1, g * g, cfg.in_channels), 40, torch.bfloat16)
+    cond = randn((1, g * g, cfg.in_channels), 41, torch.bfloat16)
+    txt = randn((1, TXT_LEN, cfg.joint_dim), 42, torch.bfloat16)
+    noise = randn((1, g * g, cfg.in_channels), 43, torch.float32)
+    mask = torch.arange(TXT_LEN, device="cuda")[None] < TXT_REAL
+    sigmas = torch.tensor([0.6], device="cuda")
+    res = {}
+    for flag in (True, False):
+        kernels.reset_launches()
+        loss = lt.flow_match_loss(params, lora, tcfg.alpha / tcfg.rank, cfg, x0, cond,
+                                  txt, mask, sigmas, noise, ropes, use_flash=flag,
+                                  remat=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        res[flag] = (loss.item(), [torch.zeros_like(p) if d is None else d.float()
+                                   for p, d in zip(leaves, grads)],
+                     dict(kernels.LAUNCHES))
+        del loss, grads
+        torch.cuda.empty_cache()
+    (lf, gf, launches), (lp, gp, _) = res[True], res[False]
+    rels = [((a - b).norm() / b.norm()).item() for a, b in zip(gf, gp)
+            if b.norm().item() > 0]
+    zero_ok = all(a.norm().item() == 0 for a, b in zip(gf, gp) if b.norm().item() == 0)
+    finite = all(bool(torch.isfinite(a).all()) for a in gf)
+    loss_rel = abs(lf - lp) / abs(lp)
+    emit({"phase": "train_parity", "layers": 2, "rank": TRAIN_RANK,
+          "tokens": 2 * g * g + TXT_LEN, "loss_kernels": lf, "loss_plain": lp,
+          "loss_rel": loss_rel, "grad_rel_l2_max": max(rels),
+          "grad_rel_l2_median": sorted(rels)[len(rels) // 2],
+          "grads_compared": len(rels), "grads": len(gf), "tol": TRAIN_TOL,
+          "finite": finite, "launches_kernels": {
+              k: launches[k] for k in ("flash_fwd_lse", "flash_bwd_dq",
+                                       "flash_bwd_dkv", "flash_joint")}})
+    if not (finite and zero_ok and loss_rel <= TRAIN_TOL and max(rels) <= TRAIN_TOL):
+        raise AssertionError(f"train parity: loss rel {loss_rel}, worst gradient "
+                             f"rel-L2 {max(rels)} > {TRAIN_TOL}")
+    if launches["flash_fwd_lse"] != 4 or launches["flash_bwd_dq"] != 2 \
+            or launches["flash_bwd_dkv"] != 2 or launches["flash_joint"] != 0:
+        raise AssertionError(f"train parity launches {launches}")
+    del params, lora, leaves, res, gf, gp
+    torch.cuda.empty_cache()
+
+
 def distinct_image(i: int):
     """A gradient test image with a per-i tint, so caches miss per i."""
     import numpy as np
@@ -359,11 +624,12 @@ def distinct_image(i: int):
     return np.clip(base.astype(np.int32) + tint, 0, 255).astype(np.uint8)
 
 
-def run_requests(pipe, requests, label: str):
+def run_requests(pipe, requests, label: str, latents=None):
     """Serve ``requests`` (name, images, prompt, expected launches) one by
     one; each prints its wall seconds, launch counts, output and peak bytes,
     and raises unless every count and the output are as expected. Returns
-    the launches of the whole path, counted from 0 just before it."""
+    the launches of the whole path, counted from 0 just before it; fills
+    ``latents`` (name → final latents) when given."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
@@ -381,6 +647,8 @@ def run_requests(pipe, requests, label: str):
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
         out = res.images[0]
         finite = bool(torch.isfinite(res.latents).all().item())
+        if latents is not None:
+            latents[name] = res.latents
         emit({"phase": "request", "path": label, "name": name,
               "images": len(imgs), "seconds": wall, "launches": delta,
               "shape": list(out.shape), "dtype": str(out.dtype),
@@ -407,7 +675,8 @@ def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
     other = "flash_joint" if n_images > 1 else "flash_joint_stream"
     q = int8_per_request + (int8_miss if miss else 0)
     return {joint: MMDIT_LAYERS * STEPS, other: 0,
-            "flash_causal": 28 if miss else 0, "quantize_rows": q, "int8_gemm": q}
+            "flash_causal": 28 if miss else 0, "quantize_rows": q, "int8_gemm": q,
+            "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 def create_pipeline(label: str, **quant):
@@ -448,7 +717,8 @@ def create_pipeline(label: str, **quant):
 
 
 def phase_slice():
-    """The bf16 flagship: one-image misses and hits, then a two-image edit."""
+    """The bf16 flagship: one-image misses and hits, then a two-image edit;
+    then, on the same pipeline, the LoRA fine-tune and the LoRA-fused edit."""
     pipe = create_pipeline("bf16")
     two = [distinct_image(2000), distinct_image(2001)]
     requests = ([("warmup", [distinct_image(1000)], "warmup", expected(True))]
@@ -457,7 +727,145 @@ def phase_slice():
                 + [(f"hit{i}", [distinct_image(0)], PROMPT, expected(False))
                    for i in range(2)]
                 + [("two_images", two, PROMPT, expected(True, 2))])
-    return run_requests(pipe, requests, "bf16")
+    latents = {}
+    launches = run_requests(pipe, requests, "bf16", latents)
+    train_launches, adapters = phase_train(pipe)
+    serve_launches = phase_lora_serve(pipe, adapters, latents["hit1"])
+    for more in (train_launches, serve_launches):
+        for k, n in more.items():
+            launches[k] += n
+    return launches
+
+
+def step_profile(trainer, batch) -> dict:
+    """Device time of one train step by kernel kind (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kinds = {"K7 flash_fwd_lse": 0.0, "K8 flash_bwd_dq": 0.0,
+             "K9 flash_bwd_dkv": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
+    top = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = e.self_device_time_total / 1e6  # us → s
+        name = e.key
+        if "flash_fwd_kernel" in name:
+            kind = "K7 flash_fwd_lse"
+        elif "flash_bwd_dq" in name:
+            kind = "K8 flash_bwd_dq"
+        elif "flash_bwd_dkv" in name:
+            kind = "K9 flash_bwd_dkv"
+        elif any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet")):
+            kind = "GEMM (cuBLAS)"
+        else:
+            kind = "other"
+        kinds[kind] += t
+        top.append((t, e.count, name[:90]))
+    busy = sum(kinds.values())
+    top.sort(reverse=True)
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "device_s": kinds, "top": [{"s": t, "calls": c, "kernel": n}
+                                       for t, c, n in top[:12]]}
+
+
+def phase_train(pipe):
+    """LoRA fine-tune of the live bf16 flagship: rank 16 on the default
+    attention targets, remat, a batch of two 1024² rows; warm-up, timed
+    steps, one profiled step. Returns the launches of the steps and the
+    (adapters, TrainConfig)."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    items = [{"image": distinct_image(4000 + i), "prompt": PROMPT,
+              "target": distinct_image(5000 + i)} for i in range(TRAIN_ROWS)]
+    t0 = time.time()
+    batch = lt.build_batch(pipe, items)
+    torch.cuda.synchronize()
+    emit({"phase": "train_batch", "seconds": time.time() - t0,
+          "rows": TRAIN_ROWS, "img_shapes": batch["img_shapes"],
+          "shapes": {k: list(v.shape) for k, v in batch.items()
+                     if torch.is_tensor(v)}})
+    cfg = lt.TrainConfig(rank=TRAIN_RANK, alpha=16.0, remat=True)
+    trainer = lt.LoRATrainer.from_pipeline(pipe, cfg)
+    leaves = lt.lora_leaves(trainer.lora)
+    before = [t.detach().clone() for t in leaves]
+    want = {"flash_fwd_lse": 2 * MMDIT_LAYERS, "flash_bwd_dq": MMDIT_LAYERS,
+            "flash_bwd_dkv": MMDIT_LAYERS, "flash_joint": 0,
+            "flash_joint_stream": 0}
+    kernels.reset_launches()
+    for name in ["warmup"] + [f"step{i}" for i in range(TRAIN_STEPS)]:
+        prev = dict(kernels.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        delta = {k: kernels.LAUNCHES[k] - prev[k] for k in kernels.LAUNCHES}
+        grads = [p.grad for p in leaves]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads)).item()
+        emit({"phase": "train_step", "name": name, "seconds": wall, "loss": loss,
+              "launches": delta, "grad_norm_clipped": gnorm,
+              "grads_finite": finite, "peak_bytes": torch.cuda.max_memory_allocated()})
+        for key, n in want.items():
+            if delta[key] != n:
+                raise AssertionError(f"train/{name}: {key} ran {delta[key]} times, "
+                                     f"not {n}")
+        if not (math.isfinite(loss) and finite and gnorm > 0):
+            raise AssertionError(f"train/{name}: loss {loss}, grads finite "
+                                 f"{finite}, norm {gnorm}")
+    launches = dict(kernels.LAUNCHES)
+    changed = sum(not torch.equal(a, b) for a, b in zip(before, leaves))
+    emit({"phase": "train_profile", "adapters_changed": changed,
+          "adapters": len(leaves), **step_profile(trainer, batch)})
+    if changed == 0:
+        raise AssertionError("training changed no adapter")
+    return launches, (trainer.lora, cfg)
+
+
+def phase_lora_serve(pipe, trained, pre_latents):
+    """Export the trained adapters, write them with the port's .safetensors
+    writer, read them back, fuse them into the live pipeline in place and
+    serve a cache hit again at the same seed."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import lora
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    adapters, cfg = trained
+    sd = lt.export_lora_state_dict(adapters, cfg)
+    path = os.path.join(ROOT, "build", "chip_smoke", "lora.safetensors")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    lora.save_safetensors(path, sd)
+    loaded = lora.load_lora_weights(path)
+    if sorted(loaded) != sorted(sd) or not all(
+            torch.equal(loaded[k], torch.from_numpy(sd[k])) for k in sd):
+        raise AssertionError("the .safetensors round trip changed the adapters")
+    del adapters, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora.fuse_lora(pipe.tfm_params, loaded)
+    out = {}
+    launches = run_requests(pipe, [("lora_hit", [distinct_image(0)], PROMPT,
+                                    expected(False))], "bf16+lora", out)
+    diff = (out["lora_hit"] - pre_latents).abs().max().item()
+    emit({"phase": "lora_serve", "file_bytes": os.path.getsize(path),
+          "tensors": len(loaded), "latents_max_abs_change": diff})
+    if not diff > 0:
+        raise AssertionError("the fused LoRA did not change the edit")
+    return launches
 
 
 def phase_int8():
@@ -515,6 +923,7 @@ def main() -> int:
 
     per_kernel = phase_kernels()
     phase_block_parity()
+    phase_train_parity()
     launches = {}
     for phase in (phase_slice, phase_int8, phase_int4):
         for k, n in phase().items():  # each pipeline is dropped on return
@@ -536,6 +945,12 @@ def main() -> int:
                           "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:139"),
         "int8_gemm": ("csrc/int8_gemm.cu", "int8_gemm",
                       "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:174"),
+        "flash_fwd_lse": ("csrc/flash_attention.cu", "flash_fwd_lse",
+                          "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:426"),
+        "flash_bwd_dq": ("csrc/flash_attention_bwd.cu", "flash_bwd_dq",
+                         "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:492"),
+        "flash_bwd_dkv": ("csrc/flash_attention_bwd.cu", "flash_bwd_dkv",
+                          "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:546"),
     }
     summary = []
     for name, (src, counter, replaces) in sources.items():
@@ -545,7 +960,9 @@ def main() -> int:
         summary.append({"name": name, "route": "cuda", "source": f"{PKG}/{src}",
                         "replaces": replaces, "launches": launches[counter],
                         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"]})
+                        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
     print(nvidia_smi_line(), flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

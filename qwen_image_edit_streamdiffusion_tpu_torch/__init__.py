@@ -13,9 +13,9 @@ with the same layout so each module has a findable counterpart:
 - ``pipeline/`` — ``EditPipeline``: the cond-only edit main path.
 - ``runtime/``  — builds ``csrc/`` with nvcc at first use and counts launches.
 
-The port imports torch and never jax; it reuses only the reference's
-dependency-free modules (``core/config.py``, ``models/text_encoder.py``,
-``pipeline/cache.py``).
+The port imports torch and never jax, nor anything of the JAX package: it
+keeps its own copies of the reference's dependency-free modules
+(``core/config.py``, ``models/text_encoder.py``, ``pipeline/cache.py``).
 """
 
 __version__ = "0.1.0"

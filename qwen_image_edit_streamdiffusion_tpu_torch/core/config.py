@@ -1,19 +1,354 @@
 """Typed configuration: the reference's presets and ``StreamConfig``.
 
-``qwen_image_edit_streamdiffusion_tpu/core/config.py`` imports neither jax
-nor PIL (frozen dataclasses only), so the port shares it as it is: the same
-presets drive both packages, and a parity test can never compare two
-configurations that drifted apart. Port code and its users import the
-configuration from here.
+A copy of ``qwen_image_edit_streamdiffusion_tpu/core/config.py`` kept in the
+port, which imports nothing of the JAX package. ``tests/test_torch_lora.py``
+holds every preset of the two packages equal field by field, so the copies
+cannot drift apart unnoticed.
+
+The configs are frozen (hashable) dataclasses: the JAX package takes them as
+static ``jax.jit`` arguments, and the parity tests hand the port's presets to
+JAX functions.
 """
 
-from qwen_image_edit_streamdiffusion_tpu.core.config import (  # noqa: F401
-    PRESETS,
-    ModelConfig,
-    Preset,
-    SchedulerConfig,
-    StreamConfig,
-    VAEConfig,
-    VLConfig,
-    get_preset,
-)
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """MMDiT diffusion-transformer architecture (QwenImageTransformer2DModel).
+
+    Defaults mirror the 20B ``Qwen/Qwen-Image-Edit-2509`` transformer invoked
+    by the reference through diffusers (reference: server.py:66-69;
+    SURVEY.md §2.2): 60 double-stream blocks, 24 heads × 128 head-dim
+    (inner dim 3072), packed 16-ch latents → 64-ch tokens (2×2 patches),
+    joint attention with 3584-dim Qwen2.5-VL text stream, 3D RoPE with
+    axes (frame, height, width) = (16, 56, 56).
+    """
+
+    num_layers: int = 60
+    num_heads: int = 24
+    head_dim: int = 128
+    in_channels: int = 64  # 16 latent channels × 2×2 patch packing
+    out_channels: int = 64
+    joint_dim: int = 3584  # Qwen2.5-VL hidden size feeding the text stream
+    mlp_ratio: float = 4.0
+    patch_size: int = 2
+    latent_channels: int = 16
+    axes_dims_rope: Tuple[int, int, int] = (16, 56, 56)
+    rope_theta: float = 10000.0
+    time_freq_dim: int = 256
+    eps: float = 1e-6
+    dtype: str = "bfloat16"
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.inner_dim * self.mlp_ratio)
+
+
+@dataclass(frozen=True)
+class VAEConfig:
+    """KL image VAE (AutoencoderKLQwenImage — Wan2.1-style, 16 latent ch,
+    8× spatial downsample; reference invokes it via ``pipeline.vae.encode /
+    .decode`` at qwen_realtime.py:183-192).
+
+    The reference VAE is a 3D *causal* video VAE applied to single frames;
+    a causal temporal conv on a single frame reduces exactly to a 2D conv
+    using the final temporal kernel slice, so the TPU build is natively 2D
+    (better XLA conv tiling, no wasted temporal padding math). The torch→JAX
+    converter slices ``weight[:, :, -1]`` accordingly.
+    """
+
+    latent_channels: int = 16
+    base_channels: int = 96
+    channel_multipliers: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    spatial_downsample: int = 8  # 2^(len(channel_multipliers)-1)
+    eps: float = 1e-6
+    # bf16 params/activations (reference loads the whole pipeline bf16,
+    # server.py:68); norms still accumulate in f32. Tests use f32.
+    dtype: str = "bfloat16"
+    # Per-channel latent normalization (Wan2.1 published constants): the
+    # pipeline uses z_norm = (z - mean) / std in place of a scalar
+    # scaling_factor (reference reads vae.config.scaling_factor at
+    # qwen_realtime.py:184; the Plus pipeline uses latents_mean/std).
+    latents_mean: Tuple[float, ...] = (
+        -0.7571, -0.7089, -0.9113, 0.1075, -0.1745, 0.9653, -0.1517, 1.5508,
+        0.4134, -0.0715, 0.5517, -0.3632, -0.1922, -0.9497, 0.2503, -0.2921,
+    )
+    latents_std: Tuple[float, ...] = (
+        2.8184, 1.4541, 2.3275, 2.6558, 1.2196, 1.7708, 2.6052, 2.0743,
+        3.2687, 2.1526, 2.8652, 1.5579, 1.6382, 1.1253, 2.8251, 1.9160,
+    )
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """FlowMatchEulerDiscreteScheduler with resolution-dependent exponential
+    timestep shifting (reference keeps the stock scheduler:
+    qwen_realtime.py:128-130; SURVEY.md §2.2)."""
+
+    num_train_timesteps: int = 1000
+    base_image_seq_len: int = 256
+    max_image_seq_len: int = 8192
+    base_shift: float = 0.5
+    max_shift: float = 0.9
+    shift: float = 1.0
+    use_dynamic_shifting: bool = True
+    # Qwen-Image's scheduler_config.json sets shift_terminal=0.02: after the
+    # exponential shift, sigmas are affinely stretched so the final
+    # (pre-zero) sigma lands at this value. 0 / None disables the stretch.
+    shift_terminal: float = 0.02
+
+
+@dataclass(frozen=True)
+class VLConfig:
+    """Qwen2.5-VL-7B prompt/vision encoder (SURVEY.md §2.2: the pipeline
+    encodes instruction text jointly with the input image[s])."""
+
+    # Language model
+    hidden_size: int = 3584
+    num_layers: int = 28
+    num_heads: int = 28
+    num_kv_heads: int = 4
+    intermediate_size: int = 18944
+    vocab_size: int = 152064
+    rope_theta: float = 1000000.0
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
+    rms_eps: float = 1e-6
+    # Vision tower
+    vision_depth: int = 32
+    vision_hidden: int = 1280
+    vision_heads: int = 16
+    vision_intermediate: int = 3420
+    patch_size: int = 14
+    temporal_patch_size: int = 2
+    spatial_merge_size: int = 2
+    window_size: int = 112
+    fullatt_block_indexes: Tuple[int, ...] = (7, 15, 23, 31)
+    vision_out_dim: int = 3584
+    dtype: str = "bfloat16"
+    max_text_len: int = 1024
+
+
+@dataclass(frozen=True)
+class StreamConfig:
+    """Superset of the reference's StreamConfig (qwen_realtime.py:39-66) +
+    the per-request API params (server.py:43-50), CLI/env overridable."""
+
+    # Output resolution. None → reference default: derive from the first
+    # input image's aspect ratio at vae_image_area total pixels.
+    width: Optional[int] = None
+    height: Optional[int] = None
+    # Area targets for condition-image resizing (reference: VL images 384²,
+    # VAE images / default output 1024² — SURVEY.md §2.2). Tests shrink these.
+    vae_image_area: int = 1024 * 1024
+    vl_image_area: int = 384 * 384
+
+    # Inference
+    num_inference_steps: int = 4
+    guidance_scale: float = 1.0  # embedded guidance; no-op for this model
+    true_cfg_scale: float = 4.0
+    # CFG execution mode:
+    #   "none"       — cond-only (server fast mode, server.py:146-153)
+    #   "batched"    — cond+uncond stacked on the batch axis inside one jit
+    #                  (the reference's documented batched_cfg_pipeline)
+    #   "parallel"   — 2-way shard over the mesh `cfg` axis
+    #                  (the reference's documented parallel_cfg_* family)
+    #   "sequential" — two transformer passes per step (stock diffusers path)
+    #   "rcfg"       — onetime-negative Residual CFG (StreamDiffusion §3.2,
+    #                  the system the reference is "inspired by",
+    #                  README.md:186-191): the uncond branch runs only on
+    #                  the FIRST step; later steps reuse its residual
+    #                  (v_pos − v_neg) against the fresh cond prediction.
+    #                  steps+1 forwards instead of 2·steps — 2-step CFG
+    #                  pays 3 forwards (≈1.5× fast mode, not 2×).
+    #   "rcfg-self"  — self-negative Residual CFG: NO uncond forwards.
+    #                  The virtual negative velocity points at
+    #                  reconstructing the (unedited) first condition
+    #                  image: v_neg = (x_t − z_cond)/σ_t — CFG-strength
+    #                  edits at cond-only price. Needs the first condition
+    #                  latent grid to match the target grid (degrades to
+    #                  "rcfg" with a warning otherwise).
+    cfg_mode: str = "batched"
+
+    # Stateful latent / StreamDiffusion-style temporal consistency
+    noise_strength: float = 0.05
+    keyframe_interval: int = 20
+    # Hybrid-resolution streaming: temporal (non-keyframe) frames run the
+    # WHOLE pipeline (condition encode + denoise + decode) at
+    # width/preview_scale × height/preview_scale and are upscaled to the
+    # output size host-side; keyframes still run at full resolution. At
+    # 1024² output with preview_scale=2 the temporal frames cost a 512²
+    # frame (~12 fps pipelined) while every keyframe_interval-th frame
+    # re-anchors at full quality — the realtime answer to 1024², where
+    # full-res-every-frame measures ~2 fps. 1 = off. Requires explicit
+    # width/height divisible by 16·preview_scale (else ignored with a
+    # warning; the keyframe→temporal latent handoff is an exact 2×2
+    # average-pool only when the latent grids nest evenly).
+    preview_scale: int = 1
+
+    # Stochastic Similarity Filter (StreamDiffusion §3.3, the other
+    # headline technique of the system the reference is "inspired by",
+    # README.md:186-191): when the incoming camera frame is nearly
+    # identical to the last PROCESSED one (static scene), skip inference
+    # with probability (sim − τ)/(1 − τ) and re-serve the previous output.
+    # Device work drops in proportion to how static the feed is; the
+    # probabilistic floor plus similarity_max_skip guarantee the output
+    # still refreshes (camera noise, slow drift). Off by default —
+    # benchmarks must measure real inference, not skips.
+    similarity_filter: bool = False
+    similarity_threshold: float = 0.98  # τ on mean-centered cosine, 32×32 gray
+    similarity_max_skip: int = 10  # force a real frame after N skips
+
+    # Camera / stream loop
+    camera_id: int = 0
+    target_fps: int = 15
+
+    # Model
+    model_preset: str = "qwen-image-edit-2509"
+    dtype: str = "bfloat16"
+    seed: int = 42
+
+    # Prompt encoding: True = native Qwen2.5-VL encoder in-path (reference
+    # parity — the upstream pipeline encodes prompt+image through the VL
+    # model every call, SURVEY.md §3.2). False = deterministic StubEncoder
+    # (unit-test double; excludes prompt-encode compute from any timing).
+    use_vl_encoder: bool = True
+
+    # Device→host image transfer format:
+    #   "rgb"    — exact uint8 RGB (library default)
+    #   "yuv420" — on-device YCbCr 4:2:0 planes, half the bytes over the
+    #              tunnel; lossless relative to the JPEG-q90 wire format
+    #              and to video display (ops/colorspace.py). Server and
+    #              realtime-stream entry points default to this.
+    #              NOTE: yuv420 applies to BOTH directions — condition-image
+    #              *uploads* are chroma-subsampled before VAE encode. A
+    #              no-op for the server's JPEG wire path (already 4:2:0),
+    #              but a library user feeding lossless PNG inputs gets a
+    #              condition-input quality change vs "rgb" that can alter
+    #              edit outputs, not just delivered chroma (ADVICE r2 #3).
+    transfer_format: str = "rgb"
+
+    # Latent→pixel decoder:
+    #   "full" — the converted AutoencoderKLQwenImage decoder (exact).
+    #   "tiny" — the TAESD-analog tiny decoder (models/tiny_vae.py):
+    #            ~1M params, ~2.5 ms device @1024² vs ~80 ms full — the
+    #            StreamDiffusion tiny-autoencoder technique the reference
+    #            never wired (README.md:186-191 credits the system; no
+    #            TAESD exists for this latent space to download).
+    #            Serve a DISTILLED artifact (training/tiny_vae.py,
+    #            server --tiny-decoder PATH); random-init output is noise.
+    #            Encode (conditioning) always uses the full VAE — only
+    #            the output stage is approximated.
+    decoder: str = "full"
+
+    # Pixel→latent encoder for the STREAM's temporal frames:
+    #   "full" — the exact VAE encoder (always used by /edit conditioning
+    #            and by stream KEYFRAMES, which re-anchor at full quality).
+    #   "tiny" — the TAESD-analog tiny encoder (models/tiny_vae.py
+    #            TinyEncoderConfig): temporal refine frames encode the
+    #            live camera frame through it (~10 of ~51 ms @512² frame
+    #            budget runs the full VAE encode today). Serve a DISTILLED
+    #            artifact (training/tiny_vae.py --encoder,
+    #            server --tiny-encoder PATH); random-init output is noise.
+    encoder: str = "full"
+
+    # Optimization flags
+    use_flash_attention: bool = True  # the hand-written flash kernels
+    use_int8: bool = False  # fused int8 quantize+GEMM+dequant weights
+    # Weight-only int8 for the Qwen2.5-VL encoder (the deployment memory
+    # lever: 15.5 GB bf16 → ~7.8 GB before TP sharding). Independent of
+    # use_int8 (transformer) — quality/memory tradeoffs differ per model.
+    use_int8_vl: bool = False
+    # Group-wise int4 (the reference's BitsAndBytes NF4 rung,
+    # test_quantized.py:46-51): ~9/16 the int8 weight bytes. Takes
+    # precedence over the int8 flag for the same component; leaves whose
+    # input dim doesn't divide the group size take the int8 rung.
+    # The deployment target: the COMPLETE 20B product on a 2-chip v5e
+    # slice (benchmarks/lower_full.py --int4 --int4-vl --chips 2).
+    use_int4: bool = False
+    use_int4_vl: bool = False
+    fuse_lora: bool = True  # weight-fuse LoRA before jit (vs runtime adapters)
+    fuse_qkv: bool = True  # concat q/k/v projections (single-chip only)
+
+    # Parallelism: mesh axis sizes (cfg × model). model>1 ⇒ tensor parallel.
+    mesh_cfg_axis: int = 1
+    mesh_model_axis: int = 1
+
+    def replace(self, **kw) -> "StreamConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Preset:
+    """A named (transformer, VAE, scheduler, VL) bundle."""
+
+    name: str
+    model: ModelConfig
+    vae: VAEConfig
+    scheduler: SchedulerConfig
+    vl: VLConfig
+
+
+def _mk_presets():
+    full = Preset(
+        name="qwen-image-edit-2509",
+        model=ModelConfig(),
+        vae=VAEConfig(),
+        scheduler=SchedulerConfig(),
+        vl=VLConfig(),
+    )
+    # Single-chip benchmark preset: same architecture family scaled to fit a
+    # 16 GB v5e chip in bf16 (~2B transformer params).
+    bench = Preset(
+        name="bench-2b",
+        model=ModelConfig(num_layers=24, num_heads=12, head_dim=128,
+                          joint_dim=1536),
+        vae=VAEConfig(base_channels=64),
+        scheduler=SchedulerConfig(),
+        vl=VLConfig(hidden_size=1536, num_layers=8, num_heads=12,
+                    num_kv_heads=2, intermediate_size=4096,
+                    vision_depth=8, vision_hidden=640, vision_heads=8,
+                    vision_intermediate=1710, vision_out_dim=1536,
+                    fullatt_block_indexes=(3, 7)),
+    )
+    # Tiny preset for unit tests (CPU, seconds not minutes).
+    tiny = Preset(
+        name="tiny",
+        model=ModelConfig(num_layers=2, num_heads=2, head_dim=32,
+                          joint_dim=48, axes_dims_rope=(8, 12, 12),
+                          time_freq_dim=32),
+        vae=VAEConfig(base_channels=8, channel_multipliers=(1, 2, 2, 2),
+                      num_res_blocks=1, dtype="float32"),
+        scheduler=SchedulerConfig(),
+        vl=VLConfig(hidden_size=48, num_layers=2, num_heads=4,
+                    num_kv_heads=2, intermediate_size=96, vocab_size=512,
+                    mrope_sections=(2, 2, 2),  # sums to head_dim/2 = 6
+                    vision_depth=2, vision_hidden=32, vision_heads=2,
+                    vision_intermediate=64, vision_out_dim=48,
+                    # 256 (not 64) so serve-scale tests exercise the normal
+                    # conditioning path, not incidental truncation
+                    # (VERDICT r2 weak #4)
+                    fullatt_block_indexes=(1,), max_text_len=256),
+    )
+    return {p.name: p for p in (full, bench, tiny)}
+
+
+PRESETS = _mk_presets()
+
+
+def get_preset(name: str) -> Preset:
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(
+            f"Unknown preset {name!r}; available: {sorted(PRESETS)}"
+        ) from None

@@ -9,6 +9,10 @@
 //       K/V outgrow the TPU's VMEM (two 1024² condition images: Lk ≈ 12.7k),
 //       and GQA through kv_heads. This kernel streams K/V for any Lk, so K4
 //       is the same instance; q head h reads kv head h / (H / Hkv);
+//   K7  ops/flash_attention.py::_flash_kernel_fwd_lse  (CAUSAL = false,
+//       LSE = true): the forward of the trainable attention (H == Hkv), the
+//       same instance plus one store per row of LSE2 = m + log2(l) for the
+//       backward kernels (flash_attention_bwd.cu); its O is K1's bit for bit;
 //   K2  ops/flash_attention.py::_flash_kernel_causal  (CAUSAL = true)
 //       causal GQA attention of the Qwen2.5-VL language model; q head h reads
 //       kv head h / (H / Hkv); key blocks above the diagonal are never read and
@@ -37,11 +41,11 @@
 // free of bank conflicts. wgmma, TMA and warp specialisation (the FA3 shape)
 // are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
+
+using namespace qie;
 
 constexpr int kD = 128;           // head_dim
 constexpr int kBQ = 128;          // query rows per CTA
@@ -57,70 +61,15 @@ constexpr int kQElems = kBQ * kLd;
 constexpr int kKVElems = kBK * kLd;
 constexpr int kSmemBytes = (kQElems + 4 * kKVElems) * 2;  // Q + 2 × (K, V)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global → shared copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) · b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs 0..3: (row g, cols 2t..2t+1), (g+8, 2t), (g, 2t+8), (g+8, 2t+8);
-//   B regs 0..1: (k 2t..2t+1, col g), (k 2t+8.., col g);
-//   C/D 0..3:    (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1).
-template <bool CAUSAL>
+template <bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const uint8_t* __restrict__ mask,  // (B, Lk) or nullptr
-                 __nv_bfloat16* __restrict__ out, int H, int Hkv, int Lq,
-                 int Lk, int mask_len, float qscale) {
+                 __nv_bfloat16* __restrict__ out,
+                 float* __restrict__ lse,  // (B·H, Lq) when LSE
+                 int H, int Hkv, int Lq, int Lk, int mask_len, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* k_s = q_s + kQElems;       // two buffers
@@ -315,6 +264,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, d);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, d);
   }
+  if (LSE && t4 == 0) {
+    // LSE2 = m + log2(l); a row with no key at all gets +1e30 (P = 0)
+    if (row_lo < Lq)
+      lse[(size_t)bh * Lq + row_lo] =
+          l_lo > 0.f ? m_lo + log2f(l_lo) : 1e30f;
+    if (row_hi < Lq)
+      lse[(size_t)bh * Lq + row_hi] =
+          l_hi > 0.f ? m_hi + log2f(l_hi) : 1e30f;
+  }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   __nv_bfloat16* o_lo = out + ((size_t)bh * Lq + row_lo) * kD + 2 * t4;
@@ -330,11 +288,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool CAUSAL>
+template <bool CAUSAL, bool LSE>
 int launch(const void* q, const void* k, const void* v, const uint8_t* mask,
-           void* out, int B, int H, int Hkv, int Lq, int Lk, int mask_len,
-           float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<CAUSAL>;
+           void* out, float* lse, int B, int H, int Hkv, int Lq, int Lk,
+           int mask_len, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<CAUSAL, LSE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
@@ -342,7 +300,7 @@ int launch(const void* q, const void* k, const void* v, const uint8_t* mask,
   kern<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), mask,
-      static_cast<__nv_bfloat16*>(out), H, Hkv, Lq, Lk, mask_len,
+      static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Lq, Lk, mask_len,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -362,6 +320,21 @@ extern "C" int qie_flash_attention_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (causal)
-    return launch<true>(q, k, v, nullptr, out, B, H, Hkv, Lq, Lk, 0, scale, s);
-  return launch<false>(q, k, v, m, out, B, H, Hkv, Lq, Lk, mask_len, scale, s);
+    return launch<true, false>(q, k, v, nullptr, out, nullptr, B, H, Hkv, Lq,
+                               Lk, 0, scale, s);
+  return launch<false, false>(q, k, v, m, out, nullptr, B, H, Hkv, Lq, Lk,
+                              mask_len, scale, s);
+}
+
+// K7: the non-causal instance with H == Hkv that also writes lse (B·H, Lq)
+// f32, LSE2 = m + log2(l) of each query row in the base-2 domain of the
+// prescaled scores. Arguments otherwise as qie_flash_attention_bf16.
+extern "C" int qie_flash_fwd_lse_bf16(const void* q, const void* k,
+                                      const void* v, const void* mask,
+                                      void* out, void* lse, int B, int H,
+                                      int Lq, int Lk, int mask_len,
+                                      float scale, void* stream) {
+  return launch<false, true>(q, k, v, static_cast<const uint8_t*>(mask), out,
+                             static_cast<float*>(lse), B, H, H, Lq, Lk,
+                             mask_len, scale, static_cast<cudaStream_t>(stream));
 }

@@ -81,21 +81,24 @@ def _convert(node: Any, dtype, device) -> Any:
 
 def _skeleton(cfg, tree):
     """The port's init of ``cfg`` on the meta device, quantized as ``tree``
-    is (with the JAX package's include sets)."""
+    is (with the JAX package's include sets). The model is picked by the
+    config's class name, so the JAX package's twin configs (the tests hand
+    those over) are taken as the port's own."""
     meta = torch.device("meta")
     bits = quantize.saved_bits(tree)
-    if isinstance(cfg, ModelConfig):
+    kind = type(cfg).__name__
+    if kind == ModelConfig.__name__:
         from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer
         skel = transformer.init(None, cfg, meta)
         return skel if bits is None else quantize.quantize_transformer(skel, bits=bits)
-    if isinstance(cfg, VAEConfig):
+    if kind == VAEConfig.__name__:
         from qwen_image_edit_streamdiffusion_tpu_torch.models import vae
         return vae.init(None, cfg, meta)
-    if isinstance(cfg, VLConfig):
+    if kind == VLConfig.__name__:
         from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
         skel = qwen_vl.init(None, cfg, meta)
         return skel if bits is None else quantize.quantize_vl(skel, bits=bits)
-    raise TypeError(f"from_jax: no model for config {type(cfg).__name__}")
+    raise TypeError(f"from_jax: no model for config {kind}")
 
 
 def from_jax(tree: Any, cfg, device="cpu") -> Dict[str, Any]:
@@ -116,3 +119,34 @@ def from_jax(tree: Any, cfg, device="cpu") -> Dict[str, Any]:
             f"{len(bad)} of the wrong shape (e.g. "
             f"{[(k, got[k], want[k]) for k in bad[:3]]})")
     return out
+
+
+def lora_from_jax(tree: Any, base_params: Any, cfg, device="cpu") -> Dict[str, Any]:
+    """A JAX adapter tree (``training/lora_train.py::init_lora`` of the JAX
+    package, numpy leaves ``a`` (in, r) and ``b`` (r, out)) → the port's
+    adapters: the same layout, f32 tensors on ``device`` with
+    ``requires_grad``. Total like :func:`from_jax`: the result is held
+    against the port's ``init_lora(base_params, cfg)`` and any missing or
+    unused key or wrong shape raises."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train
+
+    out = {"blocks": [
+        {k: _adapters(v, device) for k, v in blk.items()} for blk in tree["blocks"]]}
+    skel = lora_train.init_lora(base_params, cfg, torch.Generator())
+    got = {k: tuple(v.shape) for k, v in flatten(out).items()}
+    want = {k: tuple(v.shape) for k, v in flatten(skel).items()}
+    missing = sorted(set(want) - set(got))
+    unused = sorted(set(got) - set(want))
+    bad = sorted(k for k in set(got) & set(want) if got[k] != want[k])
+    if missing or unused or bad:
+        raise ValueError(
+            f"lora_from_jax: {len(missing)} missing (e.g. {missing[:3]}), "
+            f"{len(unused)} unused (e.g. {unused[:3]}), {len(bad)} of the "
+            f"wrong shape (e.g. {[(k, got[k], want[k]) for k in bad[:3]]})")
+    return out
+
+
+def _adapters(node: Any, device) -> Any:
+    if isinstance(node, dict):
+        return {k: _adapters(v, device) for k, v in node.items()}
+    return _tensor(node, torch.float32, device).requires_grad_()

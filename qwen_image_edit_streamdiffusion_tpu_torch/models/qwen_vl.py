@@ -28,11 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qwen_image_edit_streamdiffusion_tpu.models.text_encoder import (
-    SYSTEM_PROMPT,
-    PromptEmbedding,
-)
-from qwen_image_edit_streamdiffusion_tpu.pipeline.cache import image_fingerprint
 from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import VLConfig
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
@@ -43,7 +38,12 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     rms_norm,
     rms_norm_init,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
+    SYSTEM_PROMPT,
+    PromptEmbedding,
+)
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import image_fingerprint
 
 _NEG_INF = -1e30
 
@@ -438,7 +438,7 @@ def _positions_from_ids(cfg: VLConfig, ids: List[int],
 class QwenVLEncoder:
     """PromptEncoder backed by the Qwen2.5-VL port."""
 
-    def __init__(self, cfg: VLConfig, params: Params, device="cpu",
+    def __init__(self, cfg: VLConfig, params: Params, device="cuda",
                  tokenizer=None, max_len: int = 256,
                  drop_idx: Optional[int] = None, use_flash: bool = True):
         self.cfg = cfg

@@ -27,14 +27,19 @@ def compute_mu(image_seq_len: int, cfg: SchedulerConfig) -> float:
     return image_seq_len * m + b
 
 
+def _time_shift_exponential(mu: float, sigmas: torch.Tensor) -> torch.Tensor:
+    """sigma ↦ e^mu / (e^mu + (1/sigma − 1)) — the "exponential" shift."""
+    e = math.exp(mu)
+    return e / (e + (1.0 / sigmas - 1.0))
+
+
 def make_schedule(num_steps: int, image_seq_len: int,
                   cfg: SchedulerConfig = SchedulerConfig()) -> Schedule:
     if num_steps < 1:
         raise ValueError("num_steps must be >= 1")
     sigmas = torch.linspace(1.0, 1.0 / num_steps, num_steps, dtype=torch.float32)
     if cfg.use_dynamic_shifting:
-        e = math.exp(compute_mu(image_seq_len, cfg))
-        sigmas = e / (e + (1.0 / sigmas - 1.0))
+        sigmas = _time_shift_exponential(compute_mu(image_seq_len, cfg), sigmas)
     else:
         s = cfg.shift
         sigmas = s * sigmas / (1.0 + (s - 1.0) * sigmas)

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import ModelConfig
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
@@ -187,8 +188,17 @@ def _block(p: Params, cfg: ModelConfig, img, txt, temb_act, ropes,
 def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
             txt_embeds: torch.Tensor, timesteps: torch.Tensor,
             ropes: RopeTables, txt_mask: Optional[torch.Tensor] = None,
-            use_flash: bool = True) -> torch.Tensor:
-    """Velocity for every image token: (B, L_img, out_channels)."""
+            use_flash: bool = True, remat: bool = False,
+            blocks_extra: Optional[Sequence] = None,
+            block_map=None) -> torch.Tensor:
+    """Velocity for every image token: (B, L_img, out_channels).
+
+    remat=True checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant): the backward keeps only the block-boundary residual
+    streams and reruns the block. block_map(block_params, extra) derives a
+    block's effective params from its entry of ``blocks_extra`` (LoRA
+    adapters) inside the checkpointed region, so the merged weights are
+    recomputed in the backward and never saved."""
     img = linear(params["img_in"], img_tokens)
     txt = linear(params["txt_in"], rms_norm(params["txt_norm"], txt_embeds, cfg.eps))
 
@@ -197,8 +207,18 @@ def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
                   F.silu(linear(params["time_mlp"]["fc1"], t_feat.to(img.dtype))))
     temb_act = F.silu(temb.float()).to(img.dtype)
 
-    for blk in params["blocks"]:
-        img, txt = _block(blk, cfg, img, txt, temb_act, ropes, txt_mask, use_flash)
+    def apply(blk, extra, img, txt):
+        if block_map is not None:
+            blk = block_map(blk, extra)
+        return _block(blk, cfg, img, txt, temb_act, ropes, txt_mask, use_flash)
+
+    extras = (blocks_extra if blocks_extra is not None
+              else [None] * len(params["blocks"]))
+    for blk, extra in zip(params["blocks"], extras):
+        if remat:
+            img, txt = checkpoint(apply, blk, extra, img, txt, use_reentrant=False)
+        else:
+            img, txt = apply(blk, extra, img, txt)
 
     # AdaLayerNormContinuous head: scale first, then shift
     scale, shift = linear(params["norm_out"]["linear"], temb_act).chunk(2, dim=-1)

@@ -1,9 +1,13 @@
-"""Flash attention: joint-stream (K1, and K4's streaming role) and causal GQA (K2).
+"""Flash attention: joint-stream (K1, and K4's streaming role), causal GQA
+(K2), and the trainable joint attention (K7 forward + LSE, K8 dQ, K9 dK/dV).
 
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py``.
-Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm`` and
-``_flash_kernel_causal`` become one CUDA kernel, ``csrc/flash_attention.cu``,
-templated on causality. On Hopper K/V always stream from HBM through shared
+Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm``,
+``_flash_kernel_causal`` and ``_flash_kernel_fwd_lse`` become one CUDA kernel,
+``csrc/flash_attention.cu``, templated on causality and on the LSE store;
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` become the two kernels
+of ``csrc/flash_attention_bwd.cu``, behind :class:`FlashAttentionTrainable`
+(the JAX ``custom_vjp``). On Hopper K/V always stream from HBM through shared
 memory, so the JAX package's resident/streaming switch (``fits_resident``, a
 VMEM budget) has no counterpart: the non-causal instance takes any Lk and GQA
 (H % Hkv == 0), as ``_flash_kernel_hbm`` does. A joint launch whose K/V per
@@ -24,6 +28,8 @@ import torch
 from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 HEAD_DIM = 128
 RESIDENT_KV_BYTES = 6 * 1024 * 1024  # the JAX fits_resident budget per head
 
@@ -133,6 +139,12 @@ def joint_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     if q.device.type == "cpu":
         return joint_attention_plain(q, k, v, kv_mask, mask_len)
     _check_cuda(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise ValueError(
+            f"joint flash attention has no backward: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)} needs a gradient, and the trainable kernels "
+            "take H == Hkv with K/V within the resident budget only")
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"joint flash attention takes H % Hkv == 0, got "
                          f"{q.shape[1]} and {k.shape[1]}")
@@ -160,3 +172,222 @@ def causal_attention(q, k, v) -> torch.Tensor:
     out = _launch(q, k, v, None, 0, causal=True)
     kernels.LAUNCHES["flash_causal"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Trainable joint attention: K7 (forward + LSE), K8 (dQ), K9 (dK, dV)
+# ---------------------------------------------------------------------------
+#
+# The forward keeps LSE2 = m + log2(l) per query row, in the base-2 domain of
+# the prescaled scores S2 = Q_pre · K^T; the backward recomputes
+# P = exp2(S2 − LSE2) blockwise, so no (L, L) matrix is ever stored. With
+# dS = P ⊙ (dP − Δ), Δ = rowsum(dO ⊙ O):
+#   dQ = (dS · scale).bf16 · K,  dK = (dS · ln2).bf16^T · Q_pre,
+#   dV = P.bf16^T · dO.
+# LSE is stored (B·H, Lq) f32, one value per row (the JAX package broadcasts
+# it over 128 lanes, a TPU tiling artefact).
+
+
+def qscale(d: int) -> float:
+    """The q prescale d^-1/2 · log2(e) as the kernels compute it: the f32
+    product of the two f32 factors."""
+    return float(torch.tensor(d ** -0.5, dtype=torch.float32)
+                 * torch.tensor(_LOG2E, dtype=torch.float32))
+
+
+def prescale_q(q: torch.Tensor) -> torch.Tensor:
+    """Q_pre = (q.f32 · qscale).to(q.dtype), rounded exactly as K7 rounds its
+    Q tile, so the backward's recomputed P is the forward's bit for bit."""
+    return (q.float() * qscale(q.shape[-1])).to(q.dtype)
+
+
+def _scores2(q_pre, k, kv_mask) -> torch.Tensor:
+    """(B, H, Lq, Lk) f32 base-2 scores; masked keys at -1e30."""
+    s = torch.matmul(q_pre.float(), k.float().transpose(-1, -2))
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, :], _NEG_INF)
+    return s
+
+
+def flash_fwd_lse_plain(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+                        mask_len: Optional[int] = None):
+    """K7's function: (O in q's dtype, LSE2 (B·H, Lq) f32). P is rounded to
+    V's dtype before P·V and the row sum l adds the rounded P, as in K1; a
+    row with l = 0 gets LSE2 = 1e30."""
+    b, h, lq, _ = q.shape
+    s = _scores2(prescale_q(q), k, kv_mask)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m).to(v.dtype).float()
+    del s
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p, v.float()) / l.clamp_min(1e-30)
+    lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)),
+                      torch.full_like(l, 1e30))
+    return o.to(q.dtype), lse.reshape(b * h, lq)
+
+
+def _bwd_p_ds(q_pre, k, v, do, lse, delta, kv_mask):
+    b, h, lq, _ = q_pre.shape
+    p = torch.exp2(_scores2(q_pre, k, kv_mask) - lse.reshape(b, h, lq, 1))
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return p, p * (dp - delta.reshape(b, h, lq, 1))
+
+
+def flash_bwd_dq_plain(q_pre, k, v, do, lse, delta,
+                       kv_mask: Optional[torch.Tensor] = None,
+                       mask_len: Optional[int] = None) -> torch.Tensor:
+    """K8's function: dQ (B, H, Lq, D) f32 = (dS · scale).to(k.dtype) · K."""
+    _, ds = _bwd_p_ds(q_pre, k, v, do, lse, delta, kv_mask)
+    scale = q_pre.shape[-1] ** -0.5
+    return torch.matmul((ds * scale).to(k.dtype).float(), k.float())
+
+
+def flash_bwd_dkv_plain(q_pre, k, v, do, lse, delta,
+                        kv_mask: Optional[torch.Tensor] = None,
+                        mask_len: Optional[int] = None):
+    """K9's function: (dK, dV) (B, H, Lk, D) f32, dK = (dS · ln2)^T · Q_pre
+    and dV = P^T · dO with P and dS rounded to the inputs' dtype."""
+    p, ds = _bwd_p_ds(q_pre, k, v, do, lse, delta, kv_mask)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul((ds * _LN2).to(q_pre.dtype).float().transpose(-1, -2),
+                      q_pre.float())
+    return dk, dv
+
+
+def _check_train(q, k, v, extra):
+    _check_cuda(q, k, v)
+    if q.shape[1] != k.shape[1]:
+        raise ValueError("trainable flash attention requires H == Hkv "
+                         f"(GQA backward not implemented), got {q.shape[1]} "
+                         f"and {k.shape[1]}")
+    for name, t, shape, dtype in extra:
+        if (t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"flash attention: {name} must be a contiguous "
+                             f"{dtype} {shape} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def _mask_arg(q, k, kv_mask, mask_len):
+    """(uint8 mask or None, mask_len bound) for a launch."""
+    if kv_mask is None:
+        return None, 0
+    if kv_mask.shape != (q.shape[0], k.shape[2]):
+        raise ValueError(f"kv_mask must be (B, Lk), got {tuple(kv_mask.shape)}")
+    mask = kv_mask.to(device=q.device, dtype=torch.uint8).contiguous()
+    return mask, (k.shape[2] if mask_len is None else int(mask_len))
+
+
+def flash_fwd_lse(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+                  mask_len: Optional[int] = None):
+    """K7: (O, LSE2) of the joint attention, q/k/v (B, H, L, 128) bf16 with
+    H == Hkv; O bit-identical to K1's on the same inputs."""
+    if q.device.type == "cpu":
+        return flash_fwd_lse_plain(q, k, v, kv_mask, mask_len)
+    _check_train(q, k, v, ())
+    mask, bound = _mask_arg(q, k, kv_mask, mask_len)
+    b, h, lq, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
+    err = kernels.library().qie_flash_fwd_lse_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        mask.data_ptr() if mask is not None else None, out.data_ptr(),
+        lse.data_ptr(), b, h, lq, k.shape[2], bound, d ** -0.5,
+        kernels.current_stream_handle(q.device))
+    kernels.check(err, "flash attention forward + LSE")
+    kernels.LAUNCHES["flash_fwd_lse"] += 1
+    return out, lse
+
+
+def _bwd_extra(q, k, do, lse, delta):
+    b, h, lq, d = q.shape
+    return (("do", do, tuple(q.shape), q.dtype),
+            ("lse", lse, (b * h, lq), torch.float32),
+            ("delta", delta, (b * h, lq), torch.float32))
+
+
+def flash_bwd_dq(q_pre, k, v, do, lse, delta,
+                 kv_mask: Optional[torch.Tensor] = None,
+                 mask_len: Optional[int] = None) -> torch.Tensor:
+    """K8: dQ (B, H, Lq, 128) f32 from Q_pre (:func:`prescale_q`), K, V, dO
+    (bf16) and LSE2, Δ (B·H, Lq) f32."""
+    if q_pre.device.type == "cpu":
+        return flash_bwd_dq_plain(q_pre, k, v, do, lse, delta, kv_mask, mask_len)
+    _check_train(q_pre, k, v, _bwd_extra(q_pre, k, do, lse, delta))
+    mask, bound = _mask_arg(q_pre, k, kv_mask, mask_len)
+    b, h, lq, d = q_pre.shape
+    dq = torch.empty(q_pre.shape, dtype=torch.float32, device=q_pre.device)
+    err = kernels.library().qie_flash_bwd_dq_bf16(
+        q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dq.data_ptr(),
+        b, h, lq, k.shape[2], bound, d ** -0.5,
+        kernels.current_stream_handle(q_pre.device))
+    kernels.check(err, "flash attention backward dQ")
+    kernels.LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def flash_bwd_dkv(q_pre, k, v, do, lse, delta,
+                  kv_mask: Optional[torch.Tensor] = None,
+                  mask_len: Optional[int] = None):
+    """K9: (dK, dV) (B, H, Lk, 128) f32, arguments as :func:`flash_bwd_dq`."""
+    if q_pre.device.type == "cpu":
+        return flash_bwd_dkv_plain(q_pre, k, v, do, lse, delta, kv_mask, mask_len)
+    _check_train(q_pre, k, v, _bwd_extra(q_pre, k, do, lse, delta))
+    mask, bound = _mask_arg(q_pre, k, kv_mask, mask_len)
+    b, h, lq, _ = q_pre.shape
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    err = kernels.library().qie_flash_bwd_dkv_bf16(
+        q_pre.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(),
+        mask.data_ptr() if mask is not None else None, dk.data_ptr(),
+        dv.data_ptr(), b, h, lq, k.shape[2], bound,
+        kernels.current_stream_handle(q_pre.device))
+    kernels.check(err, "flash attention backward dK/dV")
+    kernels.LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+class FlashAttentionTrainable(torch.autograd.Function):
+    """The JAX ``_flash_diff`` custom VJP: forward K7, backward K8 then K9.
+    On CPU tensors every piece is its plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, mask_len):
+        out, lse = flash_fwd_lse(q, k, v, kv_mask, mask_len)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+        ctx.mask_len = mask_len
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kv_mask = ctx.saved_tensors
+        do = do.contiguous()
+        b, h, lq, _ = q.shape
+        delta = (do.float() * out.float()).sum(-1).reshape(b * h, lq)
+        q_pre = prescale_q(q)
+        dq = flash_bwd_dq(q_pre, k, v, do, lse, delta, kv_mask, ctx.mask_len)
+        dk, dv = flash_bwd_dkv(q_pre, k, v, do, lse, delta, kv_mask, ctx.mask_len)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def flash_attention_trainable(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+                              mask_len: Optional[int] = None) -> torch.Tensor:
+    """Differentiable joint attention (H == Hkv): K7 forward, K8/K9 backward
+    under autograd, no (L, L) matrix stored."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError("trainable flash attention requires H == Hkv "
+                         "(GQA backward not implemented)")
+    return FlashAttentionTrainable.apply(q, k, v, kv_mask, mask_len)
+
+
+def flash_attention_auto(q, k, v, kv_mask: Optional[torch.Tensor] = None,
+                         mask_len: Optional[int] = None) -> torch.Tensor:
+    """The JAX dispatcher: the trainable function where K/V stay within the
+    resident budget and H == Hkv (the MMDiT joint stream), the K1/K4 wrapper
+    otherwise (which refuses a CUDA input that needs a gradient)."""
+    if not streams_kv(k) and q.shape[1] == k.shape[1]:
+        return flash_attention_trainable(q, k, v, kv_mask, mask_len)
+    return joint_attention(q, k, v, kv_mask, mask_len)

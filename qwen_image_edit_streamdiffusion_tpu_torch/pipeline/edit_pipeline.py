@@ -10,7 +10,8 @@ PyTorch runs eagerly, so each stage is a plain call on ``self.device``.
 
 This slice runs ``cfg_mode="none"`` with ``transfer_format="rgb"`` and the full
 decoder, with one or more condition images, in bf16 or on the int8 / int4
-weight rungs (``use_int8``, ``use_int8_vl``, ``use_int4``, ``use_int4_vl``).
+weight rungs (``use_int8``, ``use_int8_vl``, ``use_int4``, ``use_int4_vl``),
+with a LoRA fused at construction (``from_weights(lora_path=...)``).
 The other CFG modes, yuv420, the tiny VAE pair, ``edit_many`` and
 ``num_images_per_prompt > 1`` raise ``NotImplementedError`` naming their
 ROADMAP item. Images come in as (H, W, 3) uint8 arrays (a PIL
@@ -28,14 +29,6 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from qwen_image_edit_streamdiffusion_tpu.models.text_encoder import (
-    PromptEncoder,
-    StubEncoder,
-)
-from qwen_image_edit_streamdiffusion_tpu.pipeline.cache import (
-    LatentCache,
-    PromptCache,
-)
 from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     Preset,
@@ -43,11 +36,19 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     get_preset,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
-from qwen_image_edit_streamdiffusion_tpu_torch.models import quantize, qwen_vl
+from qwen_image_edit_streamdiffusion_tpu_torch.models import lora, quantize, qwen_vl
 from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
 from qwen_image_edit_streamdiffusion_tpu_torch.models import vae as vae_mod
 from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
+    PromptEncoder,
+    StubEncoder,
+)
+from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
+    LatentCache,
+    PromptCache,
+)
 
 
 def combine_cfg(pos: torch.Tensor, neg: torch.Tensor, scale) -> torch.Tensor:
@@ -160,12 +161,22 @@ class EditPipeline:
 
     @classmethod
     def from_weights(cls, preset: Preset, config: StreamConfig, tfm_params,
-                     vae_params, vl_params=None, device="cpu") -> "EditPipeline":
+                     vae_params, vl_params=None, device="cuda",
+                     lora_path: Optional[str] = None) -> "EditPipeline":
         """Construction from existing port params (e.g. ``convert.from_jax``):
-        q/k/v fused when ``config.fuse_qkv``, then the transformer and the VL
-        params quantized IN PLACE on the requested rungs."""
+        the LoRA at ``lora_path`` (``.safetensors`` or ``.npz``) fused into
+        the dense transformer weights IN PLACE, then q/k/v fused when
+        ``config.fuse_qkv``, then the transformer and the VL params quantized
+        IN PLACE on the requested rungs — the JAX ``from_checkpoint`` order."""
         check_config(config)
         device = torch.device(device)
+        if lora_path:
+            if quantize.saved_bits(tfm_params) is not None:
+                raise ValueError(
+                    "LoRA cannot be fused into a quantized checkpoint — fuse "
+                    "it into the dense weights, then quantize them "
+                    "(StreamConfig use_int8 / use_int4)")
+            lora.fuse_lora(tfm_params, lora.load_lora_weights(lora_path))
         tfm_params = prepare_transformer(tfm_params, config)
         if config.use_vl_encoder:
             encoder = qwen_vl.QwenVLEncoder(

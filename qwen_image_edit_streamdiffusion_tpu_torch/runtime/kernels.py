@@ -28,7 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "conv3x3.cu", "int8_gemm.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
+           "int8_gemm.cu")
+HEADERS = ("mma_bf16.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset
@@ -36,7 +38,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 # JAX package's resident budget: the role of its streaming kernel, K4)
 LAUNCHES: Dict[str, int] = {"flash_joint": 0, "flash_joint_stream": 0,
                             "flash_causal": 0, "conv3x3": 0,
-                            "quantize_rows": 0, "int8_gemm": 0}
+                            "quantize_rows": 0, "int8_gemm": 0,
+                            "flash_fwd_lse": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -59,7 +63,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(ARCH_FLAGS).encode())
@@ -110,6 +114,15 @@ def library() -> ctypes.CDLL:
         lib.qie_flash_attention_bf16.argtypes = [
             vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
         lib.qie_flash_attention_bf16.restype = ci
+        lib.qie_flash_fwd_lse_bf16.argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+        lib.qie_flash_fwd_lse_bf16.restype = ci
+        lib.qie_flash_bwd_dq_bf16.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+        lib.qie_flash_bwd_dq_bf16.restype = ci
+        lib.qie_flash_bwd_dkv_bf16.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.qie_flash_bwd_dkv_bf16.restype = ci
         lib.qie_conv3x3.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.qie_conv3x3.restype = ci
         lib.qie_quantize_rows_bf16.argtypes = [vp, vp, vp, ci, ci, vp]

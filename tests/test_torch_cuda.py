@@ -169,3 +169,83 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8.int8_matmul(xq, xs, wq.t().contiguous().t(), ws)
     with pytest.raises(ValueError):
         int8.int8_matmul(xq[:, :62].contiguous(), xs, wq[:, :62].contiguous(), ws)
+
+
+# K7-K9: the trainable joint attention. K7's O is K1's bit for bit; the
+# gradients are f32 sums of bf16 products, held to GRAD_TOL of their max.
+GRAD_TOL = 1e-2
+TRAIN_SHAPES = [(1, 2, 128, 128, None), (2, 3, 200, 328, 64), (1, 2, 256, 1000, 130)]
+
+
+def _train_inputs(dev, b, h, lq, lk, mask_len):
+    q, do = _randn((b, h, lq, 128), 20, dev), _randn((b, h, lq, 128), 23, dev)
+    k, v = _randn((b, h, lk, 128), 21, dev), _randn((b, h, lk, 128), 22, dev)
+    mask = None
+    if mask_len is not None:
+        m = np.ones((b, lk), bool)
+        m[0, mask_len // 2:mask_len] = False
+        m[-1, 5:mask_len] = False
+        mask = torch.from_numpy(m).to(dev)
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("b,h,lq,lk,mask_len", TRAIN_SHAPES)
+def test_fwd_lse_kernel_is_k1_plus_lse(dev, b, h, lq, lk, mask_len):
+    q, k, v, _, mask = _train_inputs(dev, b, h, lq, lk, mask_len)
+    before = kernels.LAUNCHES["flash_fwd_lse"]
+    out, lse = fa.flash_fwd_lse(q, k, v, mask, mask_len)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_fwd_lse"] == before + 1
+    assert torch.equal(out, fa.joint_attention(q, k, v, mask, mask_len))
+    ref_o, ref_lse = fa.flash_fwd_lse_plain(q, k, v, mask, mask_len)
+    assert (out.float() - ref_o.float()).abs().max().item() < ATT_TOL
+    assert lse.shape == (b * h, lq)
+    assert (lse - ref_lse).abs().max().item() < 1e-3 * ref_lse.abs().max().item()
+
+
+@pytest.mark.parametrize("b,h,lq,lk,mask_len", TRAIN_SHAPES)
+def test_bwd_kernels_match_plain(dev, b, h, lq, lk, mask_len):
+    q, k, v, do, mask = _train_inputs(dev, b, h, lq, lk, mask_len)
+    out, lse = fa.flash_fwd_lse(q, k, v, mask, mask_len)
+    delta = (do.float() * out.float()).sum(-1).reshape(b * h, lq)
+    q_pre = fa.prescale_q(q)
+    before = dict(kernels.LAUNCHES)
+    dq = fa.flash_bwd_dq(q_pre, k, v, do, lse, delta, mask, mask_len)
+    dk, dv = fa.flash_bwd_dkv(q_pre, k, v, do, lse, delta, mask, mask_len)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    ref_dq = fa.flash_bwd_dq_plain(q_pre, k, v, do, lse, delta, mask, mask_len)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q_pre, k, v, do, lse, delta, mask, mask_len)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.float32
+        err = (got - ref).abs().max().item()
+        assert err < GRAD_TOL * ref.abs().max().item(), err
+    if mask is not None:
+        dead = ~mask[:, None, :, None].expand(b, h, lk, 128)
+        assert torch.count_nonzero(dk[dead]) == 0 and torch.count_nonzero(dv[dead]) == 0
+
+
+def test_trainable_function_matches_autograd_of_plain(dev):
+    q, k, v, do, mask = _train_inputs(dev, 2, 3, 200, 328, 64)
+    qs = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention_trainable(*qs, mask, 64)
+    got = torch.autograd.grad(out, qs, do)
+    qr = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.joint_attention_plain(*qr, mask), qr, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        err = (g.float() - r.float()).abs().max().item()
+        assert err < 3e-2 * max(1.0, r.float().abs().max().item()), err
+
+
+def test_a_gradient_never_goes_through_k1(dev):
+    """A CUDA input that needs a gradient at a shape the trainable kernels
+    do not take raises instead of losing its gradient in K1."""
+    q = _randn((1, 4, 64, 128), 24, dev).requires_grad_()
+    kv = _randn((1, 2, 64, 128), 25, dev)
+    with pytest.raises(ValueError, match="no backward"):
+        fa.joint_attention(q, kv, kv)
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import attention as att
+    with pytest.raises(ValueError, match="no backward"):
+        att.attention(q, kv, kv)

@@ -208,7 +208,7 @@ def test_encode_matches_jax(vl_params):
     jparams, params = vl_params
     img = _rng(11).integers(0, 256, (56, 84, 3)).astype(np.uint8)
     jenc = jvl.QwenVLEncoder(VL32, params=jparams, max_len=VL32.max_text_len)
-    enc = vl.QwenVLEncoder(VL32, params, max_len=VL32.max_text_len)
+    enc = vl.QwenVLEncoder(VL32, params, device="cpu", max_len=VL32.max_text_len)
     want = jenc.encode("make it a watercolor painting", [img])
     got = enc.encode("make it a watercolor painting", [img])
     np.testing.assert_array_equal(got.mask, np.asarray(want.mask))
