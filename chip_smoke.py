@@ -8,7 +8,10 @@ toolkit. Phases, each printing one JSON line:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — compiles ``qwen_image_edit_streamdiffusion_tpu_torch/csrc`` with
-             nvcc (sm_90a) and loads it;
+             nvcc (sm_90a) and loads it; per kernel symbol, the HGMMA (wgmma)
+             and UTMALDG (TMA) instructions of its SASS, its spill bytes and
+             whether ptxas serialised its wgmmas: the forward (K1/K4/K7) must
+             show both, no spills and no serialisation;
 3. kernels — each hand-written kernel against its plain PyTorch version at the
              main path's shapes: max-abs error against the stated tolerance,
              the median CUDA-event time of both and of the one PyTorch call
@@ -30,13 +33,16 @@ toolkit. Phases, each printing one JSON line:
              request prints its wall seconds, kernel launch counts, output
              shape and peak memory; K1 (or K4 for two images) must run 120
              times per request, K2 28 times per cache miss and 0 per hit, K3
-             at least once;
+             at least once; then two more misses, one timed plainly and one
+             under torch.profiler (device time by kernel kind, busy seconds,
+             idle share = 1 - busy / the plain miss's wall);
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
              (default attention targets, ``remat``) over a batch of two
              1024² (condition, prompt, target) rows from ``build_batch``; a
              warm-up and three timed steps, each printing wall seconds, loss,
              launches (K7 120, K8 60, K9 60, K1 0 exactly) and peak bytes, then
-             one profiled step (device time by kernel kind); losses and
+             one profiled step (device time by kernel kind, idle share
+             against the last timed step's wall); losses and
              gradients finite, gradients not all zero, adapters changed;
    lora    — the trained adapters exported, written with the port's
              .safetensors writer, read back, fused in place into the live
@@ -83,11 +89,19 @@ INT8_LM = 7 * 28
 INT8_VISION = 5 * 32 + 2
 INT4_VISION = 32   # under int4 only the 3420-wide vision `down` stays int8
 
-# Kernel tolerance: bf16 in and out on both sides, and the plain versions round
-# P and the output at other places than the kernels, so a kernel may differ
-# from its plain version by two bf16 ulps at the output's largest magnitude:
-# max|got - ref| <= KERNEL_TOL * max(1, max|ref|).
-KERNEL_TOL = 8e-3
+# Flash forward tolerance (K1, K2, K4, K7): kernel and plain version round at
+# the same points (bf16 Q_pre, exp2 argument, P and O), but the kernel takes a
+# blockwise running max where the plain version takes the row's global max, so
+# a few rounded exp2 arguments, and with them P, differ; the outputs differ by
+# at most ATTN_ULPS bf16 ulps (8 significant bits) at max|ref|. A K1 that let
+# the 48 padded text keys through moves outputs by far more than that. LSE2 (f32, base 2, about 14 at the train shape) moves by < 1e-3 under
+# the same rounding, and by 5e-3 when every P is biased low by one bf16
+# rounding (exp2 taken in bf16): |got - ref| <= LSE_TOL.
+ATTN_ULPS = 2
+LSE_TOL = 2e-3
+# K3: both sum the 9·cin bf16 products in f32, in other orders, and round once
+# to bf16: max|got - ref| <= CONV_TOL * max(1, max|ref|), two bf16 ulps.
+CONV_TOL = 8e-3
 BLOCK_TOL = 3e-2   # rel-L2 of a 2-block bf16 MMDiT forward, kernels vs plain
 # K8/K9 outputs are f32 sums over 8448 keys or rows of bf16 products whose
 # inputs (dS, P) the kernel and the plain version round to bf16 at slightly
@@ -116,6 +130,59 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# the port's kernel symbols, as nvcc mangles them into the library
+KERNEL_SYMBOLS = ("flash_fwd_sm90_kernel", "flash_causal_kernel", "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv_kernel", "conv3x3_mma_kernel", "conv3x3_f32_kernel",
+                  "int8_gemm_kernel", "quantize_rows_kernel")
+
+
+def short_symbol(mangled: str) -> str:
+    """``flash_fwd_sm90_kernel<1>`` for a mangled kernel name (the template
+    flag, where there is one, in angle brackets)."""
+    import re
+
+    for sym in KERNEL_SYMBOLS:
+        if sym in mangled:
+            flag = re.search(sym + r"ILb([01])E", mangled)
+            return sym + (f"<{flag.group(1)}>" if flag else "")
+    return mangled[:60]
+
+
+def build_report(lib_path) -> dict:
+    """Per kernel symbol: the HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in ``cuobjdump --dump-sass`` of the built library, the spill
+    bytes ``-Xptxas -v`` printed, and whether ptxas serialised its wgmmas
+    (warnings C7510-C7515 in build.log)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    report, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = short_symbol(line.split("Function : ")[1].strip())
+            report[name] = {"HGMMA": 0, "UTMALDG": 0, "spill_bytes": None,
+                            "wgmma_serialized": False}
+        elif name is not None:
+            for op in ("HGMMA", "UTMALDG"):
+                report[name][op] += op in line
+    log = (lib_path.parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Function properties for " in line and i + 1 < len(log):
+            name = short_symbol(line.split("Function properties for ")[1].strip())
+            nums = [int(w) for w in log[i + 1].replace(",", " ").split() if w.isdigit()]
+            if name in report and len(nums) >= 3:
+                report[name]["spill_bytes"] = nums[1] + nums[2]
+        for code in ("C7510", "C7511", "C7512", "C7513", "C7514", "C7515"):
+            if code in line:
+                for name in report:
+                    if name.split("<")[0] in line:
+                        report[name]["wgmma_serialized"] = True
+    return report
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Median CUDA-event time of ``fn`` over ``iters`` runs, after one warm-up."""
     import torch
@@ -134,8 +201,13 @@ def cuda_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def tolerance(ref) -> float:
-    return KERNEL_TOL * max(1.0, ref.abs().max().item())
+def attn_tolerance(ref) -> float:
+    """ATTN_ULPS bf16 ulps at max|ref|."""
+    return ATTN_ULPS * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+
+
+def conv_tolerance(ref) -> float:
+    return CONV_TOL * max(1.0, ref.abs().max().item())
 
 
 def bound(ops: float, nbytes: float, peak: float) -> dict:
@@ -203,9 +275,10 @@ def phase_kernels():
 
     ref = k1_plain().float()
     err = (out.float() - ref).abs().max().item()
-    tol = tolerance(ref)
+    tol = attn_tolerance(ref)
     rec = {"phase": "kernel", "name": "flash_attention_joint",
            "shape": list(q.shape), "max_abs_err": err, "tol": tol,
+           "ref_max": ref.abs().max().item(),
            "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, TXT_LEN), 10),
            "plain_ms": cuda_ms(k1_plain, 3),
            "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask), 10),
@@ -227,7 +300,7 @@ def phase_kernels():
         got = fa.causal_attention(q, k, v)[:, :, :n_real].float()
         ref = fa.causal_attention_plain(q, k, v, keep)[:, :, :n_real].float()
         err = (got - ref).abs().max().item()
-        tol = tolerance(ref)
+        tol = attn_tolerance(ref)
         worst = max(worst, err)
         rec = {"phase": "kernel", "name": "flash_attention_causal",
                "shape": [1, 28, 4, l], "n_real": n_real, "max_abs_err": err,
@@ -257,7 +330,7 @@ def phase_kernels():
         got = conv_ops.conv3x3(x, w, b).float()
         ref = conv_ops.conv3x3_plain(x, w, b).float()
         err = (got - ref).abs().max().item()
-        tol = tolerance(ref)
+        tol = conv_tolerance(ref)
         worst = max(worst, err)
         wl = w.permute(3, 2, 0, 1)  # the NHWC/HWIO operands as cuDNN's
         rec = {"phase": "kernel", "name": "conv3x3", "shape": [1, SIZE, SIZE, cin, f],
@@ -313,9 +386,10 @@ def phase_stream_kernel():
 
         ref = plain().float()
         err = (out.float() - ref).abs().max().item()
-        tol = tolerance(ref)
+        tol = attn_tolerance(ref)
         rec = {"phase": "kernel", "name": "flash_attention_stream",
                "shape": [1, h, hkv, lk], "max_abs_err": err, "tol": tol,
+               "ref_max": ref.abs().max().item(),
                "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, txt), 10),
                "plain_ms": cuda_ms(plain, 3),
                "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask,
@@ -450,6 +524,7 @@ def phase_train_kernels():
 
     ref_o, ref_lse = k7_plain()
     err7 = (out.float() - ref_o.float()).abs().max().item()
+    tol7, ref_max7 = attn_tolerance(ref_o.float()), ref_o.abs().max().item()
     err_lse = (lse - ref_lse).abs().max().item()
     ref_dq = k8_plain()
     err8 = (dq - ref_dq).abs().max().item()
@@ -470,7 +545,8 @@ def phase_train_kernels():
 
     recs = {
         "flash_fwd_lse": {
-            "max_abs_err": err7, "tol": tolerance(out.float()), "lse_max_abs_err": err_lse,
+            "max_abs_err": err7, "tol": tol7, "ref_max": ref_max7,
+            "lse_max_abs_err": err_lse, "lse_tol": LSE_TOL,
             "o_equals_k1": same_as_k1,
             "ms": cuda_ms(lambda: fa.flash_fwd_lse(q, k, v, mask, TXT_LEN), 10),
             "plain_ms": cuda_ms(k7_plain, 2), "library_ms": lib_fwd,
@@ -492,10 +568,10 @@ def phase_train_kernels():
         emit({"phase": "kernel", "name": name, "shape": [b, h, l, 128], **rec})
     if not same_as_k1:
         raise AssertionError("K7's O differs from K1's")
-    if not err7 <= recs["flash_fwd_lse"]["tol"]:
-        raise AssertionError(f"K7 error {err7}")
-    if not err_lse <= 1e-3 * lse.abs().max().item():
-        raise AssertionError(f"K7 LSE error {err_lse}")
+    if not err7 <= tol7:
+        raise AssertionError(f"K7 error {err7} > {tol7}")
+    if not err_lse <= LSE_TOL:
+        raise AssertionError(f"K7 LSE error {err_lse} > {LSE_TOL}")
     if not (err8 <= tol8 and err9 <= tol9):
         raise AssertionError(f"K8 error {err8} (tol {tol8}), K9 {err9} (tol {tol9})")
     if dead_kv_nonzero:
@@ -729,6 +805,8 @@ def phase_slice():
                 + [("two_images", two, PROMPT, expected(True, 2))])
     latents = {}
     launches = run_requests(pipe, requests, "bf16", latents)
+    for k, n in profile_request(pipe).items():
+        launches[k] += n
     train_launches, adapters = phase_train(pipe)
     serve_launches = phase_lora_serve(pipe, adapters, latents["hit1"])
     for more in (train_launches, serve_launches):
@@ -737,42 +815,98 @@ def phase_slice():
     return launches
 
 
-def step_profile(trainer, batch) -> dict:
-    """Device time of one train step by kernel kind (torch.profiler)."""
+# (symbol fragment, kind) of the port's kernels, as torch.profiler names them
+KERNEL_KINDS = (("flash_fwd_sm90", "K1/K4/K7 flash_fwd_sm90"),
+                ("flash_causal", "K2 flash_causal"),
+                ("conv3x3", "K3 conv3x3"),
+                ("quantize_rows", "K5 quantize_rows"),
+                ("int8_gemm", "K6 int8_gemm"),
+                ("flash_bwd_dq", "K8 flash_bwd_dq"),
+                ("flash_bwd_dkv", "K9 flash_bwd_dkv"))
+
+
+def kernel_kind(name: str) -> str:
+    for frag, kind in KERNEL_KINDS:
+        if frag in name:
+            return kind
+    if any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet")):
+        return "GEMM (cuBLAS)"
+    return "other"
+
+
+def profile_call(fn, plain_wall=None) -> dict:
+    """Device time of one call of ``fn`` by kernel kind (torch.profiler), its
+    wall seconds, device busy seconds, and the span from its first device
+    event's start to its last one's end. The profiler's host cost stretches
+    that wall and span, so the idle share is taken against ``plain_wall``,
+    the wall seconds of the same work timed without the profiler:
+    1 - busy / plain_wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.step(batch)
+        fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
-    kinds = {"K7 flash_fwd_lse": 0.0, "K8 flash_bwd_dq": 0.0,
-             "K9 flash_bwd_dkv": 0.0, "GEMM (cuBLAS)": 0.0, "other": 0.0}
-    top = []
+    kinds, top = {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = e.self_device_time_total / 1e6  # us → s
-        name = e.key
-        if "flash_fwd_kernel" in name:
-            kind = "K7 flash_fwd_lse"
-        elif "flash_bwd_dq" in name:
-            kind = "K8 flash_bwd_dq"
-        elif "flash_bwd_dkv" in name:
-            kind = "K9 flash_bwd_dkv"
-        elif any(w in name.lower() for w in ("gemm", "cutlass", "xmma", "nvjet")):
-            kind = "GEMM (cuBLAS)"
-        else:
-            kind = "other"
-        kinds[kind] += t
-        top.append((t, e.count, name[:90]))
+        kind = kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + t
+        top.append((t, e.count, e.key[:90]))
+    ranges = [e.time_range for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    span = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e6
     busy = sum(kinds.values())
     top.sort(reverse=True)
-    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
-            "device_s": kinds, "top": [{"s": t, "calls": c, "kernel": n}
-                                       for t, c, n in top[:12]]}
+    out = {"wall_s": wall, "busy_s": busy, "span_s": span,
+           "span_idle_share": 1 - busy / span}
+    if plain_wall is not None:
+        out.update(plain_wall_s=plain_wall, idle_share=1 - busy / plain_wall)
+    out.update(device_s=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+               top=[{"s": t, "calls": c, "kernel": n} for t, c, n in top[:12]])
+    return out
+
+
+def profile_request(pipe) -> dict:
+    """Two more bf16 cache misses: one timed plainly, then one under
+    torch.profiler: device time by kernel kind, busy seconds and the idle
+    share against the plain miss's wall (the profile PERF.md §5 keeps).
+    Returns their launches, each held to a miss's counts."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    def miss(i):
+        return lambda: pipe(distinct_image(i), PROMPT, num_inference_steps=STEPS,
+                            seed=42)
+
+    total = {k: 0 for k in kernels.LAUNCHES}
+    plain_wall = None
+    for name, image in (("miss_plain", 6000), ("miss_profiled", 6001)):
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if plain_wall is None:
+            miss(image)()
+            torch.cuda.synchronize()
+            plain_wall = time.time() - t0
+            rec = {"wall_s": plain_wall}
+        else:
+            rec = profile_call(miss(image), plain_wall)
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        emit({"phase": "request_profile", "path": "bf16", "name": name,
+              "launches": delta, **rec})
+        for key, n in expected(True).items():
+            if delta[key] != n:
+                raise AssertionError(f"{name}: {key} ran {delta[key]} times, not {n}")
+        for k, n in delta.items():
+            total[k] += n
+    return total
 
 
 def phase_train(pipe):
@@ -829,7 +963,8 @@ def phase_train(pipe):
     launches = dict(kernels.LAUNCHES)
     changed = sum(not torch.equal(a, b) for a, b in zip(before, leaves))
     emit({"phase": "train_profile", "adapters_changed": changed,
-          "adapters": len(leaves), **step_profile(trainer, batch)})
+          "adapters": len(leaves),
+          **profile_call(lambda: trainer.step(batch), wall)})  # wall: the last timed step
     if changed == 0:
         raise AssertionError("training changed no adapter")
     return launches, (trainer.lora, cfg)
@@ -919,7 +1054,17 @@ def main() -> int:
 
     t0 = time.time()
     kernels.library()
-    emit({"phase": "build", "seconds": time.time() - t0})
+    build_s = time.time() - t0
+    sass = build_report(kernels.library_path())
+    emit({"phase": "build", "seconds": build_s, "kernels": sass})
+    if not any(name.startswith("flash_fwd_sm90_kernel") for name in sass):
+        raise AssertionError("flash_fwd_sm90_kernel is not in the library")
+    for name, rec in sass.items():
+        if name.startswith("flash_fwd_sm90_kernel") and not (
+                rec["HGMMA"] > 0 and rec["UTMALDG"] > 0 and rec["spill_bytes"] == 0
+                and not rec["wgmma_serialized"]):
+            raise AssertionError(f"{name}: not a wgmma/TMA kernel without spills "
+                                 f"and serialisation: {rec}")
 
     per_kernel = phase_kernels()
     phase_block_parity()
@@ -933,19 +1078,19 @@ def main() -> int:
     emit({"phase": "launches", "total": launches})
 
     sources = {
-        "flash_attention_joint": ("csrc/flash_attention.cu", "flash_joint",
+        "flash_attention_joint": ("csrc/flash_fwd_sm90.cu", "flash_joint",
                                   "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:42"),
         "flash_attention_causal": ("csrc/flash_attention.cu", "flash_causal",
                                    "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:163"),
         "conv3x3": ("csrc/conv3x3.cu", "conv3x3",
                     "qwen_image_edit_streamdiffusion_tpu/ops/conv.py:44"),
-        "flash_attention_stream": ("csrc/flash_attention.cu", "flash_joint_stream",
+        "flash_attention_stream": ("csrc/flash_fwd_sm90.cu", "flash_joint_stream",
                                    "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:286"),
         "quantize_rows": ("csrc/int8_gemm.cu", "quantize_rows",
                           "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:139"),
         "int8_gemm": ("csrc/int8_gemm.cu", "int8_gemm",
                       "qwen_image_edit_streamdiffusion_tpu/ops/int8.py:174"),
-        "flash_fwd_lse": ("csrc/flash_attention.cu", "flash_fwd_lse",
+        "flash_fwd_lse": ("csrc/flash_fwd_sm90.cu", "flash_fwd_lse",
                           "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:426"),
         "flash_bwd_dq": ("csrc/flash_attention_bwd.cu", "flash_bwd_dq",
                          "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:492"),

@@ -1,45 +1,31 @@
-// Flash attention forward for Hopper (sm_90a), bf16 in / bf16 out, f32 softmax.
+// Causal GQA flash attention forward for Hopper (sm_90a), bf16 in / bf16
+// out, f32 softmax.
 //
-// Replaces three Pallas TPU kernels of qwen_image_edit_streamdiffusion_tpu:
-//   K1  ops/flash_attention.py::_flash_kernel         (CAUSAL = false)
-//       joint [txt ⊕ img] attention of the MMDiT, with a (B, Lk) key mask that
-//       only the text-prefix blocks [0, mask_len) and the tail block need;
-//   K4  ops/flash_attention.py::_flash_kernel_hbm     (CAUSAL = false)
-//       the same math with K/V streamed from HBM, for joint sequences whose
-//       K/V outgrow the TPU's VMEM (two 1024² condition images: Lk ≈ 12.7k),
-//       and GQA through kv_heads. This kernel streams K/V for any Lk, so K4
-//       is the same instance; q head h reads kv head h / (H / Hkv);
-//   K7  ops/flash_attention.py::_flash_kernel_fwd_lse  (CAUSAL = false,
-//       LSE = true): the forward of the trainable attention (H == Hkv), the
-//       same instance plus one store per row of LSE2 = m + log2(l) for the
-//       backward kernels (flash_attention_bwd.cu); its O is K1's bit for bit;
-//   K2  ops/flash_attention.py::_flash_kernel_causal  (CAUSAL = true)
-//       causal GQA attention of the Qwen2.5-VL language model; q head h reads
-//       kv head h / (H / Hkv); key blocks above the diagonal are never read and
-//       only diagonal blocks apply the row >= col select.
+// Replaces the Pallas TPU kernel
+//   K2  qwen_image_edit_streamdiffusion_tpu ops/flash_attention.py::
+//       _flash_kernel_causal
+// the causal GQA attention of the Qwen2.5-VL language model; q head h reads
+// kv head h / (H / Hkv); key blocks above the diagonal are never read and
+// only diagonal blocks apply the row >= col select. It takes no key mask:
+// padding is a suffix, so every padded key lies above a real row's diagonal.
+// (The non-causal roles, K1, K4 and K7, run on flash_fwd_sm90.cu.)
 //
-// Math (same as the Pallas kernels): q is pre-scaled by d^-1/2 · log2(e) and
-// rounded to bf16, scores accumulate in f32, the online softmax runs in base 2
-// with f32 running max m, row sum l and output accumulator, and P is rounded to
-// bf16 before the P·V product (l sums the rounded P, so numerator and
-// denominator agree). Invalid keys get the score -1e30, as on the TPU.
+// Math (the Pallas kernel's rounding points): q is pre-scaled by d^-1/2 ·
+// log2(e) and rounded to bf16, scores accumulate in f32, the online softmax
+// runs in base 2 with f32 running max m, row sum l and output accumulator,
+// P = bf16(exp2(bf16(S − m))) (the exp2 argument at the value precision, as
+// the JAX kernel takes it), and l sums the rounded P.
 //
-// What bounds it on the H100: at the MMDiT's shape (24 heads, L ≈ 8.4k,
-// d = 128) one launch does 877 GFLOP on 207 MB of Q/K/V/O, thousands of FLOP
-// per byte of HBM, so the bound is how fast the tensor cores are fed. Each CTA
-// re-reads all of K/V (mostly from L2) at 128 FLOP per byte, and that traffic
-// is what the design hides. It is the FlashAttention-2 shape on mma.sync: a
-// CTA of 8 warps owns 128 query rows (16 per warp) and streams 64-key K/V
-// blocks through a two-stage cp.async ring in shared memory (Hopper has no
-// VMEM-resident K/V, so one kernel covers any Lk). Q stays in shared memory
-// and registers are capped at 128 a thread, so two CTAs (16 warps) share an
-// SM and hide each other's loads; that measured 25 % faster than Q held in
-// registers at one CTA per SM. Scores stay in registers: the m16n8k16
-// accumulator layout of S is the A-operand layout of P, so the softmax runs
-// on registers with two quad shuffles per row and P never touches shared
-// memory. Rows are padded by 16 bytes in shared memory so every ldmatrix is
-// free of bank conflicts. wgmma, TMA and warp specialisation (the FA3 shape)
-// are later work.
+// What bounds it on the H100: at the LM's shapes (28 q / 4 kv heads, L ≤
+// 1k) a launch does a few GFLOP and is bound by launch latency and the
+// tensor cores' fill: at L = 384 it runs at SDPA's time. It is the
+// FlashAttention-2 shape on mma.sync: a CTA of 8 warps owns 128 query rows
+// (16 per warp) and streams 64-key K/V blocks through a two-stage cp.async
+// ring in shared memory; causal CTAs with more key blocks start first. Scores
+// stay in registers: the m16n8k16 accumulator layout of S is the A-operand
+// layout of P, so the softmax runs on registers with two quad shuffles per
+// row and P never touches shared memory. Rows are padded by 16 bytes in
+// shared memory so every ldmatrix is free of bank conflicts.
 
 #include "mma_bf16.cuh"
 
@@ -61,22 +47,19 @@ constexpr int kQElems = kBQ * kLd;
 constexpr int kKVElems = kBK * kLd;
 constexpr int kSmemBytes = (kQElems + 4 * kKVElems) * 2;  // Q + 2 × (K, V)
 
-template <bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 const uint8_t* __restrict__ mask,  // (B, Lk) or nullptr
-                 __nv_bfloat16* __restrict__ out,
-                 float* __restrict__ lse,  // (B·H, Lq) when LSE
-                 int H, int Hkv, int Lq, int Lk, int mask_len, float qscale) {
+flash_causal_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ out, int H, int Hkv, int Lq,
+                    int Lk, float qscale) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* k_s = q_s + kQElems;       // two buffers
   __nv_bfloat16* v_s = k_s + 2 * kKVElems;  // two buffers
 
-  // Causal CTAs with more key blocks start first.
-  const int qb = CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // CTAs with more key blocks start first.
+  const int qb = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh % H;
@@ -93,14 +76,10 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* q_bh = q + (size_t)bh * Lq * kD;
   const __nv_bfloat16* k_bh = k + ((size_t)b * Hkv + kvh) * Lk * kD;
   const __nv_bfloat16* v_bh = v + ((size_t)b * Hkv + kvh) * Lk * kD;
-  const uint8_t* mask_b = mask ? mask + (size_t)b * Lk : nullptr;
 
   const int nkb = (Lk + kBK - 1) / kBK;
-  int kb_end = nkb;
-  if (CAUSAL) {
-    const int last = (q0 + kBQ - 1) / kBK + 1;  // blocks any row here sees
-    kb_end = last < nkb ? last : nkb;
-  }
+  const int last = (q0 + kBQ - 1) / kBK + 1;  // blocks any row here sees
+  const int kb_end = last < nkb ? last : nkb;
 
   auto load_kv = [&](int kb, int buf) {
     const int k0 = kb * kBK;
@@ -183,21 +162,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // Masks: the key mask only below mask_len and on the ragged tail, the
-    // causal select only where this warp's rows meet the diagonal.
+    // The causal select only where this warp's rows meet the diagonal, and
+    // keys past Lk on the ragged tail.
     const int k0 = kb * kBK;
     const bool tail = k0 + kBK > Lk;
-    const bool use_mask = mask_b != nullptr && (k0 < mask_len || tail);
-    const bool diag = CAUSAL && (k0 + kBK - 1 > wrow0);
-    if (tail || use_mask || diag) {
+    const bool diag = k0 + kBK - 1 > wrow0;
+    if (tail || diag) {
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + nt * 8 + 2 * t4 + (e & 1);
           const int row = (e < 2) ? row_lo : row_hi;
-          const bool dead = col >= Lk || (use_mask && mask_b[col] == 0) ||
-                            (diag && col > row);
+          const bool dead = col >= Lk || (diag && col > row);
           if (dead) s[nt][e] = kNegInf;
         }
       }
@@ -220,15 +197,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     m_lo = mx_lo;
     m_hi = mx_hi;
 
-    // P rounded to bf16, packed straight into A fragments for P·V.
+    // P = bf16(exp2(bf16(S − m))), packed straight into A fragments for P·V.
     uint32_t pf[kBK / 16][4];
     float ps_lo = 0.f, ps_hi = 0.f;
+    auto ex2 = [](float x) {
+      return exp2f(__bfloat162float(__float2bfloat16_rn(x)));
+    };
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
       const __nv_bfloat162 p_lo = __floats2bfloat162_rn(
-          exp2f(s[nt][0] - mx_lo), exp2f(s[nt][1] - mx_lo));
+          ex2(s[nt][0] - mx_lo), ex2(s[nt][1] - mx_lo));
       const __nv_bfloat162 p_hi = __floats2bfloat162_rn(
-          exp2f(s[nt][2] - mx_hi), exp2f(s[nt][3] - mx_hi));
+          ex2(s[nt][2] - mx_hi), ex2(s[nt][3] - mx_hi));
       ps_lo += __low2float(p_lo) + __high2float(p_lo);
       ps_hi += __low2float(p_hi) + __high2float(p_hi);
       pf[nt >> 1][(nt & 1) * 2 + 0] = as_u32(p_lo);
@@ -264,15 +244,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, d);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, d);
   }
-  if (LSE && t4 == 0) {
-    // LSE2 = m + log2(l); a row with no key at all gets +1e30 (P = 0)
-    if (row_lo < Lq)
-      lse[(size_t)bh * Lq + row_lo] =
-          l_lo > 0.f ? m_lo + log2f(l_lo) : 1e30f;
-    if (row_hi < Lq)
-      lse[(size_t)bh * Lq + row_hi] =
-          l_hi > 0.f ? m_hi + log2f(l_hi) : 1e30f;
-  }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   __nv_bfloat16* o_lo = out + ((size_t)bh * Lq + row_lo) * kD + 2 * t4;
@@ -288,53 +259,24 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool CAUSAL, bool LSE>
-int launch(const void* q, const void* k, const void* v, const uint8_t* mask,
-           void* out, float* lse, int B, int H, int Hkv, int Lq, int Lk,
-           int mask_len, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<CAUSAL, LSE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), mask,
-      static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Lq, Lk, mask_len,
-      scale * kLog2e);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// q (B, H, Lq, 128), k/v (B, Hkv, Lk, 128) with H % Hkv == 0, out (B, H, Lq,
-// 128), all bf16, contiguous and 16-byte aligned; mask (B, Lk) uint8 (1 =
-// attend) or null;
-// scale = d^-1/2. Returns cudaGetLastError() after the launch (0 = launched).
-extern "C" int qie_flash_attention_bf16(const void* q, const void* k,
-                                        const void* v, const void* mask,
-                                        void* out, int B, int H, int Hkv,
-                                        int Lq, int Lk, int mask_len,
-                                        float scale, int causal,
-                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (causal)
-    return launch<true, false>(q, k, v, nullptr, out, nullptr, B, H, Hkv, Lq,
-                               Lk, 0, scale, s);
-  return launch<false, false>(q, k, v, m, out, nullptr, B, H, Hkv, Lq, Lk,
-                              mask_len, scale, s);
-}
-
-// K7: the non-causal instance with H == Hkv that also writes lse (B·H, Lq)
-// f32, LSE2 = m + log2(l) of each query row in the base-2 domain of the
-// prescaled scores. Arguments otherwise as qie_flash_attention_bf16.
-extern "C" int qie_flash_fwd_lse_bf16(const void* q, const void* k,
-                                      const void* v, const void* mask,
-                                      void* out, void* lse, int B, int H,
-                                      int Lq, int Lk, int mask_len,
-                                      float scale, void* stream) {
-  return launch<false, true>(q, k, v, static_cast<const uint8_t*>(mask), out,
-                             static_cast<float*>(lse), B, H, H, Lq, Lk,
-                             mask_len, scale, static_cast<cudaStream_t>(stream));
+// K2: q (B, H, L, 128), k/v (B, Hkv, L, 128) with H % Hkv == 0, out (B, H, L,
+// 128), all bf16, contiguous and 16-byte aligned; scale = d^-1/2. Returns
+// cudaGetLastError() after the launch (0 = launched).
+extern "C" int qie_flash_causal_bf16(const void* q, const void* k,
+                                     const void* v, void* out, int B, int H,
+                                     int Hkv, int L, float scale,
+                                     void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((L + kBQ - 1) / kBQ, B * H);
+  flash_causal_kernel<<<grid, kThreads, kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H,
+      Hkv, L, L, scale * kLog2e);
+  return (int)cudaGetLastError();
 }

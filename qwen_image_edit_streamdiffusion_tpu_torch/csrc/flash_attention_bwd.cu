@@ -15,8 +15,9 @@
 //   dK = (dS · ln2).bf16^T · Q_pre      (K9; ln2 undoes the log2(e) of Q_pre)
 //   dV = P.bf16^T · dO                  (K9)
 // Masked keys get the score −1e30 as in the forward: the (B, Lk) key mask is
-// read only for 64-key blocks below mask_len and the ragged tail (K7's rule),
-// so a masked key's P is exactly 0 and so are its dK and dV rows.
+// read only where mask_applies (mma_bf16.cuh) says so, the rule K7
+// (flash_fwd_sm90.cu) applies, so a masked key's P is exactly 0 and so are
+// its dK and dV rows.
 //
 // Two kernels and no atomics, as in the JAX package, so the result is
 // deterministic: K8 gives a CTA 64 query rows of one (batch, head) and loops
@@ -43,7 +44,6 @@ using namespace qie;
 constexpr int kD = 128;          // head_dim
 constexpr int kLd = kD + 8;      // bf16 row stride of every tile (272 B)
 constexpr int kChunks = kD / 8;  // 16-byte chunks per row
-constexpr int kMaskBlock = 64;   // K7's key block: the unit of the mask rule
 constexpr float kNegInf = -1e30f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -59,13 +59,6 @@ constexpr int kQ9 = 32;                      // query rows per block
 constexpr int kThreads9 = (kK9 / 16) * 32;   // 8 warps
 constexpr int kSmem9 =
     (2 * kK9 + 4 * kQ9) * kLd * 2 + 4 * kQ9 * 4;  // K, V, 2 × (Q, dO, LSE, Δ)
-
-// Whether the key mask applies to key `col`: its 64-key block lies below
-// mask_len or holds the ragged tail (the rule K1 and K7 apply).
-__device__ __forceinline__ bool mask_applies(int col, int Lk, int mask_len) {
-  const int k0 = col & ~(kMaskBlock - 1);
-  return k0 < mask_len || k0 + kMaskBlock > Lk;
-}
 
 // Rows [r0, r0 + rows) of a (L, 128) bf16 matrix into a padded shared tile;
 // rows past L are zero-filled.

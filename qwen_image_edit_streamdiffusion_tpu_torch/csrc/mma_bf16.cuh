@@ -1,6 +1,7 @@
 // Shared device helpers of the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): cp.async copies, ldmatrix and mma.sync m16n8k16
-// on bf16 with f32 accumulators.
+// flash_attention_bwd.cu, flash_fwd_sm90.cu): cp.async copies, ldmatrix and
+// mma.sync m16n8k16 on bf16 with f32 accumulators, bf16 packing, and the
+// key-mask rule all of them apply.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A regs 0..3: (row g, cols 2t..2t+1), (g+8, 2t), (g, 2t+8), (g+8, 2t+8);
@@ -80,6 +81,18 @@ __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return as_u32(__floats2bfloat162_rn(lo, hi));
+}
+
+// The key-mask rule of the forward (K1, K4, K7) and backward (K8, K9)
+// kernels, key by key: the (B, Lk) mask applies to key `col` when its
+// 64-key group lies below mask_len or holds the ragged tail; elsewhere the
+// key is taken as valid. The same rule in all of them, whatever their block
+// sizes, so a key the forward masks has P = 0, dK = 0 and dV = 0.
+constexpr int kMaskGroup = 64;
+
+__device__ __forceinline__ bool mask_applies(int col, int Lk, int mask_len) {
+  const int k0 = col & ~(kMaskGroup - 1);
+  return k0 < mask_len || k0 + kMaskGroup > Lk;
 }
 
 }  // namespace qie

@@ -248,10 +248,21 @@ def _lm_attention(q, k, v, attn_mask: Optional[torch.Tensor],
                   use_flash: bool) -> torch.Tensor:
     """Causal GQA: q (1, H, L, D), k/v (1, Hkv, L, D) → (1, H, L, D). K2
     takes no mask (padding is a suffix, so padded keys sit above every real
-    row's diagonal); the plain path applies attn_mask as the JAX one does."""
+    row's diagonal). The other path is the JAX package's grouped-head XLA
+    attention (f32 natural-base softmax, P cast to V's dtype), with
+    attn_mask applied as there."""
     if use_flash and fa.supported(q, k, v):
         return fa.causal_attention(q, k, v)
-    return fa.causal_attention_plain(q, k, v, attn_mask)
+    _, nh, l, hd = q.shape
+    nkv = k.shape[1]
+    keep = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
+    if attn_mask is not None:
+        keep = keep & attn_mask.bool()[None, :]
+    qg = q.reshape(1, nkv, nh // nkv, l, hd)
+    s = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2)) * hd ** -0.5
+    s = s.masked_fill(~keep, -1e30)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p, v[:, :, None]).reshape(1, nh, l, hd)
 
 
 def lm_forward(params: Params, cfg: VLConfig, input_embeds: torch.Tensor,

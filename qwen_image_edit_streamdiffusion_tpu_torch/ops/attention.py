@@ -12,7 +12,20 @@ import torch
 
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention
 
-reference_attention = flash_attention.joint_attention_plain
+_NEG_INF = -1e30
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain attention with an f32 natural-base softmax, P cast to V's dtype
+    before P·V: the JAX package's XLA ``reference_attention``, not a kernel's
+    arithmetic (that is ``flash_attention.joint_attention_plain``). q, k, v
+    (B, H, L, D); kv_mask (B, Lk) bool, True = attend."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, :], _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.matmul(p, v)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

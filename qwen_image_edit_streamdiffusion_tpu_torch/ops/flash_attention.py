@@ -2,9 +2,10 @@
 (K2), and the trainable joint attention (K7 forward + LSE, K8 dQ, K9 dK/dV).
 
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py``.
-Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm``,
-``_flash_kernel_causal`` and ``_flash_kernel_fwd_lse`` become one CUDA kernel,
-``csrc/flash_attention.cu``, templated on causality and on the LSE store;
+Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm`` and
+``_flash_kernel_fwd_lse`` become one Hopper kernel on wgmma and TMA,
+``csrc/flash_fwd_sm90.cu``, templated on the LSE store;
+``_flash_kernel_causal`` becomes ``csrc/flash_attention.cu`` (mma.sync);
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` become the two kernels
 of ``csrc/flash_attention_bwd.cu``, behind :class:`FlashAttentionTrainable`
 (the JAX ``custom_vjp``). On Hopper K/V always stream from HBM through shared
@@ -14,6 +15,10 @@ VMEM budget) has no counterpart: the non-causal instance takes any Lk and GQA
 head exceed that budget is counted under ``flash_joint_stream`` instead of
 ``flash_joint``, so a run shows which role the kernel played.
 
+The plain versions of the forward kernels share one function that follows the
+Pallas kernels' arithmetic (bf16 Q_pre, base-2 scores, P = exp2 of the
+bf16-rounded argument, rounded to bf16); the XLA reference of the JAX package
+(natural-base f32 softmax) is ``ops/attention.py::reference_attention``.
 Each wrapper takes the plain PyTorch version only for tensors on the CPU. A
 CUDA tensor launches the kernel or the call raises; there is no fallback.
 Layout is (B, H, L, D) throughout, as in the JAX package.
@@ -53,19 +58,43 @@ def supported(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _gqa_attention_plain(q, k, v, keep: Optional[torch.Tensor]) -> torch.Tensor:
-    """Exact softmax attention with f32 scores and softmax; P is cast to V's
-    dtype before P·V. q (B, H, Lq, D), k/v (B, Hkv, Lk, D) with H % Hkv ==
+def qscale(d: int) -> float:
+    """The q prescale d^-1/2 · log2(e) as the kernels compute it: the f32
+    product of the two f32 factors (equal to fl(d^-1/2 · log2 e) at d = 128)."""
+    return float(torch.tensor(d ** -0.5, dtype=torch.float32)
+                 * torch.tensor(_LOG2E, dtype=torch.float32))
+
+
+def prescale_q(q: torch.Tensor) -> torch.Tensor:
+    """Q_pre = (q.f32 · qscale).to(q.dtype), rounded exactly as the forward
+    kernels round their Q tile, so the backward's recomputed P is the
+    forward's bit for bit."""
+    return (q.float() * qscale(q.shape[-1])).to(q.dtype)
+
+
+def _flash_forward_plain(q, k, v, keep: Optional[torch.Tensor]):
+    """The forward kernels' arithmetic (the Pallas kernels' rounding points):
+    Q_pre = prescale_q(q); S2 = Q_pre · K^T in f32, dead keys at -1e30; m the
+    row max; P = exp2(S2 − m rounded to V's dtype) rounded to V's dtype; l =
+    Σ P in f32; O = (P · V) / max(l, 1e-30) in q's dtype; LSE2 = m + log2 l,
+    or 1e30 where l = 0. q (B, H, Lq, D), k/v (B, Hkv, Lk, D) with H % Hkv ==
     0: q head h reads kv head h // (H // Hkv). keep (True = attend)
-    broadcasts against the (B, Hkv, H/Hkv, Lq, Lk) scores."""
+    broadcasts against the (B, Hkv, H/Hkv, Lq, Lk) scores. Returns (O,
+    LSE2 (B·H, Lq) f32)."""
     b, nh, lq, hd = q.shape
     nkv = k.shape[1]
-    qg = q.reshape(b, nkv, nh // nkv, lq, hd).float()
-    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * hd ** -0.5
+    qg = prescale_q(q).reshape(b, nkv, nh // nkv, lq, hd).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2))
     if keep is not None:
         s = s.masked_fill(~keep, _NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p, v[:, :, None]).reshape(b, nh, lq, hd)
+    m = s.amax(-1, keepdim=True).detach()  # O does not depend on m
+    p = torch.exp2((s - m).to(v.dtype).float()).to(v.dtype).float()
+    del s
+    l = p.sum(-1, keepdim=True)
+    o = torch.matmul(p, v.float()[:, :, None]) / l.clamp_min(1e-30)
+    lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)),
+                      torch.full_like(l, 1e30))
+    return o.reshape(b, nh, lq, hd).to(q.dtype), lse.reshape(b * nh, lq)
 
 
 def joint_attention_plain(q, k, v, kv_mask: Optional[torch.Tensor] = None,
@@ -75,7 +104,7 @@ def joint_attention_plain(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     plain version applies the whole mask, which is the same whenever the
     mask is True past it."""
     keep = None if kv_mask is None else kv_mask.bool()[:, None, None, None, :]
-    return _gqa_attention_plain(q, k, v, keep)
+    return _flash_forward_plain(q, k, v, keep)[0]
 
 
 def causal_attention_plain(q, k, v, attn_mask: Optional[torch.Tensor] = None
@@ -86,7 +115,7 @@ def causal_attention_plain(q, k, v, attn_mask: Optional[torch.Tensor] = None
     keep = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
     if attn_mask is not None:
         keep = keep & attn_mask.bool()[None, :]
-    return _gqa_attention_plain(q, k, v, keep)
+    return _flash_forward_plain(q, k, v, keep)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -116,17 +145,22 @@ def _check_cuda(q, k, v):
                          "batch × heads too large")
 
 
-def _launch(q, k, v, mask, mask_len: int, causal: bool) -> torch.Tensor:
-    lib = kernels.library()
+def _launch_fwd(q, k, v, mask, mask_len: int, lse: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """K1 / K4 (lse None) or K7 (lse (B·H, Lq) f32, written) on
+    ``csrc/flash_fwd_sm90.cu``."""
     b, h, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
+    if lq == 0 or lk == 0:
+        raise ValueError("flash attention: empty sequence")
     out = torch.empty_like(q)
-    err = lib.qie_flash_attention_bf16(
+    err = kernels.library().qie_flash_fwd_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        b, h, hkv, lq, lk, mask_len, d ** -0.5, int(causal),
+        lse.data_ptr() if lse is not None else None,
+        b, h, hkv, lq, lk, mask_len, d ** -0.5,
         kernels.current_stream_handle(q.device))
-    kernels.check(err, "flash attention")
+    kernels.check(err, "flash attention forward")
     return out
 
 
@@ -148,14 +182,8 @@ def joint_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     if q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"joint flash attention takes H % Hkv == 0, got "
                          f"{q.shape[1]} and {k.shape[1]}")
-    mask = None
-    bound = 0
-    if kv_mask is not None:
-        if kv_mask.shape != (q.shape[0], k.shape[2]):
-            raise ValueError(f"kv_mask must be (B, Lk), got {tuple(kv_mask.shape)}")
-        mask = kv_mask.to(device=q.device, dtype=torch.uint8).contiguous()
-        bound = k.shape[2] if mask_len is None else int(mask_len)
-    out = _launch(q, k, v, mask, bound, causal=False)
+    mask, bound = _mask_arg(q, k, kv_mask, mask_len)
+    out = _launch_fwd(q, k, v, mask, bound, None)
     kernels.LAUNCHES["flash_joint_stream" if streams_kv(k) else "flash_joint"] += 1
     return out
 
@@ -169,7 +197,12 @@ def causal_attention(q, k, v) -> torch.Tensor:
     _check_cuda(q, k, v)
     if q.shape[1] % k.shape[1] != 0 or q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention takes H % Hkv == 0, Lq == Lk")
-    out = _launch(q, k, v, None, 0, causal=True)
+    b, h, l, d = q.shape
+    out = torch.empty_like(q)
+    err = kernels.library().qie_flash_causal_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+        k.shape[1], l, d ** -0.5, kernels.current_stream_handle(q.device))
+    kernels.check(err, "causal flash attention")
     kernels.LAUNCHES["flash_causal"] += 1
     return out
 
@@ -188,19 +221,6 @@ def causal_attention(q, k, v) -> torch.Tensor:
 # it over 128 lanes, a TPU tiling artefact).
 
 
-def qscale(d: int) -> float:
-    """The q prescale d^-1/2 · log2(e) as the kernels compute it: the f32
-    product of the two f32 factors."""
-    return float(torch.tensor(d ** -0.5, dtype=torch.float32)
-                 * torch.tensor(_LOG2E, dtype=torch.float32))
-
-
-def prescale_q(q: torch.Tensor) -> torch.Tensor:
-    """Q_pre = (q.f32 · qscale).to(q.dtype), rounded exactly as K7 rounds its
-    Q tile, so the backward's recomputed P is the forward's bit for bit."""
-    return (q.float() * qscale(q.shape[-1])).to(q.dtype)
-
-
 def _scores2(q_pre, k, kv_mask) -> torch.Tensor:
     """(B, H, Lq, Lk) f32 base-2 scores; masked keys at -1e30."""
     s = torch.matmul(q_pre.float(), k.float().transpose(-1, -2))
@@ -211,19 +231,11 @@ def _scores2(q_pre, k, kv_mask) -> torch.Tensor:
 
 def flash_fwd_lse_plain(q, k, v, kv_mask: Optional[torch.Tensor] = None,
                         mask_len: Optional[int] = None):
-    """K7's function: (O in q's dtype, LSE2 (B·H, Lq) f32). P is rounded to
-    V's dtype before P·V and the row sum l adds the rounded P, as in K1; a
-    row with l = 0 gets LSE2 = 1e30."""
-    b, h, lq, _ = q.shape
-    s = _scores2(prescale_q(q), k, kv_mask)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp2(s - m).to(v.dtype).float()
-    del s
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p, v.float()) / l.clamp_min(1e-30)
-    lse = torch.where(l > 0, m + torch.log2(l.clamp_min(1e-30)),
-                      torch.full_like(l, 1e30))
-    return o.to(q.dtype), lse.reshape(b * h, lq)
+    """K7's function: (O in q's dtype, LSE2 (B·H, Lq) f32), the plain
+    forward of K1 with its row statistics; a row with l = 0 gets LSE2 =
+    1e30."""
+    keep = None if kv_mask is None else kv_mask.bool()[:, None, None, None, :]
+    return _flash_forward_plain(q, k, v, keep)
 
 
 def _bwd_p_ds(q_pre, k, v, do, lse, delta, kv_mask):
@@ -286,15 +298,9 @@ def flash_fwd_lse(q, k, v, kv_mask: Optional[torch.Tensor] = None,
         return flash_fwd_lse_plain(q, k, v, kv_mask, mask_len)
     _check_train(q, k, v, ())
     mask, bound = _mask_arg(q, k, kv_mask, mask_len)
-    b, h, lq, d = q.shape
-    out = torch.empty_like(q)
+    b, h, lq, _ = q.shape
     lse = torch.empty((b * h, lq), dtype=torch.float32, device=q.device)
-    err = kernels.library().qie_flash_fwd_lse_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(),
-        lse.data_ptr(), b, h, lq, k.shape[2], bound, d ** -0.5,
-        kernels.current_stream_handle(q.device))
-    kernels.check(err, "flash attention forward + LSE")
+    out = _launch_fwd(q, k, v, mask, bound, lse)
     kernels.LAUNCHES["flash_fwd_lse"] += 1
     return out, lse
 

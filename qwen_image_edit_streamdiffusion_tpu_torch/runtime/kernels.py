@@ -28,9 +28,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "conv3x3.cu",
-           "int8_gemm.cu")
-HEADERS = ("mma_bf16.cuh",)
+SOURCES = ("flash_fwd_sm90.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "conv3x3.cu", "int8_gemm.cu")
+HEADERS = ("mma_bf16.cuh", "sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # kernel name -> launches since the last reset
@@ -100,23 +100,29 @@ def _build(out: Path) -> None:
     os.replace(tmp, out)
 
 
+def library_path() -> Path:
+    """Where the library of the current sources is (or will be) built; its
+    compiler log is ``build.log`` beside it."""
+    return BUILD_DIR / f"libqie_kernels_{_source_hash()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this checkout has none."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = BUILD_DIR / f"libqie_kernels_{_source_hash()}.so"
+        path = library_path()
         if not path.exists():
             _build(path)
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.qie_flash_attention_bf16.argtypes = [
-            vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
-        lib.qie_flash_attention_bf16.restype = ci
-        lib.qie_flash_fwd_lse_bf16.argtypes = [
-            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp]
-        lib.qie_flash_fwd_lse_bf16.restype = ci
+        lib.qie_flash_fwd_sm90.argtypes = [
+            vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+        lib.qie_flash_fwd_sm90.restype = ci
+        lib.qie_flash_causal_bf16.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp]
+        lib.qie_flash_causal_bf16.restype = ci
         lib.qie_flash_bwd_dq_bf16.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp]
         lib.qie_flash_bwd_dq_bf16.restype = ci
