@@ -299,26 +299,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
       fence_regs(p);  // defined here, before the next wgmma stage opens
     };
-    // Ping-pong of the two consumer warpgroups (named barriers 3 and 4): a
-    // warpgroup issues its products only in its turn, then hands the turn
-    // over, so one warpgroup's softmax runs under the other's products.
-    // Warpgroup 1 opens warpgroup 0's first turn and skips its own last
-    // hand-over, so every barrier sees as many arrivals as waits.
-    auto my_turn = [&]() { named_barrier(3 + wg, 256); };
-    auto hand_over = [&](int kb) {
-      if (wg == 0 || kb + 1 < nkb) named_barrier_arrive(4 - wg, 256);
-    };
-    if (wg == 1) named_barrier_arrive(3, 256);
+    // The softmax of one warpgroup runs under the other's products.
+    pingpong_open(wg);
 
     // Block 0: S alone.
     float alpha_lo, alpha_hi;
     mbar_wait(k_full(0), 0);
-    my_turn();
+    pingpong_turn(wg);
     fence_regs(s);
     wgmma_fence();
     issue_qk(s, 0);
     wgmma_commit();
-    hand_over(0);
+    pingpong_hand_over(wg, nkb == 1);
     wgmma_wait<0>();
     fence_regs(s);
     if (arriver) mbar_arrive(k_empty(0));
@@ -335,7 +327,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t pph = ((kb - 1) / kStages) & 1;
       mbar_wait(k_full(st), ph);
       mbar_wait(v_full(pst), pph);
-      my_turn();
+      pingpong_turn(wg);
       fence_regs(s);
       fence_regs(o);
       wgmma_fence();
@@ -344,7 +336,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // each product's stage opens after its inputs exist
       issue_pv(o, p, pst);
       wgmma_commit();
-      hand_over(kb);
+      pingpong_hand_over(wg, kb + 1 == nkb);
       wgmma_wait<1>();
       fence_regs(s);
       if (arriver) mbar_arrive(k_empty(st));
@@ -405,47 +397,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
-// A (heads, L, 128) bf16 tensor as a 3-D map with boxes of 64 columns x 128
-// rows x 1 head, 128-byte swizzle; rows past L read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int L, int heads) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)L, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2, (cuuint64_t)L * kD * 2};
-  const cuuint32_t box[3] = {64, 128, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool LSE>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            const uint8_t* mask, void* out, float* lse, int B, int H, int Hkv,
@@ -473,8 +424,8 @@ extern "C" int qie_flash_fwd_sm90(const void* q, const void* k, const void* v,
                                   int B, int H, int Hkv, int Lq, int Lk,
                                   int mask_len, float scale, void* stream) {
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, Lq, B * H) || !make_map(&km, k, Lk, B * Hkv) ||
-      !make_map(&vm, v, Lk, B * Hkv))
+  if (!make_map(&qm, q, Lq, B * H, kBQ) || !make_map(&km, k, Lk, B * Hkv, kBK) ||
+      !make_map(&vm, v, Lk, B * Hkv, kBK))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

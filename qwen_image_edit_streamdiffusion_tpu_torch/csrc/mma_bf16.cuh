@@ -1,7 +1,7 @@
-// Shared device helpers of the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu, flash_fwd_sm90.cu): cp.async copies, ldmatrix and
-// mma.sync m16n8k16 on bf16 with f32 accumulators, bf16 packing, and the
-// key-mask rule all of them apply.
+// Shared device helpers of the flash-attention kernels: cp.async copies,
+// ldmatrix and mma.sync m16n8k16 on bf16 with f32 accumulators (K2,
+// flash_attention.cu), bf16 packing, and the key-mask rule of the forward
+// and backward kernels (flash_fwd_sm90.cu, flash_attention_bwd.cu).
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A regs 0..3: (row g, cols 2t..2t+1), (g+8, 2t), (g, 2t+8), (g+8, 2t+8);
@@ -28,15 +28,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4-byte global → shared copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
                : "memory");
 }
 

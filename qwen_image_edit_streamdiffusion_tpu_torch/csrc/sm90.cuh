@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
-// TMA tile loads, wgmma descriptors and the two wgmma shapes the forward
-// (flash_fwd_sm90.cu) issues, and the warp-specialisation register moves.
+// TMA tile loads, wgmma descriptors, the wgmma shapes the forward
+// (flash_fwd_sm90.cu) and the backward (flash_attention_bwd.cu) issue, the
+// warp-specialisation register moves, and on the host the TMA tensor maps
+// both build.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a row of
 // 64 bf16 (128 bytes) per box row, rows grouped by 8 into 1024-byte atoms,
 // so every tile base is 1024-byte aligned. A 128-wide bf16 row is two such
-// boxes ("halves"), stored one after the other.
+// boxes ("halves"), stored one after the other: for a tile of R rows each
+// half is R · 128 bytes.
 //
 // wgmma accumulator layout of m64nN (f32): warp w of the warpgroup holds rows
 // 16w + g and 16w + g + 8 (g = lane / 4, t = lane % 4); register 4j + e is
@@ -16,6 +19,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace qie {
@@ -105,6 +109,19 @@ __device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Ping-pong of the two consumer warpgroups 0 and 1 (named barriers 3 and 4):
+// a warpgroup issues its products only in its turn, then hands the turn
+// over, so one warpgroup's exp2 work runs under the other's products.
+// Warpgroup 1 opens warpgroup 0's first turn and skips its own last
+// hand-over, so every barrier sees as many arrivals as waits.
+__device__ __forceinline__ void pingpong_open(int wg) {
+  if (wg == 1) named_barrier_arrive(3, 256);
+}
+__device__ __forceinline__ void pingpong_turn(int wg) { named_barrier(3 + wg, 256); }
+__device__ __forceinline__ void pingpong_hand_over(int wg, bool last) {
+  if (wg == 0 || !last) named_barrier_arrive(4 - wg, 256);
+}
+
 // 2^x on the MUFU unit, subnormal results flushed to zero.
 __device__ __forceinline__ float ex2_ftz(float x) {
   float y;
@@ -192,9 +209,26 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 64 f32) (+)= A (64 x 16, smem, K-major) · B (16 x 64, smem,
+// K-major): the backward's S^T = K · Q_pre^T and dP^T = V · dO^T over a
+// 64-row query tile.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64 x 128 f32) += A (64 x 16 bf16, registers, the mma.sync A fragment of
 // each warp's 16 rows) · B (16 x 128, smem, MN-major: the transpose flag):
-// O += P · V.
+// O += P · V, and in the backward dQ += dS · K, dV += P^T · dO and
+// dK += dS^T · Q_pre.
 __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
                                                        const uint32_t (&a)[4],
                                                        uint64_t desc_b) {
@@ -211,6 +245,53 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_tb(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---------------------------------------------------------------------------
+// Host: TMA tensor maps
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
+  }
+  return fn;
+}
+
+// A (heads, L, 128) bf16 tensor as a 3-D map with boxes of 64 columns x
+// box_rows rows x 1 head, 128-byte swizzle; rows past L read as zeros, so a
+// box never reaches into the next head.
+inline bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
+                     int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {128, (cuuint64_t)L, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {128 * 2, (cuuint64_t)L * 128 * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

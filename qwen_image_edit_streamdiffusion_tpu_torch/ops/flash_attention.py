@@ -7,7 +7,8 @@ Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm`` and
 ``csrc/flash_fwd_sm90.cu``, templated on the LSE store;
 ``_flash_kernel_causal`` becomes ``csrc/flash_attention.cu`` (mma.sync);
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` become the two kernels
-of ``csrc/flash_attention_bwd.cu``, behind :class:`FlashAttentionTrainable`
+of ``csrc/flash_attention_bwd.cu`` (on the forward's wgmma/TMA skeleton,
+deterministic: no atomics), behind :class:`FlashAttentionTrainable`
 (the JAX ``custom_vjp``). On Hopper K/V always stream from HBM through shared
 memory, so the JAX package's resident/streaming switch (``fits_resident``, a
 VMEM budget) has no counterpart: the non-causal instance takes any Lk and GQA

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import bwd_exp2_bf16_argument
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
@@ -267,9 +268,19 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 # K7-K9: the trainable joint attention. K7's O is K1's bit for bit; the
-# gradients are f32 sums of bf16 products, held to GRAD_TOL of their max.
-GRAD_TOL = 1e-2
-TRAIN_SHAPES = [(1, 2, 128, 128, None), (2, 3, 200, 328, 64), (1, 2, 256, 1000, 130)]
+# gradients are f32 sums of bf16 products, rounded at the same points as the
+# plain versions but from an exp2 that differs in the last f32 bits, held to
+# GRAD_TOL of their max. The kernels read about 1e-3; a backward that takes
+# exp2 of the bf16-rounded argument reads 5e-3 to 1.2e-2, which the earlier
+# limit of 1e-2 let through (test_grad_limit_catches_a_bf16_exp2_argument).
+GRAD_TOL = 4e-3
+# (b, h, lq, lk, mask_len): the edges of K8's 128-row and K9's 64-row query
+# tiles and of both kernels' 128-key tiles (Lq = 1, Lq, Lk on no tile
+# boundary, Lq < Lk and Lq > Lk, a key block holding one key), B = 2 with a
+# different mask per row, mask_len on no block boundary
+TRAIN_SHAPES = [(1, 2, 128, 128, None), (2, 3, 200, 328, 64), (1, 2, 256, 1000, 130),
+                (2, 2, 1, 330, 100), (1, 3, 65, 129, None), (2, 2, 1000, 4160, 70),
+                (2, 2, 4160, 1000, 100), (2, 1, 330, 70, 40)]
 
 
 def _train_inputs(dev, b, h, lq, lk, mask_len):
@@ -299,27 +310,58 @@ def test_fwd_lse_kernel_is_k1_plus_lse(dev, b, h, lq, lk, mask_len):
     assert (lse - ref_lse).abs().max().item() <= LSE_TOL
 
 
-@pytest.mark.parametrize("b,h,lq,lk,mask_len", TRAIN_SHAPES)
-def test_bwd_kernels_match_plain(dev, b, h, lq, lk, mask_len):
+def _bwd_inputs(dev, b, h, lq, lk, mask_len):
+    """(Q_pre, K, V, dO, LSE2, Δ, mask) as the autograd Function hands them
+    to K8 and K9, from K7's O and LSE2."""
     q, k, v, do, mask = _train_inputs(dev, b, h, lq, lk, mask_len)
     out, lse = fa.flash_fwd_lse(q, k, v, mask, mask_len)
     delta = (do.float() * out.float()).sum(-1).reshape(b * h, lq)
-    q_pre = fa.prescale_q(q)
+    return fa.prescale_q(q), k, v, do, lse, delta, mask
+
+
+@pytest.mark.parametrize("b,h,lq,lk,mask_len", TRAIN_SHAPES)
+def test_bwd_kernels_match_plain(dev, b, h, lq, lk, mask_len):
+    args = _bwd_inputs(dev, b, h, lq, lk, mask_len)
     before = dict(kernels.LAUNCHES)
-    dq = fa.flash_bwd_dq(q_pre, k, v, do, lse, delta, mask, mask_len)
-    dk, dv = fa.flash_bwd_dkv(q_pre, k, v, do, lse, delta, mask, mask_len)
+    dq = fa.flash_bwd_dq(*args, mask_len)
+    dk, dv = fa.flash_bwd_dkv(*args, mask_len)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
-    ref_dq = fa.flash_bwd_dq_plain(q_pre, k, v, do, lse, delta, mask, mask_len)
-    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(q_pre, k, v, do, lse, delta, mask, mask_len)
+    ref_dq = fa.flash_bwd_dq_plain(*args, mask_len)
+    ref_dk, ref_dv = fa.flash_bwd_dkv_plain(*args, mask_len)
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == torch.float32
         err = (got - ref).abs().max().item()
         assert err < GRAD_TOL * ref.abs().max().item(), err
+    mask = args[-1]
     if mask is not None:
         dead = ~mask[:, None, :, None].expand(b, h, lk, 128)
         assert torch.count_nonzero(dk[dead]) == 0 and torch.count_nonzero(dv[dead]) == 0
+
+
+def test_grad_limit_catches_a_bf16_exp2_argument(dev):
+    """GRAD_TOL passes the kernels and fails a backward whose P is exp2 of
+    the bf16-rounded argument, in each of dQ, dK and dV."""
+    args = _bwd_inputs(dev, 1, 2, 256, 1000, 130)
+    got = (fa.flash_bwd_dq(*args, 130),) + fa.flash_bwd_dkv(*args, 130)
+    ref = (fa.flash_bwd_dq_plain(*args),) + fa.flash_bwd_dkv_plain(*args)
+    wrong = bwd_exp2_bf16_argument(*args)
+    torch.cuda.synchronize()
+    for g, r, w in zip(got, ref, wrong):
+        tol = GRAD_TOL * r.abs().max().item()
+        assert (g - r).abs().max().item() < tol
+        assert (w - r).abs().max().item() > tol
+
+
+def test_bwd_kernels_are_deterministic(dev):
+    """No atomics: two launches on the same inputs give the same bits."""
+    args = _bwd_inputs(dev, 2, 3, 1000, 4160, 70)
+    first = (fa.flash_bwd_dq(*args, 70),) + fa.flash_bwd_dkv(*args, 70)
+    second = (fa.flash_bwd_dq(*args, 70),) + fa.flash_bwd_dkv(*args, 70)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_trainable_function_matches_autograd_of_plain(dev):

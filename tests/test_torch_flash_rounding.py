@@ -1,10 +1,13 @@
-"""The port's plain forward attention in bf16 against the JAX Pallas kernels in
-interpret mode (as ``tests/test_flash_attention.py`` runs them, block 128), at
-inputs where the rounding points matter: q and k drawn at 3x unit scale, so the
-softmax is sharp and P spans many bf16 binades. The plain version follows the
-kernels' arithmetic (bf16 Q_pre, P = exp2 of the bf16-rounded base-2 argument,
-rounded to bf16); a natural-base f32 softmax misses them by two bf16 ulps of
-the output. ``reference_attention`` keeps the JAX XLA reference's arithmetic.
+"""The port's plain forward and backward attention in bf16 against the JAX
+Pallas kernels in interpret mode (as ``tests/test_flash_attention.py`` runs
+them, block 128), at inputs where the rounding points matter: q and k drawn at
+3x unit scale, so the softmax is sharp and P spans many bf16 binades. The plain
+forward follows the kernels' arithmetic (bf16 Q_pre, P = exp2 of the
+bf16-rounded base-2 argument, rounded to bf16); a natural-base f32 softmax
+misses them by two bf16 ulps of the output. The plain backward takes exp2 in
+f32 and rounds P, dS · d^-½ and dS · ln2 to bf16 before its products, as
+``_flash_bwd`` does. ``reference_attention`` keeps the JAX XLA reference's
+arithmetic.
 
 Tolerance: one bf16 ulp at the output's largest magnitude. The kernels take a
 blockwise running max where the plain version takes the row's global max, so
@@ -93,6 +96,39 @@ def test_fwd_lse_plain_matches_pallas_in_bf16():
     want = np.asarray(lse_j)[:, :l, 0]
     np.testing.assert_allclose(lse.numpy(), want, rtol=0,
                                atol=1e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 3.0])
+@pytest.mark.parametrize("b,h,lq,lk,mask_len", [(1, 2, 256, 384, None),
+                                                (2, 2, 200, 330, 256)])
+def test_bwd_plain_matches_pallas_in_bf16(b, h, lq, lk, mask_len, qk_scale):
+    """K8's and K9's plain versions against ``_flash_bwd`` in bf16, both fed
+    the JAX ``_flash_fwd_lse`` O and LSE2 (lane 0): P = exp2(S2 − LSE2) in
+    f32, dS = P ⊙ (dP − Δ), and the bf16 casts of dS · d^-½, dS · ln2 and P
+    before the three products. dQ, dK and dV (f32 here, bf16 there) within
+    one bf16 ulp at max|ref|: at unit scale and with q, k at 3x (sharp
+    softmax), where f32 inputs would hide the casts."""
+    q, k = _arr((b, h, lq, 128), 20, qk_scale), _arr((b, h, lk, 128), 21, qk_scale)
+    v, g = _arr((b, h, lk, 128), 22), _arr((b, h, lq, 128), 23)
+    keys = np.arange(lk)[None, :]
+    mask = None if mask_len is None else (
+        (keys < np.asarray([100, 37])[:b, None]) | (keys >= mask_len))
+    maskf = jnp.asarray(np.ones((b, lk), np.float32) if mask is None
+                        else mask.astype(np.float32))
+    jl = 0 if mask_len is None else mask_len
+    o_j, lse_j = jfa._flash_fwd_lse(_jnp(q), _jnp(k), _jnp(v), maskf, jl, interpret=True)
+    dq_j, dk_j, dv_j = jfa._flash_bwd(_jnp(q), _jnp(k), _jnp(v), o_j, lse_j, _jnp(g),
+                                      maskf, jl, interpret=True)
+    o = torch.from_numpy(np.asarray(o_j, np.float32))
+    lse = torch.from_numpy(np.asarray(lse_j)[:, :lq, 0].copy())
+    delta = (g.float() * o).sum(-1).reshape(b * h, lq)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    q_pre = fa.prescale_q(q)
+    dq = fa.flash_bwd_dq(q_pre, k, v, g, lse, delta, tmask, mask_len)
+    dk, dv = fa.flash_bwd_dkv(q_pre, k, v, g, lse, delta, tmask, mask_len)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        assert got.dtype == torch.float32
+        _check(got, want)
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 0.0)])
