@@ -10,19 +10,29 @@ toolkit. Phases, each printing one JSON line:
 2. build   — compiles ``qwen_image_edit_streamdiffusion_tpu_torch/csrc`` with
              nvcc (sm_90a) and loads it; per kernel symbol, the HGMMA (wgmma)
              and UTMALDG (TMA) instructions of its SASS, its spill bytes and
-             whether ptxas serialised its wgmmas: the forward (K1/K4/K7) and
-             both backward kernels (K8, K9) must show both, no spills and no
-             serialisation;
+             whether ptxas serialised its wgmmas: the forward (K1/K4/K7 and
+             the causal K2 instance), both backward kernels (K8, K9) and the
+             conv (K3) must show both, no spills and no serialisation;
+   resize  — the request's resizes (1024² → 384² LANCZOS, 384² → 392²
+             BICUBIC) timed on the host and on the card: first call, a new
+             size in a warm process, warm; the card's bytes must equal the
+             host's;
 3. kernels — each hand-written kernel against its plain PyTorch version at the
              main path's shapes: max-abs error against the stated tolerance,
              the median CUDA-event time of both and of the one PyTorch call
              that computes the same function (SDPA, cuDNN's conv), and the
              bound: the larger of bytes over HBM rate and operations over the
              tensor-core peak, with its share of the kernel's time
-             (``bound_share``). K7-K9 run at the train shape (2, 24, 8448,
-             128); K7's O must equal K1's bit for bit, masked keys must get
-             exactly zero dK and dV, and a backward that takes exp2 of the
-             bf16-rounded argument must fail the K8/K9 limit;
+             (``bound_share``). K2 (L = 128, 384, 1024; both CTA tiles,
+             64 and 128 query rows, checked and timed) and K3 (every shape
+             of the VAE's mix) are timed on device time alone (``graph_ms``:
+             one miss's launches in a CUDA graph, replayed), beside the
+             per-call time (``wall_ms``), and so is their library call; the
+             K3 mix prints its summed device ms a miss against its bound and
+             cuDNN's. K7-K9 run at the train shape (2, 24, 8448, 128); K7's O
+             must equal K1's bit for bit, masked keys must get exactly zero dK
+             and dV, and a backward that takes exp2 of the bf16-rounded
+             argument must fail the K8/K9 limit;
 4. block parity — a 2-block MMDiT at flagship width, one forward at the 1024²
              edit shape, ``use_flash_attention`` True (kernels) vs False
              (plain), held to a relative L2 tolerance; then the same blocks
@@ -36,7 +46,7 @@ toolkit. Phases, each printing one JSON line:
              request prints its wall seconds, kernel launch counts, output
              shape and peak memory; K1 (or K4 for two images) must run 120
              times per request, K2 28 times per cache miss and 0 per hit, K3
-             at least once; then two more misses, one timed plainly and one
+             20 times a miss, 15 a hit and 25 with two images; then two more misses, one timed plainly and one
              under torch.profiler (device time by kernel kind, busy seconds,
              idle share = 1 - busy / the plain miss's wall);
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
@@ -144,22 +154,28 @@ def nvidia_smi_line() -> str:
 
 
 # the port's kernel symbols, as nvcc mangles them into the library
-KERNEL_SYMBOLS = ("flash_fwd_sm90_kernel", "flash_causal_kernel", "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv_kernel", "conv3x3_mma_kernel", "conv3x3_f32_kernel",
-                  "int8_gemm_kernel", "quantize_rows_kernel")
+KERNEL_SYMBOLS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                  "conv3x3_sm90_kernel", "conv3x3_f32_kernel", "int8_gemm_kernel",
+                  "quantize_rows_kernel")
 # the kernels the build gate holds to wgmma + TMA, no spills, no serialisation
-WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# (flash_fwd_sm90_kernel<LSE, CAUSAL, consumer warpgroups>: <0,0,2> is K1/K4,
+# <1,0,2> K7, <0,1,1> and <0,1,2> K2 with 64- and 128-row CTAs)
+WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                 "conv3x3_sm90_kernel")
 
 
 def short_symbol(mangled: str) -> str:
-    """``flash_fwd_sm90_kernel<1>`` for a mangled kernel name (the template
-    flag, where there is one, in angle brackets)."""
+    """``flash_fwd_sm90_kernel<1,0,2>`` for a mangled kernel name (its bool and
+    int template arguments, where it has any, in angle brackets)."""
     import re
 
     for sym in KERNEL_SYMBOLS:
         if sym in mangled:
-            flag = re.search(sym + r"ILb([01])E", mangled)
-            return sym + (f"<{flag.group(1)}>" if flag else "")
+            args = re.match(re.escape(sym) + r"I((?:L[bi]\d+E)+)E",
+                            mangled[mangled.index(sym):])
+            if not args:
+                return sym
+            return sym + "<" + ",".join(re.findall(r"L[bi](\d+)E", args.group(1))) + ">"
     return mangled[:60]
 
 
@@ -216,6 +232,44 @@ def cuda_ms(fn, iters: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, n: int, replays: int = 20) -> float:
+    """Device milliseconds per call of ``fn``: ``n`` calls captured in one
+    CUDA graph, the graph replayed between one event pair, the time over
+    ``n``; the median of ``replays`` replays, after a warm-up call and a
+    warm-up replay. The replay launches the captured kernels back to back,
+    so no host work (the wrapper's checks, ctypes, allocation) is inside the
+    time: this is the time ``cuda_ms`` has less the host cost of a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def timed(prefix: str, fn, n: int, iters: int = 20) -> dict:
+    """``{prefix}ms``: device ms per call (:func:`graph_ms`, ``n`` calls a
+    graph); ``{prefix}wall_ms``: the per-call CUDA-event time
+    (:func:`cuda_ms`), which includes the host cost of each call."""
+    return {f"{prefix}ms": graph_ms(fn, n), f"{prefix}wall_ms": cuda_ms(fn, iters)}
+
+
 def attn_tolerance(ref) -> float:
     """ATTN_ULPS bf16 ulps at max|ref|."""
     return ATTN_ULPS * 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
@@ -265,11 +319,56 @@ def sdpa(q, k, v, mask=None, **kw):
     return F.scaled_dot_product_attention(q, k, v, attn_mask=m, **kw)
 
 
+def phase_resize():
+    """The request's resizes (``core/imaging.py``: Pillow's resampling as
+    float64 products): every request resizes its 1024² image to the VL's
+    384² (LANCZOS), a miss also 384² → 392² (BICUBIC, in the VL encoder),
+    and a two-image miss does both twice. Milliseconds on the host and on
+    the card: the process's first call (which also loads the float64
+    kernels it meets first), a miss after the weights' cache is cleared (a
+    new input size in a warm process) and the median of five after it; the
+    card's bytes must equal the host's."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
+
+    imgs = [distinct_image(0), distinct_image(1)]
+    torch.ones(8, 8, dtype=torch.float64, device="cuda").matmul(
+        torch.ones(8, 8, dtype=torch.float64, device="cuda"))  # cuBLAS up
+    rec, outs = {"phase": "resize"}, {}
+
+    def ms(fn, dev):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    for dev in ("cpu", "cuda"):
+        def lanczos(i=0):
+            return imaging.resize(imgs[i], 384, 384, "lanczos", dev)
+
+        def miss(i=0):
+            return imaging.resize(lanczos(i), 392, 392, "bicubic", dev)
+
+        r = {"first_call_ms": ms(miss, dev)}
+        imaging._coeffs.cache_clear()
+        imaging._weights.cache_clear()
+        r["cold_miss_ms"] = ms(miss, dev)
+        for name, fn in (("lanczos_ms", lanczos), ("miss_ms", miss),
+                         ("two_image_miss_ms", lambda: (miss(0), miss(1)))):
+            r[name] = statistics.median(ms(fn, dev) for _ in range(5))
+        rec[dev] = r
+        outs[dev] = miss(1)
+    rec["card_equals_host"] = bool((outs["cpu"] == outs["cuda"]).all())
+    emit(rec)
+    if not rec["card_equals_host"]:
+        raise AssertionError("resize on the card differs from the host's")
+
+
 def phase_kernels():
     import torch
-    import torch.nn.functional as F
 
-    from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
 
     bf16 = torch.bfloat16
@@ -304,26 +403,57 @@ def phase_kernels():
     results["flash_attention_joint"] = rec
     del q, k, v, out, ref
 
-    # K2: 28 q heads on 4 kv heads; full buckets and the main path's
-    # suffix-padded bucket (rows past n_real are padding, compared on real rows)
-    k2 = None
-    worst = 0.0
-    for l, n_real in ((128, 128), (1024, 1024), (LM_LEN, LM_REAL)):
+    results.update(phase_causal_kernel())
+    results.update(phase_conv_kernel())
+    torch.cuda.empty_cache()
+    results.update(phase_stream_kernel())
+    results.update(phase_int8_kernels())
+    results.update(phase_train_kernels())
+    return results
+
+
+# K2's lengths (full buckets, and the main path's 384 bucket with 258 real
+# tokens, suffix-padded): (L, real rows); its launches a miss (28 LM layers)
+K2_LENGTHS = ((128, 128), (LM_LEN, LM_REAL), (1024, 1024))
+K2_LAUNCHES = 28
+
+
+def phase_causal_kernel():
+    """K2 (28 q heads on 4 kv heads) at each length, compared with the plain
+    version on the real rows; device time per launch from a graph of one
+    miss's 28 launches, beside the per-call wall time, and SDPA
+    (``is_causal``, ``enable_gqa``) under both timings. Both CTA tiles (64
+    and 128 query rows) are checked and graph-timed; ``ms`` is the tile the
+    wrapper picks (``block_q``)."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    k2, worst = None, 0.0
+    for l, n_real in K2_LENGTHS:
         q = randn((1, 28, l, 128), 4, bf16)
         k, v = (randn((1, 4, l, 128), s, bf16) for s in (5, 6))
         keep = torch.arange(l, device="cuda") < n_real
-        got = fa.causal_attention(q, k, v)[:, :, :n_real].float()
         ref = fa.causal_attention_plain(q, k, v, keep)[:, :, :n_real].float()
-        err = (got - ref).abs().max().item()
         tol = attn_tolerance(ref)
+        tiles = {}
+        for block_q in (64, 128):
+            got = fa.causal_attention(q, k, v, block_q)[:, :, :n_real].float()
+            tiles[block_q] = {
+                "max_abs_err": (got - ref).abs().max().item(),
+                "ms": graph_ms(lambda: fa.causal_attention(q, k, v, block_q),
+                               K2_LAUNCHES)}
+        err = max(t["max_abs_err"] for t in tiles.values())
         worst = max(worst, err)
         rec = {"phase": "kernel", "name": "flash_attention_causal",
                "shape": [1, 28, 4, l], "n_real": n_real, "max_abs_err": err,
-               "tol": tol,
-               "ms": cuda_ms(lambda: fa.causal_attention(q, k, v), 20),
+               "tol": tol, "graph_launches": K2_LAUNCHES,
+               "block_q": fa.causal_block_q(q), "tiles": tiles,
+               **timed("", lambda: fa.causal_attention(q, k, v), K2_LAUNCHES),
                "plain_ms": cuda_ms(lambda: fa.causal_attention_plain(q, k, v, keep), 20),
-               "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
-                                                  enable_gqa=True), 20),
+               **timed("library_", lambda: sdpa(q, k, v, is_causal=True,
+                                                 enable_gqa=True), K2_LAUNCHES),
                # causal: each row meets (row + 1) keys
                **bound(4 * 28 * (l * (l + 1) / 2) * 128,
                        nbytes(q, k, v) + nbytes(q), PEAK_BF16)}
@@ -333,13 +463,33 @@ def phase_kernels():
         if l == LM_LEN:
             k2 = dict(rec)
     k2["max_abs_err"] = worst
-    results["flash_attention_causal"] = k2
+    return {"flash_attention_causal": k2}
 
-    # K3 at the VAE's 1024² stages, bf16
-    k3 = None
-    worst = 0.0
-    for cin, f in ((96, 96), (48, 96)):
-        x = randn((1, SIZE, SIZE, cin), 7, bf16)
+
+# K3's shapes on the main path: (H = W, C_in, F, launches a miss, a hit),
+# from the flagship VAE (base 96, multipliers (1, 2, 4, 4)): the decoder's
+# convs (15, every request) and the encoder's (5 more a miss)
+K3_MIX = ((SIZE, 96, 96, 9, 5), (SIZE, 96, 48, 1, 1), (SIZE, 48, 96, 1, 1),
+          (SIZE, 96, 3, 1, 1), (SIZE // 2, 96, 96, 6, 6), (SIZE // 8, 16, 384, 1, 1),
+          (SIZE // 2, 96, 192, 1, 0))
+
+
+def phase_conv_kernel():
+    """K3 at every shape of the mix, bf16, against its plain version; device
+    time per launch from a graph of the shape's launches a miss, the per-call
+    wall time, and cuDNN's conv (the same NHWC operands) under both; then
+    the mix a miss: summed device ms of the kernel, its bound and cuDNN."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
+
+    bf16 = torch.bfloat16
+    k3, worst = None, 0.0
+    mix = {"ms": 0.0, "wall_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "library_wall_ms": 0.0, "launches": 0}
+    for size, cin, f, n_miss, n_hit in K3_MIX:
+        x = randn((1, size, size, cin), 7, bf16)
         w = (randn((3, 3, cin, f), 8, torch.float32) * (9 * cin) ** -0.5).to(bf16)
         b = randn((f,), 9, bf16) * 0.1
         got = conv_ops.conv3x3(x, w, b).float()
@@ -347,27 +497,32 @@ def phase_kernels():
         err = (got - ref).abs().max().item()
         tol = conv_tolerance(ref)
         worst = max(worst, err)
+        del got, ref
         wl = w.permute(3, 2, 0, 1)  # the NHWC/HWIO operands as cuDNN's
-        rec = {"phase": "kernel", "name": "conv3x3", "shape": [1, SIZE, SIZE, cin, f],
+        rec = {"phase": "kernel", "name": "conv3x3", "shape": [1, size, size, cin, f],
+               "launches_miss": n_miss, "launches_hit": n_hit,
                "max_abs_err": err, "tol": tol,
-               "ms": cuda_ms(lambda: conv_ops.conv3x3(x, w, b), 10),
+               **timed("", lambda: conv_ops.conv3x3(x, w, b), n_miss, 10),
                "plain_ms": cuda_ms(lambda: conv_ops.conv3x3_plain(x, w, b), 10),
-               "library_ms": cuda_ms(lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
-                                                      padding=1), 10),
-               **bound(2 * SIZE * SIZE * 9 * cin * f,
-                       nbytes(x, w, b) + SIZE * SIZE * f * 2, PEAK_BF16)}
+               **timed("library_", lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
+                                                    padding=1), n_miss, 10),
+               **bound(2 * size * size * 9 * cin * f,
+                       nbytes(x, w, b) + size * size * f * 2, PEAK_BF16)}
         emit_kernel(rec)
         if not err <= tol:
-            raise AssertionError(f"K3 error {err} > {tol} at {cin}->{f}")
-        if cin == 96:
+            raise AssertionError(f"K3 error {err} > {tol} at {size}² {cin}->{f}")
+        for key in ("ms", "wall_ms", "bound_ms", "library_ms", "library_wall_ms"):
+            mix[key] += n_miss * rec[key]
+        mix["launches"] += n_miss
+        if (size, cin, f) == (SIZE, 96, 96):
             k3 = dict(rec)
+        del x, w, b
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_mix", "name": "conv3x3", "per": "bf16 cache miss", **mix,
+          "bound_share": mix["bound_ms"] / mix["ms"],
+          "vs_library": mix["ms"] / mix["library_ms"]})
     k3["max_abs_err"] = worst
-    results["conv3x3"] = k3
-    torch.cuda.empty_cache()
-    results.update(phase_stream_kernel())
-    results.update(phase_int8_kernels())
-    results.update(phase_train_kernels())
-    return results
+    return {"conv3x3": k3}
 
 
 def phase_stream_kernel():
@@ -786,8 +941,6 @@ def run_requests(pipe, requests, label: str, latents=None):
             if delta[key] != n:
                 raise AssertionError(f"{label}/{name}: {key} ran {delta[key]} "
                                      f"times, not {n}")
-        if delta["conv3x3"] <= 0:
-            raise AssertionError(f"{label}/{name}: K3 never ran")
         if out.shape != (SIZE, SIZE, 3) or str(out.dtype) != "uint8" or not finite:
             raise AssertionError(f"{label}/{name}: bad output {out.shape} "
                                  f"{out.dtype} finite={finite}")
@@ -797,12 +950,17 @@ def run_requests(pipe, requests, label: str, latents=None):
 def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
              int8_per_request: int = 0):
     """Launches of one request: K1 (or K4 with two images) twice per MMDiT
-    layer, K2 per LM layer on a miss, K5/K6 per quantized linear."""
+    layer, K2 per LM layer on a miss, K3 per decoder conv of K3_MIX and, on
+    a miss, per encoder conv and image, K5/K6 per quantized linear."""
     joint = "flash_joint_stream" if n_images > 1 else "flash_joint"
     other = "flash_joint" if n_images > 1 else "flash_joint_stream"
     q = int8_per_request + (int8_miss if miss else 0)
+    decoder = sum(hit for *_, hit in K3_MIX)
+    encoder = sum(n - hit for *_, n, hit in K3_MIX)
     return {joint: MMDIT_LAYERS * STEPS, other: 0,
-            "flash_causal": 28 if miss else 0, "quantize_rows": q, "int8_gemm": q,
+            "flash_causal": K2_LAUNCHES if miss else 0,
+            "conv3x3": decoder + (n_images * encoder if miss else 0),
+            "quantize_rows": q, "int8_gemm": q,
             "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
@@ -867,8 +1025,8 @@ def phase_slice():
 
 
 # (symbol fragment, kind) of the port's kernels, as torch.profiler names them
-KERNEL_KINDS = (("flash_fwd_sm90", "K1/K4/K7 flash_fwd_sm90"),
-                ("flash_causal", "K2 flash_causal"),
+KERNEL_KINDS = (("flash_fwd_sm90_kernel<false, true,", "K2 flash_fwd_sm90 causal"),
+                ("flash_fwd_sm90", "K1/K4/K7 flash_fwd_sm90"),
                 ("conv3x3", "K3 conv3x3"),
                 ("quantize_rows", "K5 quantize_rows"),
                 ("int8_gemm", "K6 int8_gemm"),
@@ -917,7 +1075,8 @@ def profile_call(fn, plain_wall=None) -> dict:
     out = {"wall_s": wall, "busy_s": busy, "span_s": span,
            "span_idle_share": 1 - busy / span}
     if plain_wall is not None:
-        out.update(plain_wall_s=plain_wall, idle_share=1 - busy / plain_wall)
+        out.update(plain_wall_s=plain_wall, idle_share=1 - busy / plain_wall,
+                   host_gap_s=plain_wall - busy)
     out.update(device_s=dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
                top=[{"s": t, "calls": c, "kernel": n} for t, c, n in top[:12]])
     return out
@@ -1118,6 +1277,7 @@ def main() -> int:
             raise AssertionError(f"{name}: not a wgmma/TMA kernel without spills "
                                  f"and serialisation: {rec}")
 
+    phase_resize()
     per_kernel = phase_kernels()
     phase_block_parity()
     phase_train_parity()
@@ -1132,7 +1292,7 @@ def main() -> int:
     sources = {
         "flash_attention_joint": ("csrc/flash_fwd_sm90.cu", "flash_joint",
                                   "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:42"),
-        "flash_attention_causal": ("csrc/flash_attention.cu", "flash_causal",
+        "flash_attention_causal": ("csrc/flash_fwd_sm90.cu", "flash_causal",
                                    "qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py:163"),
         "conv3x3": ("csrc/conv3x3.cu", "conv3x3",
                     "qwen_image_edit_streamdiffusion_tpu/ops/conv.py:44"),

@@ -1,7 +1,7 @@
-// Non-causal flash attention forward for Hopper (sm_90a): wgmma, TMA,
-// mbarriers and warp specialisation. bf16 in / bf16 out, f32 softmax.
+// Flash attention forward for Hopper (sm_90a): wgmma, TMA, mbarriers and
+// warp specialisation. bf16 in / bf16 out, f32 softmax.
 //
-// Replaces three Pallas TPU kernels of qwen_image_edit_streamdiffusion_tpu:
+// Replaces four Pallas TPU kernels of qwen_image_edit_streamdiffusion_tpu:
 //   K1  ops/flash_attention.py::_flash_kernel          (LSE = false)
 //       joint [txt ⊕ img] attention of the MMDiT with a (B, Lk) key mask;
 //   K4  ops/flash_attention.py::_flash_kernel_hbm      (LSE = false)
@@ -11,13 +11,21 @@
 //   K7  ops/flash_attention.py::_flash_kernel_fwd_lse  (LSE = true)
 //       the forward of the trainable attention: the same instance plus one
 //       store per row of LSE2 = m + log2(l) for the backward kernels
-//       (flash_attention_bwd.cu); its O is K1's bit for bit.
+//       (flash_attention_bwd.cu); its O is K1's bit for bit;
+//   K2  ops/flash_attention.py::_flash_kernel_causal   (CAUSAL = true)
+//       the causal GQA attention of the Qwen2.5-VL language model (28 q on 4
+//       kv heads, L = 128..1024 in 128-token buckets): the producer never
+//       loads a key block above the diagonal, only the diagonal block applies
+//       the row >= col select, and the grid runs the query blocks with the
+//       most key blocks first. It takes no key mask: padding is a suffix, so
+//       every padded key lies above a real row's diagonal.
 //
 // Math (the Pallas kernels' rounding points): Q_pre = bf16(q · d^-1/2 ·
 // log2 e); S2 = Q_pre · K^T in f32, dead keys at -1e30; online softmax in
 // base 2 with f32 running max m, row sum l and output accumulator; P =
 // bf16(exp2(bf16(S2 − m))), and l sums the rounded P; O = acc / max(l,
-// 1e-30) rounded to bf16. The key mask applies to a key when it lies below
+// 1e-30) rounded to bf16 (K2's Pallas kernel rounds at the same points).
+// The key mask applies to a key when it lies below
 // mask_len or in the ragged tail (mask_applies in mma_bf16.cuh, the rule K8
 // and K9 apply too); keys past Lk are dead.
 //
@@ -49,6 +57,25 @@
 // TMA's 3-D maps (128, L, heads) zero-fill rows past L without reading the
 // next head, so no tile needs a bounds check. The grid (Lq / 128, B · H) is 1584 CTAs at K1's
 // shape: 12 full waves of one CTA per SM on 132 SMs.
+//
+// K2's shapes are small: at (1, 28, 384, 128) the causal work is 28 · 6
+// (query, key) block pairs of 128 × 128 (1.4 GFLOP, 1.4 µs at the
+// tensor-core peak), and a CTA's time is set by its key blocks, 3 for the
+// last query block, plus a fixed cost (launch, the Q and first K/V loads,
+// the Q prescale, the epilogue) that is most of a launch's time at L <=
+// 384. The causal grid is (B · H, query blocks) with the query block index
+// reversed, so the CTAs with the most key blocks start first. Its CTA
+// takes WGS consumer warpgroups of 64 rows: 128-row CTAs (WGS = 2, K1's
+// shape with the ping-pong) give 84 CTAs on 132 SMs at L = 384, so the
+// wrapper (ops/flash_attention.py::causal_block_q) takes 64-row CTAs (WGS
+// = 1, 256 threads at 255 registers a thread from the launch, no
+// setmaxnreg) whenever 128-row CTAs would not fill the SMs. On an H100 SXM
+// (chip_smoke.py, graph-timed) 64-row CTAs read 6.3-6.6 / 12.5-12.7 /
+// 36.8-37.3 µs at L = 128 / 384 / 1024 against 128-row CTAs' 8.2-8.5 /
+// 12.1-12.7 / 27.0-27.4: a fifth less at 128, level at 384 (each row's
+// chain of key blocks is the same length), a third more at 1024, where
+// one warpgroup an SM leaves the tensor cores idle during its softmax.
+// Neither a third K/V stage nor dropping the ping-pong made K2 faster.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -62,19 +89,25 @@ using namespace qie;
 using namespace qie::sm90;
 
 constexpr int kD = 128;                   // head_dim
-constexpr int kBQ = 128;                  // query rows per CTA
 constexpr int kBK = 128;                  // keys per block
 constexpr int kStages = 2;                // K/V ring depth
-constexpr int kThreads = 384;             // 2 consumer warpgroups + producer
 constexpr int kHalfBytes = 128 * 128;     // 128 rows of one 64-wide half
 constexpr int kTileBytes = 2 * kHalfBytes;  // a 128 x 128 bf16 tile
-constexpr int kQOff = 0;
-constexpr int kKOff = kQOff + kTileBytes;
-constexpr int kVOff = kKOff + kStages * kTileBytes;
-constexpr int kBarOff = kVOff + kStages * kTileBytes;
-// barriers: q_full, k_full[kStages], k_empty[..], v_full[..], v_empty[..]
-constexpr int kSmemBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;  // + align
-constexpr int kConsumerArrivals = 8;      // one lane of each consumer warp
+
+// The CTA's shape for WGS consumer warpgroups of 64 query rows each (2: K1's
+// 128-row CTA with the ping-pong; 1: a 64-row CTA) and one producer.
+template <int WGS>
+struct Tile {
+  static constexpr int kBQ = 64 * WGS;              // query rows per CTA
+  static constexpr int kThreads = 128 * (WGS + 1);
+  static constexpr int kQHalfBytes = kBQ * 128;     // kBQ rows of one half
+  static constexpr int kKOff = 2 * kQHalfBytes;     // Q at 0
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  // barriers: q_full, k_full[kStages], k_empty[..], v_full[..], v_empty[..]
+  static constexpr int kSmemBytes = kBarOff + 8 * (1 + 4 * kStages) + 1024;
+  static constexpr int kConsumerArrivals = 4 * WGS;  // a lane of each warp
+};
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -86,8 +119,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t x) {
   return __uint_as_float(x & 0xffff0000u);
 }
 
-template <bool LSE>
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool LSE, bool CAUSAL, int WGS>
+__global__ void __launch_bounds__(Tile<WGS>::kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
@@ -96,25 +129,31 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                       float* __restrict__ lse,  // (B·H, Lq) when LSE
                       int H, int Hkv, int Lq, int Lk, int mask_len,
                       float qscale) {
+  using T = Tile<WGS>;
+  constexpr int kBQ = T::kBQ;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t q_s = base + kQOff;
-  const uint32_t k_s = base + kKOff;
-  const uint32_t v_s = base + kVOff;
-  const uint32_t bars = base + kBarOff;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + T::kKOff;
+  const uint32_t v_s = base + T::kVOff;
+  const uint32_t bars = base + T::kBarOff;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto k_empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
   auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
 
-  const int bh = blockIdx.y;
+  // causal: (B · H, query blocks), the last query block first
+  const int bh = CAUSAL ? blockIdx.x : blockIdx.y;
+  const int qb = CAUSAL ? gridDim.y - 1 - blockIdx.y : blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
   const int kv_bh = b * Hkv + h / (H / Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const int nkb = (Lk + kBK - 1) / kBK;
+  const int q0 = qb * kBQ;
+  // key blocks this CTA reads; causal: none above the diagonal
+  const int nkb = CAUSAL ? min((Lk + kBK - 1) / kBK, (q0 + kBQ + kBK - 1) / kBK)
+                         : (Lk + kBK - 1) / kBK;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -123,23 +162,25 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), kConsumerArrivals);
-      mbar_init(v_empty(s), kConsumerArrivals);
+      mbar_init(k_empty(s), T::kConsumerArrivals);
+      mbar_init(v_empty(s), T::kConsumerArrivals);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (wg == 2) {
+  if (wg == WGS) {
     // ---------------- producer: one thread issues every TMA load ----------
-    regs_dealloc<24>();
-    if (threadIdx.x == 256) {
+    // 128-row CTAs move the producer's registers to the consumers; a
+    // 64-row CTA of 256 threads has 255 a thread from its launch
+    if (WGS == 2) regs_dealloc<24>();
+    if (threadIdx.x == 128 * WGS) {
       tma_prefetch_map(&q_map);
       tma_prefetch_map(&k_map);
       tma_prefetch_map(&v_map);
-      mbar_arrive_expect_tx(q_full, kTileBytes);
+      mbar_arrive_expect_tx(q_full, 2 * T::kQHalfBytes);
       tma_load_3d(q_s, &q_map, q_full, 0, q0, bh);
-      tma_load_3d(q_s + kHalfBytes, &q_map, q_full, 64, q0, bh);
+      tma_load_3d(q_s + T::kQHalfBytes, &q_map, q_full, 64, q0, bh);
       for (int kb = 0; kb < nkb; ++kb) {
         const int st = kb % kStages;
         const uint32_t ph = (kb / kStages) & 1;
@@ -157,7 +198,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ---------------- consumers: 64 query rows each ------------------------
-    regs_alloc<240>();
+    if (WGS == 2) regs_alloc<240>();
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
@@ -173,7 +214,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 8; ++i) {
       const int chunk = tid + 128 * i;  // 1024 16-byte chunks
       const int half = chunk / 512;
-      unsigned char* p = smem + kQOff + half * kHalfBytes + wg * 8192 +
+      unsigned char* p = smem + half * T::kQHalfBytes + wg * 8192 +
                          (chunk % 512) * 16;
       uint4 raw = *reinterpret_cast<uint4*>(p);
       uint32_t* w = reinterpret_cast<uint32_t*>(&raw);
@@ -194,9 +235,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t kt = k_s + st * kTileBytes;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kHalfBytes + (kk % 4) * 32;
-        wgmma_ss_m64n128k16(s, desc_sw128(q_s + wg * 8192 + off, 16, 1024),
-                            desc_sw128(kt + off, 16, 1024), kk > 0);
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_m64n128k16(
+            s, desc_sw128(q_s + (kk / 4) * T::kQHalfBytes + wg * 8192 + off,
+                          16, 1024),
+            desc_sw128(kt + (kk / 4) * kHalfBytes + off, 16, 1024), kk > 0);
       }
     };
     // O += P (64 x 128 keys, registers) · V (128 keys x 128): 8 k16 steps of
@@ -219,14 +262,16 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
     float m_lo = kNegInf, m_hi = kNegInf;
     float l_lo = 0.f, l_hi = 0.f;  // this lane's part of the row sums
 
-    // Masks S of block kb in place: keys past Lk, and masked keys where the
-    // mask rule applies; blocks of the unmasked bulk skip this entirely.
+    // Masks S of block kb in place: keys past Lk, masked keys where the
+    // mask rule applies, and (causal) keys after the row on the diagonal
+    // block; blocks of the unmasked bulk skip this entirely.
     auto mask_scores = [&](int kb) {
       const int k0 = kb * kBK;
       const bool tail = k0 + kBK > Lk;
       const bool use_mask =
           mask_b != nullptr && (k0 < mask_len || k0 + kBK > Lk);
-      if (!(tail || use_mask)) return;
+      const bool diag = CAUSAL && k0 + kBK - 1 > q0 + wg * 64;
+      if (!(tail || use_mask || diag)) return;
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j) {
 #pragma unroll
@@ -235,10 +280,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           const bool dead = col >= Lk ||
                             (use_mask && mask_applies(col, Lk, mask_len) &&
                              mask_b[col] == 0);
-          if (dead) {
-            s[4 * j + e] = kNegInf;
-            s[4 * j + 2 + e] = kNegInf;
-          }
+          if (dead || (diag && col > row_lo)) s[4 * j + e] = kNegInf;
+          if (dead || (diag && col > row_hi)) s[4 * j + 2 + e] = kNegInf;
         }
       }
     };
@@ -299,18 +342,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
           p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
       fence_regs(p);  // defined here, before the next wgmma stage opens
     };
-    // The softmax of one warpgroup runs under the other's products.
-    pingpong_open(wg);
+    // The softmax of one warpgroup runs under the other's products (WGS = 2).
+    if (WGS == 2) pingpong_open(wg);
 
     // Block 0: S alone.
     float alpha_lo, alpha_hi;
     mbar_wait(k_full(0), 0);
-    pingpong_turn(wg);
+    if (WGS == 2) pingpong_turn(wg);
     fence_regs(s);
     wgmma_fence();
     issue_qk(s, 0);
     wgmma_commit();
-    pingpong_hand_over(wg, nkb == 1);
+    if (WGS == 2) pingpong_hand_over(wg, nkb == 1);
     wgmma_wait<0>();
     fence_regs(s);
     if (arriver) mbar_arrive(k_empty(0));
@@ -327,7 +370,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t pph = ((kb - 1) / kStages) & 1;
       mbar_wait(k_full(st), ph);
       mbar_wait(v_full(pst), pph);
-      pingpong_turn(wg);
+      if (WGS == 2) pingpong_turn(wg);
       fence_regs(s);
       fence_regs(o);
       wgmma_fence();
@@ -336,7 +379,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();  // each product's stage opens after its inputs exist
       issue_pv(o, p, pst);
       wgmma_commit();
-      pingpong_hand_over(wg, kb + 1 == nkb);
+      if (WGS == 2) pingpong_hand_over(wg, kb + 1 == nkb);
       wgmma_wait<1>();
       fence_regs(s);
       if (arriver) mbar_arrive(k_empty(st));
@@ -397,16 +440,18 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <bool LSE>
+template <bool LSE, bool CAUSAL, int WGS>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
            const uint8_t* mask, void* out, float* lse, int B, int H, int Hkv,
            int Lq, int Lk, int mask_len, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_sm90_kernel<LSE>;
+  using T = Tile<WGS>;
+  auto kern = flash_fwd_sm90_kernel<LSE, CAUSAL, WGS>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, B * H);
-  kern<<<grid, kThreads, kSmemBytes, stream>>>(
+  const int nqb = (Lq + T::kBQ - 1) / T::kBQ;
+  const dim3 grid = CAUSAL ? dim3(B * H, nqb) : dim3(nqb, B * H);
+  kern<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       qm, km, vm, mask, static_cast<__nv_bfloat16*>(out), lse, H, Hkv, Lq, Lk,
       mask_len, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -424,14 +469,37 @@ extern "C" int qie_flash_fwd_sm90(const void* q, const void* k, const void* v,
                                   int B, int H, int Hkv, int Lq, int Lk,
                                   int mask_len, float scale, void* stream) {
   CUtensorMap qm, km, vm;
-  if (!make_map(&qm, q, Lq, B * H, kBQ) || !make_map(&km, k, Lk, B * Hkv, kBK) ||
+  if (!make_map(&qm, q, Lq, B * H, 128) || !make_map(&km, k, Lk, B * Hkv, kBK) ||
       !make_map(&vm, v, Lk, B * Hkv, kBK))
     return (int)cudaErrorInvalidValue;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lse != nullptr)
-    return launch<true>(qm, km, vm, m, out, static_cast<float*>(lse), B, H,
-                        Hkv, Lq, Lk, mask_len, scale, s);
-  return launch<false>(qm, km, vm, m, out, nullptr, B, H, Hkv, Lq, Lk,
-                       mask_len, scale, s);
+    return launch<true, false, 2>(qm, km, vm, m, out, static_cast<float*>(lse),
+                                  B, H, Hkv, Lq, Lk, mask_len, scale, s);
+  return launch<false, false, 2>(qm, km, vm, m, out, nullptr, B, H, Hkv, Lq,
+                                 Lk, mask_len, scale, s);
+}
+
+// K2: q (B, H, L, 128), k/v (B, Hkv, L, 128) with H % Hkv == 0, out (B, H, L,
+// 128), all bf16, contiguous and 16-byte aligned; L >= 1; scale = d^-1/2;
+// block_q = 64 or 128 query rows per CTA. Causal, no key mask. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue when a tensor map cannot be built or block_q is
+// neither.
+extern "C" int qie_flash_causal_sm90(const void* q, const void* k,
+                                     const void* v, void* out, int B, int H,
+                                     int Hkv, int L, float scale, int block_q,
+                                     void* stream) {
+  CUtensorMap qm, km, vm;
+  if ((block_q != 64 && block_q != 128) ||
+      !make_map(&qm, q, L, B * H, block_q) ||
+      !make_map(&km, k, L, B * Hkv, kBK) || !make_map(&vm, v, L, B * Hkv, kBK))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_q == 64)
+    return launch<false, true, 1>(qm, km, vm, nullptr, out, nullptr, B, H, Hkv,
+                                  L, L, 0, scale, s);
+  return launch<false, true, 2>(qm, km, vm, nullptr, out, nullptr, B, H, Hkv,
+                                L, L, 0, scale, s);
 }

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention kernels: mbarriers,
-// TMA tile loads, wgmma descriptors, the wgmma shapes the forward
+// Hopper (sm_90a) building blocks of the flash-attention and conv kernels:
+// mbarriers, TMA tile loads, wgmma descriptors, the wgmma shapes the forward
 // (flash_fwd_sm90.cu) and the backward (flash_attention_bwd.cu) issue, the
 // warp-specialisation register moves, and on the host the TMA tensor maps
-// both build.
+// they build (the conv's, conv3x3.cu, over NHWC activations).
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a row of
 // 64 bf16 (128 bytes) per box row, rows grouped by 8 into 1024-byte atoms,
@@ -90,6 +90,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One box of a 4-D map at coordinates (c0 innermost, .., c3); coordinates
+// may be negative or past the end: those elements are written as zeros.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2,
+                                            int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 
@@ -291,6 +304,29 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int L, int heads,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (B, H, W, C) bf16 NHWC tensor as a 4-D map (C, W, H, B) with boxes of
+// box_c channels x box_w columns x box_h rows x 1 image, no swizzle: a box
+// lands in shared memory as [box_h][box_w][box_c], and elements outside the
+// tensor (rows and columns of the SAME border, channels past C) read as
+// zeros. C % 8 == 0 (16-byte row strides), box_c % 8 == 0, each box
+// dimension <= 256.
+inline bool make_map_nhwc(CUtensorMap* map, const void* ptr, int B, int H,
+                          int W, int C, int box_c, int box_w, int box_h) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
+                                 (cuuint64_t)H * W * C * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)box_c, (cuuint32_t)box_w,
+                             (cuuint32_t)box_h, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -387,15 +387,17 @@ IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-def resize_for_vl(img: np.ndarray, cfg: VLConfig) -> Tuple[np.ndarray, int, int]:
-    """Smart-resize (torch bicubic, skipped when the size matches) → ((nh, nw,
-    3) uint8, gh, gw)."""
+def resize_for_vl(img: np.ndarray, cfg: VLConfig,
+                  device="cpu") -> Tuple[np.ndarray, int, int]:
+    """Smart-resize (Pillow's BICUBIC, as the JAX package resizes here,
+    computed on ``device``; skipped when the size matches) → ((nh, nw, 3)
+    uint8, gh, gw)."""
     p = cfg.patch_size
     factor = p * cfg.spatial_merge_size
     h, w = img.shape[:2]
     nh, nw = smart_resize_hw(h, w, factor, min_pixels=factor * factor * 4,
                              max_pixels=factor * factor * 1280)
-    return imaging.resize(img, nw, nh), nh // p, nw // p
+    return imaging.resize(img, nw, nh, "bicubic", device), nh // p, nw // p
 
 
 def patches_from_image(arr: torch.Tensor, cfg: VLConfig, gh: int, gw: int,
@@ -480,7 +482,7 @@ class QwenVLEncoder:
                 a = np.asarray(img)
                 fp = image_fingerprint(a)
                 if fp not in vision:
-                    arr8, gh, gw = resize_for_vl(a, cfg)
+                    arr8, gh, gw = resize_for_vl(a, cfg, self.device)
                     patches = patches_from_image(
                         torch.from_numpy(np.ascontiguousarray(arr8)).to(self.device),
                         cfg, gh, gw, dtype)

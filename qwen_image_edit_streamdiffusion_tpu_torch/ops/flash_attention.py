@@ -2,10 +2,10 @@
 (K2), and the trainable joint attention (K7 forward + LSE, K8 dQ, K9 dK/dV).
 
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/ops/flash_attention.py``.
-Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm`` and
-``_flash_kernel_fwd_lse`` become one Hopper kernel on wgmma and TMA,
-``csrc/flash_fwd_sm90.cu``, templated on the LSE store;
-``_flash_kernel_causal`` becomes ``csrc/flash_attention.cu`` (mma.sync);
+Its Pallas kernels ``_flash_kernel``, ``_flash_kernel_hbm``,
+``_flash_kernel_fwd_lse`` and ``_flash_kernel_causal`` become one Hopper
+kernel on wgmma and TMA, ``csrc/flash_fwd_sm90.cu``, templated on the LSE
+store and on the causal select;
 ``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel`` become the two kernels
 of ``csrc/flash_attention_bwd.cu`` (on the forward's wgmma/TMA skeleton,
 deterministic: no atomics), behind :class:`FlashAttentionTrainable`
@@ -189,20 +189,37 @@ def joint_attention(q, k, v, kv_mask: Optional[torch.Tensor] = None,
     return out
 
 
-def causal_attention(q, k, v) -> torch.Tensor:
+def causal_block_q(q) -> int:
+    """K2's query rows per CTA: 64 (one consumer warpgroup) while 128-row
+    CTAs would leave SMs idle, else 128 (K1's two warpgroups)."""
+    b, h, l, _ = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return 64 if b * h * -(-l // 128) < sms else 128
+
+
+def causal_attention(q, k, v, block_q: Optional[int] = None) -> torch.Tensor:
     """K2: causal GQA, q (B, H, L, 128), k/v (B, Hkv, L, 128) bf16, H % Hkv
     == 0. Takes no mask: padding must be a suffix, and every padded key
-    column then lies above the diagonal of every real row."""
+    column then lies above the diagonal of every real row. ``block_q`` (64
+    or 128 query rows per CTA) defaults to :func:`causal_block_q`."""
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v)
     _check_cuda(q, k, v)
     if q.shape[1] % k.shape[1] != 0 or q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention takes H % Hkv == 0, Lq == Lk")
     b, h, l, d = q.shape
+    if l == 0:
+        raise ValueError("causal flash attention: empty sequence")
+    if block_q is None:
+        block_q = causal_block_q(q)
+    elif block_q not in (64, 128):
+        raise ValueError(f"causal flash attention: block_q is 64 or 128, "
+                         f"not {block_q}")
     out = torch.empty_like(q)
-    err = kernels.library().qie_flash_causal_bf16(
+    err = kernels.library().qie_flash_causal_sm90(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-        k.shape[1], l, d ** -0.5, kernels.current_stream_handle(q.device))
+        k.shape[1], l, d ** -0.5, block_q,
+        kernels.current_stream_handle(q.device))
     kernels.check(err, "causal flash attention")
     kernels.LAUNCHES["flash_causal"] += 1
     return out

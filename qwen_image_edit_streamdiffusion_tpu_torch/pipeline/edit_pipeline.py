@@ -210,9 +210,11 @@ class EditPipeline:
         for img in images:
             a = img.shape[1] / img.shape[0]
             vw, vh = imaging.calculate_dimensions(self.config.vae_image_area, a)
-            vae_images.append(imaging.resize(img, vw, vh))
+            vae_images.append(imaging.resize(img, vw, vh, "lanczos",
+                                             self.device))
             lw, lh = imaging.calculate_dimensions(self.config.vl_image_area, a)
-            vl_images.append(imaging.resize(img, lw, lh))
+            vl_images.append(imaging.resize(img, lw, lh, "lanczos",
+                                            self.device))
         return out_h, out_w, vae_images, vl_images
 
     def encode_condition_latents(self, vae_images: List[np.ndarray]):

@@ -28,8 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_fwd_sm90.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "conv3x3.cu", "int8_gemm.cu")
+SOURCES = ("flash_fwd_sm90.cu", "flash_attention_bwd.cu", "conv3x3.cu",
+           "int8_gemm.cu")
 HEADERS = ("mma_bf16.cuh", "sm90.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -120,9 +120,9 @@ def library() -> ctypes.CDLL:
         lib.qie_flash_fwd_sm90.argtypes = [
             vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
         lib.qie_flash_fwd_sm90.restype = ci
-        lib.qie_flash_causal_bf16.argtypes = [
-            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, vp]
-        lib.qie_flash_causal_bf16.restype = ci
+        lib.qie_flash_causal_sm90.argtypes = [
+            vp, vp, vp, vp, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+        lib.qie_flash_causal_sm90.restype = ci
         lib.qie_flash_bwd_dq_bf16.argtypes = [
             vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp]
         lib.qie_flash_bwd_dq_bf16.restype = ci

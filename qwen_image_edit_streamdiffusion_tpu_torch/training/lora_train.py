@@ -421,7 +421,8 @@ def build_batch(pipe, items: Sequence[Dict[str, Any]],
         for i, (it, out_h, out_w, vae_images) in enumerate(metas):
             cond, cond_shapes = pipe.latent_cache.get_or_encode(
                 vae_images, pipe.encode_condition_latents)
-            tgt = imaging.resize(imaging.as_uint8_array(it["target"]), out_w, out_h)
+            tgt = imaging.resize(imaging.as_uint8_array(it["target"]), out_w, out_h,
+                                  "lanczos", pipe.device)
             x0, x0_shapes = pipe.encode_condition_latents([tgt])
             g = (tuple(x0_shapes), tuple(cond_shapes))
             if geom is None:

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bwd_exp2_bf16_argument
+from chip_smoke import CONV_TOL, bwd_exp2_bf16_argument
+from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
@@ -168,18 +169,68 @@ def test_mask_rule_is_one_rule_for_k7_k8_k9(dev):
     assert (dq - ref_dq).abs().max().item() < GRAD_TOL * ref_dq.abs().max().item()
 
 
-@pytest.mark.parametrize("h,hkv,l,n_real", [(4, 4, 128, 128), (28, 4, 384, 300),
-                                            (8, 2, 200, 200)])
-def test_causal_kernel_matches_plain(dev, h, hkv, l, n_real):
+# K2 on the causal instances of the sm90 forward (64- and 128-row CTAs):
+# lengths off and on its 128-key tiles (and off 64), full or suffix-padded
+# (real rows compared), 28 q on 4 kv heads, 8 on 2 and 4 on 4.
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("h,hkv", [(28, 4), (8, 2), (4, 4)])
+@pytest.mark.parametrize("l,n_real", [(1, 1), (7, 7), (64, 64), (127, 127), (128, 100),
+                                      (129, 129), (200, 200), (384, 258), (383, 383),
+                                      (511, 511), (640, 577), (1024, 1024), (1100, 1100)])
+def test_causal_kernel_matches_plain(dev, h, hkv, l, n_real, block_q):
     q = _randn((1, h, l, 128), 3, dev)
     k = _randn((1, hkv, l, 128), 4, dev)
     v = _randn((1, hkv, l, 128), 5, dev)
-    out = fa.causal_attention(q, k, v)
-    mask = torch.arange(l, device=dev) < n_real
-    ref = fa.causal_attention_plain(q, k, v, mask)
+    before = kernels.LAUNCHES["flash_causal"]
+    out = fa.causal_attention(q, k, v, block_q)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_causal"] == before + 1
+    ref = fa.causal_attention_plain(q, k, v, torch.arange(l, device=dev) < n_real)
     err, tol = _att_err(out[:, :, :n_real], ref[:, :, :n_real])
     assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_causal_kernel_is_deterministic(dev, block_q):
+    """Two runs of K2 at the main path's bucket give the same bits, and the
+    two tiles give the same bits: each row's key blocks are the same."""
+    q = _randn((1, 28, 384, 128), 23, dev)
+    k = _randn((1, 4, 384, 128), 24, dev)
+    v = _randn((1, 4, 384, 128), 25, dev)
+    a = fa.causal_attention(q, k, v, block_q)
+    b = fa.causal_attention(q, k, v, block_q)
+    other = fa.causal_attention(q, k, v, 192 - block_q)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(a, other)
+
+
+# K3 at every shape of the flagship VAE's mix, cut to a few tiles: (B, H, W,
+# C_in, F). H and W off the 4 × 16 tile, B = 2; F = 3 (N = 8), 48, 96, 192
+# (two 96-wide slices) and 384 (four); C_in 16, 48, 96, and 24 and 128 (K
+# padded to 32; N = 48 beside 128-channel weights).
+CONV_MIX = [(2, 37, 45, 96, 96), (1, 42, 33, 96, 48), (2, 19, 50, 48, 96),
+            (2, 29, 70, 96, 3), (1, 20, 31, 96, 192), (2, 13, 18, 16, 384),
+            (1, 9, 100, 24, 40), (1, 23, 21, 128, 96)]
+
+
+@pytest.mark.parametrize("shape", CONV_MIX)
+def test_conv_sm90_mix_shapes(dev, shape):
+    """bf16 against the plain version in bf16 (cuDNN), within CONV_TOL (two
+    bf16 ulps at max(1, max|ref|)); a rerun gives the same bits."""
+    b, h, w, c, f = shape
+    x = _randn((b, h, w, c), 30, dev)
+    wt = (_randn((3, 3, c, f), 31, dev, torch.float32) * (9 * c) ** -0.5).to(torch.bfloat16)
+    bias = _randn((f,), 32, dev) * 0.1
+    before = kernels.LAUNCHES["conv3x3"]
+    out = conv_ops.conv3x3(x, wt, bias)
+    again = conv_ops.conv3x3(x, wt, bias)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["conv3x3"] == before + 2
+    ref = conv_ops.conv3x3_plain(x, wt, bias).float()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= CONV_TOL * max(1.0, ref.abs().max().item()), err
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -202,6 +253,23 @@ def test_conv_kernel_matches_plain(dev, dtype, tol, shape):
     assert err < tol * scale, err
 
 
+
+# The resize's size cases (core/imaging.py): on the card its float64 products
+# give the host's bytes, which tests/test_torch_imaging.py holds to Pillow's.
+RESIZE_CASES = [("lanczos", (1024, 1024), (384, 384)),
+                ("lanczos", (768, 1024), (320, 448)),
+                ("lanczos", (200, 300), (864, 1184)),
+                ("bicubic", (384, 384), (392, 392)),
+                ("bicubic", (384, 384), (224, 224))]
+
+
+@pytest.mark.parametrize("filt,src,dst", RESIZE_CASES)
+def test_resize_on_the_card_equals_the_host(dev, filt, src, dst):
+    img = np.random.default_rng(40).integers(0, 256, src + (3,)).astype(np.uint8)
+    host = imaging.resize(img, dst[1], dst[0], filt)
+    card = imaging.resize(img, dst[1], dst[0], filt, dev)
+    np.testing.assert_array_equal(card, host)
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = _randn((1, 2, 64, 128), 0, dev)
     with pytest.raises(TypeError):
@@ -216,6 +284,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.joint_attention(q[:, :, :0].contiguous(), q, q)
     with pytest.raises(ValueError):  # K7 takes H == Hkv only
         fa.flash_fwd_lse(_randn((1, 4, 64, 128), 0, dev), q, q)
+    with pytest.raises(ValueError):  # K2 takes 64- or 128-row CTAs
+        fa.causal_attention(q, q, q, 96)
     x = _randn((1, 8, 8, 12), 0, dev)
     with pytest.raises(ValueError):
         conv_ops.conv3x3(x, _randn((3, 3, 12, 4), 1, dev), _randn((4,), 2, dev))

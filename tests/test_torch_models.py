@@ -203,10 +203,10 @@ def test_lm_forward_matches_jax(vl_params):
 
 def test_encode_matches_jax(vl_params):
     """Chat template, bucketing, vision splice, LM and the prefix drop: the
-    embeddings and mask of one request with an image already at its VL size
-    (no resize on either side)."""
+    embeddings and mask of one request with an image off the VL grid, so
+    both sides run the smart-resize (BICUBIC)."""
     jparams, params = vl_params
-    img = _rng(11).integers(0, 256, (56, 84, 3)).astype(np.uint8)
+    img = _rng(11).integers(0, 256, (50, 90, 3)).astype(np.uint8)
     jenc = jvl.QwenVLEncoder(VL32, params=jparams, max_len=VL32.max_text_len)
     enc = vl.QwenVLEncoder(VL32, params, device="cpu", max_len=VL32.max_text_len)
     want = jenc.encode("make it a watercolor painting", [img])

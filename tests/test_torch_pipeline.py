@@ -2,9 +2,9 @@
 
 Both pipelines get the same weights (JAX-layout trees filled from numpy,
 bridged to the port with ``convert.from_jax``), the same initial noise (the
-JAX ``x0`` injected into the port), and images already at their target sizes,
-so neither side resizes (the port resizes with torch, the JAX package with
-Pillow — an accepted divergence).
+JAX ``x0`` injected into the port), and images off their target sizes, so
+both sides resize (the JAX package with Pillow, the port with its own copy of
+Pillow's resampling: the same bytes).
 """
 
 import dataclasses
@@ -88,8 +88,10 @@ def _jax_pipeline(preset, trees, quant_bits=None):
 
 
 def _images(n: int):
+    """n noisy images 40 pixels larger than SIZE², resized to it (LANCZOS)."""
     rng = np.random.default_rng(0)
-    return [rng.integers(0, 256, (SIZE, SIZE, 3), np.uint8) for _ in range(n)]
+    return [rng.integers(0, 256, (SIZE + 40, SIZE + 40, 3), np.uint8)
+            for _ in range(n)]
 
 
 def _run_both(f32: bool, monkeypatch, n_images: int = 1, bridge_bits=None,
