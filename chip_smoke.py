@@ -8,11 +8,12 @@ toolkit. Phases, each printing one JSON line:
 
 1. device  — the card's name and ``nvidia-smi`` name/power limit;
 2. build   — compiles ``qwen_image_edit_streamdiffusion_tpu_torch/csrc`` with
-             nvcc (sm_90a) and loads it; per kernel symbol, the HGMMA (wgmma)
-             and UTMALDG (TMA) instructions of its SASS, its spill bytes and
-             whether ptxas serialised its wgmmas: the forward (K1/K4/K7 and
-             the causal K2 instance), both backward kernels (K8, K9) and the
-             conv (K3) must show both, no spills and no serialisation;
+             nvcc (sm_90a) and loads it; per kernel symbol, the HGMMA and
+             IGMMA (bf16 and s8 wgmma) and UTMALDG (TMA) instructions of its
+             SASS, its spill bytes and whether ptxas serialised its wgmmas:
+             the forward (K1/K4/K7 and the causal K2 instance), both backward
+             kernels (K8, K9), the conv (K3) and the int8 GEMM's wgmma body
+             (K6) must show both, no spills and no serialisation;
    resize  — the request's resizes (1024² → 384² LANCZOS, 384² → 392²
              BICUBIC) timed on the host and on the card: first call, a new
              size in a warm process, warm; the card's bytes must equal the
@@ -29,10 +30,10 @@ toolkit. Phases, each printing one JSON line:
              one miss's launches in a CUDA graph, replayed), beside the
              per-call time (``wall_ms``), and so is their library call; the
              K3 mix prints its summed device ms a miss against its bound and
-             cuDNN's. K7-K9 run at the train shape (2, 24, 8448, 128); K7's O
-             must equal K1's bit for bit, masked keys must get exactly zero dK
-             and dV, and a backward that takes exp2 of the bf16-rounded
-             argument must fail the K8/K9 limit;
+             cuDNN's. K7-K9 run at the train shape
+             (2, 24, 8448, 128); K7's O must equal K1's bit for bit, masked
+             keys must get exactly zero dK and dV, and a backward that takes
+             exp2 of the bf16-rounded argument must fail the K8/K9 limit;
 4. block parity — a 2-block MMDiT at flagship width, one forward at the 1024²
              edit shape, ``use_flash_attention`` True (kernels) vs False
              (plain), held to a relative L2 tolerance; then the same blocks
@@ -65,10 +66,17 @@ toolkit. Phases, each printing one JSON line:
              ``use_int8`` + ``use_int8_vl`` (quantized in place): warm-up,
              three misses, two hits and one two-image edit; K5 and K6 must
              run once per quantized linear the request executes (1200 in the
-             MMDiT, 358 more in the VL encoder per one-image miss);
+             MMDiT, 358 more in the VL encoder per one-image miss); then a
+             miss timed plainly and one profiled, as for bf16;
 7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
              miss; K5/K6 run only for the vision tower's 3420-wide ``down``
-             leaves, which take the int8 rung (32 per image per miss).
+             leaves, which take the int8 rung (32 per image per miss);
+8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
+             bit-identical to their plain versions, timed as K3 is, beside
+             bf16 ``F.linear`` and ``torch._int_mm`` (the s8 product alone),
+             with the mix's sums a miss. It runs after the pipelines: its
+             graphs capture cuBLAS on a side stream, whose workspace would
+             otherwise stay allocated through the requests above.
 
 Then it prints the kernels summary and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -155,13 +163,16 @@ def nvidia_smi_line() -> str:
 
 # the port's kernel symbols, as nvcc mangles them into the library
 KERNEL_SYMBOLS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                  "conv3x3_sm90_kernel", "conv3x3_f32_kernel", "int8_gemm_kernel",
-                  "quantize_rows_kernel")
-# the kernels the build gate holds to wgmma + TMA, no spills, no serialisation
-# (flash_fwd_sm90_kernel<LSE, CAUSAL, consumer warpgroups>: <0,0,2> is K1/K4,
-# <1,0,2> K7, <0,1,1> and <0,1,2> K2 with 64- and 128-row CTAs)
+                  "conv3x3_sm90_kernel", "conv3x3_f32_kernel", "int8_gemm_sm90_kernel",
+                  "int8_gemm_mma_kernel", "quantize_rows_kernel")
+# the kernels the build gate holds to wgmma (HGMMA for bf16, IGMMA for s8) +
+# TMA, no spills, no serialisation (flash_fwd_sm90_kernel<LSE, CAUSAL,
+# consumer warpgroups>: <0,0,2> is K1/K4, <1,0,2> K7, <0,1,1> and <0,1,2> K2
+# with 64- and 128-row CTAs; int8_gemm_sm90_kernel is K6 where K % 16 == 0,
+# int8_gemm_mma_kernel, its mma.sync body for K % 16 != 0, is not held)
 WGMMA_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                 "conv3x3_sm90_kernel")
+                 "conv3x3_sm90_kernel", "int8_gemm_sm90_kernel")
+GMMA_OPS = ("HGMMA", "IGMMA")
 
 
 def short_symbol(mangled: str) -> str:
@@ -180,8 +191,9 @@ def short_symbol(mangled: str) -> str:
 
 
 def build_report(lib_path) -> dict:
-    """Per kernel symbol: the HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in ``cuobjdump --dump-sass`` of the built library, the spill
+    """Per kernel symbol: the HGMMA and IGMMA (bf16 and s8 wgmma) and
+    UTMALDG (TMA load) instructions in ``cuobjdump --dump-sass`` of the
+    built library, the spill
     bytes ``-Xptxas -v`` printed, and whether ptxas serialised its wgmmas
     (warnings C7510-C7515 in build.log)."""
     import shutil
@@ -194,10 +206,10 @@ def build_report(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function : " in line:
             name = short_symbol(line.split("Function : ")[1].strip())
-            report[name] = {"HGMMA": 0, "UTMALDG": 0, "spill_bytes": None,
-                            "wgmma_serialized": False}
+            report[name] = {**dict.fromkeys(GMMA_OPS, 0), "UTMALDG": 0,
+                            "spill_bytes": None, "wgmma_serialized": False}
         elif name is not None:
-            for op in ("HGMMA", "UTMALDG"):
+            for op in GMMA_OPS + ("UTMALDG",):
                 report[name][op] += op in line
     log = (lib_path.parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):
@@ -407,7 +419,6 @@ def phase_kernels():
     results.update(phase_conv_kernel())
     torch.cuda.empty_cache()
     results.update(phase_stream_kernel())
-    results.update(phase_int8_kernels())
     results.update(phase_train_kernels())
     return results
 
@@ -576,25 +587,57 @@ def phase_stream_kernel():
     return {"flash_attention_stream": rec0}
 
 
-# (name, M, K, N): the int8 linears of the path
-INT8_SHAPES = (("img_qkv", 8192, 3072, 9216), ("img_mod", 1, 3072, 18432),
-               ("fc2", 8192, 12288, 3072), ("lm_down", 384, 18944, 3584),
-               ("vision_down", 784, 3420, 1280))
+# The int8 linears of a one-image int8 miss: (name, M, K, N, launches a
+# miss), shapes that occur more than once merged. MMDiT (120 each: 60 blocks
+# × 2 steps): the image stream at 8192 tokens, the text stream at the
+# 256-token bucket, the two modulation GEMVs; the VL LM (28 layers, 384-token
+# bucket); the vision tower (32 blocks, 784 patches) and its merger (196).
+INT8_MIX = (("img_qkv", 8192, 3072, 9216, 120), ("img_out", 8192, 3072, 3072, 120),
+            ("img_fc1", 8192, 3072, 12288, 120), ("img_fc2", 8192, 12288, 3072, 120),
+            ("txt_qkv", 256, 3072, 9216, 120), ("txt_out", 256, 3072, 3072, 120),
+            ("txt_fc1", 256, 3072, 12288, 120), ("txt_fc2", 256, 12288, 3072, 120),
+            ("img_mod+txt_mod", 1, 3072, 18432, 240),
+            ("lm_q+lm_o", LM_LEN, 3584, 3584, 56), ("lm_k+lm_v", LM_LEN, 3584, 512, 56),
+            ("lm_gate+lm_up", LM_LEN, 3584, 18944, 56), ("lm_down", LM_LEN, 18944, 3584, 28),
+            ("vis_qkv", 784, 1280, 3840, 32), ("vis_proj", 784, 1280, 1280, 32),
+            ("vis_gate+vis_up", 784, 1280, 3420, 64), ("vis_down", 784, 3420, 1280, 32),
+            ("merger_fc1", 196, 5120, 5120, 1), ("merger_fc2", 196, 5120, 3584, 1))
+
+
+def int_mm(xq, wq):
+    """``torch._int_mm`` on the same codes where it takes the shape (M > 16,
+    K and N multiples of 8): the s8 product alone, int32 out, no scales, no
+    bias. A yardstick for K6's product only; the port never calls it."""
+    import torch
+
+    m, k = xq.shape
+    if m <= 16 or k % 8 or wq.shape[0] % 8:
+        return None
+    return lambda: torch._int_mm(xq, wq.t())
 
 
 def phase_int8_kernels():
-    """K5 and K6 at the path's shapes, bit-identical to their plain versions
-    (gate: max-abs error 0 for codes, scales and the GEMM output), with the
-    bf16 ``F.linear`` that the int8 rung replaces timed beside them."""
+    """K5 and K6 at every int8 shape of a one-image miss, bit-identical to
+    their plain versions (gate: max-abs error 0 for codes, scales and the
+    GEMM output). Each shape: device time per launch from a graph of the
+    shape's launches a miss (``ms``), the per-call time (``wall_ms``), the
+    plain versions, bf16 ``F.linear`` (the rung int8 replaces) and
+    ``torch._int_mm`` under both, and the bound; then the mix a miss, summed
+    per column."""
     import torch
     import torch.nn.functional as F
 
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
 
+    if sum(n for *_, n in INT8_MIX) != INT8_MMDIT + INT8_LM + INT8_VISION:
+        raise AssertionError("INT8_MIX does not hold a miss's int8 linears")
     bf16 = torch.bfloat16
-    recs = {}
-    worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
-    for name, m, k, n in INT8_SHAPES:
+    recs, worst = {}, {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    cols = ("ms", "wall_ms", "bound_ms", "bf16_ms", "bf16_wall_ms")
+    mix = {"int8_gemm": dict.fromkeys(cols + ("int_mm_ms", "int_mm_wall_ms",
+                                              "int_mm_launches"), 0.0),
+           "quantize_rows": dict.fromkeys(("ms", "wall_ms", "bound_ms"), 0.0)}
+    for name, m, k, n, launches in INT8_MIX:
         x = randn((m, k), 15, bf16)
         w = randn((n, k), 16, torch.float32).mul_(0.02).to(bf16)
         b = randn((n,), 17, bf16) * 0.1
@@ -606,40 +649,46 @@ def phase_int8_kernels():
         out = int8.int8_matmul(xq_ref, xs_ref, wq, ws, b)
         ref = int8.int8_matmul_plain(xq_ref, xs_ref, wq, ws, b)
         err6 = (out.float() - ref.float()).abs().max().item()
-        times = {
-            "k5_ms": cuda_ms(lambda: int8.quantize_rows(x), 20),
-            "k5_plain_ms": cuda_ms(lambda: int8.quantize_rows_plain(x), 10),
-            "k6_ms": cuda_ms(lambda: int8.int8_matmul(xq, xs, wq, ws, b), 20),
-            "k6_plain_ms": cuda_ms(
-                lambda: int8.int8_matmul_plain(xq, xs, wq, ws, b), 5),
-            "int8_linear_ms": cuda_ms(lambda: int8.int8_linear(
-                x, {"w_q": wq, "scale": ws, "bias": b}), 20),
-            "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w, b), 20),
-        }
-        b5 = bound(0, nbytes(x, xq, xs), PEAK_INT8)
-        b6 = bound(2 * m * k * n, nbytes(xq, xs, wq, ws, b) + m * n * 2, PEAK_INT8)
-        rec = {"phase": "kernel", "name": "int8_linear", "shape": name,
-               "mkn": [m, k, n], "k5_max_abs_err": err5, "k6_max_abs_err": err6,
-               "tol": 0.0, **times,
-               "k5_bound_ms": b5["bound_ms"], "k5_bound_share": b5["bound_ms"] / times["k5_ms"],
-               "k6_bound_ms": b6["bound_ms"], "k6_bound_share": b6["bound_ms"] / times["k6_ms"]}
-        emit(rec)
+        del out, ref
+        plan = int8.gemm_plan(m, n, k, torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+        k5 = {**timed("", lambda: int8.quantize_rows(x), launches),
+              "plain_ms": cuda_ms(lambda: int8.quantize_rows_plain(x), 5),
+              **bound(0, nbytes(x, xq, xs), PEAK_INT8)}
+        mm = int_mm(xq, wq)
+        k6 = {**timed("", lambda: int8.int8_matmul(xq, xs, wq, ws, b), launches),
+              "plain_ms": cuda_ms(lambda: int8.int8_matmul_plain(xq, xs, wq, ws, b), 3),
+              **timed("bf16_", lambda: F.linear(x, w, b), launches),
+              **(timed("int_mm_", mm, launches) if mm else
+                 {"int_mm_ms": None, "int_mm_wall_ms": None}),
+              **bound(2 * m * k * n, nbytes(xq, xs, wq, ws, b) + m * n * 2, PEAK_INT8)}
+        for kname, rec, err in (("quantize_rows", k5, err5), ("int8_gemm", k6, err6)):
+            extra = ({"route": plan.route, "splits": plan.splits, "grid": plan.grid}
+                     if kname == "int8_gemm" else {})
+            emit_kernel({"phase": "kernel", "name": kname, "shape": name,
+                         "mkn": [m, k, n], "launches_miss": launches, **extra,
+                         "max_abs_err": err, "tol": 0.0, **rec})
+            worst[kname] = max(worst[kname], err)
+            for key in mix[kname]:
+                if key == "int_mm_launches":
+                    mix[kname][key] += launches if mm else 0
+                elif rec.get(key) is not None:
+                    mix[kname][key] += launches * rec[key]
+            if name == "img_qkv":
+                # no single PyTorch call computes either (torch._int_mm has no
+                # scaled epilogue); bf16 F.linear and _int_mm are printed above
+                recs[kname] = {**rec, "library_ms": None}
         if err5 != 0 or err6 != 0:
             raise AssertionError(f"{name}: K5 error {err5}, K6 error {err6}: "
                                  "not bit-identical")
-        worst["quantize_rows"] = max(worst["quantize_rows"], err5)
-        worst["int8_gemm"] = max(worst["int8_gemm"], err6)
-        if name == "img_qkv":
-            # no single PyTorch call computes either (torch._int_mm has no
-            # scaled epilogue); bf16 F.linear is K6's yardstick, printed above
-            recs["quantize_rows"] = {
-                "ms": times["k5_ms"], "plain_ms": times["k5_plain_ms"],
-                "library_ms": None, **b5}
-            recs["int8_gemm"] = {
-                "ms": times["k6_ms"], "plain_ms": times["k6_plain_ms"],
-                "library_ms": None, **b6}
-        del x, w, b, wq, ws, xq, xs, xq_ref, xs_ref, out, ref
+        del x, w, b, wq, ws, xq, xs, xq_ref, xs_ref
         torch.cuda.empty_cache()
+    for kname, tot in mix.items():
+        emit({"phase": "kernel_mix", "name": kname, "per": "int8 one-image miss",
+              "launches": sum(n for *_, n in INT8_MIX), **tot,
+              "bound_share": tot["bound_ms"] / tot["ms"],
+              **({"vs_bf16_linear": tot["ms"] / tot["bf16_ms"]}
+                 if kname == "int8_gemm" else {})})
     for key in recs:
         recs[key]["max_abs_err"] = worst[key]
     return recs
@@ -1014,7 +1063,7 @@ def phase_slice():
                 + [("two_images", two, PROMPT, expected(True, 2))])
     latents = {}
     launches = run_requests(pipe, requests, "bf16", latents)
-    for k, n in profile_request(pipe).items():
+    for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
     train_launches, adapters = phase_train(pipe)
     serve_launches = phase_lora_serve(pipe, adapters, latents["hit1"])
@@ -1029,7 +1078,8 @@ KERNEL_KINDS = (("flash_fwd_sm90_kernel<false, true,", "K2 flash_fwd_sm90 causal
                 ("flash_fwd_sm90", "K1/K4/K7 flash_fwd_sm90"),
                 ("conv3x3", "K3 conv3x3"),
                 ("quantize_rows", "K5 quantize_rows"),
-                ("int8_gemm", "K6 int8_gemm"),
+                ("int8_gemm_mma", "K6 int8_gemm_mma (K % 16 != 0)"),
+                ("int8_gemm", "K6 int8_gemm_sm90"),
                 ("flash_bwd_dq", "K8 flash_bwd_dq"),
                 ("flash_bwd_dkv", "K9 flash_bwd_dkv"))
 
@@ -1082,11 +1132,12 @@ def profile_call(fn, plain_wall=None) -> dict:
     return out
 
 
-def profile_request(pipe) -> dict:
-    """Two more bf16 cache misses: one timed plainly, then one under
-    torch.profiler: device time by kernel kind, busy seconds and the idle
-    share against the plain miss's wall (the profile PERF.md §5 keeps).
-    Returns their launches, each held to a miss's counts."""
+def profile_request(pipe, label: str, want: dict, image: int) -> dict:
+    """Two more cache misses on ``pipe`` (images ``image``, ``image`` + 1):
+    one timed plainly, then one under torch.profiler: device time by kernel
+    kind, busy seconds and the idle share against the plain miss's wall
+    (the profiles PERF.md §5 keeps). Returns their launches, each held to
+    ``want``, a miss's counts."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
@@ -1097,21 +1148,21 @@ def profile_request(pipe) -> dict:
 
     total = {k: 0 for k in kernels.LAUNCHES}
     plain_wall = None
-    for name, image in (("miss_plain", 6000), ("miss_profiled", 6001)):
+    for name, img in (("miss_plain", image), ("miss_profiled", image + 1)):
         before = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
         t0 = time.time()
         if plain_wall is None:
-            miss(image)()
+            miss(img)()
             torch.cuda.synchronize()
             plain_wall = time.time() - t0
             rec = {"wall_s": plain_wall}
         else:
-            rec = profile_call(miss(image), plain_wall)
+            rec = profile_call(miss(img), plain_wall)
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-        emit({"phase": "request_profile", "path": "bf16", "name": name,
+        emit({"phase": "request_profile", "path": label, "name": name,
               "launches": delta, **rec})
-        for key, n in expected(True).items():
+        for key, n in want.items():
             if delta[key] != n:
                 raise AssertionError(f"{name}: {key} ran {delta[key]} times, not {n}")
         for k, n in delta.items():
@@ -1214,7 +1265,8 @@ def phase_lora_serve(pipe, trained, pre_latents):
 
 
 def phase_int8():
-    """The int8 rung (MMDiT and VL): K5 → K6 for every quantized linear."""
+    """The int8 rung (MMDiT and VL): K5 → K6 for every quantized linear;
+    then a plain and a profiled miss."""
     pipe = create_pipeline("int8", use_int8=True, use_int8_vl=True)
     one = dict(int8_per_request=INT8_MMDIT, int8_miss=INT8_LM + INT8_VISION)
     two = [distinct_image(3000), distinct_image(3001)]
@@ -1226,7 +1278,10 @@ def phase_int8():
                 + [("two_images", two, PROMPT,
                     expected(True, 2, int8_per_request=INT8_MMDIT,
                              int8_miss=INT8_LM + 2 * INT8_VISION))])
-    return run_requests(pipe, requests, "int8")
+    launches = run_requests(pipe, requests, "int8")
+    for k, n in profile_request(pipe, "int8", expected(True, **one), 6010).items():
+        launches[k] += n
+    return launches
 
 
 def phase_int4():
@@ -1272,7 +1327,8 @@ def main() -> int:
             raise AssertionError(f"{sym} is not in the library")
     for name, rec in sass.items():
         if name.startswith(WGMMA_KERNELS) and not (
-                rec["HGMMA"] > 0 and rec["UTMALDG"] > 0 and rec["spill_bytes"] == 0
+                sum(rec[op] for op in GMMA_OPS) > 0 and rec["UTMALDG"] > 0
+                and rec["spill_bytes"] == 0
                 and not rec["wgmma_serialized"]):
             raise AssertionError(f"{name}: not a wgmma/TMA kernel without spills "
                                  f"and serialisation: {rec}")
@@ -1288,6 +1344,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "launches", "total": launches})
+    per_kernel.update(phase_int8_kernels())
 
     sources = {
         "flash_attention_joint": ("csrc/flash_fwd_sm90.cu", "flash_joint",

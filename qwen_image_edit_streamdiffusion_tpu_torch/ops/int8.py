@@ -25,7 +25,11 @@ and on the CPU, not the Pallas v2 entry:
 
 There is no switch between the two: on a CUDA tensor every int8 linear is K5
 then K6. Each wrapper takes its plain version only for a tensor on the CPU;
-a CUDA tensor launches the kernel or the call raises.
+a CUDA tensor launches the kernel or the call raises. K6 has two bodies,
+chosen by shape before the launch (:func:`gemm_plan`): the wgmma + TMA
+kernel where K % 16 == 0, and the ``mma.sync`` kernel where K % 16 != 0
+(TMA's row strides are multiples of 16 bytes; on the path only the vision
+tower's ``down``, K = 3420).
 
 Layouts are the port's: an int8 leaf is ``{"w_q": (out, in) int8, "scale":
 (out,) f32, "bias"}``; an int4 leaf is ``{"w_q4": (out, in/2) uint8,
@@ -37,6 +41,8 @@ layout transposed; the nibble pairs stay pairs along ``in``.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -147,9 +153,12 @@ def _check(name: str, t: torch.Tensor, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+QUANTIZE_MAX_K = 32768  # K5 holds a row in the registers of one CTA
+
+
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (M, K) bf16 → ((M, K) int8, (M, 1) f32), bit-identical to
-    :func:`quantize_rows_plain`."""
+    :func:`quantize_rows_plain`; K <= 32768."""
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
     if x.device.type != "cuda":
@@ -158,8 +167,9 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"quantize_rows: x must be (M, K), got {tuple(x.shape)}")
     _check("quantize_rows: x", x, torch.bfloat16, x.device)
     m, k = x.shape
-    if m == 0 or k == 0:
-        raise ValueError(f"quantize_rows: empty x {tuple(x.shape)}")
+    if m == 0 or k == 0 or k > QUANTIZE_MAX_K:
+        raise ValueError(f"quantize_rows: x {tuple(x.shape)}; K must be in "
+                         f"[1, {QUANTIZE_MAX_K}]")
     lib = kernels.library()
     x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
@@ -170,13 +180,85 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return x_q, scale
 
 
+# K6's wgmma body: 128 × 256 output tiles, K in 128-byte slabs
+BLOCK_M, BLOCK_N, SLAB = 128, 256, 128
+MAX_SPLITS = 16
+# The split-K cost model, in slab times of one CTA (a slab: 128 × 256 × 128
+# bytes of product, about 0.6 µs on an H100): a unit's fixed cost (its
+# pipeline drain), a tile's epilogue (for 128 live rows), a split unit's
+# partial write, fence and counter, and the last unit's read of each other
+# partial (for 128 live rows). Fitted on an H100 SXM to a sweep of every
+# split count over the path's small-M shapes (PERF.md §6 gives how far its
+# picks are from the sweep's best).
+UNIT_SLABS, EPILOGUE_SLABS, PARTIAL_SLABS, REDUCE_SLABS = 1, 1, 4, 4
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How K6 runs one (M, N, K): ``route`` "wgmma" (K % 16 == 0) or
+    "mma_sync"; output tiles of ``block_m`` × ``block_n``; each tile's K in
+    ``splits`` ranges of ``kb_per_split`` slabs of ``slab`` bytes (the last
+    range may be shorter, none is empty); ``grid`` CTAs (persistent for
+    wgmma: one a SM at most)."""
+
+    route: str
+    block_m: int
+    block_n: int
+    slab: int
+    splits: int
+    kb_per_split: int
+    tiles: int
+    grid: int
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.splits
+
+
+@functools.lru_cache(maxsize=None)  # a pure function of a few shapes a model
+def gemm_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> GemmPlan:
+    """K6's plan for x_q (M, K) · w_q (N, K)ᵀ on a card of ``sms`` SMs: the
+    mma.sync body where K % 16 != 0; else the wgmma body, with the split of
+    K that minimises the modelled time, waves × (slabs a unit + fixed cost
+    + epilogue [+ partial write]) + the last unit's reads, the epilogue and
+    the reads scaled by the tile's live rows. Splitting pays where few tiles
+    each run a long K (txt_fc2, lm_down: 24 and 42 tiles) and costs more
+    than it saves where K is short or M = 1."""
+    if k % 16:
+        tiles = -(-m // 128) * -(-n // 128)
+        return GemmPlan("mma_sync", 128, 128, 64, 1, -(-k // 64), tiles, tiles)
+    tiles = -(-m // BLOCK_M) * -(-n // BLOCK_N)
+    slabs = -(-k // SLAB)
+    live = min(m, BLOCK_M) / BLOCK_M  # the share of a tile's rows that are real
+    best, best_cost = None, None
+    for want in range(1, min(slabs, MAX_SPLITS) + 1):
+        per = -(-slabs // want)
+        splits = -(-slabs // per)  # no empty range
+        if splits != want:
+            continue
+        waves = -(-(tiles * splits) // sms)
+        cost = (waves * (per + UNIT_SLABS + live * EPILOGUE_SLABS
+                         + (PARTIAL_SLABS if splits > 1 else 0))
+                + live * REDUCE_SLABS * (splits - 1))
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (splits, per), cost
+    splits, per = best
+    return GemmPlan("wgmma", BLOCK_M, BLOCK_N, SLAB, splits, per, tiles,
+                    min(tiles * splits, sms))
+
+
+_SMS: Dict[int, int] = {}
+
+
 def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
     """K6: x_q (M, K) int8, x_scale (M, 1) f32, w_q (N, K) int8, w_scale (N,)
     f32, bias (N,) bf16 or None → (M, N) bf16, bit-identical to
-    :func:`int8_matmul_plain`. K must be a multiple of 4 (16-byte copies when
-    K % 16 == 0, 4-byte copies otherwise)."""
+    :func:`int8_matmul_plain`. K must be a multiple of 4; where K % 16 == 0
+    (the wgmma body, TMA operands) x_q and w_q must be 16-byte aligned, else
+    4-byte aligned."""
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale, bias, out_dtype)
     dev = x_q.device
@@ -199,19 +281,39 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
         _check("int8_matmul: bias", bias, torch.bfloat16, dev)
         if bias.numel() != n:
             raise ValueError(f"int8_matmul: bias {tuple(bias.shape)} for N={n}")
-    if m == 0 or n == 0 or k == 0 or k % 4:
+    if m == 0 or n == 0 or k == 0 or k % 4 or k > 1 << 17:
         raise ValueError(f"int8_matmul: M={m}, N={n}, K={k}; K must be a "
-                         "positive multiple of 4")
-    if x_q.data_ptr() % 4 or w_q.data_ptr() % 4:
-        raise ValueError("int8_matmul: x_q and w_q must be 4-byte aligned")
-    if -(-m // 128) > 65535:  # grid.y = 128-row tiles
+                         "positive multiple of 4, at most 2^17")
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gemm_plan(m, n, k, _SMS[dev.index])
+    align = 16 if plan.route == "wgmma" else 4
+    if x_q.data_ptr() % align or w_q.data_ptr() % align:
+        raise ValueError(f"int8_matmul: x_q and w_q must be {align}-byte aligned "
+                         f"at K={k}")
+    if plan.route == "mma_sync" and -(-m // 128) > 65535:  # grid.y = 128-row tiles
         raise ValueError(f"int8_matmul: M={m} too large")
     lib = kernels.library()
+    stream = kernels.current_stream_handle(dev)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    err = lib.qie_int8_gemm_bf16(
-        x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
-        bias.data_ptr() if bias is not None else None, out.data_ptr(), m, n, k,
-        kernels.current_stream_handle(dev))
+    bias_ptr = bias.data_ptr() if bias is not None else None
+    if plan.route == "wgmma":
+        partials = counters = None
+        if plan.splits > 1:
+            # the call's own workspace (the stream-aware allocator keeps it
+            # from any launch still running on another stream): s32 partials,
+            # then one counter a tile, which the launcher zeroes on `stream`
+            part_ints = plan.units * BLOCK_M * BLOCK_N
+            work = torch.empty(part_ints + plan.tiles, dtype=torch.int32, device=dev)
+            partials, counters = work.data_ptr(), work[part_ints:].data_ptr()
+        err = lib.qie_int8_gemm_sm90(
+            x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+            bias_ptr, out.data_ptr(), partials, counters,
+            m, n, k, plan.splits, plan.kb_per_split, plan.grid, stream)
+    else:
+        err = lib.qie_int8_gemm_mma(
+            x_q.data_ptr(), x_scale.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+            bias_ptr, out.data_ptr(), m, n, k, stream)
     kernels.check(err, "int8_matmul")
     kernels.LAUNCHES["int8_gemm"] += 1
     return out

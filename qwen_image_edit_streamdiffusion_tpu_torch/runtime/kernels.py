@@ -133,8 +133,10 @@ def library() -> ctypes.CDLL:
         lib.qie_conv3x3.restype = ci
         lib.qie_quantize_rows_bf16.argtypes = [vp, vp, vp, ci, ci, vp]
         lib.qie_quantize_rows_bf16.restype = ci
-        lib.qie_int8_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.qie_int8_gemm_bf16.restype = ci
+        lib.qie_int8_gemm_sm90.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+        lib.qie_int8_gemm_sm90.restype = ci
+        lib.qie_int8_gemm_mma.argtypes = [vp] * 6 + [ci] * 3 + [vp]
+        lib.qie_int8_gemm_mma.restype = ci
         _lib = lib
         return lib
 

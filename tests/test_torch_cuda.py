@@ -292,9 +292,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 # K5 and K6 are bit-identical to their plain versions (see csrc/int8_gemm.cu).
+# K5's K: every thread count a row can take (32 .. 1024 threads; 16-, 8- and
+# 2-byte loads: K % 8, K % 4, odd K). K6: M from a GEMV to the vision tower's
+# 784 rows, ragged N, K a multiple of 16 but not of 128 (1040: the last slab
+# partly zero-filled by TMA), and K % 16 != 0 (3420: the mma.sync body).
+K5_K = (30, 1000, 1280, 3072, 3420, 5120, 12288, 18944)
+CARD_M = (1, 16, 17, 200, 384, 784)
+CARD_KN = ((1040, 199), (1040, 264), (3072, 3420), (3420, 199))
 
 
-@pytest.mark.parametrize("k", [3072, 3420])
+@pytest.mark.parametrize("k", K5_K)
 @pytest.mark.parametrize("m", [1, 17, 256])
 def test_quantize_rows_kernel_is_bit_identical(dev, m, k):
     x = _randn((m, k), 12, dev)
@@ -307,18 +314,81 @@ def test_quantize_rows_kernel_is_bit_identical(dev, m, k):
     assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
 
 
-@pytest.mark.parametrize("bias", [True, False])
-@pytest.mark.parametrize("k,n", [(3072, 264), (3420, 199)])
-@pytest.mark.parametrize("m", [1, 17, 256])
-def test_int8_gemm_kernel_is_bit_identical(dev, m, k, n, bias):
-    xq, xs = int8.quantize_rows_plain(_randn((m, k), 13, dev))
-    wq, ws = int8.quantize_weight(_randn((n, k), 14, dev) * 0.02)
-    b = _randn((n,), 15, dev) * 0.1 if bias else None
+def _gemm_inputs(dev, m, k, n, bias, seed=13):
+    xq, xs = int8.quantize_rows_plain(_randn((m, k), seed, dev))
+    wq, ws = int8.quantize_weight(_randn((n, k), seed + 1, dev) * 0.02)
+    b = _randn((n,), seed + 2, dev) * 0.1 if bias else None
+    return xq, xs, wq, ws, b
+
+
+def _check_gemm(xq, xs, wq, ws, b):
     before = kernels.LAUNCHES["int8_gemm"]
     out = int8.int8_matmul(xq, xs, wq, ws, b)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["int8_gemm"] == before + 1
     assert torch.equal(out, int8.int8_matmul_plain(xq, xs, wq, ws, b))
+    return out
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("k,n", CARD_KN)
+@pytest.mark.parametrize("m", CARD_M)
+def test_int8_gemm_kernel_is_bit_identical(dev, m, k, n, bias):
+    _check_gemm(*_gemm_inputs(dev, m, k, n, bias))
+
+
+@pytest.mark.parametrize("m,k,n", [(384, 18944, 3584), (384, 3584, 512),
+                                   (256, 12288, 3072)])
+def test_int8_gemm_split_k_is_exact_and_deterministic(dev, m, k, n):
+    """The path's lm_down, LM k/v and txt_fc2 take split-K: bit-identical to
+    the plain version, and again on a rerun after another split launch."""
+    assert int8.gemm_plan(m, n, k).splits > 1
+    args = _gemm_inputs(dev, m, k, n, True)
+    out = _check_gemm(*args)
+    _check_gemm(*_gemm_inputs(dev, 256, 3072, 3072, False, seed=20))
+    assert torch.equal(int8.int8_matmul(*args), out)
+
+
+def test_int8_gemm_split_k_launches_on_two_streams_do_not_mix(dev):
+    """Split-K launches that overlap on two streams each keep their own
+    partials and tile counters: every result stays bit-identical."""
+    shapes = ((384, 18944, 3584), (256, 12288, 3072))
+    inputs = [_gemm_inputs(dev, m, k, n, True, seed=30 + i)
+              for i, (m, k, n) in enumerate(shapes)]
+    refs = [int8.int8_matmul_plain(*args) for args in inputs]
+    streams = [torch.cuda.Stream(dev) for _ in shapes]
+    torch.cuda.synchronize(dev)
+    outs = [[] for _ in shapes]
+    for _ in range(8):
+        for args, stream, got in zip(inputs, streams, outs):
+            with torch.cuda.stream(stream):
+                got.append(int8.int8_matmul(*args))
+    torch.cuda.synchronize(dev)
+    for ref, got in zip(refs, outs):
+        for out in got:
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,n", [(384, 512), (256, 264)])
+def test_int8_gemm_saturated_codes_at_the_widest_k(dev, m, n):
+    """±127 codes at K = 18944: |acc| = 127² · 18944 ≈ 3.06e8, inside int32,
+    through the split-K partial sums."""
+    k = 18944
+    xq = torch.full((m, k), 127, dtype=torch.int8, device=dev)
+    xq[1::2] = -127
+    wq = torch.full((n, k), 127, dtype=torch.int8, device=dev)
+    wq[:, ::3] = -127
+    xs = torch.full((m, 1), 1e-4, device=dev)
+    ws = torch.full((n,), 1e-4, device=dev)
+    _check_gemm(xq, xs, wq, ws, _randn((n,), 3, dev))
+
+
+def test_int8_gemm_takes_the_mma_sync_body_where_k_is_not_16_aligned(dev):
+    """K = 3420 (the vision tower's `down`): TMA cannot take the operands, so
+    the plan gates it to the mma.sync body, which is still K6 and exact."""
+    assert int8.gemm_plan(784, 1280, 3420).route == "mma_sync"
+    assert int8.gemm_plan(784, 1280, 3424).route == "wgmma"
+    _check_gemm(*_gemm_inputs(dev, 784, 3420, 1280, True))
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -327,6 +397,8 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8.quantize_rows(x.float())
     with pytest.raises(ValueError):
         int8.quantize_rows(_randn((64, 4), 16, dev).t())
+    with pytest.raises(ValueError):  # K5 holds a row in one CTA's registers
+        int8.quantize_rows(_randn((2, 32776), 16, dev))
     xq, xs = int8.quantize_rows(x)
     wq, ws = int8.quantize_weight(_randn((8, 64), 17, dev))
     with pytest.raises(TypeError):
@@ -335,6 +407,24 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8.int8_matmul(xq, xs, wq.t().contiguous().t(), ws)
     with pytest.raises(ValueError):
         int8.int8_matmul(xq[:, :62].contiguous(), xs, wq[:, :62].contiguous(), ws)
+
+
+def test_int8_gemm_refuses_a_misaligned_base(dev):
+    """TMA needs a 16-byte aligned base: a view 4 bytes into its storage
+    raises at K % 16 == 0 (it is not handed to the other body); the
+    mma.sync body needs 4 bytes."""
+    buf = torch.zeros(8 * 64 + 16, dtype=torch.int8, device=dev)
+    xq = buf[4:4 + 8 * 64].view(8, 64)
+    assert xq.is_contiguous() and xq.data_ptr() % 16
+    xs = torch.ones((8, 1), device=dev)
+    wq, ws = int8.quantize_weight(_randn((8, 64), 17, dev))
+    with pytest.raises(ValueError, match="16-byte"):
+        int8.int8_matmul(xq, xs, wq, ws)
+    buf = torch.zeros(8 * 68 + 16, dtype=torch.int8, device=dev)
+    xq = buf[2:2 + 8 * 68].view(8, 68)
+    wq, ws = int8.quantize_weight(_randn((8, 68), 17, dev))
+    with pytest.raises(ValueError, match="4-byte"):
+        int8.int8_matmul(xq, xs, wq, ws)
 
 
 # K7-K9: the trainable joint attention. K7's O is K1's bit for bit; the

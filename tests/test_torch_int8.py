@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import INT8_LM, INT8_MIX, INT8_MMDIT, INT8_VISION
 from qwen_image_edit_streamdiffusion_tpu.core.config import get_preset
 from qwen_image_edit_streamdiffusion_tpu.models import common as jcommon
 from qwen_image_edit_streamdiffusion_tpu.models import qwen_vl as jvl
@@ -161,6 +162,76 @@ def test_int8_matmul_plain_is_exact_integer_product():
     got = int8.int8_matmul_plain(xq, ones[0], wq, ones[1], out_dtype=torch.float32)
     want = (xq.long() @ wq.long().t()).float()
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K6's plan: which body runs and how a tile's K is split
+# ---------------------------------------------------------------------------
+
+# every int8 linear of a one-image flagship miss (chip_smoke.INT8_MIX) and the
+# shapes of the K6 card tests (tests/test_torch_cuda.py: M × (K, N), the
+# full lm_down, saturated codes at K = 18944)
+PATH_SHAPES = [(m, k, n) for _, m, k, n, _ in INT8_MIX]
+CARD_M = (1, 16, 17, 200, 384, 784)
+CARD_KN = ((1040, 199), (1040, 264), (3072, 3420), (3420, 199))
+CARD_SHAPES = ([(m, k, n) for m in CARD_M for k, n in CARD_KN]
+               + [(384, 18944, 3584), (384, 18944, 512), (256, 3072, 3072)])
+
+
+@pytest.mark.parametrize("m,k,n", sorted(set(PATH_SHAPES + CARD_SHAPES)))
+def test_gemm_plan_covers_k_exactly(m, k, n):
+    plan = int8.gemm_plan(m, n, k)
+    assert plan.route == ("mma_sync" if k % 16 else "wgmma")
+    slabs = -(-k // plan.slab)
+    assert (slabs - 1) * plan.slab < k <= slabs * plan.slab
+    # the byte ranges of K that the splits of a tile cover (the kernel's
+    # kb0 = split · kb_per_split, kb1 = min(kb0 + kb_per_split, slabs))
+    ranges = [(sp * plan.kb_per_split * plan.slab,
+               min((sp + 1) * plan.kb_per_split, slabs) * plan.slab)
+              for sp in range(plan.splits)]
+    assert len(ranges) == plan.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == slabs * plan.slab
+    for (a0, a1), (b0, _) in zip(ranges, ranges[1:]):
+        assert a1 == b0  # contiguous, no overlap
+    assert all(a1 > a0 for a0, a1 in ranges)  # no empty range
+    tiles = -(-m // plan.block_m) * -(-n // plan.block_n)
+    assert plan.tiles == tiles and 1 <= plan.grid <= min(plan.units, 132)
+    if plan.route == "mma_sync":
+        assert plan.splits == 1 and plan.grid == tiles
+    else:
+        assert (plan.block_m, plan.block_n, plan.slab) == (128, 256, 128)
+        assert 1 <= plan.splits <= int8.MAX_SPLITS
+
+
+def test_int8_mix_holds_every_linear_of_a_miss():
+    """chip_smoke.INT8_MIX, which the plan tests above and the card's K6 mix
+    walk, holds as many launches as an int8 miss makes (1558)."""
+    assert sum(n for *_, n in INT8_MIX) == INT8_MMDIT + INT8_LM + INT8_VISION == 1558
+
+
+@pytest.mark.parametrize("m,k,n", [(8192, 3072, 9216), (8192, 3072, 3072),
+                                   (8192, 3072, 12288), (8192, 12288, 3072)])
+def test_gemm_plan_keeps_full_waves_whole(m, k, n):
+    """The image stream's tiles fill every SM many times over: no split, a
+    persistent CTA a SM."""
+    plan = int8.gemm_plan(m, n, k)
+    assert plan.splits == 1 and plan.grid == 132 and plan.units > 5 * 132
+
+
+@pytest.mark.parametrize("m,k,n", [(384, 18944, 3584), (256, 12288, 3072),
+                                   (384, 3584, 512)])
+def test_gemm_plan_splits_tiles_that_leave_sms_idle(m, k, n):
+    """lm_down (42 tiles), txt_fc2 (24) and the LM's k/v (6): K is split
+    until the units cover most of the SMs or the reads of the partials cost
+    more than they save."""
+    plan = int8.gemm_plan(m, n, k)
+    assert plan.tiles < 132 and plan.splits > 1
+    assert plan.units <= 2 * 132
+
+
+def test_gemm_plan_takes_the_card_sm_count():
+    assert int8.gemm_plan(8192, 9216, 3072, sms=66).grid == 66
+    assert int8.gemm_plan(384, 3584, 18944, sms=264).grid <= 264
 
 
 # ---------------------------------------------------------------------------
