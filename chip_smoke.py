@@ -33,7 +33,10 @@ toolkit. Phases, each printing one JSON line:
              cuDNN's. K7-K9 run at the train shape
              (2, 24, 8448, 128); K7's O must equal K1's bit for bit, masked
              keys must get exactly zero dK and dV, and a backward that takes
-             exp2 of the bf16-rounded argument must fail the K8/K9 limit;
+             exp2 of the bf16-rounded argument must fail the K8/K9 limit.
+             Then the two-row shapes of guided and batched edits: K1 at
+             (2, 24, 8448, 128) with two text masks, K2 at (2, 28/4, 384,
+             128) with two real lengths, K3 at (2, 1024², 96→96);
 4. block parity — a 2-block MMDiT at flagship width, one forward at the 1024²
              edit shape, ``use_flash_attention`` True (kernels) vs False
              (plain), held to a relative L2 tolerance; then the same blocks
@@ -50,6 +53,29 @@ toolkit. Phases, each printing one JSON line:
              20 times a miss, 15 a hit and 25 with two images; then two more misses, one timed plainly and one
              under torch.profiler (device time by kernel kind, busy seconds,
              idle share = 1 - busy / the plain miss's wall);
+   guided  — on the same bf16 pipeline: guided edits (negative prompt "",
+             scale 4) in every cfg_mode — batched miss (K1 120 at 2 rows, K2
+             28 at 2 rows: the pos+neg wave is one LM call) and hit,
+             parallel hit (the batched hit's latents), sequential (K1 240),
+             rcfg (60 at 2 rows, 60 at 1), rcfg-self (120 at 1); a negative
+             prompt in the 320-token text bucket; a two-image batched edit
+             (K4's role at 2 rows); ``num_images_per_prompt=2`` (K3's decode
+             at batch 2) and ``edit_many`` of two items (K1 at 4 rows, one
+             batched condition encode); a plain rcfg-self miss, a plain and
+             a profiled miss each of batched and sequential. Each request
+             prints the rows of every K1/K4, K2 and K3 call (a spy around
+             the wrappers) and they are asserted;
+   tiny    — the trained tiny decoder and encoder artifacts loaded into the
+             live pipeline; two cache-hit edits decoded by the tiny decoder (K3
+             0: its chain is F.conv2d, as the JAX chain is XLA); a profiled
+             hit with each decoder; the decode stage alone, tiny and full;
+             the tiny decode on the card against the CPU (rel-L2
+             TINY_TOL); the tiny decoder's conv shapes graph-timed through
+             cuDNN and through K3;
+   yuv420  — ``transfer_format="yuv420"``: a hit and a miss; the output
+             equals the host unpack of the decode's device pack, and the
+             condition upload equals ``yuv420_to_rgb`` of the host pack
+             computed on the CPU;
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
              (default attention targets, ``remat``) over a batch of two
              1024² (condition, prompt, target) rows from ``build_batch``; a
@@ -66,12 +92,15 @@ toolkit. Phases, each printing one JSON line:
              ``use_int8`` + ``use_int8_vl`` (quantized in place): warm-up,
              three misses, two hits and one two-image edit; K5 and K6 must
              run once per quantized linear the request executes (1200 in the
-             MMDiT, 358 more in the VL encoder per one-image miss); then a
-             miss timed plainly and one profiled, as for bf16;
+             MMDiT, 358 more in the VL encoder per one-image miss), and as
+             often in a batched-CFG miss (the pair is one forward, at twice
+             the rows); then a miss timed plainly and one profiled, as for
+             bf16;
 7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
              miss; K5/K6 run only for the vision tower's 3420-wide ``down``
              leaves, which take the int8 rung (32 per image per miss);
-8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
+8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss and
+             of a batched-CFG miss (M = 16384, 512, 768, 2),
              bit-identical to their plain versions, timed as K3 is, beside
              bf16 ``F.linear`` and ``torch._int_mm`` (the s8 product alone),
              with the mix's sums a miss. It runs after the pipelines: its
@@ -101,8 +130,16 @@ TXT_LEN = 256      # the flagship's text bucket for PROMPT with one 384² image
 TXT_REAL = 208     # real text tokens in that bucket
 LM_LEN = 384       # the flagship LM's 128-bucket for the same request
 LM_REAL = 258
+TXT_LEN_TWO = 448  # the text bucket of PROMPT with two 384² images
 STEPS = 2
 MMDIT_LAYERS = 60
+K1_LAUNCHES = MMDIT_LAYERS * STEPS   # K1 (or K4) a request: one a layer a forward
+CFG_SCALE = 4.0
+NEG = ""           # the server's use_cfg convention: an empty negative prompt
+NEG_REAL = TXT_REAL - 5  # its real text tokens: PROMPT's five words fewer
+# sixty words: 263 real text tokens, the 320-token text bucket (PROMPT: 256),
+# and 313 LM tokens, still PROMPT's 384 LM bucket (one batched LM call)
+LONG_NEG = " ".join(f"word{i}" for i in range(60))
 # int8 linears a request runs: 10 per MMDiT block and step; per VL miss 7 per
 # LM layer (28) and, per condition image, 5 per vision block (32) + 2 merger
 INT8_MMDIT = 10 * MMDIT_LAYERS * STEPS
@@ -420,7 +457,103 @@ def phase_kernels():
     torch.cuda.empty_cache()
     results.update(phase_stream_kernel())
     results.update(phase_train_kernels())
+    for name, err in phase_batch_kernels().items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     return results
+
+
+def phase_batch_kernels() -> dict:
+    """The shapes guided and batched edits give K1, K2 and K3, two rows
+    each, against their plain versions and timed beside their library call
+    and bound: K1 at (2, 24, 8448, 128) with the positive's and the empty
+    negative's text masks (208 and 203 real tokens of 256); K2 at (2, 28/4,
+    384, 128), the pos+neg LM rows (258 and 253 real, suffix-padded), graph-
+    timed as a miss's 28 launches; K3 at (2, 1024², 96→96), a decode of two
+    rows, graph-timed as its 9 launches. Returns the max-abs errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    errs = {}
+    lk = TXT_LEN + 2 * (SIZE // 16) ** 2
+    q, k, v = (randn((2, 24, lk, 128), s, bf16) for s in (60, 61, 62))
+    mask = torch.ones((2, lk), dtype=torch.bool, device="cuda")
+    mask[0, TXT_REAL:TXT_LEN] = False
+    mask[1, NEG_REAL:TXT_LEN] = False
+    out = fa.joint_attention(q, k, v, mask, TXT_LEN)
+
+    def k1_plain():
+        return torch.cat([fa.joint_attention_plain(q[:, h:h + 4], k[:, h:h + 4],
+                                                   v[:, h:h + 4], mask)
+                          for h in range(0, 24, 4)], dim=1)
+
+    ref = k1_plain().float()
+    err, tol = (out.float() - ref).abs().max().item(), attn_tolerance(ref)
+    emit_kernel({"phase": "kernel", "name": "flash_attention_joint",
+                 "shape": list(q.shape), "text_real": [TXT_REAL, NEG_REAL],
+                 "max_abs_err": err, "tol": tol,
+                 "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, TXT_LEN), 10),
+                 "plain_ms": cuda_ms(k1_plain, 2),
+                 "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask), 10),
+                 **attention_bound(q, k, v, (out,), mask, 4)})
+    if not err <= tol:
+        raise AssertionError(f"K1 error {err} > {tol} at two rows")
+    errs["flash_attention_joint"] = err
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+
+    reals = (LM_REAL, LM_REAL - 5)
+    q = randn((2, 28, LM_LEN, 128), 63, bf16)
+    k, v = (randn((2, 4, LM_LEN, 128), s, bf16) for s in (64, 65))
+    out = fa.causal_attention(q, k, v)
+    err, tol = 0.0, 0.0
+    for b, n_real in enumerate(reals):
+        keep = torch.arange(LM_LEN, device="cuda") < n_real
+        ref = fa.causal_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                        keep)[:, :, :n_real].float()
+        err = max(err, (out[b:b + 1, :, :n_real].float() - ref).abs().max().item())
+        tol = max(tol, attn_tolerance(ref))
+    emit_kernel({"phase": "kernel", "name": "flash_attention_causal",
+                 "shape": [2, 28, 4, LM_LEN], "n_real": list(reals),
+                 "max_abs_err": err, "tol": tol, "graph_launches": K2_LAUNCHES,
+                 "block_q": fa.causal_block_q(q),
+                 **timed("", lambda: fa.causal_attention(q, k, v), K2_LAUNCHES),
+                 "plain_ms": cuda_ms(lambda: [fa.causal_attention_plain(
+                     q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(2)], 20),
+                 **timed("library_", lambda: sdpa(q, k, v, is_causal=True,
+                                                   enable_gqa=True), K2_LAUNCHES),
+                 **bound(4 * 2 * 28 * (LM_LEN * (LM_LEN + 1) / 2) * 128,
+                         nbytes(q, k, v) + nbytes(q), PEAK_BF16)})
+    if not err <= tol:
+        raise AssertionError(f"K2 error {err} > {tol} at two rows")
+    errs["flash_attention_causal"] = err
+    del q, k, v, out
+
+    x = randn((2, SIZE, SIZE, 96), 66, bf16)
+    w = (randn((3, 3, 96, 96), 67, torch.float32) * (9 * 96) ** -0.5).to(bf16)
+    b = randn((96,), 68, bf16) * 0.1
+    got = conv_ops.conv3x3(x, w, b).float()
+    ref = conv_ops.conv3x3_plain(x, w, b).float()
+    err, tol = (got - ref).abs().max().item(), conv_tolerance(ref)
+    del got, ref
+    wl = w.permute(3, 2, 0, 1)
+    emit_kernel({"phase": "kernel", "name": "conv3x3", "shape": [2, SIZE, SIZE, 96, 96],
+                 "launches_decode": 9, "max_abs_err": err, "tol": tol,
+                 **timed("", lambda: conv_ops.conv3x3(x, w, b), 9, 10),
+                 "plain_ms": cuda_ms(lambda: conv_ops.conv3x3_plain(x, w, b), 10),
+                 **timed("library_", lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
+                                                      padding=1), 9, 10),
+                 **bound(2 * 2 * SIZE * SIZE * 9 * 96 * 96,
+                         nbytes(x, w, b) + 2 * SIZE * SIZE * 96 * 2, PEAK_BF16)})
+    if not err <= tol:
+        raise AssertionError(f"K3 error {err} > {tol} at batch 2")
+    errs["conv3x3"] = err
+    del x, w, b
+    torch.cuda.empty_cache()
+    return errs
 
 
 # K2's lengths (full buckets, and the main path's 384 bucket with 258 real
@@ -602,6 +735,11 @@ INT8_MIX = (("img_qkv", 8192, 3072, 9216, 120), ("img_out", 8192, 3072, 3072, 12
             ("vis_qkv", 784, 1280, 3840, 32), ("vis_proj", 784, 1280, 1280, 32),
             ("vis_gate+vis_up", 784, 1280, 3420, 64), ("vis_down", 784, 3420, 1280, 32),
             ("merger_fc1", 196, 5120, 5120, 1), ("merger_fc2", 196, 5120, 3584, 1))
+# A batched-CFG int8 miss: the MMDiT's and the LM's rows doubled (the pair
+# is one forward; pos and neg are one LM call), the vision tower's unchanged
+# (one image, shared); the same launches.
+INT8_CFG_MIX = tuple((name, m if name.startswith(("vis", "merger")) else 2 * m, k, n,
+                      launches) for name, m, k, n, launches in INT8_MIX)
 
 
 def int_mm(xq, wq):
@@ -617,27 +755,39 @@ def int_mm(xq, wq):
 
 
 def phase_int8_kernels():
-    """K5 and K6 at every int8 shape of a one-image miss, bit-identical to
-    their plain versions (gate: max-abs error 0 for codes, scales and the
-    GEMM output). Each shape: device time per launch from a graph of the
-    shape's launches a miss (``ms``), the per-call time (``wall_ms``), the
-    plain versions, bf16 ``F.linear`` (the rung int8 replaces) and
-    ``torch._int_mm`` under both, and the bound; then the mix a miss, summed
-    per column."""
+    """K5 and K6 at every int8 shape of a one-image miss, then of a
+    batched-CFG miss (M = 16384, 512, 768 and 2 where the pair doubles the
+    rows), bit-identical to their plain versions (gate: max-abs error 0 for
+    codes, scales and the GEMM output). Each shape: device time per launch
+    from a graph of the shape's launches a miss (``ms``), the per-call time
+    (``wall_ms``), the plain versions, bf16 ``F.linear`` (the rung int8
+    replaces) and ``torch._int_mm`` under both, and the bound; then each
+    mix a miss, summed per column."""
+    if sum(n for *_, n in INT8_MIX) != INT8_MMDIT + INT8_LM + INT8_VISION:
+        raise AssertionError("INT8_MIX does not hold a miss's int8 linears")
+    worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    recs = int8_mix(INT8_MIX, "int8 one-image miss", worst)
+    int8_mix(INT8_CFG_MIX, "int8 batched-CFG miss", worst)
+    for key in recs:
+        recs[key]["max_abs_err"] = worst[key]
+    return recs
+
+
+def int8_mix(shapes, per: str, worst: dict) -> dict:
+    """One int8 mix (see :func:`phase_int8_kernels`); returns the img_qkv
+    records of K5 and K6 and raises the worst errors in ``worst``."""
     import torch
     import torch.nn.functional as F
 
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
 
-    if sum(n for *_, n in INT8_MIX) != INT8_MMDIT + INT8_LM + INT8_VISION:
-        raise AssertionError("INT8_MIX does not hold a miss's int8 linears")
     bf16 = torch.bfloat16
-    recs, worst = {}, {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    recs = {}
     cols = ("ms", "wall_ms", "bound_ms", "bf16_ms", "bf16_wall_ms")
     mix = {"int8_gemm": dict.fromkeys(cols + ("int_mm_ms", "int_mm_wall_ms",
                                               "int_mm_launches"), 0.0),
            "quantize_rows": dict.fromkeys(("ms", "wall_ms", "bound_ms"), 0.0)}
-    for name, m, k, n, launches in INT8_MIX:
+    for name, m, k, n, launches in shapes:
         x = randn((m, k), 15, bf16)
         w = randn((n, k), 16, torch.float32).mul_(0.02).to(bf16)
         b = randn((n,), 17, bf16) * 0.1
@@ -665,7 +815,7 @@ def phase_int8_kernels():
         for kname, rec, err in (("quantize_rows", k5, err5), ("int8_gemm", k6, err6)):
             extra = ({"route": plan.route, "splits": plan.splits, "grid": plan.grid}
                      if kname == "int8_gemm" else {})
-            emit_kernel({"phase": "kernel", "name": kname, "shape": name,
+            emit_kernel({"phase": "kernel", "name": kname, "shape": name, "mix": per,
                          "mkn": [m, k, n], "launches_miss": launches, **extra,
                          "max_abs_err": err, "tol": 0.0, **rec})
             worst[kname] = max(worst[kname], err)
@@ -684,13 +834,11 @@ def phase_int8_kernels():
         del x, w, b, wq, ws, xq, xs, xq_ref, xs_ref
         torch.cuda.empty_cache()
     for kname, tot in mix.items():
-        emit({"phase": "kernel_mix", "name": kname, "per": "int8 one-image miss",
-              "launches": sum(n for *_, n in INT8_MIX), **tot,
+        emit({"phase": "kernel_mix", "name": kname, "per": per,
+              "launches": sum(n for *_, n in shapes), **tot,
               "bound_share": tot["bound_ms"] / tot["ms"],
               **({"vs_bf16_linear": tot["ms"] / tot["bf16_ms"]}
                  if kname == "int8_gemm" else {})})
-    for key in recs:
-        recs[key]["max_abs_err"] = worst[key]
     return recs
 
 
@@ -955,60 +1103,128 @@ def distinct_image(i: int):
     return np.clip(base.astype(np.int32) + tint, 0, 255).astype(np.uint8)
 
 
-def run_requests(pipe, requests, label: str, latents=None):
-    """Serve ``requests`` (name, images, prompt, expected launches) one by
-    one; each prints its wall seconds, launch counts, output and peak bytes,
-    and raises unless every count and the output are as expected. Returns
-    the launches of the whole path, counted from 0 just before it; fills
-    ``latents`` (name → final latents) when given."""
+class RowSpy:
+    """Records the batch rows of each K1/K4, K2 and K3 call of a request by
+    wrapping the wrappers (each still counts its own launch, once):
+    {counter: {rows: calls}}, K1/K4 keyed "rows x keys"."""
+
+    def __init__(self):
+        self.rows = {}
+        self._saved = []
+
+    def _note(self, counter, key):
+        per = self.rows.setdefault(counter, {})
+        per[key] = per.get(key, 0) + 1
+
+    def __enter__(self):
+        from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
+        from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+        def spy(mod, name, note):
+            real = getattr(mod, name)
+
+            def wrapped(*args, **kw):
+                note(*args)
+                return real(*args, **kw)
+
+            self._saved.append((mod, name, real))
+            setattr(mod, name, wrapped)
+
+        spy(fa, "joint_attention", lambda q, k, *_: self._note(
+            "flash_joint_stream" if fa.streams_kv(k) else "flash_joint",
+            f"{q.shape[0]}x{k.shape[2]}"))
+        spy(fa, "causal_attention", lambda q, *_: self._note(
+            "flash_causal", str(q.shape[0])))
+        spy(conv_ops, "conv3x3", lambda x, *_: self._note("conv3x3", str(x.shape[0])))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self._saved):
+            setattr(mod, name, real)
+        self._saved.clear()
+
+
+def serve(label: str, name: str, call, want: dict, rows=None, outputs: int = 1,
+          **info):
+    """Run one request (``call()`` returns an EditResult or a list of them),
+    print its wall seconds, launch counts, rows a kernel call, outputs and
+    peak bytes, and raise unless every count in ``want`` and ``rows`` and
+    the outputs (``outputs`` (1024, 1024, 3) uint8 arrays, finite latents)
+    are as expected. Returns (results list, latents of the first)."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with RowSpy() as spy:
+        res = call()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    results = res if isinstance(res, list) else [res]
+    images = [img for r in results for img in r.images]
+    delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+    finite = all(bool(torch.isfinite(r.latents).all().item()) for r in results)
+    out = images[0]
+    emit({"phase": "request", "path": label, "name": name, **info,
+          "seconds": wall, "launches": delta, "rows": spy.rows,
+          "outputs": len(images), "shape": list(out.shape), "dtype": str(out.dtype),
+          "latents": list(results[0].latents.shape), "latents_finite": finite,
+          "pixel_mean": float(out.mean()),
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    for key, n in want.items():
+        if delta[key] != n:
+            raise AssertionError(f"{label}/{name}: {key} ran {delta[key]} times, "
+                                 f"not {n}")
+    for key, per in (rows or {}).items():
+        if spy.rows.get(key) != per:
+            raise AssertionError(f"{label}/{name}: {key} rows {spy.rows.get(key)}, "
+                                 f"not {per}")
+    if len(images) != outputs or not finite or any(
+            i.shape != (SIZE, SIZE, 3) or str(i.dtype) != "uint8" for i in images):
+        raise AssertionError(f"{label}/{name}: bad outputs {len(images)} "
+                             f"{[(i.shape, str(i.dtype)) for i in images]} "
+                             f"finite={finite}")
+    return results
+
+
+def run_requests(pipe, requests, label: str, latents=None):
+    """Serve ``requests`` (name, images, prompt, expected launches) one by
+    one through :func:`serve`. Returns the launches of the whole path,
+    counted from 0 just before it; fills ``latents`` (name → final latents)
+    when given."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
     kernels.reset_launches()
     for name, imgs, prompt, want in requests:
-        before = dict(kernels.LAUNCHES)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.time()
-        res = pipe(imgs if len(imgs) > 1 else imgs[0], prompt,
-                   num_inference_steps=STEPS, seed=42)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-        out = res.images[0]
-        finite = bool(torch.isfinite(res.latents).all().item())
+        res = serve(label, name, lambda: pipe(imgs if len(imgs) > 1 else imgs[0],
+                                              prompt, num_inference_steps=STEPS,
+                                              seed=42),
+                    want, images=len(imgs))
         if latents is not None:
-            latents[name] = res.latents
-        emit({"phase": "request", "path": label, "name": name,
-              "images": len(imgs), "seconds": wall, "launches": delta,
-              "shape": list(out.shape), "dtype": str(out.dtype),
-              "latents": list(res.latents.shape), "latents_finite": finite,
-              "pixel_mean": float(out.mean()),
-              "peak_bytes": torch.cuda.max_memory_allocated()})
-        for key, n in want.items():
-            if delta[key] != n:
-                raise AssertionError(f"{label}/{name}: {key} ran {delta[key]} "
-                                     f"times, not {n}")
-        if out.shape != (SIZE, SIZE, 3) or str(out.dtype) != "uint8" or not finite:
-            raise AssertionError(f"{label}/{name}: bad output {out.shape} "
-                                 f"{out.dtype} finite={finite}")
+            latents[name] = res[0].latents
     return dict(kernels.LAUNCHES)
 
 
 def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
-             int8_per_request: int = 0):
-    """Launches of one request: K1 (or K4 with two images) twice per MMDiT
-    layer, K2 per LM layer on a miss, K3 per decoder conv of K3_MIX and, on
-    a miss, per encoder conv and image, K5/K6 per quantized linear."""
+             int8_per_request: int = 0, k1: int = K1_LAUNCHES,
+             encodes=None):
+    """Launches of one request: K1 (or K4 with two images) once per MMDiT
+    layer and forward (``k1``), K2 per LM layer on a miss, K3 per decoder
+    conv of K3_MIX and, on a miss, per encoder conv and encode call
+    (``encodes``, one per image unless a wave batches them), K5/K6 per
+    quantized linear."""
     joint = "flash_joint_stream" if n_images > 1 else "flash_joint"
     other = "flash_joint" if n_images > 1 else "flash_joint_stream"
     q = int8_per_request + (int8_miss if miss else 0)
     decoder = sum(hit for *_, hit in K3_MIX)
     encoder = sum(n - hit for *_, n, hit in K3_MIX)
-    return {joint: MMDIT_LAYERS * STEPS, other: 0,
+    encodes = n_images if encodes is None else encodes
+    return {joint: k1, other: 0,
             "flash_causal": K2_LAUNCHES if miss else 0,
-            "conv3x3": decoder + (n_images * encoder if miss else 0),
+            "conv3x3": decoder + (encodes * encoder if miss else 0),
             "quantize_rows": q, "int8_gemm": q,
             "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
@@ -1052,7 +1268,8 @@ def create_pipeline(label: str, **quant):
 
 def phase_slice():
     """The bf16 flagship: one-image misses and hits, then a two-image edit;
-    then, on the same pipeline, the LoRA fine-tune and the LoRA-fused edit."""
+    then, on the same pipeline, the guided and batched edits, the tiny
+    decoder, the yuv420 wire, the LoRA fine-tune and the LoRA-fused edit."""
     pipe = create_pipeline("bf16")
     two = [distinct_image(2000), distinct_image(2001)]
     requests = ([("warmup", [distinct_image(1000)], "warmup", expected(True))]
@@ -1065,11 +1282,249 @@ def phase_slice():
     launches = run_requests(pipe, requests, "bf16", latents)
     for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
+    for phase in (phase_guided, phase_tiny, phase_yuv420):
+        for k, n in phase(pipe).items():
+            launches[k] += n
     train_launches, adapters = phase_train(pipe)
     serve_launches = phase_lora_serve(pipe, adapters, latents["hit1"])
     for more in (train_launches, serve_launches):
         for k, n in more.items():
             launches[k] += n
+    return launches
+
+
+def guided(pipe, mode: str, image, negative_prompt=NEG, **kw):
+    """A call of a guided edit in ``mode`` (set on the live pipeline's
+    config, as the JAX ``load_tiny_decoder`` replaces it)."""
+    def call():
+        pipe.config = pipe.config.replace(cfg_mode=mode)
+        return pipe(image, PROMPT, negative_prompt=negative_prompt,
+                    true_cfg_scale=CFG_SCALE, num_inference_steps=STEPS,
+                    seed=42, **kw)
+    return call
+
+
+def k1_rows(rows: int, n: int = K1_LAUNCHES, txt: int = TXT_LEN, images: int = 1):
+    """RowSpy key → calls of n K1 (K4 beyond one image) launches of ``rows``
+    rows over [txt ⊕ target ⊕ images] keys."""
+    lk = txt + (1 + images) * (SIZE // 16) ** 2
+    return {"flash_joint_stream" if images > 1 else "flash_joint": {f"{rows}x{lk}": n}}
+
+
+def phase_guided(pipe) -> dict:
+    """Guided and batched edits on the bf16 pipeline (negative prompt "",
+    scale 4): a batched-CFG miss (K1 at 2 rows, one LM call over the
+    pos+neg pair: K2 28) and hit, a sequential, an rcfg (first step 2 rows,
+    then 1) and an rcfg-self miss (1 row), a parallel hit (= batched, the
+    same latents), a negative prompt in the next text bucket (320 tokens:
+    the padding path, two different row masks), a two-image batched edit
+    (K4's role at 2 rows), ``num_images_per_prompt=2`` under rcfg-self (K3's
+    decode at batch 2) and ``edit_many`` of two items under batched CFG (4
+    rows, one batched condition encode); then a plain rcfg-self miss, and a
+    plain and a profiled miss each of batched and sequential."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    kernels.reset_launches()
+    miss, hit = expected(True), expected(False)
+    one = {"flash_causal": {"2": K2_LAUNCHES}}
+    b2 = {**k1_rows(2), "conv3x3": {"1": 20}}
+    hit_img = distinct_image(7000)
+    res = {}
+    for name, call, want, rows, outputs in (
+            ("cfg_batched_miss", guided(pipe, "batched", hit_img), miss,
+             {**b2, **one}, 1),
+            ("cfg_batched_hit", guided(pipe, "batched", hit_img), hit,
+             {**k1_rows(2), "conv3x3": {"1": 15}}, 1),
+            ("cfg_parallel_hit", guided(pipe, "parallel", hit_img), hit,
+             {**k1_rows(2), "conv3x3": {"1": 15}}, 1),
+            ("cfg_sequential_miss", guided(pipe, "sequential", distinct_image(7001)),
+             expected(True, k1=2 * K1_LAUNCHES), {**k1_rows(1, 2 * K1_LAUNCHES), **one}, 1),
+            ("cfg_rcfg_miss", guided(pipe, "rcfg", distinct_image(7002)), miss,
+             {"flash_joint": {f"2x{TXT_LEN + 8192}": MMDIT_LAYERS,
+                              f"1x{TXT_LEN + 8192}": MMDIT_LAYERS}, **one}, 1),
+            ("cfg_rcfg_self_miss", guided(pipe, "rcfg-self", distinct_image(7003)),
+             miss, {**k1_rows(1), **one}, 1),
+            ("cfg_long_negative_miss",
+             guided(pipe, "batched", distinct_image(7004), negative_prompt=LONG_NEG),
+             miss, {**k1_rows(2, txt=320), **one}, 1),
+            ("cfg_two_images_miss",
+             guided(pipe, "batched", [distinct_image(7005), distinct_image(7006)]),
+             expected(True, 2), {**k1_rows(2, txt=TXT_LEN_TWO, images=2), **one}, 1),
+            ("num_images_2_rcfg_self",
+             guided(pipe, "rcfg-self", distinct_image(7007), num_images_per_prompt=2),
+             miss, {**k1_rows(2), **one, "conv3x3": {"1": 5, "2": 15}}, 2),
+            ("edit_many_2_batched", lambda: edit_many_pair(pipe),
+             expected(True, encodes=1),
+             {**k1_rows(4), "flash_causal": {"4": K2_LAUNCHES}, "conv3x3": {"2": 20}}, 2)):
+        res[name] = serve("bf16", name, call, want, rows, outputs)
+    same = max((a.latents - b.latents).abs().max().item() for a, b in
+               zip(res["cfg_parallel_hit"], res["cfg_batched_hit"]))
+    variants = res["num_images_2_rcfg_self"][0].images
+    distinct = not (variants[0] == variants[1]).all()
+    emit({"phase": "guided_checks", "parallel_vs_batched_max_abs": same,
+          "num_images_outputs_distinct": bool(distinct)})
+    if same != 0 or not distinct:
+        raise AssertionError(f"parallel differs from batched by {same}, or the "
+                             f"two variations are equal ({not distinct})")
+    serve("bf16", "cfg_rcfg_self_plain", guided(pipe, "rcfg-self", distinct_image(7010)),
+          miss)
+    launches = dict(kernels.LAUNCHES)
+    for mode, image in (("batched", 7020), ("sequential", 7030)):
+        for k, n in profile_request(pipe, f"bf16 {mode} cfg", dict(
+                miss, flash_joint=(2 if mode == "sequential" else 1) * K1_LAUNCHES),
+                image, cfg_mode=mode).items():
+            launches[k] += n
+    pipe.config = pipe.config.replace(cfg_mode="none")
+    return launches
+
+
+def edit_many_pair(pipe):
+    pipe.config = pipe.config.replace(cfg_mode="batched")
+    items = [{"image": distinct_image(7008 + i), "prompt": PROMPT,
+              "negative_prompt": NEG, "seed": 42 + i} for i in range(2)]
+    return pipe.edit_many(items, num_inference_steps=STEPS, true_cfg_scale=CFG_SCALE)
+
+
+# The tiny decoder's convs at 1024² out (width 64, 2 blocks a stage, 3
+# upsamples): (H = W, C_in, F, launches a decode)
+TINY_MIX = ((SIZE // 8, 16, 64, 1), (SIZE // 8, 64, 64, 4), (SIZE // 4, 64, 64, 5),
+            (SIZE // 2, 64, 64, 5), (SIZE, 64, 64, 5), (SIZE, 64, 3, 1))
+TINY_DECODER = os.path.join(ROOT, "artifacts", "tiny_decoder_bench-2b.safetensors")
+TINY_ENCODER = os.path.join(ROOT, "artifacts", "tiny_encoder_bench-2b.safetensors")
+TINY_TOL = 2e-2    # rel-L2 of the tiny decode, card (cuDNN) vs CPU, bf16
+
+
+def phase_tiny(pipe) -> dict:
+    """The trained tiny pair loaded into the live pipeline; two cache-hit
+    edits decoded by the tiny decoder (K3 0: the tiny chain is F.conv2d, as
+    JAX's is XLA); a profiled hit with each decoder; the decode stage
+    alone, tiny and full; the tiny decode on the card against the same
+    module on the CPU (a 16² latent crop); the tiny decoder's conv shapes
+    through F.conv2d (cuDNN, what it runs) and through K3, both
+    graph-timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import tiny_vae
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import vae as vae_mod
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    kernels.reset_launches()
+    t0 = time.time()
+    pipe.load_tiny_decoder(TINY_DECODER)
+    pipe.load_tiny_encoder(TINY_ENCODER)
+    emit({"phase": "tiny_load", "seconds": time.time() - t0,
+          "decoder": str(pipe.tiny_vae[1]), "encoder": str(pipe.tiny_encoder[1])})
+    want = {**expected(False), "conv3x3": 0}
+    for name in ("tiny_decoder_hit0", "tiny_decoder_hit1"):  # the first loads cuDNN's
+        res = serve("bf16+tiny", name,
+                    lambda: pipe(distinct_image(0), PROMPT, num_inference_steps=STEPS,
+                                 seed=42), want, {"conv3x3": None})
+    launches = dict(kernels.LAUNCHES)
+    for decoder in ("tiny", "full"):  # where a hit's time goes with each decoder
+        pipe.config = pipe.config.replace(decoder=decoder)
+        profile_hit(pipe, f"bf16+{decoder} decoder")
+    pipe.config = pipe.config.replace(decoder="tiny")
+    params, tcfg = pipe.tiny_vae
+    z = res[0].latents[:, :16, :16].contiguous()
+    with torch.inference_mode():
+        card = tiny_vae.decode(params, tcfg, z).float().cpu()
+        cpu = tiny_vae.decode(_to_cpu(params), tcfg, z.cpu()).float()
+    rel = ((card - cpu).norm() / cpu.norm()).item()
+    pipe.config = pipe.config.replace(decoder="full")
+    # the decode stage alone: tiny against the full VAE on the hit's latents
+    z = res[0].latents
+    with torch.inference_mode():
+        stage = {"tiny_decode_ms": cuda_ms(lambda: tiny_vae.decode(params, tcfg, z), 5),
+                 "full_decode_ms": cuda_ms(lambda: vae_mod.decode(
+                     pipe.vae_params, pipe.preset.vae, z.to(torch.bfloat16)), 5),
+                 "tiny_decode_profile": profile_call(
+                     lambda: tiny_vae.decode(params, tcfg, z))}
+    emit({"phase": "tiny_decode_stage", **stage})
+    mix = {"cudnn_ms": 0.0, "k3_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    worst = 0.0
+    bf16 = torch.bfloat16
+    for size, cin, f, n in TINY_MIX:
+        x = randn((1, size, size, cin), 50, bf16)
+        w = (randn((3, 3, cin, f), 51, torch.float32) * (9 * cin) ** -0.5).to(bf16)
+        b = randn((f,), 52, bf16) * 0.1
+        wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        ref = conv_ops.conv3x3_plain(x, w, b).float()
+        err = (conv_ops.conv3x3(x, w, b).float() - ref).abs().max().item()
+        tol = conv_tolerance(ref)
+        worst = max(worst, err / tol)
+        rec = {"phase": "kernel", "name": "conv3x3", "mix": "tiny decoder",
+               "shape": [1, size, size, cin, f], "launches_decode": n,
+               "max_abs_err": err, "tol": tol,
+               **timed("cudnn_", lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
+                                                  padding=1), n, 10),
+               **timed("k3_", lambda: conv_ops.conv3x3(x, w, b), n, 10),
+               **bound(2 * size * size * 9 * cin * f,
+                       nbytes(x, w, b) + size * size * f * 2, PEAK_BF16)}
+        emit({**rec, "k3_vs_cudnn": rec["k3_ms"] / rec["cudnn_ms"]})
+        if not err <= tol:
+            raise AssertionError(f"K3 error {err} > {tol} at the tiny shape {size}² "
+                                 f"{cin}->{f}")
+        for key in ("cudnn_ms", "k3_ms", "bound_ms"):
+            mix[key] += n * rec[key]
+        mix["launches"] += n
+        del x, w, b, wl, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "tiny_checks", "card_vs_cpu_rel_l2": rel, "tol": TINY_TOL,
+          "conv_mix_per_decode": mix, "k3_vs_cudnn": mix["k3_ms"] / mix["cudnn_ms"]})
+    if not rel <= TINY_TOL:
+        raise AssertionError(f"tiny decode card vs CPU rel-L2 {rel} > {TINY_TOL}")
+    return launches
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def phase_yuv420(pipe) -> dict:
+    """``transfer_format="yuv420"`` on the live pipeline: a hit and a miss.
+    The output must equal the host unpack of the decode's device pack (the
+    hit's latents decoded again), and the miss's condition upload must equal
+    ``yuv420_to_rgb`` of the host pack computed on the CPU."""
+    import numpy as np
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import colorspace
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    kernels.reset_launches()
+    pipe.config = pipe.config.replace(transfer_format="yuv420")
+    res = {}
+    for name, img, want in (("yuv420_hit", distinct_image(0), expected(False)),
+                            ("yuv420_miss", distinct_image(7100), expected(True))):
+        res[name] = serve("bf16+yuv420", name,
+                          lambda: pipe(img, PROMPT, num_inference_steps=STEPS,
+                                       seed=42), want)
+    launches = dict(kernels.LAUNCHES)
+    g = SIZE // 8
+    with torch.inference_mode():
+        tokens = tfm.pack_latents(res["yuv420_hit"][0].latents)
+        packed, _ = pipe._decode(tokens, g, g)
+        unpacked = pipe._fetch_images(packed)[0]
+        vae_img = pipe._prepare_images([distinct_image(7100)], None, None)[2][0]
+        upload = pipe._upload([vae_img]).cpu()
+    host_rgb = colorspace.yuv420_to_rgb(
+        torch.from_numpy(colorspace.pack_yuv420_host(vae_img))[None])
+    checks = {"packed_shape": list(packed.shape),
+              "output_equals_host_unpack": bool(np.array_equal(
+                  unpacked, res["yuv420_hit"][0].images[0])),
+              "upload_equals_host_pack_rgb": bool(torch.equal(upload, host_rgb))}
+    emit({"phase": "yuv420_checks", **checks})
+    pipe.config = pipe.config.replace(transfer_format="rgb")
+    if not (checks["output_equals_host_unpack"] and checks["upload_equals_host_pack_rgb"]
+            and checks["packed_shape"] == [1, SIZE // 2, SIZE // 2, 6]):
+        raise AssertionError(f"yuv420 checks failed: {checks}")
     return launches
 
 
@@ -1132,17 +1587,20 @@ def profile_call(fn, plain_wall=None) -> dict:
     return out
 
 
-def profile_request(pipe, label: str, want: dict, image: int) -> dict:
+def profile_request(pipe, label: str, want: dict, image: int,
+                    cfg_mode=None) -> dict:
     """Two more cache misses on ``pipe`` (images ``image``, ``image`` + 1):
     one timed plainly, then one under torch.profiler: device time by kernel
     kind, busy seconds and the idle share against the plain miss's wall
-    (the profiles PERF.md §5 keeps). Returns their launches, each held to
-    ``want``, a miss's counts."""
+    (the profiles PERF.md §5 keeps); guided in ``cfg_mode`` when given.
+    Returns their launches, each held to ``want``, a miss's counts."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
     def miss(i):
+        if cfg_mode is not None:
+            return guided(pipe, cfg_mode, distinct_image(i))
         return lambda: pipe(distinct_image(i), PROMPT, num_inference_steps=STEPS,
                             seed=42)
 
@@ -1168,6 +1626,22 @@ def profile_request(pipe, label: str, want: dict, image: int) -> dict:
         for k, n in delta.items():
             total[k] += n
     return total
+
+
+def profile_hit(pipe, label: str) -> None:
+    """A cache hit (image 0, PROMPT) timed plainly, then one under
+    torch.profiler, as :func:`profile_request` does for misses."""
+    import torch
+
+    def hit():
+        return pipe(distinct_image(0), PROMPT, num_inference_steps=STEPS, seed=42)
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hit()
+    torch.cuda.synchronize()
+    emit({"phase": "request_profile", "path": label, "name": "hit_profiled",
+          **profile_call(hit, time.time() - t0)})
 
 
 def phase_train(pipe):
@@ -1266,7 +1740,9 @@ def phase_lora_serve(pipe, trained, pre_latents):
 
 def phase_int8():
     """The int8 rung (MMDiT and VL): K5 → K6 for every quantized linear;
-    then a plain and a profiled miss."""
+    a batched-CFG miss; then a plain and a profiled miss."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
     pipe = create_pipeline("int8", use_int8=True, use_int8_vl=True)
     one = dict(int8_per_request=INT8_MMDIT, int8_miss=INT8_LM + INT8_VISION)
     two = [distinct_image(3000), distinct_image(3001)]
@@ -1275,10 +1751,18 @@ def phase_int8():
                    for i in range(3)]
                 + [(f"hit{i}", [distinct_image(10)], PROMPT, expected(False, **one))
                    for i in range(2)]
+                # the two images run the vision tower as one batch: its
+                # linears launch once for both, at 2 × 784 rows
                 + [("two_images", two, PROMPT,
                     expected(True, 2, int8_per_request=INT8_MMDIT,
-                             int8_miss=INT8_LM + 2 * INT8_VISION))])
-    launches = run_requests(pipe, requests, "int8")
+                             int8_miss=INT8_LM + INT8_VISION))])
+    run_requests(pipe, requests, "int8")
+    # batched CFG: the pair runs as one forward, so K5/K6 launch as often as
+    # for a cond-only miss, at twice the rows (M = 16384, 512, 768 and 2)
+    serve("int8", "cfg_batched_miss", guided(pipe, "batched", distinct_image(3010)),
+          expected(True, **one), k1_rows(2))
+    pipe.config = pipe.config.replace(cfg_mode="none")
+    launches = dict(kernels.LAUNCHES)
     for k, n in profile_request(pipe, "int8", expected(True, **one), 6010).items():
         launches[k] += n
     return launches

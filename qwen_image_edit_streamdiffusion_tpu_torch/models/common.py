@@ -86,29 +86,40 @@ def conv2d_init(gen, in_ch: int, out_ch: int, kernel: int, dtype, device
             "b": uniform((out_ch,), scale, dtype, device, gen)}
 
 
+def same_padding(size: int, k: int, stride: int):
+    """(before, after) padding of XLA's "SAME" along one axis: the output
+    has ceil(size / stride) positions and the odd pad goes after. A 3×3
+    stride-2 conv on an even size pads 0 before and 1 after."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(p: Params, x: torch.Tensor, stride: int = 1,
-           padding: str = "SAME") -> torch.Tensor:
+           padding: str = "SAME", use_kernel: bool = True) -> torch.Tensor:
     """NHWC conv with HWIO weights. Convs that pass the K3 gate (stride-1
     SAME 3×3, C_in <= 128, C_in % 8 == 0) go through ops.conv.conv3x3, as
     the JAX package routes them to its Pallas kernel; the rest go to
-    ``F.conv2d``, as JAX leaves them to XLA."""
+    ``F.conv2d``, as JAX leaves them to XLA. ``use_kernel=False`` opts a
+    call site out, as the JAX ``use_pallas=False`` does (the tiny VAE
+    pair)."""
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
 
     w = p["w"].to(x.dtype)
     b = p["b"].to(x.dtype)
-    if conv_ops.supported(x, w, stride, padding):
+    if use_kernel and conv_ops.supported(x, w, stride, padding):
         return conv_ops.conv3x3(x, w, b)
     k = w.shape[0]
-    if padding == "SAME":
-        if stride != 1:
-            raise NotImplementedError("SAME padding with stride > 1")
+    xc = x.permute(0, 3, 1, 2)
+    if padding == "SAME" and stride == 1:
         pad = k // 2
+    elif padding == "SAME":
+        (t, bo), (le, ri) = (same_padding(n, k, stride) for n in x.shape[1:3])
+        xc, pad = F.pad(xc, (le, ri, t, bo)), 0
     elif padding == "VALID":
         pad = 0
     else:
         raise ValueError(f"unknown padding {padding!r}")
-    y = F.conv2d(x.permute(0, 3, 1, 2),
-                 w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
+    y = F.conv2d(xc, w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last),
                  b, stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1).contiguous()
 

@@ -1,8 +1,9 @@
 """Weight bridge: the JAX package's param trees → the port's params.
 
 :func:`from_jax` takes a tree as ``transformer.init`` (unfused q/k/v),
-``vae.init`` or ``qwen_vl._init_all`` of the JAX package returns it, with
-numpy leaves, and returns the port's nested dict of tensors:
+``vae.init``, ``qwen_vl._init_all``, ``tiny_vae.init`` or
+``tiny_vae.encoder_init`` of the JAX package returns it, with numpy leaves,
+and returns the port's nested dict of tensors:
 
 - a linear leaf ``{"w": (in, out), "b"}`` becomes ``{"weight": (out, in),
   "bias"}``;
@@ -24,6 +25,7 @@ lists.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -98,6 +100,12 @@ def _skeleton(cfg, tree):
         from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
         skel = qwen_vl.init(None, cfg, meta)
         return skel if bits is None else quantize.quantize_vl(skel, bits=bits)
+    if kind in ("TinyDecoderConfig", "TinyEncoderConfig"):
+        from qwen_image_edit_streamdiffusion_tpu_torch.models import tiny_vae
+        port_cfg = getattr(tiny_vae, kind)(**{
+            f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)})
+        init = tiny_vae.init if kind == "TinyDecoderConfig" else tiny_vae.encoder_init
+        return init(None, port_cfg, meta)
     raise TypeError(f"from_jax: no model for config {kind}")
 
 

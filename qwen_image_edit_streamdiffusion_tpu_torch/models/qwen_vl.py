@@ -10,7 +10,9 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/models/qwen_vl.py``:
   goes through K2 (ops.flash_attention.causal_attention) when the shape
   gate passes;
 - :class:`QwenVLEncoder`: chat template, 128-token bucket, the template
-  prefix dropped from the hidden states, 64-token output bucket + mask.
+  prefix dropped from the hidden states, 64-token output bucket + mask; a
+  wave of requests shares its vision work and batches its LM rows
+  (``encode_many``).
 
 The tokenizer, chat template and position tables below are pure Python/numpy,
 copied verbatim from the JAX module (which imports jax and cannot be reused).
@@ -141,20 +143,25 @@ def _plain_attention(q, k, v, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
 
 def vision_forward(params: Params, cfg: VLConfig, patches: torch.Tensor,
                    gh: int, gw: int) -> torch.Tensor:
-    """patches (gh·gw, 3·tp·p²), row-major grid → merged vision tokens
-    (gh·gw/4, vision_out_dim). Windows are padded to the longest and padded
-    key slots are masked (the static form of HF's varlen window attention)."""
+    """patches (gh·gw, 3·tp·p²), row-major grid, or (B, gh·gw, 3·tp·p²) for
+    B images of one grid (the JAX ``_vision_fn_batched``'s vmap) → merged
+    vision tokens (gh·gw/4, vision_out_dim), or (B, …). Windows are padded
+    to the longest and padded key slots are masked (the static form of HF's
+    varlen window attention)."""
+    if patches.dim() == 2:
+        return vision_forward(params, cfg, patches[None], gh, gw)[0]
     nh = cfg.vision_heads
     d = cfg.vision_hidden
     hd = d // nh
     dev = patches.device
-    x = linear(params["patch_embed"], patches)  # (L, d)
+    bsz = patches.shape[0]
+    x = linear(params["patch_embed"], patches)  # (B, L, d)
     l = gh * gw
 
     cos_np, sin_np = _vision_rope(cfg, gh, gw)
     perm, win_ids = _window_partition(cfg, gh, gw)
     inv_perm = torch.from_numpy(np.argsort(perm)).to(dev)
-    x = x[torch.from_numpy(perm).to(dev)]
+    x = x[:, torch.from_numpy(perm).to(dev)]
     cos_t = torch.from_numpy(cos_np[perm]).to(dev)[:, None]  # (L, 1, hd)
     sin_t = torch.from_numpy(sin_np[perm]).to(dev)[:, None]
 
@@ -172,26 +179,26 @@ def vision_forward(params: Params, cfg: VLConfig, patches: torch.Tensor,
 
     for i, blk in enumerate(params["blocks"]):
         h = rms_norm(blk["norm1"], x, cfg.rms_eps)
-        qkv = linear(blk["qkv"], h).reshape(l, 3, nh, hd)
-        q = _apply_rope_half(qkv[:, 0], cos_t, sin_t)  # (L, nh, hd)
-        k = _apply_rope_half(qkv[:, 1], cos_t, sin_t)
-        v = qkv[:, 2]
+        qkv = linear(blk["qkv"], h).reshape(bsz, l, 3, nh, hd)
+        q = _apply_rope_half(qkv[:, :, 0], cos_t, sin_t)  # (B, L, nh, hd)
+        k = _apply_rope_half(qkv[:, :, 1], cos_t, sin_t)
+        v = qkv[:, :, 2]
         if i in cfg.fullatt_block_indexes:
-            o = _plain_attention(q.transpose(0, 1), k.transpose(0, 1),
-                                 v.transpose(0, 1), None)  # (nh, L, hd)
-            o = o.transpose(0, 1).reshape(l, d)
+            o = _plain_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), None)  # (B, nh, L, hd)
+            o = o.transpose(1, 2).reshape(bsz, l, d)
         else:
-            qw, kw, vw = (t[idx].transpose(1, 2) for t in (q, k, v))
-            o = _plain_attention(qw, kw, vw, key_mask)  # (nw, nh, wmax, hd)
-            o = o.transpose(1, 2).reshape(nw * wmax, d)[flat]
+            qw, kw, vw = (t[:, idx].transpose(2, 3) for t in (q, k, v))
+            o = _plain_attention(qw, kw, vw, key_mask)  # (B, nw, nh, wmax, hd)
+            o = o.transpose(2, 3).reshape(bsz, nw * wmax, d)[:, flat]
         x = x + linear(blk["proj"], o)
         x = x + _swiglu(blk["mlp"], rms_norm(blk["norm2"], x, cfg.rms_eps))
 
-    x = x[inv_perm]  # back to row-major grid order
+    x = x[:, inv_perm]  # back to row-major grid order
     m = cfg.spatial_merge_size
     x = rms_norm(params["merger"]["ln_q"], x, cfg.rms_eps)
-    x = x.reshape(gh // m, m, gw // m, m, d).permute(0, 2, 1, 3, 4)
-    x = x.reshape((gh // m) * (gw // m), m * m * d)
+    x = x.reshape(bsz, gh // m, m, gw // m, m, d).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(bsz, (gh // m) * (gw // m), m * m * d)
     return linear(params["merger"]["fc2"],
                   gelu_tanh(linear(params["merger"]["fc1"], x)))
 
@@ -246,38 +253,45 @@ def _mrope_tables(cfg: VLConfig, pos: np.ndarray) -> Tuple[np.ndarray, np.ndarra
 
 def _lm_attention(q, k, v, attn_mask: Optional[torch.Tensor],
                   use_flash: bool) -> torch.Tensor:
-    """Causal GQA: q (1, H, L, D), k/v (1, Hkv, L, D) → (1, H, L, D). K2
-    takes no mask (padding is a suffix, so padded keys sit above every real
-    row's diagonal). The other path is the JAX package's grouped-head XLA
-    attention (f32 natural-base softmax, P cast to V's dtype), with
-    attn_mask applied as there."""
+    """Causal GQA: q (B, H, L, D), k/v (B, Hkv, L, D) → (B, H, L, D), one
+    launch for every row. K2 takes no mask: each row's padding is a suffix,
+    so its padded keys sit above the diagonal of each of its real rows. The
+    other path is the JAX package's grouped-head XLA attention (f32
+    natural-base softmax, P cast to V's dtype), with the (B, L) attn_mask
+    applied per row as there."""
     if use_flash and fa.supported(q, k, v):
         return fa.causal_attention(q, k, v)
-    _, nh, l, hd = q.shape
+    b, nh, l, hd = q.shape
     nkv = k.shape[1]
-    keep = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()
+    keep = torch.ones((l, l), dtype=torch.bool, device=q.device).tril()[None]
     if attn_mask is not None:
-        keep = keep & attn_mask.bool()[None, :]
-    qg = q.reshape(1, nkv, nh // nkv, l, hd)
+        keep = keep & attn_mask.bool()[:, None, :]
+    qg = q.reshape(b, nkv, nh // nkv, l, hd)
     s = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2)) * hd ** -0.5
-    s = s.masked_fill(~keep, -1e30)
+    s = s.masked_fill(~keep[:, None, None], -1e30)
     p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.matmul(p, v[:, :, None]).reshape(1, nh, l, hd)
+    return torch.matmul(p, v[:, :, None]).reshape(b, nh, l, hd)
 
 
 def lm_forward(params: Params, cfg: VLConfig, input_embeds: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None,
                use_flash: bool = True) -> torch.Tensor:
-    """Causal decoder over one sequence (L, hidden) → final hidden states."""
+    """Causal decoder → final hidden states: one sequence (L, hidden) with
+    cos/sin (L, head_dim) and attn_mask (L,), or B rows (B, L, hidden) with
+    (B, L, head_dim) and (B, L) (the JAX ``_lm_fn_batched``'s vmap)."""
+    if input_embeds.dim() == 2:
+        mask = None if attn_mask is None else attn_mask[None]
+        return lm_forward(params, cfg, input_embeds[None], cos[None], sin[None],
+                          mask, use_flash)[0]
     d = cfg.hidden_size
     nh, nkv = cfg.num_heads, cfg.num_kv_heads
     hd = d // nh
-    l = input_embeds.shape[0]
-    cos_b, sin_b = cos[None, None], sin[None, None]
+    b, l = input_embeds.shape[:2]
+    cos_b, sin_b = cos[:, None], sin[:, None]
 
     def heads(t, n):
-        return t.reshape(l, n, hd).transpose(0, 1)[None]
+        return t.reshape(b, l, n, hd).transpose(1, 2)
 
     x = input_embeds
     for blk in params["blocks"]:
@@ -286,7 +300,7 @@ def lm_forward(params: Params, cfg: VLConfig, input_embeds: torch.Tensor,
         k = _apply_rope_half(heads(linear(blk["k_proj"], h), nkv), cos_b, sin_b)
         v = heads(linear(blk["v_proj"], h), nkv).contiguous()
         o = _lm_attention(q.contiguous(), k.contiguous(), v, attn_mask, use_flash)
-        x = x + linear(blk["o_proj"], o[0].transpose(0, 1).reshape(l, d))
+        x = x + linear(blk["o_proj"], o.transpose(1, 2).reshape(b, l, d))
         x = x + _swiglu(blk["mlp"], rms_norm(blk["post_norm"], x, cfg.rms_eps))
     return rms_norm(params["norm"], x, cfg.rms_eps)
 
@@ -470,62 +484,102 @@ class QwenVLEncoder:
     @torch.no_grad()
     def encode_many(self, requests: Sequence[Tuple[str, Sequence[np.ndarray]]]
                     ) -> List[PromptEmbedding]:
-        """One request after another; identical images in the wave share one
-        vision-tower forward."""
+        """Encode a wave of (prompt, images) requests, coalescing device work
+        as the JAX ``encode_many`` does: identical images (by content hash)
+        run the vision tower once, distinct images of one grid run as one
+        batch, and requests with the same vision starts and shapes run as
+        one batched LM call, K2 once a layer for all its rows. Two
+        divergences, neither of which changes a real row (the LM is causal
+        and every row's padding is a suffix): the rows of a call are padded
+        to its longest 128-token bucket, where the JAX key also splits by
+        bucket (so a CFG pair whose prompts straddle a bucket edge, such as
+        258 and 253 tokens, reads the LM's weights once, not twice); and
+        rows are not padded to the JAX {2, 4, 8, 16} row buckets, which
+        bound XLA compiles (eager PyTorch has none)."""
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
-        vision: Dict[str, Tuple[torch.Tensor, int, int]] = {}
-        out = []
-        for prompt, images in requests:
-            vts, grids = [], []
+
+        uniq: Dict[str, Tuple[np.ndarray, int, int]] = {}
+        req_fps: List[List[str]] = []
+        for _, images in requests:
+            fps = []
             for img in images:
                 a = np.asarray(img)
                 fp = image_fingerprint(a)
-                if fp not in vision:
-                    arr8, gh, gw = resize_for_vl(a, cfg, self.device)
-                    patches = patches_from_image(
-                        torch.from_numpy(np.ascontiguousarray(arr8)).to(self.device),
-                        cfg, gh, gw, dtype)
-                    vision[fp] = (vision_forward(self.params["vision"], cfg,
-                                                 patches, gh, gw), gh, gw)
-                vt, gh, gw = vision[fp]
-                vts.append(vt)
-                grids.append((gh, gw))
-            out.append(self._encode_one(prompt, vts, grids))
-        return out
+                if fp not in uniq:
+                    uniq[fp] = resize_for_vl(a, cfg, self.device)
+                fps.append(fp)
+            req_fps.append(fps)
 
-    def _encode_one(self, prompt: str, vts: List[torch.Tensor],
-                    grids: List[Tuple[int, int]]) -> PromptEmbedding:
-        cfg = self.cfg
-        lm = self.params["lm"]
+        by_grid: Dict[Tuple[int, int], List[str]] = {}
+        for fp, (_, gh, gw) in uniq.items():
+            by_grid.setdefault((gh, gw), []).append(fp)
+        vision: Dict[str, torch.Tensor] = {}
+        for (gh, gw), fps in by_grid.items():
+            patches = torch.stack([patches_from_image(
+                torch.from_numpy(np.ascontiguousarray(uniq[fp][0])).to(self.device),
+                cfg, gh, gw, dtype) for fp in fps])
+            out = vision_forward(self.params["vision"], cfg, patches, gh, gw)
+            for i, fp in enumerate(fps):
+                vision[fp] = out[i]
+
+        recs = [self._lm_record(prompt, [vision[fp] for fp in fps],
+                                [uniq[fp][1:] for fp in fps])
+                for (prompt, _), fps in zip(requests, req_fps)]
+        groups: Dict[Tuple, List[int]] = {}
+        for i, r in enumerate(recs):
+            groups.setdefault(r["key"], []).append(i)
+        hidden: Dict[int, torch.Tensor] = {}
+        for (starts, _), idxs in groups.items():
+            out = self._lm_rows([recs[i] for i in idxs], starts)
+            for row, i in enumerate(idxs):
+                hidden[i] = out[row]
+        return [self._finalize_hidden(hidden[i], r["drop"], r["n_real"])
+                for i, r in enumerate(recs)]
+
+    def _lm_record(self, prompt: str, vts: List[torch.Tensor],
+                   grids: List[Tuple[int, int]]) -> dict:
+        """One request's chat ids and M-RoPE positions (unpadded), vision
+        tokens and its LM batching key: (vision starts, vision shapes)."""
         ids, vision_starts, drop_len = build_chat_ids(
             self.tokenizer, prompt, [int(vt.shape[0]) for vt in vts],
             drop_idx=self.drop_idx)
-        pos = _positions_from_ids(cfg, ids, grids)
-        n_real = len(ids)
-        bucket = 128
-        l = max(bucket, -(-n_real // bucket) * bucket)
-        ids_padded = np.zeros((l,), np.int64)
-        ids_padded[:n_real] = np.asarray(ids, np.int64)
-        if l > n_real:
-            last = pos[:, -1:]
-            pos = np.concatenate(
-                [pos, last + np.arange(1, l - n_real + 1)[None, :]], axis=1)
-        attn_mask = torch.zeros((l,), dtype=torch.bool, device=self.device)
-        attn_mask[:n_real] = True
-        cos_np, sin_np = _mrope_tables(cfg, pos)
+        return {"key": (tuple(vision_starts), tuple(tuple(vt.shape) for vt in vts)),
+                "ids": ids, "pos": _positions_from_ids(self.cfg, ids, grids),
+                "vts": vts, "drop": drop_len, "n_real": len(ids)}
 
+    def _lm_rows(self, recs: List[dict], starts: Tuple[int, ...]) -> torch.Tensor:
+        """One batched LM call over requests of one key → (B, L, hidden):
+        every row padded at the end to the group's longest 128-token bucket
+        (positions continue past the last real token, mask False)."""
+        lm = self.params["lm"]
+        dev = self.device
+        bucket = 128
+        l = max(max(bucket, -(-r["n_real"] // bucket) * bucket) for r in recs)
+        ids = np.zeros((len(recs), l), np.int64)
+        mask = np.zeros((len(recs), l), bool)
+        cos, sin = [], []
+        for row, r in enumerate(recs):
+            n_real = r["n_real"]
+            ids[row, :n_real] = np.asarray(r["ids"], np.int64)
+            mask[row, :n_real] = True
+            pos = r["pos"]
+            if l > n_real:
+                pos = np.concatenate(
+                    [pos, pos[:, -1:] + np.arange(1, l - n_real + 1)[None, :]], axis=1)
+            c, s_ = _mrope_tables(self.cfg, pos)
+            cos.append(c)
+            sin.append(s_)
         # clamp (as jnp.take mode="clip") — the tiny test vocab does not
         # cover the special ids
-        ids_t = torch.from_numpy(ids_padded).to(self.device)
+        ids_t = torch.from_numpy(ids).to(dev)
         emb = lm["embed"][ids_t.clamp(0, lm["embed"].shape[0] - 1)]
-        for s, vt in zip(vision_starts, vts):
-            emb[s:s + vt.shape[0]] = vt.to(emb.dtype)
-        hidden = lm_forward(lm, cfg, emb,
-                            torch.from_numpy(cos_np).to(self.device),
-                            torch.from_numpy(sin_np).to(self.device),
-                            attn_mask, use_flash=self.use_flash)
-        return self._finalize_hidden(hidden, drop_len, n_real)
+        for row, r in enumerate(recs):
+            for s0, vt in zip(starts, r["vts"]):
+                emb[row, s0:s0 + vt.shape[0]] = vt.to(emb.dtype)
+        return lm_forward(lm, self.cfg, emb, torch.from_numpy(np.stack(cos)).to(dev),
+                          torch.from_numpy(np.stack(sin)).to(dev),
+                          torch.from_numpy(mask).to(dev), use_flash=self.use_flash)
 
     def _finalize_hidden(self, hidden: torch.Tensor, drop_len: int,
                          n_real: int) -> PromptEmbedding:

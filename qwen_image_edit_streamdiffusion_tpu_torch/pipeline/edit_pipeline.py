@@ -8,15 +8,22 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/pipeline/edit_pipeline.py``
 with the JAX package's prompt and latent caches in front of the two encodes.
 PyTorch runs eagerly, so each stage is a plain call on ``self.device``.
 
-This slice runs ``cfg_mode="none"`` with ``transfer_format="rgb"`` and the full
-decoder, with one or more condition images, in bf16 or on the int8 / int4
-weight rungs (``use_int8``, ``use_int8_vl``, ``use_int4``, ``use_int4_vl``),
-with a LoRA fused at construction (``from_weights(lora_path=...)``).
-The other CFG modes, yuv420, the tiny VAE pair, ``edit_many`` and
-``num_images_per_prompt > 1`` raise ``NotImplementedError`` naming their
-ROADMAP item. Images come in as (H, W, 3) uint8 arrays (a PIL
-image is accepted and converted, but PIL is never imported here) and go out
-as uint8 arrays.
+It runs every ``cfg_mode`` of the JAX ``_denoise_fn`` on one device
+(``parallel``, with no ``cfg`` mesh axis, is exactly ``batched``, as the JAX
+package degrades it), the guided call (positive and negative prompts encoded
+as one wave), ``num_images_per_prompt`` and :meth:`EditPipeline.edit_many`
+(several requests in one denoise call), ``transfer_format="yuv420"`` (4:2:0
+upload and download, ``ops/colorspace.py``) and the tiny VAE pair
+(``models/tiny_vae.py``; the tiny decoder serves the output, the tiny encoder
+is loaded for the stream's temporal frames), in bf16 or on the int8 / int4
+weight rungs, with a LoRA fused at construction. Multi-device meshes raise
+``NotImplementedError`` naming their ROADMAP item. ``cfg_mode``,
+``transfer_format`` and ``decoder`` are read from ``config`` on every call.
+Rows are not padded to the JAX package's {1, 2, 4, 8, 16} buckets, which bound
+XLA compiles; eager PyTorch has none, and rows are independent.
+
+Images come in as (H, W, 3) uint8 arrays (a PIL image is accepted and
+converted, but PIL is never imported here) and go out as uint8 arrays.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,7 +43,12 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     get_preset,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
-from qwen_image_edit_streamdiffusion_tpu_torch.models import lora, quantize, qwen_vl
+from qwen_image_edit_streamdiffusion_tpu_torch.models import (
+    lora,
+    quantize,
+    qwen_vl,
+    tiny_vae,
+)
 from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
 from qwen_image_edit_streamdiffusion_tpu_torch.models import vae as vae_mod
@@ -45,10 +57,14 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
     PromptEncoder,
     StubEncoder,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.ops import colorspace
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
     LatentCache,
     PromptCache,
+    image_fingerprint,
 )
+
+CFG_MODES = ("none", "sequential", "batched", "parallel", "rcfg", "rcfg-self")
 
 
 def combine_cfg(pos: torch.Tensor, neg: torch.Tensor, scale) -> torch.Tensor:
@@ -82,13 +98,81 @@ def _not_ported(what: str, item: str):
 
 
 def check_config(config: StreamConfig) -> None:
-    """Refuse, at construction, the options this slice does not run."""
-    if config.transfer_format != "rgb":
-        _not_ported("transfer_format='yuv420'", "the stream (item 4)")
-    if config.decoder != "full" or config.encoder != "full":
-        _not_ported("the tiny VAE pair", "item 3")
+    """Refuse, at construction, the options the port does not run."""
     if config.mesh_cfg_axis != 1 or config.mesh_model_axis != 1:
         _not_ported("multi-device meshes", "multi-GPU (item 7)")
+
+
+def _check_tiny_cfg(tcfg, vae_cfg, path: str) -> None:
+    if (tcfg.latent_channels != vae_cfg.latent_channels
+            or tcfg.spatial_upsample != vae_cfg.spatial_downsample):
+        raise ValueError(
+            f"tiny decoder {path!r} reads a ({tcfg.latent_channels}ch, "
+            f"{tcfg.spatial_upsample}x) latent grid but the preset's VAE "
+            f"produces ({vae_cfg.latent_channels}ch, "
+            f"{vae_cfg.spatial_downsample}x)")
+
+
+def _check_tiny_enc_cfg(ecfg, vae_cfg, path: str) -> None:
+    if (ecfg.latent_channels != vae_cfg.latent_channels
+            or ecfg.spatial_downsample != vae_cfg.spatial_downsample):
+        raise ValueError(
+            f"tiny encoder {path!r} writes a ({ecfg.latent_channels}ch, "
+            f"{ecfg.spatial_downsample}x) latent grid but the preset's VAE "
+            f"uses ({vae_cfg.latent_channels}ch, "
+            f"{vae_cfg.spatial_downsample}x)")
+
+
+def _init_tiny_decoder(preset: Preset, config: StreamConfig,
+                       path: Optional[str], seed: int, device):
+    """(params, TinyDecoderConfig) for ``config.decoder="tiny"`` or a path:
+    the artifact when given, else a random init with the JAX warning (an
+    untrained tiny decoder outputs noise)."""
+    if config.decoder != "tiny" and not path:
+        return None
+    if path:
+        params, tcfg = tiny_vae.load(path, device)
+        _check_tiny_cfg(tcfg, preset.vae, path)
+        return params, tcfg
+    warnings.warn(
+        "decoder='tiny' without a trained artifact: random-init tiny "
+        "decoder (output is noise; distill one with "
+        "training/tiny_vae.py or pass tiny_decoder_path)")
+    tcfg = tiny_vae.TinyDecoderConfig.from_vae(preset.vae)
+    return tiny_vae.init(stream(seed, "tiny_vae", device), tcfg, device), tcfg
+
+
+def _init_tiny_encoder(preset: Preset, config: StreamConfig,
+                       path: Optional[str], seed: int, device):
+    """(params, TinyEncoderConfig) for ``config.encoder="tiny"`` or a path,
+    with the decoder's load-or-warn policy."""
+    if config.encoder != "tiny" and not path:
+        return None
+    if path:
+        params, ecfg = tiny_vae.load_encoder(path, device)
+        _check_tiny_enc_cfg(ecfg, preset.vae, path)
+        return params, ecfg
+    warnings.warn(
+        "encoder='tiny' without a trained artifact: random-init tiny "
+        "encoder (conditioning latents are noise; distill one with "
+        "training/tiny_vae.py --encoder or pass tiny_encoder_path)")
+    ecfg = tiny_vae.TinyEncoderConfig.from_vae(preset.vae)
+    return (tiny_vae.encoder_init(stream(seed, "tiny_vae_enc", device), ecfg,
+                                  device), ecfg)
+
+
+def _pad_rows(a: torch.Tensor, length: int) -> torch.Tensor:
+    """Pad dim 1 of ``a`` to ``length`` with zeros (False for a mask)."""
+    if a.shape[1] == length:
+        return a
+    pad = a.new_zeros((a.shape[0], length - a.shape[1]) + tuple(a.shape[2:]))
+    return torch.cat([a, pad], dim=1)
+
+
+def _images_of(image) -> List[np.ndarray]:
+    if isinstance(image, (list, tuple)):
+        return [imaging.as_uint8_array(i) for i in image]
+    return [imaging.as_uint8_array(image)]
 
 
 def _quantized(params, want: Optional[int], saved: Optional[int], fn, what: str):
@@ -125,7 +209,8 @@ def prepare_vl(params, config: StreamConfig):
 
 @dataclass
 class EditPipeline:
-    """Holds the params of the three models, the encoder and the caches."""
+    """Holds the params of the three models (and of the tiny VAE pair when
+    loaded), the encoder and the caches."""
 
     preset: Preset
     config: StreamConfig
@@ -135,6 +220,11 @@ class EditPipeline:
     device: torch.device
     prompt_cache: PromptCache
     latent_cache: LatentCache
+    # (params, TinyDecoderConfig): serves the output when config.decoder="tiny"
+    tiny_vae: Optional[Tuple[Any, Any]] = None
+    # (params, TinyEncoderConfig): the stream's temporal frames only; edit
+    # conditioning keeps the full VAE, as in the JAX package
+    tiny_encoder: Optional[Tuple[Any, Any]] = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -143,9 +233,12 @@ class EditPipeline:
     @classmethod
     def create(cls, preset: str | Preset = "qwen-image-edit-2509",
                config: Optional[StreamConfig] = None, seed: int = 0,
-               device="cuda") -> "EditPipeline":
+               device="cuda", tiny_decoder_path: Optional[str] = None,
+               tiny_encoder_path: Optional[str] = None) -> "EditPipeline":
         """Random-init construction: every parameter is made on ``device``
-        in its preset dtype from the seed's named generator streams."""
+        in its preset dtype from the seed's named generator streams. A tiny
+        decoder (encoder) path loads that artifact and implies
+        ``decoder="tiny"`` (``encoder="tiny"``)."""
         if isinstance(preset, str):
             preset = get_preset(preset)
         config = config or StreamConfig(model_preset=preset.name)
@@ -157,17 +250,23 @@ class EditPipeline:
             preset, config,
             tfm.init(stream(seed, "transformer", device), preset.model, device),
             vae_mod.init(stream(seed, "vae", device), preset.vae, device),
-            vl_params, device)
+            vl_params, device, tiny_decoder_path=tiny_decoder_path,
+            tiny_encoder_path=tiny_encoder_path, seed=seed)
 
     @classmethod
     def from_weights(cls, preset: Preset, config: StreamConfig, tfm_params,
                      vae_params, vl_params=None, device="cuda",
-                     lora_path: Optional[str] = None) -> "EditPipeline":
+                     lora_path: Optional[str] = None,
+                     tiny_decoder_path: Optional[str] = None,
+                     tiny_encoder_path: Optional[str] = None,
+                     seed: int = 0) -> "EditPipeline":
         """Construction from existing port params (e.g. ``convert.from_jax``):
         the LoRA at ``lora_path`` (``.safetensors`` or ``.npz``) fused into
         the dense transformer weights IN PLACE, then q/k/v fused when
         ``config.fuse_qkv``, then the transformer and the VL params quantized
-        IN PLACE on the requested rungs — the JAX ``from_checkpoint`` order."""
+        IN PLACE on the requested rungs — the JAX ``from_checkpoint`` order;
+        then the tiny decoder and encoder, loaded or random-init from
+        ``seed``."""
         check_config(config)
         device = torch.device(device)
         if lora_path:
@@ -185,9 +284,33 @@ class EditPipeline:
                 use_flash=config.use_flash_attention)
         else:
             encoder = StubEncoder.from_config(preset.vl)
+        tiny = _init_tiny_decoder(preset, config, tiny_decoder_path, seed, device)
+        if tiny is not None and config.decoder != "tiny":
+            config = config.replace(decoder="tiny")
+        tiny_enc = _init_tiny_encoder(preset, config, tiny_encoder_path, seed,
+                                      device)
+        if tiny_enc is not None and config.encoder != "tiny":
+            config = config.replace(encoder="tiny")
         return cls(preset=preset, config=config, tfm_params=tfm_params,
                    vae_params=vae_params, encoder=encoder, device=device,
-                   prompt_cache=PromptCache(encoder), latent_cache=LatentCache())
+                   prompt_cache=PromptCache(encoder), latent_cache=LatentCache(),
+                   tiny_vae=tiny, tiny_encoder=tiny_enc)
+
+    def load_tiny_decoder(self, path: str) -> None:
+        """Load a distilled tiny decoder and switch the output decode to it
+        (``config.decoder="tiny"``)."""
+        params, tcfg = tiny_vae.load(path, self.device)
+        _check_tiny_cfg(tcfg, self.preset.vae, path)
+        self.tiny_vae = (params, tcfg)
+        self.config = self.config.replace(decoder="tiny")
+
+    def load_tiny_encoder(self, path: str) -> None:
+        """Load a distilled tiny encoder (``config.encoder="tiny"``: the
+        stream's temporal frames; edit conditioning keeps the full VAE)."""
+        params, ecfg = tiny_vae.load_encoder(path, self.device)
+        _check_tiny_enc_cfg(ecfg, self.preset.vae, path)
+        self.tiny_encoder = (params, ecfg)
+        self.config = self.config.replace(encoder="tiny")
 
     @property
     def _mdt(self) -> torch.dtype:
@@ -217,19 +340,65 @@ class EditPipeline:
                                             self.device))
         return out_h, out_w, vae_images, vl_images
 
-    def encode_condition_latents(self, vae_images: List[np.ndarray]):
-        """VAE-encode condition images (posterior mode) → packed tokens in
-        the model dtype + their (1, h/2, w/2) rope shapes."""
+    def _upload(self, arrays: Sequence[np.ndarray]) -> torch.Tensor:
+        """Same-size uint8 images → f32 RGB (B, H, W, 3) in [0, 255] on the
+        device: uint8 as they are, or with ``transfer_format="yuv420"`` packed
+        4:2:0 on the host (native formulas) and converted back on the
+        device, as the JAX encode graph takes them."""
+        if self.config.transfer_format == "yuv420":
+            packed = np.stack([colorspace.pack_yuv420_host(a) for a in arrays])
+            return colorspace.yuv420_to_rgb(torch.from_numpy(packed).to(self.device))
+        x = torch.from_numpy(np.stack([np.ascontiguousarray(a) for a in arrays]))
+        return x.to(self.device).float()
+
+    def _encode_pixels(self, arrays: Sequence[np.ndarray]) -> torch.Tensor:
+        """One batched VAE encode (posterior mode) of same-size images →
+        packed tokens (B, L, C) in the model dtype."""
         vdt = getattr(torch, self.preset.vae.dtype)
-        tokens, shapes = [], []
-        for arr in vae_images:
-            x = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)[None]
-            img = x.float() / 127.5 - 1.0
-            z = vae_mod.encode(self.vae_params, self.preset.vae, img.to(vdt))
-            tokens.append(tfm.pack_latents(z.float()).to(self._mdt))
-            zh, zw = arr.shape[0] // 8, arr.shape[1] // 8
-            shapes.append((1, zh // 2, zw // 2))
-        return torch.cat(tokens, dim=1), shapes
+        img = self._upload(arrays) / 127.5 - 1.0
+        z = vae_mod.encode(self.vae_params, self.preset.vae, img.to(vdt))
+        return tfm.pack_latents(z.float()).to(self._mdt)
+
+    @staticmethod
+    def _cond_shapes(arrays: Sequence[np.ndarray]):
+        return [(1, (a.shape[0] // 8) // 2, (a.shape[1] // 8) // 2) for a in arrays]
+
+    def encode_condition_latents(self, vae_images: List[np.ndarray]):
+        """VAE-encode condition images → packed tokens in the model dtype,
+        concatenated along the sequence, + their (1, h/2, w/2) rope shapes."""
+        tokens = [self._encode_pixels([arr]) for arr in vae_images]
+        return torch.cat(tokens, dim=1), self._cond_shapes(vae_images)
+
+    def _encode_conditions_many(self, waves: List[List[np.ndarray]]):
+        """Condition latents of several items' ``vae_images``: a latent-cache
+        probe per item, then the misses' images deduplicated by content hash
+        and encoded in one batched VAE call per resolution. One
+        (cond_tokens, cond_shapes) per item, as
+        :meth:`encode_condition_latents` gives it."""
+        out: List[Any] = [self.latent_cache.lookup(imgs) for imgs in waves]
+        misses = [i for i, hit in enumerate(out) if hit is None]
+        uniq: Dict[str, np.ndarray] = {}
+        for i in misses:
+            for arr in waves[i]:
+                uniq.setdefault(image_fingerprint(arr), arr)
+        by_hw: Dict[Tuple[int, int], List[str]] = {}
+        for fp, arr in uniq.items():
+            by_hw.setdefault(tuple(arr.shape[:2]), []).append(fp)
+        tok_by_fp: Dict[str, torch.Tensor] = {}
+        for fps in by_hw.values():
+            toks = self._encode_pixels([uniq[fp] for fp in fps])
+            for r, fp in enumerate(fps):
+                tok_by_fp[fp] = toks[r:r + 1]
+        for i in misses:
+            toks = [tok_by_fp[image_fingerprint(a)] for a in waves[i]]
+            out[i] = (torch.cat(toks, dim=1), self._cond_shapes(waves[i]))
+            self.latent_cache.store(waves[i], out[i])
+        return out
+
+    def _text_rows(self, emb) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A prompt embedding → (1, L, D) model-dtype text, (1, L) mask."""
+        txt = torch.as_tensor(emb.embeds).to(self.device, self._mdt)[None]
+        return txt, torch.as_tensor(emb.mask).to(self.device)[None]
 
     def _noise(self, shape: Tuple[int, ...], seed: int) -> torch.Tensor:
         """Seeded packed-noise tokens from the "latents" stream."""
@@ -237,34 +406,118 @@ class EditPipeline:
                             dtype=torch.float32, device=self.device)
         return tfm.pack_latents(noise).to(self._mdt)
 
-    def _denoise(self, x, cond_tokens, txt, mask, img_shapes, steps: int):
-        """Cond-only flow-matching loop: MMDiT velocity over [target ⊕
-        condition] tokens, Euler step on the target tokens, in f32."""
+    def _denoise(self, x, cond_tokens, txt, mask, img_shapes, steps: int,
+                 cfg_mode: str = "none", neg_txt=None, neg_mask=None,
+                 cfg_scale: float = 1.0):
+        """The flow-matching loop of the JAX ``_denoise_fn``: MMDiT velocity
+        over [target ⊕ condition] tokens, guided by ``cfg_mode``, Euler step
+        on the target tokens in f32.
+
+        - ``none``: one forward a step;
+        - ``sequential``: the positive and the negative forward;
+        - ``batched`` (and ``parallel``, which without a ``cfg`` mesh axis is
+          exactly ``batched``): one forward over [x, x] with the positive
+          and the negative text rows;
+        - ``rcfg``: the first step one batched pair, whose residual
+          v_pos − v_neg (f32) then stands in for the negative: steps + 1
+          forwards;
+        - ``rcfg-self``: no negative forward; the virtual negative
+          (x − anchor)/σ points at the first condition image's latents. It
+          takes ``rcfg`` with the JAX warning when that grid differs from
+          the target's."""
+        if cfg_mode not in CFG_MODES:
+            raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
+        if cfg_mode == "rcfg-self" and (len(img_shapes) < 2
+                                        or img_shapes[1] != img_shapes[0]):
+            warnings.warn(
+                "rcfg-self needs the first condition latent grid "
+                f"{tuple(img_shapes[1:2])} to match the target grid "
+                f"{img_shapes[0]} for the virtual-negative anchor; "
+                "using onetime-negative rcfg instead")
+            cfg_mode = "rcfg"
+        if cfg_mode == "parallel":
+            cfg_mode = "batched"
         mcfg = self.preset.model
         l_target = img_shapes[0][0] * img_shapes[0][1] * img_shapes[0][2]
         schedule = sched.make_schedule(steps, l_target, self.preset.scheduler)
+        sigmas = schedule.sigmas
         ropes = tfm.make_rope(mcfg, img_shapes, txt.shape[1], self.device)
-        for i in range(steps):
+
+        def velocity(i, x, cond, txt, mask):
             t = torch.full((x.shape[0],), float(schedule.timesteps[i]),
                            dtype=torch.float32, device=self.device)
-            v = tfm.forward(self.tfm_params, mcfg, torch.cat([x, cond_tokens], 1),
-                            txt, t, ropes, txt_mask=mask,
+            v = tfm.forward(self.tfm_params, mcfg, torch.cat([x, cond], 1), txt,
+                            t, ropes, txt_mask=mask,
                             use_flash=self.config.use_flash_attention)
-            x = sched.euler_step(x, v[:, :l_target], schedule.sigmas[i],
-                                 schedule.sigmas[i + 1])
+            return v[:, :l_target]
+
+        def pair(a, b):
+            return torch.cat([a, b], dim=0)
+
+        if cfg_mode in ("batched", "rcfg"):
+            cond2, txt2, mask2 = (pair(cond_tokens, cond_tokens),
+                                  pair(txt, neg_txt), pair(mask, neg_mask))
+        if cfg_mode == "rcfg-self":
+            anchor = cond_tokens[:, :l_target].float()
+        delta = None
+        for i in range(steps):
+            if cfg_mode == "none":
+                v = velocity(i, x, cond_tokens, txt, mask)
+            else:
+                if cfg_mode == "batched" or (cfg_mode == "rcfg" and i == 0):
+                    pos, neg = velocity(i, pair(x, x), cond2, txt2, mask2).chunk(2)
+                    if cfg_mode == "rcfg":
+                        delta = pos.float() - neg.float()
+                elif cfg_mode == "sequential":
+                    pos = velocity(i, x, cond_tokens, txt, mask)
+                    neg = velocity(i, x, cond_tokens, neg_txt, neg_mask)
+                else:
+                    pos = velocity(i, x, cond_tokens, txt, mask)
+                    if cfg_mode == "rcfg":
+                        neg = (pos.float() - delta).to(pos.dtype)
+                    else:
+                        neg = rcfg_self_negative(x, anchor, sigmas[i], pos.dtype)
+                v = combine_cfg(pos, neg, cfg_scale)
+            x = sched.euler_step(x, v, sigmas[i], sigmas[i + 1])
         return x
 
     def _decode(self, tokens: torch.Tensor, zh: int, zw: int):
-        """Packed tokens → (uint8 NHWC pixels, f32 latents): unpack, VAE
-        decode, then clip, (x·0.5+0.5)·255, +0.5, uint8 — in f32."""
+        """Packed tokens → (pixels on the device, f32 latents): unpack, decode
+        (the tiny decoder when ``config.decoder="tiny"`` and one is loaded,
+        else the full VAE, with the JAX warning when none is), then clip and
+        (x·0.5+0.5)·255 in f32; the pixels are uint8 RGB (+0.5, truncated)
+        or, with ``transfer_format="yuv420"``, the packed 4:2:0 buffer
+        (B, H/2, W/2, 6) from the unrounded values."""
         z = tfm.unpack_latents(tokens.float(), zh, zw)
-        vdt = getattr(torch, self.preset.vae.dtype)
-        x32 = vae_mod.decode(self.vae_params, self.preset.vae, z.to(vdt)).float()
-        x32 = ((x32 * 0.5 + 0.5) * 255.0).clamp(0.0, 255.0)
+        tiny = None
+        if self.config.decoder == "tiny":
+            if self.tiny_vae is None:
+                warnings.warn(
+                    "config.decoder='tiny' but no tiny decoder is loaded "
+                    "(load_tiny_decoder / create with decoder='tiny'); "
+                    "falling back to the full VAE decoder")
+            else:
+                tiny = self.tiny_vae
+        if tiny is not None:
+            x = tiny_vae.decode(tiny[0], tiny[1], z)
+        else:
+            vdt = getattr(torch, self.preset.vae.dtype)
+            x = vae_mod.decode(self.vae_params, self.preset.vae, z.to(vdt))
+        x32 = ((x.float() * 0.5 + 0.5) * 255.0).clamp(0.0, 255.0)
+        if self.config.transfer_format == "yuv420":
+            return colorspace.rgb_to_yuv420(x32), z
         return (x32 + 0.5).clamp(0.0, 255.0).to(torch.uint8), z
 
+    def _fetch_images(self, pixels: torch.Tensor) -> List[np.ndarray]:
+        """The decode's pixels → host (H, W, 3) uint8 arrays; a packed 4:2:0
+        buffer is unpacked on the host (native formulas)."""
+        host = pixels.cpu().numpy()
+        if self.config.transfer_format == "yuv420":
+            return [colorspace.yuv420_to_rgb_host(p) for p in host]
+        return [host[i] for i in range(host.shape[0])]
+
     # ------------------------------------------------------------------
-    # Main entry
+    # Entry points
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
@@ -275,27 +528,42 @@ class EditPipeline:
                  seed: Optional[int] = None, height: Optional[int] = None,
                  width: Optional[int] = None,
                  num_images_per_prompt: int = 1) -> EditResult:
+        """One edit. True CFG runs when a negative prompt is given and the
+        scale exceeds 1 (the upstream ``do_true_cfg``), in
+        ``config.cfg_mode``; the positive and negative prompts are encoded
+        as one wave, the shorter text padded with zero rows and False mask.
+        ``num_images_per_prompt`` > 1 goes through :meth:`edit_many`: N
+        variations (per-row noise) in one denoise call."""
         t_start = time.time()
-        if isinstance(image, (list, tuple)):
-            images = [imaging.as_uint8_array(i) for i in image]
-        else:
-            images = [imaging.as_uint8_array(image)]
-        if num_images_per_prompt > 1:
-            _not_ported("num_images_per_prompt > 1", "with edit_many (item 6)")
+        images = _images_of(image)
+        n_out = max(1, int(num_images_per_prompt))
+        if n_out > 1:
+            return self.edit_many(
+                [{"image": images, "prompt": prompt,
+                  "negative_prompt": negative_prompt, "seed": seed,
+                  "num_images": n_out, "height": height, "width": width}],
+                num_inference_steps=num_inference_steps,
+                true_cfg_scale=true_cfg_scale)[0]
         steps = num_inference_steps or self.config.num_inference_steps
         cfg_scale = (true_cfg_scale if true_cfg_scale is not None
                      else self.config.true_cfg_scale)
         seed = self.config.seed if seed is None else seed
-        if negative_prompt is not None and cfg_scale > 1.0:
-            _not_ported(f"true CFG (cfg_mode={self.config.cfg_mode!r})",
-                        "rcfg-self and the other cfg modes (item 2)")
+        do_cfg = negative_prompt is not None and cfg_scale > 1.0
+        cfg_mode = self.config.cfg_mode if do_cfg else "none"
 
         out_h, out_w, vae_images, vl_images = self._prepare_images(
             images, height, width)
 
-        emb = self.prompt_cache.encode(prompt, vl_images)
-        txt = torch.as_tensor(emb.embeds).to(self.device, self._mdt)[None]
-        mask = torch.as_tensor(emb.mask).to(self.device)[None]
+        if do_cfg:
+            emb, neg = self.prompt_cache.encode_many(
+                [(prompt, vl_images), (negative_prompt, vl_images)])
+        else:
+            emb = self.prompt_cache.encode(prompt, vl_images)
+        txt, mask = self._text_rows(emb)
+        neg_txt, neg_mask = self._text_rows(neg) if do_cfg else (txt, mask)
+        length = max(txt.shape[1], neg_txt.shape[1])
+        txt, mask, neg_txt, neg_mask = (_pad_rows(a, length) for a in
+                                        (txt, mask, neg_txt, neg_mask))
 
         cond_tokens, cond_shapes = self.latent_cache.get_or_encode(
             vae_images, self.encode_condition_latents)
@@ -303,12 +571,111 @@ class EditPipeline:
         zh, zw = out_h // 8, out_w // 8
         x0 = self._noise((1, zh, zw, self.preset.vae.latent_channels), seed)
         img_shapes = tuple([(1, zh // 2, zw // 2)] + list(cond_shapes))
-        final = self._denoise(x0, cond_tokens, txt, mask, img_shapes, steps)
-
+        final = self._denoise(x0, cond_tokens, txt, mask, img_shapes, steps,
+                              cfg_mode, neg_txt, neg_mask, cfg_scale)
         pixels, latents = self._decode(final, zh, zw)
-        host = pixels.cpu().numpy()
-        return EditResult(images=[host[i] for i in range(host.shape[0])],
-                          latents=latents, elapsed=time.time() - t_start)
+        return EditResult(images=self._fetch_images(pixels), latents=latents,
+                          elapsed=time.time() - t_start)
 
-    def edit_many(self, items, num_inference_steps=None, true_cfg_scale=None):
-        _not_ported("edit_many", "serving through InferenceEngine (item 6)")
+    @torch.inference_mode()
+    def edit_many(self, items: Sequence[Dict[str, Any]],
+                  num_inference_steps: Optional[int] = None,
+                  true_cfg_scale: Optional[float] = None) -> List[EditResult]:
+        """Several edit requests in ONE denoise call, as the JAX
+        ``edit_many``: one prompt-encode wave for every item's positive (and
+        negative) prompt, one batched VAE encode per resolution for the
+        latent-cache misses, per-item seeded noise, conditioning tiled per
+        ``num_images``, one shared text length, one decode; results split
+        per item. Items are dicts with ``image`` (an image or a list),
+        ``prompt`` and optional ``negative_prompt`` / ``seed`` /
+        ``num_images`` / ``height`` / ``width``; they must share output
+        size, condition geometry and CFG-ness (else ``ValueError``)."""
+        t_start = time.time()
+        steps = num_inference_steps or self.config.num_inference_steps
+        cfg_scale = (true_cfg_scale if true_cfg_scale is not None
+                     else self.config.true_cfg_scale)
+
+        metas, enc_reqs = [], []
+        for it in items:
+            negative_prompt = it.get("negative_prompt")
+            do_cfg = negative_prompt is not None and cfg_scale > 1.0
+            out_h, out_w, vae_images, vl_images = self._prepare_images(
+                _images_of(it["image"]), it.get("height"), it.get("width"))
+            pos_i = len(enc_reqs)
+            enc_reqs.append((it["prompt"], vl_images))
+            neg_i = None
+            if do_cfg:
+                neg_i = len(enc_reqs)
+                enc_reqs.append((negative_prompt, vl_images))
+            metas.append((it, do_cfg, out_h, out_w, vae_images, pos_i, neg_i))
+
+        embs = self.prompt_cache.encode_many(enc_reqs)
+        conds = self._encode_conditions_many([m[4] for m in metas])
+
+        prepped, geom = [], None
+        for (it, do_cfg, out_h, out_w, _, pos_i, neg_i), cond in zip(metas, conds):
+            cond_tokens, cond_shapes = cond
+            txt, mask = self._text_rows(embs[pos_i])
+            neg_txt, neg_mask = (self._text_rows(embs[neg_i]) if do_cfg
+                                 else (txt, mask))
+            g = (out_h, out_w, tuple(cond_shapes), do_cfg)
+            if geom is None:
+                geom = g
+            elif g != geom:
+                raise ValueError(
+                    "edit_many items must share output size, condition "
+                    f"geometry and CFG-ness: {g} != {geom}")
+            prepped.append((txt, mask, neg_txt, neg_mask, cond_tokens,
+                            it.get("seed"), max(1, int(it.get("num_images", 1)))))
+
+        out_h, out_w, cond_shapes, do_cfg = geom
+        cfg_mode = self.config.cfg_mode if do_cfg else "none"
+        zh, zw = out_h // 8, out_w // 8
+        length = max(max(p[0].shape[1], p[2].shape[1]) for p in prepped)
+        rows: Dict[str, List[torch.Tensor]] = {
+            k: [] for k in ("x0", "cond", "txt", "mask", "ntxt", "nmask")}
+        for txt, mask, neg_txt, neg_mask, cond_tokens, seed, n_i in prepped:
+            seed = self.config.seed if seed is None else seed
+            rows["x0"].append(self._noise(
+                (n_i, zh, zw, self.preset.vae.latent_channels), seed))
+            for key, a in (("cond", cond_tokens), ("txt", txt), ("mask", mask),
+                           ("ntxt", neg_txt), ("nmask", neg_mask)):
+                a = a if key == "cond" else _pad_rows(a, length)
+                rows[key].append(a.repeat((n_i,) + (1,) * (a.dim() - 1)))
+        cat = {k: torch.cat(v, dim=0) for k, v in rows.items()}
+
+        img_shapes = tuple([(1, zh // 2, zw // 2)] + list(cond_shapes))
+        final = self._denoise(cat["x0"], cat["cond"], cat["txt"], cat["mask"],
+                              img_shapes, steps, cfg_mode, cat["ntxt"],
+                              cat["nmask"], cfg_scale)
+        pixels, latents = self._decode(final, zh, zw)
+        images = self._fetch_images(pixels)
+        elapsed = time.time() - t_start
+        results, row = [], 0
+        for *_, n_i in prepped:
+            results.append(EditResult(images=images[row:row + n_i],
+                                      latents=latents[row:row + n_i],
+                                      elapsed=elapsed))
+            row += n_i
+        return results
+
+    def warmup(self, height: Optional[int] = None, width: Optional[int] = None,
+               steps: Optional[int] = None, runs: int = 1,
+               cfg: bool = False) -> float:
+        """Serve the standard request on a gray image (the reference warms up
+        with a gray 512² image); ``cfg=True`` also serves the guided variant
+        with the server's ``use_cfg`` convention (an empty negative prompt)
+        and one more cond-only call, as the JAX ``warmup`` does. Returns the
+        wall seconds."""
+        h = height or self.config.height or 512
+        w = width or self.config.width or 512
+        dummy = np.full((h, w, 3), 128, np.uint8)  # Pillow's "gray"
+        t0 = time.time()
+        n_steps = steps or self.config.num_inference_steps
+        prompt = "Transform into oil painting style"
+        for _ in range(max(1, runs)):
+            self(dummy, prompt, num_inference_steps=n_steps)
+        if cfg:
+            self(dummy, prompt, negative_prompt="", num_inference_steps=n_steps)
+            self(dummy, prompt, num_inference_steps=n_steps)
+        return time.time() - t0

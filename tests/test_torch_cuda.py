@@ -270,6 +270,77 @@ def test_resize_on_the_card_equals_the_host(dev, filt, src, dst):
     card = imaging.resize(img, dst[1], dst[0], filt, dev)
     np.testing.assert_array_equal(card, host)
 
+# Guided and batched edits run the kernels at more rows: K1 over a CFG pair
+# (each row its own text mask) or 2N rows, K2 over the pos+neg LM rows (each
+# row's padding its own suffix), K3 on a decode of N rows. Each row must
+# equal that row launched alone, bit for bit.
+@pytest.mark.parametrize("b", [2, 4])
+def test_joint_kernel_rows_with_their_own_masks(dev, b):
+    lk, txt_len = 1100, 320
+    q = _randn((b, 4, lk, 128), 50, dev)
+    k = _randn((b, 4, lk, 128), 51, dev)
+    v = _randn((b, 4, lk, 128), 52, dev)
+    m = np.ones((b, lk), bool)
+    for row in range(b):
+        m[row, 150 + 40 * row:txt_len] = False
+    mask = torch.from_numpy(m).to(dev)
+    out = fa.joint_attention(q, k, v, mask, txt_len)
+    err, tol = _att_err(out, fa.joint_attention_plain(q, k, v, mask, txt_len))
+    assert err <= tol, (err, tol)
+    for row in range(b):
+        one = fa.joint_attention(q[row:row + 1], k[row:row + 1], v[row:row + 1],
+                                 mask[row:row + 1], txt_len)
+        assert torch.equal(out[row:row + 1], one)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+@pytest.mark.parametrize("b", [2, 4])
+def test_causal_kernel_rows_with_their_own_suffix_padding(dev, b, block_q):
+    l = 384
+    q = _randn((b, 28, l, 128), 53, dev)
+    k = _randn((b, 4, l, 128), 54, dev)
+    v = _randn((b, 4, l, 128), 55, dev)
+    out = fa.causal_attention(q, k, v, block_q)
+    for row in range(b):
+        n_real = 258 - 5 * row
+        keep = torch.arange(l, device=dev) < n_real
+        ref = fa.causal_attention_plain(q[row:row + 1], k[row:row + 1],
+                                        v[row:row + 1], keep)
+        err, tol = _att_err(out[row:row + 1, :, :n_real], ref[:, :, :n_real])
+        assert err <= tol, (row, err, tol)
+        one = fa.causal_attention(q[row:row + 1], k[row:row + 1], v[row:row + 1],
+                                  block_q)
+        assert torch.equal(out[row:row + 1], one)
+
+
+# the tiny decoder's conv shapes (64 channels; 16 in at its first conv; 3
+# out at its last), cut in size, at two rows
+@pytest.mark.parametrize("shape", [(2, 40, 36, 64, 64), (2, 17, 21, 16, 64),
+                                   (2, 33, 30, 64, 3), (2, 37, 45, 96, 96)])
+def test_conv_kernel_rows(dev, shape):
+    b, h, w, c, f = shape
+    x = _randn((b, h, w, c), 56, dev)
+    wt = (_randn((3, 3, c, f), 57, dev, torch.float32) * (9 * c) ** -0.5).to(torch.bfloat16)
+    bias = _randn((f,), 58, dev) * 0.1
+    out = conv_ops.conv3x3(x, wt, bias)
+    ref = conv_ops.conv3x3_plain(x, wt, bias).float()
+    assert (out.float() - ref).abs().max().item() <= CONV_TOL * max(1.0, ref.abs().max().item())
+    for row in range(b):
+        assert torch.equal(out[row:row + 1], conv_ops.conv3x3(x[row:row + 1], wt, bias))
+
+
+def test_colorspace_on_the_card_equals_the_cpu(dev):
+    """The yuv420 device conversions are elementwise f32 in a fixed order:
+    the card gives the CPU's bytes and values."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import colorspace as cs
+
+    rng = np.random.default_rng(59)
+    x = torch.from_numpy(rng.uniform(-5, 260, (2, 64, 96, 3)).astype(np.float32))
+    assert torch.equal(cs.rgb_to_yuv420(x.to(dev)).cpu(), cs.rgb_to_yuv420(x))
+    p = torch.from_numpy(rng.integers(0, 256, (2, 32, 48, 6), np.uint8))
+    assert torch.equal(cs.yuv420_to_rgb(p.to(dev)).cpu(), cs.yuv420_to_rgb(p))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = _randn((1, 2, 64, 128), 0, dev)
     with pytest.raises(TypeError):
@@ -335,6 +406,22 @@ def _check_gemm(xq, xs, wq, ws, b):
 @pytest.mark.parametrize("m", CARD_M)
 def test_int8_gemm_kernel_is_bit_identical(dev, m, k, n, bias):
     _check_gemm(*_gemm_inputs(dev, m, k, n, bias))
+
+
+# A batched-CFG miss's int8 rows (the pair as one forward, pos+neg as one LM
+# call): the modulation GEMV at M = 2, the text stream at 512, the LM at 768,
+# the image stream at 16384.
+CFG_INT8 = ((2, 3072, 18432), (512, 3072, 3072), (512, 12288, 3072),
+            (768, 3584, 512), (768, 18944, 3584), (16384, 3072, 3072))
+
+
+@pytest.mark.parametrize("m,k,n", CFG_INT8)
+def test_int8_kernels_at_guided_rows_are_bit_identical(dev, m, k, n):
+    x = _randn((m, k), 60, dev)
+    q, s = int8.quantize_rows(x)
+    q_ref, s_ref = int8.quantize_rows_plain(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+    _check_gemm(*_gemm_inputs(dev, m, k, n, True, seed=61))
 
 
 @pytest.mark.parametrize("m,k,n", [(384, 18944, 3584), (384, 3584, 512),

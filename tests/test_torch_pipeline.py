@@ -87,6 +87,31 @@ def _jax_pipeline(preset, trees, quant_bits=None):
     return pipe, tfm_p, vl_p
 
 
+def jax_noise(jpipe, dtype):
+    """A stand-in for the port's ``_noise``: the JAX pipeline's noise for the
+    same shape and seed, in the port's model dtype."""
+    def noise(shape, seed):
+        x = jpipe._noise_fn(tuple(shape))(jax_stream(key_from_seed(seed), "latents"))
+        return torch.from_numpy(np.array(x, np.float32)).to(dtype)
+    return noise
+
+
+def build_pair(f32: bool, **port_config):
+    """The JAX pipeline and the port's (on the CPU) on the same numpy
+    trees, the port drawing the JAX noise. Returns (jpipe, tpipe)."""
+    preset = _preset(f32)
+    trees = (_numpy_tree(jtfm.init, preset.model, 0),
+             _numpy_tree(jvae.init, preset.vae, 1),
+             _numpy_tree(jvl._init_all, preset.vl, 2))
+    jpipe = _jax_pipeline(preset, trees)[0]
+    tpipe = tep.EditPipeline.from_weights(
+        preset, _config(**port_config), from_jax(trees[0], preset.model),
+        from_jax(trees[1], preset.vae), from_jax(trees[2], preset.vl),
+        device="cpu")
+    tpipe._noise = jax_noise(jpipe, getattr(torch, preset.model.dtype))
+    return jpipe, tpipe
+
+
 def _images(n: int):
     """n noisy images 40 pixels larger than SIZE², resized to it (LANCZOS)."""
     rng = np.random.default_rng(0)
@@ -201,20 +226,32 @@ def test_int4_slice_matches_jax(monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_pil():
-    """The port's main path, imported and run at `tiny` in a fresh process,
-    loads neither jax nor PIL."""
+    """The port, imported and run at `tiny` in a fresh process (a cond-only
+    edit, a batched-CFG edit, a yuv420 edit and the tiny decoder's artifact
+    loaded and served), loads neither jax, optax nor PIL, nor any module of
+    the JAX package."""
     code = (
-        "import sys, numpy as np\n"
+        "import sys, warnings, numpy as np\n"
         "from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import edit_pipeline as ep\n"
-        "from qwen_image_edit_streamdiffusion_tpu.core.config import StreamConfig\n"
+        "from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig\n"
         "import torch; torch.set_num_threads(2)\n"
         "cfg = StreamConfig(width=64, height=64, vae_image_area=64*64,\n"
         "                   vl_image_area=64*64, num_inference_steps=1,\n"
-        "                   cfg_mode='none', model_preset='tiny')\n"
+        "                   cfg_mode='batched', model_preset='tiny')\n"
         "p = ep.EditPipeline.create('tiny', cfg, seed=0, device='cpu')\n"
-        "r = p(np.zeros((64, 64, 3), np.uint8), 'edit it')\n"
+        "img = np.zeros((64, 64, 3), np.uint8)\n"
+        "r = p(img, 'edit it')\n"
         "assert r.images[0].shape == (64, 64, 3)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'PIL')]\n"
+        "r = p(img, 'edit it', negative_prompt='', true_cfg_scale=4.0)\n"
+        "assert r.images[0].shape == (64, 64, 3)\n"
+        "p.config = p.config.replace(transfer_format='yuv420')\n"
+        "r = p(img + 9, 'edit it', negative_prompt='', true_cfg_scale=4.0)\n"
+        "assert r.images[0].shape == (64, 64, 3)\n"
+        "p.load_tiny_decoder('artifacts/tiny_decoder_bench-2b.safetensors')\n"
+        "r = p(img, 'edit it')\n"
+        "assert r.images[0].shape == (64, 64, 3) and p.config.decoder == 'tiny'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'PIL', 'qwen_image_edit_streamdiffusion_tpu')]\n"
         "assert not bad, bad\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -230,19 +267,7 @@ def tiny_pipe():
     return tep.EditPipeline.create("tiny", _config(), seed=0, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"negative_prompt": "blurry", "true_cfg_scale": 4.0},
-    {"num_images_per_prompt": 2},
-])
-def test_unported_call_options_raise(tiny_pipe, kwargs):
-    img = np.zeros((SIZE, SIZE, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tiny_pipe(img, PROMPT, **kwargs)
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"transfer_format": "yuv420"}, {"decoder": "tiny"}, {"mesh_cfg_axis": 2},
-])
+@pytest.mark.parametrize("kwargs", [{"mesh_cfg_axis": 2}])
 def test_unported_config_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tep.EditPipeline.create("tiny", _config(**kwargs), seed=0, device="cpu")
