@@ -72,6 +72,33 @@ toolkit. Phases, each printing one JSON line:
              the tiny decode on the card against the CPU (rel-L2
              TINY_TOL); the tiny decoder's conv shapes graph-timed through
              cuDNN and through K3;
+   stream  — the realtime stream (``pipeline/stream.py``) on the same
+             pipeline, as the JAX suite's bench_stream: 512², 2 steps, a
+             keyframe every 10 frames, yuv420, prompts frozen once (K2 28 in
+             ``precompute_conditions`` at (1, 128), 0 a frame); warm-up; a
+             keyframe (K1 120, K3 20) and a temporal frame (K1 60, K3 20)
+             checked call by call; a keyframe and a temporal
+             ``submit_frame`` under ``set_sync_debug_mode("error")`` and
+             torch.profiler must return with their work still running on
+             the card, with no runtime call that waits for it and no
+             pageable copy in their host window (a planted blocking
+             pageable upload must show there); sequential and pipelined ``run_benchmark``
+             (12 frames: s/frame, fps, keyframes and temporal frames timed
+             apart) and a profiled pipelined run;
+             then a guided rcfg-self stream (K1 at 1 row, K2 over the pos+neg
+             wave at 2 rows), the trained tiny pair (temporal frames K3 0,
+             keyframes 5), ``preview_scale=2`` at 1024² (1024² keyframes
+             pooling their latent onto the 512² temporal grid), the
+             similarity filter on a static frame (skips bounded by
+             ``similarity_max_skip``), two sessions as one batched dispatch
+             (K1 at 2 rows, one host fetch, each row's latents within
+             STREAM_TOL of its session alone; a row planted with the other
+             session's text, then its noise, must exceed it) and the
+             flicker of temporal latents against independent keyframes;
+             last K1 (1 and 2 rows at 512², 1 at the 1024² preview
+             keyframe), K2 (the frozen prompt's LM rows, 1 and 2) and K3 (a
+             512² encode and decode) at the stream's shapes against their
+             plain versions;
    yuv420  — ``transfer_format="yuv420"``: a hit and a miss; the output
              equals the host unpack of the decode's device pack, and the
              condition upload equals ``yuv420_to_rgb`` of the host pack
@@ -94,13 +121,17 @@ toolkit. Phases, each printing one JSON line:
              run once per quantized linear the request executes (1200 in the
              MMDiT, 358 more in the VL encoder per one-image miss), and as
              often in a batched-CFG miss (the pair is one forward, at twice
-             the rows); then a miss timed plainly and one profiled, as for
-             bf16;
+             the rows); three 512² stream frames (a keyframe and two
+             temporal frames: K5/K6 1200, 600 and 600, and 196 in
+             ``precompute_conditions``, every K6 call's (M, K, N) counted
+             against the stream's mix); then a miss timed plainly and one
+             profiled, as for bf16;
 7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
              miss; K5/K6 run only for the vision tower's 3420-wide ``down``
              leaves, which take the int8 rung (32 per image per miss);
-8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss and
-             of a batched-CFG miss (M = 16384, 512, 768, 2),
+8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
+             of a batched-CFG miss (M = 16384, 512, 768, 2) and of a 512²
+             stream keyframe with its precompute (M = 2048, 64, 1, 128),
              bit-identical to their plain versions, timed as K3 is, beside
              bf16 ``F.linear`` and ``torch._int_mm`` (the s8 product alone),
              with the mix's sums a miss. It runs after the pipelines: its
@@ -740,6 +771,14 @@ INT8_MIX = (("img_qkv", 8192, 3072, 9216, 120), ("img_out", 8192, 3072, 3072, 12
 # (one image, shared); the same launches.
 INT8_CFG_MIX = tuple((name, m if name.startswith(("vis", "merger")) else 2 * m, k, n,
                       launches) for name, m, k, n, launches in INT8_MIX)
+# A 512² int8 stream keyframe with its frozen prompt: the MMDiT at 2048 image
+# rows (1024 noise + 1024 condition tokens) and the 64-token text bucket, two
+# forwards; the VL LM once, in precompute_conditions, at its 128-token bucket
+# of the text-only prompt (no vision tower). A temporal frame runs the
+# MMDiT's half.
+INT8_STREAM_MIX = tuple(
+    (name, {8192: 2048, 256: 64, LM_LEN: 128}.get(m, m), k, n, launches)
+    for name, m, k, n, launches in INT8_MIX if not name.startswith(("vis", "merger")))
 
 
 def int_mm(xq, wq):
@@ -757,7 +796,8 @@ def int_mm(xq, wq):
 def phase_int8_kernels():
     """K5 and K6 at every int8 shape of a one-image miss, then of a
     batched-CFG miss (M = 16384, 512, 768 and 2 where the pair doubles the
-    rows), bit-identical to their plain versions (gate: max-abs error 0 for
+    rows), then of a 512² stream keyframe and its precompute (M = 2048, 64,
+    1 and 128), bit-identical to their plain versions (gate: max-abs error 0 for
     codes, scales and the GEMM output). Each shape: device time per launch
     from a graph of the shape's launches a miss (``ms``), the per-call time
     (``wall_ms``), the plain versions, bf16 ``F.linear`` (the rung int8
@@ -768,6 +808,7 @@ def phase_int8_kernels():
     worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
     recs = int8_mix(INT8_MIX, "int8 one-image miss", worst)
     int8_mix(INT8_CFG_MIX, "int8 batched-CFG miss", worst)
+    int8_mix(INT8_STREAM_MIX, "int8 512² stream keyframe + precompute", worst)
     for key in recs:
         recs[key]["max_abs_err"] = worst[key]
     return recs
@@ -1106,7 +1147,8 @@ def distinct_image(i: int):
 class RowSpy:
     """Records the batch rows of each K1/K4, K2 and K3 call of a request by
     wrapping the wrappers (each still counts its own launch, once):
-    {counter: {rows: calls}}, K1/K4 keyed "rows x keys"."""
+    {counter: {rows: calls}}, K1/K4 keyed "rows x keys"; K2's calls also
+    under "flash_causal_len", keyed "rows x length"."""
 
     def __init__(self):
         self.rows = {}
@@ -1133,8 +1175,9 @@ class RowSpy:
         spy(fa, "joint_attention", lambda q, k, *_: self._note(
             "flash_joint_stream" if fa.streams_kv(k) else "flash_joint",
             f"{q.shape[0]}x{k.shape[2]}"))
-        spy(fa, "causal_attention", lambda q, *_: self._note(
-            "flash_causal", str(q.shape[0])))
+        spy(fa, "causal_attention", lambda q, *_: (
+            self._note("flash_causal", str(q.shape[0])),
+            self._note("flash_causal_len", f"{q.shape[0]}x{q.shape[2]}")))
         spy(conv_ops, "conv3x3", lambda x, *_: self._note("conv3x3", str(x.shape[0])))
         return self
 
@@ -1269,7 +1312,8 @@ def create_pipeline(label: str, **quant):
 def phase_slice():
     """The bf16 flagship: one-image misses and hits, then a two-image edit;
     then, on the same pipeline, the guided and batched edits, the tiny
-    decoder, the yuv420 wire, the LoRA fine-tune and the LoRA-fused edit."""
+    decoder, the realtime stream, the yuv420 wire, the LoRA fine-tune and
+    the LoRA-fused edit."""
     pipe = create_pipeline("bf16")
     two = [distinct_image(2000), distinct_image(2001)]
     requests = ([("warmup", [distinct_image(1000)], "warmup", expected(True))]
@@ -1282,7 +1326,7 @@ def phase_slice():
     launches = run_requests(pipe, requests, "bf16", latents)
     for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
-    for phase in (phase_guided, phase_tiny, phase_yuv420):
+    for phase in (phase_guided, phase_tiny, phase_stream, phase_yuv420):
         for k, n in phase(pipe).items():
             launches[k] += n
     train_launches, adapters = phase_train(pipe)
@@ -1486,6 +1530,726 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# The realtime stream (phase stream), the JAX suite's bench_stream on the live
+# flagship: 512² in and out, 2 steps, a keyframe every 10 processed frames,
+# the yuv420 wire, prompts frozen once.
+STREAM_SIZE = 512
+STREAM_FRAMES = 12
+STREAM_INTERVAL = 10
+STREAM_MAX_SKIP = 3
+STREAM_PROMPT_B = "Turn it into a watercolor painting"
+# rel-L2 of a batched row's latents against its session alone: sound rows
+# read 3.5-4.0e-4 on the H100; a row given the other session's noise reads
+# 0.067 (planted in stream_batched, with a text swap that the exact row
+# check catches)
+STREAM_TOL = 4e-3
+STREAM_LM_LEN = 128  # the LM's 128-token bucket of a text-only stream prompt
+# K3's shapes at 512²: K3_MIX at half the size; a full-VAE decode and encode
+STREAM_K3_MIX = tuple((size // 2, cin, f, n, hit) for size, cin, f, n, hit in K3_MIX)
+K3_DECODE = sum(hit for *_, hit in K3_MIX)
+K3_ENCODE = sum(n - hit for *_, n, hit in K3_MIX)
+
+
+def stream_config(pipe, size: int = STREAM_SIZE, **kw):
+    """bench_stream's StreamConfig on the live pipeline's: size² in and
+    out, 2 steps, a keyframe every STREAM_INTERVAL frames, yuv420, cond-only,
+    the full VAE both ways, no similarity filter, no preview; ``kw`` on top."""
+    base = dict(width=size, height=size, vae_image_area=size * size,
+                vl_image_area=min(384 * 384, size * size), num_inference_steps=STEPS,
+                keyframe_interval=STREAM_INTERVAL, transfer_format="yuv420",
+                preview_scale=1, cfg_mode="none", similarity_filter=False,
+                decoder="full", encoder="full")
+    return pipe.config.replace(**{**base, **kw})
+
+
+def stream_image(kind: str = "gradient", size: int = STREAM_SIZE, phase: float = 0.0):
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
+
+    return imaging.make_test_image(size, size, kind, phase)
+
+
+def frame_want(key: bool, k3=None, int8: int = 0) -> dict:
+    """Launches of one 2-step stream frame: K1 once a layer a forward (two
+    forwards a keyframe, one a temporal frame), K3 for a full-VAE encode
+    and decode unless ``k3`` says otherwise, K2 0, K5/K6 ``int8``."""
+    return {"flash_joint": (2 if key else 1) * MMDIT_LAYERS, "flash_joint_stream": 0,
+            "flash_causal": 0, "conv3x3": K3_ENCODE + K3_DECODE if k3 is None else k3,
+            "quantize_rows": int8, "int8_gemm": int8}
+
+
+def launch_delta(before: dict) -> dict:
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+
+def check_counts(where: str, delta: dict, want: dict, rows=None, spy=None) -> None:
+    for key, n in want.items():
+        if delta[key] != n:
+            raise AssertionError(f"{where}: {key} ran {delta[key]} times, not {n}")
+    for key, per in (rows or {}).items():
+        if spy.rows.get(key) != per:
+            raise AssertionError(f"{where}: {key} rows {spy.rows.get(key)}, not {per}")
+
+
+def stream_frame(rt, label: str, name: str, want: dict, rows=None, image=None,
+                 size: int = STREAM_SIZE):
+    """One ``process_frame`` of ``rt``: wall seconds, launches, the rows of
+    every K1/K2/K3 call, the frame and its latent; raises unless the counts,
+    the rows and the (size, size, 3) uint8 frame are as expected."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    image = stream_image(size=size) if image is None else image
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with RowSpy() as spy:
+        out = rt.process_frame(image)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    delta = launch_delta(before)
+    finite = bool(torch.isfinite(rt.prev_latent).all().item())
+    emit({"phase": "stream_frame", "path": label, "name": name, "keyframe": rt.is_keyframe,
+          "seconds": wall, "launches": {k: n for k, n in delta.items() if n},
+          "rows": spy.rows, "shape": list(out.shape), "dtype": str(out.dtype),
+          "latent": list(rt.prev_latent.shape), "latent_finite": finite,
+          "pixel_mean": float(out.mean())})
+    check_counts(f"{label}/{name}", delta, want, rows, spy)
+    if out.shape != (size, size, 3) or str(out.dtype) != "uint8" or not finite:
+        raise AssertionError(f"{label}/{name}: frame {out.shape} {out.dtype}, "
+                             f"latent finite {finite}")
+    return out
+
+
+def stream_bench(rt, label: str, pipelined: bool, frames: int = STREAM_FRAMES,
+                 rows_per_forward: int = 1) -> dict:
+    """``run_benchmark`` of ``frames`` frames: s/frame and fps (the
+    sequential run also times its keyframes and temporal frames apart, from
+    ``inference_times``); K1 must run once a layer a forward of each frame."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+    first = rt.frame_count
+    keys = sum((first + i) % rt.config.keyframe_interval == 0 for i in range(frames))
+    if rt.prev_latent is None and first % rt.config.keyframe_interval != 0:
+        keys += 1
+    rt.inference_times.clear()
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fps = rt.run_benchmark(frames, pipelined=pipelined, output_path=os.path.join(
+        ROOT, "build", "chip_smoke", f"stream_{label.replace(' ', '_')}.png"))
+    wall = time.time() - t0
+    delta = launch_delta(before)
+    rec = {"phase": "stream_bench", "path": label,
+           "mode": "pipelined" if pipelined else "sequential", "frames": frames,
+           "keyframes": keys, "fps": fps, "s_per_frame": wall / frames, "wall_s": wall,
+           "launches": {k: n for k, n in delta.items() if n}}
+    if not pipelined:
+        kinds = [(first + i) % rt.config.keyframe_interval == 0 for i in range(frames)]
+        times = rt.inference_times[-frames:]
+        rec["keyframe_s"] = [t for t, k in zip(times, kinds) if k]
+        rec["temporal_s"] = [t for t, k in zip(times, kinds) if not k]
+        rec["temporal_s_median"] = statistics.median(rec["temporal_s"])
+    emit(rec)
+    check_counts(f"{label} {rec['mode']}", delta,
+                 {"flash_joint": (frames + keys) * rows_per_forward * MMDIT_LAYERS,
+                  "flash_causal": 0})
+    return rec
+
+
+def lm_tokens(pipe, prompt: str) -> int:
+    """The real LM tokens of a text-only prompt (its chat template's ids)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
+
+    enc = pipe.encoder
+    return len(qwen_vl.build_chat_ids(enc.tokenizer, prompt, [], drop_idx=enc.drop_idx)[0])
+
+
+def precompute(rt, label: str, prompt: str, negative_prompt=None, k2_rows: int = 1):
+    """Freeze the prompt conditioning: K2 28 at ``k2_rows`` rows of
+    STREAM_LM_LEN (one LM call over the wave), nothing else on the card's
+    kernels."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    for text in (prompt, negative_prompt):
+        if text is not None and not lm_tokens(rt.pipe, text) <= STREAM_LM_LEN:
+            raise AssertionError(f"{label}: {text!r} is longer than the LM bucket")
+
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with RowSpy() as spy:
+        rt.precompute_conditions(prompt, negative_prompt=negative_prompt)
+        torch.cuda.synchronize()
+    delta = launch_delta(before)
+    emit({"phase": "stream_precompute", "path": label, "seconds": time.time() - t0,
+          "txt": list(rt._frozen_txt.shape), "real": int(rt._frozen_mask.sum().item()),
+          "launches": {k: n for k, n in delta.items() if n}, "rows": spy.rows})
+    check_counts(f"{label}/precompute", delta,
+                 {"flash_causal": K2_LAUNCHES, "flash_joint": 0, "conv3x3": 0},
+                 {"flash_causal": {str(k2_rows): K2_LAUNCHES},
+                  "flash_causal_len": {f"{k2_rows}x{STREAM_LM_LEN}": K2_LAUNCHES}}, spy)
+    return rt._frozen_txt.shape[1]
+
+
+# CUDA runtime calls that make the host wait for the card (or for a copy)
+HOST_WAIT_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+                   "cudaMemcpy", "cudaMemcpy2D", "cudaMemset", "cudaFree", "cudaFreeHost")
+# a copy call that holds the host this long (µs) waited for the stream: a
+# pinned copy is queued in microseconds, and a full launch queue frees a slot
+# within one kernel's time
+COPY_WAIT_US = 10_000
+
+
+def host_waits(fn):
+    """Runs ``fn`` under torch.profiler (then synchronizes); returns its
+    result, what ``fn`` itself did that makes the host wait, and the copies
+    the profiler recorded. Waits: the runtime calls of HOST_WAIT_CALLS in
+    its host window, a ``cudaMemcpyAsync`` there that held the host over
+    COPY_WAIT_US (the driver may drain the stream before a copy from
+    pageable memory: a wait ``set_sync_debug_mode`` does not see), and
+    every recorded copy from or to pageable memory. The device's copy
+    records can go missing in a long process, so the runtime calls are the
+    firm part."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("submits"):
+            out = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e.time_range for e in events
+               if e.name == "submits" and e.device_type == torch.autograd.DeviceType.CPU)
+    waits, copies = {}, {"cudaMemcpyAsync_max_us": 0.0}
+    for e in events:
+        inside = win.start <= e.time_range.start and e.time_range.end <= win.end
+        held = e.time_range.end - e.time_range.start
+        name = e.name
+        if e.name.startswith("Memcpy"):
+            copies[name] = copies.get(name, 0) + 1
+        if inside and name == "cudaMemcpyAsync":
+            copies["cudaMemcpyAsync_max_us"] = max(copies["cudaMemcpyAsync_max_us"], held)
+            name = f"cudaMemcpyAsync over {COPY_WAIT_US} us" if held > COPY_WAIT_US else ""
+        if ((name in HOST_WAIT_CALLS and inside) or name.startswith("cudaMemcpyAsync over")
+                or (name.startswith("Memcpy") and "Pageable" in name)):
+            waits[name] = waits.get(name, 0) + 1
+    return out, waits, copies
+
+
+def stream_sync_check(rt) -> None:
+    """After warm-up: a keyframe and a temporal ``submit_frame`` under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a sync PyTorch sees
+    raises) and under torch.profiler: no runtime call that waits for the
+    card and no pageable copy in their host window (:func:`host_waits`). An
+    event recorded right after them must still be pending when they return
+    (neither waited for its own frame); then both are collected. The host
+    can run only a bounded queue of launches ahead of the card, so a submit
+    still waits for the card once that queue is full: that is back-pressure,
+    not a sync. Then two planted faults, each a temporal submit: uploads
+    from pageable memory as before this slice (blocking), whose
+    ``cudaStreamSynchronize`` :func:`host_waits` must show, and non-blocking
+    from pageable memory, where the driver may wait unseen by the debug
+    mode (printed: whether the profile caught it). Last, one more temporal submit on an idle card: its
+    host seconds, and the device seconds its work needs after it returns."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import edit_pipeline as tep
+
+    img = stream_image()
+    rt.frame_count, rt.prev_latent = 0, None
+    done = torch.cuda.Event()
+    flags, stamps = [], []
+
+    def submits():
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            handles = []
+            for _ in range(2):
+                handles.append(rt.submit_frame(img))
+                flags.append(rt.is_keyframe)
+                stamps.append(time.time() - t0)
+            done.record()
+            return handles, not done.query()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    (handles, pending), waits, copies = host_waits(submits)
+    t0 = time.time()
+    outs = [rt._collect(h) for h in handles]
+    t_collect = time.time() - t0
+    planted, real = {}, tep.to_device
+    for name, non_blocking in (("pageable_blocking", False), ("pageable", True)):
+        tep.to_device = lambda x, device: torch.as_tensor(x).to(
+            device, non_blocking=non_blocking)
+        try:
+            handle, seen, seen_copies = host_waits(lambda: rt.submit_frame(img))
+        finally:
+            tep.to_device = real
+        rt._collect(handle)
+        planted[name] = {"waits": seen, "copies": seen_copies}
+    # a temporal submit on an idle card: its host time, then the device time
+    # its work still needs once it returns
+    torch.cuda.synchronize()
+    t0 = time.time()
+    handle = rt.submit_frame(img)
+    idle_submit = time.time() - t0
+    torch.cuda.synchronize()
+    left = time.time() - t0 - idle_submit
+    rt._collect(handle)
+    emit({"phase": "stream_sync_check", "keyframe_submit_s": stamps[0],
+          "temporal_submit_s": stamps[1] - stamps[0], "collect_s": t_collect,
+          "work_pending_at_return": pending, "flags": flags,
+          "host_waits": waits, "copies": copies, "planted_uploads": planted,
+          "shapes": [list(o.shape) for o in outs],
+          "idle_card_temporal_submit_s": idle_submit, "device_s_left_after_it": left})
+    if (flags != [True, False] or not pending or waits
+            or not planted["pageable_blocking"]["waits"].get("cudaStreamSynchronize")):
+        raise AssertionError(f"sync check: keyframe/temporal {flags}, work pending when "
+                             f"the submits returned: {pending}, host waits {waits}, "
+                             f"copies {copies}, planted uploads {planted}")
+
+
+def stream_batched(pipe, lk: int) -> None:
+    """Two sessions (different prompts and seeds), each a keyframe, then one
+    temporal frame: each alone, then (re-primed) as one 2-row dispatch. K1
+    at 2 rows; the rows handed to the forward equal, bit for bit, each
+    session's text and mask, previous latent and own noise draw; each row's
+    latents within STREAM_TOL (rel-L2) of its session alone; one host fetch
+    for both rows, the two rows different. Then two planted faults, each on
+    a re-primed pair: row 0 given session 1's text rows, then session 1's
+    noise. Each must fail the row check; the noise must also read above
+    STREAM_TOL (the text's reading is printed: with random weights 8 text
+    tokens of 2112 move a row's latents less than bf16 batching does)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import edit_pipeline as tep
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
+        RealtimePipeline,
+        submit_frames_batched,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    frames = [stream_image("sine", phase=p) for p in (0.0, 1.0, 2.0)]
+
+    def prime():
+        pair = []
+        for prompt, frame, seed in ((PROMPT, frames[0], 0), (STREAM_PROMPT_B, frames[1], 7)):
+            rt = RealtimePipeline(pipe=dataclasses.replace(
+                pipe, config=pipe.config.replace(seed=seed)))
+            rt.precompute_conditions(prompt)
+            rt.process_frame(frame)
+            pair.append(rt)
+        return pair
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def dispatch(pair, own):
+        """frames[2] on both sessions as one dispatch; the collected frames
+        and, per row, whether the forward's rows equal ``own`` (each
+        session's text, mask and previous latent as of before the fault)
+        and the session's own noise draw."""
+        seen = {}
+        real_run = RealtimePipeline._run_frames
+
+        def spy(self, kind, images, prev, noises, txt, mask, *rest):
+            seen.update(kind=kind, prev=prev, noises=noises, txt=txt, mask=mask)
+            return real_run(self, kind, images, prev, noises, txt, mask, *rest)
+
+        RealtimePipeline._run_frames = spy
+        try:
+            handles = submit_frames_batched(pair, [frames[2], frames[2]])
+        finally:
+            RealtimePipeline._run_frames = real_run
+        outs = [rt._collect(h) for rt, h in zip(pair, handles)]
+        equal = []
+        for r, (rt, (txt, mask, prev)) in enumerate(zip(pair, own)):
+            n = txt.shape[1]
+            draws = RealtimePipeline._frame_noise(
+                rt, seen["kind"], (1, *seen["noises"][0].shape[1:]), rt.frame_count - 1)
+            equal.append(bool(
+                torch.equal(seen["txt"][r:r + 1, :n], txt)
+                and torch.equal(seen["mask"][r:r + 1, :n], mask)
+                and not seen["mask"][r, n:].any() and torch.equal(seen["prev"][r:r + 1], prev)
+                and all(torch.equal(a[r:r + 1], b) for a, b in zip(seen["noises"], draws))))
+        return outs, equal
+
+    alone = prime()
+    ref = [(rt.process_frame(frames[2]), rt.prev_latent) for rt in alone]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for rt in alone:  # each session's next temporal frame alone, timed
+        rt.process_frame(frames[0])
+    alone_s = time.time() - t0
+    pair = prime()
+    own = [(rt._frozen_txt, rt._frozen_mask, rt.prev_latent) for rt in pair]
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    fetches = []
+    real = tep.EditPipeline._fetch_images
+    tep.EditPipeline._fetch_images = lambda self, px: fetches.append(1) or real(self, px)
+    try:
+        t0 = time.time()
+        with RowSpy() as spy:
+            outs, rows_equal = dispatch(pair, own)
+            torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        tep.EditPipeline._fetch_images = real
+    delta = launch_delta(before)
+    rels = [rel(rt.prev_latent, lat) for rt, (_, lat) in zip(pair, ref)]
+    codes = [int(np.abs(o.astype(np.int16) - r.astype(np.int16)).max())
+             for o, (r, _) in zip(outs, ref)]
+    exact = [bool(torch.equal(rt.prev_latent, lat)) for rt, (_, lat) in zip(pair, ref)]
+    apart = int(np.abs(outs[0].astype(np.int16) - outs[1].astype(np.int16)).max())
+    torch.cuda.synchronize()
+    t0 = time.time()  # the next batched frame, warm, against the two alone
+    for rt, h in zip(pair, submit_frames_batched(pair, [frames[0], frames[0]])):
+        rt._collect(h)
+    warm = time.time() - t0
+    planted = {}
+    for fault in ("text", "noise"):
+        bad = prime()
+        own = [(rt._frozen_txt, rt._frozen_mask, rt.prev_latent) for rt in bad]
+        if fault == "text":
+            bad[0]._frozen_txt, bad[0]._frozen_mask = bad[1]._frozen_txt, bad[1]._frozen_mask
+        else:
+            bad[0]._frame_noise = bad[1]._frame_noise
+        _, equal = dispatch(bad, own)
+        planted[fault] = {"row0_rel_l2": rel(bad[0].prev_latent, ref[0][1]),
+                          "rows_equal": equal}
+    emit({"phase": "stream_batched", "sessions": 2, "first_s": wall, "seconds": warm,
+          "two_alone_s": alone_s, "launches": {k: n for k, n in delta.items() if n},
+          "rows": spy.rows, "host_fetches": len(fetches), "rows_equal": rows_equal,
+          "row_latent_rel_l2": rels, "row_latent_equal": exact, "row_max_code_diff": codes,
+          "rows_max_code_apart": apart, "tol": STREAM_TOL, "planted": planted})
+    check_counts("stream/batched", delta, frame_want(False, k3=K3_ENCODE + K3_DECODE),
+                 {"flash_joint": {f"2x{lk}": MMDIT_LAYERS},
+                  "conv3x3": {"2": K3_ENCODE + K3_DECODE}}, spy)
+    if (len(fetches) != 1 or not all(rows_equal) or max(rels) > STREAM_TOL or apart <= 1
+            or any(o.shape != (STREAM_SIZE, STREAM_SIZE, 3) for o in outs)):
+        raise AssertionError(f"batched stream: fetches {len(fetches)}, rows equal "
+                             f"{rows_equal}, rel-L2 {rels}, rows apart {apart}")
+    if (any(p["rows_equal"] != [False, True] for p in planted.values())
+            or not planted["noise"]["row0_rel_l2"] > STREAM_TOL):
+        raise AssertionError(f"batched stream: a planted row fault was not seen: {planted}")
+
+
+def stream_flicker(pipe) -> dict:
+    """bench_stream's temporal coherence: 8 frames of the moving sine pattern
+    through a stream with temporal latents (a keyframe every 10) and one of
+    independent keyframes (interval 1); the outputs' mean frame-to-frame
+    change against the input's."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
+        RealtimePipeline,
+        temporal_flicker,
+    )
+
+    frames_in = [stream_image("sine", phase=0.35 * i) for i in range(8)]
+    rec = {"phase": "stream_flicker", "input": temporal_flicker(frames_in)}
+    for name, interval in (("temporal", STREAM_INTERVAL), ("keyframes", 1)):
+        pipe.config = stream_config(pipe, keyframe_interval=interval)
+        rt = RealtimePipeline(pipe=pipe)
+        rt.precompute_conditions(PROMPT)
+        rec[name] = temporal_flicker([rt.process_frame(f) for f in frames_in])
+    emit(rec)
+    if not all(math.isfinite(v) for k, v in rec.items() if k != "phase"):
+        raise AssertionError(f"flicker not finite: {rec}")
+    return rec
+
+
+def phase_stream(pipe) -> dict:
+    """The realtime stream on the live bf16 flagship (after phase_tiny loaded
+    the trained tiny pair), as bench_stream drives it: prompts frozen (K2 in
+    precompute only), warm-up, a keyframe and a temporal frame checked
+    launch by launch (K1 120 / 60 at 1 row, K3 20 / 20), submit_frame free
+    of host waits, sequential and pipelined benchmarks, a profiled pipelined
+    run; then a guided rcfg-self stream (K1 at 1 row), the tiny encoder and
+    decoder on temporal frames (K3 0; the keyframe 5, its full encode),
+    ``preview_scale=2`` at 1024² (1024² keyframes, 512² temporal frames),
+    the similarity filter on a static frame, two sessions as one batched
+    dispatch (K1 at 2 rows) and the flicker of temporal latents against
+    independent keyframes; last, K1, K2 and K3 at the stream's shapes
+    against their plain versions. Restores the pipeline's config."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import RealtimePipeline
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    saved = pipe.config
+    kernels.reset_launches()
+    pipe.config = stream_config(pipe)
+    rt = RealtimePipeline(pipe=pipe)
+    txt = precompute(rt, "stream", PROMPT)
+    lk = txt + 2 * (STREAM_SIZE // 16) ** 2
+    t0 = time.time()
+    rt.warmup(runs=2)
+    emit({"phase": "stream_warmup", "seconds": time.time() - t0, "joint_length": lk})
+    k1 = lambda n, rows=1, l=lk: {"flash_joint": {f"{rows}x{l}": n}}
+    full = {"conv3x3": {"1": K3_ENCODE + K3_DECODE}}
+    stream_frame(rt, "stream", "keyframe", frame_want(True), {**k1(120), **full})
+    stream_frame(rt, "stream", "temporal", frame_want(False), {**k1(60), **full})
+    stream_sync_check(rt)
+    rt.warmup(runs=2)
+    benches = {mode: stream_bench(rt, "bf16", mode == "pipelined")
+               for mode in ("sequential", "pipelined")}
+    plain = benches["pipelined"]["wall_s"]
+    emit({"phase": "stream_profile", "path": "bf16 pipelined", "frames": STREAM_FRAMES,
+          **profile_call(lambda: rt.run_benchmark(STREAM_FRAMES, pipelined=True,
+                                                  output_path=None), plain)})
+
+    # guided: rcfg-self (the virtual negative anchors on the frame; 1 row)
+    pipe.config = stream_config(pipe, cfg_mode="rcfg-self")
+    rt = RealtimePipeline(pipe=pipe)
+    gtxt = precompute(rt, "stream rcfg-self", PROMPT, NEG, k2_rows=2)
+    glk = gtxt + 2 * (STREAM_SIZE // 16) ** 2
+    rt.warmup(runs=2)
+    stream_frame(rt, "stream rcfg-self", "keyframe", frame_want(True), {**k1(120, l=glk), **full})
+    stream_frame(rt, "stream rcfg-self", "temporal", frame_want(False), {**k1(60, l=glk), **full})
+    for mode in ("sequential", "pipelined"):
+        stream_bench(rt, "bf16 rcfg-self", mode == "pipelined")
+
+    # the tiny pair: temporal frames encode and decode through it (K3 0);
+    # keyframes encode through the full VAE (K3 5), decode through the tiny
+    pipe.config = stream_config(pipe, encoder="tiny", decoder="tiny")
+    rt = RealtimePipeline(pipe=pipe)
+    precompute(rt, "stream tiny", PROMPT)
+    rt.warmup(runs=2)
+    stream_frame(rt, "stream tiny", "keyframe", frame_want(True, k3=K3_ENCODE),
+                 {**k1(120), "conv3x3": {"1": K3_ENCODE}})
+    stream_frame(rt, "stream tiny", "temporal", frame_want(False, k3=0),
+                 {**k1(60), "conv3x3": None})
+    for mode in ("sequential", "pipelined"):
+        stream_bench(rt, "bf16 tiny pair", mode == "pipelined")
+
+    # hybrid resolution: 1024² keyframes, 512² preview temporal frames
+    pipe.config = stream_config(pipe, size=SIZE, preview_scale=2)
+    rt = RealtimePipeline(pipe=pipe)
+    precompute(rt, "stream preview", PROMPT)
+    rt.warmup(runs=2)
+    big = txt + 2 * (SIZE // 16) ** 2
+    stream_frame(rt, "stream preview", "keyframe", frame_want(True),
+                 {**k1(120, l=big), **full}, size=SIZE)
+    if tuple(rt.prev_latent.shape) != (1, SIZE // 16, SIZE // 16, 16):
+        raise AssertionError(f"preview handoff latent {tuple(rt.prev_latent.shape)}")
+    stream_frame(rt, "stream preview", "temporal", frame_want(False), {**k1(60), **full},
+                 size=SIZE)
+    for mode in ("sequential", "pipelined"):
+        stream_bench(rt, "bf16 preview 1024", mode == "pipelined")
+
+    # the similarity filter on a static frame: skips, never past the bound
+    pipe.config = stream_config(pipe, similarity_filter=True,
+                                similarity_max_skip=STREAM_MAX_SKIP)
+    rt = RealtimePipeline(pipe=pipe)
+    precompute(rt, "stream ssf", PROMPT)
+    rt.warmup(runs=2)
+    static, ran, t0 = stream_image(), [], time.time()
+    before = dict(kernels.LAUNCHES)
+    for _ in range(STREAM_FRAMES):
+        n = rt.frame_count
+        out = rt.process_frame(static)
+        ran.append(rt.frame_count > n)
+    wall = time.time() - t0
+    streak = longest = 0
+    for r in ran:
+        streak = 0 if r else streak + 1
+        longest = max(longest, streak)
+    delta = launch_delta(before)
+    emit({"phase": "stream_ssf", "frames": STREAM_FRAMES, "processed": sum(ran),
+          "skipped": rt.skipped_frames, "longest_skip_run": longest,
+          "max_skip": STREAM_MAX_SKIP, "s_per_frame": wall / STREAM_FRAMES,
+          "fps": STREAM_FRAMES / wall, "pattern": "".join("P" if r else "s" for r in ran),
+          "launches": {k: n for k, n in delta.items() if n}})
+    keys = sum(1 for i, r in enumerate(ran) if r and sum(ran[:i]) % STREAM_INTERVAL == 0)
+    check_counts("stream/ssf", delta, {"flash_joint": (sum(ran) + keys) * MMDIT_LAYERS})
+    if not (rt.skipped_frames >= 1 and longest <= STREAM_MAX_SKIP
+            and sum(ran) + rt.skipped_frames == STREAM_FRAMES
+            and out.shape == (STREAM_SIZE, STREAM_SIZE, 3)):
+        raise AssertionError(f"similarity filter: {ran}, skipped {rt.skipped_frames}")
+
+    pipe.config = stream_config(pipe)
+    stream_batched(pipe, lk)
+    stream_flicker(pipe)
+    pipe.config = saved
+    launches = dict(kernels.LAUNCHES)
+    STREAM_KERNEL_ERRS.update(phase_stream_shapes(
+        txt, int(rt._frozen_mask.sum().item()), (lm_tokens(pipe, PROMPT), lm_tokens(pipe, NEG))))
+    return launches
+
+
+# max-abs errors of K1, K2 and K3 at the stream's shapes (phase_stream_shapes),
+# folded into the kernels line
+STREAM_KERNEL_ERRS = {}
+
+
+def phase_stream_shapes(txt: int, txt_real: int, lm_real) -> dict:
+    """K1, K2 and K3 at the shapes the stream gives them, against their
+    plain versions, timed beside their library call and bound: K1 at (1,
+    24, L, 128) and (2, 24, L, 128), L = the frozen text bucket + 2 × 1024
+    image tokens (512²), and at (1, 24, L', 128), L' = the bucket + 2 ×
+    4096 (the 1024² preview keyframe), the text masked after its real
+    tokens (the second row 5 fewer); K2 at (1, 28/4, STREAM_LM_LEN, 128)
+    and (2, 28/4, STREAM_LM_LEN, 128), the frozen prompt's LM rows
+    (``lm_real``: the positive's and the negative's real tokens,
+    suffix-padded), graph-timed as ``precompute_conditions``' 28 launches;
+    K3 at every shape of a 512² full-VAE encode and decode, graph-timed as
+    a keyframe's launches, with the mix's sums a keyframe. Returns the
+    max-abs errors."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import conv as conv_ops
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    errs = {"flash_attention_joint": 0.0, "flash_attention_causal": 0.0, "conv3x3": 0.0}
+    for rows, size in ((1, STREAM_SIZE), (2, STREAM_SIZE), (1, SIZE)):
+        lk = txt + 2 * (size // 16) ** 2
+        q, k, v = (randn((rows, 24, lk, 128), s, bf16) for s in (70, 71, 72))
+        mask = torch.ones((rows, lk), dtype=torch.bool, device="cuda")
+        for r in range(rows):
+            mask[r, txt_real - 5 * r:txt] = False
+        out = fa.joint_attention(q, k, v, mask, txt)
+
+        def k1_plain():
+            return torch.cat([fa.joint_attention_plain(q[:, h:h + 4], k[:, h:h + 4],
+                                                       v[:, h:h + 4], mask)
+                              for h in range(0, 24, 4)], dim=1)
+
+        ref = k1_plain().float()
+        err, tol = (out.float() - ref).abs().max().item(), attn_tolerance(ref)
+        emit_kernel({"phase": "kernel", "name": "flash_attention_joint", "cell": "stream",
+                     "shape": list(q.shape), "text_real": [txt_real - 5 * r for r in range(rows)],
+                     "max_abs_err": err, "tol": tol,
+                     "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, txt), 20),
+                     "plain_ms": cuda_ms(k1_plain, 5),
+                     "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask), 20),
+                     **attention_bound(q, k, v, (out,), mask, 4)})
+        if not err <= tol:
+            raise AssertionError(f"K1 error {err} > {tol} at the stream's {rows} x {lk}")
+        errs["flash_attention_joint"] = max(errs["flash_attention_joint"], err)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
+    for reals in (lm_real[:1], lm_real):
+        rows, l = len(reals), STREAM_LM_LEN
+        q = randn((rows, 28, l, 128), 76, bf16)
+        k, v = (randn((rows, 4, l, 128), s, bf16) for s in (77, 78))
+        out = fa.causal_attention(q, k, v)
+        err, tol = 0.0, 0.0
+        for b, n_real in enumerate(reals):
+            keep = torch.arange(l, device="cuda") < n_real
+            ref = fa.causal_attention_plain(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                            keep)[:, :, :n_real].float()
+            err = max(err, (out[b:b + 1, :, :n_real].float() - ref).abs().max().item())
+            tol = max(tol, attn_tolerance(ref))
+        emit_kernel({"phase": "kernel", "name": "flash_attention_causal", "cell": "stream",
+                     "shape": [rows, 28, 4, l], "n_real": list(reals),
+                     "max_abs_err": err, "tol": tol, "graph_launches": K2_LAUNCHES,
+                     "block_q": fa.causal_block_q(q),
+                     **timed("", lambda: fa.causal_attention(q, k, v), K2_LAUNCHES),
+                     "plain_ms": cuda_ms(lambda: [fa.causal_attention_plain(
+                         q[b:b + 1], k[b:b + 1], v[b:b + 1]) for b in range(rows)], 20),
+                     **timed("library_", lambda: sdpa(q, k, v, is_causal=True,
+                                                       enable_gqa=True), K2_LAUNCHES),
+                     **bound(4 * rows * 28 * (l * (l + 1) / 2) * 128,
+                             nbytes(q, k, v) + nbytes(q), PEAK_BF16)})
+        if not err <= tol:
+            raise AssertionError(f"K2 error {err} > {tol} at the stream's {rows} rows "
+                                 f"{list(reals)} of {l}")
+        errs["flash_attention_causal"] = max(errs["flash_attention_causal"], err)
+        del q, k, v, out
+    mix = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "launches": 0}
+    for size, cin, f, n, _ in STREAM_K3_MIX:
+        x = randn((1, size, size, cin), 73, bf16)
+        w = (randn((3, 3, cin, f), 74, torch.float32) * (9 * cin) ** -0.5).to(bf16)
+        b = randn((f,), 75, bf16) * 0.1
+        ref = conv_ops.conv3x3_plain(x, w, b).float()
+        err = (conv_ops.conv3x3(x, w, b).float() - ref).abs().max().item()
+        tol = conv_tolerance(ref)
+        wl = w.permute(3, 2, 0, 1)
+        rec = {"phase": "kernel", "name": "conv3x3", "cell": "stream",
+               "shape": [1, size, size, cin, f], "launches_keyframe": n,
+               "max_abs_err": err, "tol": tol,
+               **timed("", lambda: conv_ops.conv3x3(x, w, b), n, 10),
+               "plain_ms": cuda_ms(lambda: conv_ops.conv3x3_plain(x, w, b), 10),
+               **timed("library_", lambda: F.conv2d(x.permute(0, 3, 1, 2), wl, b,
+                                                    padding=1), n, 10),
+               **bound(2 * size * size * 9 * cin * f,
+                       nbytes(x, w, b) + size * size * f * 2, PEAK_BF16)}
+        emit_kernel(rec)
+        if not err <= tol:
+            raise AssertionError(f"K3 error {err} > {tol} at the stream's {size}² "
+                                 f"{cin}->{f}")
+        errs["conv3x3"] = max(errs["conv3x3"], err)
+        for key in ("ms", "bound_ms", "library_ms"):
+            mix[key] += n * rec[key]
+        mix["launches"] += n
+        del x, w, b, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_mix", "name": "conv3x3", "per": "512² stream keyframe", **mix,
+          "bound_share": mix["bound_ms"] / mix["ms"],
+          "vs_library": mix["ms"] / mix["library_ms"]})
+    return errs
+
+
+def stream_int8(pipe) -> None:
+    """Three 512² stream frames on the int8 pipeline (a keyframe, two
+    temporal frames): K5/K6 once per quantized linear, at the stream's
+    shapes: every K6 call's (M, K, N) counted, the precompute's and the
+    keyframe's together equal to INT8_STREAM_MIX, a temporal frame's to its
+    MMDiT half (the shapes phase_int8_kernels holds bit-exact)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import RealtimePipeline
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    want = {}
+    for _, m, k, n, launches in INT8_STREAM_MIX:
+        want[(m, k, n)] = want.get((m, k, n), 0) + launches
+    temporal = {mkn: c // 2 for mkn, c in want.items() if mkn[0] != 128}
+    seen = {}
+    real = int8.int8_matmul
+
+    def spy(x_q, x_scale, w_q, *args, **kw):
+        mkn = (x_q.shape[0], x_q.shape[1], w_q.shape[0])
+        seen[mkn] = seen.get(mkn, 0) + 1
+        return real(x_q, x_scale, w_q, *args, **kw)
+
+    saved = pipe.config
+    pipe.config = stream_config(pipe)
+    rt = RealtimePipeline(pipe=pipe)
+    int8.int8_matmul = spy
+    try:
+        before = dict(kernels.LAUNCHES)
+        precompute(rt, "stream int8", PROMPT)
+        delta = launch_delta(before)
+        if delta["int8_gemm"] != INT8_LM or delta["quantize_rows"] != INT8_LM:
+            raise AssertionError(f"int8 stream precompute: K5/K6 {delta}")
+        per_forward = INT8_MMDIT // STEPS
+        for name, key in (("keyframe", True), ("temporal0", False), ("temporal1", False)):
+            stream_frame(rt, "stream int8", name,
+                         frame_want(key, int8=(2 if key else 1) * per_forward))
+            shapes, got = (want if key else temporal), dict(seen)
+            emit({"phase": "stream_int8_shapes", "frame": name,
+                  "mkn": {"x".join(map(str, mkn)): c for mkn, c in sorted(got.items())}})
+            if got != shapes:
+                raise AssertionError(f"int8 stream {name}: K6 at {got}, not {shapes}")
+            seen.clear()
+    finally:
+        int8.int8_matmul = real
+        pipe.config = saved
+
+
 def phase_yuv420(pipe) -> dict:
     """``transfer_format="yuv420"`` on the live pipeline: a hit and a miss.
     The output must equal the host unpack of the decode's device pack (the
@@ -1564,7 +2328,7 @@ def profile_call(fn, plain_wall=None) -> dict:
         fn()
         torch.cuda.synchronize()
     wall = time.time() - t0
-    kinds, top = {}, []
+    kinds, top, events = {}, [], 0
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1572,13 +2336,14 @@ def profile_call(fn, plain_wall=None) -> dict:
         kind = kernel_kind(e.key)
         kinds[kind] = kinds.get(kind, 0.0) + t
         top.append((t, e.count, e.key[:90]))
+        events += e.count
     ranges = [e.time_range for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     span = (max(r.end for r in ranges) - min(r.start for r in ranges)) / 1e6
     busy = sum(kinds.values())
     top.sort(reverse=True)
     out = {"wall_s": wall, "busy_s": busy, "span_s": span,
-           "span_idle_share": 1 - busy / span}
+           "span_idle_share": 1 - busy / span, "device_events": events}
     if plain_wall is not None:
         out.update(plain_wall_s=plain_wall, idle_share=1 - busy / plain_wall,
                    host_gap_s=plain_wall - busy)
@@ -1762,6 +2527,7 @@ def phase_int8():
     serve("int8", "cfg_batched_miss", guided(pipe, "batched", distinct_image(3010)),
           expected(True, **one), k1_rows(2))
     pipe.config = pipe.config.replace(cfg_mode="none")
+    stream_int8(pipe)
     launches = dict(kernels.LAUNCHES)
     for k, n in profile_request(pipe, "int8", expected(True, **one), 6010).items():
         launches[k] += n
@@ -1828,6 +2594,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "launches", "total": launches})
+    for name, err in STREAM_KERNEL_ERRS.items():  # K1, K2 and K3 at the stream's shapes
+        per_kernel[name]["max_abs_err"] = max(per_kernel[name]["max_abs_err"], err)
     per_kernel.update(phase_int8_kernels())
 
     sources = {

@@ -1,16 +1,20 @@
-"""Image geometry and resize without Pillow.
+"""Image geometry, resize, test images and PNG files without Pillow.
 
 Counterpart of the parts of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``
-that the edit main path uses. The JAX module imports PIL at its top and
-resizes with LANCZOS (and the VL encoder with BICUBIC); the port takes uint8
-numpy arrays and computes Pillow's own resampling (``ImagingResample`` of
-8-bit images) in torch on the host, so both packages give the same bytes.
+that the edit main path and the stream use. The JAX module imports PIL at its
+top and resizes with LANCZOS (the VL encoder with BICUBIC, the stream's
+similarity signature with BILINEAR on Pillow's integer luma); the port takes
+uint8 numpy arrays and computes Pillow's own resampling (``ImagingResample``
+of 8-bit images) in torch, so both packages give the same bytes; and the
+JAX package's native Lanczos-3 (the stream's preview upscale) bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+import struct
+import zlib
 from typing import Tuple
 
 import numpy as np
@@ -66,7 +70,13 @@ def _lanczos(x: float) -> float:
     return _sinc(x) * _sinc(x / 3) if -3.0 <= x < 3.0 else 0.0
 
 
-_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0)}
+def _bilinear(x: float) -> float:
+    x = abs(x)
+    return 1.0 - x if x < 1.0 else 0.0
+
+
+_FILTERS = {"lanczos": (_lanczos, 3.0), "bicubic": (_bicubic, 2.0),
+            "bilinear": (_bilinear, 1.0)}
 
 
 @functools.lru_cache(maxsize=16)
@@ -133,10 +143,11 @@ def _resample_last(x: torch.Tensor, out_size: int, filt: str) -> torch.Tensor:
 
 def resize(arr: np.ndarray, width: int, height: int,
            filter: str = "lanczos", device="cpu") -> np.ndarray:
-    """Resize an (H, W, 3) uint8 array as Pillow's ``Image.resize`` does with
-    ``LANCZOS`` (``filter="lanczos"``) or ``BICUBIC`` (``"bicubic"``), bit
-    for bit: the horizontal pass first, rounded and clipped to uint8 before
-    the vertical pass, and a pass skipped where its size does not change.
+    """Resize an (H, W, C) uint8 array as Pillow's ``Image.resize`` does with
+    ``LANCZOS`` (``filter="lanczos"``), ``BICUBIC`` (``"bicubic"``) or
+    ``BILINEAR`` (``"bilinear"``), bit for bit: the horizontal pass first,
+    rounded and clipped to uint8 before the vertical pass, and a pass
+    skipped where its size does not change.
     The products run on ``device`` (the pipeline's card, where a request's
     resizes take a few ms against several times that on the host); the
     result comes back as a numpy array. Returns the input itself when it
@@ -153,3 +164,127 @@ def resize(arr: np.ndarray, width: int, height: int,
     if arr.shape[0] != height:
         x = _resample_last(x.transpose(1, 2), height, filter).transpose(1, 2)
     return x.permute(1, 2, 0).to(torch.uint8).contiguous().cpu().numpy()
+
+
+@functools.lru_cache(maxsize=16)
+def _native_taps(src: int, dst: int):
+    """The JAX package's native ``resize_lanczos`` weights for one axis
+    (``runtime/native/image_ops.cc``: centre (o + 0.5)·scale − 0.5, taps
+    floor(centre ± support + 0.5) clipped to the input, Lanczos-3 in double
+    normalised to sum 1): (first input, weights (dst, taps)), 0 past a
+    window."""
+    scale = src / dst
+    fs = max(scale, 1.0)
+    support = 3.0 * fs
+    taps = int(math.ceil(support)) * 2 + 1
+    start = np.zeros(dst, np.int64)
+    w = np.zeros((dst, taps))
+    for o in range(dst):
+        center = (o + 0.5) * scale - 0.5
+        lo = max(math.floor(center - support + 0.5), 0)
+        hi = min(math.floor(center + support + 0.5), src - 1)
+        row = [_lanczos_native((lo + i - center) / fs) for i in range(hi - lo + 1)]
+        total = 0.0
+        for v in row:  # in order, as the library sums
+            total += v
+        w[o, :len(row)] = [v / total for v in row] if total != 0.0 else row
+        start[o] = lo
+    return start, w
+
+
+def _lanczos_native(x: float) -> float:
+    x = abs(x)
+    return 0.0 if x >= 3.0 else _sinc(x) * _sinc(x / 3.0)
+
+
+def _native_pass(x: torch.Tensor, out_size: int) -> torch.Tensor:
+    """One pass of the native resize along the last axis of a float64
+    tensor: Σ weight · value over the taps in order, in double."""
+    start, w = _native_taps(x.shape[-1], out_size)
+    idx = torch.from_numpy(np.minimum(start[:, None] + np.arange(w.shape[1]),
+                                      x.shape[-1] - 1)).to(x.device)
+    w = torch.from_numpy(w).to(x.device)
+    acc = torch.zeros(x.shape[:-1] + (out_size,), dtype=torch.float64, device=x.device)
+    for i in range(w.shape[1]):
+        acc += w[:, i] * x[..., idx[:, i]]
+    return acc
+
+
+def resize_native(arr: np.ndarray, width: int, height: int, device="cpu") -> np.ndarray:
+    """Resize an (H, W, C) uint8 array as the JAX package's native
+    ``runtime/native_ops.resize_lanczos`` does (its stream's preview
+    upscale), bit for bit: the horizontal pass in double, stored as f32; the
+    vertical pass in double, rounded half away from zero and clipped. It
+    differs from Pillow's LANCZOS (:func:`resize`) by a few codes. Runs on
+    ``device``; returns the input itself when it already has the size."""
+    if arr.shape[0] == height and arr.shape[1] == width:
+        return arr
+    x = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    x = x.permute(2, 0, 1).double()
+    tmp = _native_pass(x, width).float().double()
+    acc = _native_pass(tmp.transpose(1, 2), height).transpose(1, 2)
+    whole = torch.trunc(acc)
+    acc = whole + torch.where((acc - whole).abs() >= 0.5, torch.sign(acc), 0.0)
+    return acc.clamp_(0, 255).permute(1, 2, 0).to(torch.uint8).contiguous().cpu().numpy()
+
+
+def luma(arr: np.ndarray) -> np.ndarray:
+    """(H, W) uint8 luma of an (H, W, 3) uint8 image, as Pillow's
+    ``convert("L")``: (19595·R + 38470·G + 7471·B + 2^15) >> 16."""
+    a = arr.astype(np.int32)
+    return ((a[..., 0] * 19595 + a[..., 1] * 38470 + a[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def luma_signature(arr: np.ndarray, size: int = 32) -> np.ndarray:
+    """(size, size) uint8 signature of an image: Pillow's
+    ``convert("L").resize((size, size), BILINEAR)``, on the host."""
+    return resize(luma(arr)[..., None], size, size, "bilinear")[..., 0]
+
+
+def make_test_image(width: int = 512, height: int = 512, kind: str = "gradient",
+                    phase: float = 0.0) -> np.ndarray:
+    """The JAX package's synthetic fixtures as (height, width, 3) uint8
+    arrays: ``gray`` (Pillow's "gray", 128), ``gradient``, ``circle`` and the
+    animated ``sine`` pattern (``phase`` steps it per frame)."""
+    if kind == "gray":
+        return np.full((height, width, 3), 128, np.uint8)
+    y = np.linspace(0, 1, height)[:, None]
+    x = np.linspace(0, 1, width)[None, :]
+    full = lambda a: np.broadcast_to(a, (height, width))
+    if kind == "gradient":
+        img = np.stack([100 + 100 * full(y), 100 + 100 * full(x),
+                        np.full((height, width), 150.0)], axis=-1)
+    elif kind == "circle":
+        img = np.stack([255 * full(y), 255 * full(x),
+                        np.full((height, width), 128.0)], axis=-1)
+        yy = (np.arange(height)[:, None] - height / 2) ** 2
+        xx = (np.arange(width)[None, :] - width / 2) ** 2
+        img[yy + xx < (min(width, height) / 5) ** 2] = [255.0, 32.0, 32.0]
+    elif kind == "sine":
+        t = float(phase)
+        img = np.stack([127 + 127 * np.sin(full(x * width / 50) + t),
+                        127 + 127 * np.sin(full(y * height / 50) + t),
+                        127 + 127 * np.sin((x * width + y * height) / 70 + t)],
+                       axis=-1)
+    else:
+        raise ValueError(f"unknown test image kind {kind!r}")
+    return img.astype(np.uint8)
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 array as an 8-bit RGB PNG (zlib, no filter)."""
+    arr = as_uint8_array(arr)
+    h, w, _ = arr.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(arr).reshape(h, w * 3)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))

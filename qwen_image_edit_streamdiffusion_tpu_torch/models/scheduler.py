@@ -2,7 +2,10 @@
 
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/models/scheduler.py``:
 :func:`make_schedule` builds the f32 sigma/timestep tables once per (steps,
-resolution) and :func:`euler_step` applies x ← x + (σ_next − σ)·v in f32.
+resolution) and :func:`euler_step` applies x ← x + (σ_next − σ)·v in f32;
+:func:`scale_noise` is the forward process the stream re-noises a cached
+latent with. The tables stay on the host: a step reads its σ as a Python
+float (the f32 value, exactly), so a loop on the card copies nothing to it.
 """
 
 from __future__ import annotations
@@ -51,8 +54,21 @@ def make_schedule(num_steps: int, image_seq_len: int,
     return Schedule(sigmas=sigmas, timesteps=sigmas[:-1] * cfg.num_train_timesteps)
 
 
+def _f32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32)
+
+
 def euler_step(latents: torch.Tensor, velocity: torch.Tensor,
-               sigma: torch.Tensor, sigma_next: torch.Tensor) -> torch.Tensor:
-    """x ← x + (σ_next − σ)·v in f32, cast back to the latents' dtype."""
-    dt = (sigma_next.float() - sigma.float()).to(latents.device)
+               sigma, sigma_next) -> torch.Tensor:
+    """x ← x + (σ_next − σ)·v in f32, cast back to the latents' dtype. The
+    σ are host values (schedule entries); σ_next − σ is taken in f32 and
+    enters the product as a scalar, so no copy to the device is made."""
+    dt = float(_f32(sigma_next) - _f32(sigma))
     return (latents.float() + dt * velocity.float()).to(latents.dtype)
+
+
+def scale_noise(sample: torch.Tensor, noise: torch.Tensor, sigma) -> torch.Tensor:
+    """Forward process x_σ = (1−σ)·x₀ + σ·ε in f32, cast back to the sample's
+    dtype (the stream re-noises the previous frame's latent with it)."""
+    s = _f32(sigma)
+    return (float(1.0 - s) * sample.float() + float(s) * noise.float()).to(sample.dtype)

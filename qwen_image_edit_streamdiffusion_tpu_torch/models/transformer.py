@@ -9,6 +9,7 @@ Sequences are (B, L, D); attention uses (B, H, L, D).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -97,10 +98,19 @@ class RopeTables(NamedTuple):
 
 def make_rope(cfg: ModelConfig, img_shapes: Sequence[Tuple[int, int, int]],
               txt_len: int, device="cpu") -> RopeTables:
-    ia = rope_ops.image_angles(tuple(img_shapes), cfg.axes_dims_rope,
-                               cfg.rope_theta)
-    ta = rope_ops.text_angles(txt_len, tuple(img_shapes), cfg.axes_dims_rope,
-                              cfg.rope_theta)
+    """The rope tables of a (img_shapes, txt_len) bucket on ``device``, built
+    and uploaded once, then served from a small cache (the JAX package holds
+    them as constants of each jitted graph): a repeated request or stream
+    frame copies no table to the card. Callers never write to them."""
+    return _rope_tables(tuple(cfg.axes_dims_rope), float(cfg.rope_theta),
+                        tuple(tuple(s) for s in img_shapes), int(txt_len),
+                        str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_tables(axes_dim, theta, img_shapes, txt_len, device) -> RopeTables:
+    ia = rope_ops.image_angles(img_shapes, axes_dim, theta)
+    ta = rope_ops.text_angles(txt_len, img_shapes, axes_dim, theta)
     return RopeTables(*rope_ops.cos_sin(ia, device), *rope_ops.cos_sin(ta, device))
 
 

@@ -11,6 +11,7 @@ JAX package runs it as an XLA einsum, not through its flash kernel).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -161,9 +162,16 @@ def encode_moments(params: Params, cfg: VAEConfig, images: torch.Tensor
 
 
 def _stats(cfg: VAEConfig, z: torch.Tensor):
-    mean = torch.tensor(cfg.latents_mean, dtype=z.dtype, device=z.device)
-    std = torch.tensor(cfg.latents_std, dtype=z.dtype, device=z.device)
-    return mean, std
+    """The latent mean and std in ``z``'s dtype on its device, uploaded once
+    (a fresh upload would make the host wait for the card at every call)."""
+    return _stats_on(tuple(cfg.latents_mean), tuple(cfg.latents_std), z.dtype,
+                     str(z.device))
+
+
+@functools.lru_cache(maxsize=8)
+def _stats_on(mean, std, dtype, device):
+    return (torch.tensor(mean, dtype=dtype, device=device),
+            torch.tensor(std, dtype=dtype, device=device))
 
 
 def encode(params: Params, cfg: VAEConfig, images: torch.Tensor) -> torch.Tensor:

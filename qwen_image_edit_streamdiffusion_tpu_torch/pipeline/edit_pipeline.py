@@ -15,15 +15,20 @@ as one wave), ``num_images_per_prompt`` and :meth:`EditPipeline.edit_many`
 (several requests in one denoise call), ``transfer_format="yuv420"`` (4:2:0
 upload and download, ``ops/colorspace.py``) and the tiny VAE pair
 (``models/tiny_vae.py``; the tiny decoder serves the output, the tiny encoder
-is loaded for the stream's temporal frames), in bf16 or on the int8 / int4
-weight rungs, with a LoRA fused at construction. Multi-device meshes raise
-``NotImplementedError`` naming their ROADMAP item. ``cfg_mode``,
+the stream's temporal frames), in bf16 or on the int8 / int4 weight rungs,
+with a LoRA fused at construction. ``_denoise`` also runs the tail of a
+schedule (``start_step``), as ``pipeline/stream.py`` needs it. Multi-device
+meshes raise ``NotImplementedError`` naming their ROADMAP item. ``cfg_mode``,
 ``transfer_format`` and ``decoder`` are read from ``config`` on every call.
 Rows are not padded to the JAX package's {1, 2, 4, 8, 16} buckets, which bound
 XLA compiles; eager PyTorch has none, and rows are independent.
 
 Images come in as (H, W, 3) uint8 arrays (a PIL image is accepted and
-converted, but PIL is never imported here) and go out as uint8 arrays.
+converted, but PIL is never imported here) and go out as uint8 arrays. Host
+arrays reach the card through pinned memory with ``non_blocking=True``, the
+schedule's σ enter each step as host scalars and the rope tables of a bucket
+are uploaded once (``models/transformer.py::make_rope``), so the host queues
+a denoise without waiting for the card.
 """
 
 from __future__ import annotations
@@ -169,6 +174,17 @@ def _pad_rows(a: torch.Tensor, length: int) -> torch.Tensor:
     return torch.cat([a, pad], dim=1)
 
 
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a numpy array or a tensor) on ``device``. A host array bound for
+    a card is staged through pinned memory and copied with
+    ``non_blocking=True``, so the host does not wait for the card's queue to
+    drain (a copy from pageable memory would)."""
+    t = torch.as_tensor(x)
+    if t.device.type == "cpu" and device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _images_of(image) -> List[np.ndarray]:
     if isinstance(image, (list, tuple)):
         return [imaging.as_uint8_array(i) for i in image]
@@ -234,24 +250,26 @@ class EditPipeline:
     def create(cls, preset: str | Preset = "qwen-image-edit-2509",
                config: Optional[StreamConfig] = None, seed: int = 0,
                device="cuda", tiny_decoder_path: Optional[str] = None,
-               tiny_encoder_path: Optional[str] = None) -> "EditPipeline":
+               tiny_encoder_path: Optional[str] = None,
+               encoder: Optional[PromptEncoder] = None) -> "EditPipeline":
         """Random-init construction: every parameter is made on ``device``
         in its preset dtype from the seed's named generator streams. A tiny
         decoder (encoder) path loads that artifact and implies
-        ``decoder="tiny"`` (``encoder="tiny"``)."""
+        ``decoder="tiny"`` (``encoder="tiny"``). ``encoder`` replaces the
+        prompt encoder (the VL encoder is then not made)."""
         if isinstance(preset, str):
             preset = get_preset(preset)
         config = config or StreamConfig(model_preset=preset.name)
         device = torch.device(device)
         vl_params = None
-        if config.use_vl_encoder:
+        if config.use_vl_encoder and encoder is None:
             vl_params = qwen_vl.init(stream(seed, "vl", device), preset.vl, device)
         return cls.from_weights(
             preset, config,
             tfm.init(stream(seed, "transformer", device), preset.model, device),
             vae_mod.init(stream(seed, "vae", device), preset.vae, device),
             vl_params, device, tiny_decoder_path=tiny_decoder_path,
-            tiny_encoder_path=tiny_encoder_path, seed=seed)
+            tiny_encoder_path=tiny_encoder_path, seed=seed, encoder=encoder)
 
     @classmethod
     def from_weights(cls, preset: Preset, config: StreamConfig, tfm_params,
@@ -259,14 +277,17 @@ class EditPipeline:
                      lora_path: Optional[str] = None,
                      tiny_decoder_path: Optional[str] = None,
                      tiny_encoder_path: Optional[str] = None,
-                     seed: int = 0) -> "EditPipeline":
+                     seed: int = 0,
+                     encoder: Optional[PromptEncoder] = None) -> "EditPipeline":
         """Construction from existing port params (e.g. ``convert.from_jax``):
         the LoRA at ``lora_path`` (``.safetensors`` or ``.npz``) fused into
         the dense transformer weights IN PLACE, then q/k/v fused when
         ``config.fuse_qkv``, then the transformer and the VL params quantized
         IN PLACE on the requested rungs — the JAX ``from_checkpoint`` order;
         then the tiny decoder and encoder, loaded or random-init from
-        ``seed``."""
+        ``seed``. ``encoder``, when given, is the prompt encoder (as the JAX
+        ``create`` takes one); else the VL encoder on ``vl_params``, or the
+        stub when ``config.use_vl_encoder`` is off."""
         check_config(config)
         device = torch.device(device)
         if lora_path:
@@ -277,12 +298,12 @@ class EditPipeline:
                     "(StreamConfig use_int8 / use_int4)")
             lora.fuse_lora(tfm_params, lora.load_lora_weights(lora_path))
         tfm_params = prepare_transformer(tfm_params, config)
-        if config.use_vl_encoder:
+        if encoder is None and config.use_vl_encoder:
             encoder = qwen_vl.QwenVLEncoder(
                 preset.vl, prepare_vl(vl_params, config), device=device,
                 max_len=preset.vl.max_text_len,
                 use_flash=config.use_flash_attention)
-        else:
+        elif encoder is None:
             encoder = StubEncoder.from_config(preset.vl)
         tiny = _init_tiny_decoder(preset, config, tiny_decoder_path, seed, device)
         if tiny is not None and config.decoder != "tiny":
@@ -347,16 +368,34 @@ class EditPipeline:
         device, as the JAX encode graph takes them."""
         if self.config.transfer_format == "yuv420":
             packed = np.stack([colorspace.pack_yuv420_host(a) for a in arrays])
-            return colorspace.yuv420_to_rgb(torch.from_numpy(packed).to(self.device))
-        x = torch.from_numpy(np.stack([np.ascontiguousarray(a) for a in arrays]))
-        return x.to(self.device).float()
+            return colorspace.yuv420_to_rgb(to_device(packed, self.device))
+        x = np.stack([np.ascontiguousarray(a) for a in arrays])
+        return to_device(x, self.device).float()
 
-    def _encode_pixels(self, arrays: Sequence[np.ndarray]) -> torch.Tensor:
-        """One batched VAE encode (posterior mode) of same-size images →
-        packed tokens (B, L, C) in the model dtype."""
-        vdt = getattr(torch, self.preset.vae.dtype)
+    def _encode_params_for(self, stream_kind: str):
+        """The encode's params for a stream frame (``"key"`` or
+        ``"temporal"``): the tiny encoder's on temporal frames when
+        ``config.encoder="tiny"`` and one is loaded, else the full VAE's
+        (keyframes and edits re-anchor at exact quality)."""
+        if (stream_kind == "temporal" and self.config.encoder == "tiny"
+                and self.tiny_encoder is not None):
+            return self.tiny_encoder[0]
+        return self.vae_params
+
+    def _encode_pixels(self, arrays: Sequence[np.ndarray], kind: str = "full",
+                       params=None) -> torch.Tensor:
+        """One batched encode of same-size images → packed tokens (B, L, C) in
+        the model dtype: the full VAE (posterior mode), or with
+        ``kind="tiny"`` the tiny encoder (``params``: its tree, as
+        :meth:`_encode_params_for` gives it)."""
         img = self._upload(arrays) / 127.5 - 1.0
-        z = vae_mod.encode(self.vae_params, self.preset.vae, img.to(vdt))
+        if kind == "tiny":
+            z = tiny_vae.encode(self.tiny_encoder[0] if params is None else params,
+                                self.tiny_encoder[1], img)
+        else:
+            vdt = getattr(torch, self.preset.vae.dtype)
+            z = vae_mod.encode(self.vae_params if params is None else params,
+                               self.preset.vae, img.to(vdt))
         return tfm.pack_latents(z.float()).to(self._mdt)
 
     @staticmethod
@@ -397,8 +436,8 @@ class EditPipeline:
 
     def _text_rows(self, emb) -> Tuple[torch.Tensor, torch.Tensor]:
         """A prompt embedding → (1, L, D) model-dtype text, (1, L) mask."""
-        txt = torch.as_tensor(emb.embeds).to(self.device, self._mdt)[None]
-        return txt, torch.as_tensor(emb.mask).to(self.device)[None]
+        txt = to_device(emb.embeds, self.device).to(self._mdt)[None]
+        return txt, to_device(emb.mask, self.device)[None]
 
     def _noise(self, shape: Tuple[int, ...], seed: int) -> torch.Tensor:
         """Seeded packed-noise tokens from the "latents" stream."""
@@ -408,19 +447,21 @@ class EditPipeline:
 
     def _denoise(self, x, cond_tokens, txt, mask, img_shapes, steps: int,
                  cfg_mode: str = "none", neg_txt=None, neg_mask=None,
-                 cfg_scale: float = 1.0):
+                 cfg_scale: float = 1.0, start_step: int = 0):
         """The flow-matching loop of the JAX ``_denoise_fn``: MMDiT velocity
         over [target ⊕ condition] tokens, guided by ``cfg_mode``, Euler step
-        on the target tokens in f32.
+        on the target tokens in f32, over steps ``start_step`` .. ``steps`` − 1
+        of the ``steps``-step schedule (the stream's temporal frames run its
+        tail).
 
         - ``none``: one forward a step;
         - ``sequential``: the positive and the negative forward;
         - ``batched`` (and ``parallel``, which without a ``cfg`` mesh axis is
           exactly ``batched``): one forward over [x, x] with the positive
           and the negative text rows;
-        - ``rcfg``: the first step one batched pair, whose residual
-          v_pos − v_neg (f32) then stands in for the negative: steps + 1
-          forwards;
+        - ``rcfg``: the first step run (``start_step``) one batched pair,
+          whose residual v_pos − v_neg (f32) then stands in for the
+          negative: one forward more than the steps run;
         - ``rcfg-self``: no negative forward; the virtual negative
           (x − anchor)/σ points at the first condition image's latents. It
           takes ``rcfg`` with the JAX warning when that grid differs from
@@ -460,11 +501,11 @@ class EditPipeline:
         if cfg_mode == "rcfg-self":
             anchor = cond_tokens[:, :l_target].float()
         delta = None
-        for i in range(steps):
+        for i in range(start_step, steps):
             if cfg_mode == "none":
                 v = velocity(i, x, cond_tokens, txt, mask)
             else:
-                if cfg_mode == "batched" or (cfg_mode == "rcfg" and i == 0):
+                if cfg_mode == "batched" or (cfg_mode == "rcfg" and i == start_step):
                     pos, neg = velocity(i, pair(x, x), cond2, txt2, mask2).chunk(2)
                     if cfg_mode == "rcfg":
                         delta = pos.float() - neg.float()

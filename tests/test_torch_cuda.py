@@ -634,3 +634,127 @@ def test_a_gradient_never_goes_through_k1(dev):
     from qwen_image_edit_streamdiffusion_tpu_torch.ops import attention as att
     with pytest.raises(ValueError, match="no backward"):
         att.attention(q, kv, kv)
+
+
+# ---------------------------------------------------------------------------
+# The realtime stream on the card (pipeline/stream.py)
+# ---------------------------------------------------------------------------
+
+
+def _stream_session(dev, transfer_format="yuv420", **config):
+    """A stream session on a `tiny` pipeline whose MMDiT takes head_dim 128,
+    so its attention runs K1 (the tiny preset's 32 does not pass the gate):
+    64², 2 steps, a keyframe every 3 frames, the yuv420 wire by default."""
+    import dataclasses
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
+        StreamConfig,
+        get_preset,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import RealtimePipeline
+
+    tiny = get_preset("tiny")
+    preset = dataclasses.replace(tiny, model=dataclasses.replace(
+        tiny.model, head_dim=128, axes_dims_rope=(32, 48, 48)))
+    cfg = StreamConfig(width=64, height=64, vae_image_area=64 * 64, vl_image_area=32 * 32,
+                       num_inference_steps=2, keyframe_interval=3, model_preset="tiny",
+                       transfer_format=transfer_format, **config)
+    return RealtimePipeline(pipe=EditPipeline.create(preset, cfg, seed=0, device=dev))
+
+
+def test_stream_submit_frame_issues_no_host_sync(dev):
+    """After warm-up, a keyframe and a temporal ``submit_frame`` run under
+    ``set_sync_debug_mode("error")`` (any host sync raises) and launch K1;
+    only ``_collect`` waits."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging as im
+
+    rt = _stream_session(dev)
+    rt.precompute_conditions("oil painting", negative_prompt="blurry")
+    rt.warmup(runs=2)
+    img = im.make_test_image(64, 64, "gradient")
+    torch.cuda.synchronize()
+    before = kernels.LAUNCHES["flash_joint"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        key = rt.submit_frame(img)
+        temporal = rt.submit_frame(img)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert kernels.LAUNCHES["flash_joint"] - before == 2 * 2 + 2 * 1  # layers × forwards
+    for h in (key, temporal):
+        out = rt._collect(h)
+        assert out.shape == (64, 64, 3) and out.dtype == np.uint8
+
+
+def test_stream_batched_rows_equal_sessions_alone(dev):
+    """Two sessions (their own prompts, seeds and keyframes), then one
+    temporal frame: dispatched as one 2-row frame, each row's pixels (rgb)
+    within one code of the session dispatching alone."""
+    import dataclasses
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging as im
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
+        RealtimePipeline,
+        submit_frames_batched,
+    )
+
+    base = _stream_session(dev, transfer_format="rgb")
+    frames = [im.make_test_image(64, 64, k) for k in ("gray", "gradient", "circle")]
+
+    def prime():
+        pair = []
+        for prompt, f, seed in (("oil painting", frames[0], 0),
+                                ("watercolor sketch", frames[1], 7)):
+            rt = RealtimePipeline(pipe=dataclasses.replace(
+                base.pipe, config=base.pipe.config.replace(seed=seed)))
+            rt.precompute_conditions(prompt)
+            rt.process_frame(f)
+            pair.append(rt)
+        return pair
+
+    ref = [rt.process_frame(frames[2]) for rt in prime()]
+    pair = prime()
+    handles = submit_frames_batched(pair, [frames[2]] * 2)
+    for rt, h, r in zip(pair, handles, ref):
+        got = rt._collect(h)
+        assert np.abs(got.astype(np.int16) - r.astype(np.int16)).max() <= 1
+
+
+def test_euler_step_and_cached_rope_equal_the_upload_path(dev):
+    """``euler_step`` with σ as host scalars equals the former device copy of
+    σ_next − σ bit for bit, and the cached rope tables equal a fresh upload
+    (the second request of a bucket gets the same tensors)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import get_preset
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import rope as rope_ops
+
+    sig = sched.make_schedule(4, 4096).sigmas
+    for dtype in (torch.float32, torch.bfloat16):
+        x, v = _randn((2, 4096, 64), 30, dev, dtype), _randn((2, 4096, 64), 31, dev, dtype)
+        for i in range(4):
+            dt = (sig[i + 1].float() - sig[i].float()).to(dev)
+            old = (x.float() + dt * v.float()).to(dtype)
+            assert torch.equal(sched.euler_step(x, v, sig[i], sig[i + 1]), old)
+    cfg = get_preset("qwen-image-edit-2509").model
+    shapes = ((1, 32, 32), (1, 32, 32))
+    tables = tfm.make_rope(cfg, shapes, 192, dev)
+    assert tfm.make_rope(cfg, shapes, 192, dev) is tables
+    ia = rope_ops.image_angles(shapes, cfg.axes_dims_rope, cfg.rope_theta)
+    ta = rope_ops.text_angles(192, shapes, cfg.axes_dims_rope, cfg.rope_theta)
+    for got, want in zip(tables, rope_ops.cos_sin(ia, dev) + rope_ops.cos_sin(ta, dev)):
+        assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [((32, 32), (64, 64)), ((256, 256), (512, 512)),
+                                     ((100, 60), (37, 90))])
+def test_native_resize_on_the_card_equals_the_host(dev, src, dst):
+    """The stream's preview upscale (the JAX native library's Lanczos-3) on
+    the card gives the host's bytes."""
+    arr = np.random.default_rng(src[0]).integers(0, 256, (*src, 3), np.uint8)
+    host = imaging.resize_native(arr, dst[1], dst[0])
+    card = imaging.resize_native(arr, dst[1], dst[0], dev)
+    assert np.array_equal(host, card)

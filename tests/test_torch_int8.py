@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import INT8_LM, INT8_MIX, INT8_MMDIT, INT8_VISION
+from chip_smoke import INT8_LM, INT8_MIX, INT8_MMDIT, INT8_STREAM_MIX, INT8_VISION
 from qwen_image_edit_streamdiffusion_tpu.core.config import get_preset
 from qwen_image_edit_streamdiffusion_tpu.models import common as jcommon
 from qwen_image_edit_streamdiffusion_tpu.models import qwen_vl as jvl
@@ -168,10 +168,11 @@ def test_int8_matmul_plain_is_exact_integer_product():
 # K6's plan: which body runs and how a tile's K is split
 # ---------------------------------------------------------------------------
 
-# every int8 linear of a one-image flagship miss (chip_smoke.INT8_MIX) and the
+# every int8 linear of a one-image flagship miss (chip_smoke.INT8_MIX) and of
+# a 512² stream keyframe with its precompute (INT8_STREAM_MIX), and the
 # shapes of the K6 card tests (tests/test_torch_cuda.py: M × (K, N), the
 # full lm_down, saturated codes at K = 18944)
-PATH_SHAPES = [(m, k, n) for _, m, k, n, _ in INT8_MIX]
+PATH_SHAPES = [(m, k, n) for _, m, k, n, _ in INT8_MIX + INT8_STREAM_MIX]
 CARD_M = (1, 16, 17, 200, 384, 784)
 CARD_KN = ((1040, 199), (1040, 264), (3072, 3420), (3420, 199))
 CARD_SHAPES = ([(m, k, n) for m in CARD_M for k, n in CARD_KN]
@@ -207,6 +208,14 @@ def test_int8_mix_holds_every_linear_of_a_miss():
     """chip_smoke.INT8_MIX, which the plan tests above and the card's K6 mix
     walk, holds as many launches as an int8 miss makes (1558)."""
     assert sum(n for *_, n in INT8_MIX) == INT8_MMDIT + INT8_LM + INT8_VISION == 1558
+
+
+def test_int8_stream_mix_holds_every_linear_of_a_stream_keyframe():
+    """chip_smoke.INT8_STREAM_MIX holds as many launches as a 512² int8
+    stream keyframe (two MMDiT forwards) and its precompute (the LM once)
+    make (1396), at the stream's rows: 2048 image, 64 text, 128 LM."""
+    assert sum(n for *_, n in INT8_STREAM_MIX) == INT8_MMDIT + INT8_LM == 1396
+    assert {m for _, m, *_ in INT8_STREAM_MIX} == {2048, 64, 1, 128}
 
 
 @pytest.mark.parametrize("m,k,n", [(8192, 3072, 9216), (8192, 3072, 3072),
