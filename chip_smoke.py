@@ -103,6 +103,20 @@ toolkit. Phases, each printing one JSON line:
              equals the host unpack of the decode's device pack, and the
              condition upload equals ``yuv420_to_rgb`` of the host pack
              computed on the CPU;
+   serve   — the serving layer on the same pipeline: ``runtime/engine.py``
+             behind ``serving/server.py`` in a thread, with the server's
+             config (yuv420, batched CFG, 512² input, 2 steps): GET / and
+             /health (gpu_memory a GB figure); /edit miss and hit, each
+             beside the pipeline-only call of the same arrays (the wire's
+             cost), use_cfg (K1 and K2 at 2 rows), ref_mode="condition"
+             (K4's role), num_images=2; two concurrent /edits (one 200, one
+             429); dynamic batching on a second engine (batched_with 2, K1
+             120 at 2 rows); four pipelined stream frames over HTTP (lags 0,
+             1, 1, 1; K1 120 / 60; the third frame's only host wait is its
+             collect's event wait) and over the websocket; /profile/start
+             and /stop around an /edit (the trace names K1's symbol); the
+             codec's decode and encode ms; the CLI server as a subprocess on
+             the card (/health, one /edit);
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
              (default attention targets, ``remat``) over a batch of two
              1024² (condition, prompt, target) rows from ``build_batch``; a
@@ -124,7 +138,8 @@ toolkit. Phases, each printing one JSON line:
              the rows); three 512² stream frames (a keyframe and two
              temporal frames: K5/K6 1200, 600 and 600, and 196 in
              ``precompute_conditions``, every K6 call's (M, K, N) counted
-             against the stream's mix); then a miss timed plainly and one
+             against the stream's mix); one /edit miss served through an
+             engine (K5/K6 1558); then a miss timed plainly and one
              profiled, as for bf16;
 7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
              miss; K5/K6 run only for the vision tower's 3420-wide ``down``
@@ -1131,15 +1146,15 @@ def phase_train_parity():
     torch.cuda.empty_cache()
 
 
-def distinct_image(i: int):
-    """A gradient test image with a per-i tint, so caches miss per i."""
+def distinct_image(i: int, size: int = SIZE):
+    """A size² gradient test image with a per-i tint, so caches miss per i."""
     import numpy as np
 
-    y = np.linspace(0, 1, SIZE)[:, None]
-    x = np.linspace(0, 1, SIZE)[None, :]
-    base = np.stack([100 + 100 * np.broadcast_to(y, (SIZE, SIZE)),
-                     100 + 100 * np.broadcast_to(x, (SIZE, SIZE)),
-                     np.full((SIZE, SIZE), 150.0)], axis=-1).astype(np.uint8)
+    y = np.linspace(0, 1, size)[:, None]
+    x = np.linspace(0, 1, size)[None, :]
+    base = np.stack([100 + 100 * np.broadcast_to(y, (size, size)),
+                     100 + 100 * np.broadcast_to(x, (size, size)),
+                     np.full((size, size), 150.0)], axis=-1).astype(np.uint8)
     tint = np.random.default_rng(i).integers(0, 64, (3,), np.int32)
     return np.clip(base.astype(np.int32) + tint, 0, 255).astype(np.uint8)
 
@@ -1326,7 +1341,7 @@ def phase_slice():
     launches = run_requests(pipe, requests, "bf16", latents)
     for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
-    for phase in (phase_guided, phase_tiny, phase_stream, phase_yuv420):
+    for phase in (phase_guided, phase_tiny, phase_stream, phase_yuv420, phase_serve):
         for k, n in phase(pipe).items():
             launches[k] += n
     train_launches, adapters = phase_train(pipe)
@@ -2292,6 +2307,471 @@ def phase_yuv420(pipe) -> dict:
     return launches
 
 
+# The server's request: a 512² input (the engine resizes every input to
+# input_size²), area-1024² output, 2 steps, cond-only, yuv420, batched CFG for
+# use_cfg, as `serving/server.py` runs by default
+SERVE_INPUT = 512
+CLI_HEALTH_S = 120   # bound on the CLI server's start-up, until /health answers
+
+
+def http(url: str, payload=None, timeout: float = 600):
+    """(status, JSON body, wall seconds) of one GET (no payload) or POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            body, code = r.read(), r.status
+    except urllib.error.HTTPError as e:
+        body, code = e.read(), e.code
+    return code, json.loads(body), time.time() - t0
+
+
+def served(url: str, label: str, name: str, payload: dict, want: dict, rows=None,
+           outputs: int = 1):
+    """POST one /edit, print its status, wall seconds over HTTP, the
+    engine's ``elapsed``, launch counts and the rows of every K1/K2/K3 call,
+    and raise unless it is a 200 whose counts, rows and decoded outputs
+    (``outputs`` SIZE² images) are as expected. Returns (body, wall, the
+    first output array)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    before = dict(kernels.LAUNCHES)
+    with RowSpy() as spy:
+        code, body, wall = http(url + "/edit", payload)
+    delta = launch_delta(before)
+    images = ([codec.decode_base64(body["image"])]
+              + [codec.decode_base64(b) for b in body.get("images", [])]) if code == 200 else []
+    emit({"phase": "serve_request", "path": label, "name": name, "status": code,
+          "wall_s": wall, "elapsed_s": body.get("elapsed"),
+          "launches": {k: n for k, n in delta.items() if n}, "rows": spy.rows,
+          "outputs": len(images), "shape": list(images[0].shape) if images else None,
+          **{k: body[k] for k in ("batched_with", "stream_session", "keyframe", "frame",
+                                  "lag") if k in body}})
+    if code != 200:
+        raise AssertionError(f"{label}/{name}: HTTP {code} {body}")
+    check_counts(f"{label}/{name}", delta, want, rows, spy)
+    if len(images) != outputs or any(i.shape != (SIZE, SIZE, 3) or str(i.dtype) != "uint8"
+                                     for i in images):
+        raise AssertionError(f"{label}/{name}: outputs {[i.shape for i in images]}")
+    return body, wall, images[0]
+
+
+def pipeline_only(pipe, item: dict, fresh_caches: bool):
+    """(wall seconds, output arrays) of the engine's pipeline call on a
+    parsed request's arrays, without the wire; ``fresh_caches`` runs it on
+    empty prompt and latent caches (a miss), then puts the live caches
+    back."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
+        LatentCache,
+        PromptCache,
+    )
+
+    saved = pipe.prompt_cache, pipe.latent_cache
+    if fresh_caches:
+        pipe.prompt_cache, pipe.latent_cache = PromptCache(pipe.encoder), LatentCache()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        result = pipe(item["image"], item["prompt"], negative_prompt=item["negative_prompt"],
+                      num_inference_steps=item["num_inference_steps"],
+                      true_cfg_scale=item["true_cfg_scale"], seed=item["seed"],
+                      num_images_per_prompt=item["num_images"])
+        torch.cuda.synchronize()
+        return time.time() - t0, result.images
+    finally:
+        pipe.prompt_cache, pipe.latent_cache = saved
+
+
+def start_server(engine):
+    import threading
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.serving.server import make_server
+
+    srv = make_server(engine, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def stop_server(srv) -> None:
+    srv.shutdown()
+    srv.server_close()
+
+
+def stream_k1(spy, n: int) -> bool:
+    """Every K1 call of a stream frame at 1 row, n of them."""
+    per = spy.rows.get("flash_joint", {})
+    return all(k.startswith("1x") for k in per) and sum(per.values()) == n
+
+
+def serve_stream_http(url: str, engine, label: str = "http stream") -> None:
+    """Four pipelined frames of one session over /edit: lags 0, 1, 1, 1; K1
+    120 on the keyframe, 60 on each temporal frame, at 1 row; K2 28 on the
+    first (the session's prompt freeze); 512² replies. The third frame is
+    served under torch.profiler in the server's thread (host_waits): its
+    only host wait must be the one event wait of collecting the previous
+    frame."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    real = engine._serve_stream_frame
+    waits = {}
+
+    def profiled(*a, **kw):
+        out, waits["waits"], waits["copies"] = host_waits(lambda: real(*a, **kw))
+        return out
+
+    lags = []
+    for i in range(4):
+        payload = {"image": codec.to_base64_jpeg(stream_image("sine", SERVE_INPUT, 0.3 * i)),
+                   "prompt": PROMPT, "stream_session": "cam-http", "stream_pipeline": True}
+        want = frame_want(i == 0)
+        if i == 0:
+            want["flash_causal"] = K2_LAUNCHES
+        if i == 2:
+            engine._serve_stream_frame = profiled
+        try:
+            before = dict(kernels.LAUNCHES)
+            with RowSpy() as spy:
+                code, body, wall = http(url + "/edit", payload)
+        finally:
+            engine._serve_stream_frame = real
+        delta = launch_delta(before)
+        out = codec.decode_base64(body["image"]) if code == 200 else None
+        emit({"phase": "serve_stream", "path": label, "status": code, "wall_s": wall,
+              "elapsed_s": body.get("elapsed"), "lag": body.get("lag"),
+              "frame": body.get("frame"), "keyframe": body.get("keyframe"),
+              "launches": {k: n for k, n in delta.items() if n}, "rows": spy.rows,
+              "shape": None if out is None else list(out.shape),
+              **({"host_waits": waits["waits"], "copies": waits["copies"]} if i == 2 else {})})
+        if code != 200 or out.shape != (SERVE_INPUT, SERVE_INPUT, 3) or not stream_k1(spy, want[
+                "flash_joint"]):
+            raise AssertionError(f"{label} frame {i}: {code} {body if code != 200 else ''}")
+        check_counts(f"{label} frame {i}", delta, want)
+        lags.append(body["lag"])
+    if lags != [0, 1, 1, 1]:
+        raise AssertionError(f"{label}: lags {lags}")
+    if waits["waits"] != {"cudaEventSynchronize": 1}:
+        raise AssertionError(f"{label}: the pipelined frame's host waits {waits['waits']} "
+                             "are not the one event wait of its collect")
+
+
+def serve_stream_ws(host: str, port: int) -> None:
+    """The same session over the websocket /stream with the port's WSClient:
+    lags 0, 1, 1, 1, K1 120 / 60 a frame at 1 row, each reply's JPEG 512²."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.serving import ws
+
+    c = ws.WSClient(host, port, timeout=600)
+    try:
+        ready = c.recv()
+        c.send_config(prompt=PROMPT, steps=STEPS, pipeline=True)
+        ack = c.recv()
+        if ready.get("status") != "ready" or ack.get("status") != "ok":
+            raise AssertionError(f"ws handshake: {ready} {ack}")
+        lags = []
+        for i in range(4):
+            want = frame_want(i == 0)
+            if i == 0:
+                want["flash_causal"] = K2_LAUNCHES
+            before = dict(kernels.LAUNCHES)
+            t0 = time.time()
+            with RowSpy() as spy:
+                c.send_image(stream_image("sine", SERVE_INPUT, 0.3 * i))
+                reply = c.recv()
+            wall = time.time() - t0
+            delta = launch_delta(before)
+            if not isinstance(reply, tuple):
+                raise AssertionError(f"ws frame {i}: {reply}")
+            meta, jpeg = reply
+            out = codec.decode(jpeg)
+            emit({"phase": "serve_stream", "path": "ws stream", "wall_s": wall,
+                  "elapsed_s": meta.get("elapsed"), "lag": meta.get("lag"),
+                  "frame": meta.get("frame"), "keyframe": meta.get("keyframe"),
+                  "jpeg_bytes": len(jpeg), "launches": {k: n for k, n in delta.items() if n},
+                  "rows": spy.rows, "shape": list(out.shape)})
+            if out.shape != (SERVE_INPUT, SERVE_INPUT, 3) or not stream_k1(
+                    spy, want["flash_joint"]):
+                raise AssertionError(f"ws frame {i}: {meta} {out.shape} {spy.rows}")
+            check_counts(f"ws stream frame {i}", delta, want)
+            lags.append(meta["lag"])
+        if lags != [0, 1, 1, 1]:
+            raise AssertionError(f"ws stream: lags {lags}")
+    finally:
+        c.close()
+
+
+def serve_race(url: str, payload: dict) -> None:
+    """Two concurrent /edits, queueing off: exactly one 200 and one 429."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    import threading
+
+    barrier, out = threading.Barrier(2), []
+
+    def post():
+        barrier.wait()
+        out.append(http(url + "/edit", payload)[0])
+
+    before = dict(kernels.LAUNCHES)
+    threads = [threading.Thread(target=post) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    delta = launch_delta(before)
+    emit({"phase": "serve_race", "statuses": sorted(out),
+          "launches": {k: n for k, n in delta.items() if n}})
+    if sorted(out) != [200, 429]:
+        raise AssertionError(f"race: statuses {out}")
+    check_counts("race", delta, {"flash_joint": K1_LAUNCHES})
+
+
+def serve_dynamic(pipe, payloads) -> None:
+    """A second engine with dynamic_batch=2 on the same pipeline: two
+    compatible requests enqueue while its lock is held, then coalesce into
+    one 2-row dispatch: both 200 with batched_with 2, K1 120 at 2 rows, one
+    LM call (K2 28 at 2 rows) and one batched condition encode."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    import threading
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    engine = InferenceEngine(pipeline=pipe, input_size=SERVE_INPUT, default_steps=STEPS,
+                             dynamic_batch=2)
+    srv, url = start_server(engine)
+    try:
+        out = {}
+
+        def post(i):
+            out[i] = http(url + "/edit", payloads[i])
+
+        engine._lock.acquire()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(2)]
+        before = dict(kernels.LAUNCHES)
+        with RowSpy() as spy:
+            for t in threads:
+                t.start()
+            for _ in range(6000):
+                with engine._bq_lock:
+                    if len(engine._batch_queue) == 2:
+                        break
+                time.sleep(0.005)
+            engine._lock.release()
+            for t in threads:
+                t.join(timeout=600)
+        delta = launch_delta(before)
+        emit({"phase": "serve_dynamic_batch",
+              "statuses": [out[i][0] for i in range(2)],
+              "batched_with": [out[i][1].get("batched_with") for i in range(2)],
+              "wall_s": [out[i][2] for i in range(2)],
+              "elapsed_s": [out[i][1].get("elapsed") for i in range(2)],
+              "launches": {k: n for k, n in delta.items() if n}, "rows": spy.rows})
+        if any(out[i][0] != 200 or out[i][1].get("batched_with") != 2 for i in range(2)):
+            raise AssertionError(f"dynamic batching: {[out[i][:2] for i in range(2)]}")
+        check_counts("dynamic batching", delta, expected(True, encodes=1),
+                     {**k1_rows(2), "flash_causal": {"2": K2_LAUNCHES},
+                      "conv3x3": {"2": K3_ENCODE + K3_DECODE}}, spy)
+    finally:
+        stop_server(srv)
+
+
+def serve_profile(url: str, payload: dict, want: dict) -> None:
+    """/profile/start, one /edit, /profile/stop: the Chrome trace must exist
+    and name K1's kernel symbol."""
+    code, started, _ = http(url + "/profile/start", {})
+    if code != 200:
+        raise AssertionError(f"/profile/start: {code} {started}")
+    body, wall, _ = served(url, "serve", "edit_profiled", payload, want)
+    code, stopped, stop_s = http(url + "/profile/stop", {})
+    path = stopped.get("trace")
+    text = open(path).read() if code == 200 and path and os.path.exists(path) else ""
+    k1 = text.count("flash_fwd_sm90_kernel")
+    emit({"phase": "serve_profile", "status": code, "trace": path, "trace_bytes": len(text),
+          "k1_symbol_mentions": k1, "stop_s": stop_s, "edit_wall_s": wall})
+    if k1 == 0:
+        raise AssertionError(f"the trace {path} does not name flash_fwd_sm90_kernel")
+
+
+def serve_codec(miss_output) -> dict:
+    """The codec on the card's host: decode of a 512² q90 frame and encode of
+    the served miss's 1024² output, median ms of 20."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    frame = codec.encode_jpeg(distinct_image(9000, SERVE_INPUT), 90)
+    times = {}
+    for name, fn in (("decode_512_q90", lambda: codec.decode(frame)),
+                     ("encode_1024_q90", lambda: codec.encode_jpeg(miss_output, 90))):
+        fn()
+        samples = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        times[name] = statistics.median(samples)
+    rec = {"phase": "serve_codec", **{f"{k}_ms": v for k, v in times.items()},
+           "frame_bytes": len(frame), "output_bytes": len(codec.encode_jpeg(miss_output, 90))}
+    emit(rec)
+    return rec
+
+
+def serve_cli() -> None:
+    """The server's CLI as a subprocess on its default device: `--preset
+    tiny --no-warmup` on a free port; /health must answer within
+    CLI_HEALTH_S with a GB figure (it runs on the card), one /edit must
+    return 200; then the process is terminated and waited for."""
+    import socket
+    import urllib.error
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log_path = os.path.join(ROOT, "build", "chip_smoke", "serve_cli.log")
+    os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PKG}.serving.server", "--preset", "tiny",
+             "--no-warmup", "--host", "127.0.0.1", "--port", str(port)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            url, health = f"http://127.0.0.1:{port}", None
+            while time.time() - t0 < CLI_HEALTH_S and proc.poll() is None:
+                try:
+                    code, health, _ = http(url + "/health", timeout=5)
+                    break
+                except (urllib.error.URLError, ConnectionError, OSError):
+                    time.sleep(0.5)
+            ready_s = time.time() - t0
+            if health is None:
+                raise AssertionError(f"CLI server: no /health in {ready_s:.0f} s "
+                                     f"(exit {proc.poll()}); see {log_path}")
+            code, body, wall = http(url + "/edit", {
+                "image": codec.to_base64_jpeg(distinct_image(9100, SERVE_INPUT)), "prompt": PROMPT})
+            out = codec.decode_base64(body["image"]) if code == 200 else None
+            emit({"phase": "serve_cli", "ready_s": ready_s, "health": health,
+                  "edit_status": code, "edit_wall_s": wall,
+                  "shape": None if out is None else list(out.shape)})
+            if not str(health.get("gpu_memory", "")).endswith(" GB") or code != 200:
+                raise AssertionError(f"CLI server: health {health}, /edit {code} {body}")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def phase_serve(pipe) -> dict:
+    """The serving layer on the live bf16 flagship: an InferenceEngine with
+    the server's config (yuv420, batched CFG, 512² input, 2 steps) behind
+    make_server in a thread. GET / and /health; /edit miss, hit (each beside
+    the pipeline-only call of the same arrays, whose q90 JPEG must decode to
+    the served images bit for bit), use_cfg, ref_mode
+    condition, num_images 2; a race of two (one 429); dynamic batching on a
+    second engine; a pipelined stream session over HTTP and over the
+    websocket; a profiled /edit; the codec's ms; the CLI as a subprocess.
+    Restores the pipeline's config."""
+    import numpy as np
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    t0 = time.time()
+    codec.library()  # built with the host's c++ at first use
+    emit({"phase": "serve_codec_build", "seconds": time.time() - t0,
+          "library": str(codec.library_path())})
+    saved = pipe.config
+    pipe.config = pipe.config.replace(transfer_format="yuv420", cfg_mode="batched",
+                                      decoder="full", encoder="full")
+    engine = InferenceEngine(pipeline=pipe, input_size=SERVE_INPUT, default_steps=STEPS)
+    srv, url = start_server(engine)
+    kernels.reset_launches()
+    b64 = {i: codec.to_base64_jpeg(distinct_image(i, SERVE_INPUT)) for i in range(8000, 8007)}
+    try:
+        code, root, _ = http(url + "/")
+        code_h, health, _ = http(url + "/health")
+        emit({"phase": "serve_get", "root": root, "health": health})
+        if code != 200 or code_h != 200 or not str(health["gpu_memory"]).endswith(" GB"):
+            raise AssertionError(f"GET /: {code} {root}; /health: {code_h} {health}")
+
+        req = {"image": b64[8000], "prompt": PROMPT}
+        item = engine._parse_edit(dict(req))
+        miss_body, miss_wall, miss_out = served(url, "serve", "edit_miss", req, expected(True))
+        miss_plain, plain_images = pipeline_only(pipe, item, fresh_caches=True)
+        _, hit_wall, hit_out = served(url, "serve", "edit_hit", req, expected(False))
+        hit_plain, hit_images = pipeline_only(pipe, item, fresh_caches=False)
+        # the wire returns the pipeline's image: the served miss and hit decode
+        # to the pipeline-only output through the same q90 JPEG, bit for bit
+        want = codec.decode(codec.encode_jpeg(plain_images[0], 90))
+        wire_err = {"miss": int(np.abs(miss_out.astype(np.int16) - want).max()),
+                    "hit": int(np.abs(hit_out.astype(np.int16) - want).max()),
+                    "pipeline_hit_vs_miss": int(np.abs(
+                        hit_images[0].astype(np.int16) - plain_images[0]).max())}
+        emit({"phase": "serve_wire", "miss_wall_s": miss_wall, "miss_elapsed_s":
+              miss_body["elapsed"], "miss_pipeline_only_s": miss_plain,
+              "miss_wire_s": miss_wall - miss_plain, "hit_wall_s": hit_wall,
+              "hit_pipeline_only_s": hit_plain, "hit_wire_s": hit_wall - hit_plain,
+              "max_abs_diff_vs_pipeline": wire_err})
+        if any(wire_err.values()):
+            raise AssertionError(f"served images differ from the pipeline's: {wire_err}")
+        served(url, "serve", "edit_cfg_miss", {"image": b64[8001], "prompt": PROMPT,
+                                               "use_cfg": True},
+               expected(True), {**k1_rows(2), "flash_causal": {"2": K2_LAUNCHES}})
+        served(url, "serve", "edit_ref_condition_miss",
+               {"image": b64[8002], "ref_image": b64[8003], "ref_mode": "condition",
+                "prompt": PROMPT}, expected(True, 2),
+               k1_rows(1, txt=TXT_LEN_TWO, images=2))
+        served(url, "serve", "edit_num_images_2_miss",
+               {"image": b64[8004], "prompt": PROMPT, "num_images": 2}, expected(True),
+               {**k1_rows(2), "conv3x3": {"1": K3_ENCODE, "2": K3_DECODE}}, outputs=2)
+        serve_race(url, req)
+        serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
+        serve_stream_http(url, engine)
+        serve_stream_ws("127.0.0.1", srv.server_address[1])
+        serve_profile(url, req, expected(False))
+        serve_codec(miss_out)
+    finally:
+        stop_server(srv)
+        pipe.config = saved
+    launches = dict(kernels.LAUNCHES)
+    serve_cli()
+    return launches
+
+
+def serve_int8(pipe) -> dict:
+    """One /edit miss through an engine on the int8 pipeline: K5 and K6
+    once per quantized linear the request runs (1558)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    saved = pipe.config
+    pipe.config = pipe.config.replace(transfer_format="yuv420", cfg_mode="batched")
+    srv, url = start_server(InferenceEngine(pipeline=pipe, input_size=SERVE_INPUT,
+                                            default_steps=STEPS))
+    kernels.reset_launches()
+    try:
+        served(url, "int8 serve", "edit_miss",
+               {"image": codec.to_base64_jpeg(distinct_image(8100, SERVE_INPUT)), "prompt": PROMPT},
+               expected(True, int8_per_request=INT8_MMDIT, int8_miss=INT8_LM + INT8_VISION))
+    finally:
+        stop_server(srv)
+        pipe.config = saved
+    return dict(kernels.LAUNCHES)
+
+
 # (symbol fragment, kind) of the port's kernels, as torch.profiler names them
 KERNEL_KINDS = (("flash_fwd_sm90_kernel<false, true,", "K2 flash_fwd_sm90 causal"),
                 ("flash_fwd_sm90", "K1/K4/K7 flash_fwd_sm90"),
@@ -2529,6 +3009,8 @@ def phase_int8():
     pipe.config = pipe.config.replace(cfg_mode="none")
     stream_int8(pipe)
     launches = dict(kernels.LAUNCHES)
+    for k, n in serve_int8(pipe).items():
+        launches[k] += n
     for k, n in profile_request(pipe, "int8", expected(True, **one), 6010).items():
         launches[k] += n
     return launches

@@ -6,7 +6,8 @@ top and resizes with LANCZOS (the VL encoder with BICUBIC, the stream's
 similarity signature with BILINEAR on Pillow's integer luma); the port takes
 uint8 numpy arrays and computes Pillow's own resampling (``ImagingResample``
 of 8-bit images) in torch, so both packages give the same bytes; and the
-JAX package's native Lanczos-3 (the stream's preview upscale) bit for bit.
+JAX package's native Lanczos-3 (the stream's preview upscale) bit for bit,
+and ``Image.blend`` (the engine's ``ref_image`` composite) bit for bit.
 """
 
 from __future__ import annotations
@@ -226,6 +227,21 @@ def resize_native(arr: np.ndarray, width: int, height: int, device="cpu") -> np.
     whole = torch.trunc(acc)
     acc = whole + torch.where((acc - whole).abs() >= 0.5, torch.sign(acc), 0.0)
     return acc.clamp_(0, 255).permute(1, 2, 0).to(torch.uint8).contiguous().cpu().numpy()
+
+
+def blend(a: np.ndarray, b: np.ndarray, ratio: float) -> np.ndarray:
+    """Composite two uint8 images as ``PIL.Image.blend(a, b, ratio)`` does
+    (libImaging/Blend.c): a + ratio·(b − a) in float32, truncated to uint8,
+    clipped first when ``ratio`` lies outside [0, 1]. ``b`` is resized
+    (LANCZOS) to ``a``'s size when they differ, as the JAX ``blend`` does."""
+    if a.shape != b.shape:
+        b = resize(b, a.shape[1], a.shape[0])
+    a32 = a.astype(np.float32)
+    alpha = np.float32(ratio)
+    out = a32 + alpha * (b.astype(np.float32) - a32)
+    if not 0.0 <= alpha <= 1.0:
+        out = np.clip(out, 0.0, 255.0)
+    return out.astype(np.uint8)
 
 
 def luma(arr: np.ndarray) -> np.ndarray:

@@ -1,0 +1,419 @@
+"""The port's wire codec (``core/codec.py`` + ``csrc/host/image_codec.cc``) and
+``imaging.blend`` against Pillow, the JAX package's codec.
+
+Decoding must equal Pillow's pixels bit for bit (Pillow runs libjpeg-turbo:
+islow IDCT, fancy upsampling, fixed-point YCbCr→RGB) on Pillow-made JPEGs at
+q 50/90/100 in 4:4:4, 4:2:2, 4:2:0 and gray, at sizes 64², 333×517 and 17×9
+(partial blocks and MCUs on both edges), with restart intervals, every EXIF
+orientation (``ImageOps.exif_transpose``) and every PNG colour type and row
+filter. Pillow's decode of the port's JPEG must equal Pillow's decode of
+Pillow's own file (the files are byte-equal too). Unsupported variants raise
+a ``ValueError`` that names them.
+"""
+
+import base64
+import io
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image, ImageOps
+
+from qwen_image_edit_streamdiffusion_tpu_torch.core import codec, imaging
+
+SIZES = [(64, 64), (333, 517), (17, 9)]
+
+
+def _image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """Smooth colour ramps plus noise: every coefficient band is exercised
+    and chroma carries detail."""
+    rng = np.random.default_rng(seed)
+    y = np.linspace(0, 1, h)[:, None]
+    x = np.linspace(0, 1, w)[None]
+    a = np.stack([128 + 100 * np.sin(7 * x + 3 * y), 128 + 100 * np.cos(5 * y + 2 * x),
+                  128 + 80 * np.sin(11 * x * y)], -1)
+    return np.clip(a + rng.normal(0, 24, a.shape), 0, 255).astype(np.uint8)
+
+
+def _pil_jpeg(arr, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", **kw)
+    return buf.getvalue()
+
+
+def _pil_decode(data: bytes) -> np.ndarray:
+    return np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2], ids=["444", "422", "420"])
+@pytest.mark.parametrize("hw", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_jpeg_decode_matches_pillow(hw, subsampling):
+    arr = _image(*hw)
+    noise = np.random.default_rng(1).integers(0, 256, arr.shape, np.uint8)
+    for q in (50, 90, 100):
+        for a in (arr, noise):
+            data = _pil_jpeg(a, quality=q, subsampling=subsampling)
+            got = codec.decode(data)
+            assert got.dtype == np.uint8 and got.shape == a.shape
+            np.testing.assert_array_equal(got, _pil_decode(data), err_msg=f"q{q}")
+
+
+@pytest.mark.parametrize("hw", SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_gray_jpeg_decode_matches_pillow(hw):
+    arr = _image(*hw)[..., 1]
+    for q in (50, 90, 100):
+        data = _pil_jpeg(arr, quality=q)
+        np.testing.assert_array_equal(codec.decode(data), _pil_decode(data))
+
+
+@pytest.mark.parametrize("hv", [(1, 1), (2, 1), (1, 2), (2, 2)], ids=str)
+def test_every_luma_sampling_factor(hv):
+    """Files written by the port's encoder with the luma sampled h × v (1×2,
+    4:4:0, is one Pillow cannot write) decode as Pillow decodes them."""
+    for h, w in SIZES:
+        data = codec._encode(_image(h, w, 2), 90, *hv)
+        np.testing.assert_array_equal(codec.decode(data), _pil_decode(data))
+
+
+def test_restart_intervals_and_tiny_images():
+    """DRI / RSTn every 3 MCUs and every MCU row; and images whose chroma is
+    at most 2 samples wide (libjpeg-turbo replicates instead of fancy
+    upsampling there)."""
+    arr = _image(70, 53)
+    for kw in ({"restart_marker_blocks": 3}, {"restart_marker_rows": 1}):
+        data = _pil_jpeg(arr, quality=90, **kw)
+        assert b"\xff\xdd" in data
+        np.testing.assert_array_equal(codec.decode(data), _pil_decode(data))
+    for h, w in ((1, 1), (3, 3), (4, 5), (2, 7), (9, 2)):
+        for ss in (1, 2):
+            data = _pil_jpeg(_image(h, w), quality=90, subsampling=ss)
+            np.testing.assert_array_equal(codec.decode(data), _pil_decode(data))
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_exif_orientation_matches_exif_transpose(orientation):
+    arr = _image(21, 34)
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    for fmt in ("JPEG", "PNG"):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, fmt, exif=exif.tobytes())
+        data = buf.getvalue()
+        got = codec.decode(data)
+        np.testing.assert_array_equal(got, _pil_decode(data), err_msg=fmt)
+        assert got.shape[:2] == ((34, 21) if orientation >= 5 else (21, 34))
+
+
+def _png(px: np.ndarray, color_type: int, palette=None) -> bytes:
+    """An 8-bit PNG of ``px`` (H, W, C), each row with filter type
+    ``row % 5`` (none, sub, up, average, Paeth), encoded here."""
+    h, w = px.shape[:2]
+    bpp = px.shape[2]
+    rows = px.reshape(h, -1).astype(np.int32)
+    out = []
+    for y in range(h):
+        f = y % 5
+        cur = rows[y]
+        up = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(bpp, np.int32), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int32), up[:-bpp]])
+        if f == 0:
+            pred = np.zeros_like(cur)
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) >> 1
+        else:
+            p = left + up - ul
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        out.append(bytes([f]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                                             0, 0, 0))
+    if palette is not None:
+        data += chunk(b"PLTE", palette.tobytes())
+    return data + chunk(b"IDAT", zlib.compress(b"".join(out))) + chunk(b"IEND", b"")
+
+
+@pytest.mark.parametrize("color_type,channels", [(0, 1), (4, 2), (2, 3), (6, 4), (3, 1)],
+                         ids=["gray", "gray_alpha", "rgb", "rgba", "palette"])
+def test_png_color_types_and_filters_match_pillow(color_type, channels):
+    rng = np.random.default_rng(3)
+    palette = None
+    if color_type == 3:
+        palette = rng.integers(0, 256, (40, 3), np.uint8)
+        px = rng.integers(0, 40, (23, 19, 1), np.uint8)
+    else:
+        px = rng.integers(0, 256, (23, 19, channels), np.uint8)
+    data = _png(px, color_type, palette)
+    got = codec.decode(data)
+    np.testing.assert_array_equal(got, _pil_decode(data))
+    # Pillow's own files (adaptive filters, zlib levels) too
+    mode = {0: "L", 4: "LA", 2: "RGB", 6: "RGBA", 3: "P"}[color_type]
+    img = Image.fromarray(px[..., 0] if channels == 1 else px, "L" if mode == "P" else mode)
+    if mode == "P":
+        img = img.convert("P")
+        img.putpalette(palette.tobytes())
+    for level in (0, 6, 9):
+        buf = io.BytesIO()
+        img.save(buf, "PNG", compress_level=level)
+        np.testing.assert_array_equal(codec.decode(buf.getvalue()),
+                                      _pil_decode(buf.getvalue()))
+
+
+def test_write_png_round_trips(tmp_path):
+    arr = _image(31, 45)
+    path = tmp_path / "x.png"
+    imaging.write_png(str(path), arr)
+    data = path.read_bytes()
+    np.testing.assert_array_equal(codec.decode(data), arr)
+    np.testing.assert_array_equal(_pil_decode(data), arr)
+
+
+@pytest.mark.parametrize("quality", [90, 75])
+def test_encode_matches_pillow_save(quality):
+    """Pillow decodes the port's file to the pixels of Pillow's own file; the
+    two files are byte-equal (JFIF, tables, 4:2:0, fdct, quantization and
+    Huffman coding all as libjpeg-turbo does them)."""
+    for h, w in SIZES + [(512, 512)]:
+        for arr in (_image(h, w, 4), _image(h, w, 4)[..., 0]):
+            mine, pil = codec.encode_jpeg(arr, quality), _pil_jpeg(arr, quality=quality)
+            np.testing.assert_array_equal(_pil_decode(mine), _pil_decode(pil))
+            assert mine == pil, f"{h}x{w} {arr.ndim}-D: files differ"
+            np.testing.assert_array_equal(codec.decode(mine), _pil_decode(pil))
+
+
+def test_base64_and_data_url():
+    arr = _image(40, 24)
+    b64 = codec.to_base64_jpeg(arr)
+    assert base64.b64decode(b64) == _pil_jpeg(arr, quality=90)
+    want = _pil_decode(base64.b64decode(b64))
+    for s in (b64, "data:image/jpeg;base64," + b64):
+        np.testing.assert_array_equal(codec.decode_base64(s), want)
+    np.testing.assert_array_equal(codec.to_array(s), want)
+    assert codec.to_array(arr) is arr
+
+
+def _patched_sof(data: bytes, marker: int = None, precision: int = None) -> bytes:
+    i = data.index(b"\xff\xc0")
+    out = bytearray(data)
+    if marker is not None:
+        out[i + 1] = marker
+    if precision is not None:
+        out[i + 4] = precision
+    return bytes(out)
+
+
+def test_unsupported_inputs_raise_named_errors():
+    arr = _image(24, 24)
+    base = _pil_jpeg(arr, quality=90)
+    prog = io.BytesIO()
+    Image.fromarray(arr).save(prog, "JPEG", progressive=True)
+    cmyk = io.BytesIO()
+    Image.fromarray(arr).convert("CMYK").save(cmyk, "JPEG")
+    cases = {
+        "progressive": prog.getvalue(),
+        "CMYK": cmyk.getvalue(),
+        "arithmetic": _patched_sof(base, marker=0xC9),
+        "12-bit": _patched_sof(base, precision=12),
+        "lossless": _patched_sof(base, marker=0xC3),
+        "not a JPEG or PNG": b"GIF89a" + bytes(40),
+        "truncated": base[:len(base) // 2],
+        "interlaced": _png(arr, 2)[:8] + _png(arr, 2)[8:].replace(
+            struct.pack(">IIBBBBB", 24, 24, 8, 2, 0, 0, 0),
+            struct.pack(">IIBBBBB", 24, 24, 8, 2, 0, 0, 1)),
+    }
+    sixteen = io.BytesIO()
+    Image.fromarray(arr[..., 0].astype(np.uint16) * 257).save(sixteen, "PNG")
+    cases["16-bit"] = sixteen.getvalue()
+    for name, data in cases.items():
+        with pytest.raises(ValueError, match=name):
+            codec.decode(data)
+    with pytest.raises(ValueError):
+        codec.decode_base64("!!!not-base64!!!")
+
+
+def _png_chunk(tag: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + tag + body
+            + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
+
+
+def test_png_inflates_no_further_than_its_rows():
+    """A 1×1 PNG whose IDAT inflates to 64 MiB of zeros decodes as Pillow
+    decodes it, and the inflate stops at the image's 4 filtered bytes."""
+    import tracemalloc
+
+    comp = zlib.compressobj(9)
+    zeros = bytes(1 << 20)
+    idat = b"".join(comp.compress(zeros) for _ in range(64)) + comp.flush()
+    del zeros
+    bomb = (codec.PNG_SIGNATURE
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", 1, 1, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", idat) + _png_chunk(b"IEND", b""))
+    codec.library()
+    tracemalloc.start()
+    try:
+        got = codec.decode(bomb)
+        _, peak = tracemalloc.get_traced_memory()
+    finally:
+        tracemalloc.stop()
+    np.testing.assert_array_equal(got, _pil_decode(bomb))
+    assert peak < 8 * len(bomb), peak
+
+
+def test_oversized_images_raise_before_allocating():
+    """Past Pillow's DecompressionBombError limit (2 * MAX_IMAGE_PIXELS) a
+    JPEG's frame header or a PNG's IHDR raises; a header that declares more
+    pixels than its data holds raises as truncated."""
+    assert codec.MAX_PIXELS == 2 * Image.MAX_IMAGE_PIXELS
+    base = _pil_jpeg(_image(16, 16), quality=90)
+    i = base.index(b"\xff\xc0")
+
+    def sof(h: int, w: int) -> bytes:
+        return base[:i + 5] + struct.pack(">HH", h, w) + base[i + 9:]
+
+    side = int(codec.MAX_PIXELS ** 0.5) + 1  # 13378² > the limit
+    png_hdr = codec.PNG_SIGNATURE + _png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", side, side, 8, 2, 0, 0, 0))
+    for data in (sof(side, side), sof(16384, 16384),
+                 png_hdr + _png_chunk(b"IDAT", zlib.compress(bytes(64)))):
+        with pytest.raises(ValueError, match="decompression-bomb limit"):
+            codec.decode(data)
+    with pytest.raises(Image.DecompressionBombError):
+        Image.open(io.BytesIO(sof(side, side)))
+    # no EOI: the data runs out, so the decode stops there (Pillow: truncated)
+    with pytest.raises(OSError, match="truncated"):
+        Image.open(io.BytesIO(sof(4096, 4096)[:-2])).load()
+    for data in (sof(4096, 4096)[:-2],
+                 codec.PNG_SIGNATURE + _png_chunk(
+                     b"IHDR", struct.pack(">IIBBBBB", 4096, 4096, 8, 2, 0, 0, 0))
+                 + _png_chunk(b"IDAT", zlib.compress(bytes(64)))):
+        with pytest.raises(ValueError, match="truncated"):
+            codec.decode(data)
+
+
+def test_dc_huffman_symbol_above_15_is_refused():
+    """A DC Huffman symbol is a bit count of 0..15; libjpeg refuses a table
+    that holds a larger one (Pillow: broken data stream), and so does the
+    port's decoder, before any scan reads it."""
+    data = bytearray(_pil_jpeg(_image(24, 24), quality=90))
+    i = data.index(b"\xff\xc4")
+    assert data[i + 4] == 0x00  # Pillow writes the luma DC table first
+    nsym = sum(data[i + 5:i + 21])
+    data[i + 21 + nsym - 1] = 16
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(bytes(data))).load()
+    with pytest.raises(ValueError, match="bad Huffman table"):
+        codec.decode(bytes(data))
+
+
+def _pil_decode_c_idct(cases, tmp_path) -> list:
+    """Pillow's decode of each file in a process where libjpeg-turbo runs
+    its C code (``JSIMD_FORCENONE``): jidctint.c, which the port follows."""
+    import subprocess
+    import sys
+
+    src = tmp_path / "cases.npz"
+    np.savez(src, *[np.frombuffer(c, np.uint8) for c in cases])
+    script = (
+        "import io, sys, numpy as np\n"
+        "from PIL import Image, ImageOps\n"
+        "z = np.load(sys.argv[1])\n"
+        "out = [np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO("
+        "z[f'arr_{i}'].tobytes()))).convert('RGB')) for i in range(len(z.files))]\n"
+        "np.savez(sys.argv[2], *out)\n")
+    dst = tmp_path / "decoded.npz"
+    subprocess.run([sys.executable, "-c", script, str(src), str(dst)], check=True,
+                   env={**os.environ, "JSIMD_FORCENONE": "1"})
+    z = np.load(dst)
+    return [z[f"arr_{i}"] for i in range(len(cases))]
+
+
+def test_scan_cut_short_by_a_marker_matches_pillow(tmp_path):
+    """Entropy-coded data that stops at a marker: zero bits are fed, the MCU
+    that reads one is finished with them and the rest of the interval stays
+    zero (jdhuff.c); at a restart boundary the marker that stands there is
+    resynchronised as jdmarker.c does. The cuts land inside a scan without
+    restarts (EOI, alone or followed by the rest of the file), at the restart
+    markers of a file with one every MCU (EOI in place of one, a marker
+    dropped, one of a later or an earlier interval) and 2 to 4 bytes before
+    them.
+
+    Such cuts can leave coefficients far outside a valid block's range, where
+    libjpeg-turbo's x86 SIMD IDCT (16-bit saturating arithmetic) and its C
+    IDCT (jidctint.c, the port's) disagree; so the reference here is Pillow
+    with libjpeg-turbo's SIMD off. With it on, every case that does not
+    reach that range agrees too."""
+    arr = _image(40, 56)
+    cases = []
+    for sub in (0, 2):
+        d = _pil_jpeg(arr, quality=90, subsampling=sub)
+        sos = d.index(b"\xff\xda")
+        start = sos + 2 + int.from_bytes(d[sos + 2:sos + 4], "big")
+        for k in np.linspace(start + 1, len(d) - 3, 12).astype(int):
+            cases += [d[:k] + b"\xff\xd9", d[:k] + b"\xff\xd9" + d[k:]]
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=90, subsampling=sub,
+                                  restart_marker_blocks=1)
+        d = buf.getvalue()
+        rsts = [i for i in range(start, len(d) - 1)
+                if d[i] == 0xFF and 0xD0 <= d[i + 1] <= 0xD7]
+        for i in rsts[1::3]:
+            n = d[i + 1] - 0xD0
+            cases += [d[:i] + b"\xff\xd9", d[:i] + d[i + 2:]]
+            cases += [d[:i + 1] + bytes([0xD0 + (n + j) % 8]) + d[i + 2:] for j in (1, 3, 7)]
+            cases += [d[:i - back] + b"\xff\xd9" for back in (2, 3, 4)]
+    want = _pil_decode_c_idct(cases, tmp_path)
+    simd_equal = 0
+    for data, ref in zip(cases, want):
+        got = codec.decode(data)
+        np.testing.assert_array_equal(got, ref)
+        simd_equal += np.array_equal(got, _pil_decode(data))
+    assert simd_equal >= len(cases) * 9 // 10, (simd_equal, len(cases))
+
+
+def test_jpeg_header_query_reads_no_scan():
+    """``qie_jpeg_info`` stops at the first scan header: a file whose
+    entropy-coded data is cut short still reports its size, and only the
+    decode (the one entropy decode a request pays) raises."""
+    import ctypes
+
+    data = _pil_jpeg(_image(48, 40), quality=90)
+    cut = data[:data.index(b"\xff\xda") + 40]
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    off, ln, err = ctypes.c_long(), ctypes.c_long(), ctypes.create_string_buffer(256)
+    rc = codec.library().qie_jpeg_info(cut, len(cut), ctypes.byref(w), ctypes.byref(h),
+                                       ctypes.byref(c), ctypes.byref(off), ctypes.byref(ln),
+                                       err, len(err))
+    assert rc == 0 and (w.value, h.value, c.value) == (40, 48, 3), err.value
+    with pytest.raises(ValueError, match="truncated"):
+        codec.decode(cut)
+
+
+def test_blend_matches_pillow():
+    rng = np.random.default_rng(5)
+    a, b = (rng.integers(0, 256, (29, 31, 3), np.uint8) for _ in range(2))
+    for ratio in (0.0, 0.25, 0.5, 0.3, 0.77, 1.0, 0.1234567, 1.5, -0.4):
+        want = np.asarray(Image.blend(Image.fromarray(a), Image.fromarray(b), ratio))
+        np.testing.assert_array_equal(imaging.blend(a, b, ratio), want)
+    # a second image of another size is resized (LANCZOS) to the first's
+    c = rng.integers(0, 256, (40, 17, 3), np.uint8)
+    want = np.asarray(Image.blend(Image.fromarray(a),
+                                  Image.fromarray(c).resize((31, 29), Image.LANCZOS), 0.5))
+    np.testing.assert_array_equal(imaging.blend(a, c, 0.5), want)
+
+
+def test_library_is_built_from_its_source_hash():
+    path = codec.library_path()
+    codec.library()
+    assert path.exists() and path.parent.name == "host"
+    assert path.name.startswith("libqie_codec_")
