@@ -144,7 +144,24 @@ toolkit. Phases, each printing one JSON line:
 7. int4    — rebuilt with ``use_int4`` + ``use_int4_vl``: warm-up and one
              miss; K5/K6 run only for the vision tower's 3420-wide ``down``
              leaves, which take the int8 rung (32 per image per miss);
-8. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
+8. checkpoint — real-checkpoint serving at flagship width, depth cut to 2
+             MMDiT blocks, 2 LM layers and 2 vision blocks (the full VAE and
+             embedding): the tree made on the card from a seed, written with
+             the port's ``export_*`` in the HF layout (bf16; the transformer
+             and the VL sharded with index jsons, one block's q/k/v across a
+             shard boundary), converted by the port's CLI in process (bf16;
+             ``--fuse-qkv --quantize int8``; VAE; VL), loaded through
+             ``InferenceEngine.create(transformer_path=..., vae_path=...,
+             vl_path=...)`` (seconds, GB/s, card peak, the host's peak RSS
+             growth under the largest shard + 1 GiB) and served: an /edit miss
+             and hit with K1 = blocks × steps, K2 = LM layers a miss, K3 the
+             VAE's; every loaded tensor and one miss's latents equal the
+             in-memory tree's bit for bit (or within two in-memory runs'
+             spread); the int8 checkpoint's codes and scales equal in-place
+             quantize of the tree, its miss runs K5/K6 once per quantized
+             linear; the server's CLI serves the converted tree; the full
+             flagship's boot time extrapolated from the load's GB/s;
+9. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
              of a batched-CFG miss (M = 16384, 512, 768, 2) and of a 512²
              stream keyframe with its precompute (M = 2048, 64, 1, 128),
              bit-identical to their plain versions, timed as K3 is, beside
@@ -1268,7 +1285,7 @@ def run_requests(pipe, requests, label: str, latents=None):
 
 def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
              int8_per_request: int = 0, k1: int = K1_LAUNCHES,
-             encodes=None):
+             encodes=None, k2: int = K2_LAUNCHES):
     """Launches of one request: K1 (or K4 with two images) once per MMDiT
     layer and forward (``k1``), K2 per LM layer on a miss, K3 per decoder
     conv of K3_MIX and, on a miss, per encoder conv and encode call
@@ -1281,7 +1298,7 @@ def expected(miss: bool, n_images: int = 1, int8_miss: int = 0,
     encoder = sum(n - hit for *_, n, hit in K3_MIX)
     encodes = n_images if encodes is None else encodes
     return {joint: k1, other: 0,
-            "flash_causal": K2_LAUNCHES if miss else 0,
+            "flash_causal": k2 if miss else 0,
             "conv3x3": decoder + (encodes * encoder if miss else 0),
             "quantize_rows": q, "int8_gemm": q,
             "flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -2622,11 +2639,13 @@ def serve_codec(miss_output) -> dict:
     return rec
 
 
-def serve_cli() -> None:
-    """The server's CLI as a subprocess on its default device: `--preset
-    tiny --no-warmup` on a free port; /health must answer within
-    CLI_HEALTH_S with a GB figure (it runs on the card), one /edit must
-    return 200; then the process is terminated and waited for."""
+def serve_cli(label: str = "serve_cli", args=("--preset", "tiny"), prelude: str = "") -> None:
+    """The server's CLI as a subprocess on its default device: ``args`` (by
+    default `--preset tiny`) and `--no-warmup` on a free port; /health must
+    answer within CLI_HEALTH_S with a GB figure (it runs on the card), one
+    /edit must return 200; then the process is terminated
+    and waited for. ``prelude`` (Python run before the server's ``main``, in
+    the subprocess) registers a preset the package does not hold."""
     import socket
     import urllib.error
 
@@ -2635,12 +2654,16 @@ def serve_cli() -> None:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    log_path = os.path.join(ROOT, "build", "chip_smoke", "serve_cli.log")
+    log_path = os.path.join(ROOT, "build", "chip_smoke", f"{label}.log")
     os.makedirs(os.path.dirname(log_path), exist_ok=True)
+    server = ["-m", f"{PKG}.serving.server"]
+    if prelude:
+        server = ["-c", f"import sys; sys.path.insert(0, {ROOT!r}); {prelude}; "
+                        f"from {PKG}.serving.server import main; main(sys.argv[1:])"]
     t0 = time.time()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", f"{PKG}.serving.server", "--preset", "tiny",
+            [sys.executable, *server, *args,
              "--no-warmup", "--host", "127.0.0.1", "--port", str(port)],
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         try:
@@ -2658,7 +2681,7 @@ def serve_cli() -> None:
             code, body, wall = http(url + "/edit", {
                 "image": codec.to_base64_jpeg(distinct_image(9100, SERVE_INPUT)), "prompt": PROMPT})
             out = codec.decode_base64(body["image"]) if code == 200 else None
-            emit({"phase": "serve_cli", "ready_s": ready_s, "health": health,
+            emit({"phase": label, "ready_s": ready_s, "health": health,
                   "edit_status": code, "edit_wall_s": wall,
                   "shape": None if out is None else list(out.shape)})
             if not str(health.get("gpu_memory", "")).endswith(" GB") or code != 200:
@@ -3027,6 +3050,337 @@ def phase_int4():
     return run_requests(pipe, requests, "int4")
 
 
+# The checkpoint phase's tree: the flagship at full width, depth cut to 2
+# MMDiT blocks, 2 LM layers and 2 vision blocks (the full VAE and the full
+# 152064 × 3584 embedding), written in the HF layout in bf16 with shards of
+# HF_SHARD_BYTES: the cut transformer (1.44 GB) and VL (2.19 GB) then span 4
+# and 5 shards, and block 1's image q/k/v straddle two of them
+CUT_PRESET = "qwen-image-edit-2509-depth2"
+CUT_DEPTH = 2
+HF_SHARD_BYTES = 400 << 20
+REGISTER_CUT = "import chip_smoke; chip_smoke.cut_preset()"
+
+
+def cut_preset():
+    """The flagship preset with its depths cut to CUT_DEPTH, registered as
+    CUT_PRESET in the port's presets (so the CLIs find it by name)."""
+    import dataclasses
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import config
+
+    full = config.get_preset("qwen-image-edit-2509")
+    cut = dataclasses.replace(
+        full, name=CUT_PRESET, model=dataclasses.replace(full.model, num_layers=CUT_DEPTH),
+        vl=dataclasses.replace(full.vl, num_layers=CUT_DEPTH, vision_depth=CUT_DEPTH))
+    config.PRESETS[CUT_PRESET] = cut
+    return cut
+
+
+def flagship_weight_bytes() -> int:
+    """The full flagship's weight bytes (MMDiT, VL encoder, VAE), counted
+    on meta-device inits."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import get_preset
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl, vae
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
+
+    full, meta = get_preset("qwen-image-edit-2509"), torch.device("meta")
+    trees = (tfm.init(None, full.model, meta), qwen_vl.init(None, full.vl, meta),
+             vae.init(None, full.vae, meta))
+    return sum(t.numel() * t.element_size() for tree in trees for t in flatten(tree).values())
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def host_rss() -> int:
+    """This process's resident bytes (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no VmRSS in /proc/self/status")
+
+
+class RssPeak:
+    """The peak of VmRSS over a ``with`` block, sampled every millisecond in
+    a thread (the card's machine refuses a write to /proc/self/clear_refs,
+    so VmHWM cannot be reset to time a window): ``growth`` is the peak less
+    the RSS at entry."""
+
+    def __enter__(self):
+        import threading
+
+        self.base = self.peak = host_rss()
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.is_set():
+            self.peak = max(self.peak, host_rss())
+            self.samples += 1
+            time.sleep(0.001)
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss())
+        self.growth = self.peak - self.base
+
+
+def straddling_qkv(index_path: str, layers: int) -> list:
+    """(block, stream) pairs whose q, k and v tensors lie in more than one
+    shard of an HF index."""
+    with open(index_path) as f:
+        where = json.load(f)["weight_map"]
+    out = []
+    for b in range(layers):
+        for stream, names in (("img", ("to_q", "to_k", "to_v")),
+                              ("txt", ("add_q_proj", "add_k_proj", "add_v_proj"))):
+            files = {where[f"transformer_blocks.{b}.attn.{n}.{p}"]
+                     for n in names for p in ("weight", "bias")}
+            if len(files) > 1:
+                out.append((b, stream))
+    return out
+
+
+def assert_equal_trees(what: str, got, want) -> int:
+    """Every leaf of ``got`` equals ``want``'s, dtype and bits; returns the
+    leaves compared."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
+
+    fg, fw = flatten(got), flatten(want)
+    if sorted(fg) != sorted(fw):
+        raise AssertionError(f"{what}: leaves differ: {sorted(set(fg) ^ set(fw))[:6]}")
+    bad = [k for k in fg if fg[k].dtype != fw[k].dtype or not torch.equal(fg[k], fw[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. {bad[:4]}")
+    return len(fg)
+
+
+def same_latents(what: str, loaded, in_memory, image) -> dict:
+    """One miss of the same request on the loaded and on the in-memory
+    pipeline, and a second in-memory miss (fresh caches): the loaded
+    latents must equal the in-memory ones bit for bit, or, if the two
+    in-memory runs differ, lie within their spread."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import LatentCache, PromptCache
+
+    def miss(pipe):
+        pipe.prompt_cache, pipe.latent_cache = PromptCache(pipe.encoder), LatentCache()
+        return pipe(image, PROMPT, num_inference_steps=STEPS, seed=42).latents
+
+    got, ref, ref2 = miss(loaded), miss(in_memory), miss(in_memory)
+    spread = float((ref - ref2).abs().max())
+    err = float((got - ref).abs().max())
+    rec = {"phase": "checkpoint_latents", "rung": what, "bit_equal": bool(torch.equal(got, ref)),
+           "max_abs_diff": err, "in_memory_spread": spread,
+           "finite": bool(torch.isfinite(got).all())}
+    emit(rec)
+    if not rec["finite"] or not (rec["bit_equal"] if spread == 0 else err <= spread):
+        raise AssertionError(f"{what}: loaded latents differ from the in-memory pipeline's: {rec}")
+    return rec
+
+
+def phase_checkpoint() -> dict:
+    """Real-checkpoint serving at flagship width: a depth-cut tree made on
+    the card from a seed, written in the HF layout (bf16, sharded with index
+    jsons), converted by the port's CLI in process (bf16; fused q/k/v +
+    int8; VAE; VL), loaded by ``InferenceEngine.create`` from the converted
+    checkpoints just written (seconds, GB/s, card peak and the host's peak
+    RSS growth, which must stay under the largest shard + 1 GiB) and
+    served: /edit miss and hit with K1/K2/K3 at the cut depths' counts;
+    every loaded tensor and the latents of one miss equal the in-memory
+    tree's; the int8 checkpoint likewise, K5/K6 once per quantized linear
+    it runs; the server's CLI serves the converted tree; the full
+    flagship's boot time extrapolated. The tree is removed however the
+    phase ends."""
+    import shutil
+
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import checkpoint, lora, quantize
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import convert as cv
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import vae
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten, unflatten
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import EditPipeline
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    cut = cut_preset()
+    layers, lm_layers = cut.model.num_layers, cut.vl.num_layers
+    work = os.path.join(ROOT, "build", "chip_smoke", "checkpoint")
+    dev = torch.device("cuda")
+    gen = lambda name: stream(11, name, dev)  # noqa: E731
+    tfm_mem = tfm.init(gen("transformer"), cut.model, dev)
+    vae_mem = vae.init(gen("vae"), cut.vae, dev)
+    vl_mem = qwen_vl.init(gen("vl"), cut.vl, dev)
+    tree_bytes = sum(t.numel() * t.element_size()
+                     for tree in (tfm_mem, vae_mem, vl_mem) for t in flatten(tree).values())
+    os.makedirs(work, exist_ok=True)
+    free = shutil.disk_usage(work).free
+    need = int(2.5 * tree_bytes) + (2 << 30)  # HF tree, bf16 and int8 conversions
+    emit({"phase": "checkpoint_disk", "free_bytes": free, "need_bytes": need,
+          "tree_bytes": tree_bytes})
+    if free < need:
+        raise AssertionError(f"checkpoint phase: {free} bytes free under {work}, needs {need}")
+    kernels.reset_launches()
+    try:
+        # 1. the HF-layout tree, bf16
+        hf = {c: os.path.join(work, "hf", c) for c in ("transformer", "vae", "vl")}
+        t0 = time.time()
+        lora.save_safetensors(hf["transformer"], cv.export_transformer(tfm_mem, cut.model),
+                              max_shard_bytes=HF_SHARD_BYTES, basename="diffusion_pytorch_model")
+        lora.save_safetensors(hf["vl"], cv.export_vl(vl_mem, cut.vl),
+                              max_shard_bytes=HF_SHARD_BYTES, basename="model")
+        os.makedirs(hf["vae"])
+        lora.save_safetensors(os.path.join(hf["vae"], "diffusion_pytorch_model.safetensors"),
+                              cv.export_vae(vae_mem, cut.vae))
+        shards = {c: len(cv.shard_files(d)) for c, d in hf.items()}
+        straddle = straddling_qkv(os.path.join(
+            hf["transformer"], "diffusion_pytorch_model.safetensors.index.json"), layers)
+        emit({"phase": "checkpoint_hf_tree", "seconds": time.time() - t0, "shards": shards,
+              "bytes": {c: dir_bytes(d) for c, d in hf.items()}, "qkv_straddling": straddle})
+        if shards["transformer"] < 3 or shards["vl"] < 3 or not straddle:
+            raise AssertionError(f"HF tree: shards {shards}, straddling q/k/v {straddle}")
+
+        # 2. the port's CLI, in process, on the card
+        out = {n: os.path.join(work, "port", n)
+               for n in ("transformer", "transformer_int8_fq", "vae", "vl")}
+        runs = (("transformer", "transformer", []),
+                ("transformer_int8_fq", "transformer", ["--fuse-qkv", "--quantize", "int8"]),
+                ("vae", "vae", []), ("vl", "vl", []))
+        for name, comp, extra in runs:
+            t0 = time.time()
+            checkpoint.main(["convert", "--src", hf[comp], "--component", comp, "--preset",
+                             CUT_PRESET, "--out", out[name], "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            emit({"phase": "checkpoint_convert", "name": name, "seconds": time.time() - t0,
+                  "gb_on_disk": dir_bytes(out[name]) / 1e9,
+                  "layout": checkpoint.layout(out[name])})
+        bf16_dirs = (out["transformer"], out["vae"], out["vl"])
+        largest_shard = max(os.path.getsize(f) for d in bf16_dirs for f in cv.shard_files(d))
+
+        # 3. load the bf16 rung through the engine (the files were just
+        # written: the page cache may hold them)
+        config = StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                              cfg_mode="none", model_preset=CUT_PRESET)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        with RssPeak() as rss:
+            t0 = time.time()
+            engine = InferenceEngine.create(CUT_PRESET, config=config, warmup_runs=0,
+                                            input_size=SERVE_INPUT,
+                                            transformer_path=out["transformer"],
+                                            vae_path=out["vae"], vl_path=out["vl"], device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.time() - t0
+        growth = rss.growth
+        loaded_bytes = sum(dir_bytes(d) for d in bf16_dirs)
+        gbps = loaded_bytes / load_s / 1e9
+        smi = nvidia_smi_line()
+        emit({"phase": "checkpoint_load", "rung": "bf16", "seconds": load_s,
+              "bytes": loaded_bytes, "gb_per_s": gbps,
+              "card_peak_bytes": torch.cuda.max_memory_allocated() - base_alloc,
+              "host_rss_growth_bytes": growth, "host_rss_before_bytes": rss.base,
+              "rss_samples": rss.samples, "largest_shard_bytes": largest_shard,
+              "nvidia_smi": smi})
+        if growth >= largest_shard + (1 << 30):
+            raise AssertionError(f"loading grew the host's RSS by {growth} bytes, over the "
+                                 f"largest shard ({largest_shard}) + 1 GiB")
+
+        # 4. every loaded tensor equals the in-memory one (q/k/v fused as
+        # the engine's config fuses them)
+        fused_mem = fuse_qkv(unflatten(flatten(tfm_mem)))
+        pipe = engine.pipeline
+        n = (assert_equal_trees("transformer", pipe.tfm_params, fused_mem)
+             + assert_equal_trees("vae", pipe.vae_params, vae_mem)
+             + assert_equal_trees("vl", pipe.encoder.params, vl_mem))
+        del fused_mem
+        srv, url = start_server(engine)
+        b64 = codec.to_base64_jpeg(distinct_image(7100, SERVE_INPUT))
+        want = expected(True, k1=layers * STEPS, k2=lm_layers)
+        try:
+            served(url, "checkpoint bf16", "edit_miss", {"image": b64, "prompt": PROMPT}, want)
+            served(url, "checkpoint bf16", "edit_hit", {"image": b64, "prompt": PROMPT},
+                   expected(False, k1=layers * STEPS, k2=lm_layers))
+        finally:
+            stop_server(srv)
+        mem_pipe = EditPipeline.from_weights(cut, config, tfm_mem, vae_mem, vl_mem, dev)
+        same_latents("bf16", pipe, mem_pipe, distinct_image(7101))
+        emit({"phase": "checkpoint_equal", "rung": "bf16", "leaves": n})
+        del engine, pipe, mem_pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. the pre-quantized fused-q/k/v int8 rung: its codes and scales
+        # are in-place quantize of the in-memory tree (fused by from_weights)
+        quantize.quantize_transformer(tfm_mem, bits=8)
+        config8 = config.replace(use_int8=True)
+        t0 = time.time()
+        engine = InferenceEngine.create(CUT_PRESET, config=config8, warmup_runs=0,
+                                        input_size=SERVE_INPUT,
+                                        transformer_path=out["transformer_int8_fq"],
+                                        vae_path=out["vae"], vl_path=out["vl"], device="cuda")
+        torch.cuda.synchronize()
+        emit({"phase": "checkpoint_load", "rung": "int8, fused q/k/v",
+              "seconds": time.time() - t0,
+              "bytes": dir_bytes(out["transformer_int8_fq"])})
+        pipe = engine.pipeline
+        assert_equal_trees("transformer int8", pipe.tfm_params, tfm_mem)
+        # K5/K6 once per quantized linear a forward runs: per block the two
+        # fused q/k/v, two outputs, four MLP and two modulation linears
+        per_block = [sum(k.endswith(".w_q") for k in flatten(b)) for b in pipe.tfm_params["blocks"]]
+        if per_block != [10] * layers:
+            raise AssertionError(f"quantized linears a block: {per_block}, not 10")
+        srv, url = start_server(engine)
+        try:
+            served(url, "checkpoint int8", "edit_miss",
+                   {"image": codec.to_base64_jpeg(distinct_image(7200, SERVE_INPUT)),
+                    "prompt": PROMPT},
+                   expected(True, k1=layers * STEPS, k2=lm_layers,
+                            int8_per_request=sum(per_block) * STEPS))
+        finally:
+            stop_server(srv)
+        mem_pipe = EditPipeline.from_weights(cut, config8, tfm_mem, vae_mem, vl_mem, dev)
+        same_latents("int8", pipe, mem_pipe, distinct_image(7201))
+        launches = dict(kernels.LAUNCHES)
+        del engine, pipe, mem_pipe, tfm_mem, vae_mem, vl_mem
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. the server's CLI on the converted bf16 tree
+        serve_cli("checkpoint_serve_cli", ("--preset", CUT_PRESET, "--transformer",
+                                           out["transformer"], "--vae", out["vae"],
+                                           "--vl", out["vl"]), prelude=REGISTER_CUT)
+
+        # 7. the full flagship's boot, extrapolated from this load's rate
+        full_bytes = flagship_weight_bytes()
+        emit({"phase": "checkpoint_boot_extrapolated", "flagship_bf16_bytes": full_bytes,
+              "gb_per_s": gbps, "extrapolated_boot_s": full_bytes / (gbps * 1e9),
+              "nvidia_smi": smi})
+    finally:
+        shutil.rmtree(work, ignore_errors=False)
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
         print(f"chip_smoke: {PKG}/ not found beside this script; run it from "
@@ -3070,7 +3424,7 @@ def main() -> int:
     phase_block_parity()
     phase_train_parity()
     launches = {}
-    for phase in (phase_slice, phase_int8, phase_int4):
+    for phase in (phase_slice, phase_int8, phase_int4, phase_checkpoint):
         for k, n in phase().items():  # each pipeline is dropped on return
             launches[k] = launches.get(k, 0) + n
         gc.collect()

@@ -15,9 +15,12 @@ needs the library.
   orientation as ``ImageOps.exif_transpose`` does and returns RGB: its
   pixels equal Pillow's (libjpeg-turbo's islow IDCT, fancy upsampling and
   fixed-point YCbCr→RGB) bit for bit. It takes baseline and 8-bit extended
-  sequential Huffman JPEG with 1 or 3 components, luma sampled 1×1, 2×1, 1×2
-  or 2×2 and restart intervals; and 8-bit non-interlaced PNG (gray, gray +
-  alpha, RGB, RGBA, palette), alpha dropped as ``convert("RGB")`` drops it.
+  sequential Huffman JPEG with 1 or 3 components, any whole-number sampling
+  ratio (fancy upsampling at 2, box replication above) and restart
+  intervals; and non-interlaced PNG: 8-bit gray, gray + alpha, RGB, RGBA and
+  palette, 1-, 2- and 4-bit gray (scaled ×255, ×85, ×17, as libpng and
+  Pillow scale them) and palette, alpha dropped as ``convert("RGB")`` drops
+  it.
   Anything else raises a ``ValueError`` that names the feature. So does an
   image above Pillow's decompression-bomb limit (:data:`MAX_PIXELS`),
   before anything of it is allocated; a PNG inflates no further than its
@@ -197,25 +200,34 @@ def _decode_png(data: bytes) -> np.ndarray:
                          f"decompression-bomb limit")
     if ctype not in _PNG_TYPES:
         raise ValueError(f"corrupt PNG: colour type {ctype}")
-    if depth != 8:
-        raise ValueError(f"unsupported PNG: {depth}-bit {_PNG_TYPES[ctype][1]}")
+    if depth == 16:
+        raise ValueError(f"unsupported PNG: 16-bit {_PNG_TYPES[ctype][1]}")
+    if depth not in (1, 2, 4, 8) or (depth < 8 and ctype not in (0, 3)):
+        raise ValueError(f"corrupt PNG: bit depth {depth} with colour type {ctype}")
     if interlace:
         raise ValueError("unsupported PNG: interlaced (Adam7) PNG")
     if ctype == 3 and palette is None:
         raise ValueError("corrupt PNG: palette image without PLTE")
     ch = _PNG_TYPES[ctype][0]
+    rowbytes = (w * ch * depth + 7) // 8  # a row of samples below 8 bits is padded
     try:
         # inflate no further than the image's filtered rows: a small stream
         # of zeros must not inflate to gigabytes
-        raw = zlib.decompressobj().decompress(b"".join(idat), h * (w * ch + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), h * (rowbytes + 1))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG: {e}") from None
-    if len(raw) < h * (w * ch + 1):
+    if len(raw) < h * (rowbytes + 1):
         raise ValueError("truncated PNG: image data ends early")
-    out = np.empty((h, w * ch), np.uint8)
+    out = np.empty((h, rowbytes), np.uint8)
     err = _err()
-    if library().qie_png_unfilter(raw, h, w * ch, ch, out.ctypes.data, err, len(err)) != 0:
+    # the filters step by whole bytes: one for samples below 8 bits
+    if library().qie_png_unfilter(raw, h, rowbytes, ch, out.ctypes.data, err, len(err)) != 0:
         raise ValueError(err.value.decode())
+    if depth < 8:  # samples packed most significant bits first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
+        if ctype == 0:
+            out = out * np.uint8(255 // ((1 << depth) - 1))
     px = out.reshape(h, w, ch)
     if ctype == 3:
         full = np.zeros((256, 3), np.uint8)  # indices past PLTE read black

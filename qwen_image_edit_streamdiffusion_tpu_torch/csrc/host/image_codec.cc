@@ -9,7 +9,8 @@
 //   - jpeg_idct_islow (jidctint.c) with its post-IDCT range-limit table;
 //   - fancy upsampling (jdsample.c: h2v1, h1v2, h2v2; box replication where
 //     libjpeg-turbo takes it, a component no wider than 2 samples), the
-//     context rows clamped to the component's real rows;
+//     context rows clamped to the component's real rows; int_upsample's box
+//     replication for every other whole-number ratio (3x1, 4x1, 4x2, ...);
 //   - the fixed-point ycc_rgb_convert (jdcolor.c).
 // The encoder follows Pillow's save(format="JPEG", quality=q) defaults: a JFIF
 // APP0, the Annex K tables scaled by jpeg_quality_scaling (force_baseline),
@@ -569,9 +570,11 @@ struct Decoder {
       max_v = std::max(max_v, comp[i].v);
     }
     for (int i = 0; i < ncomp; i++) {
-      int rh = max_h / comp[i].h, rv = max_v / comp[i].v;
-      if (max_h % comp[i].h || max_v % comp[i].v || rh > 2 || rv > 2)
-        throw CodecError("unsupported JPEG: sampling factors other than 1x1, 2x1, 1x2, 2x2");
+      if (max_h % comp[i].h || max_v % comp[i].v)
+        throw CodecError("unsupported JPEG: a fractional sampling ratio (component " +
+                         std::to_string(i) + " sampled " + std::to_string(comp[i].h) + "x" +
+                         std::to_string(comp[i].v) + " of " + std::to_string(max_h) + "x" +
+                         std::to_string(max_v) + ")");
     }
     if (int64_t(width) * height > kMaxPixels)
       throw CodecError("unsupported JPEG: " + std::to_string(width) + "x" +
@@ -815,7 +818,10 @@ struct Decoder {
     const int dw = c.dw;
     for (int y = 0; y < height; y++) {
       uint8_t* o = out.data() + size_t(y) * width;
-      if (rh == 1 && rv == 1) {
+      if (rh > 2 || rv > 2) {  // int_upsample: each sample replicated rh x rv
+        const uint8_t* in = src.data() + size_t(y / rv) * sstride;
+        for (int x = 0; x < width; x++) o[x] = in[x / rh];
+      } else if (rh == 1 && rv == 1) {
         memcpy(o, row(y), width);
       } else if (rh == 2 && rv == 1) {
         const uint8_t* in = row(y);

@@ -150,6 +150,30 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return {prefix[:-1]: tree}
 
 
+def unflatten(flat: Dict[str, Any], sep: str = ".") -> Params:
+    """Inverse of :func:`flatten`: {"a.0.b": leaf} → nested dicts and lists
+    (a digit part is a list index), as the JAX ``_load_tree`` builds them."""
+    root: Params = {}
+    for key, leaf in flat.items():
+        parts = key.split(sep)
+        node: Any = root
+        for i, part in enumerate(parts):
+            last = i == len(parts) - 1
+            nxt: Any = leaf if last else ([] if parts[i + 1].isdigit() else {})
+            if isinstance(node, list):
+                idx = int(part)
+                while len(node) <= idx:
+                    node.append(None)
+                if node[idx] is None:
+                    node[idx] = nxt
+                node = node[idx]
+            else:
+                if last and part in node:
+                    raise ValueError(f"duplicate key {key!r}")
+                node = node.setdefault(part, nxt)
+    return root
+
+
 def param_count(tree) -> int:
     if isinstance(tree, dict):
         return sum(param_count(v) for v in tree.values())

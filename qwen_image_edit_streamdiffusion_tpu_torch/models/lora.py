@@ -17,16 +17,18 @@ the card beside the first.
 
 Files are read and written without the ``safetensors`` package: a
 ``.safetensors`` file is a little-endian u64 header length, a JSON header and
-the raw little-endian tensor bytes (:func:`save_safetensors`,
-:func:`load_safetensors`); ``.npz`` archives are read too.
+the raw little-endian tensor bytes (:func:`save_safetensors`, which also
+writes sharded directories with an index json, and
+``models/convert.py::load_safetensors``, the port's one reader);
+``.npz`` archives are read too.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import re
 import struct
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -111,89 +113,124 @@ def fuse_lora(params: Any, tensors: Dict[str, Any], weight: float = 1.0) -> Any:
     delta in f32 on the weight's device."""
     blocks = params["blocks"]
     for (idx, path), e in parse_lora_state_dict(tensors).items():
-        if e.a is None or e.b is None:
-            raise ValueError(f"incomplete LoRA pair at block {idx} {path}")
         if idx >= len(blocks):
             raise ValueError(f"LoRA targets block {idx} but model has "
                              f"{len(blocks)}")
-        r = e.a.shape[0]
-        scale = weight * ((e.alpha / r) if e.alpha is not None else 1.0)
-        node, slot = blocks[idx], None
-        for p in path[:-1]:
-            node = node[p]
-        name = path[-1]
-        if name not in node and name in FUSED_SLOT:
-            name, slot = FUSED_SLOT[name]
-        w = _dense_weight(node[name], "LoRA fusion")
-        delta = (e.b.to(w.device, torch.float32) @ e.a.to(w.device, torch.float32)
-                 ) * scale
-        if slot is not None:
-            d_out = delta.shape[0]
-            if w.shape != (3 * d_out, delta.shape[1]):
-                raise ValueError(f"LoRA delta {tuple(delta.shape)} vs fused "
-                                 f"weight {tuple(w.shape)}")
-            w = w[slot * d_out:(slot + 1) * d_out]
-        elif w.shape != delta.shape:
-            raise ValueError(f"LoRA delta {tuple(delta.shape)} vs weight "
-                             f"{tuple(w.shape)}")
-        w.copy_((w.float() + delta).to(w.dtype))
+        fuse_entry(blocks[idx], path, e, weight, idx)
     return params
+
+
+def fuse_entry(block: Any, path: Tuple[str, ...], e: LoRAEntry, weight: float = 1.0,
+               idx: int = -1) -> None:
+    """Fuse one adapter pair into the linear at ``path`` of ``block`` (its
+    q/k/v row block when the block's projections are fused), in place."""
+    if e.a is None or e.b is None:
+        raise ValueError(f"incomplete LoRA pair at block {idx} {path}")
+    r = e.a.shape[0]
+    scale = weight * ((e.alpha / r) if e.alpha is not None else 1.0)
+    node, slot = block, None
+    for p in path[:-1]:
+        node = node[p]
+    name = path[-1]
+    if name not in node and name in FUSED_SLOT:
+        name, slot = FUSED_SLOT[name]
+    w = _dense_weight(node[name], "LoRA fusion")
+    delta = (e.b.to(w.device, torch.float32) @ e.a.to(w.device, torch.float32)) * scale
+    if slot is not None:
+        d_out = delta.shape[0]
+        if w.shape != (3 * d_out, delta.shape[1]):
+            raise ValueError(f"LoRA delta {tuple(delta.shape)} vs fused "
+                             f"weight {tuple(w.shape)}")
+        w = w[slot * d_out:(slot + 1) * d_out]
+    elif w.shape != delta.shape:
+        raise ValueError(f"LoRA delta {tuple(delta.shape)} vs weight "
+                         f"{tuple(w.shape)}")
+    w.copy_((w.float() + delta).to(w.dtype))
 
 
 # ---------------------------------------------------------------------------
 # Files
 # ---------------------------------------------------------------------------
 
-_ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
-              "I8": torch.int8, "U8": torch.uint8}
-_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+ST_DTYPES = {"F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+             "I8": torch.int8, "U8": torch.uint8}
+_ST_NAMES = {v: k for k, v in ST_DTYPES.items()}
 
 
-def save_safetensors(path: str, tensors: Dict[str, Any]) -> None:
-    """Write ``tensors`` (torch tensors or numpy arrays) as a .safetensors
-    file: u64 header length, JSON header padded to 8 bytes, raw data."""
-    header: Dict[str, Any] = {}
-    blobs, offset = [], 0
-    for name in sorted(tensors):
-        val = tensors[name]
-        t = (val if torch.is_tensor(val) else torch.from_numpy(np.asarray(val))
-             ).detach().cpu().contiguous()
-        if t.dtype not in _ST_NAMES:
-            raise TypeError(f"{name}: no safetensors dtype for {t.dtype}")
-        data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+def _host_tensor(name: str, val: Any) -> torch.Tensor:
+    t = val if torch.is_tensor(val) else torch.from_numpy(np.asarray(val))
+    if t.dtype not in _ST_NAMES:
+        raise TypeError(f"{name}: no safetensors dtype for {t.dtype}")
+    return t.detach()
+
+
+def _write_file(path: str, tensors: Dict[str, torch.Tensor],
+                metadata: Optional[Dict[str, str]]) -> None:
+    """One .safetensors file, tensors in sorted key order; each is copied to
+    the host as it is written."""
+    header: Dict[str, Any] = {"__metadata__": dict(metadata)} if metadata else {}
+    offset = 0
+    names = sorted(tensors)
+    for name in names:
+        t = tensors[name]
+        n = t.numel() * t.element_size()
         header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(data)]}
-        blobs.append(data)
-        offset += len(data)
+                        "data_offsets": [offset, offset + n]}
+        offset += n
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for data in blobs:
-            f.write(data)
+        for name in names:
+            t = tensors[name].cpu().contiguous().reshape(-1)
+            if t.numel():
+                f.write(memoryview(t.view(torch.uint8).numpy()))
+
+
+def save_safetensors(path: str, tensors: Dict[str, Any],
+                     metadata: Optional[Dict[str, str]] = None,
+                     max_shard_bytes: Optional[int] = None,
+                     basename: str = "model") -> None:
+    """Write ``tensors`` (torch tensors on any device, or numpy arrays) as a
+    .safetensors file at ``path``: u64 header length, JSON header padded to
+    8 bytes (with ``metadata`` as its ``__metadata__``), raw data. With
+    ``max_shard_bytes``, ``path`` is a directory: the tensors, in their
+    order, are cut into shards of at most that many bytes (a larger tensor
+    alone), ``{basename}-0000i-of-0000n.safetensors``, named by the index
+    ``{basename}.safetensors.index.json`` (HF's layout; its ``metadata``
+    holds ``total_size`` and ``metadata``)."""
+    tensors = {k: _host_tensor(k, v) for k, v in tensors.items()}
+    if max_shard_bytes is None:
+        _write_file(path, tensors, metadata)
+        return
+    shards: List[List[str]] = [[]]
+    used = 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        if shards[-1] and used + n > max_shard_bytes:
+            shards.append([])
+            used = 0
+        shards[-1].append(name)
+        used += n
+    os.makedirs(path, exist_ok=True)
+    weight_map = {}
+    for i, names in enumerate(shards):
+        fn = f"{basename}-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        _write_file(os.path.join(path, fn), {k: tensors[k] for k in names}, metadata)
+        weight_map.update({k: fn for k in names})
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    with open(os.path.join(path, f"{basename}.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total, **(metadata or {})},
+                   "weight_map": weight_map}, f, indent=1)
 
 
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
-    """Read a .safetensors file into CPU tensors."""
-    raw = Path(path).read_bytes()
-    (n,) = struct.unpack("<Q", raw[:8])
-    header = json.loads(raw[8:8 + n])
-    body = bytearray(raw[8 + n:])
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _ST_DTYPES:
-            raise TypeError(f"{path}: {name} has dtype {info['dtype']}; the "
-                            f"reader takes {sorted(_ST_DTYPES)}")
-        dtype = _ST_DTYPES[info["dtype"]]
-        begin, end = info["data_offsets"]
-        flat = torch.frombuffer(body, dtype=torch.uint8, count=end - begin,
-                                offset=begin) if end > begin else \
-            torch.empty((0,), dtype=torch.uint8)
-        out[name] = flat.clone().view(dtype).reshape(info["shape"])
-    return out
+    """A .safetensors file (or shards, ``convert.shard_files``) into CPU
+    tensors, through the port's reader ``models/convert.py::load_safetensors``."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import convert
+
+    return dict(convert.load_safetensors(path, "cpu"))
 
 
 def load_lora_weights(path: str) -> Dict[str, torch.Tensor]:

@@ -12,10 +12,19 @@ from typing import Any
 import torch
 
 
-def _fuse_three(a: dict, b: dict, c: dict) -> dict:
-    out = {"weight": torch.cat([a["weight"], b["weight"], c["weight"]], dim=0)}
+def _cat(ts) -> torch.Tensor:
+    if ts[0].device.type == "meta":
+        # a shape only: torch.cat's meta kernel would import torch._dynamo
+        # (seconds, once a process) for a checkpoint's skeleton
+        return torch.empty((sum(t.shape[0] for t in ts),) + tuple(ts[0].shape[1:]),
+                           dtype=ts[0].dtype, device="meta")
+    return torch.cat(ts, dim=0)
+
+
+def fuse_three(a: dict, b: dict, c: dict) -> dict:
+    out = {"weight": _cat([a["weight"], b["weight"], c["weight"]])}
     if "bias" in a:
-        out["bias"] = torch.cat([a["bias"], b["bias"], c["bias"]])
+        out["bias"] = _cat([a["bias"], b["bias"], c["bias"]])
     return out
 
 
@@ -27,8 +36,8 @@ def fuse_qkv(params: Any) -> Any:
     for blk in params["blocks"]:
         attn = blk["attn"]
         if "img_qkv" not in attn:
-            attn["img_qkv"] = _fuse_three(
+            attn["img_qkv"] = fuse_three(
                 attn.pop("img_q"), attn.pop("img_k"), attn.pop("img_v"))
-            attn["txt_qkv"] = _fuse_three(
+            attn["txt_qkv"] = fuse_three(
                 attn.pop("txt_q"), attn.pop("txt_k"), attn.pop("txt_v"))
     return params

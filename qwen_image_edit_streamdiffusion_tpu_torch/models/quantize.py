@@ -17,6 +17,8 @@ from __future__ import annotations
 
 from typing import Any, FrozenSet, Optional
 
+import torch
+
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
 from qwen_image_edit_streamdiffusion_tpu_torch.ops.int8 import (
     INT4_GROUP,
@@ -43,10 +45,22 @@ VL_QUANTIZE = frozenset({
 })
 
 
-def _quantize_leaf(d: dict, bits: int) -> None:
+def quantize_leaf(d: dict, bits: int) -> None:
+    """Swap the dense ``weight`` of one linear leaf for its int8, or int4,
+    codes and scales, in place."""
     w = d.pop("weight")
-    kin = w.shape[1]
-    if bits == 4 and kin % INT4_GROUP == 0 and kin % 2 == 0:
+    out, kin = w.shape
+    int4 = bits == 4 and kin % INT4_GROUP == 0 and kin % 2 == 0
+    if w.device.type == "meta":
+        # shapes only (a checkpoint's skeleton): the ops' meta kernels would
+        # import torch._dynamo, seconds once a process
+        def meta(*shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+        d.update({"w_q4": meta(out, kin // 2, dtype=torch.uint8),
+                  "scale4": meta(out, kin // INT4_GROUP, dtype=torch.float32)} if int4 else
+                 {"w_q": meta(out, kin, dtype=torch.int8),
+                  "scale": meta(out, dtype=torch.float32)})
+    elif int4:
         d.update(quantize_weight_int4(w))
     else:
         d["w_q"], d["scale"] = quantize_weight(w)
@@ -58,7 +72,7 @@ def _quantize_tree(node: Any, include: FrozenSet[str], bits: int,
     if isinstance(node, dict):
         w = node.get("weight")
         if w is not None and name in include and w.dim() == 2:
-            _quantize_leaf(node, bits)
+            quantize_leaf(node, bits)
             return
         for k, v in node.items():
             _quantize_tree(v, include, bits, k)

@@ -18,13 +18,13 @@ XLA's "SAME" does (0 before and 1 after on an even size;
 Artifacts are flat ``.safetensors`` files with ``/``-joined nested keys
 (``stages/0/blocks/1/conv2/w``); the config is inferred from the shapes, as
 the JAX ``load`` / ``load_encoder`` infer it. They are read with the port's
-own reader (``models/lora.py::load_safetensors``).
+own reader (``models/convert.py::load_safetensors``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +34,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     Params,
     conv2d,
     conv2d_init,
+    unflatten,
 )
 
 
@@ -171,34 +172,10 @@ def encode(params: Params, cfg: TinyEncoderConfig,
 # ---------------------------------------------------------------------------
 
 
-def unflatten(flat: Dict[str, Any]) -> Params:
-    """{"a/0/b": leaf} → nested dicts and lists (a digit part is a list
-    index), as the JAX ``_load_tree`` builds them."""
-    root: Params = {}
-    for key, leaf in flat.items():
-        parts = key.split("/")
-        node: Any = root
-        for i, part in enumerate(parts):
-            last = i == len(parts) - 1
-            nxt: Any = leaf if last else ([] if parts[i + 1].isdigit() else {})
-            if isinstance(node, list):
-                idx = int(part)
-                while len(node) <= idx:
-                    node.append(None)
-                if node[idx] is None:
-                    node[idx] = nxt
-                node = node[idx]
-            else:
-                if last and part in node:
-                    raise ValueError(f"duplicate key {key!r}")
-                node = node.setdefault(part, nxt)
-    return root
-
-
 def _load_tree(path: str, device) -> Params:
-    from qwen_image_edit_streamdiffusion_tpu_torch.models.lora import load_safetensors
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.convert import load_safetensors
 
-    return unflatten({k: v.to(device) for k, v in load_safetensors(path).items()})
+    return unflatten(dict(load_safetensors(path, device)), sep="/")
 
 
 def _dtype_name(t: torch.Tensor) -> str:

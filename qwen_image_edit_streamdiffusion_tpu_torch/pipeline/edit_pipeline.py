@@ -16,8 +16,10 @@ as one wave), ``num_images_per_prompt`` and :meth:`EditPipeline.edit_many`
 upload and download, ``ops/colorspace.py``) and the tiny VAE pair
 (``models/tiny_vae.py``; the tiny decoder serves the output, the tiny encoder
 the stream's temporal frames), in bf16 or on the int8 / int4 weight rungs,
-with a LoRA fused at construction. ``_denoise`` also runs the tail of a
-schedule (``start_step``), as ``pipeline/stream.py`` needs it. Multi-device
+with a LoRA fused at construction, from random weights (``create``), the
+port's params (``from_weights``) or converted checkpoints
+(``from_checkpoint``, ``models/checkpoint.py``). ``_denoise`` also runs the
+tail of a schedule (``start_step``), as ``pipeline/stream.py`` needs it. Multi-device
 meshes raise ``NotImplementedError`` naming their ROADMAP item. ``cfg_mode``,
 ``transfer_format`` and ``decoder`` are read from ``config`` on every call.
 Rows are not padded to the JAX package's {1, 2, 4, 8, 16} buckets, which bound
@@ -316,6 +318,52 @@ class EditPipeline:
                    vae_params=vae_params, encoder=encoder, device=device,
                    prompt_cache=PromptCache(encoder), latent_cache=LatentCache(),
                    tiny_vae=tiny, tiny_encoder=tiny_enc)
+
+    @classmethod
+    def from_checkpoint(cls, transformer_path: str, vae_path: str,
+                        preset: str | Preset = "qwen-image-edit-2509",
+                        config: Optional[StreamConfig] = None,
+                        vl_path: Optional[str] = None,
+                        lora_path: Optional[str] = None, device="cuda",
+                        tiny_decoder_path: Optional[str] = None,
+                        tiny_encoder_path: Optional[str] = None) -> "EditPipeline":
+        """Construction from the port's converted checkpoints
+        (``models/checkpoint.py convert``: LoRA fused → q/k/v fused →
+        int8/int4, each optional). The rung and the q/k/v layout are read
+        from each checkpoint's metadata (held against its keys; a mismatch
+        raises) and every tensor is read straight onto ``device``: a
+        pre-quantized transformer never exists in bf16 here. Then
+        :meth:`from_weights` fuses the LoRA at ``lora_path`` (refused on a
+        quantized checkpoint), fuses q/k/v and quantizes as ``config`` asks
+        (a rung other than the saved one is served with a warning). Without
+        ``vl_path`` the VL encoder is random from seed 0, as the JAX
+        ``from_checkpoint`` makes it; the tokenizer is ``SimpleTokenizer``
+        in both packages."""
+        from qwen_image_edit_streamdiffusion_tpu_torch.models import checkpoint as ckpt
+
+        if isinstance(preset, str):
+            preset = get_preset(preset)
+        config = config or StreamConfig(model_preset=preset.name)
+        check_config(config)
+        device = torch.device(device)
+        _, bits, _ = ckpt.layout(transformer_path, "transformer")
+        if lora_path and bits:
+            raise ValueError(
+                "LoRA cannot be fused into a quantized checkpoint — fuse at "
+                "conversion time instead: models.checkpoint convert --lora ... "
+                "--quantize ...")
+        if vl_path and not config.use_vl_encoder:
+            raise ValueError("vl_path is given but config.use_vl_encoder is off")
+        tfm_params = ckpt.load(transformer_path, device, preset, "transformer")
+        vae_params = ckpt.load(vae_path, device, preset, "vae")
+        vl_params = None
+        if vl_path:
+            vl_params = ckpt.load(vl_path, device, preset, "vl")
+        elif config.use_vl_encoder:
+            vl_params = qwen_vl.init(stream(0, "vl", device), preset.vl, device)
+        return cls.from_weights(preset, config, tfm_params, vae_params, vl_params, device,
+                                lora_path=lora_path, tiny_decoder_path=tiny_decoder_path,
+                                tiny_encoder_path=tiny_encoder_path, seed=0)
 
     def load_tiny_decoder(self, path: str) -> None:
         """Load a distilled tiny decoder and switch the output decode to it

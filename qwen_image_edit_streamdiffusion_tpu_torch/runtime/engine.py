@@ -28,8 +28,7 @@ and the pipeline's caches are touched only while the lock is held.
 
 Not ported: the JAX package's device watchdog (its dispatch deadline and
 probe thread answer a wedged accelerator link), so there is no
-``DeviceUnavailable``; ``create`` from converted checkpoints, which waits on
-``EditPipeline.from_checkpoint`` (ROADMAP.md queue 1 item 6).
+``DeviceUnavailable``.
 """
 
 from __future__ import annotations
@@ -135,19 +134,25 @@ class InferenceEngine:
         device="cuda",
         **kw,
     ) -> "InferenceEngine":
-        """Build the serving pipeline on ``device`` with random weights from
-        ``seed`` (``kw``: ``EditPipeline.create``'s, e.g. the tiny decoder and
-        encoder paths), then warm it up."""
+        """Build the serving pipeline on ``device``, then warm it up: with
+        ``transformer_path`` and ``vae_path`` from converted checkpoints
+        (``EditPipeline.from_checkpoint``; ``vl_path`` and ``lora_path``
+        optional), else with random weights from ``seed`` (``kw``: the tiny
+        decoder and encoder paths, and ``EditPipeline.create``'s)."""
         from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
             EditPipeline,
         )
 
         if transformer_path or vae_path or vl_path or lora_path:
-            raise NotImplementedError(
-                "serving converted checkpoints needs EditPipeline.from_checkpoint, "
-                "which is not ported to the PyTorch package yet (ROADMAP.md queue 1, "
-                "item 6)")
-        pipe = EditPipeline.create(preset, config=config, seed=seed, device=device, **kw)
+            if not (transformer_path and vae_path):
+                raise ValueError(
+                    "checkpoint serving needs BOTH transformer_path and "
+                    "vae_path (vl_path/lora_path optional)")
+            pipe = EditPipeline.from_checkpoint(
+                transformer_path, vae_path, preset=preset, config=config,
+                vl_path=vl_path, lora_path=lora_path, device=device, **kw)
+        else:
+            pipe = EditPipeline.create(preset, config=config, seed=seed, device=device, **kw)
         if warmup_cfg is None:
             warmup_cfg = os.environ.get("QIE_WARMUP_CFG", "1") == "1"
         if warmup_stream is None:

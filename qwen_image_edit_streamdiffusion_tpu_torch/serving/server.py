@@ -12,14 +12,16 @@ is installed.
 Run on the card:
 
     python -m qwen_image_edit_streamdiffusion_tpu_torch.serving.server \\
-        [--port 8086] [--preset qwen-image-edit-2509] [--device cuda]
+        [--port 8086] [--preset qwen-image-edit-2509] [--device cuda] \\
+        [--transformer DIR --vae DIR [--vl DIR] [--lora FILE]]
 
 Environment: QIE_PRESET, QIE_STEPS, QIE_SIZE (output side), QIE_INPUT_SIZE,
 QIE_CFG_MODE, QIE_DYNAMIC_BATCH, QIE_QUEUE=1 (queue instead of 429),
 QIE_TRANSFER (yuv420 default, or rgb), QIE_WARMUP_STREAM, QIE_TINY_DECODER,
 QIE_TINY_ENCODER, QIE_INT8, QIE_INT8_VL, QIE_INT4, QIE_INT4_VL, QIE_MAX_ROWS,
-QIE_HTTP_LOG. The weights are random from seed 0: serving converted
-checkpoints waits on ROADMAP.md queue 1 item 6.
+QIE_HTTP_LOG, QIE_CKPT_TRANSFORMER, QIE_CKPT_VAE, QIE_CKPT_VL, QIE_CKPT_LORA.
+Without checkpoints the weights are random from seed 0; the checkpoints are
+the port's converted format (``models/checkpoint.py convert``).
 """
 
 from __future__ import annotations
@@ -258,7 +260,9 @@ def main(argv=None):
     for name in CHECKPOINT_FLAGS:
         ap.add_argument(f"--{name}",
                         default=os.environ.get(f"QIE_CKPT_{name.upper()}"),
-                        help="converted checkpoint (not ported yet)")
+                        help=f"{name} checkpoint: the port's converted format "
+                             "(models/checkpoint.py convert); a LoRA .safetensors "
+                             "for --lora. --transformer and --vae go together")
     ap.add_argument("--tiny-decoder",
                     default=os.environ.get("QIE_TINY_DECODER"),
                     help="distilled tiny output decoder artifact; implies "
@@ -276,10 +280,10 @@ def main(argv=None):
     ap.add_argument("--int4-vl", action="store_true",
                     default=os.environ.get("QIE_INT4_VL", "") == "1")
     args = ap.parse_args(argv)
-    given = [f"--{n}" for n in CHECKPOINT_FLAGS if getattr(args, n)]
-    if given:
-        ap.error(f"{', '.join(given)}: serving converted checkpoints is not "
-                 "ported to the PyTorch package yet (ROADMAP.md queue 1, item 6)")
+    if any(getattr(args, n) for n in CHECKPOINT_FLAGS) and not (args.transformer
+                                                                and args.vae):
+        ap.error("serving a checkpoint needs both --transformer and --vae "
+                 "(--vl and --lora optional)")
 
     from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
 
@@ -305,6 +309,8 @@ def main(argv=None):
         input_size=args.input_size,
         dynamic_batch=args.dynamic_batch,
         device=args.device,
+        transformer_path=args.transformer, vae_path=args.vae,
+        vl_path=args.vl, lora_path=args.lora,
         tiny_decoder_path=args.tiny_decoder,
         tiny_encoder_path=args.tiny_encoder,
     )

@@ -5,10 +5,12 @@ Decoding must equal Pillow's pixels bit for bit (Pillow runs libjpeg-turbo:
 islow IDCT, fancy upsampling, fixed-point YCbCr→RGB) on Pillow-made JPEGs at
 q 50/90/100 in 4:4:4, 4:2:2, 4:2:0 and gray, at sizes 64², 333×517 and 17×9
 (partial blocks and MCUs on both edges), with restart intervals, every EXIF
-orientation (``ImageOps.exif_transpose``) and every PNG colour type and row
-filter. Pillow's decode of the port's JPEG must equal Pillow's decode of
-Pillow's own file (the files are byte-equal too). Unsupported variants raise
-a ``ValueError`` that names them.
+orientation (``ImageOps.exif_transpose``), whole-number sampling ratios
+above 2 (files written here: Pillow writes none), every PNG colour type and
+row filter and the 1-, 2- and 4-bit gray and palette PNGs. Pillow's decode
+of the port's JPEG must equal Pillow's decode of Pillow's own file (the
+files are byte-equal too). Unsupported variants raise a ``ValueError`` that
+names them.
 """
 
 import base64
@@ -77,6 +79,150 @@ def test_every_luma_sampling_factor(hv):
         np.testing.assert_array_equal(codec.decode(data), _pil_decode(data))
 
 
+# zigzag position k → raster index of the 8×8 block
+_ZIGZAG = sorted(range(64), key=lambda i: (i // 8 + i % 8,
+                                           i % 8 if (i // 8 + i % 8) % 2 == 0 else i // 8))
+
+
+def _segments(data: bytes, marker: int) -> list:
+    """The whole marker segments (FFxx, length, body) of one kind."""
+    out, pos = [], 2
+    while data[pos + 1] != 0xDA:
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        if data[pos + 1] == marker:
+            out.append(data[pos:pos + 2 + n])
+        pos += 2 + n
+    return out
+
+
+def _huffman_codes(dht: bytes) -> dict:
+    """{(class, id): {symbol: (code, length)}} of a DHT segment."""
+    tables, pos = {}, 4
+    while pos < len(dht):
+        tc_th, bits = dht[pos], dht[pos + 1:pos + 17]
+        vals = dht[pos + 17:pos + 17 + sum(bits)]
+        codes, code, k = {}, 0, 0
+        for length in range(1, 17):
+            for _ in range(bits[length - 1]):
+                codes[vals[k]] = (code, length)
+                code, k = code + 1, k + 1
+            code <<= 1
+        tables[(tc_th >> 4, tc_th & 15)] = codes
+        pos += 17 + sum(bits)
+    return tables
+
+
+def _jpeg_sampled(arr: np.ndarray, factors) -> bytes:
+    """A baseline JPEG of ``arr`` (H, W, 3) whose three components are
+    sampled ``factors`` ((h, v) each), written here with the quantization
+    and standard Huffman tables of Pillow's q90 file: Pillow cannot write
+    luma factors above 2. Chroma is box-averaged; the DCT is a float one
+    (only the decoders are compared)."""
+    h, w = arr.shape[:2]
+    base = _pil_jpeg(arr, quality=90, subsampling=0)
+    dqt, dht = _segments(base, 0xDB), _segments(base, 0xC4)
+    qt = {}
+    for seg in dqt:
+        pos = 4
+        while pos < len(seg):
+            qt[seg[pos] & 15] = np.frombuffer(seg[pos + 1:pos + 65], np.uint8).astype(float)
+            pos += 65
+    huff = {}
+    for seg in dht:
+        huff.update(_huffman_codes(seg))
+    x = arr.astype(float)
+    ycc = np.stack([0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2],
+                    128 - 0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2],
+                    128 + 0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2]], -1)
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    mx, my = -(-w // (8 * mh)), -(-h // (8 * mv))
+    n = np.arange(8)
+    dct = (np.cos((2 * n[None] + 1) * n[:, None] * np.pi / 16)
+           * np.where(n == 0, 0.5 ** 0.5, 1)[:, None] / 2)  # orthonormal DCT-II
+    planes = []
+    for c, (fh, fv) in enumerate(factors):
+        rh, rv = mh // fh, mv // fv
+        p = np.pad(ycc[..., c], ((0, my * mv * 8 - h), (0, mx * mh * 8 - w)), mode="edge")
+        p = p.reshape(p.shape[0] // rv, rv, p.shape[1] // rh, rh).mean((1, 3))
+        planes.append(p)
+    bits = []
+
+    def put(code: int, length: int):
+        for i in range(length - 1, -1, -1):
+            bits.append((code >> i) & 1)
+
+    def put_value(v: int):
+        size = int(abs(v)).bit_length()
+        return size, (v if v >= 0 else v + (1 << size) - 1)
+
+    pred = [0, 0, 0]
+    for by in range(my):
+        for bx in range(mx):
+            for c, (fh, fv) in enumerate(factors):
+                tq, tab = (0, 0) if c == 0 else (1, 1)
+                for v in range(fv):
+                    for u in range(fh):
+                        r0, c0 = (by * fv + v) * 8, (bx * fh + u) * 8
+                        blk = planes[c][r0:r0 + 8, c0:c0 + 8] - 128
+                        coef = (dct @ blk @ dct.T).reshape(-1)[_ZIGZAG]
+                        q = np.round(coef / qt[tq]).astype(int)
+                        size, val = put_value(q[0] - pred[c])
+                        pred[c] = q[0]
+                        put(*huff[(0, tab)][size])
+                        put(val, size)
+                        run = 0
+                        for k in range(1, 64):
+                            if q[k] == 0:
+                                run += 1
+                                continue
+                            while run > 15:
+                                put(*huff[(1, tab)][0xF0])
+                                run -= 16
+                            size, val = put_value(q[k])
+                            put(*huff[(1, tab)][(run << 4) | size])
+                            put(val, size)
+                            run = 0
+                        if run:
+                            put(*huff[(1, tab)][0x00])
+    bits += [1] * (-len(bits) % 8)
+    scan = bytearray()
+    for i in range(0, len(bits), 8):
+        byte = int("".join(map(str, bits[i:i + 8])), 2)
+        scan.append(byte)
+        if byte == 0xFF:
+            scan.append(0)
+    sof = struct.pack(">BHHB", 8, h, w, 3) + b"".join(
+        struct.pack(">BBB", c + 1, (fh << 4) | fv, 0 if c == 0 else 1)
+        for c, (fh, fv) in enumerate(factors))
+    sos = struct.pack(">B", 3) + b"".join(
+        struct.pack(">BB", c + 1, 0x00 if c == 0 else 0x11) for c in range(3)) + b"\x00\x3f\x00"
+    return (b"\xff\xd8" + b"".join(dqt) + b"\xff\xc0" + struct.pack(">H", 2 + len(sof)) + sof
+            + b"".join(dht) + b"\xff\xda" + struct.pack(">H", 2 + len(sos)) + sos + bytes(scan)
+            + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("luma", [(4, 1), (3, 1), (1, 3), (4, 2), (1, 1)], ids=str)
+def test_whole_number_sampling_ratios_above_2_match_pillow(luma):
+    """A luma sampled 4×1, 3×1, 1×3 or 4×2 against 1×1 chroma: libjpeg-turbo
+    upsamples the chroma by box replication (``int_upsample``), and the
+    port's decode equals Pillow's. (1, 1) holds the writer itself."""
+    for h, w in ((21, 37), (40, 70), (9, 5)):
+        data = _jpeg_sampled(_image(h, w, 4), [luma, (1, 1), (1, 1)])
+        got = codec.decode(data)
+        assert got.shape == (h, w, 3)
+        np.testing.assert_array_equal(got, _pil_decode(data), err_msg=f"{h}x{w}")
+
+
+def test_fractional_sampling_ratio_raises():
+    """A luma 3×1 against a chroma 2×1 is a ratio of 1.5: refused by name
+    (libjpeg: JERR_FRACT_SAMPLE_NOTIMPL)."""
+    data = _jpeg_sampled(_image(16, 48, 5), [(3, 1), (2, 1), (1, 1)])
+    with pytest.raises(ValueError, match="fractional sampling ratio"):
+        codec.decode(data)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+
+
 def test_restart_intervals_and_tiny_images():
     """DRI / RSTn every 3 MCUs and every MCU row; and images whose chroma is
     at most 2 samples wide (libjpeg-turbo replicates instead of fancy
@@ -106,9 +252,11 @@ def test_exif_orientation_matches_exif_transpose(orientation):
         assert got.shape[:2] == ((34, 21) if orientation >= 5 else (21, 34))
 
 
-def _png(px: np.ndarray, color_type: int, palette=None) -> bytes:
-    """An 8-bit PNG of ``px`` (H, W, C), each row with filter type
-    ``row % 5`` (none, sub, up, average, Paeth), encoded here."""
+def _png(px: np.ndarray, color_type: int, palette=None, depth: int = 8,
+         width: int = None) -> bytes:
+    """A PNG of ``px`` (H, W, C), each row with filter type ``row % 5``
+    (none, sub, up, average, Paeth), encoded here; below 8 bits ``px`` holds
+    the packed row bytes (C = 1) and ``width`` the pixels a row."""
     h, w = px.shape[:2]
     bpp = px.shape[2]
     rows = px.reshape(h, -1).astype(np.int32)
@@ -137,8 +285,8 @@ def _png(px: np.ndarray, color_type: int, palette=None) -> bytes:
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body) & 0xFFFFFFFF))
 
-    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
-                                                             0, 0, 0))
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", width or w, h, depth,
+                                                             color_type, 0, 0, 0))
     if palette is not None:
         data += chunk(b"PLTE", palette.tobytes())
     return data + chunk(b"IDAT", zlib.compress(b"".join(out))) + chunk(b"IEND", b"")
@@ -168,6 +316,47 @@ def test_png_color_types_and_filters_match_pillow(color_type, channels):
         img.save(buf, "PNG", compress_level=level)
         np.testing.assert_array_equal(codec.decode(buf.getvalue()),
                                       _pil_decode(buf.getvalue()))
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["gray", "palette"])
+def test_png_low_bit_depths_match_pillow(kind, depth):
+    """1-, 2- and 4-bit gray and palette PNGs (rows padded to a byte at an odd
+    width), written by Pillow, decode to Pillow's ``convert("RGB")`` bytes:
+    gray scaled ×255, ×85, ×17, palette indices looked up as they are."""
+    rng = np.random.default_rng(depth)
+    for h, w in ((13, 19), (5, 3), (1, 1)):
+        idx = rng.integers(0, 1 << depth, (h, w), np.uint8)
+        if kind == "gray" and depth == 1:
+            img = Image.fromarray(idx.astype(bool))  # mode "1": a 1-bit file
+        elif kind == "gray":
+            img = None  # Pillow writes L at 8 bits: the file is made here
+        else:
+            img = Image.fromarray(idx, "P")
+            img.putpalette(rng.integers(0, 256, (1 << depth) * 3, np.uint8).tobytes())
+        if img is not None:
+            buf = io.BytesIO()
+            img.save(buf, "PNG", **({"bits": depth} if kind == "palette" else {}))
+            data = buf.getvalue()
+        else:
+            data = _packed_gray_png(idx, depth)
+        assert struct.unpack(">B", data[24:25])[0] == depth
+        got = codec.decode(data)
+        assert got.shape == (h, w, 3)
+        np.testing.assert_array_equal(got, _pil_decode(data), err_msg=f"{h}x{w}")
+
+
+def _packed_gray_png(idx: np.ndarray, depth: int) -> bytes:
+    """A ``depth``-bit gray PNG of the sample values ``idx`` (H, W), rows
+    packed most significant bits first, each with filter type ``row % 5``
+    applied to its bytes."""
+    h, w = idx.shape
+    per = 8 // depth
+    pad = np.zeros((h, -w % per), np.uint8)
+    s = np.concatenate([idx, pad], 1).reshape(h, -1, per).astype(np.uint16)
+    shifts = np.arange(8 - depth, -1, -depth)
+    packed = (s << shifts).sum(-1).astype(np.uint8)
+    return _png(packed[..., None], 0, depth=depth, width=w)
 
 
 def test_write_png_round_trips(tmp_path):

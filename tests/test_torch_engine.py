@@ -28,6 +28,10 @@ from test_torch_stream import build_stream_pair, jax_frame_noise
 from qwen_image_edit_streamdiffusion_tpu.runtime import engine as jengine
 from qwen_image_edit_streamdiffusion_tpu_torch.core import codec, imaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
+from qwen_image_edit_streamdiffusion_tpu_torch.models import checkpoint
+from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+from qwen_image_edit_streamdiffusion_tpu_torch.models import vae
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import stream as tstream
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import EditPipeline
 from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
@@ -138,7 +142,10 @@ def test_warmup_stream_runs_session_frames(monkeypatch):
     assert flags == [True, False]
 
 
-def test_engine_create_input_size_env_and_checkpoints(monkeypatch):
+def test_engine_create_input_size_env_and_checkpoints(monkeypatch, tmp_path):
+    """The input size from the environment or the argument; checkpoint
+    serving needs both the transformer and the VAE paths (the JAX message),
+    and with both it serves from the port's converted checkpoints."""
     monkeypatch.setenv("QIE_INPUT_SIZE", "64")
     e1 = InferenceEngine.create("tiny", config=TINY_STREAM, warmup_runs=0,
                                 warmup_cfg=False, device="cpu")
@@ -146,9 +153,22 @@ def test_engine_create_input_size_env_and_checkpoints(monkeypatch):
     e2 = InferenceEngine.create("tiny", config=TINY_STREAM, warmup_runs=0,
                                 warmup_cfg=False, input_size=128, device="cpu")
     assert e2.input_size == 128
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        InferenceEngine.create("tiny", config=TINY_STREAM, transformer_path="t",
-                               vae_path="v", device="cpu")
+    for kw in ({"transformer_path": "t"}, {"vae_path": "v"}, {"vl_path": "l"}):
+        with pytest.raises(ValueError, match="needs BOTH transformer_path and vae_path"):
+            InferenceEngine.create("tiny", config=TINY_STREAM, device="cpu", **kw)
+    preset = e1.pipeline.preset
+    paths = {}
+    for name, params in (("transformer", tfm.init(stream(4, "t"), preset.model)),
+                         ("vae", vae.init(stream(4, "v"), preset.vae))):
+        paths[name] = str(tmp_path / name)
+        checkpoint.save(paths[name], params, {"component": name, "preset": "tiny"})
+    e3 = InferenceEngine.create("tiny", config=TINY_STREAM, warmup_runs=0, warmup_cfg=False,
+                                transformer_path=paths["transformer"], vae_path=paths["vae"],
+                                device="cpu")
+    out = e3.edit({"image": _b64("circle"), "prompt": "from a checkpoint", "raw_response": True})
+    assert np.asarray(out["image"]).shape == (64, 64, 3)
+    assert torch.equal(e3.pipeline.vae_params["decoder"]["conv_out"]["w"],
+                       checkpoint.load(paths["vae"], "cpu")["decoder"]["conv_out"]["w"])
 
 
 def test_dynamic_batching_coalesces_concurrent_requests(tiny_pipe):

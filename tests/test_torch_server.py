@@ -5,8 +5,10 @@ Every case of the JAX package's ``tests/test_server.py`` and ``tests/test_ws.py`
 runs against the port: endpoints, field names, status codes 200, 404, 422,
 426, 429, 500 and 503, the stream session over HTTP and over the websocket,
 the React frontend's websocket sequence, and the FastAPI factory under the
-same stub. Then a fresh process that cannot import jax, PIL or cv2 serves an
-``/edit`` of a port-encoded JPEG and decodes the reply.
+same stub. Then a fresh process that cannot import jax, PIL, cv2,
+safetensors, orbax or the JAX package serves an ``/edit`` of a port-encoded
+JPEG and decodes the reply, converts an HF-layout tree with the port's CLI
+and serves an ``/edit`` from it through the server's CLI.
 """
 
 import io
@@ -592,14 +594,21 @@ def test_raw_response_flag_not_exposed_via_http(ws_server):
 # ---------------------------------------------------------------------------
 
 
-def test_server_runs_with_jax_pil_cv2_blocked():
-    """A fresh process whose import system refuses jax, PIL, cv2 and the JAX
-    package serves one /edit of a port-encoded JPEG and decodes the reply;
-    the CLI refuses the checkpoint flags."""
+def test_server_runs_with_jax_pil_cv2_blocked(tmp_path):
+    """A fresh process whose import system refuses jax, PIL, cv2,
+    safetensors, orbax, transformers and the JAX package serves one /edit of
+    a port-encoded JPEG and decodes the reply; then the port's CLI converts
+    an HF-layout tiny tree (fabricated here, by this process) and the
+    server's CLI serves one /edit from it with --transformer --vae --vl; a
+    lone --transformer is refused."""
+    from test_torch_checkpoint import fabricate
+
+    hf = fabricate(str(tmp_path / "hf"))
     pkg = "qwen_image_edit_streamdiffusion_tpu_torch"
     code = f"""
-import importlib.abc, json, sys, threading, urllib.request
-FORBIDDEN = ("jax", "jaxlib", "PIL", "cv2", "torchvision", "qwen_image_edit_streamdiffusion_tpu")
+import importlib.abc, json, socket, sys, threading, time, urllib.request
+FORBIDDEN = ("jax", "jaxlib", "PIL", "cv2", "torchvision", "safetensors", "orbax",
+             "transformers", "qwen_image_edit_streamdiffusion_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in FORBIDDEN:
@@ -610,6 +619,7 @@ import torch
 torch.set_num_threads(2)
 from {pkg}.core import codec, imaging
 from {pkg}.core.config import StreamConfig
+from {pkg}.models import checkpoint
 from {pkg}.runtime.engine import InferenceEngine
 from {pkg}.serving.server import main, make_server
 cfg = StreamConfig(width=64, height=64, vae_image_area=64 * 64, vl_image_area=32 * 32,
@@ -620,23 +630,47 @@ srv = make_server(engine, "127.0.0.1", 0)
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 body = json.dumps({{"image": codec.to_base64_jpeg(imaging.make_test_image(80, 80, "circle")),
                    "prompt": "oil"}}).encode()
-req = urllib.request.Request(f"http://127.0.0.1:{{srv.server_address[1]}}/edit", body,
-                             {{"Content-Type": "application/json"}})
-with urllib.request.urlopen(req, timeout=120) as r:
-    assert r.status == 200
-    out = codec.decode_base64(json.loads(r.read())["image"])
+def edit(port):
+    req = urllib.request.Request(f"http://127.0.0.1:{{port}}/edit", body,
+                                 {{"Content-Type": "application/json"}})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        assert r.status == 200
+        return codec.decode_base64(json.loads(r.read())["image"])
+out = edit(srv.server_address[1])
 assert out.shape == (64, 64, 3), out.shape
 srv.shutdown()
 try:
     main(["--transformer", "t.ckpt", "--device", "cpu"])
 except SystemExit as e:
     assert e.code == 2
+src = {json.dumps({"transformer": hf["transformer"], "vae": hf["vae_torch"], "vl": hf["vl"]})}
+out_dir = {str(tmp_path / "port")!r}
+flags = []
+for comp, path in src.items():
+    checkpoint.main(["convert", "--src", path, "--component", comp, "--preset", "tiny",
+                     "--out", f"{{out_dir}}/{{comp}}", "--device", "cpu"])
+    flags += [f"--{{comp}}", f"{{out_dir}}/{{comp}}"]
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+threading.Thread(target=main, daemon=True, args=([
+    "--preset", "tiny", "--device", "cpu", "--no-warmup", "--host", "127.0.0.1",
+    "--port", str(port), "--steps", "1", "--input-size", "64", *flags],)).start()
+for _ in range(600):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{{port}}/health", timeout=5) as r:
+            break
+    except OSError:
+        time.sleep(0.1)
+out = edit(port)
+assert out.shape == (64, 64, 3), out.shape
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("ok")
 """
-    env = dict(os.environ)
+    env = dict(os.environ, QIE_SIZE="64")
     env.pop("PYTHONPATH", None)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
-    assert "queue 1, item 6" in proc.stderr
+    assert "needs both --transformer and --vae" in proc.stderr
+    assert "saved vl" in proc.stdout
