@@ -41,7 +41,9 @@ toolkit. Phases, each printing one JSON line:
              edit shape, ``use_flash_attention`` True (kernels) vs False
              (plain), held to a relative L2 tolerance; then the same blocks
              with rank-16 adapters: loss and every adapter gradient, kernels
-             (K7-K9) vs plain attention under autograd;
+             (K7-K9) vs plain attention under autograd; and one distillation
+             step on them (the teacher's v* on K1, the student on K7-K9),
+             unguided and guided, against the same step on plain attention;
 5. slice   — the flagship ``qwen-image-edit-2509`` pipeline (60-layer MMDiT,
              7B VL encoder in path, full VAE; random weights from seed 0)
              answers a warm-up, three cache-miss and two cache-hit 1024²
@@ -125,6 +127,20 @@ toolkit. Phases, each printing one JSON line:
              one profiled step (device time by kernel kind, idle share
              against the last timed step's wall); losses and
              gradients finite, gradients not all zero, adapters changed;
+   distill — progressive distillation of a 2-step LoRA on the same
+             pipeline (rank 16, remat), fed from a manifest of 1024² JPEG and
+             PNG files through ``EditDataset`` and ``BatchLoader``: a warm-up,
+             two timed steps (K1 120 for the teacher, K7 120, K8 60, K9 60
+             exactly), a guided step (scale 4 on the batch's negative rows:
+             K1 240) and a profiled step; the adapter file read back equal;
+             ``train_loop`` to step 2 with a state file, a second trainer
+             resumed from it to step 3 equal bit for bit to the first one
+             continued to step 3;
+   tiny_train — the tiny decoder and encoder distilled from the flagship's
+             VAE (width 64, 512², batch 4, 30 steps each): s a step and a
+             batch build, loss and PSNR before and after (both must
+             improve), K3 20 a decoder batch, 5 an encoder batch, 30 an
+             encoder PSNR; both artifacts saved and read back equal;
    lora    — the trained adapters exported, written with the port's
              .safetensors writer, read back, fused in place into the live
              pipeline, and one cache-hit edit served again at the same seed:
@@ -1163,6 +1179,92 @@ def phase_train_parity():
     torch.cuda.empty_cache()
 
 
+def phase_distill_parity():
+    """One distillation step's v*, loss and adapter gradients through a
+    2-block flagship-width MMDiT at the 1024² edit shape (rank-16 adapters,
+    b drawn nonzero, remat on), the teacher on K1 and the student on K7-K9,
+    against the same step on plain attention: unguided at interval 0, then
+    guided (negative text of fewer tokens, scale 4) at interval 1, the same
+    weights, intervals and ε on both sides."""
+    import dataclasses
+
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
+        ModelConfig,
+        SchedulerConfig,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import distill as dt
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    cfg = dataclasses.replace(ModelConfig(), num_layers=2)
+    params = fuse_qkv(tfm.init(stream(0, "transformer", "cuda"), cfg, "cuda"))
+    tcfg = lt.TrainConfig(rank=TRAIN_RANK, alpha=16.0)
+    lora = lt.init_lora(params, tcfg, stream(0, "lora"))
+    leaves = lt.lora_leaves(lora)
+    with torch.no_grad():
+        gen = stream(2, "lora")
+        for t in leaves[1::2]:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.01)
+    g = SIZE // 16
+    img_shapes = ((1, g, g), (1, g, g))
+    ropes = tfm.make_rope(cfg, img_shapes, TXT_LEN, "cuda")
+    sigmas = sched.make_schedule(STEPS, g * g, SchedulerConfig()).sigmas
+    x0 = randn((1, g * g, cfg.in_channels), 50, torch.bfloat16)
+    cond = randn((1, g * g, cfg.in_channels), 51, torch.bfloat16)
+    txt = randn((1, TXT_LEN, cfg.joint_dim), 52, torch.bfloat16)
+    neg = randn((1, TXT_LEN, cfg.joint_dim), 53, torch.bfloat16)
+    eps = randn((1, g * g, cfg.in_channels), 54, torch.float32)
+    mask = torch.arange(TXT_LEN, device="cuda")[None] < TXT_REAL
+    neg_mask = torch.arange(TXT_LEN, device="cuda")[None] < NEG_REAL
+    for i, scale in ((0, 0.0), (1, CFG_SCALE)):
+        dcfg = dt.DistillConfig(train=tcfg, student_steps=STEPS, teacher_cfg_scale=scale)
+        res = {}
+        for flag in (True, False):
+            kernels.reset_launches()
+            loss, v_star = dt.distill_loss(
+                params, lora, tcfg.alpha / tcfg.rank, cfg, dcfg, x0, cond, txt, mask,
+                neg, neg_mask, sigmas[i:i + 1].cuda(), sigmas[i + 1:i + 2].cuda(), eps,
+                ropes, use_flash=flag, remat=True)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            res[flag] = (loss.item(), v_star, [
+                torch.zeros_like(p) if d is None else d.float()
+                for p, d in zip(leaves, grads)], dict(kernels.LAUNCHES))
+            del loss, grads
+            torch.cuda.empty_cache()
+        (lf, vf, gf, launches), (lp, vp, gp, _) = res[True], res[False]
+        rels = [((a - b).norm() / b.norm()).item() for a, b in zip(gf, gp)
+                if b.norm().item() > 0]
+        zero_ok = all(a.norm().item() == 0 for a, b in zip(gf, gp) if b.norm().item() == 0)
+        finite = all(bool(torch.isfinite(a).all()) for a in gf) and bool(
+            torch.isfinite(vf).all())
+        v_rel = ((vf - vp).norm() / vp.norm()).item()
+        loss_rel = abs(lf - lp) / abs(lp)
+        want = {"flash_joint": 2 * 2 * (2 if dcfg.guided else 1), "flash_fwd_lse": 4,
+                "flash_bwd_dq": 2, "flash_bwd_dkv": 2, "flash_joint_stream": 0}
+        emit({"phase": "distill_parity", "layers": 2, "rank": TRAIN_RANK,
+              "interval": i, "teacher_cfg_scale": scale,
+              "tokens": 2 * g * g + TXT_LEN, "v_star_rel_l2": v_rel,
+              "loss_kernels": lf, "loss_plain": lp, "loss_rel": loss_rel,
+              "grad_rel_l2_max": max(rels), "grads_compared": len(rels),
+              "grads": len(gf), "tol": TRAIN_TOL, "finite": finite,
+              "launches_kernels": {k: launches[k] for k in want}})
+        if not (finite and zero_ok and v_rel <= TRAIN_TOL and loss_rel <= TRAIN_TOL
+                and max(rels) <= TRAIN_TOL):
+            raise AssertionError(f"distill parity (interval {i}): v* rel {v_rel}, "
+                                 f"loss rel {loss_rel}, worst gradient rel-L2 "
+                                 f"{max(rels)} > {TRAIN_TOL}")
+        check_counts(f"distill parity (interval {i})", launches, want)
+        del res, vf, vp, gf, gp
+    del params, lora, leaves
+    torch.cuda.empty_cache()
+
+
 def distinct_image(i: int, size: int = SIZE):
     """A size² gradient test image with a per-i tint, so caches miss per i."""
     import numpy as np
@@ -1362,8 +1464,11 @@ def phase_slice():
         for k, n in phase(pipe).items():
             launches[k] += n
     train_launches, adapters = phase_train(pipe)
+    distill_launches = phase_distill(pipe)
+    tiny_train_launches = phase_tiny_train(pipe)
     serve_launches = phase_lora_serve(pipe, adapters, latents["hit1"])
-    for more in (train_launches, serve_launches):
+    for more in (train_launches, distill_launches, tiny_train_launches,
+                 serve_launches):
         for k, n in more.items():
             launches[k] += n
     return launches
@@ -3006,6 +3111,262 @@ def phase_lora_serve(pipe, trained, pre_latents):
     return launches
 
 
+DISTILL_ITEMS = 4
+DISTILL_DIR = os.path.join(ROOT, "build", "chip_smoke", "data")
+
+
+def write_distill_data() -> str:
+    """A JSONL manifest of DISTILL_ITEMS 1024² items under DISTILL_DIR: each
+    condition image a JPEG (q90, the port's codec), each target a PNG; the
+    first two carry the negative prompt ""."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec, imaging
+
+    os.makedirs(DISTILL_DIR, exist_ok=True)
+    lines = []
+    for i in range(DISTILL_ITEMS):
+        item = {"image": f"in{i}.jpg", "target": f"out{i}.png", "prompt": PROMPT}
+        with open(os.path.join(DISTILL_DIR, item["image"]), "wb") as f:
+            f.write(codec.encode_jpeg(distinct_image(6000 + i), 90))
+        imaging.write_png(os.path.join(DISTILL_DIR, item["target"]),
+                          distinct_image(7000 + i))
+        if i < 2:
+            item["negative_prompt"] = NEG
+        lines.append(json.dumps(item))
+    path = os.path.join(DISTILL_DIR, "train.jsonl")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def distill_want(guided: bool, steps: int = 1) -> dict:
+    """Launches of ``steps`` distillation steps: the teacher's two forwards
+    (four guided) on K1, the student's forward twice with remat on K7, its
+    backward on K8 and K9."""
+    return {"flash_joint": steps * (4 if guided else 2) * MMDIT_LAYERS,
+            "flash_fwd_lse": steps * 2 * MMDIT_LAYERS,
+            "flash_bwd_dq": steps * MMDIT_LAYERS, "flash_bwd_dkv": steps * MMDIT_LAYERS,
+            "flash_joint_stream": 0}
+
+
+def distill_step(trainer, batch, name: str, guided: bool) -> float:
+    """One timed distillation step: wall seconds, loss, launches (held to
+    :func:`distill_want`), the clipped gradient norm and the peak bytes."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    loss = trainer.step(batch)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    delta = launch_delta(before)
+    grads = [p.grad for p in lt.lora_leaves(trainer.lora)]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads)).item()
+    emit({"phase": "distill_step", "name": name, "guided": guided,
+          "teacher_cfg_scale": trainer.dcfg.teacher_cfg_scale, "seconds": wall,
+          "loss": loss, "launches": delta, "grad_norm_clipped": gnorm,
+          "grads_finite": finite, "neg_rows": "neg_txt" in batch,
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    check_counts(f"distill/{name}", delta, distill_want(guided))
+    if not (math.isfinite(loss) and finite and gnorm > 0):
+        raise AssertionError(f"distill/{name}: loss {loss}, grads finite {finite}, "
+                             f"norm {gnorm}")
+    return wall
+
+
+def phase_distill(pipe) -> dict:
+    """Progressive distillation of the live bf16 flagship (rank 16, remat,
+    student_steps 2) on a manifest of files through ``EditDataset`` →
+    ``BatchLoader``: a warm-up and two unguided steps, a guided step
+    (scale 4, the batch's negative rows), a profiled step; ``train_loop`` to
+    step 2 with a state file, a second ``train_loop`` resumed to step 3 equal
+    to the first trainer continued to step 3; the adapter file round trip.
+    Returns the launches."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import lora
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import data
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import distill as dt
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = dict(kernels.LAUNCHES)
+    dataset = data.EditDataset.from_manifest(write_distill_data())
+    t0 = time.time()
+    batches = list(data.BatchLoader(pipe, dataset, TRAIN_ROWS, seed=0).batches(4))
+    torch.cuda.synchronize()
+    emit({"phase": "distill_batches", "seconds": time.time() - t0,
+          "batches": len(batches), "rows": TRAIN_ROWS,
+          "img_shapes": batches[0]["img_shapes"],
+          "neg_rows": ["neg_txt" in b for b in batches]})
+    with_neg = [b for b in batches if "neg_txt" in b]
+    if not with_neg:
+        raise AssertionError("no batch of the manifest carries negative rows")
+
+    dcfg = dt.DistillConfig(train=lt.TrainConfig(rank=TRAIN_RANK, alpha=16.0,
+                                                 remat=True), student_steps=STEPS)
+    trainer = dt.DistillTrainer.from_pipeline(pipe, dcfg)
+    initial = [t.detach().clone() for t in lt.lora_leaves(trainer.lora)]
+    walls = [distill_step(trainer, batches[i], name, False)
+             for i, name in enumerate(("warmup", "step0", "step1"))]
+    trainer.dcfg = dataclasses.replace(dcfg, teacher_cfg_scale=CFG_SCALE)
+    distill_step(trainer, with_neg[0], "guided", True)
+    trainer.dcfg = dcfg
+    before = dict(kernels.LAUNCHES)
+    prof = profile_call(lambda: trainer.step(batches[3]), walls[-1])
+    delta = launch_delta(before)
+    check_counts("distill/profiled", delta, distill_want(False))
+    changed = sum(not torch.equal(a, b)
+                  for a, b in zip(initial, lt.lora_leaves(trainer.lora)))
+    emit({"phase": "distill_profile", "adapters_changed": changed,
+          "adapters": len(initial), "launches": delta, **prof})
+    if changed == 0:
+        raise AssertionError("distillation changed no adapter")
+
+    path = os.path.join(ROOT, "build", "chip_smoke", "distilled.safetensors")
+    lt.save_lora(path, trainer.lora, dcfg.train)
+    sd = lt.export_lora_state_dict(trainer.lora, dcfg.train)
+    loaded = lora.load_lora_weights(path)
+    if sorted(loaded) != sorted(sd) or not all(
+            torch.equal(loaded[k], torch.from_numpy(sd[k])) for k in sd):
+        raise AssertionError("the distilled adapter file does not read back equal")
+    emit({"phase": "distill_lora_file", "file_bytes": os.path.getsize(path),
+          "tensors": len(loaded)})
+    del trainer, initial, batches, with_neg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    state = os.path.join(ROOT, "build", "chip_smoke", "distill_state.pt")
+    if os.path.exists(state):
+        os.remove(state)
+    loader = lambda: data.BatchLoader(pipe, dataset, TRAIN_ROWS, seed=1)
+    first = dt.DistillTrainer.from_pipeline(pipe, dcfg)
+    resumed = dt.DistillTrainer.from_pipeline(pipe, dcfg)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        to2 = data.train_loop(first, loader(), 2, log_every=1, state_path=state,
+                              save_every=1)
+        torch.cuda.synchronize()
+        loop_s = time.time() - t0
+        to3 = data.train_loop(resumed, loader(), 3, log_every=1, state_path=state)
+        unbroken = data.train_loop(first, loader(), 3)
+    delta = launch_delta(before)
+    printed = out.getvalue().splitlines()
+    equal = all(torch.equal(a, b) for a, b in zip(lt.lora_leaves(first.lora),
+                                                  lt.lora_leaves(resumed.lora)))
+    emit({"phase": "distill_resume", "seconds_to_step2": loop_s,
+          "losses_to_step2": to2, "losses_resumed": to3,
+          "loss_unbroken_step3": unbroken, "printed": printed,
+          "adapters_equal_unbroken": equal, "steps": [first.steps, resumed.steps],
+          "launches": delta})
+    if f"resumed from {state} at step 2" not in printed or resumed.steps != 3 \
+            or len(to3) != 1 or not equal:
+        raise AssertionError(f"distill resume: {printed}, steps {resumed.steps}, "
+                             f"adapters equal {equal}")
+    check_counts("distill/train_loop", delta, distill_want(False, 4))
+    del first, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launch_delta(start)
+
+
+TINY_TRAIN_SIZE = 512
+TINY_TRAIN_BATCH = 4
+TINY_TRAIN_STEPS = 30
+
+
+def phase_tiny_train(pipe) -> dict:
+    """Distil the tiny decoder and the tiny encoder (width 64, 2 blocks a
+    stage) from the live flagship VAE at 512², batch 4, on the synthetic
+    images: s a step and a batch build, the loss first → last, ``eval_psnr``
+    on a fixed batch before → after; K3 20 a decoder batch (the full encode
+    and decode), 5 an encoder batch, 30 an encoder ``eval_psnr`` (two full
+    decodes), 0 a step (the tiny chain is ``F.conv2d``); both artifacts
+    saved and read back equal. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import tiny_vae as tv
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import tiny_vae as tt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = dict(kernels.LAUNCHES)
+    imgs = tt._synthetic_images(TINY_TRAIN_SIZE, 8 * TINY_TRAIN_BATCH)
+    eval_imgs = tt._synthetic_images(TINY_TRAIN_SIZE, TINY_TRAIN_BATCH, seed=1)
+    full = K3_ENCODE + K3_DECODE
+    for kind, cls, build, k3_batch, k3_eval, load in (
+            ("decoder", tt.TinyVAETrainer, tt.build_decoder_batch, full, 0, tv.load),
+            ("encoder", tt.TinyEncoderTrainer, tt.build_encoder_batch, K3_ENCODE,
+             2 * K3_DECODE, tv.load_encoder)):
+        trainer = cls.from_pipeline(pipe, tt.TinyVAETrainConfig())
+        torch.cuda.reset_peak_memory_stats()
+        eval_batch = build(pipe, eval_imgs)
+        before = dict(kernels.LAUNCHES)
+        psnr0 = trainer.eval_psnr(eval_batch)
+        check_counts(f"tiny_train/{kind} eval", launch_delta(before), {"conv3x3": k3_eval})
+        rng = np.random.default_rng(0)
+        losses, batch_s, step_s = [], [], []
+        for i in range(TINY_TRAIN_STEPS):
+            pick = rng.choice(len(imgs), size=TINY_TRAIN_BATCH, replace=False)
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            batch = build(pipe, [imgs[j] for j in pick])
+            torch.cuda.synchronize()
+            batch_s.append(time.time() - t0)
+            check_counts(f"tiny_train/{kind} batch", launch_delta(before),
+                         {"conv3x3": k3_batch})
+            before = dict(kernels.LAUNCHES)
+            t0 = time.time()
+            losses.append(trainer.step(batch))
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            check_counts(f"tiny_train/{kind} step", launch_delta(before), {"conv3x3": 0})
+        psnr1 = trainer.eval_psnr(eval_batch)
+        path = os.path.join(ROOT, "build", "chip_smoke", f"tiny_{kind}.safetensors")
+        trainer.save(path)
+        params, cfg = load(path, pipe.device)
+        want = flatten(trainer.export())
+        got = flatten(params)
+        same = sorted(got) == sorted(want) and all(torch.equal(got[k], want[k])
+                                                   for k in want)
+        emit({"phase": "tiny_train", "kind": kind, "width": cfg.width,
+              "blocks_per_stage": cfg.blocks_per_stage, "dtype": cfg.dtype,
+              "size": TINY_TRAIN_SIZE, "batch": TINY_TRAIN_BATCH,
+              "steps": TINY_TRAIN_STEPS,
+              "s_step_median": statistics.median(step_s[1:]), "s_step_first": step_s[0],
+              "s_batch_median": statistics.median(batch_s[1:]),
+              "s_batch_first": batch_s[0], "loss_first": losses[0],
+              "loss_last": losses[-1], "psnr_before": psnr0, "psnr_after": psnr1,
+              "k3_batch": k3_batch, "k3_eval": k3_eval, "artifact_bytes":
+              os.path.getsize(path), "artifact_equal": same,
+              "peak_bytes": torch.cuda.max_memory_allocated()})
+        if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+                and psnr1 > psnr0 and same):
+            raise AssertionError(f"tiny_train/{kind}: loss {losses[0]} → {losses[-1]}, "
+                                 f"PSNR {psnr0} → {psnr1}, artifact equal {same}")
+        del trainer, eval_batch, batch, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launch_delta(start)
+
+
 def phase_int8():
     """The int8 rung (MMDiT and VL): K5 → K6 for every quantized linear;
     a batched-CFG miss; then a plain and a profiled miss."""
@@ -3423,6 +3784,7 @@ def main() -> int:
     per_kernel = phase_kernels()
     phase_block_parity()
     phase_train_parity()
+    phase_distill_parity()
     launches = {}
     for phase in (phase_slice, phase_int8, phase_int4, phase_checkpoint):
         for k, n in phase().items():  # each pipeline is dropped on return

@@ -135,19 +135,18 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0,
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
-    """{dotted path: leaf} of a nested dict / list tree."""
+def flatten(tree: Any, prefix: str = "", sep: str = ".") -> Dict[str, Any]:
+    """{path: leaf} of a nested dict / list tree, the keys joined by ``sep``."""
     if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(flatten(v, f"{prefix}{k}."))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(flatten(v, f"{prefix}{i}."))
-        return out
-    return {prefix[:-1]: tree}
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-len(sep)]: tree}
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f"{prefix}{k}{sep}", sep))
+    return out
 
 
 def unflatten(flat: Dict[str, Any], sep: str = ".") -> Params:

@@ -16,9 +16,11 @@ XLA's "SAME" does (0 before and 1 after on an even size;
 ``models.common.same_padding``).
 
 Artifacts are flat ``.safetensors`` files with ``/``-joined nested keys
-(``stages/0/blocks/1/conv2/w``); the config is inferred from the shapes, as
-the JAX ``load`` / ``load_encoder`` infer it. They are read with the port's
-own reader (``models/convert.py::load_safetensors``).
+(``stages/0/blocks/1/conv2/w``), the JAX package's layout, so they cross
+between the packages both ways; the config is inferred from the shapes, as
+the JAX ``load`` / ``load_encoder`` infer it. They are written and read with
+the port's own writer and reader (``models/lora.py::save_safetensors``,
+``models/convert.py::load_safetensors``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     Params,
     conv2d,
     conv2d_init,
+    flatten,
     unflatten,
 )
 
@@ -170,6 +173,15 @@ def encode(params: Params, cfg: TinyEncoderConfig,
 # ---------------------------------------------------------------------------
 # Artifacts
 # ---------------------------------------------------------------------------
+
+
+def save(path: str, params: Params) -> None:
+    """Write a decoder or encoder tree as one flat ``.safetensors`` file with
+    ``/``-joined keys, each tensor in the dtype it has (bf16 for a serving
+    artifact, f32 when the caller exported it so)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.lora import save_safetensors
+
+    save_safetensors(path, flatten(params, sep="/"))
 
 
 def _load_tree(path: str, device) -> Params:

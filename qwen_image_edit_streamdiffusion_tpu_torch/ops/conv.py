@@ -3,7 +3,9 @@
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/ops/conv.py``: the Pallas
 ``_conv_kernel`` becomes ``csrc/conv3x3.cu``. Layout NHWC activations, HWIO
 weights, as in the JAX package. The wrapper takes the plain PyTorch version
-only for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+only for tensors on the CPU; a CUDA tensor launches the kernel or raises. The
+kernel has no backward (nor has the Pallas conv a VJP): with grad mode on, an
+input that needs a gradient is refused before the launch.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K3: x (B, H, W, C) · w (3, 3, C, F) + b (F,) — stride 1, SAME."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b)
+    kernels.refuse_grad("conv3x3", x, w, b)
     if x.device.type != "cuda":
         raise RuntimeError(f"conv3x3: unsupported device {x.device}")
     if x.dtype not in _DTYPES:

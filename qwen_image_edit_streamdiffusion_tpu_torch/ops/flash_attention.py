@@ -204,6 +204,7 @@ def causal_attention(q, k, v, block_q: Optional[int] = None) -> torch.Tensor:
     or 128 query rows per CTA) defaults to :func:`causal_block_q`."""
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v)
+    kernels.refuse_grad("causal flash attention", q, k, v)
     _check_cuda(q, k, v)
     if q.shape[1] % k.shape[1] != 0 or q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention takes H % Hkv == 0, Lq == Lk")

@@ -161,6 +161,7 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     :func:`quantize_rows_plain`; K <= 32768."""
     if x.device.type == "cpu":
         return quantize_rows_plain(x)
+    kernels.refuse_grad("quantize_rows", x)
     if x.device.type != "cuda":
         raise RuntimeError(f"quantize_rows: unsupported device {x.device}")
     if x.dim() != 2:
@@ -262,6 +263,7 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     if x_q.device.type == "cpu":
         return int8_matmul_plain(x_q, x_scale, w_q, w_scale, bias, out_dtype)
     dev = x_q.device
+    kernels.refuse_grad("int8_matmul", x_scale, w_scale, bias)
     if dev.type != "cuda":
         raise RuntimeError(f"int8_matmul: unsupported device {dev}")
     if out_dtype != torch.bfloat16:

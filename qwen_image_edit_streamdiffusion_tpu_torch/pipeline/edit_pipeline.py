@@ -107,7 +107,7 @@ def _not_ported(what: str, item: str):
 def check_config(config: StreamConfig) -> None:
     """Refuse, at construction, the options the port does not run."""
     if config.mesh_cfg_axis != 1 or config.mesh_model_axis != 1:
-        _not_ported("multi-device meshes", "multi-GPU (item 7)")
+        _not_ported("multi-device meshes", "multi-GPU (item 8)")
 
 
 def _check_tiny_cfg(tcfg, vae_cfg, path: str) -> None:

@@ -141,6 +141,16 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def refuse_grad(what: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise before a launch when autograd would record the call: a kernel
+    without a backward would return a result with no graph, and the
+    gradient would be lost without a word."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no backward, and an input "
+                           "needs a gradient; run it under torch.no_grad()")
+
+
 def check(err: int, what: str) -> None:
     """Raise when a C entry point reports a CUDA error from its launch."""
     if err != 0:

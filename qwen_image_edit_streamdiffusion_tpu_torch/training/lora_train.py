@@ -282,15 +282,23 @@ def build_step(model_cfg: ModelConfig, cfg: TrainConfig,
                                txt_mask, sigmas.to(device), noise.to(device),
                                ropes, use_flash=use_flash, remat=cfg.remat)
         loss.backward()
-        for p in leaves:  # e.g. the last block's txt_out: its output is unused
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if cfg.grad_clip:
-            clip_by_global_norm_([p.grad for p in leaves], cfg.grad_clip)
-        optimizer.step()
+        apply_update(optimizer, leaves, cfg.grad_clip)
         return loss.detach()
 
     return step
+
+
+def apply_update(optimizer: torch.optim.Optimizer,
+                 leaves: Sequence[torch.Tensor], grad_clip: float) -> None:
+    """After the backward: a zero gradient for every adapter autograd did
+    not reach (e.g. the last block's txt_out, whose output is unused), the
+    global-norm clip (0 disables), then one ``optimizer`` step."""
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if grad_clip:
+        clip_by_global_norm_([p.grad for p in leaves], grad_clip)
+    optimizer.step()
 
 
 # ---------------------------------------------------------------------------

@@ -443,7 +443,8 @@ def test_port_imports_nothing_of_jax_by_ast():
 
 def test_port_runs_with_jax_blocked():
     """(n) a fresh process whose import system refuses jax, optax, PIL and
-    the JAX package runs a `tiny` CPU edit and one `tiny` train step."""
+    the JAX package runs a `tiny` CPU edit, one `tiny` LoRA train step, one
+    distillation step and one tiny-decoder step."""
     code = f"""
 import importlib.abc, sys
 FORBIDDEN = {FORBIDDEN!r}
@@ -468,6 +469,13 @@ t = lt.LoRATrainer.from_pipeline(p, lt.TrainConfig(rank=2, alpha=2.0))
 b = lt.build_batch(p, [{{"image": lt._test_image(64, "gradient"),
                         "prompt": "draw", "target": lt._test_image(64, "circle")}}])
 assert np.isfinite(t.step(b))
+from {PKG}.training import distill, tiny_vae
+d = distill.DistillTrainer.from_pipeline(p, distill.DistillConfig(
+    train=lt.TrainConfig(rank=2, alpha=2.0)))
+assert np.isfinite(d.step(b)) and d.steps == 1
+tt = tiny_vae.TinyVAETrainer.from_pipeline(p, tiny_vae.TinyVAETrainConfig(width=8))
+assert np.isfinite(tt.step(tiny_vae.build_decoder_batch(
+    p, tiny_vae._synthetic_images(32, 2))))
 bad = [m for m in sys.modules if m.split(".")[0] in FORBIDDEN]
 assert not bad, bad
 """
