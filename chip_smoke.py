@@ -177,6 +177,33 @@ toolkit. Phases, each printing one JSON line:
              quantize of the tree, its miss runs K5/K6 once per quantized
              linear; the server's CLI serves the converted tree; the full
              flagship's boot time extrapolated from the load's GB/s;
+8b. tp     — multi-GPU serving (``parallel/``): a world of 2 ranks, mesh
+             1 × 2, spawned with ``torch.multiprocessing`` (CUDA is live
+             here) and joined by ``gloo`` (NCCL refuses two ranks on one
+             card), every rank on cuda:0: the bf16 flagship at full width and
+             depth built from seed 0 a block at a time, each rank keeping its
+             tensor-parallel slices; two cond-only misses and a hit, a
+             guided batched miss, a two-image miss (K4's role) and one /edit
+             served by rank 0 over HTTP while rank 1 follows it (the
+             followed call held to the same launches and latents; a raise
+             in it fails the phase); then the int8 rung (MMDiT and VL) at
+             TP 2, one miss, its row-parallel int8 codes held to the
+             one-device K5's bit for bit. Each result's latents within
+             TP_TOL (rel-L2) of the one-process pipeline's on the same
+             request (computed in phases 5 and 6 and kept on the host); per
+             rank its weight and peak bytes, its launches (K1 120 at 12
+             local heads, K2 28 at 14 / 2 kv heads, K3 the VAE's; int8: 14
+             quantized linears a block, q/k/v unfused, a row-parallel one
+             launching K5 and K6 twice each) asserted, and the collectives a
+             forward;
+8c. mesh   — a world of 4 ranks, mesh 2 × 2 (cfg × model), the depth cut as
+             in phase 8: a ``cfg_mode="parallel"`` guided miss (each cfg
+             group one row of the pair), an ``rcfg`` miss and
+             ``num_images_per_prompt=2`` (the rows split over the cfg
+             groups), each within TP_TOL of the one-process pipeline at the
+             same cut, launches and rows asserted. The times of 8b and 8c
+             are of ranks sharing one card through host-staged collectives:
+             they say nothing of NCCL across cards;
 9. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
              of a batched-CFG miss (M = 16384, 512, 768, 2) and of a 512²
              stream keyframe with its precompute (M = 2048, 64, 1, 128),
@@ -184,7 +211,14 @@ toolkit. Phases, each printing one JSON line:
              bf16 ``F.linear`` and ``torch._int_mm`` (the s8 product alone),
              with the mix's sums a miss. It runs after the pipelines: its
              graphs capture cuBLAS on a side stream, whose workspace would
-             otherwise stay allocated through the requests above.
+             otherwise stay allocated through the requests above. Then the
+             row-parallel entries at TP 2's shapes (K5's row scales and its
+             codes of a given scale, K6's int32 sums and its epilogue on
+             them), equal to their plain versions, timed beside
+             ``torch._int_mm``, and one rank's whole row-parallel linear
+             beside the one-device linear; K1 and K2 at a rank's heads and
+             K5/K6 at the column-parallel int8 shapes. Every phase prints
+             its wall seconds (``phase_seconds``).
 
 Then it prints the kernels summary and, as the last line,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -280,7 +314,7 @@ def nvidia_smi_line() -> str:
 # the port's kernel symbols, as nvcc mangles them into the library
 KERNEL_SYMBOLS = ("flash_fwd_sm90_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                   "conv3x3_sm90_kernel", "conv3x3_f32_kernel", "int8_gemm_sm90_kernel",
-                  "int8_gemm_mma_kernel", "quantize_rows_kernel")
+                  "int8_gemm_mma_kernel", "quantize_rows_kernel", "int8_epilogue_kernel")
 # the kernels the build gate holds to wgmma (HGMMA for bf16, IGMMA for s8) +
 # TMA, no spills, no serialisation (flash_fwd_sm90_kernel<LSE, CAUSAL,
 # consumer warpgroups>: <0,0,2> is K1/K4, <1,0,2> K7, <0,1,1> and <0,1,2> K2
@@ -1460,6 +1494,7 @@ def phase_slice():
     launches = run_requests(pipe, requests, "bf16", latents)
     for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
+    tp_references(pipe)
     for phase in (phase_guided, phase_tiny, phase_stream, phase_yuv420, phase_serve):
         for k, n in phase(pipe).items():
             launches[k] += n
@@ -2435,6 +2470,16 @@ def phase_yuv420(pipe) -> dict:
 SERVE_INPUT = 512
 CLI_HEALTH_S = 120   # bound on the CLI server's start-up, until /health answers
 
+# Phases 8b/8c: the one-process latents of their requests, filled by phases 5
+# and 6 and by phase 8c itself before it spawns (host tensors)
+TP_REFS: dict = {}
+TP_TOL = 3e-2          # rel-L2 of sharded against one-process latents, bf16
+TP_IMAGES = {"miss_a": 8000, "miss_b": 8001, "guided": 8002, "two": (8003, 8004),
+             "edit": 8005, "int8": 8100, "mesh_parallel": 8200, "mesh_rcfg": 8201,
+             "mesh_num_images": 8202}
+WORLD_TIMEOUT_S = 600  # a spawned world's bound, spawn to its last record
+RANK_DEVICE = "cuda:0"  # every rank's device: the one card, shared
+
 
 def http(url: str, payload=None, timeout: float = 600):
     """(status, JSON body, wall seconds) of one GET (no payload) or POST."""
@@ -3386,6 +3431,9 @@ def phase_int8():
                     expected(True, 2, int8_per_request=INT8_MMDIT,
                              int8_miss=INT8_LM + INT8_VISION))])
     run_requests(pipe, requests, "int8")
+    with FreshCaches(pipe):
+        TP_REFS["int8"] = pipe(distinct_image(TP_IMAGES["int8"]), PROMPT,
+                               num_inference_steps=STEPS, seed=42).latents.float().cpu()
     # batched CFG: the pair runs as one forward, so K5/K6 launch as often as
     # for a cond-only miss, at twice the rows (M = 16384, 512, 768 and 2)
     serve("int8", "cfg_batched_miss", guided(pipe, "batched", distinct_image(3010)),
@@ -3741,6 +3789,647 @@ def phase_checkpoint() -> dict:
         shutil.rmtree(work, ignore_errors=False)
     return launches
 
+# ---------------------------------------------------------------------------
+# Phases 8b and 8c: worlds of ranks sharing the card through gloo
+# ---------------------------------------------------------------------------
+
+
+class Capture:
+    """A pipeline whose ``__call__`` results are kept (the latents of a
+    request served through the engine)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.results = pipe, []
+
+    def __call__(self, *args, **kwargs):
+        self.results.append(self.pipe(*args, **kwargs))
+        return self.results[-1]
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+
+def tp_edit_payload() -> dict:
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    return {"image": codec.to_base64_jpeg(distinct_image(TP_IMAGES["edit"], SERVE_INPUT)),
+            "prompt": PROMPT, "seed": 42}
+
+
+def tp_calls(pipe) -> dict:
+    """The requests of phase 8b that are held to the one-process pipeline,
+    as calls on ``pipe``: name → (call, launches, rows)."""
+    img = lambda name: distinct_image(TP_IMAGES[name])  # noqa: E731
+
+    def plain(*imgs):
+        return lambda: pipe(list(imgs) if len(imgs) > 1 else imgs[0], PROMPT,
+                            num_inference_steps=STEPS, seed=42)
+
+    return {"miss_a": (plain(img("miss_a")), expected(True), None),
+            "miss_b": (plain(img("miss_b")), expected(True), None),
+            "hit_a": (plain(img("miss_a")), expected(False), None),
+            "guided": (guided(pipe, "batched", img("guided")), expected(True), k1_rows(2)),
+            "two": (plain(*(distinct_image(i) for i in TP_IMAGES["two"])),
+                    expected(True, 2), None)}
+
+
+class FreshCaches:
+    """Empty prompt and latent caches on ``pipe`` inside the block, its own
+    put back after: requests run for a later phase's references evict no
+    entry that this phase's hits rely on."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __enter__(self):
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
+            LatentCache,
+            PromptCache,
+        )
+
+        self.saved = self.pipe.prompt_cache, self.pipe.latent_cache
+        self.pipe.prompt_cache = PromptCache(self.pipe.encoder)
+        self.pipe.latent_cache = LatentCache()
+        return self.pipe
+
+    def __exit__(self, *exc):
+        self.pipe.prompt_cache, self.pipe.latent_cache = self.saved
+
+
+def tp_references(pipe) -> None:
+    """Phase 8b's requests on the one-process bf16 pipeline (on caches of
+    their own): their latents kept on the host (the /edit's through an
+    engine with the server's input size)."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    with FreshCaches(pipe):
+        for name, (call, _, _) in tp_calls(pipe).items():
+            TP_REFS[name] = call().latents.float().cpu()
+        pipe.config = pipe.config.replace(cfg_mode="none")
+        cap = Capture(pipe)
+        InferenceEngine(pipeline=cap, input_size=SERVE_INPUT, default_steps=STEPS).edit(
+            tp_edit_payload())
+        TP_REFS["edit"] = cap.results[0].latents.float().cpu()
+    torch.cuda.synchronize()
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def held(label: str, name: str, latents, ref) -> float:
+    err = rel_l2(latents, ref)
+    emit({"phase": "tp_parity", "path": label, "name": name, "rel_l2": err, "tol": TP_TOL})
+    if not err <= TP_TOL:
+        raise AssertionError(f"{label}/{name}: rel-L2 {err} against the one-process "
+                             f"pipeline, over {TP_TOL}")
+    return err
+
+
+def rank_weights(pipe) -> dict:
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.quantize import quantized_bytes
+
+    return {"tfm": quantized_bytes(pipe.tfm_params),
+            "vl": quantized_bytes(pipe.encoder.params),
+            "vae": quantized_bytes(pipe.vae_params)}
+
+
+def rank_create(label: str, preset: str, config, mesh):
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pipe = EditPipeline.create(preset, config, seed=0, device=RANK_DEVICE, mesh=mesh)
+    torch.cuda.synchronize()
+    emit({"phase": "rank_create", "path": label, "seconds": time.time() - t0,
+          "mesh": [mesh.cfg, mesh.model], "coords": [mesh.c, mesh.m],
+          "weight_bytes": rank_weights(pipe),
+          "device_bytes": torch.cuda.memory_allocated(),
+          "peak_bytes_during_create": torch.cuda.max_memory_allocated()})
+    return pipe
+
+
+def int8_code_spy(mesh, checks: list):
+    """Wrap K5's given-scale entry for the first row-parallel linear of each
+    (M, K) the miss runs (the vision tower's proj and down, the merger, the
+    LM's o_proj and down, the MMDiT's outputs and fc2 at the text and image
+    rows): the slices gathered over the model group, the whole rows
+    quantized as one device quantizes them (K5's plain version, which phase
+    9 holds K5 to bit for bit; no launch is added to the path's counts),
+    its codes and scales held to the given-scale codes bit for bit (zero
+    padding columns left out)."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    inner, row_inner = int8.quantize_rows_given, int8.int8_linear_row
+    widths = []
+
+    def row(x, p, group):
+        widths.append(x.shape[-1])
+        return row_inner(x, p, group)
+
+    def given(x, scale):
+        codes = inner(x, scale)
+        k = widths.pop(0)
+        if [x.shape[0], k] not in [c["mk"] for c in checks]:
+            g = mesh.model_group
+            whole = distributed.all_gather(x[:, :k].contiguous(), g, dim=-1)
+            want, want_scale = int8.quantize_rows_plain(whole)
+            checks.append({"mk": [x.shape[0], k], "codes_equal": bool(torch.equal(
+                codes[:, :k], want[:, g.rank * k:(g.rank + 1) * k])),
+                "scales_equal": bool(torch.equal(scale, want_scale))})
+        return codes
+
+    return given, row
+
+
+def tp_config():
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+
+    return StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                        cfg_mode="none", mesh_model_axis=2)
+
+
+def rank_tp(mesh, refs) -> dict:
+    """Phase 8b on one rank (see the module docstring): the bf16 rung, then,
+    with every reference to its pipeline gone, the int8 rung."""
+    import torch
+
+    launches = rank_tp_bf16(mesh, refs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k, n in rank_tp_int8(mesh, refs).items():
+        launches[k] += n
+    return launches
+
+
+def rank_tp_bf16(mesh, refs) -> dict:
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import (
+        InferenceEngine,
+        LockstepPipeline,
+        follow,
+    )
+
+    rank = mesh.world_group.rank
+    label = f"tp2 bf16 rank{rank}"
+    pipe = rank_create(label, "qwen-image-edit-2509", tp_config(), mesh)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    for name, (call, want, rows) in tp_calls(pipe).items():
+        distributed.reset_stats()
+        res = serve(label, name, call, want, rows)
+        held(label, name, res[0].latents, refs[name])
+        if name == "miss_b":  # a cond-only miss: the collectives of its two forwards
+            emit({"phase": "collectives", "path": label, "request": name,
+                  "forwards": STEPS, **distributed.STATS})
+    pipe.config = pipe.config.replace(cfg_mode="none")
+    if rank == 0:
+        cap = Capture(pipe)
+        engine = InferenceEngine(pipeline=LockstepPipeline(cap, mesh.world_group),
+                                 input_size=SERVE_INPUT, default_steps=STEPS)
+        srv, url = start_server(engine)
+        try:
+            served(url, label, "edit_miss", tp_edit_payload(), expected(True))
+        finally:
+            stop_server(srv)
+            engine.pipeline.shutdown()
+        held(label, "edit_miss", cap.results[0].latents, refs["edit"])
+    else:  # the followed call, under rank 0's checks; a raise fails the phase
+        cap = Capture(pipe)
+        before = dict(kernels.LAUNCHES)
+        calls = follow(cap, mesh.world_group)
+        delta = launch_delta(before)
+        emit({"phase": "follow_request", "path": label, "name": "edit_miss",
+              "calls": calls, "launches": {k: n for k, n in delta.items() if n}})
+        if calls != 1:
+            raise AssertionError(f"{label}: followed {calls} calls, not 1")
+        check_counts(f"{label}/edit_miss", delta, expected(True))
+        held(label, "edit_miss", cap.results[0].latents, refs["edit"])
+    emit({"phase": "rank_peak", "path": label, "weight_bytes": rank_weights(pipe),
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    return dict(kernels.LAUNCHES)
+
+
+def rank_tp_int8(mesh, refs) -> dict:
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    label = f"tp2 int8 rank{mesh.world_group.rank}"
+    pipe = rank_create(label, "qwen-image-edit-2509",
+                       tp_config().replace(use_int8=True, use_int8_vl=True), mesh)
+    per_block = [sum(k.endswith(".w_q") for k in flatten(b))
+                 for b in pipe.tfm_params["blocks"]]
+    if per_block != [14] * MMDIT_LAYERS:
+        raise AssertionError(f"{label}: quantized linears a block {set(per_block)}, not 14")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    checks: list = []
+    saved = int8.quantize_rows_given, int8.int8_linear_row
+    int8.quantize_rows_given, int8.int8_linear_row = int8_code_spy(mesh, checks)
+    try:
+        res = serve(label, "miss", lambda: pipe(distinct_image(TP_IMAGES["int8"]), PROMPT,
+                                                num_inference_steps=STEPS, seed=42),
+                    expected(True, int8_per_request=14 * MMDIT_LAYERS * STEPS + ROW_REQUEST,
+                             int8_miss=INT8_LM + INT8_VISION + ROW_MISS))
+    finally:
+        int8.quantize_rows_given, int8.int8_linear_row = saved
+    emit({"phase": "tp_int8_codes", "path": label, "checks": checks})
+    if len(checks) < 9 or not all(c["codes_equal"] and c["scales_equal"] for c in checks):
+        raise AssertionError(f"{label}: row-parallel int8 codes differ from one "
+                             f"device's: {checks}")
+    held(label, "miss", res[0].latents, refs["int8"])
+    emit({"phase": "rank_peak", "path": label, "weight_bytes": rank_weights(pipe),
+          "peak_bytes": torch.cuda.max_memory_allocated()})
+    return dict(kernels.LAUNCHES)
+
+
+def mesh_calls(pipe) -> dict:
+    """Phase 8c's requests on ``pipe`` (cut depth): name → (call, launches,
+    rows of K1's calls)."""
+    k = expected(True, k1=CUT_DEPTH * STEPS, k2=CUT_DEPTH)
+    lk = TXT_LEN + 2 * (SIZE // 16) ** 2
+    return {"mesh_parallel": (guided(pipe, "parallel", distinct_image(TP_IMAGES["mesh_parallel"])),
+                              k, {"flash_joint": {f"1x{lk}": CUT_DEPTH * STEPS}}),
+            "mesh_rcfg": (guided(pipe, "rcfg", distinct_image(TP_IMAGES["mesh_rcfg"])), k,
+                          {"flash_joint": {f"2x{lk}": CUT_DEPTH,
+                                           f"1x{lk}": CUT_DEPTH * (STEPS - 1)}}),
+            "mesh_num_images": (lambda: pipe(distinct_image(TP_IMAGES["mesh_num_images"]),
+                                             PROMPT, num_inference_steps=STEPS, seed=42,
+                                             num_images_per_prompt=2),
+                                k, None)}
+
+
+def rank_mesh(mesh, refs) -> dict:
+    """Phase 8c on one rank."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+    cut_preset()
+    label = f"mesh2x2 rank{mesh.world_group.rank}"
+    config = StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                          cfg_mode="parallel", model_preset=CUT_PRESET,
+                          mesh_cfg_axis=2, mesh_model_axis=2)
+    pipe = rank_create(label, CUT_PRESET, config, mesh)
+    kernels.reset_launches()
+    calls = mesh_calls(pipe)
+    lk = TXT_LEN + 2 * (SIZE // 16) ** 2
+    for name, (call, want, rows) in calls.items():
+        if name == "mesh_num_images":  # the rows split over the cfg groups
+            rows = {"flash_joint": {f"1x{lk}": CUT_DEPTH * STEPS}}
+        res = serve(label, name, call, want, rows,
+                    outputs=2 if name == "mesh_num_images" else 1)
+        held(label, name, res[0].latents, refs[name])
+    return dict(kernels.LAUNCHES)
+
+
+RANK_PHASES = {"tp": rank_tp, "mesh": rank_mesh}
+
+
+def rank_entry(rank: int, world: int, init_file: str, queue, phase: str, refs) -> None:
+    """A spawned rank: gloo on cuda:0, the mesh, one phase; its records and
+    launches (or its traceback) go back to the parent."""
+    import traceback
+
+    records = []
+    globals()["emit"] = lambda obj: records.append({"rank": rank, **obj})
+    try:
+        import datetime
+
+        import torch
+
+        from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+        from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+        torch.cuda.set_device(RANK_DEVICE)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels.library()  # built by the parent: loaded, never built here
+        timeout = datetime.timedelta(seconds=WORLD_TIMEOUT_S)
+        distributed.initialize("gloo", RANK_DEVICE, timeout=timeout,
+                               init_method=f"file://{init_file}", rank=rank,
+                               world_size=world)
+        shape = (1, 2) if phase == "tp" else (2, 2)
+        mesh = distributed.global_mesh(*shape, timeout=timeout)
+        launches = RANK_PHASES[phase](mesh, refs)
+        queue.put((rank, {"records": records, "launches": launches}))
+    except Exception:  # reported to the parent, which fails the run
+        queue.put((rank, {"records": records, "error": traceback.format_exc()}))
+    finally:
+        from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+        distributed.shutdown()
+
+
+def run_world(phase: str, world: int, refs) -> dict:
+    """Spawn ``world`` ranks of ``phase`` (``torch.multiprocessing`` spawn:
+    CUDA is live in this process), print their records, and return their
+    launches summed; raises when a rank raised or died, and stops every
+    rank it started."""
+    import queue as queue_mod
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    fd, init_file = tempfile.mkstemp(prefix="qie_world_")
+    os.close(fd)
+    os.unlink(init_file)
+    procs = [ctx.Process(target=rank_entry, args=(r, world, init_file, q, phase, refs))
+             for r in range(world)]
+    t0 = time.time()
+    got = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world:
+            try:
+                rank, rec = q.get(timeout=5)
+                got[rank] = rec
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode not in (None, 0)]
+                if dead:
+                    raise AssertionError(f"{phase}: rank(s) {dead} died "
+                                         f"(exit {[procs[r].exitcode for r in dead]})")
+                if time.time() - t0 > WORLD_TIMEOUT_S:
+                    raise AssertionError(f"{phase}: no record from ranks "
+                                         f"{sorted(set(range(world)) - set(got))}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if os.path.exists(init_file):
+            os.unlink(init_file)
+    for rank in range(world):
+        for rec in got[rank]["records"]:
+            emit(rec)
+    errors = {r: rec["error"] for r, rec in got.items() if "error" in rec}
+    if errors:
+        raise AssertionError("\n".join(f"{phase} rank {r}:\n{e}" for r, e in errors.items()))
+    total = {}
+    for rec in got.values():
+        for k, n in rec["launches"].items():
+            total[k] = total.get(k, 0) + n
+    emit({"phase": f"{phase}_world", "ranks": world, "seconds": time.time() - t0,
+          "launches": total, "nvidia_smi": nvidia_smi_line(),
+          "note": "ranks share one card through gloo (host-staged collectives)"})
+    return total
+
+
+def phase_tp() -> dict:
+    """Phase 8b: 2 ranks, mesh 1 × 2, the full flagship (module docstring)."""
+    return run_world("tp", 2, TP_REFS)
+
+
+def phase_mesh() -> dict:
+    """Phase 8c: 4 ranks, mesh 2 × 2, CUT_PRESET; the one-process latents
+    of its requests first, on the same cut."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
+
+    cut_preset()
+    config = StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
+                          cfg_mode="parallel", model_preset=CUT_PRESET)
+    pipe = EditPipeline.create(CUT_PRESET, config, seed=0, device=RANK_DEVICE)
+    refs = {name: call().latents.float().cpu()
+            for name, (call, _, _) in mesh_calls(pipe).items()}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_world("mesh", 4, refs)
+
+
+# The row-parallel int8 linears of a TP-2 int8 miss: (name, M, K of a rank's
+# slice, N, linears a miss a rank). The vision `down` slice (1710) holds zero
+# columns up to 1712 (parallel/sharding.py::pad_codes): K5's codes and K6's
+# sums run at K = 1712, K5's row scales at 1710. Each such linear launches
+# K5 twice (its row scales, then its codes) and K6 twice (its int32 sums,
+# then its epilogue), one launch more of each than a column-parallel one.
+ROW_MIX = (("img_out", 8192, 1536, 3072, 120), ("img_fc2", 8192, 6144, 3072, 120),
+           ("txt_out", 256, 1536, 3072, 120), ("txt_fc2", 256, 6144, 3072, 120),
+           ("lm_o", LM_LEN, 1792, 3584, 28), ("lm_down", LM_LEN, 9472, 3584, 28),
+           ("vis_proj", 784, 640, 1280, 32), ("vis_down", 784, 1710, 1280, 32),
+           ("merger_fc2", 196, 2560, 3584, 1))
+# the extra K5 (and K6) launches of the row-parallel linears: every request
+# (the MMDiT's), and a miss's VL encode on top
+ROW_REQUEST = sum(n for name, *_, n in ROW_MIX if name[:3] in ("img", "txt"))
+ROW_MISS = sum(n for *_, n in ROW_MIX) - ROW_REQUEST
+
+
+# The column-parallel int8 linears of a TP-2 int8 miss at a rank's N (q/k/v
+# unfused), the modulation GEMV's 6d/2 outputs, the VL at 14 / 2 heads.
+TP_COL_MIX = (("img_q+k+v", 8192, 3072, 1536, 360), ("img_fc1", 8192, 3072, 6144, 120),
+              ("txt_q+k+v", 256, 3072, 1536, 360), ("txt_fc1", 256, 3072, 6144, 120),
+              ("img_mod+txt_mod", 1, 3072, 9216, 240), ("lm_q", LM_LEN, 3584, 1792, 28),
+              ("lm_k+lm_v", LM_LEN, 3584, 256, 56), ("lm_gate+lm_up", LM_LEN, 3584, 9472, 56),
+              ("vis_qkv", 784, 1280, 1920, 32), ("vis_gate+vis_up", 784, 1280, 1710, 64),
+              ("merger_fc1", 196, 5120, 2560, 1))
+
+
+def phase_rank_kernels() -> dict:
+    """K1, K2 and K6 at a TP-2 rank's shapes: K1 at (1, 12, 8448, 128), K2
+    at (1, 14 / 2, 384, 128) (and 7 / 1, a rank of 4), timed as phase 3
+    times them, beside SDPA and their bounds; K5 and K6 at the
+    column-parallel int8 shapes (:data:`TP_COL_MIX`, as phase 9's mixes).
+    Returns the worst error of each kernel."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    lk = TXT_LEN + 2 * (SIZE // 16) ** 2
+    q, k, v = (randn((1, 12, lk, 128), s, bf16) for s in (41, 42, 43))
+    mask = torch.ones((1, lk), dtype=torch.bool, device="cuda")
+    mask[:, TXT_REAL:TXT_LEN] = False
+    out = fa.joint_attention(q, k, v, mask, TXT_LEN)
+
+    def k1_plain():
+        return torch.cat([fa.joint_attention_plain(q[:, h:h + 4], k[:, h:h + 4],
+                                                   v[:, h:h + 4], mask)
+                          for h in range(0, 12, 4)], dim=1)
+
+    ref = k1_plain().float()
+    err = (out.float() - ref).abs().max().item()
+    rec = {"phase": "kernel", "name": "flash_attention_joint", "shape": list(q.shape),
+           "mesh": "TP 2 rank", "max_abs_err": err, "tol": attn_tolerance(ref),
+           "ms": cuda_ms(lambda: fa.joint_attention(q, k, v, mask, TXT_LEN), 10),
+           "plain_ms": cuda_ms(k1_plain, 3),
+           "library_ms": cuda_ms(lambda: sdpa(q, k, v, mask), 10),
+           **attention_bound(q, k, v, (out,), mask, 4)}
+    emit_kernel(rec)
+    if not err <= rec["tol"]:
+        raise AssertionError(f"K1 error {err} > {rec['tol']} at a rank's shape")
+    worst["flash_attention_joint"] = err
+    del q, k, v, out, ref
+    worst["flash_attention_causal"] = 0.0
+    for hq, hkv in ((14, 2), (7, 1)):
+        q = randn((1, hq, LM_LEN, 128), 44, bf16)
+        k, v = (randn((1, hkv, LM_LEN, 128), s, bf16) for s in (45, 46))
+        keep = torch.arange(LM_LEN, device="cuda") < LM_REAL
+        ref = fa.causal_attention_plain(q, k, v, keep)[:, :, :LM_REAL].float()
+        err = (fa.causal_attention(q, k, v)[:, :, :LM_REAL].float() - ref).abs().max().item()
+        rec = {"phase": "kernel", "name": "flash_attention_causal",
+               "shape": [1, hq, hkv, LM_LEN], "mesh": f"TP {28 // hq} rank",
+               "max_abs_err": err, "tol": attn_tolerance(ref),
+               **timed("", lambda: fa.causal_attention(q, k, v), K2_LAUNCHES),
+               "plain_ms": cuda_ms(lambda: fa.causal_attention_plain(q, k, v, keep), 20),
+               **timed("library_", lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+                       K2_LAUNCHES),
+               **bound(4 * hq * (LM_LEN * (LM_LEN + 1) / 2) * 128,
+                       nbytes(q, k, v) + nbytes(q), PEAK_BF16)}
+        emit_kernel(rec)
+        if not err <= rec["tol"]:
+            raise AssertionError(f"K2 error {err} > {rec['tol']} at {hq} / {hkv} heads")
+        worst["flash_attention_causal"] = max(worst["flash_attention_causal"], err)
+        del q, k, v, ref
+    torch.cuda.empty_cache()
+    int8_mix(TP_COL_MIX, "TP-2 int8 miss, column-parallel", worst)
+    return worst
+
+
+def phase_row_parallel_kernels() -> dict:
+    """K5's and K6's row-parallel entries at every row-parallel shape of a
+    TP-2 int8 miss (:data:`ROW_MIX`): K5's row scales alone and its codes of
+    a given scale, K6's int32 sums and its epilogue on them, each equal to
+    its plain version (max-abs error 0), with device time (a graph of the
+    shape's launches), wall time, plain time and bound; K6's sums beside
+    ``torch._int_mm`` (the same function: the s8 product, int32 out). Then
+    one rank's whole row-parallel linear (``int8_linear_row``, its two
+    all-reduces left out: phase 8b times those) beside the one-device int8
+    linear of the whole rows (K twice the slice's), in device time. Returns
+    the worst error of each kernel."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed, sharding
+
+    bf16 = torch.bfloat16
+    worst = {"quantize_rows": 0.0, "int8_gemm": 0.0}
+    mix: dict = {}
+    linear = {"row_ms": 0.0, "one_device_ms": 0.0}
+    real_all_reduce = distributed.all_reduce
+    for name, m, k, n, launches in ROW_MIX:
+        whole = randn((m, 2 * k), 25, bf16)
+        x = whole[:, :k].contiguous()  # rank 0's slice of the rows
+        w_q_whole, ws = int8.quantize_weight(
+            randn((n, 2 * k), 26, torch.float32).mul_(0.02).to(bf16))
+        b = randn((n,), 27, torch.float32).mul_(0.1).to(bf16)
+        wq = sharding.pad_codes(w_q_whole[:, :k]).contiguous()
+        xp = F.pad(x, (0, wq.shape[1] - k))
+        scale = int8.row_scales_plain(whole)  # the MAX over the ranks' scales
+        own = int8.row_scales(x)
+        xq = int8.quantize_rows_given(xp, scale)
+        acc = int8.int8_matmul_acc(xq, wq)
+        out = int8.int8_epilogue(acc, scale, ws, b, bf16)
+        mm = int_mm(xq, wq)
+        recs = {
+            ("quantize_rows", "row_scales"): (
+                (own - int8.row_scales_plain(x)).abs().max().item(),
+                {**timed("", lambda: int8.row_scales(x), launches),
+                 "plain_ms": cuda_ms(lambda: int8.row_scales_plain(x), 5),
+                 "library_ms": None, **bound(0, nbytes(x, own), PEAK_INT8)}),
+            ("quantize_rows", "given_scale"): (
+                (xq.int() - int8.quantize_rows_given_plain(xp, scale).int()).abs().max().item(),
+                {**timed("", lambda: int8.quantize_rows_given(xp, scale), launches),
+                 "plain_ms": cuda_ms(lambda: int8.quantize_rows_given_plain(xp, scale), 5),
+                 "library_ms": None, **bound(0, nbytes(xp, xq, scale), PEAK_INT8)}),
+            ("int8_gemm", "int32_acc"): (
+                (acc.long() - int8.int8_matmul_acc_plain(xq, wq).long()).abs().max().item(),
+                {**timed("", lambda: int8.int8_matmul_acc(xq, wq), launches),
+                 "plain_ms": cuda_ms(lambda: int8.int8_matmul_acc_plain(xq, wq), 3),
+                 "library_ms": graph_ms(mm, launches) if mm else None,
+                 **bound(2 * m * wq.shape[1] * n, nbytes(xq, wq, acc), PEAK_INT8)}),
+            ("int8_gemm", "epilogue"): (
+                (out.float() - int8.int8_epilogue_plain(acc, scale, ws, b, bf16).float()
+                 ).abs().max().item(),
+                {**timed("", lambda: int8.int8_epilogue(acc, scale, ws, b, bf16), launches),
+                 "plain_ms": cuda_ms(lambda: int8.int8_epilogue_plain(acc, scale, ws, b, bf16),
+                                     5),
+                 "library_ms": None, **bound(0, nbytes(acc, scale, ws, b, out), PEAK_INT8)}),
+        }
+        for (kname, entry), (err, rec) in recs.items():
+            emit_kernel({"phase": "kernel", "name": kname, "entry": entry, "shape": name,
+                         "mix": "TP-2 int8 miss, row-parallel", "mkn": [m, k, n],
+                         "launches_miss": launches, "max_abs_err": err, "tol": 0.0, **rec})
+            worst[kname] = max(worst[kname], err)
+            tot = mix.setdefault((kname, entry), dict.fromkeys(
+                ("ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
+            for key in tot:
+                if rec.get(key) is not None:
+                    tot[key] += launches * rec[key]
+            if err != 0:
+                raise AssertionError(f"{name}: {kname} {entry} error {err}: not equal "
+                                     "to its plain version")
+        p_row = {"w_q": wq, "scale": ws, "bias": b}
+        rank0 = SimpleNamespace(size=2, rank=0)
+        distributed.all_reduce = lambda t, group, op="sum": t
+        try:
+            row = graph_ms(lambda: int8.int8_linear_row(x, p_row, rank0), launches)
+        finally:
+            distributed.all_reduce = real_all_reduce
+        p_one = {"w_q": w_q_whole, "scale": ws, "bias": b}
+        one = graph_ms(lambda: int8.int8_linear(whole, p_one), launches)
+        emit({"phase": "row_linear", "shape": name, "mkn": [m, k, n],
+              "launches_miss": launches, "row_ms": row, "one_device_ms": one,
+              "note": "one rank's row-parallel int8 linear without its all-reduces "
+                      "beside the one-device int8 linear of the whole rows"})
+        linear["row_ms"] += launches * row
+        linear["one_device_ms"] += launches * one
+        del whole, x, xp, w_q_whole, wq, ws, b, own, xq, acc, out, scale, p_row, p_one
+        torch.cuda.empty_cache()
+    for (kname, entry), tot in mix.items():
+        if entry != "int32_acc":  # no single library call computes the others
+            tot["library_ms"] = None
+        emit({"phase": "kernel_mix", "name": kname, "per": "TP-2 int8 miss, row-parallel",
+              "entry": entry, "launches": sum(n for *_, n in ROW_MIX), **tot,
+              "bound_share": tot["bound_ms"] / tot["ms"]})
+    emit({"phase": "row_linear_mix", "per": "TP-2 int8 miss, a rank",
+          "linears": sum(n for *_, n in ROW_MIX), **linear})
+    return worst
+
+
+def timed_phase(fn):
+    """``fn`` that prints its wall seconds (``phase_seconds``) when it returns."""
+    def run():
+        t0 = time.time()
+        out = fn()
+        emit({"phase": "phase_seconds", "name": fn.__name__, "seconds": time.time() - t0})
+        return out
+
+    return run
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PKG)):
@@ -3780,21 +4469,24 @@ def main() -> int:
             raise AssertionError(f"{name}: not a wgmma/TMA kernel without spills "
                                  f"and serialisation: {rec}")
 
-    phase_resize()
-    per_kernel = phase_kernels()
-    phase_block_parity()
-    phase_train_parity()
-    phase_distill_parity()
+    timed_phase(phase_resize)()
+    per_kernel = timed_phase(phase_kernels)()
+    for phase in (phase_block_parity, phase_train_parity, phase_distill_parity):
+        timed_phase(phase)()
     launches = {}
-    for phase in (phase_slice, phase_int8, phase_int4, phase_checkpoint):
-        for k, n in phase().items():  # each pipeline is dropped on return
+    for phase in (phase_slice, phase_int8, phase_int4, phase_checkpoint, phase_tp,
+                  phase_mesh):
+        for k, n in timed_phase(phase)().items():  # each pipeline is dropped on return
             launches[k] = launches.get(k, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
     emit({"phase": "launches", "total": launches})
     for name, err in STREAM_KERNEL_ERRS.items():  # K1, K2 and K3 at the stream's shapes
         per_kernel[name]["max_abs_err"] = max(per_kernel[name]["max_abs_err"], err)
-    per_kernel.update(phase_int8_kernels())
+    per_kernel.update(timed_phase(phase_int8_kernels)())
+    for phase in (phase_row_parallel_kernels, phase_rank_kernels):
+        for name, err in timed_phase(phase)().items():
+            per_kernel[name]["max_abs_err"] = max(per_kernel[name]["max_abs_err"], err)
 
     sources = {
         "flash_attention_joint": ("csrc/flash_fwd_sm90.cu", "flash_joint",

@@ -61,6 +61,15 @@
 // launches on other streams or in CUDA graphs never share them. One kernel,
 // no atomics on the data.
 //
+// Row-parallel linears (tensor parallelism, parallel/sharding.py) take two
+// entries of each. K5: the row scales of the rank's slice alone
+// (qie_row_scales_bf16), whose MAX over the ranks is the whole row's scale,
+// then the codes of that scale (qie_quantize_rows_given_bf16), equal to one
+// device's bit for bit. K6: the exact int32 sums alone
+// (qie_int8_gemm_sm90_acc: no scales, no bias), which the ranks add, then
+// the epilogue on the sums (qie_int8_epilogue_bf16, the wgmma body's order
+// and roundings), so the output equals one device's too.
+//
 // Where K % 16 != 0 (the vision tower's `down`, K = 3420; the int4 rung's
 // only K5/K6 use) TMA cannot take the operands (its row strides are
 // multiples of 16 bytes), and the wrapper takes the earlier mma.sync body
@@ -114,8 +123,8 @@ __host__ __device__ constexpr int row_cta_threads(int tpr) {
 template <int VEC, int TPR>
 __global__ void __launch_bounds__(row_cta_threads(TPR))
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                     int8_t* __restrict__ xq, float* __restrict__ scale, int M,
-                     int K) {
+                     int8_t* __restrict__ xq, float* __restrict__ scale,
+                     const float* __restrict__ given, int M, int K) {
   using T = typename RowVec<VEC>::T;
   constexpr int kChunks = kCap / VEC;
   constexpr int kThreads = row_cta_threads(TPR);
@@ -138,27 +147,35 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
       v[c] = T{};  // zeros: |0| adds nothing to the absmax
     }
   }
-  float amax = 0.f;
+  float s = 0.f;
+  if (given == nullptr) {  // uniform over the grid: the barrier below is too
+    float amax = 0.f;
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-    const uint16_t* h = reinterpret_cast<const uint16_t*>(&v[c]);
+    for (int c = 0; c < kChunks; ++c) {
+      const uint16_t* h = reinterpret_cast<const uint16_t*>(&v[c]);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e)
-      amax = fmaxf(amax, fabsf(__uint_as_float((uint32_t)h[e] << 16)));
-  }
+      for (int e = 0; e < VEC; ++e)
+        amax = fmaxf(amax, fabsf(__uint_as_float((uint32_t)h[e] << 16)));
+    }
 #pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, d));
-  if constexpr (kWarps > 1) {
-    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
-    __syncthreads();
+    for (int d = 16; d > 0; d >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, d));
+    if constexpr (kWarps > 1) {
+      if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = amax;
+      __syncthreads();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, red[rr * kWarps + w]);
+      for (int w = 0; w < kWarps; ++w) amax = fmaxf(amax, red[rr * kWarps + w]);
+    }
+    s = __fmul_rn(fmaxf(amax, 1e-8f), 1.f / 127.f);
   }
   if (!live) return;
 
-  const float s = __fmul_rn(fmaxf(amax, 1e-8f), 1.f / 127.f);
-  if (lt == 0) scale[row] = s;
+  if (given != nullptr) {
+    s = given[row];  // the row's scale over all ranks' slices of the row
+  } else if (lt == 0) {
+    scale[row] = s;
+  }
+  if (xq == nullptr) return;  // the scales alone
   int8_t* qr = xq + row * K;
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
@@ -180,28 +197,38 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 template <int VEC, int TPR>
-int launch_quantize(const void* x, void* xq, void* scale, int M, int K,
-                    cudaStream_t s) {
+int launch_quantize(const void* x, void* xq, void* scale, const void* given,
+                    int M, int K, cudaStream_t s) {
   constexpr int kThreads = row_cta_threads(TPR);
   constexpr int kRows = kThreads / TPR;
   quantize_rows_kernel<VEC, TPR><<<(M + kRows - 1) / kRows, kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
-      static_cast<float*>(scale), M, K);
+      static_cast<float*>(scale), static_cast<const float*>(given), M, K);
   return (int)cudaGetLastError();
 }
 
 // The fewest threads a row that hold it (VEC divides K, so a row is whole
 // VEC-wide loads): a warp up to K = 1024, a CTA of 1024 threads up to 32768.
 template <int VEC>
-int launch_quantize_vec(const void* x, void* xq, void* scale, int M, int K,
-                        cudaStream_t s) {
-  if (K <= 32 * kCap) return launch_quantize<VEC, 32>(x, xq, scale, M, K, s);
-  if (K <= 64 * kCap) return launch_quantize<VEC, 64>(x, xq, scale, M, K, s);
-  if (K <= 128 * kCap) return launch_quantize<VEC, 128>(x, xq, scale, M, K, s);
-  if (K <= 256 * kCap) return launch_quantize<VEC, 256>(x, xq, scale, M, K, s);
-  if (K <= 512 * kCap) return launch_quantize<VEC, 512>(x, xq, scale, M, K, s);
-  if (K <= 1024 * kCap) return launch_quantize<VEC, 1024>(x, xq, scale, M, K, s);
+int launch_quantize_vec(const void* x, void* xq, void* scale, const void* given,
+                        int M, int K, cudaStream_t s) {
+  if (K <= 32 * kCap) return launch_quantize<VEC, 32>(x, xq, scale, given, M, K, s);
+  if (K <= 64 * kCap) return launch_quantize<VEC, 64>(x, xq, scale, given, M, K, s);
+  if (K <= 128 * kCap) return launch_quantize<VEC, 128>(x, xq, scale, given, M, K, s);
+  if (K <= 256 * kCap) return launch_quantize<VEC, 256>(x, xq, scale, given, M, K, s);
+  if (K <= 512 * kCap) return launch_quantize<VEC, 512>(x, xq, scale, given, M, K, s);
+  if (K <= 1024 * kCap) return launch_quantize<VEC, 1024>(x, xq, scale, given, M, K, s);
   return (int)cudaErrorInvalidValue;
+}
+
+int quantize_entry(const void* x, void* xq, void* scale, const void* given,
+                   int M, int K, cudaStream_t s) {
+  const uintptr_t px = (uintptr_t)x, pq = (uintptr_t)xq;
+  if (K % 8 == 0 && px % 16 == 0 && pq % 8 == 0)
+    return launch_quantize_vec<8>(x, xq, scale, given, M, K, s);
+  if (K % 4 == 0 && px % 8 == 0 && pq % 4 == 0)
+    return launch_quantize_vec<4>(x, xq, scale, given, M, K, s);
+  return launch_quantize_vec<1>(x, xq, scale, given, M, K, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -241,7 +268,8 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ CUtensorMap b_map,
                       const float* __restrict__ xs, const float* __restrict__ ws,
                       const __nv_bfloat16* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ out, int* __restrict__ partials,
+                      __nv_bfloat16* __restrict__ out, int* __restrict__ acc_out,
+                      int* __restrict__ partials,
                       int* __restrict__ counters, int M, int N, int tiles_m,
                       int tiles_n, int splits, int kb_total, int kb_per_split,
                       bool pairs, bool wide) {
@@ -318,10 +346,11 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
     // passes under the main loop: the row scales of this thread's rows, and
     // the column scale and bias of column ct of the tile, which reach the
     // other threads through shared memory.
-    const float xs_lo = live_lo ? __ldg(xs + row_lo) : 0.f;
-    const float xs_hi = live_hi ? __ldg(xs + row_lo + 8) : 0.f;
+    const bool scaled = acc_out == nullptr;
+    const float xs_lo = scaled && live_lo ? __ldg(xs + row_lo) : 0.f;
+    const float xs_hi = scaled && live_hi ? __ldg(xs + row_lo + 8) : 0.f;
     const int c_own = nb * kBN + ct;
-    const float ws_own = c_own < N ? __ldg(ws + c_own) : 0.f;
+    const float ws_own = scaled && c_own < N ? __ldg(ws + c_own) : 0.f;
     const float b_own =
         bias != nullptr && c_own < N ? __bfloat162float(bias[c_own]) : 0.f;
 
@@ -370,6 +399,30 @@ int8_gemm_sm90_kernel(const __grid_constant__ CUtensorMap a_map,
         for (int i = 0; i < 128; ++i)
           if (i & 2 ? live_hi : live_lo) acc[i] += __ldcg(q + i * 256);
       }
+    }
+
+    if (!scaled) {
+      // The exact int32 sums of the live rows, no epilogue: a row-parallel
+      // caller adds the ranks' sums first (uniform over the grid, so no
+      // thread waits at the barrier below without the others).
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half ? live_hi : live_lo)) continue;
+        int* orow = acc_out + (size_t)(row_lo + 8 * half) * N;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int col = nb * kBN + 8 * j + 2 * t4;
+          if (col >= N) continue;
+          const int a0 = acc[4 * j + 2 * half], a1 = acc[4 * j + 2 * half + 1];
+          if (pairs) {
+            *reinterpret_cast<int2*>(orow + col) = make_int2(a0, a1);
+          } else {
+            orow[col] = a0;
+            if (col + 1 < N) orow[col + 1] = a1;
+          }
+        }
+      }
+      continue;
     }
 
     // The tile's column scales and biases, one buffer of two a unit: the
@@ -638,13 +691,28 @@ int8_gemm_mma_kernel(const int8_t* __restrict__ a, const float* __restrict__ xs,
 // cudaErrorInvalidValue for a K it does not take.
 extern "C" int qie_quantize_rows_bf16(const void* x, void* xq, void* scale,
                                       int M, int K, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t px = (uintptr_t)x, pq = (uintptr_t)xq;
-  if (K % 8 == 0 && px % 16 == 0 && pq % 8 == 0)
-    return launch_quantize_vec<8>(x, xq, scale, M, K, s);
-  if (K % 4 == 0 && px % 8 == 0 && pq % 4 == 0)
-    return launch_quantize_vec<4>(x, xq, scale, M, K, s);
-  return launch_quantize_vec<1>(x, xq, scale, M, K, s);
+  return quantize_entry(x, xq, scale, nullptr, M, K,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K5's row scales alone: x (M, K) bf16 → scale (M,) f32, max(absmax,
+// 1e-8) · fl(1/127), no codes written. One rounding of a product by a
+// positive constant never decreases as the absmax grows, so the MAX of the
+// scales of a row's slices is the scale of the whole row.
+extern "C" int qie_row_scales_bf16(const void* x, void* scale, int M, int K,
+                                   void* stream) {
+  return quantize_entry(x, nullptr, scale, nullptr, M, K,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K5 with the row scales given, (M,) f32 (a row-parallel linear's scales of
+// the whole row, max(absmax over every rank's slice, 1e-8) · fl(1/127)):
+// x (M, K) bf16 → xq (M, K) int8 only, the codes of the given scales.
+extern "C" int qie_quantize_rows_given_bf16(const void* x, void* xq,
+                                            const void* scale, int M, int K,
+                                            void* stream) {
+  return quantize_entry(x, xq, nullptr, scale, M, K,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // The wgmma body, K % 16 == 0: xq (M, K) int8, xs (M,) f32, wq (N, K) int8,
@@ -656,11 +724,11 @@ extern "C" int qie_quantize_rows_bf16(const void* x, void* xq, void* scale,
 // alone (the counters are zeroed here, on `stream`, before the launch).
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a plan or operand it does not take.
-extern "C" int qie_int8_gemm_sm90(const void* xq, const void* xs, const void* wq,
-                                  const void* ws, const void* bias, void* out,
-                                  void* partials, void* counters, int M, int N,
-                                  int K, int splits, int kb_per_split, int grid,
-                                  void* stream) {
+static int int8_gemm_sm90(const void* xq, const void* xs, const void* wq,
+                          const void* ws, const void* bias, void* out,
+                          void* acc_out, void* partials, void* counters, int M,
+                          int N, int K, int splits, int kb_per_split, int grid,
+                          void* stream) {
   const int kb_total = (K + kBK - 1) / kBK;
   if (K % 16 != 0 || ((uintptr_t)xq | (uintptr_t)wq) % 16 != 0 || splits < 1 ||
       kb_per_split < 1 || (splits - 1) * kb_per_split >= kb_total ||
@@ -681,15 +749,117 @@ extern "C" int qie_int8_gemm_sm90(const void* xq, const void* xs, const void* wq
                           static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
   }
-  // a column pair as one bf16x2 store, eight columns of a row as 16 bytes
-  const bool pairs = N % 2 == 0 && (uintptr_t)out % 4 == 0;
-  const bool wide = N % 8 == 0 && (uintptr_t)out % 16 == 0;
+  // a column pair as one bf16x2 (int2) store, eight bf16 columns of a row
+  // as 16 bytes
+  const bool pairs = acc_out != nullptr
+                         ? N % 2 == 0 && (uintptr_t)acc_out % 8 == 0
+                         : N % 2 == 0 && (uintptr_t)out % 4 == 0;
+  const bool wide = acc_out == nullptr && N % 8 == 0 && (uintptr_t)out % 16 == 0;
   int8_gemm_sm90_kernel<<<grid, kThreads, kSmemBytes,
                           static_cast<cudaStream_t>(stream)>>>(
       am, bm, static_cast<const float*>(xs), static_cast<const float*>(ws),
       static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(out),
-      static_cast<int*>(partials), static_cast<int*>(counters), M, N, tiles_m,
-      tiles_n, splits, kb_total, kb_per_split, pairs, wide);
+      static_cast<int*>(acc_out), static_cast<int*>(partials),
+      static_cast<int*>(counters), M, N, tiles_m, tiles_n, splits, kb_total,
+      kb_per_split, pairs, wide);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qie_int8_gemm_sm90(const void* xq, const void* xs, const void* wq,
+                                  const void* ws, const void* bias, void* out,
+                                  void* partials, void* counters, int M, int N,
+                                  int K, int splits, int kb_per_split, int grid,
+                                  void* stream) {
+  if (xs == nullptr || ws == nullptr || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return int8_gemm_sm90(xq, xs, wq, ws, bias, out, nullptr, partials, counters,
+                        M, N, K, splits, kb_per_split, grid, stream);
+}
+
+// The wgmma body with the int32 epilogue: xq (M, K) int8 · wq (N, K) int8ᵀ →
+// acc (M, N) int32, the exact sums and nothing else (no scales, no bias),
+// for a row-parallel linear that sums them over its ranks before the f32
+// epilogue. Plan, workspace and returns as qie_int8_gemm_sm90.
+extern "C" int qie_int8_gemm_sm90_acc(const void* xq, const void* wq, void* acc,
+                                      void* partials, void* counters, int M,
+                                      int N, int K, int splits, int kb_per_split,
+                                      int grid, void* stream) {
+  if (acc == nullptr) return (int)cudaErrorInvalidValue;
+  return int8_gemm_sm90(xq, nullptr, wq, nullptr, nullptr, nullptr, acc,
+                        partials, counters, M, N, K, splits, kb_per_split, grid,
+                        stream);
+}
+
+// K6's epilogue on int32 sums (a row-parallel linear's, after the ranks'
+// all-reduce): out = bf16(((float(acc) · xs[row]) · ws[col]) + bias[col]),
+// the wgmma body's order and roundings. One thread eight columns of a row:
+// two 16-byte loads of the sums, one 16-byte store where N % 8 == 0 and the
+// operands are 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(256)
+int8_epilogue_kernel(const int* __restrict__ acc, const float* __restrict__ xs,
+                     const float* __restrict__ ws,
+                     const __nv_bfloat16* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int M, int N) {
+  const int c0 = (blockIdx.x * blockDim.x + threadIdx.x) * 8;
+  if (c0 >= N) return;
+  for (int row = blockIdx.y; row < M; row += gridDim.y) {
+    const float sx = __ldg(xs + row);
+    const size_t base = (size_t)row * N + c0;
+    if constexpr (kVec) {
+      const int4 a0 = *reinterpret_cast<const int4*>(acc + base);
+      const int4 a1 = *reinterpret_cast<const int4*>(acc + base + 4);
+      const float4 w0 = __ldg(reinterpret_cast<const float4*>(ws + c0));
+      const float4 w1 = __ldg(reinterpret_cast<const float4*>(ws + c0 + 4));
+      const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = __fmul_rn(__fmul_rn(__int2float_rn(a[e]), sx), w[e]);
+      if (bias != nullptr) {
+        const uint4 b = __ldg(reinterpret_cast<const uint4*>(bias + c0));
+        const __nv_bfloat16* bh = reinterpret_cast<const __nv_bfloat16*>(&b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __fadd_rn(v[e], __bfloat162float(bh[e]));
+      }
+      uint4 o;
+      __nv_bfloat162* oh = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) oh[p] = __floats2bfloat162_rn(v[2 * p], v[2 * p + 1]);
+      *reinterpret_cast<uint4*>(out + base) = o;
+    } else {
+      for (int e = 0; e < 8 && c0 + e < N; ++e) {
+        float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[base + e]), sx), ws[c0 + e]);
+        if (bias != nullptr) v = __fadd_rn(v, __bfloat162float(bias[c0 + e]));
+        out[base + e] = __float2bfloat16_rn(v);
+      }
+    }
+  }
+}
+
+// acc (M, N) int32, xs (M,) f32, ws (N,) f32, bias (N,) bf16 or null → out
+// (M, N) bf16. Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int qie_int8_epilogue_bf16(const void* acc, const void* xs,
+                                      const void* ws, const void* bias, void* out,
+                                      int M, int N, void* stream) {
+  if (M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = N % 8 == 0 &&
+                   (((uintptr_t)acc | (uintptr_t)ws | (uintptr_t)bias |
+                     (uintptr_t)out) % 16) == 0;
+  const int threads = (N + 7) / 8;  // one a group of eight columns
+  const dim3 grid((threads + 255) / 256, M < 65535 ? M : 65535);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* a = static_cast<const int*>(acc);
+  const float* x = static_cast<const float*>(xs);
+  const float* w = static_cast<const float*>(ws);
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(bias);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (vec) {
+    int8_epilogue_kernel<true><<<grid, 256, 0, s>>>(a, x, w, b, o, M, N);
+  } else {
+    int8_epilogue_kernel<false><<<grid, 256, 0, s>>>(a, x, w, b, o, M, N);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -129,13 +129,17 @@ def skeleton(component: str, preset, bits: Optional[int], fused: bool) -> Any:
     return vae.init(None, preset.vae, meta)
 
 
-def load(path: str, device="cuda", preset=None, component: Optional[str] = None) -> Any:
+def load(path: str, device="cuda", preset=None, component: Optional[str] = None,
+         mapped: bool = False) -> Any:
     """The param tree saved at ``path``, read one tensor at a time straight
     onto ``device``. With ``preset``, its layout (:func:`layout`, which must
     be a ``component`` checkpoint when that is given) is held against the
-    preset's init: a missing, unused or misshapen leaf raises."""
+    preset's init: a missing, unused or misshapen leaf raises. ``mapped``:
+    a tree of host views of the mapped files, nothing read yet: a rank of a
+    mesh copies its slices of them onto its device
+    (``parallel/sharding.py::shard_module``)."""
     comp, bits, fused = layout(path, component)
-    tree = unflatten(dict(cv.load_safetensors(path, torch.device(device))))
+    tree = unflatten(dict(cv.load_safetensors(path, torch.device(device), mapped)))
     if preset is not None:
         cv.check_total(tree, skeleton(comp, preset, bits, fused),
                        f"{comp} checkpoint {path!r} for preset {preset.name!r}")

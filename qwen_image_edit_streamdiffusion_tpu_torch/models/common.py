@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import int8 as int8_ops
 
 Params = Dict[str, Any]
@@ -55,6 +56,40 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "w_q4" in p:
         return int8_ops.int4_linear(x, p)
     return F.linear(x, p["weight"], p.get("bias"))
+
+
+def row_linear(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tensor:
+    """A row-parallel linear (``parallel/sharding.py``) over ``group``: x
+    holds this rank's slice of the input features and ``p`` the matching
+    slice of the weight's input dim. The partial products are summed over
+    the group and the bias is added once, after the sum (the JAX row rule
+    keeps the bias whole and psums the partial products before it). An int8
+    leaf sums exact int32 products (``ops/int8.py::int8_linear_row``). A
+    group of one rank is :func:`linear`."""
+    if group.size == 1:
+        return linear(p, x)
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    if "w_q" in p:
+        return int8_ops.int8_linear_row(x, p, group)
+    if "w_q4" in p:
+        y = int8_ops.int4_linear(x, p, group)
+    else:
+        y = F.linear(x, p["weight"])
+    distributed.all_reduce(y, group)
+    b = p.get("bias")
+    return y if b is None else y + b.to(y.dtype)
+
+
+def gather_linear(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tensor:
+    """A column-parallel linear whose output is needed whole (the
+    modulation vectors, the vision patch embedding): this rank's output
+    features, all-gathered along the last dim in rank order."""
+    if group.size == 1:
+        return linear(p, x)
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    return distributed.all_gather(linear(p, x), group, dim=-1)
 
 
 def rms_norm_init(dim: int, dtype, device) -> Params:

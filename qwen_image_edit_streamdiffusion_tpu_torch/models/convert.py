@@ -557,7 +557,8 @@ def read_header(path: str) -> Tuple[Dict[str, Any], int]:
         return json.loads(f.read(n)), 8 + n
 
 
-def _read_file(path: str, device) -> Iterator[Tuple[str, torch.Tensor]]:
+def _read_file(path: str, device, mapped: bool = False
+               ) -> Iterator[Tuple[str, torch.Tensor]]:
     header, start = read_header(path)
     entries = sorted(((k, v) for k, v in header.items() if k != "__metadata__"),
                      key=lambda kv: kv[1]["data_offsets"][0])
@@ -581,6 +582,19 @@ def _read_file(path: str, device) -> Iterator[Tuple[str, torch.Tensor]]:
     with open(path, "rb") as f:
         # a private mapping: writable for torch.frombuffer, never written
         mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_COPY)
+    if mapped:
+        # host views of the mapping, read only where a slice of them is
+        # copied; the views keep the mapping open
+        for name, info in entries:
+            begin, end = info["data_offsets"]
+            dtype = ST_DTYPES[info["dtype"]]
+            if end == begin:
+                yield name, torch.empty(info["shape"], dtype=dtype)
+                continue
+            yield name, torch.frombuffer(
+                mm, dtype=dtype, count=(end - begin) // dtype.itemsize,
+                offset=start + begin).reshape(info["shape"])
+        return
     try:
         for name, info in entries:
             begin, end = info["data_offsets"]
@@ -600,12 +614,14 @@ def _read_file(path: str, device) -> Iterator[Tuple[str, torch.Tensor]]:
         mm.close()
 
 
-def load_safetensors(path: str, device="cpu") -> Iterator[Tuple[str, torch.Tensor]]:
+def load_safetensors(path: str, device="cpu", mapped: bool = False
+                     ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(key, tensor) of every tensor of a .safetensors file, an index json's
     shards or a directory of shards (:func:`shard_files`), one at a time,
     copied onto ``device`` in its stored dtype (F32, F16, BF16, I8, U8).
     Each shard is memory-mapped while it is read, and each tensor's pages
     are released once it is copied, so the host holds one tensor's bytes,
-    not a shard's."""
+    not a shard's. ``mapped``: host views of the mapped files instead,
+    nothing copied (a sharded load copies each rank's slices of them)."""
     for fn in shard_files(path):
-        yield from _read_file(fn, device)
+        yield from _read_file(fn, device, mapped)

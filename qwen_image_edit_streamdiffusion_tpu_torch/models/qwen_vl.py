@@ -14,6 +14,15 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/models/qwen_vl.py``:
   wave of requests shares its vision work and batches its LM rows
   (``encode_many``).
 
+Under a mesh (``QwenVLEncoder(mesh=...)``) the encoder holds its slices of
+the leaves over the axes ``parallel/sharding.py::vl_axes`` picks (every axis
+where the q, kv and vision heads divide, else ``model``, else none) and
+runs on its own heads: q/k/v, the SwiGLU gate/up, the merger's ``fc1`` and
+the patch embed are column-parallel (the patch embed all-gathered),
+``o_proj``, ``down``, the vision ``proj`` and the merger's ``fc2``
+row-parallel, and the embed table's hidden dim is all-gathered after the
+lookup. :func:`vl_groups` gives each site's group.
+
 The tokenizer, chat template and position tables below are pure Python/numpy,
 copied verbatim from the JAX module (which imports jax and cannot be reused).
 """
@@ -32,19 +41,23 @@ import torch.nn.functional as F
 
 from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import VLConfig
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group, Mesh
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     Params,
+    gather_linear,
     gelu_tanh,
     linear,
     linear_init,
     rms_norm,
     rms_norm_init,
+    row_linear,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
     SYSTEM_PROMPT,
     PromptEmbedding,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import flash_attention as fa
+from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import image_fingerprint
 
 _NEG_INF = -1e30
@@ -54,8 +67,28 @@ _NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 
 
-def _swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x))
+def _swiglu(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tensor:
+    return row_linear(p["down"], F.silu(linear(p["gate"], x)) * linear(p["up"], x),
+                      group)
+
+
+def vl_groups(cfg: VLConfig, mesh: Optional[Mesh]) -> Dict[str, Group]:
+    """The group of each sharded site of the encoder under ``mesh`` (all of
+    one rank without a mesh): the fit of :func:`sharding.vl_axes` to the
+    dimension that the site splits, as its leaves' specs slice it."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import sharding
+
+    axes = sharding.vl_axes(mesh, cfg) if mesh is not None else ()
+
+    def g(dim: int) -> Group:
+        return sharding.site_group(mesh, axes, dim)
+
+    return {"lm_attn": g(cfg.hidden_size), "lm_mlp": g(cfg.intermediate_size),
+            "vis_attn": g(cfg.vision_hidden), "vis_mlp": g(cfg.vision_intermediate),
+            "merger": g(cfg.vision_hidden * cfg.spatial_merge_size ** 2)}
+
+
+_ONE_RANK = {k: SINGLE for k in ("lm_attn", "lm_mlp", "vis_attn", "vis_mlp", "merger")}
 
 
 def _swiglu_init(gen, dim: int, hidden: int, dtype, device, bias: bool = False
@@ -81,20 +114,21 @@ def _apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def vision_init(gen, cfg: VLConfig, device="cpu") -> Params:
+def vision_init(gen, cfg: VLConfig, device="cpu", block_hook=None) -> Params:
     dtype = getattr(torch, cfg.dtype)
     d = cfg.vision_hidden
     patch_in = 3 * cfg.temporal_patch_size * cfg.patch_size * cfg.patch_size
+    hook = block_hook or (lambda prefix, blk: blk)
     blocks = []
-    for _ in range(cfg.vision_depth):
-        blocks.append({
+    for i in range(cfg.vision_depth):
+        blocks.append(hook(("vision", "blocks", str(i)), {
             "norm1": rms_norm_init(d, dtype, device),
             "qkv": linear_init(gen, d, 3 * d, dtype, device),
             "proj": linear_init(gen, d, d, dtype, device),
             "norm2": rms_norm_init(d, dtype, device),
             "mlp": _swiglu_init(gen, d, cfg.vision_intermediate, dtype, device,
                                 bias=True),
-        })
+        }))
     merge_dim = d * cfg.spatial_merge_size ** 2
     return {
         "patch_embed": linear_init(gen, patch_in, d, dtype, device, bias=False),
@@ -142,20 +176,24 @@ def _plain_attention(q, k, v, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 def vision_forward(params: Params, cfg: VLConfig, patches: torch.Tensor,
-                   gh: int, gw: int) -> torch.Tensor:
+                   gh: int, gw: int, groups: Optional[Dict[str, Group]] = None
+                   ) -> torch.Tensor:
     """patches (gh·gw, 3·tp·p²), row-major grid, or (B, gh·gw, 3·tp·p²) for
     B images of one grid (the JAX ``_vision_fn_batched``'s vmap) → merged
     vision tokens (gh·gw/4, vision_out_dim), or (B, …). Windows are padded
     to the longest and padded key slots are masked (the static form of HF's
-    varlen window attention)."""
+    varlen window attention). ``groups``: :func:`vl_groups` of the mesh
+    whose slices ``params`` holds."""
     if patches.dim() == 2:
-        return vision_forward(params, cfg, patches[None], gh, gw)[0]
-    nh = cfg.vision_heads
-    d = cfg.vision_hidden
-    hd = d // nh
+        return vision_forward(params, cfg, patches[None], gh, gw, groups)[0]
+    groups = groups or _ONE_RANK
+    ga = groups["vis_attn"]
+    hd = cfg.vision_hidden // cfg.vision_heads
+    nh = cfg.vision_heads // ga.size  # this rank's heads
+    da = nh * hd
     dev = patches.device
     bsz = patches.shape[0]
-    x = linear(params["patch_embed"], patches)  # (B, L, d)
+    x = gather_linear(params["patch_embed"], patches, ga)  # (B, L, d)
     l = gh * gw
 
     cos_np, sin_np = _vision_rope(cfg, gh, gw)
@@ -186,21 +224,24 @@ def vision_forward(params: Params, cfg: VLConfig, patches: torch.Tensor,
         if i in cfg.fullatt_block_indexes:
             o = _plain_attention(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), None)  # (B, nh, L, hd)
-            o = o.transpose(1, 2).reshape(bsz, l, d)
+            o = o.transpose(1, 2).reshape(bsz, l, da)
         else:
             qw, kw, vw = (t[:, idx].transpose(2, 3) for t in (q, k, v))
             o = _plain_attention(qw, kw, vw, key_mask)  # (B, nw, nh, wmax, hd)
-            o = o.transpose(2, 3).reshape(bsz, nw * wmax, d)[:, flat]
-        x = x + linear(blk["proj"], o)
-        x = x + _swiglu(blk["mlp"], rms_norm(blk["norm2"], x, cfg.rms_eps))
+            o = o.transpose(2, 3).reshape(bsz, nw * wmax, da)[:, flat]
+        x = x + row_linear(blk["proj"], o, ga)
+        x = x + _swiglu(blk["mlp"], rms_norm(blk["norm2"], x, cfg.rms_eps),
+                        groups["vis_mlp"])
 
     x = x[:, inv_perm]  # back to row-major grid order
     m = cfg.spatial_merge_size
+    d = cfg.vision_hidden
     x = rms_norm(params["merger"]["ln_q"], x, cfg.rms_eps)
     x = x.reshape(bsz, gh // m, m, gw // m, m, d).permute(0, 1, 3, 2, 4, 5)
     x = x.reshape(bsz, (gh // m) * (gw // m), m * m * d)
-    return linear(params["merger"]["fc2"],
-                  gelu_tanh(linear(params["merger"]["fc1"], x)))
+    return row_linear(params["merger"]["fc2"],
+                      gelu_tanh(linear(params["merger"]["fc1"], x)),
+                      groups["merger"])
 
 
 # ---------------------------------------------------------------------------
@@ -208,16 +249,17 @@ def vision_forward(params: Params, cfg: VLConfig, patches: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def lm_init(gen, cfg: VLConfig, device="cpu") -> Params:
+def lm_init(gen, cfg: VLConfig, device="cpu", block_hook=None) -> Params:
     dtype = getattr(torch, cfg.dtype)
+    hook = block_hook or (lambda prefix, blk: blk)
     d = cfg.hidden_size
     kv_dim = cfg.num_kv_heads * (d // cfg.num_heads)
     embed = torch.empty((cfg.vocab_size, d), dtype=dtype, device=device)
     if embed.device.type != "meta":
         embed.normal_(0.0, 0.02, generator=gen)
     blocks = []
-    for _ in range(cfg.num_layers):
-        blocks.append({
+    for i in range(cfg.num_layers):
+        blocks.append(hook(("lm", "blocks", str(i)), {
             "input_norm": rms_norm_init(d, dtype, device),
             "q_proj": linear_init(gen, d, d, dtype, device),
             "k_proj": linear_init(gen, d, kv_dim, dtype, device),
@@ -225,13 +267,16 @@ def lm_init(gen, cfg: VLConfig, device="cpu") -> Params:
             "o_proj": linear_init(gen, d, d, dtype, device, bias=False),
             "post_norm": rms_norm_init(d, dtype, device),
             "mlp": _swiglu_init(gen, d, cfg.intermediate_size, dtype, device),
-        })
+        }))
     return {"embed": embed, "blocks": blocks, "norm": rms_norm_init(d, dtype, device)}
 
 
-def init(gen, cfg: VLConfig, device="cpu") -> Params:
-    """Counterpart of the JAX ``_init_all``: {"vision", "lm"}."""
-    return {"vision": vision_init(gen, cfg, device), "lm": lm_init(gen, cfg, device)}
+def init(gen, cfg: VLConfig, device="cpu", block_hook=None) -> Params:
+    """Counterpart of the JAX ``_init_all``: {"vision", "lm"}.
+    ``block_hook(("vision" | "lm", "blocks", str(i)), block)`` replaces each
+    block as soon as it is drawn."""
+    return {"vision": vision_init(gen, cfg, device, block_hook),
+            "lm": lm_init(gen, cfg, device, block_hook)}
 
 
 def _mrope_tables(cfg: VLConfig, pos: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -276,17 +321,22 @@ def _lm_attention(q, k, v, attn_mask: Optional[torch.Tensor],
 def lm_forward(params: Params, cfg: VLConfig, input_embeds: torch.Tensor,
                cos: torch.Tensor, sin: torch.Tensor,
                attn_mask: Optional[torch.Tensor] = None,
-               use_flash: bool = True) -> torch.Tensor:
+               use_flash: bool = True,
+               groups: Optional[Dict[str, Group]] = None) -> torch.Tensor:
     """Causal decoder → final hidden states: one sequence (L, hidden) with
     cos/sin (L, head_dim) and attn_mask (L,), or B rows (B, L, hidden) with
-    (B, L, head_dim) and (B, L) (the JAX ``_lm_fn_batched``'s vmap)."""
+    (B, L, head_dim) and (B, L) (the JAX ``_lm_fn_batched``'s vmap).
+    ``groups``: :func:`vl_groups` of the mesh whose slices ``params`` holds
+    (this rank's q and kv heads; the head dim is the global one)."""
     if input_embeds.dim() == 2:
         mask = None if attn_mask is None else attn_mask[None]
         return lm_forward(params, cfg, input_embeds[None], cos[None], sin[None],
-                          mask, use_flash)[0]
+                          mask, use_flash, groups)[0]
+    groups = groups or _ONE_RANK
+    ga = groups["lm_attn"]
     d = cfg.hidden_size
-    nh, nkv = cfg.num_heads, cfg.num_kv_heads
-    hd = d // nh
+    hd = d // cfg.num_heads
+    nh, nkv = cfg.num_heads // ga.size, cfg.num_kv_heads // ga.size
     b, l = input_embeds.shape[:2]
     cos_b, sin_b = cos[:, None], sin[:, None]
 
@@ -300,8 +350,9 @@ def lm_forward(params: Params, cfg: VLConfig, input_embeds: torch.Tensor,
         k = _apply_rope_half(heads(linear(blk["k_proj"], h), nkv), cos_b, sin_b)
         v = heads(linear(blk["v_proj"], h), nkv).contiguous()
         o = _lm_attention(q.contiguous(), k.contiguous(), v, attn_mask, use_flash)
-        x = x + linear(blk["o_proj"], o.transpose(1, 2).reshape(b, l, d))
-        x = x + _swiglu(blk["mlp"], rms_norm(blk["post_norm"], x, cfg.rms_eps))
+        x = x + row_linear(blk["o_proj"], o.transpose(1, 2).reshape(b, l, nh * hd), ga)
+        x = x + _swiglu(blk["mlp"], rms_norm(blk["post_norm"], x, cfg.rms_eps),
+                        groups["lm_mlp"])
     return rms_norm(params["norm"], x, cfg.rms_eps)
 
 
@@ -467,8 +518,16 @@ class QwenVLEncoder:
 
     def __init__(self, cfg: VLConfig, params: Params, device="cuda",
                  tokenizer=None, max_len: int = 256,
-                 drop_idx: Optional[int] = None, use_flash: bool = True):
+                 drop_idx: Optional[int] = None, use_flash: bool = True,
+                 mesh: Optional[Mesh] = None):
+        """``mesh``: the mesh whose slices ``params`` holds
+        (``parallel/sharding.py::shard_vl_params``); every rank of it must
+        make the same calls."""
         self.cfg = cfg
+        self.groups = vl_groups(cfg, mesh)
+        # the forwards' keyword under a mesh (a one-rank call keeps its
+        # one-rank signature)
+        self._tp = {} if mesh is None else {"groups": self.groups}
         self.joint_dim = cfg.hidden_size
         self.max_len = max_len
         self.drop_idx = drop_idx
@@ -519,7 +578,7 @@ class QwenVLEncoder:
             patches = torch.stack([patches_from_image(
                 torch.from_numpy(np.ascontiguousarray(uniq[fp][0])).to(self.device),
                 cfg, gh, gw, dtype) for fp in fps])
-            out = vision_forward(self.params["vision"], cfg, patches, gh, gw)
+            out = vision_forward(self.params["vision"], cfg, patches, gh, gw, **self._tp)
             for i, fp in enumerate(fps):
                 vision[fp] = out[i]
 
@@ -574,12 +633,15 @@ class QwenVLEncoder:
         # cover the special ids
         ids_t = torch.from_numpy(ids).to(dev)
         emb = lm["embed"][ids_t.clamp(0, lm["embed"].shape[0] - 1)]
+        # a hidden-sharded table: the rank's columns of each row, gathered
+        emb = distributed.all_gather(emb, self.groups["lm_attn"], dim=-1)
         for row, r in enumerate(recs):
             for s0, vt in zip(starts, r["vts"]):
                 emb[row, s0:s0 + vt.shape[0]] = vt.to(emb.dtype)
         return lm_forward(lm, self.cfg, emb, torch.from_numpy(np.stack(cos)).to(dev),
                           torch.from_numpy(np.stack(sin)).to(dev),
-                          torch.from_numpy(mask).to(dev), use_flash=self.use_flash)
+                          torch.from_numpy(mask).to(dev), use_flash=self.use_flash,
+                          **self._tp)
 
     def _finalize_hidden(self, hidden: torch.Tensor, drop_len: int,
                          n_real: int) -> PromptEmbedding:

@@ -17,14 +17,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from qwen_image_edit_streamdiffusion_tpu_torch.core.config import ModelConfig
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     Params,
+    gather_linear,
     gelu_tanh,
     layer_norm,
     linear,
     linear_init,
     rms_norm,
     rms_norm_init,
+    row_linear,
     timestep_embedding,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import rope as rope_ops
@@ -70,8 +73,12 @@ def _block_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     }
 
 
-def init(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> Params:
-    """Random-init params on ``device`` in ``cfg.dtype`` (unfused q/k/v)."""
+def init(gen: torch.Generator, cfg: ModelConfig, device="cpu",
+         block_hook=None) -> Params:
+    """Random-init params on ``device`` in ``cfg.dtype`` (unfused q/k/v).
+    ``block_hook(("blocks", str(i)), block)`` replaces each block as soon as
+    it is drawn, before the next (a sharded build slices it there)."""
+    hook = block_hook or (lambda prefix, blk: blk)
     dtype = getattr(torch, cfg.dtype)
     d = cfg.inner_dim
     return {
@@ -82,8 +89,8 @@ def init(gen: torch.Generator, cfg: ModelConfig, device="cpu") -> Params:
             "fc1": linear_init(gen, cfg.time_freq_dim, d, dtype, device),
             "fc2": linear_init(gen, d, d, dtype, device),
         },
-        "blocks": [_block_init(gen, cfg, dtype, device)
-                   for _ in range(cfg.num_layers)],
+        "blocks": [hook(("blocks", str(i)), _block_init(gen, cfg, dtype, device))
+                   for i in range(cfg.num_layers)],
         "norm_out": {"linear": linear_init(gen, d, 2 * d, dtype, device)},
         "proj_out": linear_init(gen, d, cfg.out_channels, dtype, device),
     }
@@ -135,8 +142,9 @@ def _modulate(x: torch.Tensor, mod: torch.Tensor, eps: float):
 
 
 def _joint_attention(p: Params, cfg: ModelConfig, img, txt, ropes: RopeTables,
-                     txt_mask: Optional[torch.Tensor], use_flash: bool):
-    nh = cfg.num_heads
+                     txt_mask: Optional[torch.Tensor], use_flash: bool,
+                     tp: Group = SINGLE):
+    nh = cfg.num_heads // tp.size  # this rank's heads
     if "img_qkv" in p:  # fused projections (models.optimize.fuse_qkv)
         iq, ik, iv = (_heads(t, nh) for t in linear(p["img_qkv"], img).chunk(3, -1))
         tq, tk, tv = (_heads(t, nh) for t in linear(p["txt_qkv"], txt).chunk(3, -1))
@@ -171,27 +179,28 @@ def _joint_attention(p: Params, cfg: ModelConfig, img, txt, ropes: RopeTables,
     out = _unheads(attention(q, k, v, kv_mask=kv_mask, use_flash=use_flash,
                              mask_len=txt.shape[1]))
     lt = txt.shape[1]
-    return linear(p["img_out"], out[:, lt:]), linear(p["txt_out"], out[:, :lt])
+    return (row_linear(p["img_out"], out[:, lt:], tp),
+            row_linear(p["txt_out"], out[:, :lt], tp))
 
 
 def _block(p: Params, cfg: ModelConfig, img, txt, temb_act, ropes,
-           txt_mask, use_flash: bool):
-    img_mod1, img_mod2 = linear(p["img_mod"], temb_act).chunk(2, dim=-1)
-    txt_mod1, txt_mod2 = linear(p["txt_mod"], temb_act).chunk(2, dim=-1)
+           txt_mask, use_flash: bool, tp: Group = SINGLE):
+    img_mod1, img_mod2 = gather_linear(p["img_mod"], temb_act, tp).chunk(2, dim=-1)
+    txt_mod1, txt_mod2 = gather_linear(p["txt_mod"], temb_act, tp).chunk(2, dim=-1)
 
     img_n, img_gate1 = _modulate(img, img_mod1, cfg.eps)
     txt_n, txt_gate1 = _modulate(txt, txt_mod1, cfg.eps)
     img_attn, txt_attn = _joint_attention(p["attn"], cfg, img_n, txt_n, ropes,
-                                          txt_mask, use_flash)
+                                          txt_mask, use_flash, tp)
     img = torch.addcmul(img, img_gate1.to(img.dtype), img_attn)
     txt = torch.addcmul(txt, txt_gate1.to(txt.dtype), txt_attn)
 
     img_n, img_gate2 = _modulate(img, img_mod2, cfg.eps)
     txt_n, txt_gate2 = _modulate(txt, txt_mod2, cfg.eps)
-    img = torch.addcmul(img, img_gate2.to(img.dtype), linear(
-        p["img_mlp"]["fc2"], gelu_tanh(linear(p["img_mlp"]["fc1"], img_n))))
-    txt = torch.addcmul(txt, txt_gate2.to(txt.dtype), linear(
-        p["txt_mlp"]["fc2"], gelu_tanh(linear(p["txt_mlp"]["fc1"], txt_n))))
+    img = torch.addcmul(img, img_gate2.to(img.dtype), row_linear(
+        p["img_mlp"]["fc2"], gelu_tanh(linear(p["img_mlp"]["fc1"], img_n)), tp))
+    txt = torch.addcmul(txt, txt_gate2.to(txt.dtype), row_linear(
+        p["txt_mlp"]["fc2"], gelu_tanh(linear(p["txt_mlp"]["fc1"], txt_n)), tp))
     return img, txt
 
 
@@ -200,7 +209,7 @@ def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
             ropes: RopeTables, txt_mask: Optional[torch.Tensor] = None,
             use_flash: bool = True, remat: bool = False,
             blocks_extra: Optional[Sequence] = None,
-            block_map=None) -> torch.Tensor:
+            block_map=None, tp: Group = SINGLE) -> torch.Tensor:
     """Velocity for every image token: (B, L_img, out_channels).
 
     remat=True checkpoints each block (``torch.utils.checkpoint``,
@@ -208,7 +217,14 @@ def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
     streams and reruns the block. block_map(block_params, extra) derives a
     block's effective params from its entry of ``blocks_extra`` (LoRA
     adapters) inside the checkpointed region, so the merged weights are
-    recomputed in the backward and never saved."""
+    recomputed in the backward and never saved.
+
+    tp: this rank's model group when the block leaves hold its slices
+    (``parallel/sharding.py``): q/k/v, ``fc1`` and the modulations are
+    column-parallel, ``img_out`` / ``txt_out`` / ``fc2`` row-parallel (one
+    all-reduce each, the bias added after it), the modulation vectors
+    all-gathered before they are chunked; attention runs on the rank's
+    ``num_heads / tp`` heads. The top-level leaves are whole."""
     img = linear(params["img_in"], img_tokens)
     txt = linear(params["txt_in"], rms_norm(params["txt_norm"], txt_embeds, cfg.eps))
 
@@ -220,7 +236,7 @@ def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
     def apply(blk, extra, img, txt):
         if block_map is not None:
             blk = block_map(blk, extra)
-        return _block(blk, cfg, img, txt, temb_act, ropes, txt_mask, use_flash)
+        return _block(blk, cfg, img, txt, temb_act, ropes, txt_mask, use_flash, tp)
 
     extras = (blocks_extra if blocks_extra is not None
               else [None] * len(params["blocks"]))

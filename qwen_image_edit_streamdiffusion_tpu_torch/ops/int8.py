@@ -31,6 +31,13 @@ kernel where K % 16 == 0, and the ``mma.sync`` kernel where K % 16 != 0
 (TMA's row strides are multiples of 16 bytes; on the path only the vision
 tower's ``down``, K = 3420).
 
+Under tensor parallelism a row-parallel int8 linear (:func:`int8_linear_row`)
+takes two entries of K5 and two of K6: the slice's row scales
+(:func:`row_scales`), whose MAX over the ranks is the whole row's scale; the
+codes of that scale (:func:`quantize_rows_given`); the slice's exact int32
+sums (:func:`int8_matmul_acc`), which the ranks add; and the epilogue on
+the sums (:func:`int8_epilogue`): the one-device result, bit for bit.
+
 Layouts are the port's: an int8 leaf is ``{"w_q": (out, in) int8, "scale":
 (out,) f32, "bias"}``; an int4 leaf is ``{"w_q4": (out, in/2) uint8,
 "scale4": (out, in/64) f32, "bias"}``, where byte ``[o, j]`` holds input
@@ -105,10 +112,24 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, dtype,
     return w.reshape(out, half * 2)
 
 
-def int4_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+def int4_linear(x: torch.Tensor, p: dict, group=None) -> torch.Tensor:
     """Weight-only int4: dequantize in the activation dtype, then a dense
-    product. Saves memory, not time. Plain PyTorch, as XLA ran it."""
-    w = dequantize_int4(p["w_q4"], p["scale4"], x.dtype)
+    product. Saves memory, not time. Plain PyTorch, as XLA ran it.
+
+    With ``group`` (a row-parallel leaf, ``models/common.py::row_linear``)
+    the leaf holds this rank's input columns and the bias is left to the
+    caller. Its ``scale4`` may be whole, where the ranks' slices cut the
+    64-wide groups (the sharding rules replicate a dim that does not divide):
+    each column then takes its group's scale."""
+    packed, scale = p["w_q4"], p["scale4"]
+    if group is not None:
+        k_local = packed.shape[1] * 2
+        if scale.shape[1] * INT4_GROUP != k_local:
+            cols = scale.repeat_interleave(INT4_GROUP, dim=1)
+            scale = cols[:, group.rank * k_local:(group.rank + 1) * k_local]
+            return F.linear(x, dequantize_int4(packed, scale, x.dtype, group=1))
+        return F.linear(x, dequantize_int4(packed, scale, x.dtype))
+    w = dequantize_int4(packed, scale, x.dtype)
     b = p.get("bias")
     return F.linear(x, w, None if b is None else b.to(x.dtype))
 
@@ -134,6 +155,34 @@ def int8_matmul_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
     below 2⁵³ (|acc| ≤ 127² · K). Epilogue as in the module docstring."""
     acc = torch.matmul(x_q.double(), w_q.double().t()).float()
     out = acc * x_scale.float().reshape(-1, 1) * w_scale.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def row_scales_plain(x: torch.Tensor) -> torch.Tensor:
+    """(M, K) float → (M, 1) f32 row scales, :func:`quantize_rows_plain`'s."""
+    return x.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) * RCP127
+
+
+def quantize_rows_given_plain(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(M, K) float, (M, 1) f32 row scales → (M, K) int8 codes of those
+    scales (:func:`quantize_rows_plain`'s codes, the scale given)."""
+    return torch.round(x.float() / scale).clamp(-127, 127).to(torch.int8)
+
+
+def int8_matmul_acc_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """x_q (M, K) int8 · w_q (N, K) int8ᵀ → the exact (M, N) int32 sums."""
+    return torch.matmul(x_q.double(), w_q.double().t()).to(torch.int32)
+
+
+def int8_epilogue_plain(acc: torch.Tensor, x_scale: torch.Tensor,
+                        w_scale: torch.Tensor, bias: Optional[torch.Tensor],
+                        out_dtype) -> torch.Tensor:
+    """K6's epilogue on int32 sums, in its order: ((acc · x_scale) · w_scale)
+    + bias in f32 (one rounding each, as K6's __fmul_rn / __fadd_rn), then
+    one cast — :func:`int8_matmul_plain` after its product."""
+    out = acc.float() * x_scale.float().reshape(-1, 1) * w_scale.float()
     if bias is not None:
         out = out + bias.float()
     return out.to(out_dtype)
@@ -179,6 +228,58 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     kernels.check(err, "quantize_rows")
     kernels.LAUNCHES["quantize_rows"] += 1
     return x_q, scale
+
+
+def row_scales(x: torch.Tensor) -> torch.Tensor:
+    """K5's row scales alone: (M, K) bf16 → (M, 1) f32, bit-identical to
+    :func:`row_scales_plain`; no codes are written. K <= 32768. Counted
+    under K5."""
+    if x.device.type == "cpu":
+        return row_scales_plain(x)
+    kernels.refuse_grad("row_scales", x)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"row_scales: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"row_scales: x must be (M, K), got {tuple(x.shape)}")
+    _check("row_scales: x", x, torch.bfloat16, x.device)
+    m, k = x.shape
+    if m == 0 or k == 0 or k > QUANTIZE_MAX_K:
+        raise ValueError(f"row_scales: x {tuple(x.shape)}; K must be in "
+                         f"[1, {QUANTIZE_MAX_K}]")
+    lib = kernels.library()
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    err = lib.qie_row_scales_bf16(x.data_ptr(), scale.data_ptr(), m, k,
+                                  kernels.current_stream_handle(x.device))
+    kernels.check(err, "row_scales")
+    kernels.LAUNCHES["quantize_rows"] += 1
+    return scale
+
+
+def quantize_rows_given(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K5 with the row scales given: (M, K) bf16, (M, 1) f32 → (M, K) int8,
+    bit-identical to :func:`quantize_rows_given_plain`; K <= 32768. Counted
+    under K5."""
+    if x.device.type == "cpu":
+        return quantize_rows_given_plain(x, scale)
+    kernels.refuse_grad("quantize_rows_given", x, scale)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"quantize_rows_given: unsupported device {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"quantize_rows_given: x must be (M, K), got {tuple(x.shape)}")
+    _check("quantize_rows_given: x", x, torch.bfloat16, x.device)
+    _check("quantize_rows_given: scale", scale, torch.float32, x.device)
+    m, k = x.shape
+    if m == 0 or k == 0 or k > QUANTIZE_MAX_K or scale.numel() != m:
+        raise ValueError(f"quantize_rows_given: x {tuple(x.shape)}, scale "
+                         f"{tuple(scale.shape)}; K must be in [1, {QUANTIZE_MAX_K}]")
+    lib = kernels.library()
+    x_q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    err = lib.qie_quantize_rows_given_bf16(x.data_ptr(), x_q.data_ptr(),
+                                           scale.data_ptr(), m, k,
+                                           kernels.current_stream_handle(x.device))
+    kernels.check(err, "quantize_rows_given")
+    kernels.LAUNCHES["quantize_rows"] += 1
+    return x_q
 
 
 # K6's wgmma body: 128 × 256 output tiles, K in 128-byte slabs
@@ -321,6 +422,85 @@ def int8_matmul(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     return out
 
 
+def int8_matmul_acc(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """K6 with its int32 epilogue: x_q (M, K) int8 · w_q (N, K) int8ᵀ → the
+    exact (M, N) int32 sums, equal to :func:`int8_matmul_acc_plain`; the
+    wgmma body only (K % 16 == 0, 16-byte aligned operands). Counted under
+    K6."""
+    if x_q.device.type == "cpu":
+        return int8_matmul_acc_plain(x_q, w_q)
+    dev = x_q.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"int8_matmul_acc: unsupported device {dev}")
+    if x_q.dim() != 2 or w_q.dim() != 2 or x_q.shape[1] != w_q.shape[1]:
+        raise ValueError(f"int8_matmul_acc: x_q {tuple(x_q.shape)}, w_q {tuple(w_q.shape)}")
+    _check("int8_matmul_acc: x_q", x_q, torch.int8, dev)
+    _check("int8_matmul_acc: w_q", w_q, torch.int8, dev)
+    m, k = x_q.shape
+    n = w_q.shape[0]
+    if m == 0 or n == 0 or k == 0 or k % 16 or k > 1 << 17:
+        raise ValueError(f"int8_matmul_acc: M={m}, N={n}, K={k}; K must be a "
+                         "positive multiple of 16, at most 2^17")
+    if x_q.data_ptr() % 16 or w_q.data_ptr() % 16:
+        raise ValueError("int8_matmul_acc: x_q and w_q must be 16-byte aligned")
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = gemm_plan(m, n, k, _SMS[dev.index])
+    lib = kernels.library()
+    acc = torch.empty((m, n), dtype=torch.int32, device=dev)
+    partials = counters = None
+    if plan.splits > 1:
+        part_ints = plan.units * BLOCK_M * BLOCK_N
+        work = torch.empty(part_ints + plan.tiles, dtype=torch.int32, device=dev)
+        partials, counters = work.data_ptr(), work[part_ints:].data_ptr()
+    err = lib.qie_int8_gemm_sm90_acc(
+        x_q.data_ptr(), w_q.data_ptr(), acc.data_ptr(), partials, counters,
+        m, n, k, plan.splits, plan.kb_per_split, plan.grid,
+        kernels.current_stream_handle(dev))
+    kernels.check(err, "int8_matmul_acc")
+    kernels.LAUNCHES["int8_gemm"] += 1
+    return acc
+
+
+def int8_epilogue(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor], out_dtype) -> torch.Tensor:
+    """K6's epilogue on int32 sums: acc (M, N) int32, x_scale (M, 1) f32,
+    w_scale (N,) f32, bias (N,) or None → (M, N) ``out_dtype`` (bf16 on the
+    card), bit-identical to :func:`int8_epilogue_plain`. Counted under K6."""
+    if acc.device.type == "cpu":
+        return int8_epilogue_plain(acc, x_scale, w_scale, bias, out_dtype)
+    dev = acc.device
+    kernels.refuse_grad("int8_epilogue", x_scale, w_scale, bias)
+    if dev.type != "cuda":
+        raise RuntimeError(f"int8_epilogue: unsupported device {dev}")
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"int8_epilogue: output must be bfloat16, got {out_dtype}")
+    if acc.dim() != 2:
+        raise ValueError(f"int8_epilogue: acc must be (M, N), got {tuple(acc.shape)}")
+    m, n = acc.shape
+    _check("int8_epilogue: acc", acc, torch.int32, dev)
+    _check("int8_epilogue: x_scale", x_scale, torch.float32, dev)
+    _check("int8_epilogue: w_scale", w_scale, torch.float32, dev)
+    if x_scale.numel() != m or w_scale.numel() != n:
+        raise ValueError(f"int8_epilogue: scales {tuple(x_scale.shape)}, "
+                         f"{tuple(w_scale.shape)} for M={m}, N={n}")
+    if bias is not None:
+        _check("int8_epilogue: bias", bias, torch.bfloat16, dev)
+        if bias.numel() != n:
+            raise ValueError(f"int8_epilogue: bias {tuple(bias.shape)} for N={n}")
+    if m == 0 or n == 0:
+        raise ValueError(f"int8_epilogue: M={m}, N={n}")
+    lib = kernels.library()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    err = lib.qie_int8_epilogue_bf16(
+        acc.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
+        bias.data_ptr() if bias is not None else None, out.data_ptr(), m, n,
+        kernels.current_stream_handle(dev))
+    kernels.check(err, "int8_epilogue")
+    kernels.LAUNCHES["int8_gemm"] += 1
+    return out
+
+
 def int8_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     """Quantized replacement for ``common.linear``: (..., in) → (..., out)
     in x's dtype. K5 then K6 on a CUDA tensor; their plain versions on the
@@ -329,4 +509,36 @@ def int8_linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     x_q, x_scale = quantize_rows(x.reshape(-1, x.shape[-1]).contiguous())
     out = int8_matmul(x_q, x_scale, p["w_q"], p["scale"], p.get("bias"),
                       out_dtype=x.dtype)
+    return out.reshape(*lead, -1)
+
+
+def int8_linear_row(x: torch.Tensor, p: dict, group) -> torch.Tensor:
+    """Row-parallel int8 linear over ``group`` (a ``core.meshes.Group``): x
+    (..., in/n) holds this rank's slice of each input row and ``p["w_q"]``
+    the matching columns. Equal, bit for bit, to the int8 linear of the
+    whole row on one device (the JAX ``int8_matmul_xla`` under GSPMD):
+
+    - K5 (:func:`row_scales`) gives the slice's row scales, and their MAX
+      over the ranks (an all-reduce) is the whole row's scale: the scale
+      grows with the absmax, and the ranks' slices share the row's absmax;
+    - K5 (:func:`quantize_rows_given`) writes the one-device codes;
+    - K6 (:func:`int8_matmul_acc`) writes the slice's exact int32 sums, and
+      the ranks add them (an all-reduce of int32: exact);
+    - K6 (:func:`int8_epilogue`) applies the scales, the bias (once) and
+      the cast, in K6's order.
+
+    Where the slice's K is not a multiple of 16 (the vision tower's
+    3420-wide ``down`` over 2 or 4 ranks), the sharded ``w_q`` holds zero
+    columns up to one (``parallel/sharding.py::shard_leaves``) and x gets as
+    many, so K6 takes its wgmma body: zero codes add nothing to the sums."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed as dist
+
+    lead, k = x.shape[:-1], x.shape[-1]
+    x2 = x.reshape(-1, k).contiguous()
+    scale = dist.all_reduce(row_scales(x2), group, op="max")
+    pad = p["w_q"].shape[1] - k
+    if pad:
+        x2 = F.pad(x2, (0, pad))
+    acc = dist.all_reduce(int8_matmul_acc(quantize_rows_given(x2, scale), p["w_q"]), group)
+    out = int8_epilogue(acc, scale, p["scale"], p.get("bias"), x.dtype)
     return out.reshape(*lead, -1)

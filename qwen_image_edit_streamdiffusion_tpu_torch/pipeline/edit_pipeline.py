@@ -8,9 +8,9 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/pipeline/edit_pipeline.py``
 with the JAX package's prompt and latent caches in front of the two encodes.
 PyTorch runs eagerly, so each stage is a plain call on ``self.device``.
 
-It runs every ``cfg_mode`` of the JAX ``_denoise_fn`` on one device
-(``parallel``, with no ``cfg`` mesh axis, is exactly ``batched``, as the JAX
-package degrades it), the guided call (positive and negative prompts encoded
+It runs every ``cfg_mode`` of the JAX ``_denoise_fn`` (``parallel``, with no
+``cfg`` mesh axis, is exactly ``batched``, as the JAX package degrades it),
+the guided call (positive and negative prompts encoded
 as one wave), ``num_images_per_prompt`` and :meth:`EditPipeline.edit_many`
 (several requests in one denoise call), ``transfer_format="yuv420"`` (4:2:0
 upload and download, ``ops/colorspace.py``) and the tiny VAE pair
@@ -19,8 +19,19 @@ the stream's temporal frames), in bf16 or on the int8 / int4 weight rungs,
 with a LoRA fused at construction, from random weights (``create``), the
 port's params (``from_weights``) or converted checkpoints
 (``from_checkpoint``, ``models/checkpoint.py``). ``_denoise`` also runs the
-tail of a schedule (``start_step``), as ``pipeline/stream.py`` needs it. Multi-device
-meshes raise ``NotImplementedError`` naming their ROADMAP item. ``cfg_mode``,
+tail of a schedule (``start_step``), as ``pipeline/stream.py`` needs it.
+
+Under a (cfg × model) mesh (``mesh=``, ``core/meshes.py``; one process a
+rank, every rank making the same calls in the same order) each rank holds
+its slices of the MMDiT and the VL encoder (``parallel/sharding.py``; q/k/v
+stay unfused, as in JAX) and the whole VAE: every leaf is built or read
+whole, LoRA-fused, quantized and sliced one block at a time, so a rank never
+holds the whole model. The MMDiT runs tensor-parallel over the model group;
+``cfg_mode="parallel"`` runs the positive rows on cfg group 0 and the
+negative rows on group 1, and a cond-only (or rcfg) call of several rows
+splits its rows over the cfg groups, as the JAX ``dp_rows`` does. The
+stream and training refuse a mesh of more than one rank, naming their
+ROADMAP item. ``cfg_mode``,
 ``transfer_format`` and ``decoder`` are read from ``config`` on every call.
 Rows are not padded to the JAX package's {1, 2, 4, 8, 16} buckets, which bound
 XLA compiles; eager PyTorch has none, and rows are independent.
@@ -49,6 +60,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     StreamConfig,
     get_preset,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Mesh
 from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
 from qwen_image_edit_streamdiffusion_tpu_torch.models import (
     lora,
@@ -65,6 +77,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
     StubEncoder,
 )
 from qwen_image_edit_streamdiffusion_tpu_torch.ops import colorspace
+from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed, sharding
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
     LatentCache,
     PromptCache,
@@ -104,10 +117,25 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md queue 1, {item})")
 
 
-def check_config(config: StreamConfig) -> None:
-    """Refuse, at construction, the options the port does not run."""
-    if config.mesh_cfg_axis != 1 or config.mesh_model_axis != 1:
-        _not_ported("multi-device meshes", "multi-GPU (item 8)")
+def check_config(config: StreamConfig, mesh: Optional[Mesh] = None) -> None:
+    """Refuse, at construction, a config whose mesh axes differ from the
+    mesh given (none given: a mesh of one rank)."""
+    want = (config.mesh_cfg_axis, config.mesh_model_axis)
+    have = (mesh.cfg, mesh.model) if mesh is not None else (1, 1)
+    if want != have:
+        raise ValueError(
+            f"config asks for a {want[0]}x{want[1]} (cfg x model) mesh but the "
+            f"mesh given is {have[0]}x{have[1]}: pass mesh= "
+            "(parallel/distributed.py::global_mesh) from every rank of a "
+            "torch.distributed world of that size")
+
+
+def refuse_mesh(mesh: Optional[Mesh], what: str) -> None:
+    """Refuse ``what`` on a mesh of more than one rank (the stream and
+    training: the next slice of the multi-GPU work)."""
+    if mesh is not None and mesh.size > 1:
+        _not_ported(f"{what} under a mesh of {mesh.size} ranks",
+                    "multi-GPU (item 8)")
 
 
 def _check_tiny_cfg(tcfg, vae_cfg, path: str) -> None:
@@ -168,6 +196,11 @@ def _init_tiny_encoder(preset: Preset, config: StreamConfig,
                                   device), ecfg)
 
 
+def _live(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh``, or None for a mesh of one rank."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
 def _pad_rows(a: torch.Tensor, length: int) -> torch.Tensor:
     """Pad dim 1 of ``a`` to ``length`` with zeros (False for a mask)."""
     if a.shape[1] == length:
@@ -193,36 +226,120 @@ def _images_of(image) -> List[np.ndarray]:
     return [imaging.as_uint8_array(image)]
 
 
-def _quantized(params, want: Optional[int], saved: Optional[int], fn, what: str):
-    """Quantize ``params`` in place to ``want`` bits unless the tree is
-    already quantized; a saved rung other than the one requested is served
-    with a warning, as in the JAX package."""
-    if want is None:
-        return params
-    if saved is None:
-        return fn(params, bits=want)
-    if saved != want:
+def _warn_saved_rung(want: Optional[int], saved: Optional[int], what: str) -> None:
+    """A saved rung other than the one requested is served with a warning,
+    as in the JAX package."""
+    if want is not None and saved is not None and saved != want:
         warnings.warn(f"config requests int{want} {what} but the weights are "
                       f"pre-quantized int{saved}; serving the saved rung",
-                      stacklevel=3)
-    return params
+                      stacklevel=4)
 
 
 def prepare_transformer(params, config: StreamConfig):
     """Fuse q/k/v (unless the tree is pre-quantized: its leaves stay in their
-    saved layout), then quantize — the JAX package's order."""
+    saved layout), then quantize — the JAX package's order; in place, one
+    block at a time (:class:`_Build` on one rank)."""
     saved = quantize.saved_bits(params)
-    if config.fuse_qkv and saved is None:
-        params = fuse_qkv(params)
-    want = 4 if config.use_int4 else (8 if config.use_int8 else None)
-    return _quantized(params, want, saved, quantize.quantize_transformer,
-                      "transformer")
+    _warn_saved_rung(_rung(config, False), saved, "transformer")
+    return _Build(None, config, None, None, saved_tfm=saved).transformer(params)
 
 
 def prepare_vl(params, config: StreamConfig):
-    want = 4 if config.use_int4_vl else (8 if config.use_int8_vl else None)
-    return _quantized(params, want, quantize.saved_bits(params),
-                      quantize.quantize_vl, "VL")
+    """Quantize the VL tree on its requested rung, in place (a pre-quantized
+    tree serves its saved rung)."""
+    saved = quantize.saved_bits(params)
+    _warn_saved_rung(_rung(config, True), saved, "VL")
+    return _Build(None, config, None, None, saved_vl=saved).vl(params)
+
+
+def _rung(config: StreamConfig, vl: bool) -> Optional[int]:
+    if vl:
+        return 4 if config.use_int4_vl else (8 if config.use_int8_vl else None)
+    return 4 if config.use_int4 else (8 if config.use_int8 else None)
+
+
+class _Build:
+    """The build of the MMDiT and VL trees, one block at a time
+    (``parallel/sharding.py::shard_module``): each block is LoRA-fused,
+    q/k/v-fused (one rank, ``config.fuse_qkv``; under a mesh q/k/v stay
+    unfused, as in JAX) and quantized whole where that is asked — the JAX
+    ``from_checkpoint`` order, so the codes and scales are the one-device
+    ones — then, under a mesh, sliced to this rank's parts on ``device``.
+    The leaves outside the blocks take the same steps last. On one rank
+    nothing is sliced and a leaf already on ``device`` stays where it is.
+    Used as the inits' ``block_hook`` (:meth:`EditPipeline.create`: the
+    whole bf16 tree never exists when a rung is asked, and a rank never
+    holds more than its slices and one block) or over a whole tree, host
+    views of a checkpoint's files included (:meth:`EditPipeline.from_weights`).
+    ``preset`` is read for a LoRA's block count and the mesh's VL axes."""
+
+    def __init__(self, preset: Optional[Preset], config: StreamConfig,
+                 mesh: Optional[Mesh], device, lora_entries=None, saved_tfm=None,
+                 saved_vl=None):
+        self.mesh = mesh
+        self.device = None if device is None else torch.device(device)
+        self.entries = lora_entries or {}
+        for idx, path in self.entries:
+            if idx >= preset.model.num_layers:
+                raise ValueError(f"LoRA targets block {idx} but model has "
+                                 f"{preset.model.num_layers}")
+        self.bits = _rung(config, False) if saved_tfm is None else None
+        self.bits_vl = _rung(config, True) if saved_vl is None else None
+        self.fuse = mesh is None and config.fuse_qkv and saved_tfm is None
+        if mesh is None:
+            self.tfm_spec = self.vl_spec = lambda p, shape: None
+        else:
+            sizes = mesh.shape
+            vl_axes = sharding.vl_axes(mesh, preset.vl)
+            self.tfm_spec = lambda p, shape: sharding.transformer_leaf_spec(p, shape, sizes)
+            self.vl_spec = lambda p, shape: sharding.vl_leaf_spec(p, vl_axes, shape, sizes)
+
+    def tfm_block(self, prefix, blk):
+        idx = int(prefix[-1])
+        mine = [(path, e) for (i, path), e in self.entries.items() if i == idx]
+
+        def transform(node):
+            for path, e in mine:
+                lora.fuse_entry(node, path, e, 1.0, idx)
+            if self.fuse:
+                fuse_qkv({"blocks": [node]})
+            if self.bits:
+                quantize.quantize_transformer({"blocks": [node]}, bits=self.bits)
+
+        return sharding.shard_module(blk, prefix, self.mesh, self.tfm_spec, self.device,
+                                     transform if mine or self.fuse or self.bits else None)
+
+    def vl_block(self, prefix, blk):
+        return sharding.shard_module(
+            blk, prefix, self.mesh, self.vl_spec, self.device,
+            (lambda node: quantize.quantize_vl(node, bits=self.bits_vl))
+            if self.bits_vl else None)
+
+    def tfm_top(self, params):
+        """The top-level MMDiT leaves: whole (quantization and LoRA touch
+        only the blocks), on ``device``."""
+        return sharding.shard_module(params, (), self.mesh, self.tfm_spec, self.device,
+                                     skip_blocks=True)
+
+    def vl_top(self, params):
+        def transform(node):
+            quantize.quantize_vl({k: {n: v for n, v in part.items() if n != "blocks"}
+                                  for k, part in node.items()}, bits=self.bits_vl)
+
+        return sharding.shard_module(params, (), self.mesh, self.vl_spec, self.device,
+                                     transform if self.bits_vl else None,
+                                     skip_blocks=True)
+
+    def transformer(self, params):
+        for i, blk in enumerate(params["blocks"]):
+            self.tfm_block(("blocks", str(i)), blk)
+        return self.tfm_top(params)
+
+    def vl(self, params):
+        for part in ("vision", "lm"):
+            for i, blk in enumerate(params[part]["blocks"]):
+                self.vl_block((part, "blocks", str(i)), blk)
+        return self.vl_top(params)
 
 
 @dataclass
@@ -243,6 +360,9 @@ class EditPipeline:
     # (params, TinyEncoderConfig): the stream's temporal frames only; edit
     # conditioning keeps the full VAE, as in the JAX package
     tiny_encoder: Optional[Tuple[Any, Any]] = None
+    # the (cfg × model) mesh whose slices the MMDiT and VL trees hold (None:
+    # one rank)
+    mesh: Optional[Mesh] = None
 
     # ------------------------------------------------------------------
     # Construction
@@ -253,25 +373,37 @@ class EditPipeline:
                config: Optional[StreamConfig] = None, seed: int = 0,
                device="cuda", tiny_decoder_path: Optional[str] = None,
                tiny_encoder_path: Optional[str] = None,
-               encoder: Optional[PromptEncoder] = None) -> "EditPipeline":
+               encoder: Optional[PromptEncoder] = None,
+               mesh: Optional[Mesh] = None) -> "EditPipeline":
         """Random-init construction: every parameter is made on ``device``
         in its preset dtype from the seed's named generator streams. A tiny
         decoder (encoder) path loads that artifact and implies
         ``decoder="tiny"`` (``encoder="tiny"``). ``encoder`` replaces the
-        prompt encoder (the VL encoder is then not made)."""
+        prompt encoder (the VL encoder is then not made). Each block is
+        fused and quantized as ``config`` asks as soon as it is drawn
+        (:class:`_Build`), so the whole bf16 tree never exists when a rung
+        is asked. Under ``mesh`` every rank draws every leaf in the same
+        order (so the full tree is the one-rank tree) and keeps its slices
+        of each block as it is drawn: a rank never holds the whole model."""
         if isinstance(preset, str):
             preset = get_preset(preset)
         config = config or StreamConfig(model_preset=preset.name)
         device = torch.device(device)
+        mesh = _live(mesh)
+        check_config(config, mesh)
+        sharding.check_heads(preset.model.num_heads, mesh)
+        build = _Build(preset, config, mesh, device)
         vl_params = None
         if config.use_vl_encoder and encoder is None:
-            vl_params = qwen_vl.init(stream(seed, "vl", device), preset.vl, device)
-        return cls.from_weights(
-            preset, config,
-            tfm.init(stream(seed, "transformer", device), preset.model, device),
-            vae_mod.init(stream(seed, "vae", device), preset.vae, device),
-            vl_params, device, tiny_decoder_path=tiny_decoder_path,
-            tiny_encoder_path=tiny_encoder_path, seed=seed, encoder=encoder)
+            vl_params = build.vl_top(qwen_vl.init(stream(seed, "vl", device), preset.vl,
+                                                  device, block_hook=build.vl_block))
+        tfm_params = build.tfm_top(tfm.init(stream(seed, "transformer", device),
+                                            preset.model, device,
+                                            block_hook=build.tfm_block))
+        return cls._assemble(preset, config, tfm_params,
+                             vae_mod.init(stream(seed, "vae", device), preset.vae, device),
+                             vl_params, device, tiny_decoder_path, tiny_encoder_path,
+                             seed, encoder, mesh)
 
     @classmethod
     def from_weights(cls, preset: Preset, config: StreamConfig, tfm_params,
@@ -280,7 +412,9 @@ class EditPipeline:
                      tiny_decoder_path: Optional[str] = None,
                      tiny_encoder_path: Optional[str] = None,
                      seed: int = 0,
-                     encoder: Optional[PromptEncoder] = None) -> "EditPipeline":
+                     encoder: Optional[PromptEncoder] = None,
+                     mesh: Optional[Mesh] = None,
+                     vl_seed: Optional[int] = None) -> "EditPipeline":
         """Construction from existing port params (e.g. ``convert.from_jax``):
         the LoRA at ``lora_path`` (``.safetensors`` or ``.npz``) fused into
         the dense transformer weights IN PLACE, then q/k/v fused when
@@ -288,23 +422,54 @@ class EditPipeline:
         IN PLACE on the requested rungs — the JAX ``from_checkpoint`` order;
         then the tiny decoder and encoder, loaded or random-init from
         ``seed``. ``encoder``, when given, is the prompt encoder (as the JAX
-        ``create`` takes one); else the VL encoder on ``vl_params``, or the
-        stub when ``config.use_vl_encoder`` is off."""
-        check_config(config)
+        ``create`` takes one); else the VL encoder on ``vl_params`` (without
+        them, ``vl_seed`` draws its random init, as :meth:`create` draws
+        it), or the stub when ``config.use_vl_encoder`` is off.
+
+        The trees (whole, on any device, or host views of a checkpoint's
+        files) are prepared one block at a time (:class:`_Build`) and land
+        on ``device``. Under ``mesh`` each block is then sliced to this
+        rank's parts, q/k/v stay unfused (as in JAX) and the VAE stays
+        whole."""
+        mesh = _live(mesh)
+        check_config(config, mesh)
         device = torch.device(device)
+        saved = quantize.saved_bits(tfm_params)
+        entries = None
         if lora_path:
-            if quantize.saved_bits(tfm_params) is not None:
+            if saved is not None:
                 raise ValueError(
                     "LoRA cannot be fused into a quantized checkpoint — fuse "
                     "it into the dense weights, then quantize them "
                     "(StreamConfig use_int8 / use_int4)")
-            lora.fuse_lora(tfm_params, lora.load_lora_weights(lora_path))
-        tfm_params = prepare_transformer(tfm_params, config)
+            entries = lora.parse_lora_state_dict(lora.load_lora_weights(lora_path))
+        sharding.check_heads(preset.model.num_heads, mesh)
+        use_vl = encoder is None and config.use_vl_encoder
+        saved_vl = quantize.saved_bits(vl_params) if use_vl and vl_params is not None else None
+        _warn_saved_rung(_rung(config, False), saved, "transformer")
+        if use_vl:
+            _warn_saved_rung(_rung(config, True), saved_vl, "VL")
+        build = _Build(preset, config, mesh, device, entries, saved, saved_vl)
+        tfm_params = build.transformer(tfm_params)
+        if use_vl and vl_params is not None:
+            vl_params = build.vl(vl_params)
+        elif use_vl and vl_seed is not None:
+            vl_params = build.vl_top(qwen_vl.init(
+                stream(vl_seed, "vl", device), preset.vl, device,
+                block_hook=build.vl_block))
+        return cls._assemble(preset, config, tfm_params, vae_params, vl_params, device,
+                             tiny_decoder_path, tiny_encoder_path, seed, encoder, mesh)
+
+    @classmethod
+    def _assemble(cls, preset, config, tfm_params, vae_params, vl_params, device,
+                  tiny_decoder_path, tiny_encoder_path, seed, encoder, mesh):
+        """The pipeline around prepared trees: the prompt encoder, the tiny
+        pair, the caches."""
         if encoder is None and config.use_vl_encoder:
             encoder = qwen_vl.QwenVLEncoder(
-                preset.vl, prepare_vl(vl_params, config), device=device,
+                preset.vl, vl_params, device=device,
                 max_len=preset.vl.max_text_len,
-                use_flash=config.use_flash_attention)
+                use_flash=config.use_flash_attention, mesh=mesh)
         elif encoder is None:
             encoder = StubEncoder.from_config(preset.vl)
         tiny = _init_tiny_decoder(preset, config, tiny_decoder_path, seed, device)
@@ -317,7 +482,7 @@ class EditPipeline:
         return cls(preset=preset, config=config, tfm_params=tfm_params,
                    vae_params=vae_params, encoder=encoder, device=device,
                    prompt_cache=PromptCache(encoder), latent_cache=LatentCache(),
-                   tiny_vae=tiny, tiny_encoder=tiny_enc)
+                   tiny_vae=tiny, tiny_encoder=tiny_enc, mesh=mesh)
 
     @classmethod
     def from_checkpoint(cls, transformer_path: str, vae_path: str,
@@ -326,7 +491,8 @@ class EditPipeline:
                         vl_path: Optional[str] = None,
                         lora_path: Optional[str] = None, device="cuda",
                         tiny_decoder_path: Optional[str] = None,
-                        tiny_encoder_path: Optional[str] = None) -> "EditPipeline":
+                        tiny_encoder_path: Optional[str] = None,
+                        mesh: Optional[Mesh] = None) -> "EditPipeline":
         """Construction from the port's converted checkpoints
         (``models/checkpoint.py convert``: LoRA fused → q/k/v fused →
         int8/int4, each optional). The rung and the q/k/v layout are read
@@ -338,14 +504,22 @@ class EditPipeline:
         (a rung other than the saved one is served with a warning). Without
         ``vl_path`` the VL encoder is random from seed 0, as the JAX
         ``from_checkpoint`` makes it; the tokenizer is ``SimpleTokenizer``
-        in both packages."""
+        in both packages.
+
+        Under ``mesh`` the MMDiT and VL files are mapped, not read: each
+        rank copies only its slices of each leaf (a column-parallel slice
+        is a contiguous byte range of the file), or, where a block is
+        LoRA-fused or quantized here, that block whole first
+        (:meth:`from_weights`)."""
         from qwen_image_edit_streamdiffusion_tpu_torch.models import checkpoint as ckpt
 
         if isinstance(preset, str):
             preset = get_preset(preset)
         config = config or StreamConfig(model_preset=preset.name)
-        check_config(config)
+        mesh = _live(mesh)
+        check_config(config, mesh)
         device = torch.device(device)
+        mapped = mesh is not None
         _, bits, _ = ckpt.layout(transformer_path, "transformer")
         if lora_path and bits:
             raise ValueError(
@@ -354,16 +528,16 @@ class EditPipeline:
                 "--quantize ...")
         if vl_path and not config.use_vl_encoder:
             raise ValueError("vl_path is given but config.use_vl_encoder is off")
-        tfm_params = ckpt.load(transformer_path, device, preset, "transformer")
+        tfm_params = ckpt.load(transformer_path, device, preset, "transformer",
+                               mapped=mapped)
         vae_params = ckpt.load(vae_path, device, preset, "vae")
         vl_params = None
         if vl_path:
-            vl_params = ckpt.load(vl_path, device, preset, "vl")
-        elif config.use_vl_encoder:
-            vl_params = qwen_vl.init(stream(0, "vl", device), preset.vl, device)
+            vl_params = ckpt.load(vl_path, device, preset, "vl", mapped=mapped)
         return cls.from_weights(preset, config, tfm_params, vae_params, vl_params, device,
                                 lora_path=lora_path, tiny_decoder_path=tiny_decoder_path,
-                                tiny_encoder_path=tiny_encoder_path, seed=0)
+                                tiny_encoder_path=tiny_encoder_path, seed=0, mesh=mesh,
+                                vl_seed=0)
 
     def load_tiny_decoder(self, path: str) -> None:
         """Load a distilled tiny decoder and switch the output decode to it
@@ -504,16 +678,27 @@ class EditPipeline:
 
         - ``none``: one forward a step;
         - ``sequential``: the positive and the negative forward;
-        - ``batched`` (and ``parallel``, which without a ``cfg`` mesh axis is
-          exactly ``batched``): one forward over [x, x] with the positive
-          and the negative text rows;
+        - ``batched``: one forward over [x, x] with the positive and the
+          negative text rows;
+        - ``parallel``: ``batched`` with the pair's rows split over the
+          mesh's cfg groups (group 0 the positive rows, group 1 the
+          negative ones, with a cfg axis of 2) and the velocities
+          all-gathered; without a cfg axis (or where the rows do not
+          divide) it is exactly ``batched``;
         - ``rcfg``: the first step run (``start_step``) one batched pair,
           whose residual v_pos − v_neg (f32) then stands in for the
           negative: one forward more than the steps run;
         - ``rcfg-self``: no negative forward; the virtual negative
           (x − anchor)/σ points at the first condition image's latents. It
           takes ``rcfg`` with the JAX warning when that grid differs from
-          the target's."""
+          the target's.
+
+        Under a mesh the MMDiT runs tensor-parallel over the model group,
+        and a ``none`` / ``rcfg`` / ``rcfg-self`` call of several rows that
+        the cfg groups divide splits its rows over them (the JAX
+        ``dp_rows``; ``rcfg``'s first-step pair of the local rows), the
+        latents all-gathered after the loop. Rows that do not divide run on
+        every cfg group, as the unconstrained JAX graph runs them."""
         if cfg_mode not in CFG_MODES:
             raise ValueError(f"unknown cfg_mode {cfg_mode!r}")
         if cfg_mode == "rcfg-self" and (len(img_shapes) < 2
@@ -524,8 +709,20 @@ class EditPipeline:
                 f"{img_shapes[0]} for the virtual-negative anchor; "
                 "using onetime-negative rcfg instead")
             cfg_mode = "rcfg"
-        if cfg_mode == "parallel":
+        mesh = self.mesh
+        tp = mesh.model_group if mesh is not None else SINGLE
+        cg = mesh.cfg_group if mesh is not None else SINGLE
+        rows = x.shape[0]
+        if cfg_mode == "parallel" and not (sharding.has_axis(mesh, "cfg")
+                                           and 2 * rows % cg.size == 0):
             cfg_mode = "batched"
+        dp_rows = (cfg_mode in ("none", "rcfg", "rcfg-self") and rows > 1
+                   and cg.size > 1 and rows % cg.size == 0)
+        if dp_rows:
+            n = rows // cg.size
+            x, cond_tokens, txt, mask, neg_txt, neg_mask = (
+                a[cg.rank * n:(cg.rank + 1) * n]
+                for a in (x, cond_tokens, txt, mask, neg_txt, neg_mask))
         mcfg = self.preset.model
         l_target = img_shapes[0][0] * img_shapes[0][1] * img_shapes[0][2]
         schedule = sched.make_schedule(steps, l_target, self.preset.scheduler)
@@ -537,13 +734,20 @@ class EditPipeline:
                            dtype=torch.float32, device=self.device)
             v = tfm.forward(self.tfm_params, mcfg, torch.cat([x, cond], 1), txt,
                             t, ropes, txt_mask=mask,
-                            use_flash=self.config.use_flash_attention)
+                            use_flash=self.config.use_flash_attention, tp=tp)
             return v[:, :l_target]
+
+        def velocity_split(i, x, cond, txt, mask):
+            """The pair's rows split over the cfg groups, then gathered."""
+            n = x.shape[0] // cg.size
+            part = slice(cg.rank * n, (cg.rank + 1) * n)
+            v = velocity(i, x[part], cond[part], txt[part], mask[part])
+            return distributed.all_gather(v, cg, dim=0)
 
         def pair(a, b):
             return torch.cat([a, b], dim=0)
 
-        if cfg_mode in ("batched", "rcfg"):
+        if cfg_mode in ("batched", "parallel", "rcfg"):
             cond2, txt2, mask2 = (pair(cond_tokens, cond_tokens),
                                   pair(txt, neg_txt), pair(mask, neg_mask))
         if cfg_mode == "rcfg-self":
@@ -553,7 +757,10 @@ class EditPipeline:
             if cfg_mode == "none":
                 v = velocity(i, x, cond_tokens, txt, mask)
             else:
-                if cfg_mode == "batched" or (cfg_mode == "rcfg" and i == start_step):
+                if cfg_mode == "parallel":
+                    pos, neg = velocity_split(i, pair(x, x), cond2, txt2,
+                                              mask2).chunk(2)
+                elif cfg_mode == "batched" or (cfg_mode == "rcfg" and i == start_step):
                     pos, neg = velocity(i, pair(x, x), cond2, txt2, mask2).chunk(2)
                     if cfg_mode == "rcfg":
                         delta = pos.float() - neg.float()
@@ -568,6 +775,8 @@ class EditPipeline:
                         neg = rcfg_self_negative(x, anchor, sigmas[i], pos.dtype)
                 v = combine_cfg(pos, neg, cfg_scale)
             x = sched.euler_step(x, v, sigmas[i], sigmas[i + 1])
+        if dp_rows:
+            x = distributed.all_gather(x, cg, dim=0)
         return x
 
     def _decode(self, tokens: torch.Tensor, zh: int, zw: int):

@@ -62,6 +62,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import encode
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
     EditPipeline,
     _pad_rows,
+    refuse_mesh,
 )
 
 
@@ -128,6 +129,9 @@ class RealtimePipeline:
     _ssf_rng: Optional[np.random.Generator] = None
     _preview_warned: bool = False
     _side_stream: Optional[object] = None  # the preview upscale's CUDA stream
+
+    def __post_init__(self):
+        refuse_mesh(self.pipe.mesh, "the realtime stream")
 
     @property
     def config(self) -> StreamConfig:

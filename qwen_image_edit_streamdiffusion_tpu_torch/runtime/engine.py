@@ -26,6 +26,13 @@ the host encodes; a dynamic batch's members each encode their own image in
 their own thread. Device work, the launch counters of ``runtime/kernels.py``
 and the pipeline's caches are touched only while the lock is held.
 
+Under a world of several ranks (``serving/server.py`` started by
+``torchrun``) every rank holds the pipeline's slices: rank 0 runs this
+engine and the HTTP server, and its pipeline is a :class:`LockstepPipeline`
+that broadcasts each call that does device work to the other ranks, which
+run :func:`follow`. The single-flight lock, the 429, the codec and the
+trace stay on rank 0. Stream sessions refuse a world of more than one rank.
+
 Not ported: the JAX package's device watchdog (its dispatch deadline and
 probe thread answer a wedged accelerator link), so there is no
 ``DeviceUnavailable``.
@@ -132,27 +139,19 @@ class InferenceEngine:
         vl_path: Optional[str] = None,
         lora_path: Optional[str] = None,
         device="cuda",
+        mesh=None,
         **kw,
     ) -> "InferenceEngine":
-        """Build the serving pipeline on ``device``, then warm it up: with
-        ``transformer_path`` and ``vae_path`` from converted checkpoints
-        (``EditPipeline.from_checkpoint``; ``vl_path`` and ``lora_path``
-        optional), else with random weights from ``seed`` (``kw``: the tiny
-        decoder and encoder paths, and ``EditPipeline.create``'s)."""
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
-            EditPipeline,
-        )
-
-        if transformer_path or vae_path or vl_path or lora_path:
-            if not (transformer_path and vae_path):
-                raise ValueError(
-                    "checkpoint serving needs BOTH transformer_path and "
-                    "vae_path (vl_path/lora_path optional)")
-            pipe = EditPipeline.from_checkpoint(
-                transformer_path, vae_path, preset=preset, config=config,
-                vl_path=vl_path, lora_path=lora_path, device=device, **kw)
-        else:
-            pipe = EditPipeline.create(preset, config=config, seed=seed, device=device, **kw)
+        """Build the serving pipeline on ``device`` (:meth:`build_pipeline`),
+        then warm it up. Under a ``mesh`` of several ranks this is rank 0's
+        engine: its pipeline is a :class:`LockstepPipeline` over the world,
+        and every other rank must have built its own with
+        :meth:`build_pipeline` and run :func:`follow` (the warm-up is
+        already a broadcast call)."""
+        pipe = cls.build_pipeline(preset, config, seed, transformer_path, vae_path,
+                                  vl_path, lora_path, device, mesh, **kw)
+        if mesh is not None and mesh.size > 1:
+            pipe = LockstepPipeline(pipe, mesh.world_group)
         if warmup_cfg is None:
             warmup_cfg = os.environ.get("QIE_WARMUP_CFG", "1") == "1"
         if warmup_stream is None:
@@ -169,6 +168,34 @@ class InferenceEngine:
         if warmup_runs:
             eng.warmup(runs=warmup_runs)
         return eng
+
+    @staticmethod
+    def build_pipeline(preset: str = "qwen-image-edit-2509",
+                       config: Optional[StreamConfig] = None, seed: int = 0,
+                       transformer_path: Optional[str] = None,
+                       vae_path: Optional[str] = None,
+                       vl_path: Optional[str] = None,
+                       lora_path: Optional[str] = None, device="cuda", mesh=None,
+                       **kw):
+        """The serving pipeline: with ``transformer_path`` and ``vae_path``
+        from converted checkpoints (``EditPipeline.from_checkpoint``;
+        ``vl_path`` and ``lora_path`` optional), else with random weights
+        from ``seed`` (``kw``: the tiny decoder and encoder paths, and
+        ``EditPipeline.create``'s); this rank's slices under ``mesh``."""
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+            EditPipeline,
+        )
+
+        if transformer_path or vae_path or vl_path or lora_path:
+            if not (transformer_path and vae_path):
+                raise ValueError(
+                    "checkpoint serving needs BOTH transformer_path and "
+                    "vae_path (vl_path/lora_path optional)")
+            return EditPipeline.from_checkpoint(
+                transformer_path, vae_path, preset=preset, config=config,
+                vl_path=vl_path, lora_path=lora_path, device=device, mesh=mesh, **kw)
+        return EditPipeline.create(preset, config=config, seed=seed, device=device,
+                                   mesh=mesh, **kw)
 
     def warmup(self, runs: int = 1) -> None:
         """Serve the standard request (and its guided variant when
@@ -220,6 +247,7 @@ class InferenceEngine:
         cond-only at input_size² × default_steps, built as `_edit_stream`
         builds one) and, with dynamic batching, multi-session batched frames.
         The sessions share this engine's pipeline params and caches."""
+        self._refuse_stream_mesh()
         from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
             RealtimePipeline,
             submit_frames_batched,
@@ -475,6 +503,7 @@ class InferenceEngine:
         (``submit_frames_batched``), keyframes, similarity-filter and
         preview sessions, and further frames of one session on their own,
         within the same lock hold."""
+        self._refuse_stream_mesh()
         start = time.time()
         sid = str(request.get("stream_session"))
         img, pipelined = self._parse_stream_request(request)
@@ -591,6 +620,13 @@ class InferenceEngine:
         finally:
             e.event.set()
 
+    def _refuse_stream_mesh(self) -> None:
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+            refuse_mesh,
+        )
+
+        refuse_mesh(getattr(self.pipeline, "mesh", None), "stream sessions")
+
     def _edit_stream(self, sid: str, request: Dict[str, Any],
                      start: float) -> Dict[str, Any]:
         """`/edit` with a `stream_session` id: temporal-latent streaming over
@@ -611,6 +647,7 @@ class InferenceEngine:
         (`lag` 1); the session's first request returns its own (`lag` 0)
         and keeps it pending, so the next request re-serves it once.
         """
+        self._refuse_stream_mesh()
         img, pipelined = self._parse_stream_request(request)
         sess = self._resolve_stream_session(sid, request)
         return self._serve_stream_frame(sid, sess, img, pipelined, start)
@@ -796,3 +833,78 @@ class InferenceEngine:
             "gpu_memory": mem,
             "requests": self.total_requests,
         }
+
+
+class LockstepPipeline:
+    """Rank 0's handle on a pipeline that every rank of a world holds a
+    slice of. Each call that does device work (``__call__``, ``edit_many``,
+    ``warmup``) is first broadcast over ``group`` (the world) as one object,
+    its method name and arguments, so that every other rank, in
+    :func:`follow`, makes the same call in the same order: the caches then
+    take the same hit or miss, the generators draw the same noise, and the
+    collectives of the sharded forward meet. A dynamic batch's
+    ``edit_many`` is one such call. Any other attribute reads the pipeline
+    itself.
+
+    The engine validates a request before its pipeline call, so a call that
+    raises here is a fault (a device error, an out-of-memory), and the other
+    ranks may be waiting in a collective that rank 0 left. The handle then
+    ends the process group, so that their waits fail at once rather than at
+    the group's timeout, and refuses every later call."""
+
+    def __init__(self, pipe: Any, group: Any):
+        self._pipe, self._group = pipe, group
+        self._failed: Optional[str] = None
+
+    def _call(self, method: str, args: tuple, kwargs: dict) -> Any:
+        from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+        if self._failed is not None:
+            raise RuntimeError(f"the ranks are out of step since {self._failed}; "
+                               "restart the world")
+        try:
+            distributed.broadcast_object((method, args, kwargs), self._group)
+            return getattr(self._pipe, method)(*args, **kwargs)
+        except BaseException as e:
+            self._failed = f"rank 0's {method} raised {type(e).__name__}: {e}"
+            distributed.shutdown()
+            raise
+
+    def __call__(self, *args, **kwargs):
+        return self._call("__call__", args, kwargs)
+
+    def edit_many(self, *args, **kwargs):
+        return self._call("edit_many", args, kwargs)
+
+    def warmup(self, *args, **kwargs):
+        return self._call("warmup", args, kwargs)
+
+    def shutdown(self) -> None:
+        """End the followers' loops (nothing to end after a failed call: the
+        process group is gone)."""
+        from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+        if self._failed is None:
+            distributed.broadcast_object(None, self._group)
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._pipe, name)
+
+
+def follow(pipe: Any, group: Any) -> int:
+    """The loop of a rank > 0: make each call that rank 0's
+    :class:`LockstepPipeline` broadcasts, and drop its result, until the
+    shutdown message. Returns the number of calls made. A call that raises
+    ends the loop with its exception: the rank fails (and with it the
+    world, under torchrun), since a rank that raised mid-forward has left
+    collectives that the others wait in."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    calls = 0
+    while True:
+        msg = distributed.broadcast_object(None, group)
+        if msg is None:
+            return calls
+        method, args, kwargs = msg
+        getattr(pipe, method)(*args, **kwargs)
+        calls += 1

@@ -135,6 +135,14 @@ def library() -> ctypes.CDLL:
         lib.qie_quantize_rows_bf16.restype = ci
         lib.qie_int8_gemm_sm90.argtypes = [vp] * 8 + [ci] * 6 + [vp]
         lib.qie_int8_gemm_sm90.restype = ci
+        lib.qie_quantize_rows_given_bf16.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.qie_quantize_rows_given_bf16.restype = ci
+        lib.qie_int8_gemm_sm90_acc.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+        lib.qie_int8_gemm_sm90_acc.restype = ci
+        lib.qie_row_scales_bf16.argtypes = [vp, vp, ci, ci, vp]
+        lib.qie_row_scales_bf16.restype = ci
+        lib.qie_int8_epilogue_bf16.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+        lib.qie_int8_epilogue_bf16.restype = ci
         lib.qie_int8_gemm_mma.argtypes = [vp] * 6 + [ci] * 3 + [vp]
         lib.qie_int8_gemm_mma.restype = ci
         _lib = lib

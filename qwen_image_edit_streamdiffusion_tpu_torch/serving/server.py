@@ -1,4 +1,5 @@
-"""HTTP JSON API: the reference's wire, served by the port on one GPU.
+"""HTTP JSON API: the reference's wire, served by the port on one GPU or, under
+torchrun, on several.
 
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/serving/server.py``: the
 same endpoints (``/``, ``/health``, ``/edit``, ``/stream`` (websocket,
@@ -14,6 +15,20 @@ Run on the card:
     python -m qwen_image_edit_streamdiffusion_tpu_torch.serving.server \\
         [--port 8086] [--preset qwen-image-edit-2509] [--device cuda] \\
         [--transformer DIR --vae DIR [--vl DIR] [--lora FILE]]
+
+or over N cards, the model tensor-parallel over all of them (a mesh of
+cfg 1 × model N, as the JAX server shards over every local device):
+
+    torchrun --nproc_per_node=N -m \\
+        qwen_image_edit_streamdiffusion_tpu_torch.serving.server [--dist-backend nccl]
+
+Each rank builds its slices of the pipeline on ``cuda:LOCAL_RANK``; rank 0
+serves HTTP and broadcasts each pipeline call, the others follow it
+(``runtime/engine.py::follow``). A call that raises on any rank ends that
+rank's process group, so the others' collectives fail at once, and the
+world stops (torchrun ends every rank when one fails): restart it.
+``--dist-backend gloo`` lets several ranks
+share one card (NCCL refuses that); ``--device cuda:0`` puts them there.
 
 Environment: QIE_PRESET, QIE_STEPS, QIE_SIZE (output side), QIE_INPUT_SIZE,
 QIE_CFG_MODE, QIE_DYNAMIC_BATCH, QIE_QUEUE=1 (queue instead of 429),
@@ -279,6 +294,9 @@ def main(argv=None):
                     default=os.environ.get("QIE_INT4", "") == "1")
     ap.add_argument("--int4-vl", action="store_true",
                     default=os.environ.get("QIE_INT4_VL", "") == "1")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="torch.distributed backend under torchrun (default: "
+                         "nccl on CUDA, gloo on the CPU)")
     args = ap.parse_args(argv)
     if any(getattr(args, n) for n in CHECKPOINT_FLAGS) and not (args.transformer
                                                                 and args.vae):
@@ -286,6 +304,15 @@ def main(argv=None):
                  "(--vl and --lora optional)")
 
     from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import follow
+
+    world = distributed.initialize(
+        backend=args.dist_backend,
+        device=None if args.device == "cuda" else args.device)
+    mesh = None
+    if world.world_size > 1:
+        mesh = distributed.global_mesh(cfg_axis=1)
 
     size = os.environ.get("QIE_SIZE")
     config = StreamConfig(
@@ -299,8 +326,22 @@ def main(argv=None):
         cfg_mode=args.cfg_mode,
         use_int8=args.int8, use_int8_vl=args.int8_vl,
         use_int4=args.int4, use_int4_vl=args.int4_vl,
+        mesh_model_axis=world.world_size,
     )
-    print(f"Loading pipeline ({args.preset}) on {args.device}...", flush=True)
+    paths = dict(transformer_path=args.transformer, vae_path=args.vae,
+                 vl_path=args.vl, lora_path=args.lora,
+                 tiny_decoder_path=args.tiny_decoder,
+                 tiny_encoder_path=args.tiny_encoder)
+    print(f"Loading pipeline ({args.preset}) on {world.device}, rank "
+          f"{world.rank} of {world.world_size}...", flush=True)
+    if world.rank > 0:
+        pipe = InferenceEngine.build_pipeline(args.preset, config, device=world.device,
+                                              mesh=mesh, **paths)
+        try:
+            follow(pipe, mesh.world_group)
+        finally:
+            distributed.shutdown()
+        return
     engine = InferenceEngine.create(
         args.preset, config=config,
         warmup_runs=0 if args.no_warmup else 1,
@@ -308,11 +349,7 @@ def main(argv=None):
         warmup_stream=args.warmup_stream or None,
         input_size=args.input_size,
         dynamic_batch=args.dynamic_batch,
-        device=args.device,
-        transformer_path=args.transformer, vae_path=args.vae,
-        vl_path=args.vl, lora_path=args.lora,
-        tiny_decoder_path=args.tiny_decoder,
-        tiny_encoder_path=args.tiny_encoder,
+        device=world.device, mesh=mesh, **paths,
     )
     engine.queue_requests = os.environ.get("QIE_QUEUE", "") == "1"
     srv = make_server(engine, args.host, args.port)
@@ -322,6 +359,9 @@ def main(argv=None):
         srv.serve_forever()
     finally:
         srv.server_close()
+        if mesh is not None:
+            engine.pipeline.shutdown()
+            distributed.shutdown()
 
 
 if __name__ == "__main__":

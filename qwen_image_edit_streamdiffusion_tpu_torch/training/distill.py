@@ -201,6 +201,11 @@ class DistillTrainer(LoRATrainer):
 
     @classmethod
     def from_pipeline(cls, pipe, dcfg: DistillConfig) -> "DistillTrainer":
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+            refuse_mesh,
+        )
+
+        refuse_mesh(getattr(pipe, "mesh", None), "distillation")
         return cls(pipe.tfm_params, pipe.preset.model, pipe.preset.scheduler,
                    dcfg, use_flash=pipe.config.use_flash_attention)
 

@@ -340,6 +340,11 @@ class LoRATrainer:
 
     @classmethod
     def from_pipeline(cls, pipe, cfg: TrainConfig) -> "LoRATrainer":
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+            refuse_mesh,
+        )
+
+        refuse_mesh(getattr(pipe, "mesh", None), "LoRA training")
         return cls(pipe.tfm_params, pipe.preset.model, pipe.preset.scheduler,
                    cfg, use_flash=pipe.config.use_flash_attention)
 

@@ -436,6 +436,81 @@ def test_int8_gemm_split_k_is_exact_and_deterministic(dev, m, k, n):
     assert torch.equal(int8.int8_matmul(*args), out)
 
 
+# The row-parallel entries at a TP-2 rank's shapes (parallel/sharding.py):
+# (M, K of the rank's slice, N), the vision `down` slice padded to 1712.
+ROW_INT8 = ((8192, 1536, 3072), (256, 6144, 3072), (384, 9472, 3584),
+            (784, 1712, 1280), (196, 2560, 3584), (17, 1040, 199))
+
+
+@pytest.mark.parametrize("m,k,n", ROW_INT8)
+def test_row_parallel_int8_entries_are_bit_identical(dev, m, k, n):
+    """K5's row scales alone equal the plain version's; K5 with a given row
+    scale writes the plain version's codes (here the scale of a row twice
+    as wide, as a rank's slice is quantized with the whole row's scale);
+    K6's int32 entry writes the exact sums, split-K or not; K6's epilogue
+    on the sums equals the plain one; each counts one launch of its
+    kernel."""
+    x = _randn((m, k), 70, dev)
+    scale = int8.quantize_rows_plain(torch.cat([x, 2 * x], dim=1))[1]
+    wq, ws = int8.quantize_weight(_randn((n, k), 71, dev) * 0.02)
+    b = _randn((n,), 72, dev) * 0.1
+    before = dict(kernels.LAUNCHES)
+    own = int8.row_scales(x)
+    q = int8.quantize_rows_given(x, scale)
+    acc = int8.int8_matmul_acc(q, wq)
+    out = int8.int8_epilogue(acc, scale, ws, b, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["quantize_rows"] == before["quantize_rows"] + 2
+    assert kernels.LAUNCHES["int8_gemm"] == before["int8_gemm"] + 2
+    assert torch.equal(own, int8.row_scales_plain(x))
+    assert torch.equal(q, int8.quantize_rows_given_plain(x, scale))
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, int8.int8_matmul_acc_plain(q, wq))
+    assert torch.equal(out, int8.int8_epilogue_plain(acc, scale, ws, b, torch.bfloat16))
+    assert torch.equal(int8.int8_epilogue(acc, scale, ws, None, torch.bfloat16),
+                       int8.int8_epilogue_plain(acc, scale, ws, None, torch.bfloat16))
+
+
+@pytest.mark.parametrize("k,parts", [(3072, 2), (3420, 2), (3420, 4), (12288, 2)])
+def test_row_parallel_int8_linear_equals_one_device(dev, k, parts):
+    """The ranks of a row-parallel int8 linear emulated on one card (the
+    all-reduces as a MAX of the slices' scales and a sum of their int32
+    products; the weight slices padded as the sharding pads them): the
+    output equals the whole row's int8 linear bit for bit."""
+    from types import SimpleNamespace
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed, sharding
+
+    m, n = 300, 1280
+    x = _randn((m, k), 72, dev)
+    wq, ws = int8.quantize_weight(_randn((n, k), 73, dev) * 0.02)
+    b = _randn((n,), 74, dev) * 0.1
+    want = int8.int8_linear(x, {"w_q": wq, "scale": ws, "bias": b})
+    w = k // parts
+    parts_x = [x[:, r * w:(r + 1) * w].contiguous() for r in range(parts)]
+    scale = torch.stack([int8.row_scales_plain(p) for p in parts_x]).amax(0)
+    assert torch.equal(scale, int8.row_scales_plain(x))
+    sums = []
+    real = distributed.all_reduce
+
+    def fake_all_reduce(t, group, op="sum"):
+        if op == "max":
+            return t.copy_(scale)
+        sums.append(t.clone())
+        return t
+
+    distributed.all_reduce = fake_all_reduce
+    try:
+        for r in range(parts):
+            w_r = sharding.pad_codes(wq[:, r * w:(r + 1) * w]).contiguous()
+            int8.int8_linear_row(parts_x[r], {"w_q": w_r, "scale": ws, "bias": b},
+                                 SimpleNamespace(size=parts, rank=r))
+    finally:
+        distributed.all_reduce = real
+    acc = torch.stack(sums).sum(0, dtype=torch.int32)
+    assert torch.equal(int8.int8_epilogue(acc, scale, ws, b, torch.bfloat16), want)
+
+
 def test_int8_gemm_split_k_launches_on_two_streams_do_not_mix(dev):
     """Split-K launches that overlap on two streams each keep their own
     partials and tile counters: every result stays bit-identical."""

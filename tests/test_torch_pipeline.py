@@ -269,7 +269,10 @@ def tiny_pipe():
 
 @pytest.mark.parametrize("kwargs", [{"mesh_cfg_axis": 2}])
 def test_unported_config_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A config asking for a mesh runs only on the ranks of a world that
+    size, each passing its mesh (tests/test_torch_parallel_world.py); a
+    process given none is refused."""
+    with pytest.raises(ValueError, match="mesh="):
         tep.EditPipeline.create("tiny", _config(**kwargs), seed=0, device="cpu")
 
 
