@@ -62,10 +62,12 @@ def row_linear(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tenso
     """A row-parallel linear (``parallel/sharding.py``) over ``group``: x
     holds this rank's slice of the input features and ``p`` the matching
     slice of the weight's input dim. The partial products are summed over
-    the group and the bias is added once, after the sum (the JAX row rule
-    keeps the bias whole and psums the partial products before it). An int8
-    leaf sums exact int32 products (``ops/int8.py::int8_linear_row``). A
-    group of one rank is :func:`linear`."""
+    the group (``distributed.reduce_from``: under autograd its backward
+    passes the whole gradient on to each rank's slice) and the bias is
+    added once, after the sum (the JAX row rule keeps the bias whole and
+    psums the partial products before it). An int8 leaf sums exact int32
+    products (``ops/int8.py::int8_linear_row``). A group of one rank is
+    :func:`linear`."""
     if group.size == 1:
         return linear(p, x)
     from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
@@ -76,20 +78,43 @@ def row_linear(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tenso
         y = int8_ops.int4_linear(x, p, group)
     else:
         y = F.linear(x, p["weight"])
-    distributed.all_reduce(y, group)
+    y = distributed.reduce_from(y, group)
     b = p.get("bias")
     return y if b is None else y + b.to(y.dtype)
+
+
+def column_input(x: torch.Tensor, group: Group = SINGLE) -> torch.Tensor:
+    """The whole input of column-parallel linears over ``group``: ``x``
+    itself, whose gradient (where it needs one) each rank's linears give
+    only their output slice's share of, so the backward sums it over the
+    group (``distributed.copy_to``)."""
+    if group.size == 1:
+        return x
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    return distributed.copy_to(x, group)
 
 
 def gather_linear(p: Params, x: torch.Tensor, group: Group = SINGLE) -> torch.Tensor:
     """A column-parallel linear whose output is needed whole (the
     modulation vectors, the vision patch embedding): this rank's output
-    features, all-gathered along the last dim in rank order."""
+    features, all-gathered along the last dim in rank order.
+
+    The gathered parts carry no gradient. That is right where it is called:
+    nothing trained lies upstream of the MMDiT's ``temb_act`` or inside the
+    VL encoder. A product that needs a gradient (a LoRA on ``img_mod`` /
+    ``txt_mod`` under a mesh) raises instead of training on a wrong one."""
     if group.size == 1:
         return linear(p, x)
     from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
 
-    return distributed.all_gather(linear(p, x), group, dim=-1)
+    y = linear(p, x)
+    if torch.is_grad_enabled() and y.requires_grad:
+        raise NotImplementedError(
+            "gather_linear under a mesh carries no gradient: a column-parallel "
+            "product that needs one (a LoRA target on the modulations) cannot "
+            "train under tensor parallelism")
+    return distributed.all_gather(y, group, dim=-1)
 
 
 def rms_norm_init(dim: int, dtype, device) -> Params:

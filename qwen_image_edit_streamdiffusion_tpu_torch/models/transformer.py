@@ -20,6 +20,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import ModelConfig
 from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group
 from qwen_image_edit_streamdiffusion_tpu_torch.models.common import (
     Params,
+    column_input,
     gather_linear,
     gelu_tanh,
     layer_norm,
@@ -145,6 +146,7 @@ def _joint_attention(p: Params, cfg: ModelConfig, img, txt, ropes: RopeTables,
                      txt_mask: Optional[torch.Tensor], use_flash: bool,
                      tp: Group = SINGLE):
     nh = cfg.num_heads // tp.size  # this rank's heads
+    img, txt = column_input(img, tp), column_input(txt, tp)
     if "img_qkv" in p:  # fused projections (models.optimize.fuse_qkv)
         iq, ik, iv = (_heads(t, nh) for t in linear(p["img_qkv"], img).chunk(3, -1))
         tq, tk, tv = (_heads(t, nh) for t in linear(p["txt_qkv"], txt).chunk(3, -1))
@@ -197,6 +199,7 @@ def _block(p: Params, cfg: ModelConfig, img, txt, temb_act, ropes,
 
     img_n, img_gate2 = _modulate(img, img_mod2, cfg.eps)
     txt_n, txt_gate2 = _modulate(txt, txt_mod2, cfg.eps)
+    img_n, txt_n = column_input(img_n, tp), column_input(txt_n, tp)
     img = torch.addcmul(img, img_gate2.to(img.dtype), row_linear(
         p["img_mlp"]["fc2"], gelu_tanh(linear(p["img_mlp"]["fc1"], img_n)), tp))
     txt = torch.addcmul(txt, txt_gate2.to(txt.dtype), row_linear(
@@ -224,7 +227,11 @@ def forward(params: Params, cfg: ModelConfig, img_tokens: torch.Tensor,
     column-parallel, ``img_out`` / ``txt_out`` / ``fc2`` row-parallel (one
     all-reduce each, the bias added after it), the modulation vectors
     all-gathered before they are chunked; attention runs on the rank's
-    ``num_heads / tp`` heads. The top-level leaves are whole."""
+    ``num_heads / tp`` heads. The top-level leaves are whole. Under
+    autograd (a LoRA step) the inputs of the column-parallel linears sum
+    their gradient over the group in the backward (``column_input``: four
+    all-reduces a block, where they need a gradient) and the row-parallel
+    sums pass theirs on unchanged."""
     img = linear(params["img_in"], img_tokens)
     txt = linear(params["txt_in"], rms_norm(params["txt_norm"], txt_embeds, cfg.eps))
 

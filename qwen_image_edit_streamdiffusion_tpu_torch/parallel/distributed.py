@@ -12,7 +12,15 @@ collectives; the port runs one process per rank (``torchrun``, or
 - :func:`global_mesh` builds the (cfg × model) mesh over that world;
 - :func:`all_reduce`, :func:`all_gather` and :func:`broadcast_object` are what
   the forward code and the serving loop call, on a ``core.meshes.Group``.
-  A group of one rank returns its input untouched.
+  A group of one rank returns its input untouched;
+- :func:`reduce_from` and :func:`copy_to` are the conjugate pair of
+  Megatron-style tensor parallelism under autograd: the sum over the model
+  group of a row-parallel linear's partial products (identity in the
+  backward), and the identity in front of the column-parallel linears
+  whose backward sums the input's gradient over the group (each rank holds
+  only its own heads' share of it). The backward all-reduces count under
+  ``all_reduce_bwd`` in :data:`STATS`, the train step's one adapter
+  gradient reduction under ``grad_reduce``.
 
 The backend is the caller's choice and nothing switches it: ``nccl`` by
 default on CUDA, ``gloo`` on the CPU, or on CUDA where several ranks share
@@ -37,7 +45,9 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import DEFAULT_TIMEOU
 # calls and bytes since the last reset, one entry per collective (a plain
 # count: what chip_smoke.py and PERF.md read per forward)
 STATS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
-                         "all_reduce_bytes": 0, "all_gather_bytes": 0}
+                         "all_reduce_bytes": 0, "all_gather_bytes": 0,
+                         "all_reduce_bwd": 0, "all_reduce_bwd_bytes": 0,
+                         "grad_reduce": 0, "grad_reduce_bytes": 0}
 
 
 def reset_stats() -> None:
@@ -96,17 +106,82 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
-def all_reduce(t: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:
-    """Sum (or ``op="max"``) ``t`` over ``group``, in place; returns ``t``."""
+def all_reduce(t: torch.Tensor, group: Group, op: str = "sum",
+               key: str = "all_reduce") -> torch.Tensor:
+    """Sum (or ``op="max"``) ``t`` over ``group``, in place; returns ``t``.
+    Counted in :data:`STATS` under ``key`` (calls) and ``key + "_bytes"``."""
     if group.size == 1:
         return t
     import torch.distributed as dist
 
     dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
                     group=group.pg)
-    STATS["all_reduce"] += 1
-    STATS["all_reduce_bytes"] += t.numel() * t.element_size()
+    STATS[key] += 1
+    STATS[key + "_bytes"] += t.numel() * t.element_size()
     return t
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce sum in the forward, identity in the backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.mark_dirty(t)
+        return all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity in the forward, all-reduce sum of the gradient in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous().clone(), ctx.group, key="all_reduce_bwd"), None
+
+
+def _grad_path(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def reduce_from(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``t`` (a row-parallel linear's partial product) summed over
+    ``group``, in place: an autograd node whose backward passes the
+    gradient on unchanged (every rank then holds the whole gradient of the
+    sum) where ``t`` needs a gradient, else the plain all-reduce."""
+    if group.size == 1:
+        return t
+    if _grad_path(t):
+        return _ReduceFrom.apply(t, group)
+    return all_reduce(t, group)
+
+
+def copy_to(t: torch.Tensor, group: Group) -> torch.Tensor:
+    """``t`` (the whole input of column-parallel linears) as it is, with a
+    backward that sums its gradient over ``group``: each rank's linears
+    give only their own output slice's share of it. Only where ``t`` needs
+    a gradient; elsewhere (serving, a teacher under ``no_grad``, a first
+    block whose input nothing upstream trains) ``t`` itself."""
+    if group.size == 1 or not _grad_path(t):
+        return t
+    return _CopyTo.apply(t, group)
+
+
+def barrier(group: Group) -> None:
+    """Wait until every rank of ``group`` has reached this call."""
+    if group.size == 1:
+        return
+    import torch.distributed as dist
+
+    dist.barrier(group=group.pg)
 
 
 def all_gather(t: torch.Tensor, group: Group, dim: int = -1) -> torch.Tensor:

@@ -30,8 +30,8 @@ holds the whole model. The MMDiT runs tensor-parallel over the model group;
 ``cfg_mode="parallel"`` runs the positive rows on cfg group 0 and the
 negative rows on group 1, and a cond-only (or rcfg) call of several rows
 splits its rows over the cfg groups, as the JAX ``dp_rows`` does. The
-stream and training refuse a mesh of more than one rank, naming their
-ROADMAP item. ``cfg_mode``,
+stream (``pipeline/stream.py``) and the trainers (``training/``) run on the
+same mesh. ``cfg_mode``,
 ``transfer_format`` and ``decoder`` are read from ``config`` on every call.
 Rows are not padded to the JAX package's {1, 2, 4, 8, 16} buckets, which bound
 XLA compiles; eager PyTorch has none, and rows are independent.
@@ -111,12 +111,6 @@ class EditResult(NamedTuple):
     elapsed: float
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md queue 1, {item})")
-
-
 def check_config(config: StreamConfig, mesh: Optional[Mesh] = None) -> None:
     """Refuse, at construction, a config whose mesh axes differ from the
     mesh given (none given: a mesh of one rank)."""
@@ -128,14 +122,6 @@ def check_config(config: StreamConfig, mesh: Optional[Mesh] = None) -> None:
             f"mesh given is {have[0]}x{have[1]}: pass mesh= "
             "(parallel/distributed.py::global_mesh) from every rank of a "
             "torch.distributed world of that size")
-
-
-def refuse_mesh(mesh: Optional[Mesh], what: str) -> None:
-    """Refuse ``what`` on a mesh of more than one rank (the stream and
-    training: the next slice of the multi-GPU work)."""
-    if mesh is not None and mesh.size > 1:
-        _not_ported(f"{what} under a mesh of {mesh.size} ranks",
-                    "multi-GPU (item 8)")
 
 
 def _check_tiny_cfg(tcfg, vae_cfg, path: str) -> None:

@@ -37,6 +37,18 @@ text rows are frozen on the card and the rope tables cached, so frame N + 1's
 host work overlaps frame N's device work. Only :meth:`RealtimePipeline._collect`
 fetches pixels, and only it waits.
 
+Under a (cfg × model) mesh (a pipeline built with ``mesh=``) a frame runs
+``EditPipeline._denoise`` tensor-parallel over the pipeline's model group
+(and a multi-row dispatch's rows over its cfg groups); a guided frame stays
+batched (or ``rcfg`` / ``rcfg-self``), never ``parallel``, as in the JAX
+fused graph. Every rank makes the same calls: a stream driven on every rank
+alike, or, behind the engine, rank 0's session mirrored on the other ranks
+(``lockstep``, ``runtime/engine.py``): each call that does device work
+(:meth:`RealtimePipeline.precompute_conditions`, a queued frame,
+:func:`submit_frames_batched`) is broadcast before it runs, and a collect
+after it; the similarity filter, the host fetch and the preview upscale
+stay on rank 0, so a skipped frame is never sent.
+
 Frames come in as (H, W, 3) uint8 arrays (a PIL image is accepted and
 converted) and go out as (H, W, 3) uint8 arrays; PIL and cv2 are never
 needed (``run_camera_loop`` imports cv2 lazily and streams a test pattern
@@ -62,7 +74,6 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import encode
 from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
     EditPipeline,
     _pad_rows,
-    refuse_mesh,
 )
 
 
@@ -72,11 +83,13 @@ class BatchPixels:
     re-serve the same handle). On a card the copy to pinned host memory is
     queued right behind the decode, with an event after it: collecting waits
     for that event only, not for the frames queued since on the same
-    stream (a plain ``.cpu()`` would wait for them too)."""
+    stream (a plain ``.cpu()`` would wait for them too). ``tag``: the
+    dispatch's number in its lockstep (None alone)."""
 
-    __slots__ = ("pixels", "_ready", "_host")
+    __slots__ = ("pixels", "_ready", "_host", "tag")
 
-    def __init__(self, pixels: torch.Tensor):
+    def __init__(self, pixels: torch.Tensor, tag: Optional[int] = None):
+        self.tag = tag
         self._ready = None
         if pixels.device.type == "cuda":
             host = torch.empty(pixels.shape, dtype=pixels.dtype, pin_memory=True)
@@ -86,6 +99,10 @@ class BatchPixels:
             pixels = host
         self.pixels = pixels
         self._host: Optional[List[np.ndarray]] = None
+
+    @property
+    def fetched(self) -> bool:
+        return self._host is not None
 
     def fetch(self, pipe: EditPipeline) -> List[np.ndarray]:
         if self._host is None:
@@ -129,9 +146,9 @@ class RealtimePipeline:
     _ssf_rng: Optional[np.random.Generator] = None
     _preview_warned: bool = False
     _side_stream: Optional[object] = None  # the preview upscale's CUDA stream
-
-    def __post_init__(self):
-        refuse_mesh(self.pipe.mesh, "the realtime stream")
+    # rank 0's link to this session's mirror on the other ranks of a world
+    # (runtime/engine.py::SessionLink); None: the session runs alone
+    lockstep: Optional[object] = None
 
     @property
     def config(self) -> StreamConfig:
@@ -146,13 +163,25 @@ class RealtimePipeline:
 
     # ------------------------------------------------------------------
 
-    @torch.inference_mode()
+    def _lockstep_call(self, kind: str, fn, *args):
+        """(``fn(*args)``, the dispatch's tag): alone, the call; under a
+        ``lockstep`` link, broadcast to the mirrors first."""
+        if self.lockstep is None:
+            return fn(*args), None
+        return self.lockstep.call(self, kind, fn, args)
+
     def precompute_conditions(self, prompt: str, negative_prompt: Optional[str] = None,
                               reference_image=None) -> None:
         """Encode and freeze the prompt conditioning on the card: the
         positive and (when given) negative prompt as one encoder wave, padded
         to one length (zero rows, False mask); text-only unless a reference
         image (resized to ``vl_image_area``) conditions it."""
+        self._lockstep_call("precompute", self._precompute, prompt, negative_prompt,
+                            reference_image)
+
+    @torch.inference_mode()
+    def _precompute(self, prompt: str, negative_prompt: Optional[str],
+                    reference_image) -> None:
         self.prompt = prompt
         self.negative_prompt = negative_prompt
         p = self.pipe
@@ -274,9 +303,7 @@ class RealtimePipeline:
         if self._ssf_should_skip(frame, self._ssf_out is not None):
             self.skipped_frames += 1
             return self._ssf_out
-        self.is_keyframe = self._next_is_keyframe()
-        out = self._fused_frame(frame, cfgc.num_inference_steps)
-        self.frame_count += 1
+        out = self._collect((self._queue_frame(frame, cfgc.num_inference_steps), 0))
         self.inference_times.append(time.time() - t0)
         if cfgc.similarity_filter:
             self._ssf_out = out
@@ -294,12 +321,27 @@ class RealtimePipeline:
         if self._ssf_should_skip(frame, self._ssf_pixels is not None):
             self.skipped_frames += 1
             return self._ssf_pixels
-        self.is_keyframe = self._next_is_keyframe()
-        handle = (BatchPixels(self._submit_fused(frame, cfgc.num_inference_steps)), 0)
-        self.frame_count += 1
+        handle = (self._queue_frame(frame, cfgc.num_inference_steps), 0)
         if cfgc.similarity_filter:
             self._ssf_pixels = handle
         return handle
+
+    def _queue_frame(self, frame, steps: int) -> BatchPixels:
+        """A processed frame's dispatch (the prompt frozen first where it is
+        not), broadcast to the mirrors under a lockstep link."""
+        if self._frozen_txt is None:
+            self.precompute_conditions(self.prompt, self.negative_prompt)
+        pixels, tag = self._lockstep_call("advance", self._advance,
+                                          imaging.as_uint8_array(frame), steps)
+        return BatchPixels(pixels, tag)
+
+    def _advance(self, frame: np.ndarray, steps: int) -> torch.Tensor:
+        """Queue the next processed frame (a keyframe by the cadence) and
+        count it; its pixels on the card."""
+        self.is_keyframe = self._next_is_keyframe()
+        pixels = self._submit_fused(frame, steps)
+        self.frame_count += 1
+        return pixels
 
     @torch.inference_mode()
     def _submit_fused(self, frame, steps: int) -> torch.Tensor:
@@ -308,8 +350,6 @@ class RealtimePipeline:
         cfgc = self.config
         preview = self._preview_scale() > 1 and not self.is_keyframe
         out_h, out_w, image = self._condition_image(imaging.as_uint8_array(frame), preview)
-        if self._frozen_txt is None:
-            self.precompute_conditions(self.prompt, self.negative_prompt)
         use_cfg = self.negative_prompt is not None and cfgc.true_cfg_scale > 1.0
         kind = "key" if self.is_keyframe else "temporal"
         zshape = (1, out_h // 8, out_w // 8, self.pipe.preset.vae.latent_channels)
@@ -327,10 +367,13 @@ class RealtimePipeline:
         per dispatch), and a preview frame upscaled to the display size on
         the pipeline's device, with the Lanczos-3 of the JAX stream's native
         library (``imaging.resize_native``). The only step of the stream that
-        waits for the card."""
+        waits for the card; under a lockstep link the mirrors wait for their
+        copy of the dispatch too (once a dispatch)."""
         if not isinstance(handle, tuple):
             handle = (BatchPixels(handle), 0)
         bp, row = handle
+        if self.lockstep is not None and bp.tag is not None and not bp.fetched:
+            self.lockstep.collect(bp.tag)
         img = bp.fetch(self.pipe)[row]
         w, h = self.config.width, self.config.height
         if self._preview_scale() > 1 and img.shape[:2] != (h, w):
@@ -348,9 +391,6 @@ class RealtimePipeline:
             self._side_stream = torch.cuda.Stream(device)
         with torch.cuda.stream(self._side_stream):
             return imaging.resize_native(img, w, h, device)
-
-    def _fused_frame(self, frame, steps: int) -> np.ndarray:
-        return self._collect(self._submit_fused(frame, steps))
 
     # ------------------------------------------------------------------
     # Stochastic Similarity Filter (StreamDiffusion §3.3)
@@ -568,20 +608,37 @@ def submit_frames_batched(sessions: List[RealtimePipeline], frames: list) -> lis
         if sess._preview_scale() > 1:
             raise ValueError("preview_scale sessions cannot batch "
                              "(temporal grid differs from keyframe grid)")
-
-    kind = "key" if kf0 else "temporal"
-    images, rows = [], {k: [] for k in ("noise", "prev", "txt", "mask", "ntxt", "nmask")}
-    out_hw = None
+    frames = [imaging.as_uint8_array(f) for f in frames]
+    images, out_hw = [], None
     for sess, frame in zip(sessions, frames):
-        out_h, out_w, image = sess._condition_image(imaging.as_uint8_array(frame), False)
+        out_h, out_w, image = sess._condition_image(frame, False)
         if out_hw is None:
             out_hw = (out_h, out_w)
         elif (out_h, out_w) != out_hw or image.shape != images[0].shape:
             raise ValueError("batched sessions must share image geometry")
         images.append(image)
+    for sess in sessions:
         if sess._frozen_txt is None:
             sess.precompute_conditions(sess.prompt, sess.negative_prompt)
-        zshape = (1, out_h // 8, out_w // 8, p.preset.vae.latent_channels)
+    if lead.lockstep is None:
+        bp = _dispatch_batched(sessions, images, out_hw, kf0, sig0)
+    else:
+        bp, tag = lead.lockstep.call_batched(
+            sessions, frames, lambda: _dispatch_batched(sessions, images, out_hw, kf0, sig0))
+        bp.tag = tag
+    return [(bp, r) for r in range(len(sessions))]
+
+
+def _dispatch_batched(sessions: List[RealtimePipeline], images: List[np.ndarray],
+                      out_hw: Tuple[int, int], kf0: bool, sig0: tuple) -> BatchPixels:
+    """The multi-row dispatch of :func:`submit_frames_batched`, validated:
+    the sessions' condition images at one output size ``out_hw``."""
+    lead = sessions[0]
+    p = lead.pipe
+    kind = "key" if kf0 else "temporal"
+    rows = {k: [] for k in ("noise", "prev", "txt", "mask", "ntxt", "nmask")}
+    for sess in sessions:
+        zshape = (1, out_hw[0] // 8, out_hw[1] // 8, p.preset.vae.latent_channels)
         rows["noise"].append(sess._frame_noise(kind, zshape, sess.frame_count))
         rows["prev"].append(sess.prev_latent)
         for key, a in (("txt", sess._frozen_txt), ("mask", sess._frozen_mask),
@@ -595,9 +652,8 @@ def submit_frames_batched(sessions: List[RealtimePipeline], frames: list) -> lis
     prev = None if kf0 else torch.cat(rows["prev"])
     pixels, latents = lead._run_frames(kind, images, prev, noises, txt, mask, ntxt,
                                        nmask, out_hw, sig0[2], sig0[-1])
-    bp = BatchPixels(pixels)
     for r, sess in enumerate(sessions):
         sess.prev_latent = latents[r:r + 1]
         sess.frame_count += 1
         sess.is_keyframe = kf0
-    return [(bp, r) for r in range(len(sessions))]
+    return BatchPixels(pixels)

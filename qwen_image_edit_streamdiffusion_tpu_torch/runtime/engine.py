@@ -31,7 +31,16 @@ Under a world of several ranks (``serving/server.py`` started by
 engine and the HTTP server, and its pipeline is a :class:`LockstepPipeline`
 that broadcasts each call that does device work to the other ranks, which
 run :func:`follow`. The single-flight lock, the 429, the codec and the
-trace stay on rank 0. Stream sessions refuse a world of more than one rank.
+trace stay on rank 0. Stream sessions run there too: each session of rank 0
+has a :class:`SessionLink`, through which it broadcasts its prompt
+encodes, its queued frames, its collects and its multi-session dispatches
+(``pipeline/stream.py``), and each follower keeps a mirror of the session
+(:class:`_StreamMirror`) that makes the same calls. The similarity filter
+decides on rank 0 alone (a skipped frame is not sent), and the host fetch
+and the preview upscale run there only; a follower waits for its copy of
+a frame when rank 0 collects it, and drops it. An evicted session, or one
+whose websocket closed (:meth:`InferenceEngine.end_session`), ends on
+every rank.
 
 Not ported: the JAX package's device watchdog (its dispatch deadline and
 probe thread answer a wedged accelerator link), so there is no
@@ -46,7 +55,7 @@ import threading
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -242,22 +251,46 @@ class InferenceEngine:
                   f"{time.monotonic() - t0:.1f}s")
             b *= 2
 
+    def _new_session(self, sid: str, scfg: StreamConfig) -> Any:
+        """A stream session on this engine's pipeline params and caches, with
+        ``scfg``; under a :class:`LockstepPipeline`, linked to its mirrors."""
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
+            RealtimePipeline,
+        )
+
+        pipe, link = self.pipeline, None
+        if isinstance(pipe, LockstepPipeline):
+            pipe, link = pipe._pipe, SessionLink(pipe, sid)
+        return RealtimePipeline(pipe=dataclasses.replace(pipe, config=scfg),
+                                lockstep=link)
+
+    def _drop_session(self, sid: str) -> None:
+        """Forget a session (its in-flight frame too), on every rank."""
+        sess = self._sessions.pop(sid, None)
+        self._session_pending.pop(sid, None)
+        if sess is not None and sess.lockstep is not None:
+            sess.lockstep.end()
+
+    def end_session(self, sid: str) -> None:
+        """End the stream session ``sid`` (a closed websocket's), under the
+        device lock: on every rank of a world."""
+        with self._lock:
+            self._drop_session(sid)
+
     def _warmup_stream_graphs(self) -> None:
         """Run a throwaway stream session (keyframe, then a temporal frame,
         cond-only at input_size² × default_steps, built as `_edit_stream`
         builds one) and, with dynamic batching, multi-session batched frames.
-        The sessions share this engine's pipeline params and caches."""
-        self._refuse_stream_mesh()
+        The sessions share this engine's pipeline params and caches, and end
+        after."""
         from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
-            RealtimePipeline,
             submit_frames_batched,
         )
 
         s = self.input_size
         scfg = self.pipeline.config.replace(
             width=s, height=s, num_inference_steps=self.default_steps)
-        sess = RealtimePipeline(
-            pipe=dataclasses.replace(self.pipeline, config=scfg))
+        sess = self._new_session("warmup-0", scfg)
         sess.precompute_conditions("warmup")
         img = imaging.make_test_image(s, s, "gradient")
         t0 = time.monotonic()
@@ -266,6 +299,7 @@ class InferenceEngine:
         t0 = time.monotonic()
         sess.process_frame(img)  # temporal frame
         print(f"[warmup]   stream temporal frame: {time.monotonic() - t0:.1f}s")
+        sessions = [sess]
         if self.dynamic_batch > 1:
             cap = min(self.dynamic_batch, self.max_stream_sessions)
             b = 2
@@ -273,16 +307,19 @@ class InferenceEngine:
                 t0 = time.monotonic()
                 group = []
                 for _ in range(b):
-                    s2 = RealtimePipeline(
-                        pipe=dataclasses.replace(self.pipeline, config=scfg))
+                    s2 = self._new_session(f"warmup-{len(sessions)}", scfg)
                     s2.precompute_conditions("warmup")
                     s2.process_frame(img)  # past the keyframe
                     group.append(s2)
+                    sessions.append(s2)
                 handles = submit_frames_batched(group, [img] * b)
                 group[0]._collect(handles[0])
                 print(f"[warmup]   stream rows={b}: "
                       f"{time.monotonic() - t0:.1f}s")
                 b *= 2
+        for s2 in sessions:
+            if s2.lockstep is not None:
+                s2.lockstep.end()
 
     # ------------------------------------------------------------------
 
@@ -503,7 +540,6 @@ class InferenceEngine:
         (``submit_frames_batched``), keyframes, similarity-filter and
         preview sessions, and further frames of one session on their own,
         within the same lock hold."""
-        self._refuse_stream_mesh()
         start = time.time()
         sid = str(request.get("stream_session"))
         img, pipelined = self._parse_stream_request(request)
@@ -620,13 +656,6 @@ class InferenceEngine:
         finally:
             e.event.set()
 
-    def _refuse_stream_mesh(self) -> None:
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
-            refuse_mesh,
-        )
-
-        refuse_mesh(getattr(self.pipeline, "mesh", None), "stream sessions")
-
     def _edit_stream(self, sid: str, request: Dict[str, Any],
                      start: float) -> Dict[str, Any]:
         """`/edit` with a `stream_session` id: temporal-latent streaming over
@@ -647,7 +676,6 @@ class InferenceEngine:
         (`lag` 1); the session's first request returns its own (`lag` 0)
         and keeps it pending, so the next request re-serves it once.
         """
-        self._refuse_stream_mesh()
         img, pipelined = self._parse_stream_request(request)
         sess = self._resolve_stream_session(sid, request)
         return self._serve_stream_frame(sid, sess, img, pipelined, start)
@@ -676,10 +704,6 @@ class InferenceEngine:
         """Look up or create the session and sync it to the request's steps
         and prompt conditioning. Touches the LRU table and may run a prompt
         encode: call with the device lock held."""
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
-            RealtimePipeline,
-        )
-
         prompt = request.get("prompt", "Transform into oil painting style")
         steps = int(request.get("steps", self.default_steps))
         use_cfg = bool(request.get("use_cfg", False))
@@ -688,13 +712,10 @@ class InferenceEngine:
         sess = self._sessions.pop(sid, None)
         if sess is None:
             while len(self._sessions) >= self.max_stream_sessions:
-                evicted = next(iter(self._sessions))
-                del self._sessions[evicted]
-                self._session_pending.pop(evicted, None)
+                self._drop_session(next(iter(self._sessions)))
             scfg = self.pipeline.config.replace(
                 width=s, height=s, num_inference_steps=steps)
-            sess = RealtimePipeline(
-                pipe=dataclasses.replace(self.pipeline, config=scfg))
+            sess = self._new_session(sid, scfg)
         self._sessions[sid] = sess  # (re)insert = LRU most recent
 
         if sess.config.num_inference_steps != steps:
@@ -855,20 +876,34 @@ class LockstepPipeline:
     def __init__(self, pipe: Any, group: Any):
         self._pipe, self._group = pipe, group
         self._failed: Optional[str] = None
+        self._dispatches = 0  # stream dispatches sent, their tags
 
-    def _call(self, method: str, args: tuple, kwargs: dict) -> Any:
+    def _run(self, what: str, msg: Any, fn) -> Any:
+        """Broadcast ``msg``, then ``fn()``; a raise ends the world."""
         from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
 
         if self._failed is not None:
             raise RuntimeError(f"the ranks are out of step since {self._failed}; "
                                "restart the world")
         try:
-            distributed.broadcast_object((method, args, kwargs), self._group)
-            return getattr(self._pipe, method)(*args, **kwargs)
+            distributed.broadcast_object(msg, self._group)
+            return fn()
         except BaseException as e:
-            self._failed = f"rank 0's {method} raised {type(e).__name__}: {e}"
+            self._failed = f"rank 0's {what} raised {type(e).__name__}: {e}"
             distributed.shutdown()
             raise
+
+    def _call(self, method: str, args: tuple, kwargs: dict) -> Any:
+        return self._run(method, (method, args, kwargs),
+                         lambda: getattr(self._pipe, method)(*args, **kwargs))
+
+    def _stream(self, msg: "StreamMsg", fn) -> Tuple[Any, Optional[int]]:
+        """A stream call: (``fn()``, its dispatch tag, for a dispatch)."""
+        tag = None
+        if msg.kind in DISPATCHES:
+            self._dispatches += 1
+            tag = self._dispatches
+        return self._run(f"stream {msg.kind}", msg, fn), tag
 
     def __call__(self, *args, **kwargs):
         return self._call("__call__", args, kwargs)
@@ -891,20 +926,121 @@ class LockstepPipeline:
         return getattr(self._pipe, name)
 
 
+class StreamMsg(NamedTuple):
+    """A stream call broadcast by rank 0: ``kind`` (``precompute``,
+    ``advance``, ``batched``, ``collect``, ``end``), the session id (the
+    ids, for ``batched``), its config (the configs) and the arguments."""
+
+    kind: str
+    sid: Any
+    config: Any
+    args: tuple
+
+
+# the stream calls that queue a frame: numbered alike on every rank
+DISPATCHES = ("advance", "batched")
+
+
+class SessionLink:
+    """Rank 0's link from one stream session (``RealtimePipeline.lockstep``)
+    to its mirrors on the other ranks, over a :class:`LockstepPipeline`."""
+
+    def __init__(self, lockstep: LockstepPipeline, sid: str):
+        self.lockstep, self.sid = lockstep, sid
+
+    def call(self, sess: Any, kind: str, fn, args: tuple) -> Tuple[Any, Optional[int]]:
+        """Broadcast the session's call, then run it: (result, tag)."""
+        return self.lockstep._stream(StreamMsg(kind, self.sid, sess.config, args),
+                                     lambda: fn(*args))
+
+    def call_batched(self, sessions: list, frames: list, fn) -> Tuple[Any, Optional[int]]:
+        return self.lockstep._stream(
+            StreamMsg("batched", [s.lockstep.sid for s in sessions],
+                      [s.config for s in sessions], (frames,)), fn)
+
+    def collect(self, tag: int) -> None:
+        """Rank 0 collects dispatch ``tag``: the mirrors wait for theirs."""
+        self.lockstep._stream(StreamMsg("collect", self.sid, None, (tag,)), lambda: None)
+
+    def end(self) -> None:
+        self.lockstep._stream(StreamMsg("end", self.sid, None, ()), lambda: None)
+
+
+class _StreamMirror:
+    """A follower's stream sessions, mirrored from rank 0's broadcasts: a
+    ``RealtimePipeline`` a session id, each dispatch's device event until
+    rank 0 collects it."""
+
+    def __init__(self, pipe: Any):
+        self.pipe = pipe
+        self.sessions: Dict[str, Any] = {}
+        self.pending: Dict[int, Tuple[tuple, Any]] = {}  # tag → (sids, event)
+        self.dispatches = 0
+
+    def _session(self, sid: str, config: StreamConfig) -> Any:
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import (
+            RealtimePipeline,
+        )
+
+        sess = self.sessions.get(sid)
+        if sess is None:
+            sess = self.sessions[sid] = RealtimePipeline(
+                pipe=dataclasses.replace(self.pipe, config=config))
+        elif sess.pipe.config != config:
+            sess.pipe.config = config
+        return sess
+
+    def _dispatched(self, sids: tuple) -> None:
+        self.dispatches += 1
+        event = None
+        if self.pipe.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self.pending[self.dispatches] = (sids, event)
+
+    def handle(self, msg: StreamMsg) -> None:
+        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import stream
+
+        if msg.kind == "precompute":
+            self._session(msg.sid, msg.config)._precompute(*msg.args)
+        elif msg.kind == "advance":
+            self._session(msg.sid, msg.config)._advance(*msg.args)
+            self._dispatched((msg.sid,))
+        elif msg.kind == "batched":
+            sessions = [self._session(sid, cfg) for sid, cfg in zip(msg.sid, msg.config)]
+            stream.submit_frames_batched(sessions, *msg.args)
+            self._dispatched(tuple(msg.sid))
+        elif msg.kind == "collect":
+            _, event = self.pending.pop(msg.args[0], ((), None))
+            if event is not None:
+                event.synchronize()
+        elif msg.kind == "end":
+            self.sessions.pop(msg.sid, None)
+            for tag in [t for t, (sids, _) in self.pending.items() if msg.sid in sids]:
+                del self.pending[tag]
+        else:
+            raise ValueError(f"unknown stream message {msg.kind!r}")
+
+
 def follow(pipe: Any, group: Any) -> int:
     """The loop of a rank > 0: make each call that rank 0's
     :class:`LockstepPipeline` broadcasts, and drop its result, until the
-    shutdown message. Returns the number of calls made. A call that raises
-    ends the loop with its exception: the rank fails (and with it the
-    world, under torchrun), since a rank that raised mid-forward has left
-    collectives that the others wait in."""
+    shutdown message; a stream call goes to this rank's mirror of the
+    session (:class:`_StreamMirror`). Returns the number of calls made. A
+    call that raises ends the loop with its exception: the rank fails (and
+    with it the world, under torchrun), since a rank that raised mid-forward
+    has left collectives that the others wait in."""
     from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
 
     calls = 0
+    mirror = _StreamMirror(pipe)
     while True:
         msg = distributed.broadcast_object(None, group)
         if msg is None:
             return calls
-        method, args, kwargs = msg
-        getattr(pipe, method)(*args, **kwargs)
+        if isinstance(msg, StreamMsg):
+            mirror.handle(msg)
+        else:
+            method, args, kwargs = msg
+            getattr(pipe, method)(*args, **kwargs)
         calls += 1

@@ -23,8 +23,10 @@ cfg 1 × model N, as the JAX server shards over every local device):
         qwen_image_edit_streamdiffusion_tpu_torch.serving.server [--dist-backend nccl]
 
 Each rank builds its slices of the pipeline on ``cuda:LOCAL_RANK``; rank 0
-serves HTTP and broadcasts each pipeline call, the others follow it
-(``runtime/engine.py::follow``). A call that raises on any rank ends that
+serves HTTP and the websocket and broadcasts each pipeline call and each
+stream session's calls, the others follow them
+(``runtime/engine.py::follow``; a websocket's session ends on every rank
+when the socket closes). A call that raises on any rank ends that
 rank's process group, so the others' collectives fail at once, and the
 world stops (torchrun ends every rank when one fails): restart it.
 ``--dist-backend gloo`` lets several ranks

@@ -1,10 +1,19 @@
-"""Web UI layer: the dependency-free browser UI served at ``/ui``.
+"""Web UI layer: the dependency-free browser UI served at ``/ui``, and the
+Gradio UI.
 
-Counterpart of ``INDEX_HTML`` in ``qwen_image_edit_streamdiffusion_tpu/serving/webui.py``
-(webcam / upload / composite tabs, client-side 512² center crop, steps
-slider, CFG toggle, blend ratio, the websocket stream), a copy of that page.
-The Gradio ``create_ui`` is not ported (ROADMAP.md queue 1): Gradio is on
-neither machine.
+Counterpart of ``qwen_image_edit_streamdiffusion_tpu/serving/webui.py``:
+
+- ``INDEX_HTML`` (webcam / upload / composite tabs, client-side 512² center
+  crop, steps slider, CFG toggle, blend ratio, the websocket stream), a
+  copy of that page;
+- :func:`create_ui`, the Gradio Blocks UI with the same tabs, defaults and
+  callbacks; ``gradio`` is imported when it is called, and its absence
+  raises an ``ImportError`` that points to ``/ui``. Images stay arrays: the
+  resize and the composite run through ``core/imaging.py``, never PIL.
+
+Gradio UI on the card (where gradio is installed)::
+
+    python -m qwen_image_edit_streamdiffusion_tpu_torch.serving.webui
 """
 
 from __future__ import annotations
@@ -156,3 +165,98 @@ $('stream').onchange=e=>{
  else{$('status').textContent='idle';wsStop();}};
 </script></body></html>
 """
+
+
+def create_ui(engine=None, preset: str = "qwen-image-edit-2509"):
+    """Gradio Blocks UI (reference webui_realtime.py:185-316): a load
+    button, then webcam, upload and composite tabs on ``engine`` (built
+    from ``preset`` on the card by the load button when None). Requires
+    gradio; raises ImportError with a pointer to /ui otherwise."""
+    try:
+        import gradio as gr
+    except ImportError as e:
+        raise ImportError(
+            "gradio is not installed; use the built-in browser UI at /ui "
+            "(serving.server) instead"
+        ) from e
+
+    import numpy as np
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import imaging
+    from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
+
+    state = {"engine": engine}
+
+    def load_model():
+        if state["engine"] is None:
+            state["engine"] = InferenceEngine.create(preset)
+        return "Model loaded ✓"
+
+    def process(img: np.ndarray, prompt: str, steps: int):
+        if state["engine"] is None:
+            return None, "Load the model first"
+        eng = state["engine"]
+        # true-CFG convention of the Gradio path (webui_realtime.py:77-86)
+        res = eng.pipeline(
+            imaging.resize(imaging.as_uint8_array(img), eng.input_size, eng.input_size),
+            prompt, negative_prompt=" ", true_cfg_scale=4.0,
+            num_inference_steps=int(steps), seed=42,
+        )
+        return np.asarray(res.images[0]), f"{res.elapsed:.2f}s"
+
+    def process_composite(a, b, ratio, prompt, steps):
+        blended = imaging.blend(imaging.as_uint8_array(a), imaging.as_uint8_array(b),
+                                float(ratio))
+        return process(blended, prompt, steps)
+
+    with gr.Blocks(title="Qwen-Image-Edit Realtime (GPU)") as demo:
+        gr.Markdown("# Qwen-Image-Edit-2509 Realtime (GPU)")
+        status = gr.Textbox(label="Status", value="model not loaded")
+        gr.Button("Load Model").click(load_model, outputs=status)
+        with gr.Tab("Webcam"):
+            cam = gr.Image(sources=["webcam"], streaming=True)
+            out = gr.Image(label="Edited")
+            prompt = gr.Textbox(value="Transform into oil painting style",
+                                label="Prompt")
+            steps = gr.Slider(1, 8, value=4, step=1, label="Steps")
+            t = gr.Textbox(label="Inference time")
+            cam.change(process, [cam, prompt, steps], [out, t])
+        with gr.Tab("Upload"):
+            up = gr.Image(label="Input")
+            out2 = gr.Image(label="Edited")
+            prompt2 = gr.Textbox(value="Transform into oil painting style",
+                                 label="Prompt")
+            gr.Examples(  # example prompts (reference webui layout)
+                examples=[
+                    ["Transform into oil painting style"],
+                    ["Make it look like a watercolor painting"],
+                    ["Convert to anime style"],
+                    ["Turn this into a cyberpunk scene with neon lights"],
+                    ["Make it look like a pencil sketch"],
+                ],
+                inputs=[prompt2],
+            )
+            steps2 = gr.Slider(1, 8, value=4, step=1, label="Steps")
+            t2 = gr.Textbox(label="Inference time")
+            gr.Button("Edit").click(process, [up, prompt2, steps2], [out2, t2])
+        with gr.Tab("Composite"):
+            a = gr.Image(label="Image A")
+            b = gr.Image(label="Image B")
+            ratio = gr.Slider(0, 1, value=0.5, label="Blend ratio")
+            out3 = gr.Image(label="Edited")
+            prompt3 = gr.Textbox(value="Blend these scenes", label="Prompt")
+            steps3 = gr.Slider(1, 8, value=4, step=1, label="Steps")
+            t3 = gr.Textbox(label="Inference time")
+            gr.Button("Composite").click(
+                process_composite, [a, b, ratio, prompt3, steps3], [out3, t3]
+            )
+    return demo
+
+
+def main():
+    demo = create_ui()
+    demo.launch(server_name="0.0.0.0", server_port=7865, share=False)
+
+
+if __name__ == "__main__":
+    main()

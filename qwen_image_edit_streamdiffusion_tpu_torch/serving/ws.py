@@ -294,9 +294,10 @@ def handle_connection(handler, engine) -> None:
             write_frame(wfile, OP_BINARY,
                         struct.pack("!I", len(meta)) + meta + jpeg)
     except (ConnectionError, OSError, socket.timeout):
-        pass  # peer vanished / idle timeout: nothing to clean up —
-        # session state is LRU-bounded engine-side and a reconnect with a
-        # fresh sid simply re-anchors with a keyframe
+        pass  # peer vanished / idle timeout; a reconnect with a fresh sid
+        # simply re-anchors with a keyframe
+    finally:
+        engine.end_session(sid)  # the socket's session ends with it, on every rank
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,12 @@ loader that the LoRA and distillation trainers consume:
   tokenizing, launches) is what overlaps. The queue is bounded; an exception
   in the producer is raised in the consumer; closing the iterator stops the
   producer, drains the queue and joins the thread.
+- **Under a mesh** (a pipeline built with ``mesh=``) every rank reads the
+  same files in the same order and builds the same batch through its own
+  sharded encoders, whose collectives must not interleave with the train
+  step's: the producer thread then reads and decodes the files only, and
+  the consumer builds each batch before it yields it. World rank 0 writes
+  the state file (``lora_train.save_train_state``).
 - **Determinism.** Each epoch's order is ``np.random.RandomState((seed ·
   1_000_003 + epoch) mod 2³¹).permutation``, the JAX package's generator, so
   both packages visit the items in the same order. :func:`train_loop`
@@ -180,14 +186,27 @@ class BatchLoader:
             if len(bucket) == self.batch_size:
                 yield carry.pop(key)
 
-    def _produce(self, steps: int, start: int, q: "queue.Queue",
-                 stop: threading.Event):
-        """The producer thread: ``steps`` built batches after skipping
-        ``start`` (not built), then None; an exception instead when one is
-        raised. Every put gives up once the consumer has stopped."""
+    def _on_consumer(self) -> bool:
+        """Batches are built on the consumer's thread: the pipeline's
+        encoders are sharded over several ranks, whose collectives follow
+        the train step's in one order on every rank."""
+        mesh = getattr(self.pipe, "mesh", None)
+        return mesh is not None and mesh.size > 1
+
+    def _build(self, items: List[Any]) -> Dict[str, Any]:
         from qwen_image_edit_streamdiffusion_tpu_torch.training.lora_train import (
             build_batch,
         )
+
+        return build_batch(self.pipe, items, height=self.height, width=self.width)
+
+    def _produce(self, steps: int, start: int, q: "queue.Queue",
+                 stop: threading.Event):
+        """The producer thread: ``steps`` built batches (their loaded items,
+        where :meth:`_on_consumer`) after skipping ``start`` (not built),
+        then None; an exception instead when one is raised. Every put gives
+        up once the consumer has stopped."""
+        on_consumer = self._on_consumer()
 
         def put(obj) -> bool:
             while not stop.is_set():
@@ -208,8 +227,7 @@ class BatchLoader:
                     if skipped < start:
                         skipped += 1
                         continue
-                    if not put(build_batch(self.pipe, items, height=self.height,
-                                           width=self.width)):
+                    if not put(items if on_consumer else self._build(items)):
                         return
                     produced += 1
                     if produced >= steps or stop.is_set():
@@ -241,7 +259,7 @@ class BatchLoader:
                     return
                 if isinstance(got, BaseException):
                     raise got
-                yield got
+                yield self._build(got) if isinstance(got, list) else got
         finally:
             stop.set()
             try:  # drain, so nothing the producer queued stays referenced

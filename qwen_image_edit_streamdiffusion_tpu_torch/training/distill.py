@@ -27,6 +27,15 @@ learns the one velocity that lands at the same end point:
   positive rows again when the batch has none), so the student serves
   CFG-free.
 
+- **Under a (cfg × model) mesh** the step is the LoRA step's
+  (``lora_train.py``): the rows split over ``cfg`` where they divide, the
+  teacher's forwards run the serving tensor-parallel path under
+  ``no_grad`` (K1 at the rank's heads), its guidance is combined on whole
+  velocities (the head's output is whole on every rank after the
+  row-parallel sums), and the adapter gradients are reduced over the world
+  before the clip. The intervals and ε are drawn for the whole batch on
+  every rank.
+
 The artifact is an ordinary LoRA file (``save_lora``), served with
 ``EditPipeline.from_weights(..., lora_path=...)`` at
 ``num_inference_steps = student_steps``. The intervals and ε come from the
@@ -49,6 +58,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     ModelConfig,
     SchedulerConfig,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group, Mesh
 from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
 from qwen_image_edit_streamdiffusion_tpu_torch.training.lora_train import (
@@ -56,8 +66,11 @@ from qwen_image_edit_streamdiffusion_tpu_torch.training.lora_train import (
     Params,
     TrainConfig,
     apply_update,
+    group_rows,
+    live_mesh,
     lora_leaves,
     merge_block,
+    reduce_grads,
 )
 
 
@@ -78,31 +91,33 @@ class DistillConfig:
 def _model_v(params: Params, model_cfg: ModelConfig, x_t: torch.Tensor,
              cond: torch.Tensor, txt: torch.Tensor, txt_mask: torch.Tensor,
              t: torch.Tensor, ropes: tfm.RopeTables, use_flash: bool,
-             remat: bool = False, lora_blocks=None, scale: float = 1.0
-             ) -> torch.Tensor:
+             remat: bool = False, lora_blocks=None, scale: float = 1.0,
+             tp: Group = SINGLE) -> torch.Tensor:
     """Velocity on the target tokens in f32; the condition tokens ride
-    along and their predictions are dropped, as in the serving forward."""
+    along and their predictions are dropped, as in the serving forward.
+    ``tp``: the model group whose slices ``params`` holds."""
     l_img = x_t.shape[1]
     inp = torch.cat([x_t, cond.to(x_t.dtype)], dim=1)
     kw: Dict[str, Any] = {}
     if lora_blocks is not None:
         kw = dict(blocks_extra=lora_blocks,
-                  block_map=lambda blk, lb: merge_block(blk, lb, scale))
+                  block_map=lambda blk, lb: merge_block(blk, lb, scale, tp))
     v = tfm.forward(params, model_cfg, inp, txt, t, ropes, txt_mask=txt_mask,
-                    use_flash=use_flash, remat=remat, **kw)
+                    use_flash=use_flash, remat=remat, tp=tp, **kw)
     return v[:, :l_img].float()
 
 
 def teacher_velocity(base: Params, model_cfg: ModelConfig, dcfg: DistillConfig,
                      x_t, cond, txt, txt_mask, neg_txt, neg_mask, t, ropes,
-                     use_flash: bool) -> torch.Tensor:
+                     use_flash: bool, tp: Group = SINGLE) -> torch.Tensor:
     """The frozen teacher's velocity (f32): plain, or guided by the negative
-    rows and norm-rescaled (the norm floored at 1e-6)."""
-    v = _model_v(base, model_cfg, x_t, cond, txt, txt_mask, t, ropes, use_flash)
+    rows and norm-rescaled (the norm floored at 1e-6), on whole velocities."""
+    v = _model_v(base, model_cfg, x_t, cond, txt, txt_mask, t, ropes, use_flash,
+                 tp=tp)
     if not dcfg.guided:
         return v
     v_neg = _model_v(base, model_cfg, x_t, cond, neg_txt, neg_mask, t, ropes,
-                     use_flash)
+                     use_flash, tp=tp)
     g = v_neg + dcfg.teacher_cfg_scale * (v - v_neg)
     norm_v = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
     norm_g = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
@@ -113,7 +128,8 @@ def distill_target(base: Params, model_cfg: ModelConfig, dcfg: DistillConfig,
                    x0, cond, txt, txt_mask, neg_txt, neg_mask,
                    sig_t: torch.Tensor, sig_e: torch.Tensor, eps: torch.Tensor,
                    ropes: tfm.RopeTables, num_train_timesteps: int,
-                   use_flash: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                   use_flash: bool = False, tp: Group = SINGLE
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x_t in the model dtype, v* in f32) for per-row interval ends σ_i =
     ``sig_t`` → σ_e = ``sig_e`` (B,) and noise ``eps``: the teacher's two
     Euler half-steps, gradient-free."""
@@ -125,7 +141,7 @@ def distill_target(base: Params, model_cfg: ModelConfig, dcfg: DistillConfig,
         mdt = getattr(torch, model_cfg.dtype)
         teacher = lambda x, s: teacher_velocity(
             base, model_cfg, dcfg, x.to(mdt), cond, txt, txt_mask, neg_txt,
-            neg_mask, s[:, 0, 0] * num_train_timesteps, ropes, use_flash)
+            neg_mask, s[:, 0, 0] * num_train_timesteps, ropes, use_flash, tp)
         x_m = x_t + (s_m - s_t) * teacher(x_t, s_t)
         x_e = x_m + (s_e - s_m) * teacher(x_m, s_m)
         return x_t.to(mdt), (x_e - x_t) / (s_e - s_t)
@@ -136,23 +152,24 @@ def distill_loss(base: Params, lora: Params, scale: float,
                  x0, cond, txt, txt_mask, neg_txt, neg_mask,
                  sig_t: torch.Tensor, sig_e: torch.Tensor, eps: torch.Tensor,
                  ropes: tfm.RopeTables, num_train_timesteps: int = 1000,
-                 use_flash: bool = False, remat: bool = True
+                 use_flash: bool = False, remat: bool = True, tp: Group = SINGLE
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, v*): the student's squared error against the teacher's
     two-half-step velocity at (x_t, σ_i); differentiable in ``lora``."""
     x_t, v_star = distill_target(base, model_cfg, dcfg, x0, cond, txt, txt_mask,
                                  neg_txt, neg_mask, sig_t, sig_e, eps, ropes,
-                                 num_train_timesteps, use_flash)
+                                 num_train_timesteps, use_flash, tp)
     v_s = _model_v(base, model_cfg, x_t, cond, txt, txt_mask,
                    sig_t.float() * num_train_timesteps, ropes, use_flash,
-                   remat=remat, lora_blocks=lora["blocks"], scale=scale)
+                   remat=remat, lora_blocks=lora["blocks"], scale=scale, tp=tp)
     return torch.mean(torch.square(v_s - v_star)), v_star
 
 
 def build_distill_step(model_cfg: ModelConfig, sched_cfg: SchedulerConfig,
                        dcfg: DistillConfig, optimizer: torch.optim.Optimizer,
                        img_shapes: Tuple[Tuple[int, int, int], ...],
-                       txt_len: int, device, use_flash: bool = False):
+                       txt_len: int, device, use_flash: bool = False,
+                       mesh: Optional[Mesh] = None):
     """The distillation step of one geometry bucket:
 
     step(base, lora, x0, cond, txt, txt_mask, neg_txt, neg_mask, intervals,
@@ -161,8 +178,11 @@ def build_distill_step(model_cfg: ModelConfig, sched_cfg: SchedulerConfig,
     ``intervals`` (B,) int: each row's interval of the student schedule;
     ``eps`` the noise of x_t. Loss and adapter gradients, then the LoRA
     step's clip and optimizer update. ``neg_txt`` / ``neg_mask`` are read
-    only when ``dcfg`` is guided."""
+    only when ``dcfg`` is guided. Under ``mesh`` the arguments are the
+    whole batch, as in ``lora_train.build_step``."""
     cfg = dcfg.train
+    mesh = live_mesh(mesh)
+    tp = mesh.model_group if mesh is not None else SINGLE
     ropes = tfm.make_rope(model_cfg, img_shapes, txt_len, device)
     scale = cfg.alpha / cfg.rank
     f, h0, w0 = img_shapes[0]
@@ -173,12 +193,15 @@ def build_distill_step(model_cfg: ModelConfig, sched_cfg: SchedulerConfig,
         leaves = lora_leaves(lora)
         optimizer.zero_grad(set_to_none=True)
         i = torch.as_tensor(intervals, dtype=torch.long).cpu()
+        x0, cond, txt, txt_mask, neg_txt, neg_mask, i, eps = group_rows(
+            mesh, x0, cond, txt, txt_mask, neg_txt, neg_mask, i, eps)
         loss, _ = distill_loss(
             base, lora, scale, model_cfg, dcfg, x0, cond, txt, txt_mask,
             neg_txt, neg_mask, sigmas[i].to(device), sigmas[i + 1].to(device),
             eps.to(device), ropes, sched_cfg.num_train_timesteps,
-            use_flash=use_flash, remat=cfg.remat)
+            use_flash=use_flash, remat=cfg.remat, tp=tp)
         loss.backward()
+        loss = reduce_grads(mesh, lora, leaves, loss)
         apply_update(optimizer, leaves, cfg.grad_clip)
         return loss.detach()
 
@@ -194,27 +217,23 @@ class DistillTrainer(LoRATrainer):
 
     def __init__(self, base_params: Params, model_cfg: ModelConfig,
                  sched_cfg: SchedulerConfig, dcfg: DistillConfig,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh: Optional[Mesh] = None):
         super().__init__(base_params, model_cfg, sched_cfg, dcfg.train,
-                         use_flash=use_flash)
+                         use_flash=use_flash, mesh=mesh)
         self.dcfg = dcfg
 
     @classmethod
     def from_pipeline(cls, pipe, dcfg: DistillConfig) -> "DistillTrainer":
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
-            refuse_mesh,
-        )
-
-        refuse_mesh(getattr(pipe, "mesh", None), "distillation")
         return cls(pipe.tfm_params, pipe.preset.model, pipe.preset.scheduler,
-                   dcfg, use_flash=pipe.config.use_flash_attention)
+                   dcfg, use_flash=pipe.config.use_flash_attention,
+                   mesh=getattr(pipe, "mesh", None))
 
     def _step_fn(self, img_shapes, txt_len: int):
         key = (img_shapes, txt_len, self.dcfg)
         if key not in self._steps:
             self._steps[key] = build_distill_step(
                 self.model_cfg, self.sched_cfg, self.dcfg, self.opt,
-                img_shapes, txt_len, self.device, self.use_flash)
+                img_shapes, txt_len, self.device, self.use_flash, self.mesh)
         return self._steps[key]
 
     def draw(self, batch: Dict[str, Any]):

@@ -21,6 +21,21 @@ serve needs no format glue.
   formula (no epsilon on the norm, unlike ``clip_grad_norm_``), then
   ``torch.optim.AdamW`` (eps 1e-8). Sigmas and noise come from the port's
   named ``torch.Generator`` streams, not ``jax.random``.
+- **Under a (cfg × model) mesh** (a pipeline built with ``mesh=``), as the
+  JAX ``build_step`` shards it: the frozen base stays tensor-parallel over
+  ``model`` (the forward's collectives are autograd nodes:
+  ``parallel/distributed.py::reduce_from`` / ``copy_to``), the batch rows
+  split over the ``cfg`` groups where they divide (else every group runs
+  every row), and the adapters are whole on every rank: drawn at the whole
+  linears' shapes, each rank merging its slice of the delta
+  (:func:`merge_block`). After the backward one flat all-reduce over the
+  world takes each adapter gradient's sum over ``model`` (a sharded leaf's
+  ranks hold partials or disjoint slices; a whole leaf's is taken once)
+  and its mean over ``cfg``, with the loss; every rank then clips and
+  steps on the same numbers, so the adapters stay the same on every rank.
+  Sigmas and noise are drawn for the whole batch on every rank, and each
+  cfg group takes its rows, so a world's step is one process's step on
+  the same batch. Files are written by world rank 0.
 
 CLI (one synthetic edit pair, a few steps)::
 
@@ -42,6 +57,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
     ModelConfig,
     SchedulerConfig,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import SINGLE, Group, Mesh
 from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
 from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
@@ -50,6 +66,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models.lora import (
     FUSED_SLOT,
     save_safetensors,
 )
+from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed, sharding
 
 Params = Any
 
@@ -124,18 +141,28 @@ def _resolve_target(block: dict, path: Tuple[str, ...]):
     return node, None, d_in, d_out
 
 
-def init_lora(params: Params, cfg: TrainConfig,
-              gen: torch.Generator) -> Params:
+def init_lora(params: Params, cfg: TrainConfig, gen: torch.Generator,
+              tp: Group = SINGLE) -> Params:
     """Zero-effect adapters mirroring ``params['blocks']``: ``a`` (in, r) ~
     N(0, 1/in), ``b`` (r, out) zeros, both f32 with ``requires_grad``, on the
     base weights' device (drawn from ``gen``, a CPU generator, so the same
-    seed gives the same adapters on every device)."""
+    seed gives the same adapters on every device). Under a model group
+    ``tp`` the blocks hold this rank's slices; every adapter takes the whole
+    linear's shape (the slice's, times ``tp.size`` on the dim that
+    :func:`adapter_spec` splits), so the ranks and one process draw the same
+    adapters. A mesh's pipeline splits every such leaf: ``tp.size`` divides
+    the heads (``sharding.check_heads``), so it divides every width."""
     paths = _target_paths(cfg.targets)
     blocks = []
     for blk in params["blocks"]:
         lb: dict = {}
         for path in paths:
             leaf, _, d_in, d_out = _resolve_target(blk, path)
+            spec = adapter_spec(path, d_in * tp.size, d_out * tp.size, tp)
+            if spec is not None and spec[0] == 0:
+                d_out *= tp.size
+            elif spec is not None:
+                d_in *= tp.size
             dev = leaf["weight"].device
             node = lb
             for p in path[:-1]:
@@ -155,6 +182,24 @@ def _is_lora_leaf(node) -> bool:
             and torch.is_tensor(node["a"]))
 
 
+def _adapter_paths(lora: Params) -> List[Tuple[str, ...]]:
+    """The block-relative path of every adapter pair, in the order of
+    :func:`lora_leaves` (block, then sorted keys)."""
+    out: List[Tuple[str, ...]] = []
+
+    def walk(node, path):
+        for k in sorted(node):
+            sub = node[k]
+            if _is_lora_leaf(sub):
+                out.append(path + (k,))
+            else:
+                walk(sub, path + (k,))
+
+    for blk in lora["blocks"]:
+        walk(blk, ())
+    return out
+
+
 def lora_leaves(lora: Params) -> List[torch.Tensor]:
     """Every adapter tensor, in a fixed order (block, target, a then b)."""
     out: List[torch.Tensor] = []
@@ -172,16 +217,47 @@ def lora_leaves(lora: Params) -> List[torch.Tensor]:
     return out
 
 
-def merge_block(p_node: dict, l_node: dict, scale: float) -> dict:
+def adapter_spec(path: Tuple[str, ...], d_in: int, d_out: int,
+                 tp: Group) -> sharding.Spec:
+    """The spec (``parallel/sharding.py``) of the base leaf that the adapter
+    at the block-relative ``path`` lands in, over a model group of
+    ``tp.size`` ranks: dim 0 for a column-parallel leaf, 1 for a
+    row-parallel one, None for a leaf left whole."""
+    if tp.size == 1:
+        return None
+    return sharding.transformer_leaf_spec(("blocks", "0") + tuple(path) + ("weight",),
+                                          (d_out, d_in), {"cfg": 1, "model": tp.size})
+
+
+def _delta(a: torch.Tensor, b: torch.Tensor, scale: float, spec: sharding.Spec,
+           tp: Group) -> torch.Tensor:
+    """This rank's part of scale·(a·b)ᵀ (out, in): a column leaf's output
+    rows (a·b[:, out_slice])ᵀ, a row leaf's input columns (a[in_slice]·b)ᵀ,
+    a whole leaf the whole delta."""
+    if spec is None:
+        return ((a @ b) * scale).t()
+    if spec[0] == 0:
+        n = b.shape[1] // tp.size
+        return ((a @ b[:, tp.rank * n:(tp.rank + 1) * n]) * scale).t()
+    n = a.shape[0] // tp.size
+    return ((a[tp.rank * n:(tp.rank + 1) * n] @ b) * scale).t()
+
+
+def merge_block(p_node: dict, l_node: dict, scale: float, tp: Group = SINGLE,
+                path: Tuple[str, ...] = ()) -> dict:
     """One block's effective params, w + scale·(a·b)ᵀ in f32 cast to the
     base dtype (a fused q/k/v target lands in its row slot). Out of place and
-    differentiable in the adapters; the base tree is not touched."""
+    differentiable in the adapters; the base tree is not touched. Under a
+    model group ``tp`` the block holds this rank's slices and each gets its
+    slice of the whole adapter's delta (:func:`adapter_spec`)."""
     out = dict(p_node)
     for k, sub in l_node.items():
         if not _is_lora_leaf(sub):
-            out[k] = merge_block(out[k], sub, scale)
+            out[k] = merge_block(out[k], sub, scale, tp, path + (k,))
             continue
-        delta = ((sub["a"] @ sub["b"]) * scale).t()  # (out, in)
+        a, b = sub["a"], sub["b"]
+        delta = _delta(a, b, scale, adapter_spec(path + (k,), a.shape[0], b.shape[1], tp),
+                       tp)  # (out, in)
         name, slot = k, None
         if k not in out and k in FUSED_SLOT:
             name, slot = FUSED_SLOT[k]
@@ -231,11 +307,12 @@ def flow_match_loss(base_params: Params, lora: Params, scale: float,
                     cond_tokens: torch.Tensor, txt: torch.Tensor,
                     txt_mask: torch.Tensor, sigmas: torch.Tensor,
                     noise: torch.Tensor, ropes: tfm.RopeTables,
-                    use_flash: bool = False, remat: bool = True
-                    ) -> torch.Tensor:
+                    use_flash: bool = False, remat: bool = True,
+                    tp: Group = SINGLE) -> torch.Tensor:
     """MSE between predicted and true velocity (v = ε − x₀) on the target
     tokens; condition tokens ride along in the sequence, their predictions
-    discarded, as in the serving forward."""
+    discarded, as in the serving forward. ``tp``: the model group whose
+    slices ``base_params`` holds."""
     l_img = x0_tokens.shape[1]
     s = sigmas.float()[:, None, None]
     x0 = x0_tokens.float()
@@ -245,7 +322,7 @@ def flow_match_loss(base_params: Params, lora: Params, scale: float,
     v = tfm.forward(base_params, model_cfg, inp, txt, sigmas.float() * 1000.0,
                     ropes, txt_mask=txt_mask, use_flash=use_flash, remat=remat,
                     blocks_extra=lora["blocks"],
-                    block_map=lambda blk, lb: merge_block(blk, lb, scale))
+                    block_map=lambda blk, lb: merge_block(blk, lb, scale, tp), tp=tp)
     v = v[:, :l_img].float()
     return torch.mean(torch.square(v - (eps - x0)))
 
@@ -262,26 +339,87 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
     return norm
 
 
+def live_mesh(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """``mesh``, or None for a mesh of one rank."""
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def group_rows(mesh: Optional[Mesh], *tensors):
+    """This cfg group's rows of each whole-batch tensor (dim 0), where the
+    cfg groups divide the rows (the JAX ``dp``); else the tensors whole,
+    every group running every row."""
+    if mesh is None or mesh.cfg == 1:
+        return tensors
+    rows = tensors[0].shape[0]
+    if rows % mesh.cfg:
+        return tensors
+    n = rows // mesh.cfg
+    c = mesh.cfg_group.rank
+    return tuple(t[c * n:(c + 1) * n] for t in tensors)
+
+
+def reduce_grads(mesh: Optional[Mesh], lora: Params, leaves: Sequence[torch.Tensor],
+                 loss: torch.Tensor) -> torch.Tensor:
+    """After the backward under ``mesh``: every adapter gradient summed over
+    ``model`` where its base leaf is sharded (the ranks hold partial sums or
+    disjoint slices of it), taken once where the leaf is whole, and averaged
+    over ``cfg`` (right whether the rows split or every group ran them all),
+    in one flat f32 all-reduce over the world that carries the loss too.
+    Returns the whole batch's loss, the same on every rank. Gradients that
+    autograd did not reach count as zeros. No mesh: ``loss``."""
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if mesh is None:
+        return loss
+    tp = mesh.model_group
+    parts = []
+    for path, (a, b) in zip(_adapter_paths(lora), zip(leaves[0::2], leaves[1::2])):
+        whole = adapter_spec(path, a.shape[0], b.shape[1], tp) is None
+        for p in (a, b):
+            g = p.grad.float().reshape(-1)
+            parts.append(g / mesh.model if whole else g)
+    parts.append((loss.detach().float() / mesh.model).reshape(1))
+    flat = torch.cat(parts)
+    distributed.all_reduce(flat, mesh.world_group, key="grad_reduce")
+    flat.div_(mesh.cfg)
+    offset = 0
+    for p in leaves:
+        n = p.numel()
+        p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
+        offset += n
+    return flat[offset]
+
+
 def build_step(model_cfg: ModelConfig, cfg: TrainConfig,
                optimizer: torch.optim.Optimizer,
                img_shapes: Tuple[Tuple[int, int, int], ...], txt_len: int,
-               device, use_flash: bool = False):
+               device, use_flash: bool = False, mesh: Optional[Mesh] = None):
     """The train step of one geometry bucket:
 
     step(base, lora, x0, cond, txt, txt_mask, sigmas, noise) -> loss
 
     loss and adapter gradients (autograd, the flash kernels' backward where
-    they run), the global-norm clip, then one ``optimizer`` update."""
+    they run), the global-norm clip, then one ``optimizer`` update. Under
+    ``mesh`` the arguments are the whole batch: each cfg group takes its
+    rows (:func:`group_rows`), the base holds this rank's slices, and the
+    gradients and loss are reduced over the world (:func:`reduce_grads`)
+    before the clip."""
     ropes = tfm.make_rope(model_cfg, img_shapes, txt_len, device)
     scale = cfg.alpha / cfg.rank
+    mesh = live_mesh(mesh)
+    tp = mesh.model_group if mesh is not None else SINGLE
 
     def step(base, lora, x0, cond, txt, txt_mask, sigmas, noise):
         leaves = lora_leaves(lora)
         optimizer.zero_grad(set_to_none=True)
+        x0, cond, txt, txt_mask, sigmas, noise = group_rows(
+            mesh, x0, cond, txt, txt_mask, sigmas, noise)
         loss = flow_match_loss(base, lora, scale, model_cfg, x0, cond, txt,
                                txt_mask, sigmas.to(device), noise.to(device),
-                               ropes, use_flash=use_flash, remat=cfg.remat)
+                               ropes, use_flash=use_flash, remat=cfg.remat, tp=tp)
         loss.backward()
+        loss = reduce_grads(mesh, lora, leaves, loss)
         apply_update(optimizer, leaves, cfg.grad_clip)
         return loss.detach()
 
@@ -323,14 +461,16 @@ class LoRATrainer:
 
     def __init__(self, base_params: Params, model_cfg: ModelConfig,
                  sched_cfg: SchedulerConfig, cfg: TrainConfig,
-                 use_flash: bool = False):
+                 use_flash: bool = False, mesh: Optional[Mesh] = None):
         self.base_params = base_params
         self.model_cfg = model_cfg
         self.sched_cfg = sched_cfg
         self.cfg = cfg
         self.use_flash = use_flash
+        self.mesh = live_mesh(mesh)
         self.device = base_params["img_in"]["weight"].device
-        self.lora = init_lora(base_params, cfg, stream(cfg.seed, "lora"))
+        self.lora = init_lora(base_params, cfg, stream(cfg.seed, "lora"),
+                              self.mesh.model_group if self.mesh is not None else SINGLE)
         self.opt = torch.optim.AdamW(
             lora_leaves(self.lora), lr=cfg.learning_rate,
             betas=(cfg.b1, cfg.b2), eps=1e-8, weight_decay=cfg.weight_decay)
@@ -340,20 +480,19 @@ class LoRATrainer:
 
     @classmethod
     def from_pipeline(cls, pipe, cfg: TrainConfig) -> "LoRATrainer":
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
-            refuse_mesh,
-        )
-
-        refuse_mesh(getattr(pipe, "mesh", None), "LoRA training")
+        """A trainer on the pipeline's base; under its mesh (every rank of
+        the world making the same calls) the step runs tensor- and
+        row-parallel as the module docstring says."""
         return cls(pipe.tfm_params, pipe.preset.model, pipe.preset.scheduler,
-                   cfg, use_flash=pipe.config.use_flash_attention)
+                   cfg, use_flash=pipe.config.use_flash_attention,
+                   mesh=getattr(pipe, "mesh", None))
 
     def _step_fn(self, img_shapes, txt_len: int):
         key = (img_shapes, txt_len)
         if key not in self._steps:
             self._steps[key] = build_step(self.model_cfg, self.cfg, self.opt,
                                           img_shapes, txt_len, self.device,
-                                          self.use_flash)
+                                          self.use_flash, self.mesh)
         return self._steps[key]
 
     def draw(self, batch: Dict[str, Any]):
@@ -369,8 +508,9 @@ class LoRATrainer:
     def step(self, batch: Dict[str, Any], sigmas: Optional[torch.Tensor] = None,
              noise: Optional[torch.Tensor] = None) -> float:
         """One optimizer step on a :func:`build_batch` dict; sigmas and noise
-        are drawn from the trainer's generator unless given. Returns the
-        loss (a host sync)."""
+        are drawn from the trainer's generator unless given (for the whole
+        batch, on every rank of a mesh). Returns the whole batch's loss (a
+        host sync)."""
         if sigmas is None or noise is None:
             sigmas, noise = self.draw(batch)
         fn = self._step_fn(tuple(batch["img_shapes"]), int(batch["txt"].shape[1]))
@@ -489,29 +629,50 @@ def export_lora_state_dict(lora: Params, cfg: TrainConfig
     return out
 
 
-def save_lora(path: str, lora: Params, cfg: TrainConfig) -> None:
+def _on_rank0(mesh: Optional[Mesh], write) -> None:
+    """``write()`` on world rank 0 of ``mesh`` while the other ranks wait
+    at a barrier (one process: just ``write()``)."""
+    mesh = live_mesh(mesh)
+    if mesh is None:
+        write()
+        return
+    if mesh.world_group.rank == 0:
+        write()
+    distributed.barrier(mesh.world_group)
+
+
+def save_lora(path: str, lora: Params, cfg: TrainConfig,
+              mesh: Optional[Mesh] = None) -> None:
     """Write the adapters as .safetensors (``.npz`` when the path says so),
-    readable by ``models.lora.load_lora_weights`` and by diffusers/peft."""
-    sd = export_lora_state_dict(lora, cfg)
-    if str(path).endswith(".npz"):
-        np.savez(path, **sd)
-    else:
-        save_safetensors(path, sd)
+    readable by ``models.lora.load_lora_weights`` and by diffusers/peft.
+    Under ``mesh`` (whole adapters on every rank) world rank 0 writes."""
+    def write():
+        sd = export_lora_state_dict(lora, cfg)
+        if str(path).endswith(".npz"):
+            np.savez(path, **sd)
+        else:
+            save_safetensors(path, sd)
+
+    _on_rank0(mesh, write)
 
 
 def save_train_state(path: str, trainer: LoRATrainer) -> None:
     """``torch.save`` of the training state: adapters, AdamW moments, the
     sigma/noise generator and the step count (the frozen base is the serving
-    checkpoint and is not saved)."""
-    torch.save({"lora": [t.detach().cpu() for t in lora_leaves(trainer.lora)],
-                "opt": trainer.opt.state_dict(),
-                "rng": trainer._gen.get_state(),
-                "step": trainer.steps}, path)
+    checkpoint and is not saved). Under the trainer's mesh world rank 0
+    writes it; the adapters and moments are whole, so the file restores
+    into a world of any shape or into one process."""
+    _on_rank0(trainer.mesh, lambda: torch.save(
+        {"lora": [t.detach().cpu() for t in lora_leaves(trainer.lora)],
+         "opt": trainer.opt.state_dict(),
+         "rng": trainer._gen.get_state(),
+         "step": trainer.steps}, path))
 
 
 def restore_train_state(path: str, trainer: LoRATrainer) -> LoRATrainer:
     """Load a :func:`save_train_state` file into a trainer built on the same
-    base and TrainConfig: bit-identical adapters, moments and generator."""
+    base and TrainConfig: bit-identical adapters, moments and generator
+    (on every rank of a mesh, each reading the file)."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     leaves = lora_leaves(trainer.lora)
     if len(leaves) != len(state["lora"]):

@@ -833,3 +833,117 @@ def test_native_resize_on_the_card_equals_the_host(dev, src, dst):
     host = imaging.resize_native(arr, dst[1], dst[0])
     card = imaging.resize_native(arr, dst[1], dst[0], dev)
     assert np.array_equal(host, card)
+
+
+# ---------------------------------------------------------------------------
+# Multi-rank training on the card (training/lora_train.py under a mesh)
+# ---------------------------------------------------------------------------
+
+
+def _tp_train_step(mesh, device):
+    """One rank-16 LoRA step (remat, b drawn non-zero, no clip) of a 2-block
+    MMDiT at the flagship's widths on one 1024² row, on this rank's slices
+    under ``mesh`` (None: the whole model). Returns (loss, the reduced
+    gradients on the host, K7/K8/K9 launches)."""
+    import dataclasses
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.config import (
+        ModelConfig,
+        SchedulerConfig,
+    )
+    from qwen_image_edit_streamdiffusion_tpu_torch.core.rng import stream
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import sharding
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
+
+    cfg = dataclasses.replace(ModelConfig(), num_layers=2)
+    params = tfm.init(stream(0, "transformer", device), cfg, device)
+    if mesh is not None:
+        params = sharding.shard_transformer_params(params, mesh)
+    trainer = lt.LoRATrainer(params, cfg, SchedulerConfig(),
+                             lt.TrainConfig(rank=16, alpha=16.0, grad_clip=0.0),
+                             use_flash=True, mesh=mesh)
+    leaves = lt.lora_leaves(trainer.lora)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(1)
+        for t in leaves[1::2]:
+            t.copy_(torch.randn(t.shape, generator=gen) * 0.01)
+    g = 64  # the 1024² latent grid, packed
+    mask = np.zeros((1, 256), bool)
+    mask[:, :208] = True
+    batch = {"x0_tokens": _randn((1, g * g, cfg.in_channels), 40, device),
+             "cond_tokens": _randn((1, g * g, cfg.in_channels), 41, device),
+             "txt": _randn((1, 256, cfg.joint_dim), 42, device),
+             "txt_mask": torch.from_numpy(mask).to(device),
+             "img_shapes": ((1, g, g), (1, g, g))}
+    noise = _randn((1, g * g, cfg.in_channels), 43, "cpu", torch.float32)
+    before = dict(kernels.LAUNCHES)
+    loss = trainer.step(batch, torch.tensor([0.6]), noise)
+    launches = {k: kernels.LAUNCHES[k] - before[k]
+                for k in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+    return loss, [p.grad.float().cpu() for p in leaves], launches
+
+
+def _tp_train_rank(rank, init_file, queue):
+    import traceback
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.parallel import distributed
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        distributed.initialize("gloo", "cuda:0", init_method=f"file://{init_file}",
+                               rank=rank, world_size=2)
+        loss, grads, launches = _tp_train_step(distributed.global_mesh(1, 2), "cuda:0")
+        # numpy, not tensors: a tensor crosses the queue as a handle into
+        # this process, which ends before the parent reads it
+        queue.put((rank, (loss, [g.numpy() for g in grads], launches)))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        distributed.shutdown()
+
+
+def test_tp_train_step_on_the_card_matches_one_process(dev):
+    """Two ranks on cuda:0 joined by gloo (mesh 1 × 2): each rank's loss and
+    every reduced adapter gradient within TRAIN_TOL (relative, rel-L2) of
+    the one-process step's, the same on both ranks, K7 4 / K8 2 / K9 2 a
+    rank."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from chip_smoke import TRAIN_TOL
+
+    kernels.library()  # built once here, loaded by the ranks
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    fd, init_file = tempfile.mkstemp(prefix="qie_world_")
+    os.close(fd)
+    os.unlink(init_file)
+    procs = [ctx.Process(target=_tp_train_rank, args=(r, init_file, queue)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(queue.get(timeout=600) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    errors = [v for v in got.values() if isinstance(v, str)]
+    assert not errors, "\n".join(errors)
+    want_loss, want, _ = _tp_train_step(None, dev)
+    for rank in (0, 1):
+        loss, grads, launches = got[rank]
+        assert launches == {"flash_fwd_lse": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+        assert abs(loss - want_loss) <= TRAIN_TOL * abs(want_loss)
+        for a, w in zip(grads, want):
+            a = torch.from_numpy(a)
+            if w.norm() == 0:
+                assert a.norm() == 0
+            else:
+                assert ((a - w).norm() / w.norm()).item() <= TRAIN_TOL
+        for a, b in zip(grads, got[0][1]):
+            assert np.array_equal(a, b)

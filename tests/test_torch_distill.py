@@ -326,16 +326,3 @@ def _copy(tree):
     if isinstance(tree, list):
         return [_copy(v) for v in tree]
     return tree.detach().clone()
-
-
-def test_mesh_refusal_names_its_roadmap_item():
-    """Distillation on a mesh of several ranks (the TP × DP step) is what is
-    left of ROADMAP queue 1 item 8 (multi-GPU); a pipeline on such a mesh
-    is refused by name."""
-    from types import SimpleNamespace
-
-    from qwen_image_edit_streamdiffusion_tpu_torch.core.meshes import Group, Mesh
-
-    mesh = Mesh(1, 2, 0, 0, Group(None, 2, 0), Group(None, 1, 0), Group(None, 2, 0))
-    with pytest.raises(NotImplementedError, match=r"multi-GPU \(item 8\)"):
-        dt.DistillTrainer.from_pipeline(SimpleNamespace(mesh=mesh), dt.DistillConfig())

@@ -10,13 +10,12 @@ process (the spawned worlds are in ``test_torch_parallel_world.py``).
 - The mesh layout (rank = c · model + m) against the JAX ``make_mesh`` grid;
   ``initialize`` off torchrun is a no-op; a mesh that does not match the
   world, a config that does not match the mesh, or heads that the model axis
-  does not divide raise; the stream and the trainers refuse a mesh.
+  does not divide raise.
 - The row-parallel int8 linear, its ranks emulated in one process: the
   codes and the output equal the one-device ones bit for bit.
 """
 
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -330,22 +329,6 @@ def test_config_that_does_not_match_the_mesh_raises(cfg_axes, mesh_shape):
     with pytest.raises(ValueError, match="mesh"):
         tep.check_config(_config(*cfg_axes), mesh)
     tep.check_config(_config(*(mesh_shape or (1, 1))), mesh)
-
-
-def test_stream_and_training_refuse_a_mesh():
-    """What is left of the multi-GPU work names its ROADMAP item."""
-    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import RealtimePipeline
-    from qwen_image_edit_streamdiffusion_tpu_torch.training.distill import DistillTrainer
-    from qwen_image_edit_streamdiffusion_tpu_torch.training.lora_train import LoRATrainer
-
-    pipe = SimpleNamespace(mesh=fake_mesh(1, 2))
-    for call in (lambda: RealtimePipeline(pipe=pipe),
-                 lambda: LoRATrainer.from_pipeline(pipe, None),
-                 lambda: DistillTrainer.from_pipeline(pipe, None)):
-        with pytest.raises(NotImplementedError, match=r"multi-GPU \(item 8\)"):
-            call()
-    tep.refuse_mesh(None, "anything")
-    tep.refuse_mesh(fake_mesh(1, 1), "anything")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
