@@ -18,6 +18,14 @@ toolkit. Phases, each printing one JSON line:
              BICUBIC) timed on the host and on the card: first call, a new
              size in a warm process, warm; the card's bytes must equal the
              host's;
+   inputs  — real inputs on the card's host (no Pillow, no transformers):
+             the committed codec fixtures (``tests/fixtures/codec``:
+             progressive JPEG, Adam7 and 16-bit PNG) decoded to their
+             manifest's SHA-256 of Pillow's bytes; the decode ms of a 1024²
+             progressive JPEG and of the same image as baseline; a full-size
+             Qwen2-layout tokenizer.json (``write_qwen2_tokenizer``: 151 643
+             base ids, 22 added) written, its load ms, PROMPT's encode ms
+             (cold and cached) and ids, and the chat template's ms;
 3. kernels — each hand-written kernel against its plain PyTorch version at the
              main path's shapes: max-abs error against the stated tolerance,
              the median CUDA-event time of both and of the one PyTorch call
@@ -116,8 +124,9 @@ toolkit. Phases, each printing one JSON line:
              120 at 2 rows); four pipelined stream frames over HTTP (lags 0,
              1, 1, 1; K1 120 / 60; the third frame's only host wait is its
              collect's event wait) and over the websocket; /profile/start
-             and /stop around an /edit (the trace names K1's symbol); the
-             codec's decode and encode ms; the CLI server as a subprocess on
+             and /stop around an /edit (the trace names K1's symbol); an
+             /edit of the committed 512² progressive JPEG; the codec's
+             decode and encode ms; the CLI server as a subprocess on
              the card (/health, one /edit);
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
              (default attention targets, ``remat``) over a batch of two
@@ -175,17 +184,22 @@ toolkit. Phases, each printing one JSON line:
              the port's ``export_*`` in the HF layout (bf16; the transformer
              and the VL sharded with index jsons, one block's q/k/v across a
              shard boundary), converted by the port's CLI in process (bf16;
-             ``--fuse-qkv --quantize int8``; VAE; VL), loaded through
+             ``--fuse-qkv --quantize int8``; VAE; VL, whose tokenizer.json
+             and tokenizer_config.json the VL conversion copies), loaded through
              ``InferenceEngine.create(transformer_path=..., vae_path=...,
              vl_path=...)`` (seconds, GB/s, card peak, the host's peak RSS
              growth under the largest shard + 1 GiB) and served: an /edit miss
              and hit with K1 = blocks × steps, K2 = LM layers a miss, K3 the
              VAE's; every loaded tensor and one miss's latents equal the
              in-memory tree's bit for bit (or within two in-memory runs'
-             spread); the int8 checkpoint's codes and scales equal in-place
+             spread); an /edit of the committed progressive JPEG whose prompt
+             the checkpoint's tokenizer encodes (the ids of every chat
+             template are its, not SimpleTokenizer's); the int8 checkpoint's
+             codes and scales equal in-place
              quantize of the tree, its miss runs K5/K6 once per quantized
              linear; the server's CLI serves the converted tree; the full
-             flagship's boot time extrapolated from the load's GB/s;
+             flagship's boot time extrapolated from the weights' GB/s (the
+             tokenizer's load added once);
 8b. tp     — multi-GPU serving (``parallel/``): a world of 2 ranks, mesh
              1 × 2, spawned with ``torch.multiprocessing`` (CUDA is live
              here) and joined by ``gloo`` (NCCL refuses two ranks on one
@@ -2833,16 +2847,8 @@ def serve_codec(miss_output) -> dict:
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
     frame = codec.encode_jpeg(distinct_image(9000, SERVE_INPUT), 90)
-    times = {}
-    for name, fn in (("decode_512_q90", lambda: codec.decode(frame)),
-                     ("encode_1024_q90", lambda: codec.encode_jpeg(miss_output, 90))):
-        fn()
-        samples = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            fn()
-            samples.append((time.perf_counter() - t0) * 1e3)
-        times[name] = statistics.median(samples)
+    times = {"decode_512_q90": host_ms(lambda: codec.decode(frame), 20),
+             "encode_1024_q90": host_ms(lambda: codec.encode_jpeg(miss_output, 90), 20)}
     rec = {"phase": "serve_codec", **{f"{k}_ms": v for k, v in times.items()},
            "frame_bytes": len(frame), "output_bytes": len(codec.encode_jpeg(miss_output, 90))}
     emit(rec)
@@ -2969,6 +2975,9 @@ def phase_serve(pipe) -> dict:
         served(url, "serve", "edit_num_images_2_miss",
                {"image": b64[8004], "prompt": PROMPT, "num_images": 2}, expected(True),
                {**k1_rows(2), "conv3x3": {"1": K3_ENCODE, "2": K3_DECODE}}, outputs=2)
+        served(url, "serve", "edit_progressive_miss",
+               {"image": fixture_b64(PROGRESSIVE_UPLOAD), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
         serve_race(url, req)
         serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
         serve_stream_http(url, engine)
@@ -3679,6 +3688,259 @@ def same_latents(what: str, loaded, in_memory, image) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Real inputs: a Qwen2-layout tokenizer.json and the codec's fixtures
+# ---------------------------------------------------------------------------
+
+# Qwen2.5-VL's added tokens, contiguous from its base vocabulary's end
+# (151 643); the last element says whether the token is special
+QWEN2_VL_ADDED = (
+    ("<|endoftext|>", True), ("<|im_start|>", True), ("<|im_end|>", True),
+    ("<|object_ref_start|>", True), ("<|object_ref_end|>", True), ("<|box_start|>", True),
+    ("<|box_end|>", True), ("<|quad_start|>", True), ("<|quad_end|>", True),
+    ("<|vision_start|>", True), ("<|vision_end|>", True), ("<|vision_pad|>", True),
+    ("<|image_pad|>", True), ("<|video_pad|>", True), ("<tool_call>", False),
+    ("</tool_call>", False), ("<|fim_prefix|>", False), ("<|fim_middle|>", False),
+    ("<|fim_suffix|>", False), ("<|fim_pad|>", False), ("<|repo_name|>", False),
+    ("<|file_sep|>", False))
+QWEN2_BASE_VOCAB = 151643
+TOKENIZER_MERGES = 400
+TOKENIZER_CORPUS = (
+    "Transform into oil painting style. Turn it into a watercolor painting. "
+    "Replace the sky with stars; make the cat's fur orange, and don't change "
+    "the background. It's the user's picture: we'll keep it, they're happy, "
+    "you've seen it, I'm sure, she'd agree.\n\nPicture 1: Picture 2: "
+    "Describe the key features of the input image (color, shape, size, texture, "
+    "objects, background), then explain how the user's text instruction should "
+    "alter or modify the image. Generate a new image that meets the user's "
+    "requirements while maintaining consistency with the original input where "
+    "appropriate.\r\n  system user assistant 1024 × 768 px, 3.5 steps — 100%!\t"
+    "把这张照片变成油画风格，天空换成星空。写真を水彩画にしてください。"
+    "사진을 유화 스타일로 바꿔 주세요. Сделай фото в стиле масляной живописи. "
+    "Ψηφιακή ζωγραφική. اجعلها لوحة زيتية. तस्वीर को तेल चित्र बनाओ। "
+    "Café crème, naïve façade, Ångström, Straße. 🎨🖌️✨ ١٢٣ ４５６ Ⅻ ½")
+
+
+def learn_merges(corpus: str = TOKENIZER_CORPUS, n: int = TOKENIZER_MERGES) -> list:
+    """Byte-level BPE merges learned on ``corpus`` (pre-tokenized as Qwen2
+    does): the most frequent adjacent pair each round, the smallest pair of
+    equal counts, ``n`` rounds or until no pair is left."""
+    import unicodedata
+    from collections import Counter
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import (
+        BYTE_CHARS,
+        pre_tokenize,
+    )
+
+    words = Counter("".join(BYTE_CHARS[b] for b in w.encode())
+                    for w in pre_tokenize(unicodedata.normalize("NFC", corpus)))
+    seqs = {w: list(w) for w in words}
+    merges = []
+    while len(merges) < n:
+        pairs = Counter()
+        for w, syms in seqs.items():
+            for a, b in zip(syms, syms[1:]):
+                pairs[(a, b)] += words[w]
+        if not pairs:
+            break
+        top = max(pairs.values())
+        a, b = min(p for p, c in pairs.items() if c == top)
+        merges.append((a, b))
+        for syms in seqs.values():
+            i = 0
+            while i < len(syms) - 1:
+                if syms[i] == a and syms[i + 1] == b:
+                    syms[i:i + 2] = [a + b]
+                i += 1
+    return merges
+
+
+def write_qwen2_tokenizer(dst: str, merges=None, pair_merges: bool = False) -> str:
+    """A tokenizer.json and tokenizer_config.json in Qwen2.5-VL's layout in
+    ``dst``: the byte alphabet in GPT-2's order, the results of ``merges``
+    (:func:`learn_merges` when None), then unreachable two-character tokens
+    of CJK characters (outside the byte alphabet) and their merges up to the
+    published file's 151 643 ids and about its merge count, then the 22 added
+    tokens at 151 643-151 664. Merges are written as "a b" strings, or as
+    [a, b] pairs with ``pair_merges``. Returns the tokenizer.json path."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import (
+        BYTE_CHARS,
+        QWEN2_PATTERN,
+    )
+
+    merges = list(learn_merges() if merges is None else merges)
+    vocab = {ch: i for i, ch in enumerate(sorted(BYTE_CHARS.values()))}
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    base = [chr(0x4E00 + i) for i in range(400)]
+    for ch in base:
+        vocab[ch] = len(vocab)
+    for a in base:
+        for b in base:
+            if len(vocab) == QWEN2_BASE_VOCAB:
+                break
+            vocab[a + b] = len(vocab)
+            merges.append((a, b))
+    if len(vocab) != QWEN2_BASE_VOCAB:
+        raise AssertionError(f"tokenizer vocabulary of {len(vocab)}, not {QWEN2_BASE_VOCAB}")
+    added = [{"id": QWEN2_BASE_VOCAB + i, "content": t, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": special}
+             for i, (t, special) in enumerate(QWEN2_VL_ADDED)]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab,
+                  "merges": [[a, b] if pair_merges else f"{a} {b}" for a, b in merges]},
+    }
+    config = {
+        "add_prefix_space": False, "bos_token": None, "eos_token": "<|im_end|>",
+        "pad_token": "<|endoftext|>", "unk_token": None, "errors": "replace",
+        "clean_up_tokenization_spaces": False, "split_special_tokens": False,
+        "model_max_length": 131072, "tokenizer_class": "Qwen2Tokenizer",
+        "additional_special_tokens": [t for t, special in QWEN2_VL_ADDED[1:] if special],
+        "added_tokens_decoder": {str(a["id"]): {k: a[k] for k in (
+            "content", "lstrip", "normalized", "rstrip", "single_word", "special")}
+            for a in added},
+    }
+    os.makedirs(dst, exist_ok=True)
+    path = os.path.join(dst, "tokenizer.json")
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(dst, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, ensure_ascii=False, indent=1)
+    return path
+
+
+# PROMPT's ids under the file write_qwen2_tokenizer() writes by default
+# (held against transformers' Qwen2TokenizerFast in the CPU tests)
+TOKENIZER_PROMPT_IDS = (426, 377, 307, 327, 378, 379, 520)
+TOKENIZER_DIR = os.path.join(ROOT, "build", "chip_smoke", "tokenizer")
+FIXTURES = os.path.join(ROOT, "tests", "fixtures", "codec")
+PROGRESSIVE_UPLOAD = "prog_512_420.jpg"  # the /edit uploads of phases serve and checkpoint
+DECODE_REPS = 10
+
+
+def fixture(name: str) -> bytes:
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        return f.read()
+
+
+def fixture_b64(name: str) -> str:
+    import base64
+
+    return base64.b64encode(fixture(name)).decode()
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median wall ms of ``fn`` on the host, after one call."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def phase_inputs() -> None:
+    """The request's real inputs on the card's host, which has neither Pillow
+    nor transformers: each committed codec fixture decoded to its manifest's
+    shape and SHA-256 of Pillow's bytes (progressive JPEG, Adam7 and 16-bit
+    PNG); the decode ms of a 1024² progressive JPEG against the same image as
+    baseline; a full-size Qwen2-layout tokenizer.json written, its load ms
+    and the ms of PROMPT's encode (cold, then cached) and of its chat
+    template, PROMPT's ids as the CPU tests hold them."""
+    import hashlib
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+    from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
+
+    codec.library()
+    smi = nvidia_smi_line()
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in manifest.items():
+        px = codec.decode(fixture(name))
+        digest = hashlib.sha256(px.tobytes()).hexdigest()
+        emit({"phase": "inputs_fixture", "name": name, "shape": list(px.shape),
+              "equal": list(px.shape) == entry["shape"] and digest == entry["sha256"]})
+        if list(px.shape) != entry["shape"] or digest != entry["sha256"]:
+            raise AssertionError(f"{name}: decoded {px.shape} {digest}, manifest {entry}")
+    prog, base = fixture("prog_1024.jpg"), fixture("base_1024.jpg")
+    ms = {k: host_ms(lambda d=d: codec.decode(d), DECODE_REPS)
+          for k, d in (("progressive", prog), ("baseline", base))}
+    emit({"phase": "inputs_decode", "size": 1024, "quality": 90,
+          "progressive_ms": ms["progressive"], "baseline_ms": ms["baseline"],
+          "progressive_over_baseline": ms["progressive"] / ms["baseline"],
+          "bytes": {"progressive": len(prog), "baseline": len(base)}, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    path = write_qwen2_tokenizer(TOKENIZER_DIR)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tok = qwen_vl.load_hf_tokenizer(TOKENIZER_DIR)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ids = tok.encode(PROMPT)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = host_ms(lambda: tok.encode(PROMPT), 20)
+    template_ms = host_ms(lambda: qwen_vl.build_chat_ids(tok, PROMPT, [196]), 20)
+    chat = qwen_vl.build_chat_ids(tok, PROMPT, [196])[0]
+    emit({"phase": "inputs_tokenizer", "file_bytes": os.path.getsize(path),
+          "ids": len(tok), "merges": len(tok.ranks), "write_s": write_s, "load_ms": load_ms,
+          "prompt_encode_cold_ms": cold_ms, "prompt_encode_cached_ms": warm_ms,
+          "chat_template_ms": template_ms, "prompt_ids": ids, "template_ids": len(chat),
+          "nvidia_smi": smi})
+    if tuple(ids) != TOKENIZER_PROMPT_IDS or len(tok) != 151665 or any(
+            tok.added[t] != i for t, i in qwen_vl._SPECIAL_IDS.items()):
+        raise AssertionError(f"tokenizer: PROMPT ids {ids}, {len(tok)} ids")
+
+
+class ChatIds:
+    """Records the ids every ``qwen_vl.build_chat_ids`` call returns (the
+    encoder looks the function up at each call, on any thread)."""
+
+    def __enter__(self):
+        from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
+
+        self.mod, self.real, self.calls = qwen_vl, qwen_vl.build_chat_ids, []
+
+        def spy(tok, prompt, merged, drop_idx=None):
+            out = self.real(tok, prompt, merged, drop_idx)
+            self.calls.append((prompt, list(merged), out[0]))
+            return out
+
+        qwen_vl.build_chat_ids = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_chat_ids = self.real
+
+    def check(self, label: str, tok, vocab: int) -> None:
+        """Each call's ids are ``tok``'s for its template, not the hashed
+        fallback's."""
+        emit({"phase": "chat_ids", "path": label, "calls": [
+            {"prompt": p, "merged": m, "ids": len(ids), "first": ids[:8]}
+            for p, m, ids in self.calls]})
+        if not self.calls:
+            raise AssertionError(f"{label}: no prompt was encoded")
+        for prompt, merged, ids in self.calls:
+            if ids != self.real(tok, prompt, merged)[0] or ids == self.real(
+                    self.mod.SimpleTokenizer(vocab), prompt, merged)[0]:
+                raise AssertionError(f"{label}: {prompt!r} was not encoded by the "
+                                     f"checkpoint's tokenizer")
+
+
 def phase_checkpoint() -> dict:
     """Real-checkpoint serving at flagship width: a depth-cut tree made on
     the card from a seed, written in the HF layout (bf16, sharded with index
@@ -3686,9 +3948,11 @@ def phase_checkpoint() -> dict:
     int8; VAE; VL), loaded by ``InferenceEngine.create`` from the converted
     checkpoints just written (seconds, GB/s, card peak and the host's peak
     RSS growth, which must stay under the largest shard + 1 GiB) and
-    served: /edit miss and hit with K1/K2/K3 at the cut depths' counts;
-    every loaded tensor and the latents of one miss equal the in-memory
-    tree's; the int8 checkpoint likewise, K5/K6 once per quantized linear
+    served: /edit miss and hit with K1/K2/K3 at the cut depths' counts, and
+    a miss of the committed progressive JPEG whose prompt the checkpoint's
+    tokenizer.json (written beside the HF VL shards, copied by the VL
+    conversion) encodes; every loaded tensor and the latents of one miss
+    equal the in-memory tree's; the int8 checkpoint likewise, K5/K6 once per quantized linear
     it runs; the server's CLI serves the converted tree; the full
     flagship's boot time extrapolated. The tree is removed however the
     phase ends."""
@@ -3706,6 +3970,7 @@ def phase_checkpoint() -> dict:
     from qwen_image_edit_streamdiffusion_tpu_torch.models import vae
     from qwen_image_edit_streamdiffusion_tpu_torch.models.common import flatten, unflatten
     from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
     from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import EditPipeline
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
@@ -3736,6 +4001,7 @@ def phase_checkpoint() -> dict:
                               max_shard_bytes=HF_SHARD_BYTES, basename="diffusion_pytorch_model")
         lora.save_safetensors(hf["vl"], cv.export_vl(vl_mem, cut.vl),
                               max_shard_bytes=HF_SHARD_BYTES, basename="model")
+        write_qwen2_tokenizer(hf["vl"])  # beside the VL shards, as a real checkpoint ships it
         os.makedirs(hf["vae"])
         lora.save_safetensors(os.path.join(hf["vae"], "diffusion_pytorch_model.safetensors"),
                               cv.export_vae(vae_mem, cut.vae))
@@ -3763,6 +4029,16 @@ def phase_checkpoint() -> dict:
                   "layout": checkpoint.layout(out[name])})
         bf16_dirs = (out["transformer"], out["vae"], out["vl"])
         largest_shard = max(os.path.getsize(f) for d in bf16_dirs for f in cv.shard_files(d))
+        for name in checkpoint.TOKENIZER_FILES:
+            with open(os.path.join(hf["vl"], name), "rb") as a, \
+                    open(os.path.join(out["vl"], name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"convert --component vl did not copy {name}")
+        t0 = time.perf_counter()
+        qwen_vl.load_hf_tokenizer(out["vl"])
+        tok_s = time.perf_counter() - t0  # a part of each load below, whatever its bytes
+        emit({"phase": "checkpoint_tokenizer", "copied": list(checkpoint.TOKENIZER_FILES),
+              "load_ms": tok_s * 1e3})
 
         # 3. load the bf16 rung through the engine (the files were just
         # written: the page cache may hold them)
@@ -3782,10 +4058,10 @@ def phase_checkpoint() -> dict:
             load_s = time.time() - t0
         growth = rss.growth
         loaded_bytes = sum(dir_bytes(d) for d in bf16_dirs)
-        gbps = loaded_bytes / load_s / 1e9
+        gbps = loaded_bytes / (load_s - tok_s) / 1e9  # the weights' rate
         smi = nvidia_smi_line()
         emit({"phase": "checkpoint_load", "rung": "bf16", "seconds": load_s,
-              "bytes": loaded_bytes, "gb_per_s": gbps,
+              "tokenizer_s": tok_s, "bytes": loaded_bytes, "gb_per_s": gbps,
               "card_peak_bytes": torch.cuda.max_memory_allocated() - base_alloc,
               "host_rss_growth_bytes": growth, "host_rss_before_bytes": rss.base,
               "rss_samples": rss.samples, "largest_shard_bytes": largest_shard,
@@ -3798,6 +4074,8 @@ def phase_checkpoint() -> dict:
         # the engine's config fuses them)
         fused_mem = fuse_qkv(unflatten(flatten(tfm_mem)))
         pipe = engine.pipeline
+        if not isinstance(pipe.encoder.tokenizer, Tokenizer):
+            raise AssertionError(f"the engine's tokenizer is {type(pipe.encoder.tokenizer)}")
         n = (assert_equal_trees("transformer", pipe.tfm_params, fused_mem)
              + assert_equal_trees("vae", pipe.vae_params, vae_mem)
              + assert_equal_trees("vl", pipe.encoder.params, vl_mem))
@@ -3809,9 +4087,16 @@ def phase_checkpoint() -> dict:
             served(url, "checkpoint bf16", "edit_miss", {"image": b64, "prompt": PROMPT}, want)
             served(url, "checkpoint bf16", "edit_hit", {"image": b64, "prompt": PROMPT},
                    expected(False, k1=layers * STEPS, k2=lm_layers))
+            # a progressive upload, its prompt encoded by the checkpoint's file
+            with ChatIds() as chat:
+                served(url, "checkpoint bf16", "edit_progressive_miss",
+                       {"image": fixture_b64(PROGRESSIVE_UPLOAD), "prompt": PROMPT},
+                       expected(True, k1=layers * STEPS, k2=lm_layers))
+            chat.check("checkpoint bf16", Tokenizer.from_dir(out["vl"]), cut.vl.vocab_size)
         finally:
             stop_server(srv)
         mem_pipe = EditPipeline.from_weights(cut, config, tfm_mem, vae_mem, vl_mem, dev)
+        mem_pipe.encoder.tokenizer = pipe.encoder.tokenizer
         same_latents("bf16", pipe, mem_pipe, distinct_image(7101))
         emit({"phase": "checkpoint_equal", "rung": "bf16", "leaves": n})
         del engine, pipe, mem_pipe
@@ -3848,6 +4133,7 @@ def phase_checkpoint() -> dict:
         finally:
             stop_server(srv)
         mem_pipe = EditPipeline.from_weights(cut, config8, tfm_mem, vae_mem, vl_mem, dev)
+        mem_pipe.encoder.tokenizer = pipe.encoder.tokenizer
         same_latents("int8", pipe, mem_pipe, distinct_image(7201))
         launches = dict(kernels.LAUNCHES)
         del engine, pipe, mem_pipe, tfm_mem, vae_mem, vl_mem
@@ -3862,7 +4148,7 @@ def phase_checkpoint() -> dict:
         # 7. the full flagship's boot, extrapolated from this load's rate
         full_bytes = flagship_weight_bytes()
         emit({"phase": "checkpoint_boot_extrapolated", "flagship_bf16_bytes": full_bytes,
-              "gb_per_s": gbps, "extrapolated_boot_s": full_bytes / (gbps * 1e9),
+              "gb_per_s": gbps, "extrapolated_boot_s": full_bytes / (gbps * 1e9) + tok_s,
               "nvidia_smi": smi})
     finally:
         shutil.rmtree(work, ignore_errors=False)
@@ -5139,6 +5425,7 @@ def main() -> int:
                                  f"and serialisation: {rec}")
 
     timed_phase(phase_resize)()
+    timed_phase(phase_inputs)()
     per_kernel = timed_phase(phase_kernels)()
     for phase in (phase_block_parity, phase_train_parity, phase_distill_parity):
         timed_phase(phase)()

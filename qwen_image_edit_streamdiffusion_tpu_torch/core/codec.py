@@ -14,17 +14,23 @@ needs the library.
 - :func:`decode` sniffs JPEG or PNG by its magic bytes, applies the EXIF
   orientation as ``ImageOps.exif_transpose`` does and returns RGB: its
   pixels equal Pillow's (libjpeg-turbo's islow IDCT, fancy upsampling and
-  fixed-point YCbCr→RGB) bit for bit. It takes baseline and 8-bit extended
-  sequential Huffman JPEG with 1 or 3 components, any whole-number sampling
-  ratio (fancy upsampling at 2, box replication above) and restart
-  intervals; and non-interlaced PNG: 8-bit gray, gray + alpha, RGB, RGBA and
-  palette, 1-, 2- and 4-bit gray (scaled ×255, ×85, ×17, as libpng and
-  Pillow scale them) and palette, alpha dropped as ``convert("RGB")`` drops
-  it.
-  Anything else raises a ``ValueError`` that names the feature. So does an
-  image above Pillow's decompression-bomb limit (:data:`MAX_PIXELS`),
-  before anything of it is allocated; a PNG inflates no further than its
-  rows, and a JPEG scan stops where its data runs out (truncated).
+  fixed-point YCbCr→RGB) bit for bit. It takes baseline, 8-bit extended
+  sequential and progressive Huffman JPEG with 1 or 3 components, any
+  whole-number sampling ratio (fancy upsampling at 2, box replication
+  above) and restart intervals; and PNG, Adam7-interlaced or not, of every
+  colour type at every depth it allows: gray at 1, 2 and 4 bits (scaled
+  ×255, ×85, ×17, as libpng and Pillow scale them), palette at 1 to 8 bits,
+  and 16-bit samples as Pillow's ``convert("RGB")`` gives them (RGB, RGBA and
+  gray + alpha keep the high byte; 16-bit gray, Pillow's I;16, is clipped at
+  255); alpha and ``tRNS`` dropped as ``convert("RGB")`` drops them.
+  Anything else raises a ``ValueError`` that names the feature:
+  arithmetic-coded, lossless, hierarchical, 12-bit, CMYK/YCCK and RGB-coded
+  JPEG, a fractional sampling ratio, a progressive file whose scans leave
+  coefficients that libjpeg-turbo would block-smooth, and other formats
+  (WebP, GIF, BMP, TIFF). So does an image above Pillow's decompression-bomb
+  limit (:data:`MAX_PIXELS`), before anything of it is allocated; a PNG
+  inflates no further than its rows, and a JPEG scan stops where its data
+  runs out (truncated), as does a progressive file without its EOI.
 - :func:`encode_jpeg` writes what Pillow's ``save(format="JPEG",
   quality=q)`` writes (JFIF, the scaled Annex K tables, 4:2:0, standard
   Huffman tables), so Pillow decodes the two files to the same pixels.
@@ -200,35 +206,46 @@ def _decode_png(data: bytes) -> np.ndarray:
                          f"decompression-bomb limit")
     if ctype not in _PNG_TYPES:
         raise ValueError(f"corrupt PNG: colour type {ctype}")
-    if depth == 16:
-        raise ValueError(f"unsupported PNG: 16-bit {_PNG_TYPES[ctype][1]}")
-    if depth not in (1, 2, 4, 8) or (depth < 8 and ctype not in (0, 3)):
+    if depth not in (1, 2, 4, 8, 16) or (depth < 8 and ctype not in (0, 3)) or (
+            depth == 16 and ctype == 3):
         raise ValueError(f"corrupt PNG: bit depth {depth} with colour type {ctype}")
-    if interlace:
-        raise ValueError("unsupported PNG: interlaced (Adam7) PNG")
+    if interlace > 1:
+        raise ValueError(f"corrupt PNG: interlace method {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError("corrupt PNG: palette image without PLTE")
     ch = _PNG_TYPES[ctype][0]
-    rowbytes = (w * ch * depth + 7) // 8  # a row of samples below 8 bits is padded
+    # (x0, y0, dx, dy, rows, samples a row) of each pass: Adam7's seven, or
+    # the one whole image
+    passes = [(x0, y0, dx, dy, (h - y0 + dy - 1) // dy, (w - x0 + dx - 1) // dx)
+              for x0, y0, dx, dy in (_ADAM7 if interlace else ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] > 0 and p[5] > 0]  # a pass may be empty
+    # a row of samples below 8 bits is padded to whole bytes
+    sizes = [rows * ((cols * ch * depth + 7) // 8 + 1) for *_, rows, cols in passes]
     try:
         # inflate no further than the image's filtered rows: a small stream
         # of zeros must not inflate to gigabytes
-        raw = zlib.decompressobj().decompress(b"".join(idat), h * (rowbytes + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), sum(sizes))
     except zlib.error as e:
         raise ValueError(f"corrupt PNG: {e}") from None
-    if len(raw) < h * (rowbytes + 1):
+    if len(raw) < sum(sizes):
         raise ValueError("truncated PNG: image data ends early")
-    out = np.empty((h, rowbytes), np.uint8)
-    err = _err()
-    # the filters step by whole bytes: one for samples below 8 bits
-    if library().qie_png_unfilter(raw, h, rowbytes, ch, out.ctypes.data, err, len(err)) != 0:
-        raise ValueError(err.value.decode())
-    if depth < 8:  # samples packed most significant bits first
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(h, -1)[:, :w]
-        if ctype == 0:
-            out = out * np.uint8(255 // ((1 << depth) - 1))
-    px = out.reshape(h, w, ch)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    px = np.empty((h, w, ch), dtype) if interlace else None
+    offset = 0
+    for (x0, y0, dx, dy, rows, cols), size in zip(passes, sizes):
+        sub = _png_samples(raw[offset:offset + size], rows, cols, ch, depth)
+        offset += size
+        if not interlace:
+            px = sub
+        else:
+            px[y0::dy, x0::dx] = sub
+    if depth == 16:
+        # Pillow: RGB(A) and gray + alpha keep each sample's high byte; 16-bit
+        # gray opens as I;16, which convert("RGB") clips at 255
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8 and ctype == 0:
+        px = px * np.uint8(255 // ((1 << depth) - 1))  # as libpng and Pillow scale them
     if ctype == 3:
         full = np.zeros((256, 3), np.uint8)  # indices past PLTE read black
         full[:len(palette)] = palette[:256]
@@ -238,6 +255,30 @@ def _decode_png(data: bytes) -> np.ndarray:
     else:
         rgb = np.ascontiguousarray(px[..., :3])
     return _orient(rgb, exif)
+
+
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(raw: bytes, rows: int, cols: int, ch: int, depth: int) -> np.ndarray:
+    """The filtered rows of one image (or one Adam7 pass) → (rows, cols, ch)
+    samples, uint16 at 16 bits, else uint8 (sub-byte samples unscaled)."""
+    rowbytes = (cols * ch * depth + 7) // 8
+    out = np.empty((rows, rowbytes), np.uint8)
+    err = _err()
+    # the filters step by whole pixels, or by one byte below 8 bits a pixel
+    bpp = max(1, ch * depth // 8)
+    if library().qie_png_unfilter(raw, rows, rowbytes, bpp, out.ctypes.data, err,
+                                  len(err)) != 0:
+        raise ValueError(err.value.decode())
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16).reshape(rows, cols, ch)
+    if depth < 8:  # samples packed most significant bits first
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        out = ((out[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(rows, -1)[:, :cols]
+    return out.reshape(rows, cols, ch)
 
 
 def decode(data: bytes) -> np.ndarray:

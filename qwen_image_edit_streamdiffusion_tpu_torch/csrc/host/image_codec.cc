@@ -6,6 +6,14 @@
 // for bit:
 //   - Huffman entropy decoding of baseline (SOF0) and 8-bit extended
 //     sequential (SOF1) scans, interleaved or not, with restart intervals;
+//   - progressive (SOF2) Huffman scans into the whole image's coefficients:
+//     jdphuff.c's DC first and refinement scans, AC first scans with their
+//     EOB runs and AC refinement scans with their correction bits (ITU T.81
+//     G.1.2), per-scan Huffman tables, restarts that also end an EOB run. The
+//     pixels are made after the last scan, as for a sequential file. Where
+//     libjpeg-turbo would block-smooth the image (jdcoefct.c smoothing_ok: a
+//     script that leaves one of the first ten zigzag coefficients short of
+//     Al = 0), the decode raises instead;
 //   - jpeg_idct_islow (jidctint.c) with its post-IDCT range-limit table;
 //   - fancy upsampling (jdsample.c: h2v1, h1v2, h2v2; box replication where
 //     libjpeg-turbo takes it, a component no wider than 2 samples), the
@@ -368,6 +376,9 @@ struct Component {
   uint16_t q[64];
   bool q_latched = false;
   int dc_pred = 0;
+  // progressive: the successive-approximation bit each coefficient (zigzag
+  // order) was last sent to, -1 before its first scan (libjpeg's coef_bits)
+  int coef_bits[64];
 };
 
 // The entropy-coded bits of a scan. At a marker the data stops and zero bits
@@ -506,7 +517,8 @@ struct Decoder {
   int width = 0, height = 0, ncomp = 0;
   int max_h = 1, max_v = 1, mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
-  bool sof_seen = false, jfif = false, adobe = false;
+  bool sof_seen = false, jfif = false, adobe = false, progressive = false;
+  int eobrun = 0;  // progressive AC scans: blocks left in the current EOB run
   int adobe_transform = -1;
   long exif_off = -1, exif_len = 0;
   Component comp[4];
@@ -534,7 +546,6 @@ struct Decoder {
 
   void unsupported_sof(int m) {
     switch (m) {
-      case 0xC2: throw CodecError("unsupported JPEG: progressive JPEG (SOF2)");
       case 0xC3: throw CodecError("unsupported JPEG: lossless JPEG (SOF3)");
       case 0xC5: case 0xC6: case 0xC7:
         throw CodecError("unsupported JPEG: hierarchical (differential) JPEG");
@@ -590,6 +601,7 @@ struct Decoder {
       c.bw_pad = mcus_x * c.h;
       c.bh_pad = mcus_y * c.v;
       c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
     sof_seen = true;
   }
@@ -650,8 +662,12 @@ struct Decoder {
     if (rgb) throw CodecError("unsupported JPEG: RGB-coded (Adobe transform 0) JPEG");
   }
 
+  int16_t* block(Component& c, int bx, int by) {
+    return c.coef.data() + (size_t(by) * c.bw_pad + bx) * 64;
+  }
+
   void decode_block(BitReader& br, Component& c, int bx, int by) {
-    int16_t* blk = c.coef.data() + (size_t(by) * c.bw_pad + bx) * 64;
+    int16_t* blk = block(c, bx, by);
     const HuffTable& dct = dc[c.td];
     const HuffTable& act = ac[c.ta];
     int s = br.decode(dct);
@@ -677,6 +693,106 @@ struct Decoder {
     }
   }
 
+  // jdphuff.c decode_mcu_DC_first: the DC difference, shifted left by Al
+  void dc_first(BitReader& br, Component& c, int bx, int by, int al) {
+    int s = br.decode(dc[c.td]);
+    int diff = s ? extend(br.get(s), s) : 0;
+    if ((c.dc_pred >= 0 && diff > INT_MAX - c.dc_pred) ||
+        (c.dc_pred < 0 && diff < INT_MIN - c.dc_pred))
+      throw CodecError("corrupt JPEG: DC coefficient out of range");
+    c.dc_pred += diff;
+    block(c, bx, by)[0] = int16_t(int(unsigned(c.dc_pred) << al));
+  }
+
+  // decode_mcu_DC_refine: one more bit of the DC, no Huffman code
+  void dc_refine(BitReader& br, Component& c, int bx, int by, int al) {
+    if (br.get(1)) block(c, bx, by)[0] |= int16_t(1 << al);
+  }
+
+  // decode_mcu_AC_first: band ss..se of one block, or one block of an EOB run
+  void ac_first(BitReader& br, Component& c, int bx, int by, int ss, int se, int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    int16_t* blk = block(c, bx, by);
+    const HuffTable& act = ac[c.ta];
+    for (int k = ss; k <= se; k++) {
+      int rs = br.decode(act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = int16_t(int(unsigned(extend(br.get(s), s)) << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  // decode_mcu_AC_refine: a correction bit for each coefficient already
+  // nonzero in the band, and the newly nonzero ones (+-1 << al) placed by
+  // their zero runs
+  void ac_refine(BitReader& br, Component& c, int bx, int by, int ss, int se, int al) {
+    int16_t* blk = block(c, bx, by);
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t* coef) {
+      if (br.get(1) && (*coef & p1) == 0) *coef = int16_t(*coef + (*coef >= 0 ? p1 : m1));
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      const HuffTable& act = ac[c.ta];
+      for (; k <= se; k++) {
+        int rs = br.decode(act);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // a size other than 1 is libjpeg's warning only
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;  // the rest of the band is refined as part of the EOB run
+        }
+        do {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = int16_t(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // jdcoefct.c smoothing_ok (libjpeg-turbo 2.1+, ten saved coefficients):
+  // whether libjpeg-turbo would block-smooth this progressive image
+  bool smoothing_ok() const {
+    bool useful = false;
+    for (int i = 0; i < ncomp; i++) {
+      const Component& c = comp[i];
+      if (!c.q_latched) return false;
+      for (int k = 0; k < 10; k++)
+        if (c.q[kNatural[k]] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; k++)
+        if (c.coef_bits[k] != 0) useful = true;
+    }
+    return useful;
+  }
+
   void decode_scan(int len) {
     if (!sof_seen) throw CodecError("corrupt JPEG: scan before frame header");
     int ns = u8();
@@ -690,8 +806,7 @@ struct Decoder {
       if (!c) throw CodecError("corrupt JPEG: scan names an unknown component");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined || !ac[c->ta].defined)
-        throw CodecError("corrupt JPEG: scan uses an undefined Huffman table");
+      if (c->td > 3 || c->ta > 3) throw CodecError("corrupt JPEG: bad scan header");
       if (!c->q_latched) {
         if (!qt_defined[c->tq]) throw CodecError("corrupt JPEG: undefined quantization table");
         memcpy(c->q, qt[c->tq], sizeof(c->q));
@@ -701,8 +816,27 @@ struct Decoder {
       sc[i] = c;
     }
     int ss = u8(), se = u8(), a = u8();
-    if (ss != 0 || se != 63 || a != 0)
-      throw CodecError("unsupported JPEG: progressive JPEG (spectral selection)");
+    int ah = a >> 4, al = a & 15;
+    // which tables the scan reads (jdhuff.c / jdphuff.c start_pass)
+    bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss > 0;
+    if (progressive) {
+      // jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+      if (bad)
+        throw CodecError("corrupt JPEG: bad progression parameters Ss=" + std::to_string(ss) +
+                         " Se=" + std::to_string(se) + " Ah=" + std::to_string(ah) +
+                         " Al=" + std::to_string(al));
+      for (int i = 0; i < ns; i++)
+        for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
+    } else if (ss != 0 || se != 63 || a != 0) {
+      throw CodecError("unsupported JPEG: spectral selection or successive approximation "
+                       "in a sequential scan");
+    }
+    for (int i = 0; i < ns; i++)
+      if ((need_dc && !dc[sc[i]->td].defined) || (need_ac && !ac[sc[i]->ta].defined))
+        throw CodecError("corrupt JPEG: scan uses an undefined Huffman table");
+    eobrun = 0;
     BitReader br{data + pos, data + n};
     int units_x, units_y;
     if (ns == 1) {
@@ -720,16 +854,25 @@ struct Decoder {
           br.restart(rst);
           rst = (rst + 1) & 7;
           for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+          eobrun = 0;
         }
+        auto unit = [&](Component& c, int bx, int by) {
+          if (!progressive) decode_block(br, c, bx, by);
+          else if (ss == 0 && ah == 0) dc_first(br, c, bx, by, al);
+          else if (ss == 0) dc_refine(br, c, bx, by, al);
+          else if (ah == 0) ac_first(br, c, bx, by, ss, se, al);
+          else ac_refine(br, c, bx, by, ss, se, al);
+        };
         if (br.insufficient) {
-          // jdhuff.c decode_mcu: out of data, the MCU stays zero
+          // jdhuff.c / jdphuff.c decode_mcu: out of data, the MCU is left as
+          // it is (zero in a sequential file)
         } else if (ns == 1) {
-          decode_block(br, *sc[0], ux, uy);
+          unit(*sc[0], ux, uy);
         } else {
           for (int i = 0; i < ns; i++) {
             Component& c = *sc[i];
             for (int v = 0; v < c.v; v++)
-              for (int h = 0; h < c.h; h++) decode_block(br, c, ux * c.h + h, uy * c.v + v);
+              for (int h = 0; h < c.h; h++) unit(c, ux * c.h + h, uy * c.v + v);
           }
         }
         done++;
@@ -755,8 +898,12 @@ struct Decoder {
     for (;;) {
       int m = next_marker();
       if (m < 0) {
-        if (scanned) break;  // no EOI after the scans: libjpeg accepts it too
-        throw CodecError("truncated JPEG: no scan");
+        // no EOI after the scans: libjpeg accepts it in a sequential file,
+        // whose pixels are made as its one scan is read; Pillow reports a
+        // progressive file without it as truncated
+        if (scanned && !progressive) break;
+        throw CodecError(scanned ? "truncated JPEG: the progressive scans end without EOI"
+                                 : "truncated JPEG: no scan");
       }
       if (m == 0xD9) break;
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
@@ -764,7 +911,11 @@ struct Decoder {
       if (len < 2 || pos + len - 2 > n) throw CodecError("truncated JPEG: a marker segment ends early");
       switch (m) {
         case 0xC0: case 0xC1: parse_sof(len); break;
-        case 0xC2: case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA:
+        case 0xC2:
+          progressive = true;
+          parse_sof(len);
+          break;
+        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA:
         case 0xCB: case 0xCD: case 0xCE: case 0xCF: unsupported_sof(m); break;
         case 0xCC: throw CodecError("unsupported JPEG: arithmetic-coded JPEG");
         case 0xC4: parse_dht(len); break;
@@ -789,6 +940,9 @@ struct Decoder {
       }
     }
     if (!scanned) throw CodecError("truncated JPEG: no scan");
+    if (progressive && smoothing_ok())
+      throw CodecError("unsupported JPEG: progressive scans that leave low-frequency "
+                       "coefficients short of their last bit (libjpeg block-smooths them)");
   }
 
   // IDCT of component c into a plane of bw_pad*8 x bh_pad*8 samples.

@@ -21,13 +21,16 @@ CLI for the offline conversion, one shard in host memory at a time:
 It keeps the JAX order, LoRA fuse → q/k/v fuse → quantize, applied to each
 linear as soon as its tensors (and, for a fused q/k/v, all three
 projections) have arrived, on ``--device``: a quantized flagship never holds
-its bf16 copy beside the quantized one.
+its bf16 copy beside the quantized one. ``--component vl`` also copies the
+checkpoint's ``tokenizer.json`` and ``tokenizer_config.json`` into ``--out``
+(:func:`find_tokenizer`), where ``EditPipeline.from_checkpoint`` finds them.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import shutil
 from typing import Any, Dict, Optional, Set, Tuple
 
 import torch
@@ -220,6 +223,24 @@ def convert(src: str, component: str, preset, device="cuda",
     return cv.convert_vl(items, preset.vl, on_module=_vl_finish(bits) if bits else None)
 
 
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json")
+
+
+def find_tokenizer(src: str) -> Optional[str]:
+    """The directory of the VL checkpoint's ``tokenizer.json``: the one
+    ``src`` names (or holds ``src``), else its sibling ``tokenizer/`` (the
+    diffusers layout); None where neither has one. The file is read, so one
+    the port cannot tokenize with raises here, before any conversion."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
+
+    here = src if os.path.isdir(src) else os.path.dirname(os.path.abspath(src))
+    for d in (here, os.path.join(os.path.dirname(os.path.abspath(here)), "tokenizer")):
+        if os.path.isfile(os.path.join(d, "tokenizer.json")):
+            Tokenizer.from_dir(d)
+            return d
+    return None
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog=f"python -m {__name__}")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -252,10 +273,19 @@ def main(argv=None) -> None:
                  "and stays high-precision)")
     if args.lora and args.component != "transformer":
         ap.error("--lora applies to --component transformer only")
+    tok_dir = find_tokenizer(args.src) if args.component == "vl" else None
     params = convert(args.src, args.component, preset, args.device, args.lora,
                      args.fuse_qkv, {"int8": 8, "int4": 4}.get(args.quantize))
     save(args.out, params, {"component": args.component, "preset": preset.name})
     print(f"saved {args.component} → {args.out}")
+    if tok_dir:
+        for name in TOKENIZER_FILES:
+            if os.path.isfile(os.path.join(tok_dir, name)):
+                shutil.copyfile(os.path.join(tok_dir, name), os.path.join(args.out, name))
+        print(f"copied the tokenizer of {tok_dir} → {args.out}")
+    elif args.component == "vl":
+        print(f"no tokenizer.json beside {args.src}: prompts will get SimpleTokenizer's "
+              f"hashed ids")
 
 
 if __name__ == "__main__":

@@ -23,8 +23,10 @@ the patch embed are column-parallel (the patch embed all-gathered),
 row-parallel, and the embed table's hidden dim is all-gathered after the
 lookup. :func:`vl_groups` gives each site's group.
 
-The tokenizer, chat template and position tables below are pure Python/numpy,
-copied verbatim from the JAX module (which imports jax and cannot be reused).
+The chat template and position tables below are pure Python/numpy, copied
+verbatim from the JAX module (which imports jax and cannot be reused);
+:func:`load_hf_tokenizer` reads the checkpoint's ``tokenizer.json`` with
+``models/tokenizer.py``.
 """
 
 from __future__ import annotations
@@ -429,6 +431,16 @@ class SimpleTokenizer:
             )
             out.append(h % min(self.vocab_size, 151000))
         return out
+
+
+def load_hf_tokenizer(path: str):
+    """The checkpoint's tokenizer in the directory ``path``: its
+    ``tokenizer.json`` read by ``models/tokenizer.py`` (the JAX package's
+    ``AutoTokenizer.from_pretrained(path)`` for a Qwen2 file, without
+    ``transformers``)."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
+
+    return Tokenizer.from_dir(path)
 
 
 def smart_resize_hw(h: int, w: int, factor: int, min_pixels: int,

@@ -46,6 +46,7 @@ a denoise without waiting for the card.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -489,8 +490,11 @@ class EditPipeline:
         quantized checkpoint), fuses q/k/v and quantizes as ``config`` asks
         (a rung other than the saved one is served with a warning). Without
         ``vl_path`` the VL encoder is random from seed 0, as the JAX
-        ``from_checkpoint`` makes it; the tokenizer is ``SimpleTokenizer``
-        in both packages.
+        ``from_checkpoint`` makes it. Prompts are encoded by the checkpoint's
+        own tokenizer where ``vl_path`` holds a ``tokenizer.json``
+        (``qwen_vl.load_hf_tokenizer``: ``convert --component vl`` copies it
+        there), else by ``SimpleTokenizer``'s hashed ids; it prints which.
+        (The JAX ``from_checkpoint`` always takes ``SimpleTokenizer``.)
 
         Under ``mesh`` the MMDiT and VL files are mapped, not read: each
         rank copies only its slices of each leaf (a column-parallel slice
@@ -517,13 +521,23 @@ class EditPipeline:
         tfm_params = ckpt.load(transformer_path, device, preset, "transformer",
                                mapped=mapped)
         vae_params = ckpt.load(vae_path, device, preset, "vae")
-        vl_params = None
+        vl_params = tokenizer = None
         if vl_path:
+            if os.path.isfile(os.path.join(vl_path, "tokenizer.json")):
+                tokenizer = qwen_vl.load_hf_tokenizer(vl_path)
+                print(f"[from_checkpoint] prompts are tokenized by "
+                      f"{os.path.join(vl_path, 'tokenizer.json')} ({len(tokenizer)} ids)")
+            else:
+                print(f"[from_checkpoint] no tokenizer.json in {vl_path}: prompts get "
+                      f"SimpleTokenizer's hashed ids")
             vl_params = ckpt.load(vl_path, device, preset, "vl", mapped=mapped)
-        return cls.from_weights(preset, config, tfm_params, vae_params, vl_params, device,
+        pipe = cls.from_weights(preset, config, tfm_params, vae_params, vl_params, device,
                                 lora_path=lora_path, tiny_decoder_path=tiny_decoder_path,
                                 tiny_encoder_path=tiny_encoder_path, seed=0, mesh=mesh,
                                 vl_seed=0)
+        if tokenizer is not None:
+            pipe.encoder.tokenizer = tokenizer
+        return pipe
 
     def load_tiny_decoder(self, path: str) -> None:
         """Load a distilled tiny decoder and switch the output decode to it

@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from qwen_image_edit_streamdiffusion_tpu.benchmarks import rehearsal
 from qwen_image_edit_streamdiffusion_tpu.core.config import get_preset as jax_preset
 from qwen_image_edit_streamdiffusion_tpu.models import convert as jcv
@@ -68,13 +70,16 @@ def _numpy_init(init, seed: int):
 def fabricate(dst: str) -> dict:
     """The JAX rehearsal's HF tree at `tiny` (numpy-drawn params), plus
     ``vae_torch``: its VAE file with each conv in torch's (out, in, kh, kw),
-    the layout the port reads. Returns {"transformer", "vae", "vae_torch",
-    "vl": path}."""
+    the layout the port reads. The rehearsal's stand-in WordLevel tokenizer
+    beside the VL shards is replaced by a full-size Qwen2-layout BPE one
+    (``chip_smoke.write_qwen2_tokenizer``), the kind a real checkpoint ships.
+    Returns {"transformer", "vae", "vae_torch", "vl": path}."""
     with pytest.MonkeyPatch.context() as mp:
         for i, (mod, name) in enumerate(((jtfm, "init"), (jvae, "init"),
                                          (jqwen_vl, "vision_init"), (jqwen_vl, "lm_init"))):
             mp.setattr(mod, name, _numpy_init(getattr(mod, name), 100 + i))
         dirs = rehearsal.fabricate_hf_checkpoint(dst, "tiny")
+    chip_smoke.write_qwen2_tokenizer(dirs["vl"])
     state = dict(cv.load_safetensors(dirs["vae"]))
     dirs["vae_torch"] = os.path.join(dst, "vae_torch.safetensors")
     lora.save_safetensors(dirs["vae_torch"], {
@@ -297,6 +302,8 @@ def test_engine_serves_each_rung_from_checkpoints(converted, rung):
         ref = EditPipeline.from_weights(
             P, TINY, ckpt.load(converted["transformer"], "cpu"),
             ckpt.load(converted["vae"], "cpu"), ckpt.load(converted["vl"], "cpu"), "cpu")
+        # the checkpoint's tokenizer, which from_checkpoint takes from vl_path
+        ref.encoder.tokenizer = qwen_vl.load_hf_tokenizer(converted["vl"])
         img = imaging.make_test_image(64, 64, "circle")
         a = eng.pipeline(img, "same request", num_inference_steps=1, seed=3)
         b = ref(img, "same request", num_inference_steps=1, seed=3)
@@ -310,3 +317,53 @@ def test_from_checkpoint_without_vl_path_draws_the_vl_from_seed_0(hf, converted)
     with pytest.raises(ValueError, match="not a checkpoint of"):
         EditPipeline.from_checkpoint(converted["transformer"], hf["vae_torch"], "tiny", TINY,
                                      device="cpu")
+
+
+def test_vl_checkpoint_carries_its_tokenizer(hf, converted, tmp_path, capsys):
+    """``convert --component vl`` copies tokenizer.json and
+    tokenizer_config.json (from the shards' directory, or the diffusers
+    layout's sibling ``tokenizer/``) and refuses one the port cannot read
+    before converting; ``from_checkpoint`` encodes prompts with it, and
+    with ``SimpleTokenizer`` only where the directory has none."""
+    import shutil
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
+
+    for name in ckpt.TOKENIZER_FILES:
+        with open(os.path.join(hf["vl"], name), "rb") as a, \
+                open(os.path.join(converted["vl"], name), "rb") as b:
+            assert a.read() == b.read()
+    pipe = EditPipeline.from_checkpoint(converted["transformer"], converted["vae"], "tiny",
+                                        TINY, vl_path=converted["vl"], device="cpu")
+    assert "tokenized by" in capsys.readouterr().out
+    tok = pipe.encoder.tokenizer
+    assert isinstance(tok, Tokenizer) and len(tok) == 151665
+    want = qwen_vl.build_chat_ids(jqwen_vl.load_hf_tokenizer(converted["vl"]),
+                                  "checkpoint edit", [4])
+    assert qwen_vl.build_chat_ids(tok, "checkpoint edit", [4]) == want
+
+    bare = tmp_path / "vl_bare"
+    shutil.copytree(converted["vl"], bare)
+    for name in ckpt.TOKENIZER_FILES:
+        os.remove(bare / name)
+    pipe = EditPipeline.from_checkpoint(converted["transformer"], converted["vae"], "tiny",
+                                        TINY, vl_path=str(bare), device="cpu")
+    assert "SimpleTokenizer" in capsys.readouterr().out
+    assert isinstance(pipe.encoder.tokenizer, qwen_vl.SimpleTokenizer)
+
+    # the diffusers layout: text_encoder/ beside tokenizer/
+    root = tmp_path / "diffusers"
+    shutil.copytree(hf["vl"], root / "text_encoder",
+                    ignore=shutil.ignore_patterns("tokenizer*.json"))
+    shutil.copytree(hf["vl"], root / "tokenizer", ignore=shutil.ignore_patterns("*.safetensors*"))
+    out = str(tmp_path / "vl_diffusers")
+    ckpt.main(["convert", "--src", str(root / "text_encoder"), "--component", "vl",
+               "--preset", "tiny", "--out", out, "--device", "cpu"])
+    assert os.path.isfile(os.path.join(out, "tokenizer.json"))
+
+    # the JAX rehearsal's stand-in (WordLevel) is refused before converting
+    rehearsal._write_tokenizer(str(root / "tokenizer"))
+    with pytest.raises(ValueError, match="model 'WordLevel'"):
+        ckpt.main(["convert", "--src", str(root / "text_encoder"), "--component", "vl",
+                   "--preset", "tiny", "--out", str(tmp_path / "refused"), "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "refused")

@@ -405,25 +405,16 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None) -> byte
 def test_unsupported_inputs_raise_named_errors():
     arr = _image(24, 24)
     base = _pil_jpeg(arr, quality=90)
-    prog = io.BytesIO()
-    Image.fromarray(arr).save(prog, "JPEG", progressive=True)
     cmyk = io.BytesIO()
     Image.fromarray(arr).convert("CMYK").save(cmyk, "JPEG")
     cases = {
-        "progressive": prog.getvalue(),
         "CMYK": cmyk.getvalue(),
         "arithmetic": _patched_sof(base, marker=0xC9),
         "12-bit": _patched_sof(base, precision=12),
         "lossless": _patched_sof(base, marker=0xC3),
         "not a JPEG or PNG": b"GIF89a" + bytes(40),
         "truncated": base[:len(base) // 2],
-        "interlaced": _png(arr, 2)[:8] + _png(arr, 2)[8:].replace(
-            struct.pack(">IIBBBBB", 24, 24, 8, 2, 0, 0, 0),
-            struct.pack(">IIBBBBB", 24, 24, 8, 2, 0, 0, 1)),
     }
-    sixteen = io.BytesIO()
-    Image.fromarray(arr[..., 0].astype(np.uint16) * 257).save(sixteen, "PNG")
-    cases["16-bit"] = sixteen.getvalue()
     for name, data in cases.items():
         with pytest.raises(ValueError, match=name):
             codec.decode(data)
@@ -606,3 +597,157 @@ def test_library_is_built_from_its_source_hash():
     codec.library()
     assert path.exists() and path.parent.name == "host"
     assert path.name.startswith("libqie_codec_")
+
+
+# ---------------------------------------------------------------------------
+# Progressive JPEG, Adam7 and 16-bit PNG
+# ---------------------------------------------------------------------------
+
+PROGRESSIVE_SIZES = [(1, 1), (7, 5), (24, 24), (33, 17), (257, 129), (1024, 768)]
+
+
+def _pil_progressive(arr, monkeypatch, **kw) -> bytes:
+    """Pillow's progressive file: libjpeg's default script (interleaved DC at
+    Al 1, the AC bands first at Al 2 or 1, then every refinement to Al 0) and
+    its per-scan optimised Huffman tables. Pillow sizes its output buffer by
+    the pixel count; a larger floor lets it write q100 files."""
+    from PIL import ImageFile
+
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 25)
+    return _pil_jpeg(arr, progressive=True, **kw)
+
+
+def _scans(data: bytes):
+    """(header, [each scan with the tables before it], EOI) of a JPEG."""
+    i, scans, start = 2, [], None
+    while data[i + 1] != 0xD9:
+        m, n = data[i + 1], int.from_bytes(data[i + 2:i + 4], "big")
+        if m in (0xC4, 0xDA) and start is None:
+            start = i
+        i += 2 + n
+        if m == 0xDA:
+            while not (data[i] == 0xFF and data[i + 1] != 0 and not 0xD0 <= data[i + 1] <= 0xD7):
+                i += 1
+            scans.append(data[start:i])
+            start = None
+    head = data[:data.index(scans[0])]
+    return head, scans, data[i:]
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2, "gray"], ids=["444", "422", "420", "gray"])
+@pytest.mark.parametrize("hw", PROGRESSIVE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_progressive_jpeg_matches_pillow(hw, subsampling, monkeypatch):
+    arr = _image(*hw)
+    for q in (50, 90, 100):
+        if subsampling == "gray":
+            data = _pil_progressive(arr[..., 0], monkeypatch, quality=q)
+        else:
+            data = _pil_progressive(arr, monkeypatch, quality=q, subsampling=subsampling)
+        assert b"\xff\xc2" in data
+        np.testing.assert_array_equal(codec.decode(data), _pil_decode(data), err_msg=f"q{q}")
+
+
+def test_progressive_restarts_and_orientation(monkeypatch):
+    """Restart intervals end EOB runs and DC predictions; EXIF orientation
+    applies as in a baseline file."""
+    arr = _image(70, 53)
+    for kw in ({"restart_marker_blocks": 3}, {"restart_marker_blocks": 1},
+               {"restart_marker_rows": 1}):
+        data = _pil_progressive(arr, monkeypatch, quality=90, **kw)
+        assert b"\xff\xdd" in data and b"\xff\xd0" in data
+        np.testing.assert_array_equal(codec.decode(data), _pil_decode(data), err_msg=str(kw))
+    for orientation in (3, 6):
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        data = _pil_progressive(arr, monkeypatch, quality=90, exif=exif.tobytes())
+        got = codec.decode(data)
+        np.testing.assert_array_equal(got, _pil_decode(data))
+        assert got.shape[:2] == ((53, 70) if orientation == 6 else (70, 53))
+
+
+def test_progressive_cut_files(monkeypatch):
+    """A cut progressive file raises "truncated JPEG", where Pillow raises
+    too; scans that stop short with an EOI after them are what libjpeg-turbo
+    block-smooths, which the port refuses by name; a file without its DC
+    first scan is not smoothed there, and decodes to Pillow's pixels."""
+    data = _pil_progressive(_image(40, 56), monkeypatch, quality=90)
+    head, scans, tail = _scans(data)
+    assert len(scans) == 10 and head + b"".join(scans) + tail == data
+    for cut in (len(data) // 2, len(head) + len(scans[0]) + len(scans[1]), len(data) - 2):
+        with pytest.raises(ValueError, match="truncated JPEG"):
+            codec.decode(data[:cut])
+        with pytest.raises(OSError):
+            Image.open(io.BytesIO(data[:cut])).load()
+    for k in range(1, 10):
+        with pytest.raises(ValueError, match="block-smooths"):
+            codec.decode(head + b"".join(scans[:k]) + tail)
+    no_dc = head + b"".join(scans[1:]) + tail
+    np.testing.assert_array_equal(codec.decode(no_dc), _pil_decode(no_dc))
+
+
+def test_progressive_bad_progression_is_refused(monkeypatch):
+    """An AC scan over two components, Ah not Al + 1, Al above 13: libjpeg's
+    JERR_BAD_PROGRESSION, named."""
+    data = _pil_progressive(_image(16, 16), monkeypatch, quality=90)
+    head, scans, tail = _scans(data)
+    sos = scans[1].index(b"\xff\xda")
+    n = scans[1][sos + 4]
+    at = sos + 5 + 2 * n  # Ss, Se, Ah/Al
+    for patch in (bytes([1, 63, 0x31]), bytes([1, 63, 0x0E]), bytes([0, 5, 0x00])):
+        bad = scans[1][:at] + patch + scans[1][at + 3:]
+        with pytest.raises(ValueError, match="bad progression"):
+            codec.decode(head + scans[0] + bad + b"".join(scans[2:]) + tail)
+
+
+_PNG_DEPTHS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2),
+               (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+
+
+@pytest.mark.parametrize("color_type,depth", _PNG_DEPTHS,
+                         ids=[f"type{c}-{d}bit" for c, d in _PNG_DEPTHS])
+def test_png_every_type_and_depth_interlaced_or_not(color_type, depth):
+    """Every colour type at every depth PNG allows it, Adam7-interlaced and
+    not, a random filter a row (of each pass), at sizes where passes are
+    empty (under 8 on one or both axes): Pillow's ``convert("RGB")`` bytes.
+    At 16 bits that keeps RGB(A)'s and gray + alpha's high bytes and clips
+    16-bit gray (I;16) at 255; a tRNS chunk changes nothing."""
+    from scripts.codec_fixtures import png_file
+
+    channels = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color_type]
+    for h, w in ((1, 1), (3, 5), (7, 2), (2, 9), (9, 13), (33, 17)):
+        rng = np.random.default_rng(h * 100 + w)
+        samples = rng.integers(0, 1 << depth, (h, w, channels))
+        if color_type == 0 and depth == 16:
+            samples[0, 0], samples[-1, -1] = 250, 500  # under and over 255
+        palette = (rng.integers(0, 256, (1 << min(depth, 8), 3), np.uint8)
+                   if color_type == 3 else None)
+        trns = [None]
+        if depth == 16 and color_type in (0, 2):
+            trns.append(struct.pack(">" + "H" * channels, *samples[0, 0]))
+        for interlace in (False, True):
+            for t in trns:
+                data = png_file(samples, color_type, depth, interlace, palette, t, seed=h + w)
+                got = codec.decode(data)
+                np.testing.assert_array_equal(
+                    got, _pil_decode(data), err_msg=f"{h}x{w} interlace {interlace} tRNS {t}")
+
+
+def test_committed_fixtures_match_their_manifest_and_pillow():
+    """The files ``chip_smoke.py`` decodes on the card's host (which has no
+    Pillow): the manifest's shapes and hashes are Pillow's decode, and the
+    port's decode equals them."""
+    import hashlib
+    import json
+
+    root = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert sum(e["bytes"] for e in manifest.values()) < 300_000
+    for name, entry in manifest.items():
+        with open(os.path.join(root, name), "rb") as f:
+            data = f.read()
+        assert len(data) == entry["bytes"]
+        for px in (_pil_decode(data), codec.decode(data)):
+            assert list(px.shape) == entry["shape"], name
+            assert hashlib.sha256(px.tobytes()).hexdigest() == entry["sha256"], name
+    assert b"\xff\xc2" in open(os.path.join(root, "prog_1024.jpg"), "rb").read()

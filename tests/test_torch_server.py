@@ -128,18 +128,17 @@ def test_bad_base64_500(server_url):
 
 
 def test_unsupported_image_500(server_url):
-    """An image the codec refuses (here progressive JPEG) is the wrapped 500
+    """An image the codec refuses (here a CMYK JPEG) is the wrapped 500
     an undecodable image is, with the feature named."""
     import base64
 
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(imaging.make_test_image(64, 64, "circle")).save(buf, "JPEG",
-                                                                   progressive=True)
+    Image.fromarray(imaging.make_test_image(64, 64, "circle")).convert("CMYK").save(buf, "JPEG")
     url, _ = server_url
     code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode()})
-    assert code == 500 and "progressive" in body["detail"]
+    assert code == 500 and "CMYK" in body["detail"]
 
 
 def test_unknown_ref_mode_422(server_url):
@@ -596,11 +595,14 @@ def test_raw_response_flag_not_exposed_via_http(ws_server):
 
 def test_server_runs_with_jax_pil_cv2_blocked(tmp_path):
     """A fresh process whose import system refuses jax, PIL, cv2,
-    safetensors, orbax, transformers and the JAX package serves one /edit of
-    a port-encoded JPEG and decodes the reply; then the port's CLI converts
-    an HF-layout tiny tree (fabricated here, by this process) and the
-    server's CLI serves one /edit from it with --transformer --vae --vl; a
-    lone --transformer is refused."""
+    safetensors, orbax, transformers, tokenizers, regex and the JAX package
+    serves one /edit of a port-encoded JPEG and decodes the reply; then the
+    port's CLI converts an HF-layout tiny tree (fabricated here, by this
+    process, with a Qwen2-layout tokenizer.json beside the VL shards, which
+    the conversion copies) and the server's CLI serves one /edit of a
+    progressive JPEG (the committed fixture) from it with --transformer
+    --vae --vl, its prompts tokenized by that file; a lone --transformer is
+    refused."""
     from test_torch_checkpoint import fabricate
 
     hf = fabricate(str(tmp_path / "hf"))
@@ -608,7 +610,7 @@ def test_server_runs_with_jax_pil_cv2_blocked(tmp_path):
     code = f"""
 import importlib.abc, json, socket, sys, threading, time, urllib.request
 FORBIDDEN = ("jax", "jaxlib", "PIL", "cv2", "torchvision", "safetensors", "orbax",
-             "transformers", "qwen_image_edit_streamdiffusion_tpu")
+             "transformers", "tokenizers", "regex", "qwen_image_edit_streamdiffusion_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
         if name.split(".")[0] in FORBIDDEN:
@@ -630,7 +632,7 @@ srv = make_server(engine, "127.0.0.1", 0)
 threading.Thread(target=srv.serve_forever, daemon=True).start()
 body = json.dumps({{"image": codec.to_base64_jpeg(imaging.make_test_image(80, 80, "circle")),
                    "prompt": "oil"}}).encode()
-def edit(port):
+def edit(port, body=body):
     req = urllib.request.Request(f"http://127.0.0.1:{{port}}/edit", body,
                                  {{"Content-Type": "application/json"}})
     with urllib.request.urlopen(req, timeout=120) as r:
@@ -662,7 +664,12 @@ for _ in range(600):
             break
     except OSError:
         time.sleep(0.1)
-out = edit(port)
+import base64
+with open("tests/fixtures/codec/prog_512_420.jpg", "rb") as f:
+    progressive = f.read()
+assert progressive[:2] == b"\\xff\\xd8" and b"\\xff\\xc2" in progressive
+out = edit(port, json.dumps({{"image": base64.b64encode(progressive).decode(),
+                              "prompt": "oil"}}).encode())
 assert out.shape == (64, 64, 3), out.shape
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("ok")
@@ -673,4 +680,5 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
     assert "needs both --transformer and --vae" in proc.stderr
-    assert "saved vl" in proc.stdout
+    assert "saved vl" in proc.stdout and "copied the tokenizer" in proc.stdout
+    assert "prompts are tokenized by" in proc.stdout and "151665 ids" in proc.stdout

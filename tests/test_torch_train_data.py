@@ -147,6 +147,26 @@ def test_loaded_pixels_equal_jax(files):
     assert ours.load(3)["image"].shape == (64, 64, 3)
 
 
+def test_read_image_takes_progressive_and_interlaced_files(tmp_path):
+    """``read_image`` of a progressive JPEG (EXIF-rotated), an Adam7 PNG and a
+    16-bit PNG equals the JAX ``open_rgb`` array of the same file."""
+    from qwen_image_edit_streamdiffusion_tpu.core.imaging import open_rgb
+    from scripts.codec_fixtures import png_file
+
+    rng = np.random.default_rng(7)
+    arr = rng.integers(0, 256, (37, 52, 3), np.uint8)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    Image.fromarray(arr).save(tmp_path / "p.jpg", "JPEG", quality=90, progressive=True,
+                              exif=exif.tobytes())
+    (tmp_path / "a.png").write_bytes(png_file(arr, 2, interlace=True, seed=1))
+    (tmp_path / "w.png").write_bytes(png_file(rng.integers(0, 1 << 16, (9, 11, 4)), 6, 16))
+    for name in ("p.jpg", "a.png", "w.png"):
+        path = str(tmp_path / name)
+        np.testing.assert_array_equal(data.read_image(path), np.asarray(open_rgb(path)))
+    assert data.read_image(str(tmp_path / "p.jpg")).shape == (52, 37, 3)
+
+
 def test_sources_agree(files):
     """The manifest and the item directories give the same prompts,
     negatives and pixels (the directories hold the one-image items, and
