@@ -20,12 +20,20 @@ toolkit. Phases, each printing one JSON line:
              host's;
    inputs  — real inputs on the card's host (no Pillow, no transformers):
              the committed codec fixtures (``tests/fixtures/codec``:
-             progressive JPEG, Adam7 and 16-bit PNG) decoded to their
+             progressive JPEG, Adam7 and 16-bit PNG, CMYK, YCCK and RGB-coded
+             JPEG, BMP at 8 and 24 bits and RLE8, an interlaced GIF, lossy
+             WebP with and without alpha, lossless WebP) decoded to their
              manifest's SHA-256 of Pillow's bytes; the decode ms of a 1024²
-             progressive JPEG and of the same image as baseline; a full-size
+             progressive JPEG and of the same image as baseline, and of a
+             1024² image in each new format (CMYK, YCCK and RGB-coded JPEG,
+             BMP, RLE8 BMP and GIF written here without Pillow and held to
+             their sources; lossy and lossless WebP committed); a full-size
              Qwen2-layout tokenizer.json (``write_qwen2_tokenizer``: 151 643
              base ids, 22 added) written, its load ms, PROMPT's encode ms
-             (cold and cached) and ids, and the chat template's ms;
+             (cold and cached) and ids, and the chat template's ms; the same
+             tokenizer as vocab.json + merges.txt + tokenizer_config.json,
+             its load ms and PROMPT's and the template's ids, equal to the
+             tokenizer.json form's;
 3. kernels — each hand-written kernel against its plain PyTorch version at the
              main path's shapes: max-abs error against the stated tolerance,
              the median CUDA-event time of both and of the one PyTorch call
@@ -124,8 +132,10 @@ toolkit. Phases, each printing one JSON line:
              120 at 2 rows); four pipelined stream frames over HTTP (lags 0,
              1, 1, 1; K1 120 / 60; the third frame's only host wait is its
              collect's event wait) and over the websocket; /profile/start
-             and /stop around an /edit (the trace names K1's symbol); an
-             /edit of the committed 512² progressive JPEG; the codec's
+             and /stop around an /edit (the trace names K1's symbol);
+             /edits of the committed 512² progressive JPEG, of the committed
+             1024² lossy WebP and of a CMYK JPEG (written here without
+             Pillow), each a miss with K1, K2 and K3 at a miss's counts; the codec's
              decode and encode ms; the CLI server as a subprocess on
              the card (/health, one /edit);
    train   — on the same bf16 pipeline before it is dropped: a rank-16 LoRA
@@ -184,8 +194,10 @@ toolkit. Phases, each printing one JSON line:
              the port's ``export_*`` in the HF layout (bf16; the transformer
              and the VL sharded with index jsons, one block's q/k/v across a
              shard boundary), converted by the port's CLI in process (bf16;
-             ``--fuse-qkv --quantize int8``; VAE; VL, whose tokenizer.json
-             and tokenizer_config.json the VL conversion copies), loaded through
+             ``--fuse-qkv --quantize int8``; VAE; VL, whose tokenizer,
+             vocab.json + merges.txt + tokenizer_config.json only in the
+             diffusers layout's sibling ``tokenizer/``, the VL conversion
+             finds and copies), loaded through
              ``InferenceEngine.create(transformer_path=..., vae_path=...,
              vl_path=...)`` (seconds, GB/s, card peak, the host's peak RSS
              growth under the largest shard + 1 GiB) and served: an /edit miss
@@ -194,7 +206,8 @@ toolkit. Phases, each printing one JSON line:
              in-memory tree's bit for bit (or within two in-memory runs'
              spread); an /edit of the committed progressive JPEG whose prompt
              the checkpoint's tokenizer encodes (the ids of every chat
-             template are its, not SimpleTokenizer's); the int8 checkpoint's
+             template are its and the tokenizer.json form's, not
+             SimpleTokenizer's); the int8 checkpoint's
              codes and scales equal in-place
              quantize of the tree, its miss runs K5/K6 once per quantized
              linear; the server's CLI serves the converted tree; the full
@@ -2917,10 +2930,13 @@ def phase_serve(pipe) -> dict:
     make_server in a thread. GET / and /health; /edit miss, hit (each beside
     the pipeline-only call of the same arrays, whose q90 JPEG must decode to
     the served images bit for bit), use_cfg, ref_mode
-    condition, num_images 2; a race of two (one 429); dynamic batching on a
+    condition, num_images 2; misses uploaded as a progressive JPEG, a lossy
+    WebP and a CMYK JPEG; a race of two (one 429); dynamic batching on a
     second engine; a pipelined stream session over HTTP and over the
     websocket; a profiled /edit; the codec's ms; the CLI as a subprocess.
     Restores the pipeline's config."""
+    import base64
+
     import numpy as np
 
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
@@ -2977,6 +2993,16 @@ def phase_serve(pipe) -> dict:
                {**k1_rows(2), "conv3x3": {"1": K3_ENCODE, "2": K3_DECODE}}, outputs=2)
         served(url, "serve", "edit_progressive_miss",
                {"image": fixture_b64(PROGRESSIVE_UPLOAD), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
+        # uploads the web clients never send, API clients may: a lossy WebP
+        # and a CMYK JPEG (written without Pillow, :func:`cmyk_jpeg`)
+        served(url, "serve", "edit_webp_miss",
+               {"image": fixture_b64(WEBP_UPLOAD), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
+        rgb = distinct_image(8007, SERVE_INPUT)
+        cmyk = cmyk_jpeg([rgb[..., 0], rgb[..., 1], rgb[..., 2], rgb[..., 1] // 4])
+        served(url, "serve", "edit_cmyk_miss",
+               {"image": base64.b64encode(cmyk).decode(), "prompt": PROMPT}, expected(True),
                k1_rows(1))
         serve_race(url, req)
         serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
@@ -3756,14 +3782,19 @@ def learn_merges(corpus: str = TOKENIZER_CORPUS, n: int = TOKENIZER_MERGES) -> l
     return merges
 
 
-def write_qwen2_tokenizer(dst: str, merges=None, pair_merges: bool = False) -> str:
+def write_qwen2_tokenizer(dst: str, merges=None, pair_merges: bool = False,
+                          slow: bool = False) -> str:
     """A tokenizer.json and tokenizer_config.json in Qwen2.5-VL's layout in
     ``dst``: the byte alphabet in GPT-2's order, the results of ``merges``
     (:func:`learn_merges` when None), then unreachable two-character tokens
     of CJK characters (outside the byte alphabet) and their merges up to the
     published file's 151 643 ids and about its merge count, then the 22 added
     tokens at 151 643-151 664. Merges are written as "a b" strings, or as
-    [a, b] pairs with ``pair_merges``. Returns the tokenizer.json path."""
+    [a, b] pairs with ``pair_merges``. With ``slow`` the same tokenizer is
+    written as vocab.json + merges.txt (after its ``#version`` line) +
+    tokenizer_config.json instead, the layout of ``save_pretrained(
+    legacy_format=True)`` without tokenizer.json. Returns the path of
+    tokenizer.json (of vocab.json with ``slow``)."""
     from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import (
         BYTE_CHARS,
         QWEN2_PATTERN,
@@ -3813,11 +3844,18 @@ def write_qwen2_tokenizer(dst: str, merges=None, pair_merges: bool = False) -> s
             for a in added},
     }
     os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(dst, "tokenizer_config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, ensure_ascii=False, indent=1)
+    if slow:
+        path = os.path.join(dst, "vocab.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(vocab, f, ensure_ascii=False)
+        with open(os.path.join(dst, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+        return path
     path = os.path.join(dst, "tokenizer.json")
     with open(path, "w", encoding="utf-8") as f:
         json.dump(spec, f, ensure_ascii=False)
-    with open(os.path.join(dst, "tokenizer_config.json"), "w", encoding="utf-8") as f:
-        json.dump(config, f, ensure_ascii=False, indent=1)
     return path
 
 
@@ -3825,9 +3863,108 @@ def write_qwen2_tokenizer(dst: str, merges=None, pair_merges: bool = False) -> s
 # (held against transformers' Qwen2TokenizerFast in the CPU tests)
 TOKENIZER_PROMPT_IDS = (426, 377, 307, 327, 378, 379, 520)
 TOKENIZER_DIR = os.path.join(ROOT, "build", "chip_smoke", "tokenizer")
+TOKENIZER_SLOW_DIR = os.path.join(ROOT, "build", "chip_smoke", "tokenizer_slow")
 FIXTURES = os.path.join(ROOT, "tests", "fixtures", "codec")
 PROGRESSIVE_UPLOAD = "prog_512_420.jpg"  # the /edit uploads of phases serve and checkpoint
+WEBP_UPLOAD = "lossy_1024.webp"          # phase serve's lossy WebP /edit
 DECODE_REPS = 10
+DECODE_SIZE = 1024
+
+
+def cmyk_jpeg(planes, transform: int = 0, quality: int = 90) -> bytes:
+    """A 4-component baseline JPEG written with the port's own encoder, no
+    Pillow: each of the four (H, W) uint8 ``planes`` encoded as a gray
+    JPEG, whose scan becomes one non-interleaved scan of a 4-component
+    frame (1x1 sampling, the same tables), behind an Adobe APP14 marker with
+    ``transform`` 0 (CMYK) or 2 (YCCK)."""
+    import struct
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    def segments(data: bytes):
+        pos, out = 2, []
+        while True:
+            marker = data[pos + 1]
+            if marker == 0xD9:
+                return out
+            (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+            body = data[pos + 4:pos + 2 + n]
+            if marker == 0xDA:
+                end = data.index(b"\xff\xd9", pos + 2 + n)
+                out.append((marker, body, data[pos + 2 + n:end]))
+                pos = end
+            else:
+                out.append((marker, body, b""))
+                pos += 2 + n
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    grays = [segments(codec.encode_jpeg(p, quality)) for p in planes]
+    tables = b"".join(seg(m, b) for m, b, _ in grays[0] if m in (0xDB, 0xC4))
+    _, h, w, _ = struct.unpack(">BHHB", next(b for m, b, _ in grays[0] if m == 0xC0)[:6])
+    sof = struct.pack(">BHHB", 8, h, w, 4) + b"".join(bytes([k, 0x11, 0]) for k in range(1, 5))
+    out = (b"\xff\xd8" + seg(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([transform]))
+           + tables + seg(0xC0, sof))
+    for k, g in enumerate(grays):
+        scan = next(d for m, _, d in g if m == 0xDA)
+        out += seg(0xDA, bytes([1, k + 1, 0x00, 0, 63, 0])) + scan
+    return out + b"\xff\xd9"
+
+
+def cmyk_rgb(c, m, y, k):
+    """Pillow's reading of CMYK samples as RGB: inverted ("CMYK;I"), then
+    convert("RGB")'s cmyk2rgb."""
+    import numpy as np
+
+    nk = k.astype(np.int32)
+
+    def muldiv255(a):
+        t = (255 - a.astype(np.int32)) * nk + 128
+        return ((t >> 8) + t) >> 8
+    return np.clip(np.stack([nk - muldiv255(p) for p in (c, m, y)], -1), 0, 255).astype(np.uint8)
+
+
+def decode_set():
+    """{name: (bytes, want)}: a 1024² image in each format the codec gained,
+    ``want`` the RGB it must decode to where this host can tell without
+    Pillow (None for the committed WebP files, whose hashes phase inputs
+    checks at fixture size). BMP, GIF and the 4-component JPEGs are written
+    here: the writers of ``scripts/codec_fixtures.py`` and
+    :func:`cmyk_jpeg`."""
+    import sys
+
+    import numpy as np
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import bmp_file, gif_file, scene
+
+    n = DECODE_SIZE
+    rgb = scene(n, n, 1)
+    planes = [rgb[..., 0], rgb[..., 1], rgb[..., 2], scene(n, n, 2)[..., 0] // 4]
+    cmyk = cmyk_jpeg(planes)
+    gray = [codec.decode(codec.encode_jpeg(p, 90))[..., 0] for p in planes]
+    idx = ((rgb[..., 0] >> 5).astype(np.int64) * 8 + (rgb[..., 1] >> 5)) * 4 + (rgb[..., 2] >> 6)
+    pal = np.random.default_rng(3).integers(0, 256, (256, 3)).astype(np.uint8)
+    runs = idx.copy()
+    runs[:, ::2] = runs[:, 1::2]  # pairs for RLE8
+    base = fixture("base_1024.jpg")
+    app0 = base.index(b"\xff\xe0")
+    rgb_coded = (base[:app0] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
+                 + base[app0 + 2 + int.from_bytes(base[app0 + 2:app0 + 4], "big"):])
+    return {
+        "cmyk_jpeg": (cmyk, cmyk_rgb(*gray)),
+        "ycck_jpeg": (cmyk[:cmyk.index(b"Adobe") + 11] + b"\x02"
+                      + cmyk[cmyk.index(b"Adobe") + 12:], None),
+        "rgb_coded_jpeg": (rgb_coded, None),
+        "bmp24": (bmp_file(rgb, 24), rgb),
+        "bmp_rle8": (bmp_file(runs, 8, palette=pal, compression=1), pal[runs]),
+        "gif": (gif_file(idx, pal), pal[idx]),
+        "webp_lossy": (fixture("lossy_1024.webp"), None),
+        "webp_lossless": (fixture("lossless_1024.webp"), None),
+    }
 
 
 def fixture(name: str) -> bytes:
@@ -3855,12 +3992,17 @@ def host_ms(fn, reps: int) -> float:
 def phase_inputs() -> None:
     """The request's real inputs on the card's host, which has neither Pillow
     nor transformers: each committed codec fixture decoded to its manifest's
-    shape and SHA-256 of Pillow's bytes (progressive JPEG, Adam7 and 16-bit
-    PNG); the decode ms of a 1024² progressive JPEG against the same image as
-    baseline; a full-size Qwen2-layout tokenizer.json written, its load ms
-    and the ms of PROMPT's encode (cold, then cached) and of its chat
-    template, PROMPT's ids as the CPU tests hold them."""
+    shape and SHA-256 of Pillow's bytes; the decode ms of a 1024² progressive
+    JPEG against the same image as baseline, and of a 1024² image in each
+    format the codec gained (:func:`decode_set`); a full-size Qwen2-layout
+    tokenizer.json written, its load ms and the ms of PROMPT's encode (cold,
+    then cached) and of its chat template, PROMPT's ids as the CPU tests hold
+    them; the same tokenizer as vocab.json + merges.txt, its load ms and
+    ids, equal to the tokenizer.json form's."""
     import hashlib
+    import shutil
+
+    import numpy as np
 
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
     from qwen_image_edit_streamdiffusion_tpu_torch.models import qwen_vl
@@ -3883,6 +4025,20 @@ def phase_inputs() -> None:
           "progressive_ms": ms["progressive"], "baseline_ms": ms["baseline"],
           "progressive_over_baseline": ms["progressive"] / ms["baseline"],
           "bytes": {"progressive": len(prog), "baseline": len(base)}, "nvidia_smi": smi})
+    t0 = time.perf_counter()
+    formats = decode_set()
+    write_s = time.perf_counter() - t0
+    rows = {}
+    for name, (data, want) in formats.items():
+        px = codec.decode(data)
+        if px.shape != (DECODE_SIZE, DECODE_SIZE, 3) or (
+                want is not None and not np.array_equal(px, want)):
+            raise AssertionError(f"{name}: decoded {px.shape}, not its source")
+        rows[name] = {"ms": host_ms(lambda d=data: codec.decode(d), DECODE_REPS),
+                      "bytes": len(data), "held_to_source": want is not None}
+        rows[name]["over_baseline"] = rows[name]["ms"] / ms["baseline"]
+    emit({"phase": "inputs_decode_formats", "size": DECODE_SIZE, "baseline_jpeg_ms":
+          ms["baseline"], "formats": rows, "write_s": write_s, "nvidia_smi": smi})
 
     t0 = time.perf_counter()
     path = write_qwen2_tokenizer(TOKENIZER_DIR)
@@ -3904,6 +4060,22 @@ def phase_inputs() -> None:
     if tuple(ids) != TOKENIZER_PROMPT_IDS or len(tok) != 151665 or any(
             tok.added[t] != i for t, i in qwen_vl._SPECIAL_IDS.items()):
         raise AssertionError(f"tokenizer: PROMPT ids {ids}, {len(tok)} ids")
+
+    # the same tokenizer as the slow files alone
+    shutil.rmtree(TOKENIZER_SLOW_DIR, ignore_errors=True)
+    write_qwen2_tokenizer(TOKENIZER_SLOW_DIR, slow=True)
+    t0 = time.perf_counter()
+    slow = qwen_vl.load_hf_tokenizer(TOKENIZER_SLOW_DIR)
+    slow_ms = (time.perf_counter() - t0) * 1e3
+    slow_ids = slow.encode(PROMPT)
+    slow_chat = qwen_vl.build_chat_ids(slow, PROMPT, [196])[0]
+    emit({"phase": "inputs_tokenizer_slow", "files": sorted(os.listdir(TOKENIZER_SLOW_DIR)),
+          "bytes": dir_bytes(TOKENIZER_SLOW_DIR), "ids": len(slow),
+          "merges": len(slow.ranks), "load_ms": slow_ms,
+          "json_load_ms": load_ms, "prompt_ids": slow_ids,
+          "equal_to_json_form": slow_ids == ids and slow_chat == chat, "nvidia_smi": smi})
+    if slow_ids != ids or slow_chat != chat or len(slow) != len(tok) or slow.added != tok.added:
+        raise AssertionError(f"vocab.json + merges.txt: PROMPT ids {slow_ids}, {len(slow)} ids")
 
 
 class ChatIds:
@@ -3950,8 +4122,9 @@ def phase_checkpoint() -> dict:
     RSS growth, which must stay under the largest shard + 1 GiB) and
     served: /edit miss and hit with K1/K2/K3 at the cut depths' counts, and
     a miss of the committed progressive JPEG whose prompt the checkpoint's
-    tokenizer.json (written beside the HF VL shards, copied by the VL
-    conversion) encodes; every loaded tensor and the latents of one miss
+    tokenizer (vocab.json + merges.txt, written in the HF tree's sibling
+    tokenizer/, copied by the VL conversion) encodes, as its tokenizer.json
+    form does; every loaded tensor and the latents of one miss
     equal the in-memory tree's; the int8 checkpoint likewise, K5/K6 once per quantized linear
     it runs; the server's CLI serves the converted tree; the full
     flagship's boot time extrapolated. The tree is removed however the
@@ -4001,7 +4174,10 @@ def phase_checkpoint() -> dict:
                               max_shard_bytes=HF_SHARD_BYTES, basename="diffusion_pytorch_model")
         lora.save_safetensors(hf["vl"], cv.export_vl(vl_mem, cut.vl),
                               max_shard_bytes=HF_SHARD_BYTES, basename="model")
-        write_qwen2_tokenizer(hf["vl"])  # beside the VL shards, as a real checkpoint ships it
+        # the tokenizer as vocab.json + merges.txt only, in the diffusers
+        # layout's sibling tokenizer/ (the conversion finds and copies it)
+        tok_src = os.path.join(work, "hf", "tokenizer")
+        write_qwen2_tokenizer(tok_src, slow=True)
         os.makedirs(hf["vae"])
         lora.save_safetensors(os.path.join(hf["vae"], "diffusion_pytorch_model.safetensors"),
                               cv.export_vae(vae_mem, cut.vae))
@@ -4029,16 +4205,19 @@ def phase_checkpoint() -> dict:
                   "layout": checkpoint.layout(out[name])})
         bf16_dirs = (out["transformer"], out["vae"], out["vl"])
         largest_shard = max(os.path.getsize(f) for d in bf16_dirs for f in cv.shard_files(d))
-        for name in checkpoint.TOKENIZER_FILES:
-            with open(os.path.join(hf["vl"], name), "rb") as a, \
+        copied = sorted(os.listdir(tok_src))
+        for name in copied:
+            with open(os.path.join(tok_src, name), "rb") as a, \
                     open(os.path.join(out["vl"], name), "rb") as b:
                 if a.read() != b.read():
                     raise AssertionError(f"convert --component vl did not copy {name}")
+        if os.path.exists(os.path.join(out["vl"], "tokenizer.json")) or \
+                "merges.txt" not in copied:
+            raise AssertionError(f"the VL checkpoint's tokenizer files: {copied}")
         t0 = time.perf_counter()
         qwen_vl.load_hf_tokenizer(out["vl"])
         tok_s = time.perf_counter() - t0  # a part of each load below, whatever its bytes
-        emit({"phase": "checkpoint_tokenizer", "copied": list(checkpoint.TOKENIZER_FILES),
-              "load_ms": tok_s * 1e3})
+        emit({"phase": "checkpoint_tokenizer", "copied": copied, "load_ms": tok_s * 1e3})
 
         # 3. load the bf16 rung through the engine (the files were just
         # written: the page cache may hold them)
@@ -4093,6 +4272,9 @@ def phase_checkpoint() -> dict:
                        {"image": fixture_b64(PROGRESSIVE_UPLOAD), "prompt": PROMPT},
                        expected(True, k1=layers * STEPS, k2=lm_layers))
             chat.check("checkpoint bf16", Tokenizer.from_dir(out["vl"]), cut.vl.vocab_size)
+            # the slow files' ids are the tokenizer.json form's
+            chat.check("checkpoint bf16, tokenizer.json form", Tokenizer.from_dir(TOKENIZER_DIR),
+                       cut.vl.vocab_size)
         finally:
             stop_server(srv)
         mem_pipe = EditPipeline.from_weights(cut, config, tfm_mem, vae_mem, vl_mem, dev)

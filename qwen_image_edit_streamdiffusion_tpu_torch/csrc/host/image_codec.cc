@@ -19,7 +19,13 @@
 //     libjpeg-turbo takes it, a component no wider than 2 samples), the
 //     context rows clamped to the component's real rows; int_upsample's box
 //     replication for every other whole-number ratio (3x1, 4x1, 4x2, ...);
-//   - the fixed-point ycc_rgb_convert (jdcolor.c).
+//   - the colour space libjpeg-turbo reads from the markers
+//     (jdapimin.c default_decompress_parms): YCbCr through the fixed-point
+//     ycc_rgb_convert (jdcolor.c), RGB-coded (Adobe transform 0, or ids
+//     'R' 'G' 'B' without JFIF) passed through; 4 components as CMYK, or as
+//     YCCK (Adobe transform other than 0) through ycck_cmyk_convert, then
+//     as Pillow reads them: inverted (its "CMYK;I", Adobe's polarity) and
+//     turned to RGB by convert("RGB")'s cmyk2rgb (Convert.c).
 // The encoder follows Pillow's save(format="JPEG", quality=q) defaults: a JFIF
 // APP0, the Annex K tables scaled by jpeg_quality_scaling (force_baseline),
 // rgb_ycc_convert (jccolor.c), the downsamplers of jcsample.c with their edge
@@ -454,7 +460,11 @@ struct BitReader {
         return t.vals[(c + t.valoffset[l]) & 0xFF];
       }
     }
-    throw CodecError("corrupt JPEG: bad Huffman code");
+    // jdhuff.c: no code of up to 16 bits matches (garbage input): libjpeg
+    // warns, drops the 17 bits it read and takes the symbol as 0
+    peek(17);
+    skip(17);
+    return 0;
   }
   // From p to the next marker (stuffed FF 00 pairs and other bytes skipped):
   // its code, p at its last FF; -1 when the data ends first.
@@ -520,6 +530,8 @@ struct Decoder {
   bool sof_seen = false, jfif = false, adobe = false, progressive = false;
   int eobrun = 0;  // progressive AC scans: blocks left in the current EOB run
   int adobe_transform = -1;
+  bool rgb = false;   // 3 components coded as RGB, not YCbCr
+  bool ycck = false;  // 4 components coded as YCCK, not CMYK
   long exif_off = -1, exif_len = 0;
   Component comp[4];
   uint16_t qt[4][64];
@@ -562,9 +574,8 @@ struct Decoder {
     if (prec != 8) throw CodecError("unsupported JPEG: " + std::to_string(prec) + "-bit JPEG");
     if (height == 0) throw CodecError("unsupported JPEG: height defined by DNL");
     if (width == 0) throw CodecError("corrupt JPEG: zero width");
-    if (ncomp != 1 && ncomp != 3)
-      throw CodecError("unsupported JPEG: " + std::to_string(ncomp) +
-                       " components (CMYK/YCCK)");
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+      throw CodecError("unsupported JPEG: " + std::to_string(ncomp) + " components");
     if (len != 8 + 3 * ncomp) throw CodecError("corrupt JPEG: bad frame header length");
     for (int i = 0; i < ncomp; i++) {
       comp[i].id = u8();
@@ -651,15 +662,17 @@ struct Decoder {
     pos = end;
   }
 
+  // jdapimin.c default_decompress_parms: the colour space of the file
   void check_colorspace() {
-    if (ncomp != 3) return;
-    // jdapimin.c default_decompress_parms: which 3-component files are YCbCr
-    bool rgb = false;
-    if (!jfif) {
-      if (adobe) rgb = adobe_transform == 0;
-      else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    if (ncomp == 3) {
+      rgb = false;
+      if (!jfif) {
+        if (adobe) rgb = adobe_transform == 0;
+        else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+      }
+    } else if (ncomp == 4) {
+      ycck = adobe && adobe_transform != 0;
     }
-    if (rgb) throw CodecError("unsupported JPEG: RGB-coded (Adobe transform 0) JPEG");
   }
 
   int16_t* block(Component& c, int bx, int by) {
@@ -1031,6 +1044,15 @@ struct Decoder {
     }
     std::vector<uint8_t> Y = upsampled(comp[0]), Cb = upsampled(comp[1]),
                          Cr = upsampled(comp[2]);
+    size_t np = size_t(width) * height;
+    if (rgb) {
+      for (size_t i = 0; i < np; i++) {
+        out[3 * i] = Y[i];
+        out[3 * i + 1] = Cb[i];
+        out[3 * i + 2] = Cr[i];
+      }
+      return;
+    }
     // ycc_rgb_convert's tables (jdcolor.c: SCALEBITS 16)
     struct Tables {
       int cr_r[256], cb_b[256];
@@ -1047,7 +1069,30 @@ struct Decoder {
       }
     };
     static const Tables t;
-    size_t np = size_t(width) * height;
+    if (ncomp == 4) {
+      std::vector<uint8_t> K = upsampled(comp[3]);
+      // Pillow's MULDIV255 (ImagingUtils.h)
+      auto muldiv255 = [](int a, int b) {
+        int tmp = a * b + 128;
+        return ((tmp >> 8) + tmp) >> 8;
+      };
+      for (size_t i = 0; i < np; i++) {
+        int c = Y[i], m = Cb[i], yy = Cr[i];
+        if (ycck) {  // ycck_cmyk_convert: CMY = 255 - the YCbCr triple's RGB
+          int y = Y[i], cb = Cb[i], cr = Cr[i];
+          c = clamp255(255 - (y + t.cr_r[cr]));
+          m = clamp255(255 - (y + int((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+          yy = clamp255(255 - (y + t.cb_b[cb]));
+        }
+        // "CMYK;I" inverts every sample; cmyk2rgb then takes
+        // nk - c * nk / 255 with nk = 255 - k
+        int nk = K[i];
+        out[3 * i] = clamp255(nk - muldiv255(255 - c, nk));
+        out[3 * i + 1] = clamp255(nk - muldiv255(255 - m, nk));
+        out[3 * i + 2] = clamp255(nk - muldiv255(255 - yy, nk));
+      }
+      return;
+    }
     for (size_t i = 0; i < np; i++) {
       int y = Y[i], cb = Cb[i], cr = Cr[i];
       out[3 * i] = clamp255(y + t.cr_r[cr]);
@@ -1390,7 +1435,8 @@ void set_err(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// Header of a JPEG: width, height, components (1 or 3) and the offset and
+// Header of a JPEG: width, height, output channels (1 for gray, else 3: RGB
+// for a 3- or 4-component file) and the offset and
 // length of its first APP1 Exif payload (TIFF header onwards; -1 when none).
 // Returns 0, or -1 with a message in err (unsupported variants included).
 int qie_jpeg_info(const uint8_t* data, long n, int* width, int* height, int* comps,
@@ -1400,7 +1446,7 @@ int qie_jpeg_info(const uint8_t* data, long n, int* width, int* height, int* com
     d.parse(true);
     *width = d.width;
     *height = d.height;
-    *comps = d.ncomp;
+    *comps = d.ncomp == 1 ? 1 : 3;
     *exif_off = d.exif_off;
     *exif_len = d.exif_len;
     return 0;

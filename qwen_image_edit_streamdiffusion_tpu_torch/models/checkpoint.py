@@ -223,19 +223,23 @@ def convert(src: str, component: str, preset, device="cuda",
     return cv.convert_vl(items, preset.vl, on_module=_vl_finish(bits) if bits else None)
 
 
-TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json")
+# a tokenizer's files: tokenizer.json, or the slow set vocab.json + merges.txt
+# with the added and special tokens beside them; the config goes with either
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.json", "merges.txt",
+                   "added_tokens.json", "special_tokens_map.json")
 
 
 def find_tokenizer(src: str) -> Optional[str]:
-    """The directory of the VL checkpoint's ``tokenizer.json``: the one
-    ``src`` names (or holds ``src``), else its sibling ``tokenizer/`` (the
-    diffusers layout); None where neither has one. The file is read, so one
-    the port cannot tokenize with raises here, before any conversion."""
-    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
+    """The directory of the VL checkpoint's tokenizer (``tokenizer.json``, or
+    ``vocab.json`` + ``merges.txt``): the one ``src`` names (or holds
+    ``src``), else its sibling ``tokenizer/`` (the diffusers layout); None
+    where neither has one. The files are read, so a tokenizer the port cannot
+    tokenize with raises here, before any conversion."""
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer, files_in
 
     here = src if os.path.isdir(src) else os.path.dirname(os.path.abspath(src))
     for d in (here, os.path.join(os.path.dirname(os.path.abspath(here)), "tokenizer")):
-        if os.path.isfile(os.path.join(d, "tokenizer.json")):
+        if files_in(d):
             Tokenizer.from_dir(d)
             return d
     return None
@@ -284,8 +288,8 @@ def main(argv=None) -> None:
                 shutil.copyfile(os.path.join(tok_dir, name), os.path.join(args.out, name))
         print(f"copied the tokenizer of {tok_dir} → {args.out}")
     elif args.component == "vl":
-        print(f"no tokenizer.json beside {args.src}: prompts will get SimpleTokenizer's "
-              f"hashed ids")
+        print(f"no tokenizer.json or vocab.json + merges.txt beside {args.src}: prompts "
+              f"will get SimpleTokenizer's hashed ids")
 
 
 if __name__ == "__main__":

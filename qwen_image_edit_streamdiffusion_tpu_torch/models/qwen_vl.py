@@ -435,8 +435,9 @@ class SimpleTokenizer:
 
 def load_hf_tokenizer(path: str):
     """The checkpoint's tokenizer in the directory ``path``: its
-    ``tokenizer.json`` read by ``models/tokenizer.py`` (the JAX package's
-    ``AutoTokenizer.from_pretrained(path)`` for a Qwen2 file, without
+    ``tokenizer.json``, or its ``vocab.json`` + ``merges.txt``, read by
+    ``models/tokenizer.py`` (the JAX package's
+    ``AutoTokenizer.from_pretrained(path)`` for a Qwen2 tokenizer, without
     ``transformers``)."""
     from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
 

@@ -1,4 +1,5 @@
-"""The checkpoint's Qwen2 byte-level BPE tokenizer, read from ``tokenizer.json``.
+"""The checkpoint's Qwen2 byte-level BPE tokenizer, read from ``tokenizer.json``
+or from ``vocab.json`` + ``merges.txt``.
 
 Counterpart of what the JAX package's ``models/qwen_vl.py::load_hf_tokenizer``
 returns for a Qwen2 / Qwen2.5-VL checkpoint (``transformers``'
@@ -24,6 +25,21 @@ raises a ``ValueError`` naming anything else:
 
 Beside ``tokenizer.json``, a ``tokenizer_config.json`` with an
 ``added_tokens_decoder`` is held against the file's added tokens.
+
+A checkpoint saved in the older layout has no ``tokenizer.json``, only
+``vocab.json`` and ``merges.txt`` (:func:`from_slow_files`). From them the
+tokenizer is built as ``transformers``' ``Qwen2Converter`` builds its fast
+tokenizer: the merges in file order after the ``#version`` line (blank lines
+skipped, a repeated merge keeping its first rank), the normalizer, Split,
+ByteLevel and BPE above; the added tokens from ``tokenizer_config.json``'s
+``added_tokens_decoder``, else from ``added_tokens.json`` (special where the
+config or ``special_tokens_map.json`` names them, the others
+``normalized``), then the named special tokens not yet among them; each
+given the id ``tokenizers`` gives it as it is added in id order (the
+vocabulary's own id, else the next one past the vocabulary).
+
+An added token marked ``normalized`` is matched after the others, in the NFC
+form of the text between them, as ``tokenizers`` matches it.
 
 The scanner's character classes are those of the regex engine ``tokenizers``
 runs (Oniguruma): ``\\s`` is Unicode White_Space (not Python's ``isspace``,
@@ -139,6 +155,179 @@ def _refuse(what: str) -> None:
     raise ValueError(f"unsupported tokenizer.json: {what}")
 
 
+def _first_chars(patterns: Dict[str, int]) -> Dict[str, List[str]]:
+    """{first character: the patterns starting with it, longest first}."""
+    out: Dict[str, List[str]] = {}
+    for t in sorted(patterns, key=len, reverse=True):
+        out.setdefault(t[0], []).append(t)
+    return out
+
+
+def _split(text: str, patterns: Dict[str, int], first: Dict[str, List[str]]
+           ) -> List[Tuple[str, Optional[int]]]:
+    """``text`` cut at its matches of ``patterns``, leftmost then longest:
+    (piece, the pattern's id or None) in order."""
+    out, start, i, n = [], 0, 0, len(text)
+    while i < n:
+        hit = None
+        for t in first.get(text[i], ()):
+            if text.startswith(t, i):
+                hit = t
+                break
+        if hit is None:
+            i += 1
+            continue
+        if start < i:
+            out.append((text[start:i], None))
+        out.append((hit, patterns[hit]))
+        i = start = i + len(hit)
+    if start < n:
+        out.append((text[start:], None))
+    return out
+
+
+def files_in(path: str) -> Optional[str]:
+    """Which tokenizer a checkpoint directory holds: ``"json"``
+    (``tokenizer.json``), ``"slow"`` (``vocab.json`` + ``merges.txt``) or
+    None."""
+    if os.path.isfile(os.path.join(path, "tokenizer.json")):
+        return "json"
+    if all(os.path.isfile(os.path.join(path, f)) for f in SLOW_FILES):
+        return "slow"
+    return None
+
+
+SLOW_FILES = ("vocab.json", "merges.txt")
+# transformers' special-token attributes, in its SPECIAL_TOKENS_ATTRIBUTES order
+_SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token", "cls_token",
+                 "mask_token", "additional_special_tokens")
+# Qwen2TokenizerFast's special tokens where the config names none
+_QWEN2_SPECIAL = {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                  "pad_token": "<|endoftext|>"}
+# tokenizer_config.json settings that leave Qwen2's encoding as it is
+_CONFIG_KEYS = frozenset(_SPECIAL_KEYS) | {
+    "added_tokens_decoder", "add_prefix_space", "split_special_tokens", "tokenizer_class",
+    "errors", "clean_up_tokenization_spaces", "model_max_length", "chat_template",
+    "extra_special_tokens", "padding_side", "truncation_side", "model_input_names",
+    "processor_class", "auto_map", "name_or_path", "special_tokens_map_file",
+    "tokenizer_file", "vocab_file", "merges_file", "add_bos_token", "add_eos_token",
+    "max_length", "stride", "truncation_strategy", "pad_to_multiple_of", "pad_token_type_id",
+    "use_default_system_prompt", "verbose", "spaces_between_special_tokens"}
+_QWEN2_CLASSES = (None, "Qwen2Tokenizer", "Qwen2TokenizerFast")
+
+
+def _read_json(path: str, default=None):
+    if not os.path.isfile(path):
+        return default
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _token_text(tok) -> Optional[str]:
+    """A special token as a config names it: a string or an AddedToken dict."""
+    return tok.get("content") if isinstance(tok, dict) else tok
+
+
+def from_slow_files(path: str) -> dict:
+    """The ``tokenizer.json`` spec that ``transformers`` builds from the slow
+    files in ``path`` (see the module docstring), with its added tokens at
+    the ids ``tokenizers`` assigns them."""
+    def refuse(what: str) -> None:
+        raise ValueError(f"unsupported tokenizer files in {path}: {what}")
+
+    vocab = _read_json(os.path.join(path, "vocab.json"))
+    if not isinstance(vocab, dict) or not all(isinstance(v, int) for v in vocab.values()):
+        refuse("vocab.json is not a {token: id} object")
+    with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+        lines = [line.strip() for line in f.read().split("\n")]
+    if lines and lines[0].startswith("#version:"):
+        lines[0] = ""
+    pairs = [tuple(line.split()) for line in lines if line]
+    if any(len(pair) != 2 for pair in pairs):
+        i = next(i for i, line in enumerate(lines) if line and len(line.split()) != 2)
+        refuse(f"merges.txt line {i + 1} {lines[i]!r} is not two tokens")
+    merges = list(dict.fromkeys(pairs))  # a repeated merge keeps its first rank
+    config = _read_json(os.path.join(path, "tokenizer_config.json"), {})
+    unknown = sorted(set(config) - _CONFIG_KEYS)
+    if unknown:
+        refuse(f"tokenizer_config.json sets {unknown}")
+    if config.get("tokenizer_class") not in _QWEN2_CLASSES:
+        refuse(f"tokenizer_class {config['tokenizer_class']!r} (Qwen2's is Qwen2Tokenizer)")
+    for flag in ("add_prefix_space", "split_special_tokens", "add_bos_token", "add_eos_token"):
+        if config.get(flag):
+            refuse(f"tokenizer_config.json {flag}: true")
+
+    # transformers' _from_pretrained: the config's added_tokens_decoder, else
+    # added_tokens.json with special_tokens_map.json merged into the config
+    entries = []  # (given id, AddedToken fields)
+    if "added_tokens_decoder" in config:
+        for k, tok in config["added_tokens_decoder"].items():
+            extra = sorted(set(tok) - {"content", "lstrip", "rstrip", "normalized",
+                                       "single_word", "special", "__type"})
+            if extra:
+                refuse(f"added token {k} sets {extra}")
+            entries.append((int(k), {"content": tok["content"],
+                                     "normalized": tok.get("normalized", True),
+                                     **{f: tok.get(f, False) for f in (
+                                         "lstrip", "rstrip", "single_word", "special")}}))
+    else:
+        smap = _read_json(os.path.join(path, "special_tokens_map.json"), {})
+        for key, value in smap.items():
+            if key == "additional_special_tokens":
+                have = list(config.get(key) or [])
+                config[key] = have + [t for t in value if t not in have]
+            else:
+                config[key] = value
+        special = set()
+        for key in _SPECIAL_KEYS:
+            value = config.get(key)
+            for t in (value or ()) if key == "additional_special_tokens" else (value,):
+                if _token_text(t) is not None:
+                    special.add(_token_text(t))
+        for text, k in (_read_json(os.path.join(path, "added_tokens.json"), {}) or {}).items():
+            entries.append((int(k), {"content": text, "normalized": text not in special,
+                                     "lstrip": False, "rstrip": False, "single_word": False,
+                                     "special": text in special}))
+    # PreTrainedTokenizerFast.__init__: the added tokens in id order, then
+    # the named special tokens not yet among them
+    order = [fields for _, fields in sorted(entries, key=lambda e: e[0])]
+    named = []
+    for key in _SPECIAL_KEYS:
+        value = config[key] if key in config else _QWEN2_SPECIAL.get(key)
+        for t in (value or ()) if key == "additional_special_tokens" else (value,):
+            text = _token_text(t)
+            if text is not None and text not in named:
+                named.append(text)
+    have = {f["content"] for f in order}
+    order += [{"content": t, "normalized": False, "lstrip": False, "rstrip": False,
+               "single_word": False, "special": True} for t in named if t not in have]
+    # tokenizers' AddedVocabulary.add_tokens: the id a token already has,
+    # else the next past both the vocabulary and the added ids
+    ids: Dict[str, int] = {}
+    added = []
+    for fields in order:
+        text = fields["content"]
+        if not text:
+            continue
+        if text in ids or text in vocab:
+            tid = ids.get(text, vocab.get(text))
+        else:
+            top = max(ids.values(), default=None)
+            tid = len(vocab) if top is None or top < len(vocab) else top + 1
+        ids[text] = tid
+        added = [a for a in added if a["content"] != text] + [{"id": tid, **fields}]
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False,
+                  "use_regex": False}
+    return {
+        "added_tokens": added, "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN2_PATTERN}, "behavior": "Isolated",
+             "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+    }
+
+
 def _check_pre_tokenizer(pt) -> None:
     if not pt or pt.get("type") != "Sequence" or len(pt.get("pretokenizers") or ()) != 2:
         _refuse(f"pre_tokenizer {pt and pt.get('type')!r} (Qwen2's is a Sequence of Split "
@@ -199,8 +388,12 @@ class Tokenizer:
             self.ranks[(a, b)] = rank
         self.added: Dict[str, int] = {}
         self.added_by_id: Dict[int, dict] = {}
+        # the added tokens matched in the raw text, and those (normalized)
+        # matched in its NFC form: {pattern: id} each
+        self._raw: Dict[str, int] = {}
+        self._normed: Dict[str, int] = {}
         for tok in spec.get("added_tokens") or ():
-            for flag in ("lstrip", "rstrip", "single_word", "normalized"):
+            for flag in ("lstrip", "rstrip", "single_word"):
                 if tok.get(flag):
                     _refuse(f"added token {tok['content']!r} has {flag}: true")
             have = self.vocab.get(tok["content"])
@@ -209,13 +402,14 @@ class Tokenizer:
                         f"vocabulary's {have}")
             self.added[tok["content"]] = tok["id"]
             self.added_by_id[tok["id"]] = tok
+            if tok.get("normalized"):
+                self._normed[unicodedata.normalize("NFC", tok["content"])] = tok["id"]
+            else:
+                self._raw[tok["content"]] = tok["id"]
         if config is not None:
             self._check_config(config)
-        # leftmost, then longest: the longest of the tokens starting at a place
-        self._added_order = sorted(self.added, key=len, reverse=True)
-        self._added_first = {}
-        for t in self._added_order:
-            self._added_first.setdefault(t[0], []).append(t)
+        self._raw_first = _first_chars(self._raw)
+        self._normed_first = _first_chars(self._normed)
         self._cache: Dict[str, Tuple[int, ...]] = {}
 
     def _check_config(self, config: dict) -> None:
@@ -251,31 +445,31 @@ class Tokenizer:
     @classmethod
     def from_dir(cls, path: str) -> "Tokenizer":
         """``tokenizer.json`` in ``path``, held against the
-        ``tokenizer_config.json`` beside it where there is one."""
+        ``tokenizer_config.json`` beside it where there is one; else
+        :func:`from_slow_files` where ``path`` holds ``vocab.json`` and
+        ``merges.txt``."""
+        kind = files_in(path)
+        if kind == "slow":
+            return cls(from_slow_files(path))
+        if kind is None:
+            raise FileNotFoundError(f"{path} holds neither tokenizer.json nor vocab.json "
+                                    f"+ merges.txt")
         return cls.from_file(os.path.join(path, "tokenizer.json"),
                              os.path.join(path, "tokenizer_config.json"))
 
     def __len__(self) -> int:
         return max(max(self.vocab.values()), max(self.added_by_id, default=-1)) + 1
 
-    def _split_added(self, text: str) -> List[Tuple[str, bool]]:
-        """(piece, is an added token) in order."""
-        out, start, i, n = [], 0, 0, len(text)
-        while i < n:
-            hit = None
-            for t in self._added_first.get(text[i], ()):
-                if text.startswith(t, i):
-                    hit = t
-                    break
-            if hit is None:
-                i += 1
-                continue
-            if start < i:
-                out.append((text[start:i], False))
-            out.append((hit, True))
-            i = start = i + len(hit)
-        if start < n:
-            out.append((text[start:], False))
+    def _split_added(self, text: str) -> List[Tuple[str, Optional[int]]]:
+        """(piece, its id if it is an added token, else None) in order; the
+        pieces between added tokens in NFC form."""
+        out = []
+        for piece, tid in _split(text, self._raw, self._raw_first):
+            if tid is None:
+                out.extend(_split(unicodedata.normalize("NFC", piece), self._normed,
+                                  self._normed_first))
+            else:
+                out.append((piece, tid))
         return out
 
     def _bpe(self, word: str) -> Tuple[int, ...]:
@@ -325,10 +519,10 @@ class Tokenizer:
         """The ids of ``text``. A Qwen2 post-processor adds no token, so
         ``add_special_tokens`` changes nothing (it keeps the HF signature)."""
         ids: List[int] = []
-        for piece, is_added in self._split_added(text):
-            if is_added:
-                ids.append(self.added[piece])
+        for piece, tid in self._split_added(text):
+            if tid is not None:
+                ids.append(tid)
                 continue
-            for word in pre_tokenize(unicodedata.normalize("NFC", piece)):
+            for word in pre_tokenize(piece):
                 ids.extend(self._bpe("".join(BYTE_CHARS[b] for b in word.encode("utf-8"))))
         return ids

@@ -46,7 +46,6 @@ a denoise without waiting for the card.
 
 from __future__ import annotations
 
-import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -73,6 +72,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.models import scheduler as sched
 from qwen_image_edit_streamdiffusion_tpu_torch.models import transformer as tfm
 from qwen_image_edit_streamdiffusion_tpu_torch.models import vae as vae_mod
 from qwen_image_edit_streamdiffusion_tpu_torch.models.optimize import fuse_qkv
+from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import files_in
 from qwen_image_edit_streamdiffusion_tpu_torch.models.text_encoder import (
     PromptEncoder,
     StubEncoder,
@@ -491,9 +491,9 @@ class EditPipeline:
         (a rung other than the saved one is served with a warning). Without
         ``vl_path`` the VL encoder is random from seed 0, as the JAX
         ``from_checkpoint`` makes it. Prompts are encoded by the checkpoint's
-        own tokenizer where ``vl_path`` holds a ``tokenizer.json``
-        (``qwen_vl.load_hf_tokenizer``: ``convert --component vl`` copies it
-        there), else by ``SimpleTokenizer``'s hashed ids; it prints which.
+        own tokenizer where ``vl_path`` holds a ``tokenizer.json`` or
+        ``vocab.json`` + ``merges.txt`` (``qwen_vl.load_hf_tokenizer``:
+        ``convert --component vl`` copies them there), else by ``SimpleTokenizer``'s hashed ids; it prints which.
         (The JAX ``from_checkpoint`` always takes ``SimpleTokenizer``.)
 
         Under ``mesh`` the MMDiT and VL files are mapped, not read: each
@@ -523,13 +523,15 @@ class EditPipeline:
         vae_params = ckpt.load(vae_path, device, preset, "vae")
         vl_params = tokenizer = None
         if vl_path:
-            if os.path.isfile(os.path.join(vl_path, "tokenizer.json")):
+            kind = files_in(vl_path)
+            if kind:
                 tokenizer = qwen_vl.load_hf_tokenizer(vl_path)
-                print(f"[from_checkpoint] prompts are tokenized by "
-                      f"{os.path.join(vl_path, 'tokenizer.json')} ({len(tokenizer)} ids)")
+                names = "tokenizer.json" if kind == "json" else "vocab.json + merges.txt"
+                print(f"[from_checkpoint] prompts are tokenized by {names} in {vl_path} "
+                      f"({len(tokenizer)} ids)")
             else:
-                print(f"[from_checkpoint] no tokenizer.json in {vl_path}: prompts get "
-                      f"SimpleTokenizer's hashed ids")
+                print(f"[from_checkpoint] no tokenizer.json or vocab.json + merges.txt in "
+                      f"{vl_path}: prompts get SimpleTokenizer's hashed ids")
             vl_params = ckpt.load(vl_path, device, preset, "vl", mapped=mapped)
         pipe = cls.from_weights(preset, config, tfm_params, vae_params, vl_params, device,
                                 lora_path=lora_path, tiny_decoder_path=tiny_decoder_path,

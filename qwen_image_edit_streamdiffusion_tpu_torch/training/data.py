@@ -40,8 +40,9 @@ uint8, the serving input convention), not PIL. Two sources:
 - a directory of item directories, each with input.(png|jpg), target.(png|jpg),
   prompt.txt and an optional negative.txt.
 
-``.webp`` and ``.bmp`` files are found as in the JAX package, and the codec
-refuses them with a ``ValueError`` that names the format.
+``.webp`` and ``.bmp`` files are found as in the JAX package and decoded as
+Pillow decodes them; a file the codec cannot decode raises a ``ValueError``
+that names the format and the feature.
 """
 
 from __future__ import annotations

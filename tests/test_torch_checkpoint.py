@@ -329,7 +329,9 @@ def test_vl_checkpoint_carries_its_tokenizer(hf, converted, tmp_path, capsys):
 
     from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
 
-    for name in ckpt.TOKENIZER_FILES:
+    present = [n for n in ckpt.TOKENIZER_FILES if os.path.isfile(os.path.join(hf["vl"], n))]
+    assert present == ["tokenizer.json", "tokenizer_config.json"]
+    for name in present:
         with open(os.path.join(hf["vl"], name), "rb") as a, \
                 open(os.path.join(converted["vl"], name), "rb") as b:
             assert a.read() == b.read()
@@ -344,7 +346,7 @@ def test_vl_checkpoint_carries_its_tokenizer(hf, converted, tmp_path, capsys):
 
     bare = tmp_path / "vl_bare"
     shutil.copytree(converted["vl"], bare)
-    for name in ckpt.TOKENIZER_FILES:
+    for name in present:
         os.remove(bare / name)
     pipe = EditPipeline.from_checkpoint(converted["transformer"], converted["vae"], "tiny",
                                         TINY, vl_path=str(bare), device="cpu")
@@ -367,3 +369,80 @@ def test_vl_checkpoint_carries_its_tokenizer(hf, converted, tmp_path, capsys):
         ckpt.main(["convert", "--src", str(root / "text_encoder"), "--component", "vl",
                    "--preset", "tiny", "--out", str(tmp_path / "refused"), "--device", "cpu"])
     assert not os.path.exists(tmp_path / "refused")
+
+
+def test_vl_checkpoint_carries_slow_tokenizer_files(hf, converted, tmp_path, capsys):
+    """A tokenizer given only as vocab.json + merges.txt (+ added_tokens.json,
+    special_tokens_map.json, tokenizer_config.json), as
+    ``save_pretrained(legacy_format=True)`` writes it, in the diffusers
+    layout's sibling ``tokenizer/``: ``convert --component vl`` copies those
+    files, and ``from_checkpoint`` encodes prompts with them as the JAX
+    ``load_hf_tokenizer`` does on the same folder, not with SimpleTokenizer."""
+    import shutil
+
+    from transformers import AutoTokenizer
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.models.tokenizer import Tokenizer
+
+    root = tmp_path / "diffusers"
+    shutil.copytree(hf["vl"], root / "text_encoder",
+                    ignore=shutil.ignore_patterns("tokenizer*.json"))
+    AutoTokenizer.from_pretrained(hf["vl"]).save_pretrained(str(root / "tokenizer"),
+                                                           legacy_format=True)
+    slow = sorted(os.listdir(root / "tokenizer"))
+    assert "tokenizer.json" not in slow and {"vocab.json", "merges.txt"} <= set(slow)
+    out = str(tmp_path / "vl_slow")
+    ckpt.main(["convert", "--src", str(root / "text_encoder"), "--component", "vl",
+               "--preset", "tiny", "--out", out, "--device", "cpu"])
+    assert "copied the tokenizer" in capsys.readouterr().out
+    for name in slow:
+        with open(root / "tokenizer" / name, "rb") as a, open(os.path.join(out, name), "rb") as b:
+            assert a.read() == b.read(), name
+    pipe = EditPipeline.from_checkpoint(converted["transformer"], converted["vae"], "tiny",
+                                        TINY, vl_path=out, device="cpu")
+    assert "tokenized by vocab.json + merges.txt" in capsys.readouterr().out
+    tok = pipe.encoder.tokenizer
+    assert isinstance(tok, Tokenizer) and len(tok) == 151665
+    for prompt, merged in (("checkpoint edit", [4]), ("把天空换成星空 <tool_call>", [4, 5])):
+        want = qwen_vl.build_chat_ids(jqwen_vl.load_hf_tokenizer(out), prompt, merged)
+        assert qwen_vl.build_chat_ids(tok, prompt, merged) == want
+        assert want != qwen_vl.build_chat_ids(qwen_vl.SimpleTokenizer(len(tok)), prompt, merged)
+
+
+def test_vl_key_map_matches_transformers_qwen2_5_vl():
+    """``vl_key_map`` is pinned to transformers' own Qwen2.5-VL class: a tiny
+    ``Qwen2_5_VLForConditionalGeneration`` (2 + 2 layers, mrope 2/3/3) has,
+    after ``normalize_vl_key``, exactly the map's names, and ``convert_vl``
+    takes its state dict, each tensor where the map puts it."""
+    import dataclasses
+
+    tf = pytest.importorskip("transformers")
+    cfg = dataclasses.replace(P.vl, hidden_size=64, num_heads=4, num_kv_heads=2,
+                              intermediate_size=96, mrope_sections=(2, 3, 3),
+                              vision_out_dim=64, dtype="float32")
+    hf_cfg = tf.Qwen2_5_VLConfig(
+        text_config=dict(hidden_size=cfg.hidden_size, num_hidden_layers=cfg.num_layers,
+                         num_attention_heads=cfg.num_heads,
+                         num_key_value_heads=cfg.num_kv_heads,
+                         intermediate_size=cfg.intermediate_size, vocab_size=cfg.vocab_size,
+                         rope_theta=cfg.rope_theta, rms_norm_eps=cfg.rms_eps,
+                         rope_scaling={"type": "mrope", "mrope_section": list(
+                             cfg.mrope_sections)}),
+        vision_config=dict(depth=cfg.vision_depth, hidden_size=cfg.vision_hidden,
+                           num_heads=cfg.vision_heads, intermediate_size=cfg.vision_intermediate,
+                           out_hidden_size=cfg.vision_out_dim, patch_size=cfg.patch_size,
+                           temporal_patch_size=cfg.temporal_patch_size,
+                           spatial_merge_size=cfg.spatial_merge_size, window_size=cfg.window_size,
+                           fullatt_block_indexes=list(cfg.fullatt_block_indexes)))
+    torch.manual_seed(0)
+    model = tf.Qwen2_5_VLForConditionalGeneration(hf_cfg).eval()
+    state = model.state_dict()
+    names = {cv.normalize_vl_key(k) for k in state} - {None}
+    key_map = cv.vl_key_map(cfg)
+    assert names == set(key_map), sorted(names ^ set(key_map))[:8]
+    assert len(names) == len(key_map) == 56
+    params = cv.convert_vl(list(state.items()), cfg)
+    for hf_key, (path, kind) in key_map.items():
+        if kind in ("linear_w", "bias", "norm", "embed"):
+            src = next(v for k, v in state.items() if cv.normalize_vl_key(k) == hf_key)
+            assert torch.equal(cv.node_at(params, path), src), hf_key

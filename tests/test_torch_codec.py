@@ -405,15 +405,22 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None) -> byte
 def test_unsupported_inputs_raise_named_errors():
     arr = _image(24, 24)
     base = _pil_jpeg(arr, quality=90)
-    cmyk = io.BytesIO()
-    Image.fromarray(arr).convert("CMYK").save(cmyk, "JPEG")
+    tiff = io.BytesIO()
+    Image.fromarray(arr).save(tiff, "TIFF")
+    gif, bmp, webp = io.BytesIO(), io.BytesIO(), io.BytesIO()
+    Image.fromarray(arr).save(gif, "GIF")
+    Image.fromarray(arr).save(bmp, "BMP")
+    Image.fromarray(arr).save(webp, "WEBP")
     cases = {
-        "CMYK": cmyk.getvalue(),
         "arithmetic": _patched_sof(base, marker=0xC9),
         "12-bit": _patched_sof(base, precision=12),
         "lossless": _patched_sof(base, marker=0xC3),
-        "not a JPEG or PNG": b"GIF89a" + bytes(40),
+        "TIFF": tiff.getvalue(),
         "truncated": base[:len(base) // 2],
+        "truncated GIF": gif.getvalue()[:len(gif.getvalue()) // 2],
+        "truncated BMP": bmp.getvalue()[:len(bmp.getvalue()) // 2],
+        "truncated WebP": webp.getvalue()[:len(webp.getvalue()) // 2],
+        "not a JPEG, PNG, BMP, GIF or WebP": b"\x00\x01" + bytes(40),
     }
     for name, data in cases.items():
         with pytest.raises(ValueError, match=name):
@@ -751,3 +758,19 @@ def test_committed_fixtures_match_their_manifest_and_pillow():
             assert list(px.shape) == entry["shape"], name
             assert hashlib.sha256(px.tobytes()).hexdigest() == entry["sha256"], name
     assert b"\xff\xc2" in open(os.path.join(root, "prog_1024.jpg"), "rb").read()
+
+
+def test_unmatched_huffman_code_is_read_as_libjpeg_reads_it(tmp_path):
+    """A code that matches no entry of its table (all ones for up to 16 bits
+    here, stuffed 0xFF bytes) makes libjpeg warn, drop the 17 bits it read
+    and take the symbol as 0, and go on: the port decodes the damaged scan
+    to the same pixels (baseline and progressive, every place tried)."""
+    cases = []
+    for progressive in (False, True):
+        data = _pil_jpeg(_image(32, 40, 3), quality=90, progressive=progressive)
+        sos = data.index(b"\xff\xda")
+        start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+        for at in (0, 7, 23):
+            cases.append(data[:start + at] + b"\xff\x00" * 3 + data[start + at:])
+    for got, want in zip([codec.decode(c) for c in cases], _pil_decode_c_idct(cases, tmp_path)):
+        np.testing.assert_array_equal(got, want)

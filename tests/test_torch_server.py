@@ -128,17 +128,17 @@ def test_bad_base64_500(server_url):
 
 
 def test_unsupported_image_500(server_url):
-    """An image the codec refuses (here a CMYK JPEG) is the wrapped 500
-    an undecodable image is, with the feature named."""
+    """An image the codec refuses (here a TIFF) is the wrapped 500 an
+    undecodable image is, with the feature named."""
     import base64
 
     from PIL import Image
 
     buf = io.BytesIO()
-    Image.fromarray(imaging.make_test_image(64, 64, "circle")).convert("CMYK").save(buf, "JPEG")
+    Image.fromarray(imaging.make_test_image(64, 64, "circle")).save(buf, "TIFF")
     url, _ = server_url
     code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode()})
-    assert code == 500 and "CMYK" in body["detail"]
+    assert code == 500 and "TIFF" in body["detail"]
 
 
 def test_unknown_ref_mode_422(server_url):
@@ -601,8 +601,9 @@ def test_server_runs_with_jax_pil_cv2_blocked(tmp_path):
     process, with a Qwen2-layout tokenizer.json beside the VL shards, which
     the conversion copies) and the server's CLI serves one /edit of a
     progressive JPEG (the committed fixture) from it with --transformer
-    --vae --vl, its prompts tokenized by that file; a lone --transformer is
-    refused."""
+    --vae --vl, its prompts tokenized by that file, then /edits of a lossy
+    WebP with alpha, an interlaced GIF, an RLE8 BMP and a YCCK JPEG (the
+    committed fixtures); a lone --transformer is refused."""
     from test_torch_checkpoint import fabricate
 
     hf = fabricate(str(tmp_path / "hf"))
@@ -671,6 +672,11 @@ assert progressive[:2] == b"\\xff\\xd8" and b"\\xff\\xc2" in progressive
 out = edit(port, json.dumps({{"image": base64.b64encode(progressive).decode(),
                               "prompt": "oil"}}).encode())
 assert out.shape == (64, 64, 3), out.shape
+for name in ("lossy_alpha.webp", "interlaced.gif", "rle8.bmp", "ycck.jpg"):
+    with open("tests/fixtures/codec/" + name, "rb") as f:
+        out = edit(port, json.dumps({{"image": base64.b64encode(f.read()).decode(),
+                                      "prompt": "oil"}}).encode())
+    assert out.shape == (64, 64, 3), (name, out.shape)
 assert not any(m.split(".")[0] in FORBIDDEN for m in sys.modules)
 print("ok")
 """

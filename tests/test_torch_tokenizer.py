@@ -269,3 +269,158 @@ def test_load_and_encode_time_at_full_size(dirs):
     assert len(tok.ranks) > 150_000 and load_s < 20
     ids = tok.encode(chip_smoke.PROMPT)
     assert ids == tok.encode(chip_smoke.PROMPT) and len(tok._cache) >= len(ids) // 2
+
+
+# -- the slow files: vocab.json + merges.txt ---------------------------------
+
+SLOW = ("slow", "added_only")
+
+
+@pytest.fixture(scope="module")
+def slow_dirs(dirs, tmp_path_factory):
+    """{"slow" | "added_only": directory}: the trained tokenizer saved by
+    ``save_pretrained(legacy_format=True)`` with its tokenizer.json removed;
+    ``added_only`` also without the config's ``added_tokens_decoder``, so
+    the added tokens come from ``added_tokens.json`` alone."""
+    from transformers import AutoTokenizer
+
+    root = tmp_path_factory.mktemp("slow")
+    out = {name: str(root / name) for name in SLOW}
+    for d in out.values():
+        AutoTokenizer.from_pretrained(dirs["strings"]).save_pretrained(d, legacy_format=True)
+        if os.path.exists(os.path.join(d, "tokenizer.json")):
+            os.remove(os.path.join(d, "tokenizer.json"))
+    path = os.path.join(out["added_only"], "tokenizer_config.json")
+    with open(path, encoding="utf-8") as f:
+        config = json.load(f)
+    del config["added_tokens_decoder"]
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(config, f)
+    return out
+
+
+@pytest.fixture(scope="module")
+def slow_pairs(slow_dirs):
+    return {name: (vl.load_hf_tokenizer(d), jvl.load_hf_tokenizer(d))
+            for name, d in slow_dirs.items()}
+
+
+@pytest.mark.parametrize("name", SLOW)
+def test_slow_files_layout(slow_dirs, slow_pairs, name):
+    d = slow_dirs[name]
+    assert tk.files_in(d) == "slow" and not os.path.exists(os.path.join(d, "tokenizer.json"))
+    with open(os.path.join(d, "merges.txt"), encoding="utf-8") as f:
+        assert f.readline().startswith("#version:")
+    port, hf = slow_pairs[name]
+    assert type(hf).__name__ == "Qwen2TokenizerFast"
+    assert len(port) == len(hf) == 151665
+    for text, want in vl._SPECIAL_IDS.items():
+        assert port.added[text] == want == hf.convert_tokens_to_ids(text)
+    # added_tokens.json alone: the tokens the config does not name special
+    # are matched in the normalized text, as transformers marks them
+    normed = {t["content"] for t in port.added_by_id.values() if t["normalized"]}
+    assert normed == (set() if name == "slow" else {
+        t for t, special in chip_smoke.QWEN2_VL_ADDED if not special})
+
+
+@pytest.mark.parametrize("name", SLOW)
+def test_slow_files_chat_template_ids_match_jax_and_tokenizer_json(pairs, slow_pairs, name):
+    port, hf = slow_pairs[name]
+    fast = pairs["strings"][0]
+    for prompt, n_images in (("Transform into oil painting style", 1),
+                             ("Replace the sky with stars; don't touch the cat's fur!", 2),
+                             ("把天空换成星空，保留人物。\n  Keep   the\tlayout. 🎨", 3)):
+        merged = [6 + i for i in range(n_images)]
+        got = vl.build_chat_ids(port, prompt, merged)
+        assert got == jvl.build_chat_ids(hf, prompt, merged)
+        assert got == vl.build_chat_ids(fast, prompt, merged)
+
+
+@pytest.mark.parametrize("name", SLOW)
+def test_slow_files_encode_matches_jax_on_generated_text(pairs, slow_pairs, name):
+    port, hf = slow_pairs[name]
+    fast = pairs["strings"][0]
+
+    @settings(max_examples=150, deadline=None, derandomize=True,
+              suppress_health_check=list(HealthCheck))
+    @given(TEXT)
+    def check(text):
+        got = port.encode(text)
+        assert got == hf.encode(text, add_special_tokens=False), repr(text)
+        assert got == fast.encode(text), repr(text)
+
+    check()
+
+
+def _slow_edited(src: str, dst, name: str, edit) -> str:
+    shutil.copytree(src, dst)
+    path = os.path.join(dst, name)
+    if name.endswith(".json"):
+        with open(path, encoding="utf-8") as f:
+            data = json.load(f)
+        edit(data)
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(data, f)
+    else:
+        with open(path, "a", encoding="utf-8") as f:
+            f.write(edit)
+    return str(dst)
+
+
+@pytest.mark.parametrize("case,name,edit,match", [
+    ("merge_line", "merges.txt", "a b c\n", "line .* is not two tokens"),
+    ("merge_oov", "merges.txt", "€ €\n", "outside the vocabulary"),
+    ("class", "tokenizer_config.json", _set("tokenizer_class", "LlamaTokenizer"),
+     "tokenizer_class 'LlamaTokenizer'"),
+    ("prefix_space", "tokenizer_config.json", _set("add_prefix_space", True),
+     "add_prefix_space"),
+    ("unknown_key", "tokenizer_config.json", _set("do_lower_case", True), "do_lower_case"),
+    ("lstrip", "tokenizer_config.json", _set("added_tokens_decoder", "151644", "lstrip", True),
+     "lstrip"),
+    ("vocab", "vocab.json", lambda d: d.update({"x": "y"}), "vocab.json"),
+])
+def test_slow_files_refusals_name_what_they_refuse(slow_dirs, tmp_path, case, name, edit, match):
+    d = _slow_edited(slow_dirs["slow"], tmp_path / case, name, edit)
+    with pytest.raises(ValueError, match=match):
+        vl.load_hf_tokenizer(d)
+
+
+def test_slow_files_renumber_as_tokenizers_does(slow_dirs, tmp_path):
+    """Added ids given with a gap, and an eos that special_tokens_map.json
+    names (over the config's) but no file lists, get the ids that
+    ``tokenizers`` assigns as it adds them."""
+    d = _slow_edited(slow_dirs["added_only"], tmp_path / "gap", "added_tokens.json",
+                     lambda a: a.update({"<|file_sep|>": 151700}))
+    with open(os.path.join(d, "special_tokens_map.json"), encoding="utf-8") as f:
+        smap = json.load(f)
+    smap["eos_token"] = "<|my_eos|>"
+    with open(os.path.join(d, "special_tokens_map.json"), "w", encoding="utf-8") as f:
+        json.dump(smap, f)
+    port, hf = vl.load_hf_tokenizer(d), jvl.load_hf_tokenizer(d)
+    assert port.added["<|file_sep|>"] == hf.convert_tokens_to_ids("<|file_sep|>") == 151664
+    assert port.added["<|my_eos|>"] == hf.convert_tokens_to_ids("<|my_eos|>") == 151665
+    text = "x<|my_eos|><|file_sep|><tool_call>y"
+    assert port.encode(text) == hf.encode(text, add_special_tokens=False)
+    assert len(port) == len(hf)
+
+
+def test_a_directory_without_tokenizer_files_raises(tmp_path):
+    assert tk.files_in(str(tmp_path)) is None
+    with pytest.raises(FileNotFoundError, match="vocab.json"):
+        tk.Tokenizer.from_dir(str(tmp_path))
+
+
+def test_slow_files_normalized_added_tokens_match_after_nfc(slow_dirs, tmp_path):
+    """An added token from ``added_tokens.json`` that the config does not
+    name special is ``normalized``: it matches the NFC form of the text
+    around the raw added tokens, as ``tokenizers`` matches it, so a
+    decomposed token matches precomposed text and the other way round."""
+    decomposed, precomposed = "Cafe\u0301", "Caf\u00e9"
+    d = _slow_edited(slow_dirs["added_only"], tmp_path / "nfc", "added_tokens.json",
+                     lambda a: a.update({decomposed: 151665, "A\u030angstr": 151666}))
+    port, hf = vl.load_hf_tokenizer(d), jvl.load_hf_tokenizer(d)
+    for text in (precomposed + " cr\u00e8me", decomposed + " cre\u0300me",
+                 "\u00c5ngstrom<|im_start|>" + decomposed, "A\u030angstr\u00f6m",
+                 "x<tool_call>" + precomposed + "<|im_end|>"):
+        assert port.encode(text) == hf.encode(text, add_special_tokens=False), repr(text)
+    assert port.encode(precomposed) == port.encode(decomposed) == [151665]

@@ -147,6 +147,51 @@ def test_loaded_pixels_equal_jax(files):
     assert ours.load(3)["image"].shape == (64, 64, 3)
 
 
+def test_webp_and_bmp_items_load_as_jax_loads_them(tmp_path):
+    """A directory source whose items are ``.webp`` (lossy, lossless with
+    alpha, EXIF-rotated) and ``.bmp`` (24-bit, 8-bit palette, RLE8) files,
+    found and read as the JAX ``EditDataset`` finds and reads them."""
+    import io
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    from codec_fixtures import bmp_file
+
+    rng = np.random.default_rng(7)
+    src = _image(4, WIDE)
+    pal = rng.integers(0, 256, (256, 3))
+    idx = rng.integers(0, 256, WIDE)
+    idx[:, :30] = 5  # runs for RLE8
+
+    def webp(arr, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "WEBP", **kw)
+        return buf.getvalue()
+
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    rgba = np.concatenate([src, rng.integers(0, 256, WIDE + (1,), np.uint8)], -1)
+    files = [("input.webp", webp(src, quality=80)), ("target.bmp", bmp_file(src, 24)),
+             ("input.bmp", bmp_file(idx, 8, palette=pal)),
+             ("target.webp", webp(rgba, lossless=True)),
+             ("input.webp", webp(src, quality=95, exif=exif)),
+             ("target.bmp", bmp_file(idx, 8, palette=pal, compression=1))]
+    for i in range(3):
+        d = tmp_path / f"item{i}"
+        d.mkdir()
+        for name, blob in files[2 * i:2 * i + 2]:
+            (d / name).write_bytes(blob)
+        (d / "prompt.txt").write_text(f"item {i}")
+    ours, theirs = (data.EditDataset.from_directory(str(tmp_path)),
+                    jdata.EditDataset.from_directory(str(tmp_path)))
+    assert len(ours) == len(theirs) == 3
+    for i in range(3):
+        a, b = ours.load(i), theirs.load(i)
+        for k in ("image", "target"):
+            np.testing.assert_array_equal(a[k], _arrays(b[k]))
+    assert ours.load(2)["image"].shape == (WIDE[1], WIDE[0], 3)  # EXIF 6: rotated
+
+
 def test_read_image_takes_progressive_and_interlaced_files(tmp_path):
     """``read_image`` of a progressive JPEG (EXIF-rotated), an Adam7 PNG and a
     16-bit PNG equals the JAX ``open_rgb`` array of the same file."""
@@ -227,8 +272,8 @@ def test_batches_prefetch_and_close(files, pipe):
     """``batches``: built batches of two rows and one geometry, negatives
     where an item has one, the batch sequence continued at ``start``; closing
     the iterator early joins the producer; an error in the producer (a
-    ``.webp`` file, which the codec refuses by name) is raised in the
-    consumer."""
+    corrupt ``.webp`` file, which the codec refuses by name) is raised in
+    the consumer."""
     manifest, root = files
     loader = data.BatchLoader(pipe, data.EditDataset.from_manifest(manifest), BATCH,
                               seed=0, prefetch=1)
@@ -258,7 +303,7 @@ def test_batches_prefetch_and_close(files, pipe):
         f.write("p")
     ds = data.EditDataset.from_directory(bad)
     assert ds.items[0]["image"].endswith(".webp")
-    with pytest.raises(ValueError, match="unsupported image format"):
+    with pytest.raises(ValueError, match="(corrupt|truncated) WebP"):
         list(data.BatchLoader(pipe, ds, 1).batches(1))
     assert not any(t.name == "BatchLoader" for t in threading.enumerate())
 
