@@ -160,15 +160,6 @@ toolkit. Phases, each printing one JSON line:
              batch build, loss and PSNR before and after (both must
              improve), K3 20 a decoder batch, 5 an encoder batch, 30 an
              encoder PSNR; both artifacts saved and read back equal;
-   tp references — the one-process runs that phases 8d and 8f hold their
-             ranks to, on the same pipeline: a rank-16 LoRA trainer (b drawn
-             non-zero) on one 1024² row with its negative rows, a warm-up
-             and two steps, then a distill trainer's unguided and guided
-             step (each step's loss and clipped adapter gradients, kept on
-             the host in bf16; the guided step also with the row-parallel
-             sums rounded as TP 2 rounds them); a 512² stream of TP_STREAM_FRAMES frames
-             submitted pipelined and a websocket session of TP_WS_FRAMES
-             frames through an engine (each frame's latent);
    lora    — the trained adapters exported, written with the port's
              .safetensors writer, read back, fused in place into the live
              pipeline, and one cache-hit edit served again at the same seed:
@@ -216,8 +207,10 @@ toolkit. Phases, each printing one JSON line:
 8b. tp     — multi-GPU serving (``parallel/``): a world of 2 ranks, mesh
              1 × 2, spawned with ``torch.multiprocessing`` (CUDA is live
              here) and joined by ``gloo`` (NCCL refuses two ranks on one
-             card), every rank on cuda:0: the bf16 flagship at full width and
-             depth built from seed 0 a block at a time, each rank keeping its
+             card), every rank on cuda:0: the bf16 flagship at full width,
+             its MMDiT cut to TP_DEPTH blocks (TP_PRESET: the VL encoder and
+             the VAE whole; the gloo time goes with the depth), built from
+             seed 0 a block at a time, each rank keeping its
              tensor-parallel slices; a cond-only miss and a hit, a
              guided batched miss, a two-image miss (K4's role) and one /edit
              served by rank 0 over HTTP while rank 1 follows it (the
@@ -225,13 +218,13 @@ toolkit. Phases, each printing one JSON line:
              in it fails the phase); then the int8 rung (MMDiT and VL) at
              TP 2, one miss, its row-parallel int8 codes held to the
              one-device K5's bit for bit. Each result's latents within
-             TP_TOL (rel-L2) of the one-process pipeline's on the same
-             request (computed in phases 5 and 6 and kept on the host); per
-             rank its weight and peak bytes, its launches (K1 120 at 12
-             local heads, K2 28 at 14 / 2 kv heads, K3 the VAE's; int8: 14
-             quantized linears a block, q/k/v unfused, a row-parallel one
-             launching K5 and K6 twice each) asserted, and the collectives a
-             forward;
+             TP_TOL (rel-L2) of the one-process pipeline's of TP_PRESET on
+             the same request (computed first and kept on the host); per
+             rank its weight and peak bytes, its launches (K1 2 · TP_DEPTH
+             at 12 local heads, K2 28 at 14 / 2 kv heads, K3 the VAE's;
+             int8: 14 quantized linears a block, q/k/v unfused, a
+             row-parallel one launching K5 and K6 twice each) asserted, and
+             the collectives a forward;
 8c. mesh   — a world of 4 ranks, mesh 2 × 2 (cfg × model), the depth cut as
              in phase 8: a ``cfg_mode="parallel"`` guided miss (each cfg
              group one row of the pair), an ``rcfg`` miss and
@@ -241,18 +234,22 @@ toolkit. Phases, each printing one JSON line:
              are of ranks sharing one card through host-staged collectives:
              they say nothing of NCCL across cards;
 8d. tp_train — multi-GPU training: a world of 2 ranks, mesh 1 × 2, the
-             bf16 flagship at full width and depth: the LoRA trainer of
+             bf16 TP_PRESET of 8b: the LoRA trainer of
              ``LoRATrainer.from_pipeline`` on the rank's slices (the
              forward's all-reduces autograd nodes, the column-parallel
              inputs' gradients summed over the ranks in the backward, the
              adapter gradients in one flat all-reduce) takes the one-card
              batch's warm-up and two steps, then a distill trainer its
              unguided and guided step; each step's loss and every reduced
-             adapter gradient within TRAIN_TOL of phase 5's (the guided
+             adapter gradient within TRAIN_TOL of the one-process step's on
+             the same cut, computed first: a rank-16 LoRA trainer (b drawn
+             non-zero) on one 1024² row with its negative rows, the loss and
+             clipped adapter gradients kept on the host in bf16 (the guided
              step's gradients within GUIDED_TRAIN_TOL), its launches
-             (K7 120, K8 60, K9 60; K1 120 for the unguided teacher, 240
-             guided) at (1, 12, L, 128) exact, its collectives (forward,
-             backward, the adapter reduction), seconds and peak printed;
+             (K7 2 · TP_DEPTH, K8 = K9 = TP_DEPTH; K1 2 · TP_DEPTH for the
+             unguided teacher, twice that guided) at (1, 12, L, 128) exact,
+             its collectives (forward, backward, the adapter reduction),
+             seconds and peak printed;
              the adapters bit-identical across the ranks after the LoRA
              steps;
 8e. mesh_train — 4 ranks, mesh 2 × 2, the depth cut as in 8c: a LoRA step on
@@ -261,15 +258,18 @@ toolkit. Phases, each printing one JSON line:
              first), K7 = 2 · depth and K8 = K9 = depth a rank, the adapters
              bit-identical on every rank;
 8f. tp_stream — the realtime stream under a world of 2 ranks (mesh 1 × 2,
-             the bf16 flagship): a 512² session of TP_STREAM_FRAMES frames
-             submitted pipelined on both ranks (K2 28 at 14 / 2 heads in the
-             prompt freeze; K1 120 / 60 at (1, 12, 2112, 128) and K3 20 a
-             keyframe / temporal frame), s/frame, fps and rank 0's host
-             seconds a submit; then a websocket session through the server
-             on rank 0 while rank 1 follows it (``follow``'s stream mirror),
-             the socket's close ending the session on both ranks; every
-             frame's latent within TP_TOL of phase 5's. Times of 8d-8f are
-             of ranks sharing one card through gloo;
+             the bf16 TP_PRESET of 8b): a 512² session of TP_STREAM_FRAMES
+             frames submitted pipelined on both ranks (K2 28 at 14 / 2 heads
+             in the prompt freeze; K1 2 · TP_DEPTH / TP_DEPTH at
+             (1, 12, 2112, 128) and K3 20 a keyframe / temporal frame),
+             s/frame, fps and rank 0's host seconds a submit; then a
+             websocket session through the server on rank 0 while rank 1
+             follows it (``follow``'s stream mirror), the socket's close
+             ending the session on both ranks; every frame's latent within
+             TP_TOL of the one-process stream's on the same cut, a
+             TP_STREAM_FRAMES session and a TP_WS_FRAMES websocket session
+             run first. Times of 8d-8f are of ranks sharing one card through
+             gloo;
 9. int8 kernels — K5 and K6 at every int8 shape of a one-image miss,
              of a batched-CFG miss (M = 16384, 512, 768, 2) and of a 512²
              stream keyframe with its precompute (M = 2048, 64, 1, 128),
@@ -1573,14 +1573,13 @@ def phase_slice():
     launches = run_requests(pipe, requests, "bf16", latents)
     for k, n in profile_request(pipe, "bf16", expected(True), 6000).items():
         launches[k] += n
-    sub(tp_references, pipe)
-    for phase in (phase_guided, phase_tiny, phase_stream, stream_references, phase_yuv420,
+    for phase in (phase_guided, phase_tiny, phase_stream, phase_yuv420,
                   phase_serve):
         for k, n in sub(phase, pipe).items():
             launches[k] += n
     train_launches, adapters = sub(phase_train, pipe)
     more = [train_launches] + [sub(phase, pipe) for phase in (
-        phase_distill, train_references, phase_tiny_train)]
+        phase_distill, phase_tiny_train)]
     more.append(sub(phase_lora_serve, pipe, adapters, latents["hit1"]))
     for delta in more:
         for k, n in delta.items():
@@ -1829,11 +1828,11 @@ def stream_image(kind: str = "gradient", size: int = STREAM_SIZE, phase: float =
     return imaging.make_test_image(size, size, kind, phase)
 
 
-def frame_want(key: bool, k3=None, int8: int = 0) -> dict:
+def frame_want(key: bool, k3=None, int8: int = 0, layers: int = MMDIT_LAYERS) -> dict:
     """Launches of one 2-step stream frame: K1 once a layer a forward (two
     forwards a keyframe, one a temporal frame), K3 for a full-VAE encode
     and decode unless ``k3`` says otherwise, K2 0, K5/K6 ``int8``."""
-    return {"flash_joint": (2 if key else 1) * MMDIT_LAYERS, "flash_joint_stream": 0,
+    return {"flash_joint": (2 if key else 1) * layers, "flash_joint_stream": 0,
             "flash_causal": 0, "conv3x3": K3_ENCODE + K3_DECODE if k3 is None else k3,
             "quantize_rows": int8, "int8_gemm": int8}
 
@@ -2557,9 +2556,8 @@ def phase_yuv420(pipe) -> dict:
 SERVE_INPUT = 512
 CLI_HEALTH_S = 120   # bound on the CLI server's start-up, until /health answers
 
-# Phases 8b/8c: the one-process latents of their requests, filled by phases 5
-# and 6 and by phase 8c itself before it spawns (host tensors)
-TP_REFS: dict = {}
+# Phases 8b/8c: the one-process latents of their requests are computed by
+# each phase itself before it spawns (host tensors)
 TP_TOL = 3e-2          # rel-L2 of sharded against one-process latents, bf16
 TP_IMAGES = {"miss_a": 8000, "guided": 8002, "two": (8003, 8004),
              "edit": 8005, "int8": 8100, "mesh_parallel": 8200, "mesh_rcfg": 8201,
@@ -2931,9 +2929,10 @@ def phase_serve(pipe) -> dict:
     the pipeline-only call of the same arrays, whose q90 JPEG must decode to
     the served images bit for bit), use_cfg, ref_mode
     condition, num_images 2; misses uploaded as a progressive JPEG, a lossy
-    WebP and a CMYK JPEG; a race of two (one 429); dynamic batching on a
-    second engine; a pipelined stream session over HTTP and over the
-    websocket; a profiled /edit; the codec's ms; the CLI as a subprocess.
+    WebP, a CMYK JPEG and a TIFF (LZW, Predictor 2); a race of two (one
+    429); dynamic batching on a second engine; a pipelined stream session
+    over HTTP and over the websocket; a profiled /edit; the codec's ms; the
+    CLI as a subprocess.
     Restores the pipeline's config."""
     import base64
 
@@ -3003,6 +3002,19 @@ def phase_serve(pipe) -> dict:
         cmyk = cmyk_jpeg([rgb[..., 0], rgb[..., 1], rgb[..., 2], rgb[..., 1] // 4])
         served(url, "serve", "edit_cmyk_miss",
                {"image": base64.b64encode(cmyk).decode(), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
+        # a TIFF (LZW + horizontal differencing, strips), written here
+        src = distinct_image(8008, SERVE_INPUT)
+        tif = tiff_upload(src)
+        t0 = time.perf_counter()
+        tif_px = codec.decode(tif)
+        emit({"phase": "serve_tiff_upload", "bytes": len(tif), "shape": list(tif_px.shape),
+              "decode_ms": (time.perf_counter() - t0) * 1e3,
+              "equal_to_source": bool(np.array_equal(tif_px, src))})
+        if not np.array_equal(tif_px, src):
+            raise AssertionError("the TIFF upload does not decode to its source")
+        served(url, "serve", "edit_tiff_miss",
+               {"image": base64.b64encode(tif).decode(), "prompt": PROMPT}, expected(True),
                k1_rows(1))
         serve_race(url, req)
         serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
@@ -3545,9 +3557,6 @@ def phase_int8():
                     expected(True, 2, int8_per_request=INT8_MMDIT,
                              int8_miss=INT8_LM + INT8_VISION))])
     run_requests(pipe, requests, "int8")
-    with FreshCaches(pipe):
-        TP_REFS["int8"] = pipe(distinct_image(TP_IMAGES["int8"]), PROMPT,
-                               num_inference_steps=STEPS, seed=42).latents.float().cpu()
     # batched CFG: the pair runs as one forward, so K5/K6 launch as often as
     # for a cond-only miss, at twice the rows (M = 16384, 512, 768 and 2)
     serve("int8", "cfg_batched_miss", guided(pipe, "batched", distinct_image(3010)),
@@ -3582,6 +3591,26 @@ CUT_PRESET = "qwen-image-edit-2509-depth2"
 CUT_DEPTH = 2
 HF_SHARD_BYTES = 400 << 20
 REGISTER_CUT = "import chip_smoke; chip_smoke.cut_preset()"
+
+
+TP_PRESET = "qwen-image-edit-2509-mmdit6"
+TP_DEPTH = 6       # the MMDiT blocks of phases tp, tp_train and tp_stream (gloo time
+                   # goes with the depth)
+K1_TP = TP_DEPTH * STEPS
+
+
+def tp_preset():
+    """The flagship preset with only its MMDiT cut to TP_DEPTH blocks (the
+    VL encoder and the VAE whole), registered as TP_PRESET."""
+    import dataclasses
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import config
+
+    full = config.get_preset("qwen-image-edit-2509")
+    cut = dataclasses.replace(full, name=TP_PRESET,
+                              model=dataclasses.replace(full.model, num_layers=TP_DEPTH))
+    config.PRESETS[TP_PRESET] = cut
+    return cut
 
 
 def cut_preset():
@@ -3928,10 +3957,12 @@ def cmyk_rgb(c, m, y, k):
 def decode_set():
     """{name: (bytes, want)}: a 1024² image in each format the codec gained,
     ``want`` the RGB it must decode to where this host can tell without
-    Pillow (None for the committed WebP files, whose hashes phase inputs
-    checks at fixture size). BMP, GIF and the 4-component JPEGs are written
+    Pillow (None for the committed WebP and arithmetic-coded JPEG files,
+    whose hashes phase inputs checks, and for the cut progressive JPEG).
+    BMP, GIF, TIFF, the lossless JPEG and the 4-component JPEGs are written
     here: the writers of ``scripts/codec_fixtures.py`` and
-    :func:`cmyk_jpeg`."""
+    :func:`cmyk_jpeg`. A lossless coding is held to its source; the
+    JPEG-in-TIFF file to the port's decode of each strip's JPEG alone."""
     import sys
 
     import numpy as np
@@ -3939,7 +3970,8 @@ def decode_set():
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from codec_fixtures import bmp_file, gif_file, scene
+    from codec_fixtures import (bmp_file, cut_progressive, gif_file, lossless_jpeg, scene,
+                                tiff_file)
 
     n = DECODE_SIZE
     rgb = scene(n, n, 1)
@@ -3954,7 +3986,29 @@ def decode_set():
     app0 = base.index(b"\xff\xe0")
     rgb_coded = (base[:app0] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"
                  + base[app0 + 2 + int.from_bytes(base[app0 + 2:app0 + 4], "big"):])
+    rows = 64  # TIFF strip rows
+    bw = (rgb[..., 0] > 128).astype(np.uint8)
+    strips = [codec.encode_jpeg(np.ascontiguousarray(rgb[y:y + rows]), 90)
+              for y in range(0, n, rows)]
+    jpeg_tiff = tiff_file(rgb, 6, 8, compression=7, rows_per_strip=rows,
+                          ycbcr_subsampling=(2, 2),
+                          jpeg=lambda block: codec.encode_jpeg(np.ascontiguousarray(block), 90))
     return {
+        "tiff_lzw_predictor": (tiff_file(rgb, 2, 8, compression=5, predictor=2,
+                                         rows_per_strip=rows), rgb),
+        "tiff_deflate": (tiff_file(rgb, 2, 8, compression=8, rows_per_strip=rows), rgb),
+        "tiff_packbits": (tiff_file(pal[runs], 2, 8, compression=32773, rows_per_strip=rows),
+                          pal[runs]),
+        "tiff_tiled_lzw": (tiff_file(rgb, 2, 8, compression=5, tile=(256, 256)), rgb),
+        "tiff_planar_deflate": (tiff_file(rgb, 2, 8, compression=8, planar=2,
+                                          rows_per_strip=rows), rgb),
+        "tiff_g4": (tiff_file(bw, 0, 1, compression=4),
+                    np.repeat((bw == 0)[..., None].astype(np.uint8) * 255, 3, axis=2)),
+        "tiff_jpeg_ycbcr": (jpeg_tiff, np.concatenate([codec.decode(j) for j in strips])),
+        "jpeg_arithmetic": (fixture("arith_1024.jpg"), None),
+        "jpeg_arithmetic_progressive": (fixture("arith_prog_1024.jpg"), None),
+        "jpeg_lossless": (lossless_jpeg(rgb, predictor=1), rgb),
+        "jpeg_block_smoothed": (cut_progressive(fixture("prog_1024.jpg"), 3), None),
         "cmyk_jpeg": (cmyk, cmyk_rgb(*gray)),
         "ycck_jpeg": (cmyk[:cmyk.index(b"Adobe") + 11] + b"\x02"
                       + cmyk[cmyk.index(b"Adobe") + 12:], None),
@@ -3965,6 +4019,18 @@ def decode_set():
         "webp_lossy": (fixture("lossy_1024.webp"), None),
         "webp_lossless": (fixture("lossless_1024.webp"), None),
     }
+
+
+def tiff_upload(rgb) -> bytes:
+    """An RGB TIFF as a scanner or an image editor writes it: LZW with
+    horizontal differencing, 64-row strips (``scripts/codec_fixtures.py``'s
+    writer, no Pillow)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import tiff_file
+
+    return tiff_file(rgb, 2, 8, compression=5, predictor=2, rows_per_strip=64)
 
 
 def fixture(name: str) -> bytes:
@@ -4372,53 +4438,46 @@ def tp_calls(pipe) -> dict:
         return lambda: pipe(list(imgs) if len(imgs) > 1 else imgs[0], PROMPT,
                             num_inference_steps=STEPS, seed=42)
 
-    return {"miss_a": (plain(img("miss_a")), expected(True), None),
-            "hit_a": (plain(img("miss_a")), expected(False), None),
-            "guided": (guided(pipe, "batched", img("guided")), expected(True), k1_rows(2)),
+    return {"miss_a": (plain(img("miss_a")), expected(True, k1=K1_TP), None),
+            "hit_a": (plain(img("miss_a")), expected(False, k1=K1_TP), None),
+            "guided": (guided(pipe, "batched", img("guided")), expected(True, k1=K1_TP),
+                       k1_rows(2, K1_TP)),
             "two": (plain(*(distinct_image(i) for i in TP_IMAGES["two"])),
-                    expected(True, 2), None)}
+                    expected(True, 2, k1=K1_TP), None)}
 
 
-class FreshCaches:
-    """Empty prompt and latent caches on ``pipe`` inside the block, its own
-    put back after: requests run for a later phase's references evict no
-    entry that this phase's hits rely on."""
-
-    def __init__(self, pipe):
-        self.pipe = pipe
-
-    def __enter__(self):
-        from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.cache import (
-            LatentCache,
-            PromptCache,
-        )
-
-        self.saved = self.pipe.prompt_cache, self.pipe.latent_cache
-        self.pipe.prompt_cache = PromptCache(self.pipe.encoder)
-        self.pipe.latent_cache = LatentCache()
-        return self.pipe
-
-    def __exit__(self, *exc):
-        self.pipe.prompt_cache, self.pipe.latent_cache = self.saved
-
-
-def tp_references(pipe) -> None:
-    """Phase 8b's requests on the one-process bf16 pipeline (on caches of
-    their own): their latents kept on the host (the /edit's through an
-    engine with the server's input size)."""
+def tp_references() -> dict:
+    """Phase 8b's requests on one-process pipelines of TP_PRESET: their
+    latents kept on the host (the /edit's through an engine with the
+    server's input size); then the int8 rung's miss."""
     import torch
 
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime.engine import InferenceEngine
 
-    with FreshCaches(pipe):
-        for name, (call, _, _) in tp_calls(pipe).items():
-            TP_REFS[name] = call().latents.float().cpu()
-        pipe.config = pipe.config.replace(cfg_mode="none")
-        cap = Capture(pipe)
-        InferenceEngine(pipeline=cap, input_size=SERVE_INPUT, default_steps=STEPS).edit(
-            tp_edit_payload())
-        TP_REFS["edit"] = cap.results[0].latents.float().cpu()
-    torch.cuda.synchronize()
+    tp_preset()
+    refs = {}
+    pipe = EditPipeline.create(TP_PRESET, tp_config(), seed=0, device=RANK_DEVICE)
+    for name, (call, _, _) in tp_calls(pipe).items():
+        refs[name] = call().latents.float().cpu()
+    pipe.config = pipe.config.replace(cfg_mode="none")
+    cap = Capture(pipe)
+    InferenceEngine(pipeline=cap, input_size=SERVE_INPUT, default_steps=STEPS).edit(
+        tp_edit_payload())
+    refs["edit"] = cap.results[0].latents.float().cpu()
+    del pipe, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = EditPipeline.create(TP_PRESET, tp_config().replace(use_int8=True, use_int8_vl=True),
+                               seed=0, device=RANK_DEVICE)
+    refs["int8"] = pipe(distinct_image(TP_IMAGES["int8"]), PROMPT, num_inference_steps=STEPS,
+                        seed=42).latents.float().cpu()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
 
 
 def rel_l2(a, b) -> float:
@@ -4500,11 +4559,13 @@ def int8_code_spy(mesh, checks: list):
     return given, row
 
 
-def tp_config():
+def tp_config(model_axis: int = 1):
+    """The config of phases 8b, 8d and 8f (TP_PRESET): ``model_axis`` 2 on a
+    rank, 1 for the one-process references."""
     from qwen_image_edit_streamdiffusion_tpu_torch.core.config import StreamConfig
 
     return StreamConfig(width=SIZE, height=SIZE, num_inference_steps=STEPS,
-                        cfg_mode="none", mesh_model_axis=2)
+                        cfg_mode="none", model_preset=TP_PRESET, mesh_model_axis=model_axis)
 
 
 def rank_tp(mesh, refs) -> dict:
@@ -4533,7 +4594,8 @@ def rank_tp_bf16(mesh, refs) -> dict:
 
     rank = mesh.world_group.rank
     label = f"tp2 bf16 rank{rank}"
-    pipe = rank_create(label, "qwen-image-edit-2509", tp_config(), mesh)
+    tp_preset()
+    pipe = rank_create(label, TP_PRESET, tp_config(model_axis=2), mesh)
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     for name, (call, want, rows) in tp_calls(pipe).items():
@@ -4550,7 +4612,7 @@ def rank_tp_bf16(mesh, refs) -> dict:
                                  input_size=SERVE_INPUT, default_steps=STEPS)
         srv, url = start_server(engine)
         try:
-            served(url, label, "edit_miss", tp_edit_payload(), expected(True))
+            served(url, label, "edit_miss", tp_edit_payload(), expected(True, k1=K1_TP))
         finally:
             stop_server(srv)
             engine.pipeline.shutdown()
@@ -4564,7 +4626,7 @@ def rank_tp_bf16(mesh, refs) -> dict:
               "calls": calls, "launches": {k: n for k, n in delta.items() if n}})
         if calls != 1:
             raise AssertionError(f"{label}: followed {calls} calls, not 1")
-        check_counts(f"{label}/edit_miss", delta, expected(True))
+        check_counts(f"{label}/edit_miss", delta, expected(True, k1=K1_TP))
         held(label, "edit_miss", cap.results[0].latents, refs["edit"])
     emit({"phase": "rank_peak", "path": label, "weight_bytes": rank_weights(pipe),
           "peak_bytes": torch.cuda.max_memory_allocated()})
@@ -4579,11 +4641,12 @@ def rank_tp_int8(mesh, refs) -> dict:
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
     label = f"tp2 int8 rank{mesh.world_group.rank}"
-    pipe = rank_create(label, "qwen-image-edit-2509",
-                       tp_config().replace(use_int8=True, use_int8_vl=True), mesh)
+    tp_preset()
+    pipe = rank_create(label, TP_PRESET,
+                       tp_config(model_axis=2).replace(use_int8=True, use_int8_vl=True), mesh)
     per_block = [sum(k.endswith(".w_q") for k in flatten(b))
                  for b in pipe.tfm_params["blocks"]]
-    if per_block != [14] * MMDIT_LAYERS:
+    if per_block != [14] * TP_DEPTH:
         raise AssertionError(f"{label}: quantized linears a block {set(per_block)}, not 14")
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -4593,7 +4656,8 @@ def rank_tp_int8(mesh, refs) -> dict:
     try:
         res = serve(label, "miss", lambda: pipe(distinct_image(TP_IMAGES["int8"]), PROMPT,
                                                 num_inference_steps=STEPS, seed=42),
-                    expected(True, int8_per_request=14 * MMDIT_LAYERS * STEPS + ROW_REQUEST,
+                    expected(True, k1=K1_TP,
+                             int8_per_request=14 * K1_TP + ROW_REQUEST * TP_DEPTH // MMDIT_LAYERS,
                              int8_miss=INT8_LM + INT8_VISION + ROW_MISS))
     finally:
         int8.quantize_rows_given, int8.int8_linear_row = saved
@@ -4745,8 +4809,9 @@ def run_world(phase: str, world: int, refs) -> dict:
 
 
 def phase_tp() -> dict:
-    """Phase 8b: 2 ranks, mesh 1 × 2, the full flagship (module docstring)."""
-    return run_world("tp", 2, TP_REFS)
+    """Phase 8b: 2 ranks, mesh 1 × 2, TP_PRESET (module docstring); the
+    one-process latents of its requests first, on the same cut."""
+    return run_world("tp", 2, tp_references())
 
 
 def phase_mesh() -> dict:
@@ -4773,13 +4838,12 @@ def phase_mesh() -> dict:
 
 # Phases tp_train, mesh_train and tp_stream: the LoRA and distill steps and
 # the realtime stream under a world, each rank held to the one-process run of
-# the same inputs (phase slice computes the flagship's, phase mesh_train's
-# parent those at the cut depth).
+# the same inputs (phase slice computes the stream's, the parents of phases
+# tp_train and mesh_train those at their cut depths).
 TRAIN_REF_PATH = os.path.join(ROOT, "build", "chip_smoke", "tp_train_refs.pt")
 TP_TRAIN_IMAGE = 8300      # the condition image; the target is the next one
 TP_STREAM_FRAMES = 8
 TP_WS_FRAMES = 3
-STREAM_REFS: dict = {}
 MESH_TRAIN_IMAGE = 8400
 
 
@@ -4848,20 +4912,16 @@ def step_grads(trainer) -> list:
     return [p.grad for p in lt.lora_leaves(trainer.lora)]
 
 
-def train_references(pipe, rows: int = 1, image: int = TP_TRAIN_IMAGE):
+def train_references(pipe) -> None:
     """Phase tp_train's steps on the one-card pipeline: the batch (1 row of
     1024², its negative rows), each step's loss and clipped adapter
     gradients, kept on the host (the gradients in bf16) and written to
-    TRAIN_REF_PATH for the ranks. Returns the launches."""
+    TRAIN_REF_PATH for the ranks."""
     import torch
 
-    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
     from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    start = dict(kernels.LAUNCHES)
-    batch = lt.build_batch(pipe, train_items(rows, image))
+    batch = lt.build_batch(pipe, train_items(1, TP_TRAIN_IMAGE))
     refs = {"batch": host_batch(batch), "steps": {}}
 
     def hook(kind, name, trainer, batch):
@@ -4877,10 +4937,6 @@ def train_references(pipe, rows: int = 1, image: int = TP_TRAIN_IMAGE):
     train_plan(pipe, batch, hook)
     os.makedirs(os.path.dirname(TRAIN_REF_PATH), exist_ok=True)
     torch.save(refs, TRAIN_REF_PATH)
-    del refs, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    return launch_delta(start)
 
 
 def train_want(kind: str, name: str, layers: int = MMDIT_LAYERS) -> dict:
@@ -5045,15 +5101,16 @@ def rank_train_hook(label: str, refs: dict, steps_done: dict, layers: int, heads
 
 
 def rank_tp_train(mesh, refs) -> dict:
-    """Phase tp_train on one rank: the flagship's slices (mesh 1 × 2), the
-    one-card batch, train_plan's five steps held to phase slice's."""
+    """Phase tp_train on one rank: TP_PRESET's slices (mesh 1 × 2), the
+    one-card batch, train_plan's five steps held to the parent's."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
     from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
 
     label = f"tp2 train rank{mesh.world_group.rank}"
-    pipe = rank_create(label, "qwen-image-edit-2509", tp_config(), mesh)
+    tp_preset()
+    pipe = rank_create(label, TP_PRESET, tp_config(model_axis=2), mesh)
     saved = torch.load(TRAIN_REF_PATH, map_location="cpu", weights_only=True, mmap=True)
     batch = {k: v.to(RANK_DEVICE) if torch.is_tensor(v) else v
              for k, v in saved["batch"].items()}
@@ -5208,47 +5265,49 @@ def stream_engine(pipe):
     return InferenceEngine(pipeline=pipe, input_size=STREAM_SIZE, default_steps=STEPS)
 
 
-def stream_references(pipe) -> dict:
-    """Phase tp_stream's runs on the one-card pipeline: a session of
-    TP_STREAM_FRAMES frames submitted pipelined (each frame's latent), then
-    a websocket session of TP_WS_FRAMES frames through an engine behind the
-    server (each frame's latent). Restores the pipeline's config."""
+def stream_references() -> dict:
+    """Phase tp_stream's runs on a one-process pipeline of TP_PRESET: a
+    session of TP_STREAM_FRAMES frames submitted pipelined (each frame's
+    latent), then a websocket session of TP_WS_FRAMES frames through an
+    engine behind the server (each frame's latent)."""
     import torch
 
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
     from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.stream import RealtimePipeline
-    from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
 
-    saved = pipe.config
-    start = dict(kernels.LAUNCHES)
+    tp_preset()
+    pipe = EditPipeline.create(TP_PRESET, tp_config(), seed=0, device=RANK_DEVICE)
     pipe.config = stream_config(pipe, STREAM_SIZE)
+    refs = {}
+    rt = RealtimePipeline(pipe=pipe)
+    rt.precompute_conditions(PROMPT)
+    with LatentSpy() as spy:
+        pending = None
+        for fr in tp_stream_frames(TP_STREAM_FRAMES):
+            handle = rt.submit_frame(fr)
+            if pending is not None:
+                rt._collect(pending)
+            pending = handle
+        rt._collect(pending)
+    refs["frames"] = spy.latents
+    engine = stream_engine(pipe)
+    srv, url = start_server(engine)
     try:
-        rt = RealtimePipeline(pipe=pipe)
-        rt.precompute_conditions(PROMPT)
         with LatentSpy() as spy:
-            pending = None
-            for fr in tp_stream_frames(TP_STREAM_FRAMES):
-                handle = rt.submit_frame(fr)
-                if pending is not None:
-                    rt._collect(pending)
-                pending = handle
-            rt._collect(pending)
-        STREAM_REFS["frames"] = spy.latents
-        engine = stream_engine(pipe)
-        srv, url = start_server(engine)
-        try:
-            with LatentSpy() as spy:
-                STREAM_REFS["ws_meta"] = ws_session("127.0.0.1", srv.server_address[1],
-                                                    tp_stream_frames(TP_WS_FRAMES))
-        finally:
-            stop_server(srv)
-        STREAM_REFS["ws"] = spy.latents
+            refs["ws_meta"] = ws_session("127.0.0.1", srv.server_address[1],
+                                         tp_stream_frames(TP_WS_FRAMES))
     finally:
-        pipe.config = saved
+        stop_server(srv)
+    refs["ws"] = spy.latents
     torch.cuda.synchronize()
-    emit({"phase": "tp_stream_reference", "frames": len(STREAM_REFS["frames"]),
-          "ws_frames": len(STREAM_REFS["ws"]), "ws_lags": [m.get("lag") for m in
-                                                           STREAM_REFS["ws_meta"]]})
-    return launch_delta(start)
+    emit({"phase": "tp_stream_reference", "frames": len(refs["frames"]),
+          "ws_frames": len(refs["ws"]), "ws_lags": [m.get("lag") for m in refs["ws_meta"]]})
+    del rt, engine, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
 
 
 def held_frames(label: str, name: str, latents, refs) -> list:
@@ -5259,10 +5318,11 @@ def held_frames(label: str, name: str, latents, refs) -> list:
 
 
 def rank_tp_stream(mesh, refs) -> dict:
-    """Phase tp_stream on one rank: the flagship's slices, a stream session
+    """Phase tp_stream on one rank: TP_PRESET's slices, a stream session
     of TP_STREAM_FRAMES pipelined frames driven alike on both ranks (K2 28
-    at 14/2 heads in the prompt freeze; K1 120 / 60 at (1, 12, 2112, 128)
-    and K3 20 a keyframe / temporal frame), then a websocket session through
+    at 14/2 heads in the prompt freeze; K1 2 · TP_DEPTH / TP_DEPTH at
+    (1, 12, 2112, 128) and K3 20 a keyframe / temporal frame), then a
+    websocket session through
     the server on rank 0 while rank 1 follows; every frame's latent held to
     the one-process stream's."""
     import torch
@@ -5276,7 +5336,8 @@ def rank_tp_stream(mesh, refs) -> dict:
 
     rank = mesh.world_group.rank
     label = f"tp2 stream rank{rank}"
-    pipe = rank_create(label, "qwen-image-edit-2509", tp_config(), mesh)
+    tp_preset()
+    pipe = rank_create(label, TP_PRESET, tp_config(model_axis=2), mesh)
     pipe.config = stream_config(pipe, STREAM_SIZE)
     kernels.reset_launches()
     rt = RealtimePipeline(pipe=pipe)
@@ -5297,10 +5358,11 @@ def rank_tp_stream(mesh, refs) -> dict:
                 handle = rt.submit_frame(fr)
             submits.append(time.time() - t0)
             delta = launch_delta(before)
-            check_counts(f"{label}/frame{i}", delta, frame_want(key),
-                         {"flash_joint": {f"1x{lk}": (2 if key else 1) * MMDIT_LAYERS}}, rows)
+            k1 = (2 if key else 1) * mcfg.num_layers
+            check_counts(f"{label}/frame{i}", delta, frame_want(key, layers=mcfg.num_layers),
+                         {"flash_joint": {f"1x{lk}": k1}}, rows)
             heads_of(f"{label}/frame{i}", hs.shapes, "flash_joint",
-                     mcfg.num_heads // mesh.model, (2 if key else 1) * mcfg.num_layers)
+                     mcfg.num_heads // mesh.model, k1)
             if pending is not None:
                 rt._collect(pending)
             pending = handle
@@ -5347,15 +5409,27 @@ def rank_tp_stream(mesh, refs) -> dict:
 
 
 def phase_tp_train() -> dict:
-    """Phase tp_train: 2 ranks, mesh 1 × 2, the bf16 flagship (module
-    docstring)."""
+    """Phase tp_train: 2 ranks, mesh 1 × 2, TP_PRESET (module docstring);
+    the one-process steps first, on the same cut."""
+    import torch
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.pipeline.edit_pipeline import (
+        EditPipeline,
+    )
+
+    tp_preset()
+    pipe = EditPipeline.create(TP_PRESET, tp_config(), seed=0, device=RANK_DEVICE)
+    train_references(pipe)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     return run_world("tp_train", 2, {})
 
 
 def phase_tp_stream() -> dict:
-    """Phase tp_stream: 2 ranks, mesh 1 × 2, the bf16 flagship (module
-    docstring)."""
-    return run_world("tp_stream", 2, STREAM_REFS)
+    """Phase tp_stream: 2 ranks, mesh 1 × 2, TP_PRESET (module docstring);
+    the one-process stream first, on the same cut."""
+    return run_world("tp_stream", 2, stream_references())
 
 
 RANK_PHASES = {"tp": rank_tp, "mesh": rank_mesh, "tp_train": rank_tp_train,

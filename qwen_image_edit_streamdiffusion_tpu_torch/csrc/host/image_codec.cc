@@ -6,14 +6,30 @@
 // for bit:
 //   - Huffman entropy decoding of baseline (SOF0) and 8-bit extended
 //     sequential (SOF1) scans, interleaved or not, with restart intervals;
+//     the bit buffer refilled where jdhuff.c refills it, so data that ends
+//     without a marker runs out where libjpeg would wait for more; Annex K's
+//     tables where a sequential file defines none (std_huff_tables);
 //   - progressive (SOF2) Huffman scans into the whole image's coefficients:
 //     jdphuff.c's DC first and refinement scans, AC first scans with their
 //     EOB runs and AC refinement scans with their correction bits (ITU T.81
 //     G.1.2), per-scan Huffman tables, restarts that also end an EOB run. The
-//     pixels are made after the last scan, as for a sequential file. Where
-//     libjpeg-turbo would block-smooth the image (jdcoefct.c smoothing_ok: a
-//     script that leaves one of the first ten zigzag coefficients short of
-//     Al = 0), the decode raises instead;
+//     pixels are made after the last scan, as for a sequential file;
+//   - arithmetic-coded sequential (SOF9) and progressive (SOF10) scans:
+//     jdarith.c's QM decoder (ITU T.81 D.2, Table D.2), DC and AC
+//     statistics bins, DAC conditioning, restarts that reset the statistics,
+//     the same four progressive scan kinds. libjpeg cannot suspend in an
+//     arithmetic scan and Pillow feeds it 64 KiB blocks of the file: a scan
+//     whose data crosses the block its header ended in is refused;
+//   - 8-bit lossless (SOF3) scans, libjpeg-turbo 3's jdlhuff.c, jddiffct.c
+//     and jdlossls.c: predictors 1-7 from the reconstructed samples, the
+//     first row and each restart's predicted from the left, the point
+//     transform, box upsampling; no colour conversion (as libjpeg-turbo:
+//     YCbCr and YCCK refused);
+//   - block smoothing of a progressive image whose scans leave low
+//     frequencies short (jdcoefct.c smoothing_ok and decompress_smooth_data,
+//     libjpeg-turbo 2.1+: nine AC coefficients estimated from a 5x5 window of
+//     DC values, the DC too where no AC data arrived, the last scan's bits
+//     only up to the last iMCU row it decoded with data left);
 //   - jpeg_idct_islow (jidctint.c) with its post-IDCT range-limit table;
 //   - fancy upsampling (jdsample.c: h2v1, h1v2, h2v2; box replication where
 //     libjpeg-turbo takes it, a component no wider than 2 samples), the
@@ -32,6 +48,12 @@
 // expansion, jpeg_fdct_islow (jfdctint.c), jcdctmgr.c's reciprocal
 // quantization, dummy edge blocks as jccoefct.c makes them, and the standard
 // Huffman tables, no restart markers.
+//
+// Markers are read as jdmarker.c reads them (FF 00 skipped between markers,
+// unknown markers refused before their length, DHT and DQT lengths exact), and
+// what follows a single-scan file's scan only as jpeg_finish_decompress
+// reads it. JPEG-in-TIFF strips (qie_tiff_jpeg) are decoded as libtiff's
+// tif_jpeg.c decodes them.
 //
 // A plain C interface, loaded with ctypes by core/codec.py. Every entry point
 // returns a negative value and writes a message into `err` on failure.
@@ -52,9 +74,16 @@ struct CodecError : std::runtime_error {
   using std::runtime_error::runtime_error;
 };
 
+// a marker segment that runs past the data: where libjpeg would suspend
+struct DataEnd : CodecError {
+  using CodecError::CodecError;
+};
+
 // Pillow's DecompressionBombError limit (2 * Image.MAX_IMAGE_PIXELS), checked
 // before anything of the image is allocated (core/codec.py holds PNG to it).
 constexpr int64_t kMaxPixels = 178956970;
+// Pillow's ImageFile.MAXBLOCK: the bytes it hands a decoder a call
+constexpr size_t kPillowBlock = 65536;
 
 const int kNatural[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -273,12 +302,13 @@ void fdct_islow(int* d) {
 
 struct HuffTable {
   bool defined = false;
+  int max_val = 0;  // the largest symbol
   uint8_t bits[17] = {0};
   uint8_t vals[256] = {0};
   // decoding (jdhuff.c's maxcode/valoffset) and a 9-bit lookahead
   int32_t maxcode[18];
   int32_t valoffset[18];
-  uint16_t look[512];  // (length << 8) | value, 0 when the code is longer
+  uint16_t look[256];  // 8-bit lookahead: (length << 8) | value, 0 when the code is longer
   // encoding: code and length per symbol
   uint16_t ehufco[256];
   uint8_t ehufsi[256];
@@ -314,8 +344,8 @@ struct HuffTable {
     memset(look, 0, sizeof(look));
     for (int i = 0; i < n; i++) {
       int l = huffsize[i];
-      if (l > 9) continue;
-      int lo = huffcode[i] << (9 - l), cnt = 1 << (9 - l);
+      if (l > 8) continue;
+      int lo = huffcode[i] << (8 - l), cnt = 1 << (8 - l);
       for (int k = 0; k < cnt; k++) look[lo + k] = uint16_t((l << 8) | vals[i]);
     }
     memset(ehufsi, 0, sizeof(ehufsi));
@@ -383,9 +413,57 @@ struct Component {
   bool q_latched = false;
   int dc_pred = 0;
   // progressive: the successive-approximation bit each coefficient (zigzag
-  // order) was last sent to, -1 before its first scan (libjpeg's coef_bits)
+  // order) was last sent to, -1 before its first scan (libjpeg's coef_bits),
+  // and the same before the scan that last touched it (its prev_coef_bits)
   int coef_bits[64];
+  int prev_bits[64];
+  int dc_context = 0;  // arithmetic DC conditioning (jdarith.c dc_context)
+  // lossless: the undifferenced samples (bw_pad x bh_pad, one a block)
+  std::vector<uint16_t> samples;
+  int point_transform = 0;
 };
+
+// From p to the next marker (stuffed FF 00 pairs and other bytes skipped):
+// its code, p at its last FF; -1 when the data ends first.
+int next_marker_at(const uint8_t*& p, const uint8_t* end) {
+  for (;;) {
+    while (p < end && *p != 0xFF) p++;
+    const uint8_t* q = p;
+    while (q < end && *q == 0xFF) q++;
+    if (q >= end) return -1;
+    if (*q != 0x00) {
+      p = q - 1;
+      return *q;
+    }
+    p = q + 1;
+  }
+}
+
+// The restart marker due before the next interval: jdmarker.c
+// read_restart_marker with jpeg_resync_to_restart. The expected marker (or
+// one too far off to tell) is stepped over and 0 returned: the data resumes;
+// a marker of the next two intervals or a non-restart marker is left where it
+// is (p at its last FF) and 1 returned, so the interval reads as empty (zero
+// data); -1 when the data ends first.
+int find_restart(const uint8_t*& p, const uint8_t* end, int expected) {
+  int m = next_marker_at(p, end);
+  for (;;) {
+    if (m < 0) return -1;
+    int action;
+    if (m < 0xC0) action = 2;
+    else if (m < 0xD0 || m > 0xD7) action = 3;
+    else if (m == 0xD0 + ((expected + 1) & 7) || m == 0xD0 + ((expected + 2) & 7)) action = 3;
+    else if (m == 0xD0 + ((expected + 7) & 7) || m == 0xD0 + ((expected + 6) & 7)) action = 2;
+    else action = 1;
+    if (action == 1) {
+      p += 2;
+      return 0;
+    }
+    if (action == 3) return 1;
+    p += 2;
+    m = next_marker_at(p, end);
+  }
+}
 
 // The entropy-coded bits of a scan. At a marker the data stops and zero bits
 // are fed, as jdhuff.c's jpeg_fill_bit_buffer feeds them; a read that takes
@@ -445,80 +523,155 @@ struct BitReader {
     skip(n);
     return v;
   }
+  // jdhuff.h HUFF_DECODE: the bit buffer refilled (to 57 bits or a
+  // marker) only when fewer than 8 bits are left, an 8-bit lookahead, then
+  // jpeg_huff_decode a bit at a time, each refill again only when empty: the
+  // data runs out (hit_end) exactly where libjpeg's would suspend.
   int decode(const HuffTable& t) {
-    int look = peek(16) >> 7;
-    int e = t.look[look];
+    if (nbits < 8) fill();
+    int e = t.look[int(acc >> 56)];
     if (e) {
       skip(e >> 8);
       return e & 0xFF;
     }
-    int code = peek(16);
-    for (int l = 10; l <= 16; l++) {
-      int c = code >> (16 - l);
-      if (c <= t.maxcode[l]) {
-        skip(l);
-        return t.vals[(c + t.valoffset[l]) & 0xFF];
+    int code = get(9);
+    int l = 9;
+    while (code > t.maxcode[l]) {
+      code = (code << 1) | get(1);
+      if (++l > 16) {
+        // no code of up to 16 bits matches (garbage input): libjpeg warns,
+        // drops the 17 bits it read and takes the symbol as 0
+        return 0;
       }
     }
-    // jdhuff.c: no code of up to 16 bits matches (garbage input): libjpeg
-    // warns, drops the 17 bits it read and takes the symbol as 0
-    peek(17);
-    skip(17);
-    return 0;
+    return t.vals[(code + t.valoffset[l]) & 0xFF];
   }
-  // From p to the next marker (stuffed FF 00 pairs and other bytes skipped):
-  // its code, p at its last FF; -1 when the data ends first.
-  int next_marker() {
-    for (;;) {
-      while (p < end && *p != 0xFF) p++;
-      const uint8_t* q = p;
-      while (q < end && *q == 0xFF) q++;
-      if (q >= end) return -1;
-      if (*q != 0x00) {
-        p = q - 1;
-        return *q;
-      }
-      p = q + 1;
-    }
-  }
-  // The restart marker due before the next interval: jdhuff.c
-  // process_restart with jdmarker.c read_restart_marker and
-  // jpeg_resync_to_restart. The bits left are dropped; the expected marker
-  // (or one too far off to tell) is stepped over and the data resumes; a
-  // marker of the next two intervals or a non-restart marker is left where it
-  // is, so the interval reads as empty (zero blocks).
+  // The restart marker due before the next interval (find_restart).
   void restart(int expected) {
     acc = 0;
     nbits = zbits = 0;
-    int m = next_marker();
-    for (;;) {
-      if (m < 0) {
-        hit_end = true;
-        at_marker = true;
-        return;
-      }
-      int action;
-      if (m < 0xC0) action = 2;
-      else if (m < 0xD0 || m > 0xD7) action = 3;
-      else if (m == 0xD0 + ((expected + 1) & 7) || m == 0xD0 + ((expected + 2) & 7)) action = 3;
-      else if (m == 0xD0 + ((expected + 7) & 7) || m == 0xD0 + ((expected + 6) & 7)) action = 2;
-      else action = 1;
-      if (action == 1) {
-        p += 2;
-        at_marker = insufficient = false;
-        return;
-      }
-      if (action == 3) {
-        at_marker = true;
-        return;
-      }
-      p += 2;
-      m = next_marker();
-    }
+    int r = find_restart(p, end, expected);
+    hit_end = r < 0;
+    at_marker = r != 0;
+    if (r == 0) insufficient = false;
   }
 };
 
+std::string hex2(int v) {
+  const char* d = "0123456789ABCDEF";
+  return std::string{d[(v >> 4) & 15], d[v & 15]};
+}
+
 inline int extend(int v, int t) { return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v; }
+
+// Table D.2 of ITU T.81 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8
+// | Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed 0.5 estimate.
+const int32_t kAriTab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x80b0412, 0x3d80514, 0x1da0617, 0xe50719,
+    0x6f081c, 0x36091e, 0x1a0a21, 0xd0b23, 0x60c09, 0x30d0a, 0x10d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0xcef152b,
+    0x9a1162d, 0x72f172e, 0x55c1830, 0x4061931, 0x3031a33, 0x2401b34, 0x1b11c36,
+    0x1441d38, 0xf51e39, 0xb71f3b, 0x8a203c, 0x68213e, 0x4e223f, 0x3b2320,
+    0x2c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0xe742e4a, 0xbfb2f4b, 0x9f8304d, 0x861314e,
+    0x706324f, 0x5cd3330, 0x4de3432, 0x40f3532, 0x3633633, 0x2d43734, 0x25c3835,
+    0x1f83936, 0x1a43a37, 0x1603b38, 0x1253c39, 0xf63d3a, 0xcb3e3b, 0xab3f3d,
+    0x8f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0xf6b4d4a,
+    0xd514e4b, 0xbb64f4d, 0xa40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171,
+};
+
+// The QM decoder of jdarith.c (ITU T.81 D.2) over a scan's bytes. A marker
+// stops the data and zero bytes are fed from then on, as the standard has it;
+// the data ending without a marker sets hit_end. `end_read` is one past the
+// last byte the decoder took, for Pillow's buffer rule (Decoder::decode_scan).
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two initial bytes to fetch; -1: a fault, decode nothing more
+  bool at_marker = false;  // p at the marker's last FF
+  bool hit_end = false;
+  const uint8_t* end_read = nullptr;
+  uint8_t dc_stats[16][64];
+  uint8_t ac_stats[16][256];
+  uint8_t fixed_bin[4] = {113, 0, 0, 0};
+
+  void reset() {
+    c = a = 0;
+    ct = -16;
+  }
+  int byte() {
+    if (at_marker) return 0;
+    if (p >= end) {
+      hit_end = at_marker = true;
+      return 0;
+    }
+    int data = *p++;
+    if (data == 0xFF) {
+      const uint8_t* q = p;
+      while (q < end && *q == 0xFF) q++;
+      if (q >= end) {
+        p = q;
+        hit_end = at_marker = true;
+        return 0;
+      }
+      if (*q == 0) {
+        p = q + 1;
+      } else {
+        p = q - 1;
+        at_marker = true;
+        data = 0;
+        end_read = q + 1;
+        return data;
+      }
+    }
+    end_read = p;
+    return data;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;  // two initial bytes: A = 0x10000
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    uint8_t nl = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    uint8_t nm = uint8_t(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = uint8_t((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = uint8_t((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
 
 struct Decoder {
   const uint8_t* data;
@@ -528,6 +681,17 @@ struct Decoder {
   int max_h = 1, max_v = 1, mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
   bool sof_seen = false, jfif = false, adobe = false, progressive = false;
+  bool arith = false, lossless = false;
+  bool smooth = false;  // block smoothing at output (jdcoefct.c decompress_smooth_data)
+  // the colour space a caller imposes: 0 the markers', 1 none (components as
+  // they are), 2 YCbCr (libtiff's JPEGCOLORMODE_RGB)
+  int force_cs = 0;
+  int scans = 0;  // scans begun (libjpeg's input_scan_number)
+  // the last iMCU row whose decoding began with data left (libjpeg-turbo's
+  // last_good_iMCU_row): block smoothing trusts the last scan's bits up to it
+  int last_good_imcu = 0;
+  // DAC conditioning: L and U of each DC table, K of each AC table
+  uint8_t dac_l[16], dac_u[16], dac_k[16];
   int eobrun = 0;  // progressive AC scans: blocks left in the current EOB run
   int adobe_transform = -1;
   bool rgb = false;   // 3 components coded as RGB, not YCbCr
@@ -538,10 +702,14 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   HuffTable dc[4], ac[4];
 
-  Decoder(const uint8_t* d, size_t len) : data(d), n(len) {}
+  Decoder(const uint8_t* d, size_t len) : data(d), n(len) {
+    std::fill(dac_l, dac_l + 16, 0);
+    std::fill(dac_u, dac_u + 16, 1);
+    std::fill(dac_k, dac_k + 16, 5);
+  }
 
   int u8() {
-    if (pos >= n) throw CodecError("truncated JPEG: a header ends early");
+    if (pos >= n) throw DataEnd("truncated JPEG: a header ends early");
     return data[pos++];
   }
   int u16() {
@@ -549,19 +717,37 @@ struct Decoder {
     return (hi << 8) | u8();
   }
 
+  // jdmarker.c next_marker: bytes before a marker skipped, FF 00 too
   int next_marker() {
-    while (pos < n && data[pos] != 0xFF) pos++;  // garbage before a marker
-    while (pos < n && data[pos] == 0xFF) pos++;
-    if (pos >= n) return -1;
-    return data[pos++];
+    for (;;) {
+      while (pos < n && data[pos] != 0xFF) pos++;  // garbage before a marker
+      while (pos < n && data[pos] == 0xFF) pos++;
+      if (pos >= n) return -1;
+      int m = data[pos++];
+      if (m != 0) return m;
+    }
   }
 
   void unsupported_sof(int m) {
-    switch (m) {
-      case 0xC3: throw CodecError("unsupported JPEG: lossless JPEG (SOF3)");
-      case 0xC5: case 0xC6: case 0xC7:
-        throw CodecError("unsupported JPEG: hierarchical (differential) JPEG");
-      default: throw CodecError("unsupported JPEG: arithmetic-coded JPEG");
+    if (m == 0xCB) throw CodecError("unsupported JPEG: arithmetic-coded lossless JPEG (SOF11)");
+    throw CodecError("unsupported JPEG: hierarchical (differential) JPEG (SOF" +
+                     std::to_string(m - 0xC0) + ")");
+  }
+
+  // jdmarker.c get_dac: the arithmetic conditioning of each table
+  void parse_dac(int len) {
+    size_t end = pos + len - 2;
+    if ((len - 2) % 2) throw CodecError("corrupt JPEG: bad DAC length");
+    while (pos < end) {
+      int index = u8(), val = u8();
+      if (index >= 32) throw CodecError("corrupt JPEG: bad DAC table index");
+      if (index >= 16) {
+        dac_k[index - 16] = uint8_t(val);
+      } else {
+        dac_l[index] = uint8_t(val & 15);
+        dac_u[index] = uint8_t(val >> 4);
+        if (dac_l[index] > dac_u[index]) throw CodecError("corrupt JPEG: bad DAC value");
+      }
     }
   }
 
@@ -571,7 +757,9 @@ struct Decoder {
     height = u16();
     width = u16();
     ncomp = u8();
-    if (prec != 8) throw CodecError("unsupported JPEG: " + std::to_string(prec) + "-bit JPEG");
+    if (prec != 8)
+      throw CodecError("unsupported JPEG: " + std::to_string(prec) + "-bit " +
+                       (lossless ? "lossless " : "") + "JPEG");
     if (height == 0) throw CodecError("unsupported JPEG: height defined by DNL");
     if (width == 0) throw CodecError("corrupt JPEG: zero width");
     if (ncomp != 1 && ncomp != 3 && ncomp != 4)
@@ -583,7 +771,9 @@ struct Decoder {
       comp[i].h = hv >> 4;
       comp[i].v = hv & 15;
       comp[i].tq = u8();
-      if (comp[i].h < 1 || comp[i].h > 4 || comp[i].v < 1 || comp[i].v > 4 || comp[i].tq > 3)
+      // a lossless file has no quantization tables: its Tq is not read
+      if (comp[i].h < 1 || comp[i].h > 4 || comp[i].v < 1 || comp[i].v > 4 ||
+          (comp[i].tq > 3 && !lossless))
         throw CodecError("corrupt JPEG: bad component parameters");
     }
     if (ncomp == 1) comp[0].h = comp[0].v = 1;  // a lone component is never subsampled
@@ -601,8 +791,9 @@ struct Decoder {
     if (int64_t(width) * height > kMaxPixels)
       throw CodecError("unsupported JPEG: " + std::to_string(width) + "x" +
                        std::to_string(height) + " pixels exceed the decompression-bomb limit");
-    mcus_x = (width + 8 * max_h - 1) / (8 * max_h);
-    mcus_y = (height + 8 * max_v - 1) / (8 * max_v);
+    const int bs = lossless ? 1 : 8;  // block size: a sample in lossless JPEG
+    mcus_x = (width + bs * max_h - 1) / (bs * max_h);
+    mcus_y = (height + bs * max_v - 1) / (bs * max_v);
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];
       c.dw = int((int64_t(width) * c.h + max_h - 1) / max_h);
@@ -611,41 +802,55 @@ struct Decoder {
       c.bh = (c.dh + 7) / 8;
       c.bw_pad = mcus_x * c.h;
       c.bh_pad = mcus_y * c.v;
-      c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
+      if (lossless) {  // one sample a block: samples, not coefficients
+        c.bw = c.dw;
+        c.bh = c.dh;
+        c.samples.assign(size_t(c.bw_pad) * c.bh_pad, 0);
+      } else {
+        c.coef.assign(size_t(c.bw_pad) * c.bh_pad * 64, 0);
+      }
       std::fill(c.coef_bits, c.coef_bits + 64, -1);
+      std::fill(c.prev_bits, c.prev_bits + 64, -1);
     }
     sof_seen = true;
   }
 
+  // jdmarker.c get_dqt: whole tables, the segment's length exactly theirs
   void parse_dqt(int len) {
-    size_t end = pos + len - 2;
-    while (pos < end) {
+    long length = len - 2;
+    while (length > 0) {
       int pq = u8();
       int t = pq & 15, prec = pq >> 4;
       if (t > 3 || prec > 1) throw CodecError("corrupt JPEG: bad quantization table");
       for (int k = 0; k < 64; k++) qt[t][kNatural[k]] = uint16_t(prec ? u16() : u8());
       qt_defined[t] = true;
+      length -= 65 + (prec ? 64 : 0);
     }
+    if (length != 0) throw CodecError("corrupt JPEG: bad DQT length");
   }
 
+  // jdmarker.c get_dht: each table's symbols within the segment, which they
+  // fill exactly
   void parse_dht(int len) {
-    size_t end = pos + len - 2;
-    while (pos < end) {
+    long length = len - 2;
+    while (length > 16) {
       int tc = u8();
       int cls = tc >> 4, id = tc & 15;
       if (cls > 1 || id > 3) throw CodecError("corrupt JPEG: bad Huffman table");
       HuffTable t;
       int total = 0;
       for (int l = 1; l <= 16; l++) total += (t.bits[l] = uint8_t(u8()));
-      if (total > 256) throw CodecError("corrupt JPEG: bad Huffman table");
+      length -= 17;
+      if (total > 256 || total > length) throw CodecError("corrupt JPEG: bad Huffman table");
+      length -= total;
       for (int i = 0; i < total; i++) {
         t.vals[i] = uint8_t(u8());
-        // jdhuff.c jpeg_make_d_derived_tbl: a DC symbol is a bit count, 0..15
-        if (cls == 0 && t.vals[i] > 15) throw CodecError("corrupt JPEG: bad Huffman table");
+        t.max_val = std::max<int>(t.max_val, t.vals[i]);
       }
       t.build();
       (cls ? ac : dc)[id] = t;
     }
+    if (length != 0) throw CodecError("corrupt JPEG: bad DHT length");
   }
 
   void parse_app(int m, int len) {
@@ -664,15 +869,26 @@ struct Decoder {
 
   // jdapimin.c default_decompress_parms: the colour space of the file
   void check_colorspace() {
+    if (force_cs) {
+      if (ncomp == 4) throw CodecError("unsupported JPEG: 4 components in a JPEG-in-TIFF strip");
+      rgb = force_cs == 1;
+      return;
+    }
     if (ncomp == 3) {
       rgb = false;
       if (!jfif) {
         if (adobe) rgb = adobe_transform == 0;
-        else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+        // libjpeg-turbo 3 takes a lossless file without markers as RGB
+        else rgb = lossless || (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
       }
     } else if (ncomp == 4) {
       ycck = adobe && adobe_transform != 0;
     }
+    // jdcolor.c: libjpeg-turbo converts no colour space in lossless mode
+    if (lossless && (ycck || (ncomp == 3 && !rgb)))
+      throw CodecError(std::string("unsupported JPEG: a lossless JPEG coded as ") +
+                       (ycck ? "YCCK" : "YCbCr") + " (libjpeg-turbo converts no colour "
+                       "space in lossless mode)");
   }
 
   int16_t* block(Component& c, int bx, int by) {
@@ -817,40 +1033,81 @@ struct Decoder {
       for (int k = 0; k < ncomp; k++)
         if (comp[k].id == id) c = &comp[k];
       if (!c) throw CodecError("corrupt JPEG: scan names an unknown component");
+      for (int k = 0; k < i; k++)
+        if (sc[k] == c) throw CodecError("corrupt JPEG: a scan names a component twice");
       c->td = t >> 4;
       c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3) throw CodecError("corrupt JPEG: bad scan header");
-      if (!c->q_latched) {
+      if (!c->q_latched && !lossless) {
         if (!qt_defined[c->tq]) throw CodecError("corrupt JPEG: undefined quantization table");
         memcpy(c->q, qt[c->tq], sizeof(c->q));
         c->q_latched = true;
       }
       c->dc_pred = 0;
+      c->dc_context = 0;
       sc[i] = c;
+    }
+    if (ns > 1) {  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+      int blocks = 0;
+      for (int i = 0; i < ns; i++) blocks += sc[i]->h * sc[i]->v;
+      if (blocks > 10) throw CodecError("corrupt JPEG: " + std::to_string(blocks) +
+                                        " blocks in an MCU (libjpeg takes 10)");
     }
     int ss = u8(), se = u8(), a = u8();
     int ah = a >> 4, al = a & 15;
+    scans++;
+    if (lossless) {
+      // jdlossls.c: Ss is the predictor, Al the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+        throw CodecError("corrupt JPEG: bad lossless scan parameters Ss=" + std::to_string(ss) +
+                         " Se=" + std::to_string(se) + " Ah=" + std::to_string(ah) +
+                         " Al=" + std::to_string(al));
+      for (int i = 0; i < ns; i++)
+        if (sc[i]->td > 3 || !dc[sc[i]->td].defined || dc[sc[i]->td].max_val > 16)
+          throw CodecError(sc[i]->td <= 3 && dc[sc[i]->td].defined ? "corrupt JPEG: bad Huffman table"
+                                                 : "corrupt JPEG: scan uses an undefined Huffman table");
+      decode_lossless_scan(sc, ns, ss, al);
+      return;
+    }
     // which tables the scan reads (jdhuff.c / jdphuff.c start_pass)
     bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss > 0;
     if (progressive) {
-      // jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+      // jdphuff.c / jdarith.c start_pass's JERR_BAD_PROGRESSION
       bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
       if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
       if (bad)
         throw CodecError("corrupt JPEG: bad progression parameters Ss=" + std::to_string(ss) +
                          " Se=" + std::to_string(se) + " Ah=" + std::to_string(ah) +
                          " Al=" + std::to_string(al));
-      for (int i = 0; i < ns; i++)
-        for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
-    } else if (ss != 0 || se != 63 || a != 0) {
-      throw CodecError("unsupported JPEG: spectral selection or successive approximation "
-                       "in a sequential scan");
+      for (int i = 0; i < ns; i++) {
+        Component& c = *sc[i];
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+          c.prev_bits[k] = scans > 1 ? c.coef_bits[k] : 0;
+        for (int k = ss; k <= se; k++) c.coef_bits[k] = al;
+      }
     }
-    for (int i = 0; i < ns; i++)
-      if ((need_dc && !dc[sc[i]->td].defined) || (need_ac && !ac[sc[i]->ta].defined))
-        throw CodecError("corrupt JPEG: scan uses an undefined Huffman table");
+    // a sequential scan's Ss, Se, Ah and Al are libjpeg's JWRN_NOT_SEQUENTIAL
+    // warning only: the whole block is decoded all the same
+    if (!arith)
+      for (int i = 0; i < ns; i++) {
+        // four Huffman tables (sixteen arithmetic ones): a scan names only
+        // those it reads, as jdhuff.c / jdphuff.c build them
+        if ((need_dc && sc[i]->td > 3) || (need_ac && sc[i]->ta > 3))
+          throw CodecError("corrupt JPEG: bad scan header");
+        if ((need_dc && !dc[sc[i]->td].defined) || (need_ac && !ac[sc[i]->ta].defined))
+          throw CodecError("corrupt JPEG: scan uses an undefined Huffman table");
+        // jdhuff.c jpeg_make_d_derived_tbl: a DC symbol is a bit count, 0..15
+        if (need_dc && dc[sc[i]->td].max_val > 15)
+          throw CodecError("corrupt JPEG: bad Huffman table");
+      }
     eobrun = 0;
     BitReader br{data + pos, data + n};
+    ArithReader ar{data + pos, data + n};
+    if (arith) {
+      for (int i = 0; i < ns; i++) {
+        if (need_dc) memset(ar.dc_stats[sc[i]->td], 0, 64);
+        if (need_ac) memset(ar.ac_stats[sc[i]->ta], 0, 256);
+      }
+    }
     int units_x, units_y;
     if (ns == 1) {
       units_x = sc[0]->bw;
@@ -864,18 +1121,40 @@ struct Decoder {
     for (int uy = 0; uy < units_y; uy++) {
       for (int ux = 0; ux < units_x; ux++) {
         if (restart_interval && done > 0 && done % restart_interval == 0) {
-          br.restart(rst);
+          if (arith) {
+            // jdarith.c process_restart: the statistics and predictions reset
+            int r = find_restart(ar.p, ar.end, rst);
+            ar.hit_end = r < 0;
+            ar.at_marker = r != 0;
+            if (r < 0) break;
+            for (int i = 0; i < ns; i++) {
+              if (need_dc) memset(ar.dc_stats[sc[i]->td], 0, 64);
+              if (need_ac) memset(ar.ac_stats[sc[i]->ta], 0, 256);
+            }
+            ar.reset();
+          } else {
+            br.restart(rst);
+          }
           rst = (rst + 1) & 7;
-          for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+          for (int i = 0; i < ns; i++) sc[i]->dc_pred = sc[i]->dc_context = 0;
           eobrun = 0;
         }
         auto unit = [&](Component& c, int bx, int by) {
-          if (!progressive) decode_block(br, c, bx, by);
+          if (arith) {
+            if (ar.ct == -1) return;  // jdarith.c: after a fault nothing more is decoded
+            if (!progressive) arith_block(ar, c, bx, by);
+            else if (ss == 0 && ah == 0) arith_dc_first(ar, c, bx, by, al);
+            else if (ss == 0) {
+              if (ar.decode(ar.fixed_bin)) block(c, bx, by)[0] |= int16_t(1 << al);
+            } else if (ah == 0) arith_ac_first(ar, c, bx, by, ss, se, al);
+            else arith_ac_refine(ar, c, bx, by, ss, se, al);
+          } else if (!progressive) decode_block(br, c, bx, by);
           else if (ss == 0 && ah == 0) dc_first(br, c, bx, by, al);
           else if (ss == 0) dc_refine(br, c, bx, by, al);
           else if (ah == 0) ac_first(br, c, bx, by, ss, se, al);
           else ac_refine(br, c, bx, by, ss, se, al);
         };
+        if (!br.insufficient) last_good_imcu = ns == 1 ? uy / sc[0]->v : uy;
         if (br.insufficient) {
           // jdhuff.c / jdphuff.c decode_mcu: out of data, the MCU is left as
           // it is (zero in a sequential file)
@@ -889,17 +1168,308 @@ struct Decoder {
           }
         }
         done++;
+        if (ar.hit_end) break;
       }
       // the data ran out: no zero-fed rows after that (Pillow stops too)
-      if (br.hit_end) break;
+      if (br.hit_end || ar.hit_end) break;
     }
-    if (br.hit_end) throw CodecError("truncated JPEG: the entropy-coded data ends early");
-    // resume marker parsing where the entropy-coded data ends
-    const uint8_t* p = br.p;
+    if (br.hit_end || ar.hit_end)
+      throw CodecError("truncated JPEG: the entropy-coded data ends early");
+    if (arith && !force_cs) {
+      // jdarith.c cannot suspend: Pillow hands libjpeg the file 64 KiB at a
+      // time (ImageFile.MAXBLOCK), so an arithmetic scan whose data runs past
+      // the block its header ended in breaks the decode there (libtiff hands
+      // it a whole strip)
+      size_t block_end = ((pos - 1) / kPillowBlock + 1) * kPillowBlock;
+      if (ar.end_read && size_t(ar.end_read - data) > block_end)
+        throw CodecError("unsupported JPEG: an arithmetic-coded scan that crosses a 64 KiB "
+                         "boundary of the file (Pillow's read block: libjpeg's arithmetic "
+                         "decoder cannot wait for more data)");
+    }
+    resume_after(arith ? ar.p : br.p);
+  }
+
+  // Marker parsing resumes where a scan's entropy-coded data ends: at the
+  // next marker that is not a restart.
+  void resume_after(const uint8_t* p) {
     while (p + 1 < data + n && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF &&
                                  !(p[1] >= 0xD0 && p[1] <= 0xD7)))
       p++;
     pos = size_t(p - data);
+  }
+
+  // jdarith.c: the DC difference of one block (F.1.4.4.1), added to the
+  // component's prediction (kept to 16 bits, as libjpeg keeps it)
+  void arith_dc_diff(ArithReader& ar, Component& c) {
+    uint8_t* stats = ar.dc_stats[c.td];
+    uint8_t* st = stats + c.dc_context;
+    if (ar.decode(st) == 0) {
+      c.dc_context = 0;
+      return;
+    }
+    int sign = ar.decode(st + 1);
+    st += 2 + sign;
+    int m = ar.decode(st);
+    if (m != 0) {
+      st = stats + 20;
+      while (ar.decode(st)) {
+        if ((m <<= 1) == 0x8000) {
+          ar.ct = -1;  // magnitude overflow: libjpeg's warning, nothing more decoded
+          return;
+        }
+        st++;
+      }
+    }
+    if (m < int((1L << dac_l[c.td]) >> 1)) c.dc_context = 0;
+    else if (m > int((1L << dac_u[c.td]) >> 1)) c.dc_context = 12 + sign * 4;
+    else c.dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+      if (ar.decode(st)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+  }
+
+  // jdarith.c's AC band ss..se of one block (F.1.4.4.2): coefficient k's
+  // value, shifted left by al; false after a fault (ct = -1)
+  bool arith_ac_band(ArithReader& ar, Component& c, int16_t* blk, int ss, int se, int al) {
+    uint8_t* stats = ar.ac_stats[c.ta];
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (ar.decode(st)) break;  // EOB
+      while (ar.decode(st + 1) == 0) {
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return false;
+        }
+      }
+      int sign = ar.decode(ar.fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m != 0 && ar.decode(st)) {
+        m <<= 1;
+        st = stats + (k <= dac_k[c.ta] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;  // magnitude overflow
+            return false;
+          }
+          st++;
+        }
+      }
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      blk[kNatural[k]] = int16_t(int(unsigned(v) << al));
+    }
+    return true;
+  }
+
+  // jdarith.c decode_mcu: one block of a sequential scan
+  void arith_block(ArithReader& ar, Component& c, int bx, int by) {
+    int16_t* blk = block(c, bx, by);
+    arith_dc_diff(ar, c);
+    if (ar.ct == -1) return;
+    blk[0] = int16_t(c.dc_pred);
+    arith_ac_band(ar, c, blk, 1, 63, 0);
+  }
+
+  // decode_mcu_DC_first
+  void arith_dc_first(ArithReader& ar, Component& c, int bx, int by, int al) {
+    arith_dc_diff(ar, c);
+    if (ar.ct == -1) return;
+    block(c, bx, by)[0] = int16_t(int(unsigned(c.dc_pred) << al));
+  }
+
+  // decode_mcu_AC_first
+  void arith_ac_first(ArithReader& ar, Component& c, int bx, int by, int ss, int se, int al) {
+    arith_ac_band(ar, c, block(c, bx, by), ss, se, al);
+  }
+
+  // decode_mcu_AC_refine: past the band's last nonzero coefficient an EOB
+  // flag first; a correction bit for each nonzero one, else whether it
+  // becomes +-1 << al
+  void arith_ac_refine(ArithReader& ar, Component& c, int bx, int by, int ss, int se, int al) {
+    int16_t* blk = block(c, bx, by);
+    uint8_t* stats = ar.ac_stats[c.ta];
+    const int p1 = 1 << al, m1 = -(1 << al);
+    int kex = se;
+    for (; kex > 0; kex--)
+      if (blk[kNatural[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+      uint8_t* st = stats + 3 * (k - 1);
+      if (k > kex && ar.decode(st)) break;  // EOB
+      for (;;) {
+        int16_t* coef = blk + kNatural[k];
+        if (*coef) {
+          if (ar.decode(st + 2)) *coef = int16_t(*coef + (*coef < 0 ? m1 : p1));
+          break;
+        }
+        if (ar.decode(st + 1)) {
+          *coef = int16_t(ar.decode(ar.fixed_bin) ? m1 : p1);
+          break;
+        }
+        st += 3;
+        if (++k > se) {
+          ar.ct = -1;  // spectral overflow
+          return;
+        }
+      }
+    }
+  }
+
+  // A lossless scan (jdlhuff.c decode_mcus, jddiffct.c, jdlossls.c): each
+  // sample's Huffman-coded difference from its predictor, undifferenced row
+  // by row of each component; the first row of the scan and of each restart
+  // interval predicted from the left (its first sample from 1 << (7 - al)),
+  // every first column from above. Restart intervals are whole MCU rows.
+  void decode_lossless_scan(Component** sc, int ns, int psv, int al) {
+    int units_x = ns == 1 ? sc[0]->bw : mcus_x, units_y = ns == 1 ? sc[0]->bh : mcus_y;
+    if (restart_interval % units_x)
+      throw CodecError("corrupt JPEG: restart interval " + std::to_string(restart_interval) +
+                       " is not a whole number of MCU rows (" + std::to_string(units_x) + ")");
+    int rows_per_restart = restart_interval / units_x;
+    BitReader br{data + pos, data + n};
+    std::vector<int> diff[4];
+    for (int i = 0; i < ns; i++) {
+      int h = ns == 1 ? 1 : sc[i]->h, v = ns == 1 ? 1 : sc[i]->v;
+      diff[i].assign(size_t(units_x) * h * v, 0);
+    }
+    bool first_row[4] = {true, true, true, true};
+    int rst = 0;
+    for (int uy = 0; uy < units_y; uy++) {
+      if (rows_per_restart && uy > 0 && uy % rows_per_restart == 0) {
+        br.restart(rst);
+        rst = (rst + 1) & 7;
+        std::fill(first_row, first_row + 4, true);
+        if (br.hit_end) break;
+      }
+      bool zero = br.insufficient;  // out of data: zero differences, predictor reset
+      if (zero) std::fill(first_row, first_row + 4, true);
+      for (int ux = 0; ux < units_x; ux++) {
+        for (int i = 0; i < ns; i++) {
+          int h = ns == 1 ? 1 : sc[i]->h, v = ns == 1 ? 1 : sc[i]->v;
+          for (int y = 0; y < v; y++)
+            for (int x = 0; x < h; x++) {
+              int d = 0;
+              if (!zero) {
+                int s = br.decode(dc[sc[i]->td]);
+                if (s == 16) d = 32768;
+                else if (s) d = extend(br.get(s), s);
+              }
+              diff[i][size_t(y) * units_x * h + ux * h + x] = d;
+            }
+        }
+      }
+      if (br.hit_end) break;
+      for (int i = 0; i < ns; i++) {
+        Component& c = *sc[i];
+        int v = ns == 1 ? 1 : c.v, stride = units_x * (ns == 1 ? 1 : c.h);
+        int w = c.dw;
+        for (int y = 0; y < v; y++) {
+          int row = uy * v + y;
+          if (row >= c.dh) break;
+          const int* d = diff[i].data() + size_t(y) * stride;
+          uint16_t* out = c.samples.data() + size_t(row) * c.bw_pad;
+          if (first_row[i]) {
+            int ra = (d[0] + (1 << (7 - al))) & 0xFFFF;
+            out[0] = uint16_t(ra);
+            for (int x = 1; x < w; x++) out[x] = uint16_t(ra = (d[x] + ra) & 0xFFFF);
+            first_row[i] = false;
+            continue;
+          }
+          const uint16_t* up = out - c.bw_pad;
+          int ra = (d[0] + up[0]) & 0xFFFF;
+          out[0] = uint16_t(ra);
+          for (int x = 1; x < w; x++) {
+            int rb = up[x], rc = up[x - 1], pred;
+            switch (psv) {
+              case 1: pred = ra; break;
+              case 2: pred = rb; break;
+              case 3: pred = rc; break;
+              case 4: pred = ra + rb - rc; break;
+              case 5: pred = ra + ((rb - rc) >> 1); break;
+              case 6: pred = rb + ((ra - rc) >> 1); break;
+              default: pred = (ra + rb) >> 1; break;
+            }
+            out[x] = uint16_t(ra = (d[x] + pred) & 0xFFFF);
+          }
+        }
+      }
+    }
+    if (br.hit_end) throw CodecError("truncated JPEG: the entropy-coded data ends early");
+    for (int i = 0; i < ns; i++) sc[i]->point_transform = al;
+    resume_after(br.p);
+  }
+
+  // A marker after a single-scan file's scan, as jpeg_finish_decompress
+  // reads it: false where libjpeg would wait for more data.
+  bool after_scan(int m) {
+    int len = u16();
+    if (len < 2) throw CodecError("corrupt JPEG: bad marker segment length");
+    switch (m) {
+      case 0xC4: parse_dht(len); return true;
+      case 0xDB: parse_dqt(len); return true;
+      case 0xCC: parse_dac(len); return true;
+      case 0xDD:
+        if (len != 4) throw CodecError("corrupt JPEG: bad DRI");
+        restart_interval = u16();
+        return true;
+      case 0xDA: {  // jdmarker.c get_sos, then consume_markers' JERR_EOI_EXPECTED
+        int ns = u8();
+        if (len != 6 + 2 * ns || ns < 1 || ns > 4) throw CodecError("corrupt JPEG: bad scan header");
+        for (int i = 0; i < ns; i++) {
+          int id = u8();
+          u8();
+          bool found = false;
+          for (int k = 0; k < ncomp; k++) found |= comp[k].id == id;
+          if (!found) throw CodecError("corrupt JPEG: scan names an unknown component");
+        }
+        u8();
+        u8();
+        u8();
+        throw CodecError("corrupt JPEG: a second scan in a single-scan file");
+      }
+      default:  // APPn, COM, DNL: skipped
+        if (pos + len - 2 > n) return false;
+        if (m >= 0xE0 && m <= 0xEF) parse_app(m, len);
+        else pos += len - 2;
+        return true;
+    }
+  }
+
+  // An abbreviated table-only stream (a TIFF's JPEGTables), read before the
+  // image stream as libjpeg reads it with jpeg_read_header(FALSE): its
+  // tables are kept for the image; a frame or a scan in it is refused.
+  void load_tables(const uint8_t* t, size_t tn) {
+    const uint8_t* img = data;
+    size_t img_n = n;
+    data = t;
+    n = tn;
+    pos = 2;
+    if (tn < 2 || t[0] != 0xFF || t[1] != 0xD8) throw CodecError("corrupt TIFF: JPEGTables without SOI");
+    for (;;) {
+      int m = next_marker();
+      if (m < 0 || m == 0xD9) break;
+      if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      int len = u16();
+      if (len < 2) throw CodecError("corrupt TIFF: a bad JPEGTables segment");
+      if (m == 0xC4) parse_dht(len);
+      else if (m == 0xDB) parse_dqt(len);
+      else if (m == 0xCC) parse_dac(len);
+      else if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDD) pos = std::min(n, pos + len - 2);
+      else throw CodecError("corrupt TIFF: JPEGTables holds marker 0x" + hex2(m) +
+                            " (libtiff's \"Bogus JPEGTables field\")");
+    }
+    data = img;
+    n = img_n;
+    pos = 0;
   }
 
   // Markers up to the end of the image, decoding each scan; headers_only
@@ -907,61 +1477,118 @@ struct Decoder {
   void parse(bool headers_only = false) {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) throw CodecError("not a JPEG file");
     pos = 2;
+    // jdmarker.c get_soi: the restart interval and the arithmetic
+    // conditioning go back to their defaults (tables stay)
+    restart_interval = 0;
+    std::fill(dac_l, dac_l + 16, 0);
+    std::fill(dac_u, dac_u + 16, 1);
+    std::fill(dac_k, dac_k + 16, 5);
     bool scanned = false;
+    // a single-scan file's pixels are made as its scan is read: libjpeg reads
+    // what follows the scan only in jpeg_finish_decompress, where Pillow lets
+    // data that runs out pass (an error still raises). A file of several
+    // scans (progressive, or one component a scan) is read to its EOI first.
+    bool tail = false, break_out = false;
     for (;;) {
+      if (break_out) break;
       int m = next_marker();
       if (m < 0) {
-        // no EOI after the scans: libjpeg accepts it in a sequential file,
-        // whose pixels are made as its one scan is read; Pillow reports a
-        // progressive file without it as truncated
-        if (scanned && !progressive) break;
-        throw CodecError(scanned ? "truncated JPEG: the progressive scans end without EOI"
+        if (tail) break;
+        throw CodecError(scanned ? "truncated JPEG: the scans end without EOI"
                                  : "truncated JPEG: no scan");
       }
       if (m == 0xD9) break;
       if (m == 0x01 || (m >= 0xD0 && m <= 0xD7)) continue;
+      // jdmarker.c read_markers: what it refuses before reading a length
+      bool known = (m >= 0xC0 && m <= 0xCF) || (m >= 0xDA && m <= 0xDD) ||
+                   (m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xD8;
+      if (!known) throw CodecError("corrupt JPEG: unknown marker 0x" + hex2(m));
+      if (m == 0xD8) throw CodecError("corrupt JPEG: a second SOI marker");
+      if (m == 0xC8) throw CodecError("unsupported JPEG: the JPG extension marker (SOF8)");
+      if (m == 0xC5 || m == 0xC6 || m == 0xC7 || m == 0xCB || (m >= 0xCD && m <= 0xCF))
+        unsupported_sof(m);
+      bool sof = m >= 0xC0 && m <= 0xCA && m != 0xC4 && m != 0xC8;
+      if (sof && sof_seen) throw CodecError("corrupt JPEG: two frame headers");
+      if (tail) {
+        // libjpeg reads these segments a byte at a time: an error in the
+        // bytes there are raises, a segment that runs past them suspends
+        try {
+          if (!after_scan(m)) break;
+        } catch (const DataEnd&) {
+          break;
+        }
+        continue;
+      }
       int len = u16();
       if (len < 2 || pos + len - 2 > n) throw CodecError("truncated JPEG: a marker segment ends early");
       switch (m) {
-        case 0xC0: case 0xC1: parse_sof(len); break;
-        case 0xC2:
-          progressive = true;
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
+          // baseline, extended, progressive and lossless Huffman; sequential
+          // and progressive arithmetic
+          progressive = m == 0xC2 || m == 0xCA;
+          lossless = m == 0xC3;
+          arith = m >= 0xC9;
           parse_sof(len);
           break;
-        case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC9: case 0xCA:
-        case 0xCB: case 0xCD: case 0xCE: case 0xCF: unsupported_sof(m); break;
-        case 0xCC: throw CodecError("unsupported JPEG: arithmetic-coded JPEG");
+        case 0xCC: parse_dac(len); break;
         case 0xC4: parse_dht(len); break;
         case 0xDB: parse_dqt(len); break;
         case 0xDD:
           if (len != 4) throw CodecError("corrupt JPEG: bad DRI");
           restart_interval = u16();
           break;
-        case 0xDC: throw CodecError("unsupported JPEG: DNL marker");
+        case 0xDC: pos += len - 2; break;  // DNL: skipped once the frame has a height
         case 0xDA:
-          if (!scanned) check_colorspace();
+          if (!scanned) {
+            check_colorspace();
+          }
+          if (!scanned && !progressive && !lossless && !arith) {
+            // libjpeg-turbo's std_huff_tables (jinit_huff_decoder, sequential
+            // Huffman only): tables 0 and 1 not yet defined take Annex K's
+            // (Motion JPEG)
+            if (!dc[0].defined) dc[0] = std_table(kDcLumBits, kDcVals, 12);
+            if (!dc[1].defined) dc[1] = std_table(kDcChromBits, kDcVals, 12);
+            if (!ac[0].defined) ac[0] = std_table(kAcLumBits, kAcLumVals, 162);
+            if (!ac[1].defined) ac[1] = std_table(kAcChromBits, kAcChromVals, 162);
+          }
           if (headers_only) {
             if (!sof_seen) throw CodecError("corrupt JPEG: scan before frame header");
             return;
           }
-          decode_scan(len);
+          {
+            size_t sos = pos;
+            bool whole = !progressive && data[sos] == ncomp;  // all components in one scan
+            decode_scan(len);
+            tail = !scanned && whole;
+            // libtiff ignores what follows a strip's single scan: its
+            // jpeg_finish_decompress errors read as success
+            if (tail && force_cs) break_out = true;
+          }
           scanned = true;
           break;
         default:
           if (m >= 0xE0 && m <= 0xEF) parse_app(m, len);
-          else pos += len - 2;
+          else pos += len - 2;  // COM
       }
     }
     if (!scanned) throw CodecError("truncated JPEG: no scan");
-    if (progressive && smoothing_ok())
-      throw CodecError("unsupported JPEG: progressive scans that leave low-frequency "
-                       "coefficients short of their last bit (libjpeg block-smooths them)");
+    smooth = progressive && smoothing_ok();
   }
 
-  // IDCT of component c into a plane of bw_pad*8 x bh_pad*8 samples.
+  // IDCT of component c into a plane of bw_pad*8 x bh_pad*8 samples (or its
+  // lossless samples, bw_pad x bh_pad, shifted left by the point transform).
   std::vector<uint8_t> plane(const Component& c) const {
+    if (lossless) {
+      std::vector<uint8_t> out(c.samples.size());
+      for (size_t i = 0; i < out.size(); i++) out[i] = uint8_t(c.samples[i] << c.point_transform);
+      return out;
+    }
     int stride = c.bw_pad * 8;
     std::vector<uint8_t> out(size_t(stride) * c.bh_pad * 8);
+    if (smooth) {
+      smoothed_plane(c, out.data(), stride);
+      return out;
+    }
     for (int by = 0; by < c.bh; by++)
       for (int bx = 0; bx < c.bw; bx++)
         idct_islow(c.coef.data() + (size_t(by) * c.bw_pad + bx) * 64, c.q,
@@ -969,11 +1596,148 @@ struct Decoder {
     return out;
   }
 
+  // jdcoefct.c decompress_smooth_data (libjpeg-turbo 2.1+): before its IDCT
+  // each block's first nine AC coefficients that are still zero and not
+  // known exactly are estimated from the DC values of the 5x5 blocks around
+  // it (ITU T.81 K.8 on a wider window); with no AC data at all, the DC too
+  // is smoothed. The rows and columns past the image repeat its edge, in the
+  // block rows the way libjpeg counts them within an iMCU row.
+  void smoothed_plane(const Component& c, uint8_t* out, int stride) const {
+    // rows past the last good iMCU row take the bits from before the last
+    // scan (its "prev" latch: -1 after a single scan)
+    int prev[10];
+    for (int k = 0; k < 10; k++) prev[k] = scans > 1 ? c.prev_bits[k] : -1;
+    const int v = c.v, total = mcus_y;  // iMCU rows
+    const int* bits = c.coef_bits;
+    bool change_dc = true;
+    const int64_t Q00 = c.q[0], Q01 = c.q[1], Q10 = c.q[8], Q20 = c.q[16], Q11 = c.q[9],
+                  Q02 = c.q[2];
+    int64_t Q03 = 0, Q12 = 0, Q21 = 0, Q30 = 0;
+    int latched = -1;  // which bits the Q0x above were set for
+    auto dc = [&](int by, int bx) { return int(c.coef[(size_t(by) * c.bw_pad + bx) * 64]); };
+    auto estimate = [](int64_t num, int64_t q, int al) {
+      int pred;
+      if (num >= 0) {
+        pred = int(((q << 7) + num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      } else {
+        pred = int(((q << 7) - num) / (q << 8));
+        if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+        pred = -pred;
+      }
+      return pred;
+    };
+    const int last_col = c.bw - 1;
+    int16_t ws[64];
+    for (int by = 0; by < c.bh; by++) {
+      int imcu = by / v, br = by % v;
+      int which = imcu > last_good_imcu ? 1 : 0;
+      if (which != latched) {
+        latched = which;
+        bits = which ? prev : c.coef_bits;
+        change_dc = true;
+        for (int k = 1; k < 10; k++)
+          if (bits[k] != -1) change_dc = false;
+        Q03 = change_dc ? c.q[3] : 0;
+        Q12 = change_dc ? c.q[10] : 0;
+        Q21 = change_dc ? c.q[17] : 0;
+        Q30 = change_dc ? c.q[24] : 0;
+      }
+      int rows = v;
+      if (imcu == total - 1) {
+        rows = c.bh % v;
+        if (rows == 0) rows = v;
+      }
+      int ibr = imcu * rows + br, ibrs = rows * total;
+      int r0 = by, rp = ibr > 0 ? by - 1 : r0, rpp = ibr > 1 ? by - 2 : rp;
+      int rn = ibr < ibrs - 1 ? by + 1 : r0, rnn = ibr < ibrs - 2 ? by + 2 : rn;
+      const int rr[5] = {rpp, rp, r0, rn, rnn};
+      int DC[26];  // DC[1..25]: the 5x5 window, row by row
+      for (int r = 0; r < 5; r++)
+        for (int k = 1; k <= 5; k++) DC[r * 5 + k] = dc(rr[r], 0);
+      for (int bx = 0; bx <= last_col; bx++) {
+        memcpy(ws, c.coef.data() + (size_t(by) * c.bw_pad + bx) * 64, sizeof(ws));
+        if (bx == 0 && bx < last_col)
+          for (int r = 0; r < 5; r++) DC[r * 5 + 4] = DC[r * 5 + 5] = dc(rr[r], 1);
+        if (bx + 1 < last_col)
+          for (int r = 0; r < 5; r++) DC[r * 5 + 5] = dc(rr[r], bx + 2);
+        const int *d = DC;
+        int al;
+        if ((al = bits[1]) != 0 && ws[1] == 0) {
+          int64_t num = Q00 * (change_dc ?
+              (-d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] + 3 * d[10] -
+               3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] - 3 * d[16] + 13 * d[17] -
+               13 * d[19] + 3 * d[20] - d[21] - d[22] + d[24] + d[25]) :
+              (-7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]));
+          ws[1] = int16_t(estimate(num, Q01, al));
+        }
+        if ((al = bits[2]) != 0 && ws[8] == 0) {
+          int64_t num = Q00 * (change_dc ?
+              (-d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7] + 38 * d[8] +
+               13 * d[9] - d[10] + d[16] - 13 * d[17] - 38 * d[18] - 13 * d[19] + d[20] +
+               d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] + d[25]) :
+              (-7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]));
+          ws[8] = int16_t(estimate(num, Q10, al));
+        }
+        if ((al = bits[3]) != 0 && ws[16] == 0) {
+          int64_t num = Q00 * (change_dc ?
+              (d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] - 5 * d[14] +
+               2 * d[17] + 7 * d[18] + 2 * d[19] + d[23]) :
+              (-d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]));
+          ws[16] = int16_t(estimate(num, Q20, al));
+        }
+        if ((al = bits[4]) != 0 && ws[9] == 0) {
+          int64_t num = Q00 * (change_dc ?
+              (-d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21] - d[25]) :
+              (d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] - d[24] + d[4] -
+               d[6] + 10 * d[7] - 10 * d[9]));
+          ws[9] = int16_t(estimate(num, Q11, al));
+        }
+        if ((al = bits[5]) != 0 && ws[2] == 0) {
+          int64_t num = Q00 * (change_dc ?
+              (2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] + 7 * d[14] +
+               d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19]) :
+              (-d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]));
+          ws[2] = int16_t(estimate(num, Q02, al));
+        }
+        if (change_dc) {
+          if ((al = bits[6]) != 0 && ws[3] == 0) {
+            int64_t num = Q00 * (d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+            ws[3] = int16_t(estimate(num, Q03, al));
+          }
+          if ((al = bits[7]) != 0 && ws[10] == 0) {
+            int64_t num = Q00 * (d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+            ws[10] = int16_t(estimate(num, Q12, al));
+          }
+          if ((al = bits[8]) != 0 && ws[17] == 0) {
+            int64_t num = Q00 * (d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+            ws[17] = int16_t(estimate(num, Q21, al));
+          }
+          if ((al = bits[9]) != 0 && ws[24] == 0) {
+            int64_t num = Q00 * (d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+            ws[24] = int16_t(estimate(num, Q30, al));
+          }
+          int64_t num = Q00 *
+              (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] + 6 * d[7] +
+               42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] + 152 * d[13] +
+               42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+               6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]);
+          int pred = num >= 0 ? int(((Q00 << 7) + num) / (Q00 << 8))
+                              : -int(((Q00 << 7) - num) / (Q00 << 8));
+          ws[0] = int16_t(pred);
+        }
+        idct_islow(ws, c.q, out + size_t(by) * 8 * stride + bx * 8, stride);
+        for (int r = 0; r < 5; r++)
+          for (int k = 1; k < 5; k++) DC[r * 5 + k] = DC[r * 5 + k + 1];
+      }
+    }
+  }
+
   // The component upsampled to (at least) width x height, as jdsample.c does
   // with do_fancy_upsampling; row stride `width`.
   std::vector<uint8_t> upsampled(const Component& c) const {
     std::vector<uint8_t> src = plane(c);
-    int sstride = c.bw_pad * 8;
+    int sstride = c.bw_pad * (lossless ? 1 : 8);
     int rh = max_h / c.h, rv = max_v / c.v;
     std::vector<uint8_t> out(size_t(width) * height);
     auto row = [&](int r) {
@@ -985,7 +1749,9 @@ struct Decoder {
     const int dw = c.dw;
     for (int y = 0; y < height; y++) {
       uint8_t* o = out.data() + size_t(y) * width;
-      if (rh > 2 || rv > 2) {  // int_upsample: each sample replicated rh x rv
+      // int_upsample: each sample replicated rh x rv (lossless files too:
+      // jdsample.c upsamples fancily only where a block is wider than 1)
+      if (rh > 2 || rv > 2 || (lossless && rh * rv > 1)) {
         const uint8_t* in = src.data() + size_t(y / rv) * sstride;
         for (int x = 0; x < width; x++) o[x] = in[x / rh];
       } else if (rh == 1 && rv == 1) {
@@ -1463,6 +2229,52 @@ int qie_jpeg_decode(const uint8_t* data, long n, uint8_t* out, char* err, int er
     Decoder d(data, size_t(n));
     d.parse();
     d.output(out);
+    return 0;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+    return -1;
+  }
+}
+
+// One JPEG strip or tile of a TIFF as libtiff's tif_jpeg.c decodes it:
+// `tables` (tn bytes, the JPEGTables stream; tn 0 for none) read first, then
+// the strip's own stream, whose end reads as a fake EOI (libtiff's source
+// manager: append FF D9 to `data`). The frame must have `spp` components,
+// the first sampled hs x vs and the rest 1 x 1, `width` columns and `rows`
+// rows, or more rows in the last strip, which libtiff cuts to `rows`.
+// Both streams end in libtiff's fake EOI markers: the caller appends FF D9
+// pairs to each. `ycbcr` converts YCbCr to RGB (JPEGCOLORMODE_RGB), else the components
+// pass through. out: rows x width x (1 or 3). Returns 0, or -1 with err.
+int qie_tiff_jpeg(const uint8_t* tables, long tn, const uint8_t* data, long n, int ycbcr,
+                  int hs, int vs, int spp, int width, int rows, int last, uint8_t* out,
+                  char* err, int errlen) {
+  try {
+    Decoder d(data, size_t(n));
+    d.force_cs = ycbcr ? 2 : 1;
+    if (tn > 0) d.load_tables(tables, size_t(tn));
+    d.parse(true);
+    if (d.ncomp != spp)
+      throw CodecError("corrupt TIFF: a JPEG strip of " + std::to_string(d.ncomp) +
+                       " components for " + std::to_string(spp) + " samples");
+    for (int i = 0; i < d.ncomp; i++)
+      if (d.comp[i].h != (i ? 1 : hs) || d.comp[i].v != (i ? 1 : vs))
+        throw CodecError("corrupt TIFF: improper JPEG sampling factors (libtiff's check)");
+    if (d.width != width || d.height < rows || (d.height > rows && !last))
+      throw CodecError("unsupported TIFF: a " + std::to_string(d.width) + "x" +
+                       std::to_string(d.height) + " JPEG in a " + std::to_string(width) + "x" +
+                       std::to_string(rows) + " strip or tile");
+    Decoder full(data, size_t(n));
+    full.force_cs = d.force_cs;
+    if (tn > 0) full.load_tables(tables, size_t(tn));
+    full.parse();
+    int c = spp == 1 ? 1 : 3;
+    if (full.height == rows) {
+      full.output(out);
+    } else {  // the last strip's taller frame, cut as libtiff cuts image_height
+      std::vector<uint8_t> all(size_t(full.width) * full.height * c);
+      full.output(all.data());
+      memcpy(out, all.data(), size_t(width) * rows * c);
+    }
     return 0;
   } catch (const std::exception& e) {
     set_err(err, errlen, e.what());

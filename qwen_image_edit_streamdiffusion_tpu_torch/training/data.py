@@ -72,7 +72,8 @@ def _read_text(path: str) -> str:
 
 
 def read_image(path: str) -> np.ndarray:
-    """A JPEG or PNG file → (H, W, 3) uint8 RGB, EXIF orientation applied."""
+    """An image file of any format ``codec.decode`` reads (JPEG, PNG, BMP,
+    GIF, WebP, TIFF) → (H, W, 3) uint8 RGB, EXIF orientation applied."""
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
     with open(path, "rb") as f:

@@ -359,6 +359,614 @@ def libwebp_encode(rgb: np.ndarray, **config) -> bytes:
         lib.WebPMemoryWriterClear(ctypes.byref(wr))
 
 
+def packbits(data: bytes) -> bytes:
+    """PackBits: repeats of two or more as runs, the rest as literals of up
+    to 128 bytes."""
+    b = np.frombuffer(bytes(data), np.uint8)
+    if not len(b):
+        return b""
+    # the starts of runs of equal bytes
+    starts = np.flatnonzero(np.concatenate([[True], b[1:] != b[:-1]]))
+    ends = np.concatenate([starts[1:], [len(b)]])
+    out, lit = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            chunk = lit[i:i + 128]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+        lit.clear()
+    for s0, e0 in zip(starts.tolist(), ends.tolist()):
+        n = e0 - s0
+        if n == 1:
+            lit.append(int(b[s0]))
+            continue
+        flush()
+        while n > 0:
+            k = min(n, 128)
+            if k == 1:
+                out += bytes([0, int(b[s0])])
+            else:
+                out += bytes([257 - k, int(b[s0])])
+            n -= k
+    flush()
+    return bytes(out)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW: a clear code first, codes of 9 to 12 bits written most
+    significant bit first, each width taken one code early (as libtiff's
+    encoder does), a clear code before the table fills, EOI last."""
+    clear, eoi = 256, 257
+    codes, widths = [clear], [9]
+    table, nxt, nbits = {}, 258, 9
+    data = bytes(data)
+    w = data[0] if data else None
+    for c in data[1:]:
+        key = (w << 8) | c  # a string: its prefix's code and its last byte
+        code = table.get(key)
+        if code is not None:
+            w = code
+            continue
+        codes.append(w)
+        widths.append(nbits)
+        table[key] = nxt
+        nxt += 1
+        if nxt > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+        if nxt >= 4093:
+            codes.append(clear)
+            widths.append(nbits)
+            table, nxt, nbits = {}, 258, 9
+        w = c
+    if w is not None:
+        codes.append(w)
+        widths.append(nbits)
+        nxt += 1
+        if nxt > (1 << nbits) - 1 and nbits < 12:
+            nbits += 1
+    codes.append(eoi)
+    widths.append(nbits)
+    return _pack_bits(np.array(codes, np.uint64), np.array(widths, np.int64), stuff=False,
+                      pad=0)
+
+
+# ITU T.4 run-length codes: terminating codes 0..63, then the make-up codes
+# of 64..1728 by 64, of white and of black runs; the make-up codes of either
+# colour from 1792 to 2560
+FAX_WHITE = (
+    "00110101 000111 0111 1000 1011 1100 1110 1111 10011 10100 00111 01000 001000 000011 "
+    "110100 110101 101010 101011 0100111 0001100 0001000 0010111 0000011 0000100 0101000 "
+    "0101011 0010011 0100100 0011000 00000010 00000011 00011010 00011011 00010010 00010011 "
+    "00010100 00010101 00010110 00010111 00101000 00101001 00101010 00101011 00101100 "
+    "00101101 00000100 00000101 00001010 00001011 01010010 01010011 01010100 01010101 "
+    "00100100 00100101 01011000 01011001 01011010 01011011 01001010 01001011 00110010 "
+    "00110011 00110100 11011 10010 010111 0110111 00110110 00110111 01100100 01100101 "
+    "01101000 01100111 011001100 011001101 011010010 011010011 011010100 011010101 "
+    "011010110 011010111 011011000 011011001 011011010 011011011 010011000 010011001 "
+    "010011010 011000 010011011").split()
+FAX_BLACK = (
+    "0000110111 010 11 10 011 0011 0010 00011 000101 000100 0000100 0000101 0000111 "
+    "00000100 00000111 000011000 0000010111 0000011000 0000001000 00001100111 00001101000 "
+    "00001101100 00000110111 00000101000 00000010111 00000011000 000011001010 000011001011 "
+    "000011001100 000011001101 000001101000 000001101001 000001101010 000001101011 "
+    "000011010010 000011010011 000011010100 000011010101 000011010110 000011010111 "
+    "000001101100 000001101101 000011011010 000011011011 000001010100 000001010101 "
+    "000001010110 000001010111 000001100100 000001100101 000001010010 000001010011 "
+    "000000100100 000000110111 000000111000 000000100111 000000101000 000001011000 "
+    "000001011001 000000101011 000000101100 000001011010 000001100110 000001100111 "
+    "0000001111 000011001000 000011001001 000001011011 000000110011 000000110100 "
+    "000000110101 0000001101100 0000001101101 0000001001010 0000001001011 0000001001100 "
+    "0000001001101 0000001110010 0000001110011 0000001110100 0000001110101 0000001110110 "
+    "0000001110111 0000001010010 0000001010011 0000001010100 0000001010101 0000001011010 "
+    "0000001011011 0000001100100 0000001100101").split()
+FAX_EXTENDED = ("00000001000 00000001100 00000001101 000000010010 000000010011 000000010100 "
+                "000000010101 000000010110 000000010111 000000011100 000000011101 "
+                "000000011110 000000011111").split()
+FAX_EOL = "000000000001"
+FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000010",
+                -3: "0000010"}
+
+
+def _fax_run(n: int, black: bool) -> str:
+    codes = FAX_BLACK if black else FAX_WHITE
+    out = []
+    while n >= 2560:
+        out.append(FAX_EXTENDED[-1])
+        n -= 2560
+    if n >= 1792:
+        out.append(FAX_EXTENDED[(n - 1792) // 64])
+        n %= 64
+    elif n >= 64:
+        out.append(codes[63 + n // 64])
+        n %= 64
+    return "".join(out) + codes[n]
+
+
+def _fax_changes(row: np.ndarray) -> list:
+    """The columns where a row of 0/1 pixels (1 = black) changes colour,
+    white before the first."""
+    r = row.astype(np.int8)
+    return np.flatnonzero(np.diff(np.concatenate([[0], r]))).tolist()
+
+
+def _fax_1d(row: np.ndarray) -> str:
+    w = len(row)
+    ch = _fax_changes(row) + [w]
+    out, a0, black = [], 0, False
+    for c in ch:
+        out.append(_fax_run(c - a0, black))
+        a0, black = c, not black
+        if c >= w:
+            break
+    return "".join(out)
+
+
+def _fax_2d(row: np.ndarray, ref: np.ndarray) -> str:
+    w = len(row)
+    cur, up = _fax_changes(row), _fax_changes(ref)
+    cur_s, up_s = cur + [w, w], up + [w, w]
+    out, a0, black = [], -1, False
+    while a0 < w:
+        a1 = next(c for c in cur_s if c > a0)
+        i = next(k for k, c in enumerate(up_s) if c > a0)
+        if (i & 1) != int(black):
+            i += 1
+        b1 = up_s[i] if i < len(up_s) else w
+        b2 = up_s[i + 1] if i + 1 < len(up_s) else w
+        if b2 < a1:
+            out.append("0001")
+            a0 = b2
+        elif abs(a1 - b1) <= 3:
+            out.append(FAX_VERTICAL[a1 - b1])
+            a0, black = a1, not black
+        else:
+            a2 = next((c for c in cur_s if c > a1), w)
+            out.append("001" + _fax_run(a1 - max(a0, 0), black) + _fax_run(a2 - a1, not black))
+            a0 = a2
+    return "".join(out)
+
+
+def fax_encode(black: np.ndarray, compression: int, t4options: int = 0, k: int = 4) -> bytes:
+    """Rows of 0/1 pixels (1 = black) as CCITT modified Huffman RLE
+    (compression 2: each row 1-D, byte-aligned), Group 3 (3: an EOL before
+    each row; with T4Options bit 0 a tag bit after it and every ``k``-th
+    row 1-D, the rest 2-D; bit 2 pads each EOL to end a byte; RTC last) or
+    Group 4 (4: every row 2-D, EOFB last)."""
+    bits, ref = [], np.zeros(black.shape[1], np.uint8)
+
+    def eol():
+        if t4options & 4:  # fill bits: the EOL ends on a byte boundary
+            n = sum(map(len, bits))
+            bits.append("0" * ((4 - n) % 8))
+        bits.append(FAX_EOL)
+    for y, row in enumerate(black):
+        if compression == 2:
+            code = _fax_1d(row)
+            code += "0" * (-len(code) % 8)
+        elif compression == 3:
+            eol()
+            if t4options & 1:
+                one_d = y % k == 0
+                code = ("1" + _fax_1d(row)) if one_d else ("0" + _fax_2d(row, ref))
+            else:
+                code = _fax_1d(row)
+        else:
+            code = _fax_2d(row, ref)
+        bits.append(code)
+        ref = row
+    if compression == 3:
+        for _ in range(6):
+            bits.append(FAX_EOL + ("1" if t4options & 1 else ""))
+    elif compression == 4:
+        bits.append(FAX_EOL * 2)
+    s = "".join(bits)
+    s += "0" * (-len(s) % 8)
+    return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
+
+
+def jpeg_tables_split(jpeg: bytes):
+    """A JPEG cut as JPEG-in-TIFF stores it: (JPEGTables, strip): the
+    quantization and Huffman tables as an abbreviated table-only stream,
+    the rest (SOI, frame, scans, EOI) as the strip's data."""
+    pos, tables, rest = 2, b"", b"\xff\xd8"
+    while True:
+        marker = jpeg[pos + 1]
+        (n,) = struct.unpack(">H", jpeg[pos + 2:pos + 4])
+        seg = jpeg[pos:pos + 2 + n]
+        if marker == 0xDA:
+            return b"\xff\xd8" + tables + b"\xff\xd9", rest + jpeg[pos:]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        pos += 2 + n
+
+
+def _tiff_pack(plane: np.ndarray, bits: int, order: str) -> bytes:
+    """Rows of samples (H, W*spp) as bytes: packed most significant bit
+    first below 8 bits (each row padded to a byte), in ``order`` above."""
+    if bits < 8:
+        return b"".join(_row_bytes(r[:, None], bits).tobytes() for r in plane)
+    if bits == 8:
+        return plane.astype(np.uint8).tobytes()
+    if plane.dtype.kind == "f":
+        return plane.astype(order + "f4").tobytes()
+    return plane.astype(order + {16: "u2", 32: "u4"}[bits]).tobytes()
+
+
+def _ycbcr_units(block: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """(rows, W, 3) Y, Cb, Cr samples as TIFF's subsampled YCbCr data units,
+    a row of units per ``vs`` rows: ``hs * vs`` luma samples, then the
+    block's top-left Cb and Cr (edges padded with the last sample)."""
+    h, w = block.shape[:2]
+    bh, bw = -(-h // vs), -(-w // hs)
+    full = np.pad(block, ((0, bh * vs - h), (0, bw * hs - w), (0, 0)), mode="edge")
+    y = full[..., 0].reshape(bh, vs, bw, hs).transpose(0, 2, 1, 3).reshape(bh, bw, vs * hs)
+    chroma = full[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], -1).reshape(bh, -1)
+
+
+def _tiff_diff(block: np.ndarray, spp: int, bits: int) -> np.ndarray:
+    """Horizontal differencing (Predictor 2) of (rows, W*spp) samples."""
+    d = block.astype(np.int64).copy()
+    d[:, spp:] -= block.astype(np.int64)[:, :-spp]
+    return (d % (1 << bits)).astype(np.uint64)
+
+
+def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression: int = 1,
+              big_endian: bool = False, bigtiff: bool = False, rows_per_strip: int = None,
+              tile=None, planar: int = 1, predictor: int = 1, extra=(), sample_format=None,
+              fill_order: int = 1, colormap=None, orientation: int = None, xmp: bytes = None,
+              t4options: int = None, ycbcr_subsampling=None, jpeg=None, tags=None) -> bytes:
+    """A one-page TIFF of ``samples`` (H, W, spp) at ``bits`` a sample.
+
+    Strips of ``rows_per_strip`` rows (all rows by default), or tiles of
+    ``tile`` (width, height) padded past the image's edge; PlanarConfiguration
+    ``planar`` 1 (chunky) or 2 (a plane a sample); Predictor 2 (horizontal
+    differencing); ``compression`` 1 (none), 2/3/4 (CCITT, ``bits`` 1, 1 =
+    black pixels), 5 (LZW), 8/32946 (Deflate), 32773 (PackBits), 34925
+    (LZMA, an xz stream) or 7 (JPEG: ``jpeg(block) -> JPEG bytes`` codes each
+    strip or tile, its tables going to JPEGTables); FillOrder 2 reverses each
+    coded byte's bits; big-endian (``MM``) or little-endian, classic or
+    BigTIFF; an Orientation tag, an XMP packet, a ColorMap (N, 3) of 16-bit
+    entries and any more ``tags`` ({tag: (type, values)}). YCbCr samples
+    (photometric 6) not coded as JPEG are written as the data units of
+    ``ycbcr_subsampling``."""
+    samples = np.asarray(samples)
+    if samples.ndim == 2:
+        samples = samples[..., None]
+    h, w, spp = samples.shape
+    order = ">" if big_endian else "<"
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    across, down = (-(-w // tw), -(-h // th))
+    planes = [samples] if planar == 1 else [samples[..., i:i + 1] for i in range(spp)]
+    blobs = []
+    tables = None
+    for plane in planes:
+        for ty in range(down):
+            for tx in range(across if tile else 1):
+                if tile:  # padded with the edge's samples
+                    block = plane[ty * th:(ty + 1) * th, tx * tw:(tx + 1) * tw]
+                    block = np.pad(block, ((0, th - block.shape[0]), (0, tw - block.shape[1]),
+                                           (0, 0)), mode="edge")
+                else:
+                    block = plane[ty * th:(ty + 1) * th]
+                rows = block.reshape(block.shape[0], -1)
+                if photometric == 6 and compression != 7 and ycbcr_subsampling:
+                    rows = _ycbcr_units(block, *ycbcr_subsampling)
+                if predictor == 2:
+                    rows = _tiff_diff(rows, block.shape[2], bits)
+                if compression in (2, 3, 4):
+                    raw = fax_encode(rows, compression, t4options or 0)
+                elif compression == 7:
+                    tables, raw = jpeg_tables_split(jpeg(block))
+                else:
+                    raw = _tiff_pack(rows, bits, order)
+                    if compression == 5:
+                        raw = tiff_lzw(raw)
+                    elif compression in (8, 32946):
+                        raw = zlib.compress(raw, 9)
+                    elif compression == 32773:
+                        raw = packbits(raw)
+                    elif compression == 34925:
+                        import lzma
+                        raw = lzma.compress(raw, check=lzma.CHECK_NONE)
+                if fill_order == 2 and compression != 7:
+                    raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
+                blobs.append(raw)
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if fill_order != 1:
+        entries[266] = (3, [fill_order])
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if extra:
+        entries[338] = (3, list(extra))
+    if sample_format is not None:
+        entries[339] = (3, [sample_format] * spp)
+    if colormap is not None:
+        cm = np.asarray(colormap, np.int64)
+        entries[320] = (3, cm[:, 0].tolist() + cm[:, 1].tolist() + cm[:, 2].tolist())
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    if xmp is not None:
+        entries[700] = (1, xmp)
+    if t4options is not None:
+        entries[292 if compression == 3 else 293] = (4, [t4options])
+    if ycbcr_subsampling is not None:
+        entries[530] = (3, list(ycbcr_subsampling))
+    if tables is not None:
+        entries[347] = (7, tables)
+    entries.update(tags or {})
+    off_type = 16 if bigtiff else 4
+    head = 16 if bigtiff else 8
+    data, offsets = b"", []
+    for b in blobs:
+        offsets.append(head + len(data))
+        data += b + (b"\x00" if len(b) % 2 else b"")
+    if tile:
+        entries[322], entries[323] = (3, [tw]), (3, [th])
+        entries[324], entries[325] = (off_type, offsets), (off_type, [len(b) for b in blobs])
+    else:
+        entries[278] = (4, [th])
+        entries[273], entries[279] = (off_type, offsets), (off_type, [len(b) for b in blobs])
+    ifd_pos = head + len(data)
+    fmt = {1: "B", 2: "B", 3: "H", 4: "L", 5: "L", 7: "B", 16: "Q"}
+    count_fmt, entry_size, inline = ("Q", 20, 8) if bigtiff else ("H", 12, 4)
+    extra_pos = ifd_pos + (8 if bigtiff else 2) + entry_size * len(entries) + (8 if bigtiff else 4)
+    ifd, tail = struct.pack(order + count_fmt, len(entries)), b""
+    for tag in sorted(entries):
+        typ, vals = entries[tag]
+        if isinstance(vals, (bytes, bytearray)):
+            raw = bytes(vals)
+            count = len(raw)
+        elif typ == 5:
+            raw = b"".join(struct.pack(order + "LL", *v) for v in vals)
+            count = len(vals)
+        else:
+            raw = struct.pack(order + fmt[typ] * len(vals), *vals)
+            count = len(vals)
+        if len(raw) <= inline:
+            field = raw.ljust(inline, b"\x00")
+        else:
+            field = struct.pack(order + ("Q" if bigtiff else "L"), extra_pos + len(tail))
+            tail += raw + (b"\x00" if len(raw) % 2 else b"")
+        ifd += struct.pack(order + ("HHQ" if bigtiff else "HHL"), tag, typ, count) + field
+    ifd += struct.pack(order + ("Q" if bigtiff else "L"), 0)
+    if bigtiff:
+        hdr = (b"MM" if big_endian else b"II") + struct.pack(order + "HHHQ", 43, 8, 0, ifd_pos)
+    else:
+        hdr = (b"MM" if big_endian else b"II") + struct.pack(order + "HL", 42, ifd_pos)
+    return hdr + data + ifd + tail
+
+
+# a Huffman table of the 17 lossless difference categories: code lengths
+_LL_LENGTHS = (2, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+
+
+def _ll_table():
+    """(code, length) of each category 0..16, canonical, and the DHT body."""
+    order = sorted(range(17), key=lambda s: (_LL_LENGTHS[s], s))
+    codes, code, prev = {}, 0, 0
+    for sym in order:
+        code <<= _LL_LENGTHS[sym] - prev
+        prev = _LL_LENGTHS[sym]
+        codes[sym] = (code, prev)
+        code += 1
+    bits = [sum(1 for s in range(17) if _LL_LENGTHS[s] == n) for n in range(1, 17)]
+    return codes, bytes([0x00] + bits) + bytes(order)
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray, stuff: bool = True,
+               pad: int = 1) -> bytes:
+    """Values (uint64, each ``length`` bits, at most 32) written most
+    significant bit first, the last byte padded with ``pad`` bits, every
+    0xFF byte followed by a stuffed zero (a JPEG scan's) if ``stuff``."""
+    values, lengths = values.astype(np.uint64), lengths.astype(np.int64)
+    out = []
+    for i in range(0, len(values), 1 << 20):  # in chunks: 32 bits a value in memory
+        v, n = values[i:i + 1 << 20], lengths[i:i + 1 << 20]
+        bits = np.unpackbits(v.astype(">u4").view(np.uint8).reshape(-1, 4), axis=1)
+        keep = np.arange(32)[None, :] >= (32 - n)[:, None]
+        out.append(bits[keep])
+    bits = np.concatenate(out) if out else np.zeros(0, np.uint8)
+    bits = np.concatenate([bits, np.full(-len(bits) % 8, pad, np.uint8)])
+    data = np.packbits(bits)
+    if not stuff:
+        return data.tobytes()
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def lossless_jpeg(planes, predictor: int = 1, point_transform: int = 0, sampling=None,
+                  restart_rows: int = 0, interleaved: bool = True, markers: bytes = b"") -> bytes:
+    """A lossless JPEG (SOF3, ITU T.81 H) of 8-bit ``planes`` (an (H, W)
+    array, an (H, W, C) array, or a list of (h, w) planes sampled
+    ``sampling`` [(h, v), ...] of the image): predictor 1..7, a point
+    transform, a restart marker every ``restart_rows`` MCU rows, one
+    interleaved scan or a scan a component; ``markers`` (APPn segments) go
+    after SOI. Component ids are 1, 2, 3, ...: without a JFIF or Adobe
+    marker libjpeg-turbo reads three of them as RGB."""
+    if isinstance(planes, np.ndarray):
+        planes = [planes] if planes.ndim == 2 else [planes[..., c] for c in range(planes.shape[2])]
+    sampling = sampling or [(1, 1)] * len(planes)
+    hmax, vmax = max(h for h, _ in sampling), max(v for _, v in sampling)
+    height = max(p.shape[0] * vmax // v for p, (_, v) in zip(planes, sampling))
+    width = max(p.shape[1] * hmax // h for p, (h, _) in zip(planes, sampling))
+    codes, dht = _ll_table()
+    code_of = np.array([codes[s][0] for s in range(17)], np.uint64)
+    len_of = np.array([codes[s][1] for s in range(17)], np.int64)
+    pt, P = point_transform, 8
+
+    def diffs(x: np.ndarray, v: int, rows_restart: int) -> np.ndarray:
+        """Each sample's difference from its predictor, modulo 2^16."""
+        x = x.astype(np.int64) >> pt
+        ra = np.concatenate([np.zeros((x.shape[0], 1), np.int64), x[:, :-1]], 1)
+        rb = np.concatenate([np.zeros((1, x.shape[1]), np.int64), x[:-1]], 0)
+        rc = np.concatenate([np.zeros((x.shape[0], 1), np.int64), rb[:, :-1]], 1)
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor].copy()
+        pred[:, 0] = rb[:, 0]
+        first = np.arange(x.shape[0]) % (v * rows_restart) == 0 if rows_restart else (
+            np.arange(x.shape[0]) == 0)
+        pred[first] = ra[first]
+        pred[first, 0] = 1 << (P - pt - 1)
+        return (x - pred) & 0xFFFF
+
+    def coded(d: np.ndarray):
+        """Each difference's (Huffman code + magnitude bits, length)."""
+        sd = np.where(d >= 0x8000, d - 0x10000, d)
+        cat = np.where(sd == -0x8000, 16, np.ceil(np.log2(np.abs(sd) + 1)).astype(np.int64))
+        mag = np.where(sd >= 0, sd, sd - 1) & ((np.int64(1) << cat) - 1)
+        mag = np.where(cat == 16, 0, mag)
+        extra = np.where(cat == 16, 0, cat)
+        value = (code_of[cat] << extra.astype(np.uint64)) | mag.astype(np.uint64)
+        return value, len_of[cat] + extra
+
+    def seg(marker: int, body: bytes) -> bytes:
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    out = b"\xff\xd8" + markers + seg(0xC3, struct.pack(">BHHB", 8, height, width, len(planes))
+                                      + b"".join(bytes([i + 1, h << 4 | v, 0])
+                                                 for i, (h, v) in enumerate(sampling)))
+    out += seg(0xC4, dht)
+    scans = [list(range(len(planes)))] if interleaved else [[i] for i in range(len(planes))]
+    for comps in scans:
+        one = len(comps) == 1
+        mx = planes[comps[0]].shape[1] if one else -(-width // hmax)
+        my = planes[comps[0]].shape[0] if one else -(-height // vmax)
+        if restart_rows:
+            out += seg(0xDD, struct.pack(">H", restart_rows * mx))
+        out += seg(0xDA, bytes([len(comps)]) + b"".join(bytes([c + 1, 0]) for c in comps)
+                   + bytes([predictor, 0, pt]))
+        # each component's differences laid out by MCU: (my, mx, v, h)
+        units = []
+        for c in comps:
+            h, v = (1, 1) if one else sampling[c]
+            d = diffs(planes[c], v, restart_rows)
+            full = np.zeros((my * v, mx * h), np.int64)  # padding samples code as 0
+            full[:d.shape[0], :d.shape[1]] = d
+            units.append(full.reshape(my, v, mx, h).transpose(0, 2, 1, 3).reshape(my, mx, -1))
+        order = np.concatenate(units, -1)  # (my, mx, samples an MCU)
+        blocks = [order] if not restart_rows else [order[r:r + restart_rows]
+                                                   for r in range(0, my, restart_rows)]
+        for k, blk in enumerate(blocks):
+            vals, lens = coded(blk.reshape(-1))
+            out += _pack_bits(vals, lens)
+            if k + 1 < len(blocks):
+                out += bytes([0xFF, 0xD0 + k % 8])
+    return out + b"\xff\xd9"
+
+
+_ARITH_HELPER = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+/* argv: width height components quality progressive restart h v infile outfile */
+int main(int argc, char** argv) {
+  if (argc != 11) return 2;
+  int w = atoi(argv[1]), h = atoi(argv[2]), c = atoi(argv[3]);
+  size_t n = (size_t)w * h * c;
+  unsigned char* px = malloc(n);
+  FILE* in = fopen(argv[9], "rb");
+  if (!px || !in || fread(px, 1, n, in) != n) return 3;
+  fclose(in);
+  struct jpeg_compress_struct ci;
+  struct jpeg_error_mgr je;
+  ci.err = jpeg_std_error(&je);
+  jpeg_create_compress(&ci);
+  FILE* out = fopen(argv[10], "wb");
+  jpeg_stdio_dest(&ci, out);
+  ci.image_width = w;
+  ci.image_height = h;
+  ci.input_components = c;
+  ci.in_color_space = c == 1 ? JCS_GRAYSCALE : JCS_RGB;
+  jpeg_set_defaults(&ci);
+  jpeg_set_quality(&ci, atoi(argv[4]), TRUE);
+  ci.arith_code = TRUE;
+  ci.restart_interval = atoi(argv[6]);
+  if (c == 3) {
+    ci.comp_info[0].h_samp_factor = atoi(argv[7]);
+    ci.comp_info[0].v_samp_factor = atoi(argv[8]);
+  }
+  if (atoi(argv[5])) jpeg_simple_progression(&ci);
+  jpeg_start_compress(&ci, TRUE);
+  while (ci.next_scanline < ci.image_height) {
+    JSAMPROW row = px + (size_t)ci.next_scanline * w * c;
+    jpeg_write_scanlines(&ci, &row, 1);
+  }
+  jpeg_finish_compress(&ci);
+  fclose(out);
+  jpeg_destroy_compress(&ci);
+  free(px);
+  return 0;
+}
+"""
+
+
+_arith_exe = {}
+
+
+def arith_jpeg(rgb: np.ndarray, quality: int = 90, progressive: bool = False,
+               restart: int = 0, sampling=(2, 2)) -> bytes:
+    """An arithmetic-coded JPEG of (H, W, 3) or (H, W) uint8 written by the
+    system's libjpeg (``arith_code = TRUE``, with ``jpeg_simple_progression``
+    for a progressive file): a small C helper built once a process against
+    ``jpeglib.h`` and linked with ``-ljpeg``, as Pillow writes no arithmetic
+    coding."""
+    import atexit
+    import shutil
+    import subprocess
+    import tempfile
+
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    comps = 1 if rgb.ndim == 2 else 3
+    if "exe" not in _arith_exe:
+        tmp = tempfile.mkdtemp(prefix="arith_jpeg_")
+        atexit.register(shutil.rmtree, tmp, True)
+        src, exe = os.path.join(tmp, "arith.c"), os.path.join(tmp, "arith")
+        with open(src, "w") as f:
+            f.write(_ARITH_HELPER)
+        subprocess.run([os.environ.get("CC", "cc"), "-O1", "-o", exe, src, "-ljpeg"], check=True)
+        _arith_exe["exe"] = exe
+    exe = _arith_exe["exe"]
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, out = os.path.join(tmp, "in.raw"), os.path.join(tmp, "out.jpg")
+        with open(raw, "wb") as f:
+            f.write(rgb.tobytes())
+        subprocess.run([exe, str(rgb.shape[1]), str(rgb.shape[0]), str(comps), str(quality),
+                        str(int(progressive)), str(restart), str(sampling[0]), str(sampling[1]),
+                        raw, out], check=True)
+        with open(out, "rb") as f:
+            return f.read()
+
+
+def jpeg_scans(data: bytes):
+    """(header, scans, tail) of a JPEG: the bytes before its first SOS, each
+    scan with the tables before the next, and the EOI."""
+    starts, pos = [], 2
+    while pos < len(data):
+        if data[pos] != 0xFF or data[pos + 1] in (0x00, 0xFF) or 0xD0 <= data[pos + 1] <= 0xD7:
+            pos += 1
+            continue
+        if data[pos + 1] == 0xD9:
+            break
+        if data[pos + 1] == 0xDA:
+            starts.append(pos)
+        pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+    ends = starts[1:] + [pos]
+    return data[:starts[0]], [data[a:b] for a, b in zip(starts, ends)], data[pos:]
+
+
+def cut_progressive(data: bytes, scans: int) -> bytes:
+    """A progressive JPEG cut after its first ``scans`` scans, its EOI kept:
+    what a download cut short between scans leaves, and what libjpeg-turbo
+    block-smooths (jdcoefct.c decompress_smooth_data)."""
+    head, parts, tail = jpeg_scans(data)
+    return head + b"".join(parts[:scans]) + tail
+
+
 def scene(h: int, w: int, seed: int = 0) -> np.ndarray:
     """A smooth colour scene with a little noise (small files)."""
     rng = np.random.default_rng(seed)
@@ -373,6 +981,38 @@ def pil_rgb(data: bytes) -> np.ndarray:
     from PIL import Image, ImageOps
 
     return np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
+
+
+def pil_rgb_c_idct(cases) -> list:
+    """:func:`pil_rgb` of each file (None where Pillow raises), in a
+    subprocess with ``JSIMD_FORCENONE=1``: libjpeg-turbo's C code paths (its
+    x86 SIMD IDCT differs on the out-of-range coefficients of damaged data),
+    which the port's codec follows."""
+    import subprocess
+    import sys
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "cases.npz"), os.path.join(tmp, "out.npz")
+        np.savez(src, *[np.frombuffer(c, np.uint8) for c in cases])
+        script = (
+            "import io, sys, warnings, numpy as np\n"
+            "warnings.simplefilter('ignore')\n"
+            "from PIL import Image, ImageOps\n"
+            "z = np.load(sys.argv[1])\n"
+            "out = {}\n"
+            "for k in z.files:\n"
+            "    try:\n"
+            "        im = ImageOps.exif_transpose(Image.open(io.BytesIO(z[k].tobytes())))\n"
+            "        out[k] = np.asarray(im.convert('RGB'))\n"
+            "    except Exception:\n"
+            "        pass\n"
+            "np.savez(sys.argv[2], **out)\n")
+        subprocess.run([sys.executable, "-c", script, src, dst], check=True,
+                       env={**os.environ, "JSIMD_FORCENONE": "1"}, capture_output=True)
+        got = np.load(dst)
+        return [got[f"arr_{i}"] if f"arr_{i}" in got.files else None
+                for i in range(len(cases))]
 
 
 def fixtures() -> dict:
@@ -429,6 +1069,73 @@ def fixtures() -> dict:
         "lossy_1024.webp": save(Image.fromarray(smooth), "WEBP", quality=75),
         "lossless_1024.webp": save(Image.fromarray(smooth).quantize(8).convert("RGB"), "WEBP",
                                    lossless=True),
+        **tiff_fixtures(),
+        **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
+    }
+
+
+def tiff_fixtures() -> dict:
+    """The TIFF fixtures: every compression the codec decodes, tiles, planar
+    2, Predictor 2, both byte orders, BigTIFF, FillOrder 2, the photometrics
+    and depths of Pillow's OPEN_INFO, an Orientation tag and a multi-page
+    file (its first page). :func:`tiff_file` writes what Pillow cannot;
+    Pillow (its libtiff) writes Group 4, JPEG and the multi-page file."""
+    from PIL import Image
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(12)
+    rgb = scene(40, 56, 13)
+    bw = (scene(40, 56, 15)[..., 0] > 128).astype(np.uint8)
+    cmap = rng.integers(0, 65536, (16, 3))
+    f32 = rgb[..., 0].astype(np.float32) * np.float32(1.37) - np.float32(40.25)
+    rgba = np.concatenate([rgb, rng.integers(0, 256, rgb.shape[:2] + (1,), np.uint8)], -1)
+    ycc = np.concatenate([rgb[..., :1], rgb[..., 1:] // 2 + 64], -1)
+    pages = [Image.fromarray(scene(24, 32, 20 + i)) for i in range(3)]
+    multi = io.BytesIO()
+    pages[0].save(multi, "TIFF", save_all=True, append_images=pages[1:], compression="tiff_lzw")
+    return {
+        "lzw_pred.tif": tiff_file(rgb, 2, 8, compression=5, predictor=2, rows_per_strip=7),
+        "tiled_deflate_be.tif": tiff_file(rgb, 2, 8, compression=8, tile=(16, 16),
+                                          big_endian=True),
+        "planar_packbits.tif": tiff_file(rgb, 2, 8, compression=32773, planar=2,
+                                         rows_per_strip=16),
+        "bigtiff_lzma.tif": tiff_file(rgb, 2, 8, compression=34925, bigtiff=True),
+        "g4.tif": save(Image.fromarray(bw * 255).convert("1"), compression="group4"),
+        "g3_2d_fill2.tif": tiff_file(bw, 1, 1, compression=3, t4options=5, fill_order=2,
+                                     rows_per_strip=16),
+        "ccitt_rle.tif": tiff_file(bw, 0, 1, compression=2),
+        "jpeg_ycbcr.tif": save(Image.fromarray(rgb), compression="jpeg", quality=85),
+        "palette4.tif": tiff_file(rgb[..., 0] >> 4, 3, 4, compression=32773, colormap=cmap),
+        "minwhite.tif": tiff_file(rgb[..., 1], 0, 8, compression=5),
+        "gray16_be.tif": tiff_file(rgb[..., 2].astype(np.uint16) * 3, 1, 16, big_endian=True,
+                                   compression=8, predictor=2),
+        "float32.tif": tiff_file(f32, 1, 32, sample_format=3, compression=8),
+        "rgba_assoc.tif": tiff_file(rgba, 2, 8, extra=(1,), compression=5),
+        "cmyk.tif": tiff_file(rgba, 5, 8, compression=5),
+        "ycbcr_lzw.tif": tiff_file(ycc, 6, 8, compression=5, rows_per_strip=8,
+                                   ycbcr_subsampling=(2, 2)),
+        "multipage.tif": multi.getvalue(),
+        "orient6.tif": tiff_file(rgb, 2, 8, compression=5, orientation=6),
+    }
+
+
+def jpeg_variant_fixtures(progressive: bytes, smooth: np.ndarray) -> dict:
+    """Arithmetic-coded sequential and progressive JPEG (small, and 1024²
+    from the smooth image: each scan within Pillow's 64 KiB read block), a
+    lossless JPEG (predictor 6, a point transform of 1, restarts) and a
+    progressive file cut after its third scan (block-smoothed)."""
+    small = scene(44, 60, 16)
+    return {
+        "arith.jpg": arith_jpeg(small, 90, restart=5),
+        "arith_prog.jpg": arith_jpeg(small, 90, progressive=True),
+        "arith_1024.jpg": arith_jpeg(smooth, 90),
+        "arith_prog_1024.jpg": arith_jpeg(smooth, 90, progressive=True),
+        "lossless.jpg": lossless_jpeg(small, predictor=6, point_transform=1, restart_rows=8),
+        "smoothed.jpg": cut_progressive(progressive, 3),
     }
 
 

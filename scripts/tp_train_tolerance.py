@@ -251,7 +251,8 @@ def rank_tolerance(mesh, _refs) -> dict:
     from qwen_image_edit_streamdiffusion_tpu_torch.training import lora_train as lt
 
     label = f"tolerance rank{mesh.world_group.rank}"
-    pipe = cs.rank_create(label, "qwen-image-edit-2509", cs.tp_config(), mesh)
+    config = cs.tp_config(model_axis=2).replace(model_preset="qwen-image-edit-2509")
+    pipe = cs.rank_create(label, "qwen-image-edit-2509", config, mesh)
     saved = torch.load(REF_PATH, map_location="cpu", weights_only=True, mmap=True)
     batch = {k: v.to(cs.RANK_DEVICE) if torch.is_tensor(v) else v
              for k, v in saved["batch"].items()}

@@ -406,13 +406,14 @@ def test_unsupported_inputs_raise_named_errors():
     arr = _image(24, 24)
     base = _pil_jpeg(arr, quality=90)
     tiff = io.BytesIO()
-    Image.fromarray(arr).save(tiff, "TIFF")
+    Image.fromarray(arr).save(tiff, "TIFF", compression="zstd")
     gif, bmp, webp = io.BytesIO(), io.BytesIO(), io.BytesIO()
     Image.fromarray(arr).save(gif, "GIF")
     Image.fromarray(arr).save(bmp, "BMP")
     Image.fromarray(arr).save(webp, "WEBP")
     cases = {
-        "arithmetic": _patched_sof(base, marker=0xC9),
+        "hierarchical": _patched_sof(base, marker=0xC5),
+        "arithmetic-coded lossless": _patched_sof(base, marker=0xCB),
         "12-bit": _patched_sof(base, precision=12),
         "lossless": _patched_sof(base, marker=0xC3),
         "TIFF": tiff.getvalue(),
@@ -420,7 +421,7 @@ def test_unsupported_inputs_raise_named_errors():
         "truncated GIF": gif.getvalue()[:len(gif.getvalue()) // 2],
         "truncated BMP": bmp.getvalue()[:len(bmp.getvalue()) // 2],
         "truncated WebP": webp.getvalue()[:len(webp.getvalue()) // 2],
-        "not a JPEG, PNG, BMP, GIF or WebP": b"\x00\x01" + bytes(40),
+        "not a JPEG, PNG, BMP, GIF, WebP or TIFF": b"\x00\x01" + bytes(40),
     }
     for name, data in cases.items():
         with pytest.raises(ValueError, match=name):
@@ -675,8 +676,8 @@ def test_progressive_restarts_and_orientation(monkeypatch):
 def test_progressive_cut_files(monkeypatch):
     """A cut progressive file raises "truncated JPEG", where Pillow raises
     too; scans that stop short with an EOI after them are what libjpeg-turbo
-    block-smooths, which the port refuses by name; a file without its DC
-    first scan is not smoothed there, and decodes to Pillow's pixels."""
+    block-smooths, and decode to Pillow's smoothed pixels; a file without its
+    DC first scan is not smoothed there, and decodes to Pillow's pixels."""
     data = _pil_progressive(_image(40, 56), monkeypatch, quality=90)
     head, scans, tail = _scans(data)
     assert len(scans) == 10 and head + b"".join(scans) + tail == data
@@ -686,8 +687,8 @@ def test_progressive_cut_files(monkeypatch):
         with pytest.raises(OSError):
             Image.open(io.BytesIO(data[:cut])).load()
     for k in range(1, 10):
-        with pytest.raises(ValueError, match="block-smooths"):
-            codec.decode(head + b"".join(scans[:k]) + tail)
+        cut = head + b"".join(scans[:k]) + tail
+        np.testing.assert_array_equal(codec.decode(cut), _pil_decode(cut))
     no_dc = head + b"".join(scans[1:]) + tail
     np.testing.assert_array_equal(codec.decode(no_dc), _pil_decode(no_dc))
 
@@ -749,7 +750,7 @@ def test_committed_fixtures_match_their_manifest_and_pillow():
     root = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
     with open(os.path.join(root, "manifest.json")) as f:
         manifest = json.load(f)
-    assert sum(e["bytes"] for e in manifest.values()) < 300_000
+    assert sum(e["bytes"] for e in manifest.values()) < 1_000_000  # the fixture tree's budget
     for name, entry in manifest.items():
         with open(os.path.join(root, name), "rb") as f:
             data = f.read()

@@ -1,0 +1,704 @@
+"""The port's TIFF decoder (``core/codec.py`` over ``csrc/host/tiff.cc``)
+against Pillow, which the JAX package's ``core/imaging.py`` opens every
+upload with (``Image.open`` → ``ImageOps.exif_transpose`` → ``convert("RGB")``;
+Pillow reads an uncompressed TIFF itself and a compressed one through
+libtiff).
+
+Every case must equal Pillow's bytes exactly: each compression the port
+decodes (none, PackBits, LZW, Deflate, LZMA, JPEG, CCITT RLE, Group 3 1-D
+and 2-D, Group 4), big- and little-endian, BigTIFF, strips and padded tiles,
+planar configuration 2, Predictor 2, FillOrder 2, every photometric and
+depth of Pillow's OPEN_INFO but CIELab, a multi-page file's first page and
+orientations 1-8 from the tag or an XMP packet. Files come from
+``scripts/codec_fixtures.py``'s writers where Pillow writes no such file.
+What the port refuses raises a ``ValueError`` naming the format and the
+feature: on bytes Pillow refuses too, or, where Pillow decodes them, as a
+divergence that ROADMAP.md lists.
+"""
+
+import base64
+import io
+import json
+import os
+import struct
+import sys
+import tracemalloc
+import warnings
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image, ImageOps
+
+from qwen_image_edit_streamdiffusion_tpu.core import imaging as jimaging
+from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+from codec_fixtures import (fax_encode, packbits, pil_rgb_c_idct, scene, tiff_file,  # noqa: E402
+                            tiff_lzw)
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
+
+
+def _pil(data: bytes) -> np.ndarray:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
+
+
+def _same(data: bytes) -> np.ndarray:
+    got, want = codec.decode(data), _pil(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+def _pil_save(im: Image.Image, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+RGB = scene(37, 53, 3)
+RNG = np.random.default_rng(5)
+# bilevel rows that take every 2-D mode: pass, horizontal, vertical -3..3
+BW = ((scene(41, 77, 4)[..., 0].astype(int) + RNG.integers(-60, 60, (41, 77))) > 128).astype(
+    np.uint8)
+BW[5] = 1
+BW[7] = RNG.integers(0, 2, BW.shape[1])
+
+COMPRESSIONS = {
+    "none": dict(compression=1),
+    "lzw": dict(compression=5),
+    "lzw-predictor": dict(compression=5, predictor=2),
+    "deflate": dict(compression=8),
+    "adobe-deflate-predictor": dict(compression=32946, predictor=2),
+    "packbits": dict(compression=32773, rows_per_strip=5),
+    "lzma": dict(compression=34925),
+    "lzw-fillorder2": dict(compression=5, fill_order=2),
+    "deflate-fillorder2": dict(compression=8, fill_order=2),
+    "packbits-fillorder2": dict(compression=32773, fill_order=2),
+    "none-fillorder2": dict(compression=1, fill_order=2),
+}
+
+
+@pytest.mark.parametrize("kw", COMPRESSIONS.values(), ids=COMPRESSIONS.keys())
+def test_compression_matches_pillow(kw):
+    _same(tiff_file(RGB, 2, 8, **kw))
+
+
+LAYOUTS = {
+    "big-endian": dict(big_endian=True, compression=5, predictor=2),
+    "bigtiff": dict(bigtiff=True, compression=8),
+    "bigtiff-none": dict(bigtiff=True),
+    "tiles-padded": dict(tile=(16, 16), compression=5),
+    "tiles-none": dict(tile=(32, 16)),
+    "tiles-planar-predictor": dict(tile=(16, 16), planar=2, compression=8, predictor=2),
+    "planar-lzw": dict(planar=2, compression=5),
+    "planar-none": dict(planar=2, rows_per_strip=7),
+    "partial-last-strip": dict(rows_per_strip=10, compression=32773),
+    "one-row-strips": dict(rows_per_strip=1, compression=5),
+}
+
+
+@pytest.mark.parametrize("kw", LAYOUTS.values(), ids=LAYOUTS.keys())
+def test_layout_matches_pillow(kw):
+    _same(tiff_file(RGB, 2, 8, **kw))
+
+
+def _photometric_cases() -> dict:
+    g = RGB[..., 0]
+    rgba = np.concatenate([RGB, RNG.integers(0, 256, RGB.shape[:2] + (1,), np.uint8)], -1)
+    r16 = RGB.astype(np.uint16) * 257 + RNG.integers(0, 256, RGB.shape, np.uint16)
+    a16 = np.concatenate([r16, RNG.integers(0, 65536, RGB.shape[:2] + (1,), np.uint16)], -1)
+    g16 = g.astype(np.uint16) * 3
+    g16[0, :4] = [0, 255, 256, 65535]
+    f32 = g.astype(np.float32) * np.float32(1.5) - np.float32(40.5)
+    f32[0, :4] = [-3.5, 0.5, 254.9, 300.0]
+    cmap = RNG.integers(0, 65536, (256, 3))
+    idx = RNG.integers(0, 256, g.shape, np.uint8)
+    cases = {}
+    for photo in (0, 1):
+        for bits in (1, 2, 4, 8):
+            cases[f"gray{bits}-photometric{photo}"] = (g >> (8 - bits), photo, bits, dict(
+                compression=5))
+        cases[f"gray16-photometric{photo}"] = (g16, photo, 16, dict(compression=8))
+    cases.update({
+        "gray16-big-endian": (g16, 1, 16, dict(big_endian=True, compression=5, predictor=2)),
+        "gray16-signed": (g16, 1, 16, dict(sample_format=2)),
+        "gray32-uint": (g.astype(np.uint32) * 70000 + np.uint32(2 ** 31), 1, 32,
+                        dict(compression=8)),
+        "gray32-int-be": (g.astype(np.int32) - 60, 1, 32, dict(sample_format=2, big_endian=True)),
+        "float32": (f32, 1, 32, dict(sample_format=3, compression=5, predictor=2)),
+        "float32-min-is-white": (f32, 0, 32, dict(sample_format=3)),
+        "gray-alpha": (rgba[..., [0, 3]], 1, 8, dict(extra=(2,), compression=5)),
+        "rgb16": (r16, 2, 16, dict(compression=5, predictor=2)),
+        "rgb16-big-endian": (r16, 2, 16, dict(big_endian=True)),
+        "palette8": (idx, 3, 8, dict(colormap=cmap, compression=5)),
+        "palette-alpha": (np.stack([idx, idx // 2], -1), 3, 8, dict(
+            colormap=cmap, extra=(2,), compression=8)),
+        "cmyk": (rgba, 5, 8, dict(compression=5)),
+        "cmyk16": (a16, 5, 16, dict(compression=8)),
+        "cmyk-planar": (rgba, 5, 8, dict(planar=2, compression=32773)),
+        "ycbcr-one-sample-jpeg": (g, 6, 8, dict(compression=1)),
+    })
+    for bits in (1, 2, 4):
+        cases[f"palette{bits}"] = (idx >> (8 - bits), 3, bits, dict(
+            colormap=cmap[:1 << bits], compression=32773))
+    for extra in ((), (0,), (1,), (2,), (0, 0), (1, 0), (2, 0)):
+        px = np.concatenate([rgba] + [rgba[..., :1]] * (len(extra) - 1), -1) if extra else rgba
+        name = "".join(map(str, extra)) or "none"
+        cases[f"rgba-extra-{name}"] = (px, 2, 8, dict(extra=extra, compression=5))
+        if len(extra) == 1:
+            cases[f"rgba16-extra-{name}"] = (a16, 2, 16, dict(extra=extra, compression=8))
+    for extra in ((), (1,), (2,)):
+        name = "".join(map(str, extra)) or "none"
+        cases[f"rgba-planar-extra-{name}"] = (rgba, 2, 8, dict(extra=extra, planar=2,
+                                                                compression=8))
+    ycc = np.concatenate([RGB[..., :1], RGB[..., 1:] // 2 + 64], -1)
+    for sub in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2)):
+        cases[f"ycbcr-{sub[0]}x{sub[1]}"] = (ycc, 6, 8, dict(
+            compression=5, rows_per_strip=8, ycbcr_subsampling=sub))
+    cases["ycbcr-reference-black-white"] = (ycc, 6, 8, dict(
+        compression=8, ycbcr_subsampling=(2, 1), tags={532: (5, [(16, 1), (235, 1), (128, 1),
+                                                                 (240, 1), (128, 1), (240, 1)])}))
+    cases["ycbcr-coefficients"] = (ycc, 6, 8, dict(
+        compression=8, ycbcr_subsampling=(1, 1), tags={529: (5, [(2126, 10000), (7152, 10000),
+                                                                 (722, 10000)])}))
+    cases["ycbcr-tiles"] = (ycc, 6, 8, dict(compression=5, tile=(16, 16),
+                                            ycbcr_subsampling=(2, 2)))
+    cases["ycbcr-uncompressed-rgbx"] = (ycc[:1, :4], 6, 8, dict(ycbcr_subsampling=(1, 1)))
+    return cases
+
+
+PHOTOMETRICS = _photometric_cases()
+
+
+@pytest.mark.parametrize("case", PHOTOMETRICS.values(), ids=PHOTOMETRICS.keys())
+def test_photometric_and_depth_match_pillow(case):
+    """Each row of Pillow's OPEN_INFO the port decodes, and its
+    ``convert("RGB")``: 16-bit gray clipped at 255, float truncated, 16-bit
+    colour's high byte, premultiplied alpha divided out, CMYK not inverted,
+    YCbCr through libtiff's RGBA reader's fixed point (an uncompressed one
+    read as Pillow's raw decoder reads it, as RGBX)."""
+    px, photo, bits, kw = case
+    _same(tiff_file(px, photo, bits, **kw))
+
+
+def _jpeg_strip(block):
+    return codec.encode_jpeg(np.ascontiguousarray(block), 90)
+
+
+JPEG_CASES = {
+    "pillow-rgb": lambda: _pil_save(Image.fromarray(RGB), compression="jpeg", quality=80),
+    "pillow-gray": lambda: _pil_save(Image.fromarray(RGB[..., 0]), compression="jpeg"),
+    "pillow-large": lambda: _pil_save(Image.fromarray(scene(150, 211, 6)), compression="jpeg"),
+    "ycbcr-strips": lambda: tiff_file(RGB, 6, 8, compression=7, rows_per_strip=16,
+                                      ycbcr_subsampling=(2, 2), jpeg=_jpeg_strip),
+    "ycbcr-tiles": lambda: tiff_file(RGB, 6, 8, compression=7, tile=(32, 16),
+                                     ycbcr_subsampling=(2, 2), jpeg=_jpeg_strip),
+    "gray-strips": lambda: tiff_file(RGB[..., 0], 1, 8, compression=7, rows_per_strip=8,
+                                     jpeg=lambda b: _jpeg_strip(b[..., 0])),
+}
+
+
+@pytest.mark.parametrize("make", JPEG_CASES.values(), ids=JPEG_CASES.keys())
+def test_jpeg_compressed_matches_pillow(make):
+    """JPEG (7): each strip or tile its own stream after the JPEGTables
+    tables, YCbCr converted to RGB as libtiff's JPEGCOLORMODE_RGB asks of
+    libjpeg, at the strip's or tile's own edges."""
+    _same(make())
+
+
+CCITT = [(2, None), (3, 0), (3, 1), (3, 4), (3, 5), (4, 0)]
+
+
+@pytest.mark.parametrize("fill", [1, 2], ids=["msb", "lsb"])
+@pytest.mark.parametrize("photo", [0, 1], ids=["min-is-white", "min-is-black"])
+@pytest.mark.parametrize("comp,t4", CCITT, ids=[f"c{c}-t4_{t}" for c, t in CCITT])
+def test_ccitt_matches_pillow(comp, t4, photo, fill):
+    _same(tiff_file(BW, photo, 1, compression=comp, t4options=t4, rows_per_strip=16,
+                    fill_order=fill))
+
+
+@pytest.mark.parametrize("name", ["group3", "group4", "tiff_ccitt", "packbits", "tiff_lzw",
+                                  "tiff_deflate", "tiff_adobe_deflate", "lzma", "jpeg", "raw"])
+def test_pillow_written_matches_pillow(name):
+    """Files libtiff writes (through Pillow), bilevel and RGB."""
+    if name in ("group3", "group4", "tiff_ccitt"):
+        im = Image.fromarray(BW * 255).convert("1")
+    else:
+        im = Image.fromarray(scene(45, 67, 7))
+    _same(_pil_save(im, compression=name))
+
+
+@pytest.mark.parametrize("mode", ["L", "P", "RGBA", "CMYK", "I;16", "I", "F", "LA", "1"])
+def test_pillow_modes_match_pillow(mode):
+    rgb = scene(30, 41, 8)
+    gray = rgb[..., 0].astype(np.uint16) * 3
+    im = {"I;16": lambda: Image.fromarray(gray),
+          "I": lambda: Image.fromarray(gray.astype(np.int32) - 100),
+          "F": lambda: Image.fromarray(gray.astype(np.float32) * np.float32(0.7))}.get(
+        mode, lambda: Image.fromarray(rgb).convert(mode))()
+    for kw in ({}, {"compression": "tiff_lzw"}):
+        _same(_pil_save(im, **kw))
+
+
+def test_pillow_ycbcr_matches_pillow():
+    """Pillow writes YCbCr uncompressed, and reads it back as RGBX: four
+    bytes a pixel from its strip on, past the end of the file here, so both
+    refuse it; compressed, libtiff's RGBA reader converts it."""
+    im = Image.fromarray(scene(30, 41, 8)).convert("YCbCr")
+    _both_raise(_pil_save(im), "truncated TIFF")
+    _same(_pil_save(im, compression="tiff_lzw"))
+
+
+def test_multipage_decodes_its_first_page():
+    pages = [Image.fromarray(scene(20, 30, i)) for i in range(3)]
+    buf = io.BytesIO()
+    pages[0].save(buf, "TIFF", save_all=True, append_images=pages[1:], compression="tiff_lzw")
+    np.testing.assert_array_equal(_same(buf.getvalue()), np.asarray(pages[0]))
+
+
+@pytest.mark.parametrize("source", ["tag", "xmp"])
+@pytest.mark.parametrize("orientation", range(1, 9))
+def test_orientation_applied_once(orientation, source):
+    """The Orientation tag (else XMP's tiff:Orientation), applied once, as
+    Pillow's TIFF load_end and the later exif_transpose leave it."""
+    kw = {"orientation": orientation} if source == "tag" else {
+        "xmp": b'<x:xmpmeta><rdf:Description tiff:Orientation="%d"/></x:xmpmeta>' % orientation}
+    _same(tiff_file(RGB, 2, 8, compression=5, **kw))
+
+
+def _with_tag(data: bytes, tag: int, value: int) -> bytes:
+    """A little-endian classic TIFF with one SHORT/LONG entry's value set."""
+    (pos,) = struct.unpack_from("<L", data, 4)
+    (n,) = struct.unpack_from("<H", data, pos)
+    out = bytearray(data)
+    for i in range(n):
+        at = pos + 2 + 12 * i
+        t, typ = struct.unpack_from("<HH", data, at)
+        if t == tag:
+            struct.pack_into("<H" if typ == 3 else "<L", out, at + 8, value)
+            return bytes(out)
+    raise KeyError(tag)
+
+
+def _both_raise(data: bytes, match: str) -> None:
+    with pytest.raises(ValueError, match=match):
+        codec.decode(data)
+    with pytest.raises(Exception):
+        _pil(data)
+
+
+REFUSED_BOTH = {
+    "old-style-jpeg": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 6), "old-style JPEG"),
+    "next": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 32766), "NeXT"),
+    "pixarlog": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 32909), "PixarLog"),
+    "jbig": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 34661), "JBIG"),
+    "webp": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 50001), "WebP"),
+    "sglog": (lambda: _with_tag(tiff_file(RGB, 2, 8), 259, 34676), "SGILog"),
+    "unknown-mode": (lambda: tiff_file(RGB[..., :2], 2, 8), "Pillow has no mode"),
+    "big-endian-bigtiff": (lambda: tiff_file(RGB, 2, 8, bigtiff=True, big_endian=True),
+                           "TIFF"),
+    "planar-unused-extra": (lambda: tiff_file(np.concatenate([RGB, RGB[..., :1]], -1), 2, 8,
+                                              extra=(0,), planar=2, compression=5),
+                            "unused extra sample"),
+    "truncated-strip": (lambda: tiff_file(RGB, 2, 8, compression=5)[:300], "truncated TIFF"),
+    "truncated-raw": (lambda: _truncated_raw(), "truncated TIFF"),
+    # Pillow reads an uncompressed YCbCr file as RGBX: four bytes a pixel,
+    # past the end of the file
+    "ycbcr-uncompressed": (lambda: tiff_file(RGB, 6, 8, ycbcr_subsampling=(1, 1)),
+                           "truncated TIFF"),
+    "lzw-short": (lambda: _short_strip(5), "LZW"),
+    "packbits-short": (lambda: _short_strip(32773), "PackBits"),
+    "deflate-short": (lambda: _short_strip(8), "Deflate"),
+    "jpeg-rgb-subsampled": (lambda: tiff_file(RGB, 2, 8, compression=7, rows_per_strip=16,
+                                              jpeg=_jpeg_strip), "sampling factors"),
+    "jpeg-taller-strip": (lambda: _taller_first_strip(), "JPEG in a"),
+    "lzw-no-clear-code": (lambda: _lzw_without_clear_code(2), "clear code"),
+    "rows-per-strip-0": (lambda: _with_tag(tiff_file(RGB, 2, 8, compression=5, rows_per_strip=8),
+                                           278, 0), "RowsPerStrip 0"),
+    "raw-rows-per-strip-0": (lambda: _with_tag(tiff_file(RGB, 2, 8, rows_per_strip=8), 278, 0),
+                             "RowsPerStrip 0"),
+    "rows-per-strip-2**31": (lambda: _with_tag(tiff_file(RGB, 2, 8, compression=5), 278,
+                                               2 ** 31), "RowsPerStrip"),
+    # Pillow's RGBA decoder sizes its buffer by RowsPerStrip x width x 4
+    "ycbcr-rows-per-block": (lambda: _with_tag(_ycbcr_strips(), 278,
+                                               (2 ** 31 - 1) // 4 // RGB.shape[1] + 1),
+                             "RGBA decoder"),
+}
+
+
+def _truncated_raw() -> bytes:
+    data = tiff_file(RGB, 2, 8)
+    (ifd,) = struct.unpack_from("<L", data, 4)
+    return data[:8] + data[ifd:]  # the directory, with the strip gone
+
+
+def _ycbcr_strips() -> bytes:
+    return tiff_file(RGB, 6, 8, compression=5, ycbcr_subsampling=(2, 2), rows_per_strip=8)
+
+
+def _lzw_without_clear_code(photometric: int) -> bytes:
+    """An LZW file of strips of 8 rows whose first strip lacks its leading
+    clear code (libtiff refuses every code before one)."""
+    data = _ycbcr_strips() if photometric == 6 else tiff_file(RGB, 2, 8, compression=5,
+                                                               rows_per_strip=8)
+    layout = codec._Tiff(data).layout()
+    off, cnt = layout[5][0], layout[6][0]
+    bits = "".join(f"{b:08b}" for b in data[off:off + cnt])[9:] + "0" * 9
+    strip = bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+    return data[:off] + strip + data[off + cnt:]
+
+
+def test_ycbcr_strip_without_clear_code_matches_pillow():
+    """libtiff's RGBA reader converts a YCbCr strip it could not decode as
+    zeros; the port's tolerant LZW gives the same pixels."""
+    _same(_lzw_without_clear_code(6))
+
+
+def _short_strip(comp: int) -> bytes:
+    """A strip whose data decompresses to half the strip's bytes."""
+    half = RGB[:RGB.shape[0] // 2].tobytes()
+    raw = {5: tiff_lzw, 32773: packbits, 8: lambda b: zlib.compress(b)}[comp](half)
+    data = tiff_file(RGB, 2, 8, compression=comp)
+    (ifd,) = struct.unpack_from("<L", data, 4)
+    body = b"II*\x00" + struct.pack("<L", 8 + len(raw) + len(raw) % 2) + raw + b"\x00" * (
+        len(raw) % 2)
+    rest = data[ifd:]
+    shift = len(body) - ifd
+    out = bytearray(body + rest)
+    (n,) = struct.unpack_from("<H", out, len(body))
+    for i in range(n):  # the strip's offset and byte count, and the moved values
+        at = len(body) + 2 + 12 * i
+        tag, typ, count, val = struct.unpack_from("<HHLL", out, at)
+        if tag == 273:
+            struct.pack_into("<L", out, at + 8, 8)
+        elif tag == 279:
+            struct.pack_into("<L", out, at + 8, len(raw))
+        elif count * {3: 2, 4: 4, 5: 8}.get(typ, 1) > 4:
+            struct.pack_into("<L", out, at + 8, val + shift)
+    return bytes(out)
+
+
+def _taller_first_strip() -> bytes:
+    """A JPEG strip whose frame is taller than its strip, and not the last:
+    libtiff refuses it (a last strip's it cuts to size)."""
+    data = tiff_file(RGB, 6, 8, compression=7, rows_per_strip=16, ycbcr_subsampling=(2, 2),
+                     jpeg=_jpeg_strip)
+    sof = data.index(b"\xff\xc0")
+    return data[:sof + 5] + struct.pack(">H", 24) + data[sof + 7:]
+
+
+def _taller_last_strip() -> bytes:
+    data = tiff_file(RGB, 6, 8, compression=7, rows_per_strip=16, ycbcr_subsampling=(2, 2),
+                     jpeg=_jpeg_strip)
+    sof = data.rindex(b"\xff\xc0")
+    return data[:sof + 5] + struct.pack(">H", 40) + data[sof + 7:]
+
+
+def _cut_jpeg_strip() -> bytes:
+    """A JPEG strip whose byte count stops halfway: libtiff's source manager
+    supplies an EOI and the rest of the strip decodes gray."""
+    data = tiff_file(RGB, 6, 8, compression=7, rows_per_strip=16, ycbcr_subsampling=(2, 2),
+                     jpeg=_jpeg_strip)
+    t = codec._Tiff(data)
+    counts = t.seq(279)
+    (ifd,) = struct.unpack_from("<L", data, 4)
+    (n,) = struct.unpack_from("<H", data, ifd)
+    out = bytearray(data)
+    for k in range(n):
+        at = ifd + 2 + 12 * k
+        tag, typ, count, val = struct.unpack_from("<HHLL", data, at)
+        if tag == 279:
+            struct.pack_into("<L", out, val + 4, counts[1] // 2)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("make", [_taller_last_strip, _cut_jpeg_strip],
+                         ids=["taller-last-strip", "cut-strip"])
+def test_jpeg_strip_edges_match_libtiff(make):
+    """The last strip's taller JPEG frame is cut to the strip, and a strip's
+    data that ends early reads a fake EOI: both as libtiff decodes them."""
+    _same(make())
+
+
+@pytest.mark.parametrize("case", REFUSED_BOTH.values(), ids=REFUSED_BOTH.keys())
+def test_refusals_where_pillow_raises(case):
+    make, match = case
+    _both_raise(make(), match)
+
+
+def _lab() -> bytes:
+    return tiff_file(RGB, 8, 8)
+
+
+REFUSED_PORT_ONLY = {
+    # Pillow decodes these; the port refuses them by name (ROADMAP.md queue 1)
+    "zstd": (lambda: _pil_save(Image.fromarray(RGB), compression="zstd"), "ZSTD"),
+    "thunderscan": (lambda: _with_tag(tiff_file(RGB[..., 0] >> 4, 1, 4), 259, 32809),
+                    "ThunderScan"),
+    "cielab": (_lab, "CIELab"),
+    "float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32, sample_format=3,
+                                          compression=8, tags={317: (3, [3])}),
+                        "floating-point predictor"),
+    "ycbcr-rotated": (lambda: tiff_file(RGB, 6, 8, compression=5, ycbcr_subsampling=(1, 1),
+                                        orientation=3), "Orientation"),
+    "ycbcr-4x4-odd": (lambda: tiff_file(RGB[:, :49], 6, 8, compression=5, rows_per_strip=8,
+                                        ycbcr_subsampling=(4, 4)), "reads it short"),
+}
+
+
+@pytest.mark.parametrize("case", REFUSED_PORT_ONLY.values(), ids=REFUSED_PORT_ONLY.keys())
+def test_refusals_where_pillow_decodes_are_named(case):
+    make, match = case
+    with pytest.raises(ValueError, match="unsupported TIFF: .*" + match):
+        codec.decode(make())
+
+
+def test_bomb_limit_before_allocating():
+    """A header past Pillow's decompression-bomb limit raises before any
+    strip is read or allocated."""
+    data = tiff_file(np.zeros((1, 1, 3), np.uint8), 2, 8)
+    big = _with_tag(_with_tag(data, 256, 20000), 257, 20000)
+    tracemalloc.start()
+    with pytest.raises(ValueError, match="decompression-bomb"):
+        codec.decode(big)
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    assert peak < 1 << 20
+    with pytest.raises(Exception):
+        _pil(big)
+
+
+def _huge_tiles(photometric: int, size: int, **kw) -> bytes:
+    """A 16x16 LZW TIFF whose tiles are ``size`` x ``size`` (LONG fields)."""
+    data = bytearray(tiff_file(np.zeros((16, 16, 3), np.uint8), photometric, 8, compression=5,
+                               tile=(16, 16), **kw))
+    (pos,) = struct.unpack_from("<L", data, 4)
+    (n,) = struct.unpack_from("<H", data, pos)
+    for k in range(n):
+        at = pos + 2 + 12 * k
+        (tag,) = struct.unpack_from("<H", data, at)
+        if tag in (322, 323):
+            struct.pack_into("<HHLL", data, at, tag, 4, 1, size)
+    return bytes(data)
+
+
+def _pil_raises_within(data: bytes, limit: int = 4 << 30) -> bool:
+    """Whether Pillow raises on ``data``, opened in a process whose address
+    space is held to ``limit`` bytes (a hostile file must not take the host's
+    memory if Pillow were to allocate what it describes)."""
+    import subprocess
+
+    script = ("import io, resource, sys, warnings\n"
+              f"resource.setrlimit(resource.RLIMIT_AS, ({limit}, {limit}))\n"
+              "warnings.simplefilter('ignore')\n"
+              "from PIL import Image, ImageOps\n"
+              "d = sys.stdin.buffer.read()\n"
+              "try:\n"
+              "    ImageOps.exif_transpose(Image.open(io.BytesIO(d))).convert('RGB')\n"
+              "except Exception:\n"
+              "    sys.exit(3)\n")
+    run = subprocess.run([sys.executable, "-c", script], input=data, capture_output=True)
+    assert run.returncode in (0, 3), run.stderr.decode()
+    return run.returncode == 3
+
+
+HUGE_TILES = {
+    # libtiff's RGBA reader refuses the tile ("Likely invalid tile byte count")
+    "tile-ycbcr": lambda: _huge_tiles(6, 65536, ycbcr_subsampling=(2, 2)),
+    # Pillow's tile decoder refuses a tile over 2**31 - 1 bytes
+    "tile-rgb": lambda: _huge_tiles(2, 30000),
+}
+
+
+@pytest.mark.parametrize("comp", [5, 32773, 8, 34925, 4, *HUGE_TILES])
+def test_strip_output_is_bounded(comp):
+    """A 2x2 image whose strip holds the coding of 16 MiB: each decoder stops
+    at the strip's bytes, as libtiff does, and the pixels are Pillow's. A
+    16x16 image whose tiles are far past the decompression-bomb limit raises
+    before a tile is allocated, where Pillow raises too."""
+    if comp in HUGE_TILES:
+        data = HUGE_TILES[comp]()
+        tracemalloc.start()
+        with pytest.raises(ValueError, match="tiles exceed the decompression-bomb limit"):
+            codec.decode(data)
+        peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        assert peak < 12 << 20
+        assert _pil_raises_within(data)
+        return
+    if comp == 4:
+        rows = np.zeros((4096, 2), np.uint8)
+        raw = fax_encode(rows, 4)
+    else:
+        zeros = bytes(16 << 20)
+        raw = {5: tiff_lzw, 32773: packbits, 8: zlib.compress,
+               34925: lambda b: __import__("lzma").compress(b)}[comp](zeros) if comp != 5 else \
+            tiff_lzw(zeros[:1 << 20])
+    px = np.zeros((2, 2, 1 if comp == 4 else 3), np.uint8)
+    data = tiff_file(px, 0 if comp == 4 else 2, 1 if comp == 4 else 8, compression=comp)
+    small = {4: fax_encode(px[..., 0], 4), 5: tiff_lzw(px.tobytes()),
+             32773: packbits(px.tobytes()), 8: zlib.compress(px.tobytes(), 9),
+             34925: __import__("lzma").compress(px.tobytes(), check=0)}[comp]
+    assert small in data
+    i = data.index(small)
+    (ifd,) = struct.unpack_from("<L", data, 4)
+    grown = data[:i] + raw + data[i + len(small):]
+    shift = len(raw) - len(small)
+    out = bytearray(grown)
+    struct.pack_into("<L", out, 4, ifd + shift)
+    (n,) = struct.unpack_from("<H", out, ifd + shift)
+    for k in range(n):
+        at = ifd + shift + 2 + 12 * k
+        tag, typ, count, val = struct.unpack_from("<HHLL", out, at)
+        if tag == 279:
+            struct.pack_into("<L", out, at + 8, len(raw))
+        elif count * {3: 2, 4: 4, 5: 8}.get(typ, 1) > 4:
+            struct.pack_into("<L", out, at + 8, val + shift)
+    tracemalloc.start()
+    got = codec.decode(bytes(out))
+    peak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    assert peak < 12 << 20  # the 16 MiB are never made (LZMA's 8 MiB dictionary is)
+    np.testing.assert_array_equal(got, _pil(bytes(out)))
+
+
+def test_jax_package_gives_the_same_arrays(tmp_path):
+    """``codec.decode_base64`` of a TIFF equals the JAX package's
+    ``core/imaging.base64_to_pil``; a manifest item naming ``.tif`` files
+    loads through the port's ``EditDataset`` as through the JAX one."""
+    from qwen_image_edit_streamdiffusion_tpu.training import data as jdata
+    from qwen_image_edit_streamdiffusion_tpu_torch.training import data
+
+    tif = tiff_file(RGB, 2, 8, compression=5, predictor=2, orientation=6)
+    b64 = "data:image/tiff;base64," + base64.b64encode(tif).decode()
+    np.testing.assert_array_equal(codec.decode_base64(b64),
+                                  np.asarray(jimaging.base64_to_pil(b64)))
+    (tmp_path / "in.tif").write_bytes(tif)
+    (tmp_path / "out.tif").write_bytes(_pil_save(Image.fromarray(scene(37, 53, 9)),
+                                                 compression="tiff_adobe_deflate"))
+    manifest = tmp_path / "m.jsonl"
+    manifest.write_text(json.dumps({"image": "in.tif", "target": "out.tif", "prompt": "p"}) + "\n")
+    ours = data.EditDataset.from_manifest(str(manifest)).load(0)
+    theirs = jdata.EditDataset.from_manifest(str(manifest)).load(0)
+    for key in ("image", "target"):
+        np.testing.assert_array_equal(ours[key], np.asarray(theirs[key]))
+
+
+FUZZ_FIXTURES = ["lzw_pred.tif", "tiled_deflate_be.tif", "planar_packbits.tif",
+                 "bigtiff_lzma.tif", "g4.tif", "g3_2d_fill2.tif", "ccitt_rle.tif",
+                 "jpeg_ycbcr.tif", "palette4.tif", "minwhite.tif", "gray16_be.tif",
+                 "float32.tif", "rgba_assoc.tif", "cmyk.tif", "ycbcr_lzw.tif", "multipage.tif",
+                 "orient6.tif"]
+
+
+def _directory(data: bytes):
+    """(header, entry count, entries) of a TIFF's first directory read in
+    full: each entry's (tag, type, count, value field) and whether its
+    data lies in the file, by the size Pillow gives its type."""
+    e = "<" if data[:2] == b"II" else ">"
+    big = data[2:4] in (b"\x00+", b"+\x00")
+    head = data[:16 if big else 8]
+    (pos,) = struct.unpack_from(e + ("Q" if big else "L"), data, 8 if big else 4)
+    if pos + (8 if big else 2) > len(data):
+        return head, None, []
+    (n,) = struct.unpack_from(e + ("Q" if big else "H"), data, pos)
+    size, inline = (20, 8) if big else (12, 4)
+    entries = []
+    for at in range(pos + (8 if big else 2), pos + (8 if big else 2) + size * min(n, 4096),
+                    size):
+        if at + size > len(data):
+            entries.append(None)  # the entry table runs past the file
+            break
+        tag, typ = struct.unpack_from(e + "HH", data, at)
+        (count,) = struct.unpack_from(e + ("Q" if big else "L"), data, at + 4)
+        field = data[at + size - inline:at + size]
+        nbytes = count * codec._TIFF_TYPES.get(typ, (0,))[0]
+        (off,) = struct.unpack(e + ("Q" if big else "L"), field)
+        entries.append((tag, typ, count, field, nbytes <= inline or off + nbytes <= len(data)))
+    return head, n, entries
+
+
+# The fields of a compressed file that libtiff reads itself, each with type
+# and count checks of its own (tif_dirread.c): a field that fails them fails
+# the directory (the size, layout and sample fields) or is ignored (the
+# rest; a ColorMap also at the wrong size).
+_LIBTIFF_FIELDS = {256, 257, 258, 259, 262, 266, 273, 277, 278, 279, 280, 281, 284, 292, 293,
+                   317, 320, 322, 323, 324, 325, 338, 339, 347, 529, 530, 532}
+
+
+def _known_divergence(seed: bytes, edited: bytes, edits, port_error, pillow_decoded) -> bool:
+    """Whether a disagreement is one of the mechanisms ROADMAP.md queue 3
+    lists, each read from the edited bytes and the two outcomes:
+
+    - a compressed file whose directory libtiff reads apart from Pillow's:
+      the header or the entry count changed; an entry's tag changed; an
+      entry's data now lies past the file (Pillow's directory ends there,
+      libtiff skips the entry); or a field of ``_LIBTIFF_FIELDS`` changed
+      its type or count;
+    - a CCITT file the port refuses for a bad or short code and Pillow
+      decodes (libtiff pads or cuts the row and decodes on);
+    - an LZMA strip damaged in its data that the port refuses and Pillow
+      decodes (libtiff stops reading once the strip is full);
+    - a JPEG strip smaller than its strip, which the port refuses by name
+      and libtiff decodes with a warning."""
+    t = codec._Tiff(seed)
+    if port_error and pillow_decoded:
+        _, _, _, _, _, offs, counts = t.layout()
+        inside = any(o <= i < o + c for i in edits for o, c in zip(offs, counts))
+        if t.comp in (2, 3, 4) and "CCITT" in port_error:
+            return True
+        if t.comp == 34925 and inside and "LZMA" in port_error:
+            return True
+        if t.comp == 7 and "JPEG in a" in port_error:
+            return True
+    if t.comp == 1:
+        return False
+    head0, n0, was = _directory(seed)
+    head1, n1, now = _directory(edited)
+    if head0 != head1 or n0 != n1 or None in now:
+        return True
+    for a, b in zip(was, now):
+        if a[0] != b[0] or not b[4]:
+            return True
+        if b[0] in _LIBTIFF_FIELDS and a[1:3] != b[1:3]:
+            return True
+    return False
+
+
+def test_differential_fuzz_against_pillow():
+    """Random byte edits of every TIFF fixture: the port and Pillow both
+    raise, or their pixels are equal, but for the known classes of
+    :func:`_known_divergence`. Pillow decodes in a process where
+    libjpeg-turbo runs its C code (``JSIMD_FORCENONE``), as the port does."""
+    rng = np.random.default_rng(17)
+    seeds = []
+    for name in FUZZ_FIXTURES:
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            seeds.append(f.read())
+    cases, edits = [], []
+    for it in range(2000):
+        seed = seeds[it % len(seeds)]
+        d = bytearray(seed)
+        at = []
+        for _ in range(int(rng.integers(1, 4))):
+            i = int(rng.integers(0, len(d)))
+            d[i] = int(rng.integers(0, 256))
+            at.append(i)
+        cases.append(bytes(d))
+        edits.append(at)
+    want = pil_rgb_c_idct(cases)
+    disagree = []
+    for it, (d, w) in enumerate(zip(cases, want)):
+        try:
+            got, error = codec.decode(d), None
+        except ValueError as e:
+            got, error = None, str(e)
+        same = (w is None) == (got is None) and (w is None or np.array_equal(w, got))
+        if not same and not _known_divergence(seeds[it % len(seeds)], d, edits[it], error,
+                                              w is not None):
+            disagree.append((FUZZ_FIXTURES[it % len(seeds)], edits[it]))
+    assert not disagree, f"edits {disagree} decode differently from Pillow"
