@@ -52,7 +52,14 @@ raises when a call needs the library.
   truncated, 16-bit colour's high byte, premultiplied alpha divided out,
   palettes' 16-bit entries' high bytes, CMYK not inverted, YCbCr through
   libtiff's RGBA reader's fixed point), the Orientation tag (else XMP's)
-  applied once.
+  applied once. A damaged TIFF decodes, or raises, as it does through
+  Pillow: the mode from Pillow's reading of the first directory, the strips
+  and the fields they decode by from libtiff's own reading of it (which
+  skips what Pillow stops at, and fails or ignores a field of the wrong
+  type or count); each strip into Pillow's reused strip buffer; zlib and
+  liblzma called as libtiff calls them; CCITT rows ended at a bad code and
+  decoding on; a JPEG frame smaller than its strip; YCbCr strips converted
+  up to their error; a likely invalid YCbCr tile byte count refused.
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
@@ -176,7 +183,7 @@ def library() -> ctypes.CDLL:
         lib.qie_jpeg_decode.restype = ci
         lib.qie_tiff_jpeg.argtypes = [cp, cl, cp, cl, ci, ci, ci, ci, ci, ci, ci, vp, vp, ci]
         lib.qie_tiff_jpeg.restype = ci
-        lib.qie_tiff_decompress.argtypes = [ci, cp, cl, vp, cl, ci, ci, ci, ci, vp, ci]
+        lib.qie_tiff_decompress.argtypes = [ci, cp, cl, vp, cl, ci, ci, ci, ci, vp, vp, ci]
         lib.qie_tiff_decompress.restype = ci
         lib.qie_jpeg_encode.argtypes = [vp, ci, ci, ci, ci, ci, ci, vp, cl, vp, ci]
         lib.qie_jpeg_encode.restype = cl
@@ -523,13 +530,15 @@ def _decode_webp(data: bytes) -> np.ndarray:
 
 _TIFF_COMPRESSION = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3",
                      4: "CCITT Group 4", 5: "LZW", 6: "old-style JPEG", 7: "JPEG",
-                     8: "Deflate", 32766: "NeXT", 32771: "16-bit padded uncompressed",
+                     8: "Deflate", 32766: "NeXT", 32771: "CCITT RLEW",
                      32773: "PackBits", 32809: "ThunderScan", 32908: "PixarFilm",
                      32909: "PixarLog", 32946: "Deflate", 34661: "JBIG", 34676: "SGILog",
                      34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
 _TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
-# the strip and tile fields only libtiff reads (a compressed file's)
-_TIFF_LIBTIFF_ONLY = {273, 278, 279, 292, 293, 317, 322, 323, 324, 325}
+# the offsets Pillow's raw tiles iterate: a BYTE field's bytes are numbers
+_TIFF_ITERATED = {273, 324}
+# the fields Pillow's mode and codec are looked up by
+_TIFF_KEYS = {258, 259, 262, 266, 284, 338, 339}
 
 
 def _tiff_open_info() -> dict:
@@ -580,8 +589,8 @@ def _tiff_ifd(data: bytes):
     directory, classic or BigTIFF, as Pillow's ImageFileDirectory_v2 loads
     it: values a tuple of numbers ((numerator, denominator) pairs for the
     rationals), or the bytes of a BYTE, ASCII or UNDEFINED field; an entry
-    of an unknown type is skipped, and one whose data lies past the file
-    ends the directory."""
+    of an unknown type or of no data is skipped, and one whose data lies past
+    the file ends the directory."""
     e = "<" if data[:2] == b"II" else ">"
     big = data[2] == 0x2B  # Pillow reads a big-endian BigTIFF header as classic
     head = 16 if big else 8
@@ -617,6 +626,8 @@ def _tiff_ifd(data: bytes):
             raw = data[off:off + size]
         else:
             raw = field[:size]
+        if not raw:  # no data: Pillow skips the entry
+            continue
         if code is None:
             vals = raw
         elif unit == 8 and code in "Ll":
@@ -651,9 +662,11 @@ class _Tiff:
         if len(bps) != self.spp:
             raise ValueError("corrupt TIFF: BitsPerSample does not match SamplesPerPixel")
         self.bps = bps
-        self.planar = self.scalar(284, 1)
-        self.predictor = self.scalar(317, 1)
-        self.tiled = 322 in self.tags or 324 in self.tags
+        # Pillow only asks whether the field is 2: anything else is chunky
+        planar = self.tags.get(284, (3, (1,), b""))[1]
+        self.planar = 2 if not isinstance(planar, bytes) and tuple(planar) == (2,) else 1
+        # Pillow's raw tiles: strips where the file has StripOffsets
+        self.tiled = 273 not in self.tags and 324 in self.tags
 
     def seq(self, tag, default=(), rational: bool = False):
         """The tag's values: integers, or (numerator, denominator) pairs
@@ -662,11 +675,17 @@ class _Tiff:
             return default
         typ, vals, _ = self.tags[tag]
         if isinstance(vals, bytes):
-            # libtiff reads a BYTE field of the strip layout as numbers; in
-            # the fields Pillow reads itself its one bytes value fails
-            if typ == 1 and tag in _TIFF_LIBTIFF_ONLY:
+            # Pillow iterates a BYTE field of offsets as numbers; in the
+            # other fields it reads its one bytes value fails
+            if typ == 1 and tag in _TIFF_ITERATED:
                 return tuple(vals)
             raise ValueError(f"corrupt TIFF: tag {tag} holds bytes, not numbers")
+        if not rational and tag in _TIFF_KEYS:
+            # Pillow looks these up in OPEN_INFO or compares them: a float or
+            # rational of a whole number is the number
+            vals = tuple(v[0] // v[1] if isinstance(v, tuple) and v[1] and v[0] % v[1] == 0
+                         else int(v) if isinstance(v, float) and v.is_integer() else v
+                         for v in vals)
         if not all(isinstance(v, tuple if rational else int) for v in vals):
             raise ValueError(f"corrupt TIFF: tag {tag} holds values of type {typ}")
         return tuple(vals)
@@ -682,20 +701,386 @@ class _Tiff:
 
     def layout(self):
         """(chunk width, chunk rows, chunks across, chunks down, planes,
-        offsets, byte counts) of the strips or tiles."""
+        offsets, byte counts) of the strips or tiles, as Pillow's raw tiles
+        lay them out; the byte counts as the file holds them (Pillow reads
+        none)."""
         if self.tiled:
             tw, th = self.scalar(322), self.scalar(323)
             if not tw or not th:
                 raise ValueError("corrupt TIFF: bad TileWidth or TileLength")
-            offsets, counts = self.seq(324), self.seq(325)
+            offsets, counts = self.seq(324), self.tags.get(325, (4, (), b""))[1]
         else:
             rps = self.scalar(278, 2 ** 32 - 1)
             if rps == 0:  # Pillow's raw tiles and libtiff both refuse it
                 raise ValueError("corrupt TIFF: RowsPerStrip 0")
             tw, th = self.w, min(rps, self.h)
-            offsets, counts = self.seq(273), self.seq(279)
+            offsets, counts = self.seq(273), self.tags.get(279, (4, (), b""))[1]
         planes = self.spp if self.planar == 2 else 1
         return tw, th, -(-self.w // tw), -(-self.h // th), planes, offsets, counts
+
+
+# libtiff's field types: bytes a value, and the struct code of the integer
+# types (the rest read as numbers fail its integer fields)
+_LT_WIDTH = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4,
+             16: 8, 17: 8, 18: 8}
+_LT_INT = {1: "B", 6: "b", 3: "H", 8: "h", 4: "L", 9: "l", 16: "Q", 17: "q"}
+# the codecs whose Predictor libtiff reads (_TIFFCheckFieldIsValidForCodec)
+_LT_PREDICTED = (5, 8, 32909, 32946, 34925, 50000, 50001)
+
+
+_LT_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample", 259: "Compression",
+             277: "SamplesPerPixel", 278: "RowsPerStrip", 280: "MinSampleValue",
+             281: "MaxSampleValue", 284: "PlanarConfiguration", 322: "TileWidth",
+             323: "TileLength", 338: "ExtraSamples", 339: "SampleFormat"}
+
+
+class _LibTiff:
+    """A TIFF's first directory as libtiff 4.7 reads it (tif_dirread.c's
+    TIFFReadDirectory), which Pillow's libtiff decoder takes the strips and
+    the fields it decodes by from: the first of duplicate tags; the size,
+    layout and sample fields failing the directory on a bad type, count or
+    value, the others ignored; a ColorMap read only after BitsPerSample and
+    at its size; missing or zero byte counts estimated as libtiff estimates
+    them. Raises ``ValueError`` where libtiff fails the directory."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        fail = ValueError
+        if len(data) < 8 or data[:2] not in (b"II", b"MM"):
+            raise fail("corrupt TIFF: libtiff reads no TIFF header")
+        e = self.e = "<" if data[:2] == b"II" else ">"
+        (version,) = struct.unpack_from(e + "H", data, 2)
+        if version == 42:
+            self.big = False
+            (pos,) = struct.unpack_from(e + "L", data, 4)
+        elif version == 43:
+            if len(data) < 16 or struct.unpack_from(e + "HH", data, 4) != (8, 0):
+                raise fail("corrupt TIFF: libtiff refuses the BigTIFF header")
+            self.big = True
+            (pos,) = struct.unpack_from(e + "Q", data, 8)
+        else:
+            raise fail(f"corrupt TIFF: libtiff refuses version {version}")
+        csize, esize = (8, 20) if self.big else (2, 12)
+        if pos == 0 or pos + csize > len(data):
+            raise fail("corrupt TIFF: libtiff cannot read the directory count")
+        (n,) = struct.unpack_from(e + ("Q" if self.big else "H"), data, pos)
+        if n == 0 or n > 4096:
+            raise fail(f"corrupt TIFF: libtiff refuses a directory of {n} entries")
+        if pos + csize + n * esize > len(data):
+            raise fail("corrupt TIFF: libtiff cannot read the directory")
+        self.entries, seen = [], set()
+        fmt = e + ("HHQ" if self.big else "HHL")
+        for k in range(n):
+            at = pos + csize + k * esize
+            tag, typ, count = struct.unpack_from(fmt, data, at)
+            field = data[at + esize - (8 if self.big else 4):at + esize]
+            # later duplicates of a tag are ignored (bugzilla 1994)
+            self.entries.append([tag, typ, count, field, tag in seen])
+            seen.add(tag)
+        self.read()
+
+    # -- TIFFReadDirEntry*: values, or an error name ------------------------
+
+    def values(self, ent, limit=None):
+        """The integers of an entry (at most ``limit`` of them), or raises
+        KeyError naming libtiff's error."""
+        tag, typ, count, field, _ = ent
+        if typ not in _LT_INT:
+            raise KeyError("type")
+        width = _LT_WIDTH[typ]
+        take = count if limit is None else min(count, limit)
+        if take == 0:
+            return ()
+        if take > 2147483647 // max(width, 8):
+            raise KeyError("size")
+        if count * width <= (8 if self.big else 4):
+            raw = field[:take * width]
+        else:
+            (off,) = struct.unpack(self.e + ("Q" if self.big else "L"), field)
+            if off + take * width > len(self.data):
+                raise KeyError("io")
+            raw = self.data[off:off + take * width]
+        return struct.unpack(self.e + _LT_INT[typ] * take, raw)
+
+    def floats(self, ent):
+        tag, typ, count, field, _ = ent
+        width = _LT_WIDTH.get(typ, 0)
+        if typ not in _LT_INT and typ not in (5, 10, 11, 12):
+            raise KeyError("type")
+        if count * width <= (8 if self.big else 4):
+            raw = field[:count * width]
+        else:
+            (off,) = struct.unpack(self.e + ("Q" if self.big else "L"), field)
+            if off + count * width > len(self.data):
+                raise KeyError("io")
+            raw = self.data[off:off + count * width]
+        if typ in (5, 10):
+            v = struct.unpack(self.e + ("L" if typ == 5 else "l") * (2 * count), raw)
+            # (float) numerator / (float) denominator, as libtiff divides
+            return tuple(np.float32(a) / np.float32(b) if b else np.float32(0)
+                         for a, b in zip(v[::2], v[1::2]))
+        code = {11: "f", 12: "d"}.get(typ, _LT_INT.get(typ))
+        return tuple(np.float32(x) for x in struct.unpack(self.e + code * count, raw))
+
+    def one(self, ent, top):
+        """TIFFReadDirEntryShort / Long: one value in 0..top."""
+        if ent[2] != 1:
+            raise KeyError("count")
+        (v,) = self.values(ent)
+        if not 0 <= v <= top:
+            raise KeyError("range")
+        return v
+
+    def shorts(self, ent):
+        v = self.values(ent)
+        if any(not 0 <= x <= 0xFFFF for x in v):
+            raise KeyError("range")
+        return v
+
+    def per_sample(self, ent):
+        """TIFFReadDirEntryShort, else TIFFReadDirEntryPersampleShort: every
+        sample's value the same."""
+        try:
+            return self.one(ent, 0xFFFF)
+        except KeyError as ex:
+            if ex.args[0] != "count":
+                raise
+        if ent[2] < self.spp:
+            raise KeyError("count")
+        v = self.shorts(ent)
+        if any(x != v[0] for x in v[1:self.spp]):
+            raise KeyError("per-sample values differ")
+        return v[0]
+
+    # -- TIFFReadDirectory --------------------------------------------------
+
+    def find(self, tag):
+        return next((x for x in self.entries if x[0] == tag), None)
+
+    def read(self):
+        fail = ValueError
+
+        def bad(what):
+            return fail(f"corrupt TIFF: {what} (libtiff fails the directory)")
+
+        self.spp, self.comp, self.planar = 1, 1, 1
+        self.w = self.h = None
+        self.rps = 2 ** 32 - 1
+        self.tw = self.th = None
+        self.extra = 0
+        self.bps, self.sample_format, self.photo, self.fill = 1, 1, None, 1
+        self.predictor, self.t4, self.orientation = 1, 0, 1
+        self.sub, self.coef, self.refbw, self.tables = (2, 2), None, None, None
+        self.colormap = None
+        ent = self.find(277)
+        if ent:
+            try:
+                self.spp = self.one(ent, 0xFFFF)
+            except KeyError as ex:
+                raise bad(f"SamplesPerPixel {ex.args[0]}") from None
+            if self.spp == 0:
+                raise bad("SamplesPerPixel 0")
+            ent[4] = True
+        ent = self.find(259)
+        if ent:
+            try:
+                self.comp = self.per_sample(ent)
+            except KeyError as ex:
+                raise bad(f"Compression {ex.args[0]}") from None
+            ent[4] = True
+        codec_tags = {317: self.comp in _LT_PREDICTED or self.comp not in _TIFF_COMPRESSION,
+                      347: self.comp == 7, 292: self.comp == 3, 293: self.comp == 4}
+        present = set()
+        for ent in self.entries:  # the first pass
+            tag = ent[0]
+            if ent[4]:
+                continue
+            if tag in (273, 279, 324, 325):
+                present.add(tag)
+            elif tag in (256, 257, 322, 323, 284, 278, 338):
+                try:
+                    if tag == 338:
+                        if ent[2] > 0xFFFF:
+                            raise KeyError("count")
+                        v = self.shorts(ent)
+                        if len(v) > self.spp or any(x > 2 and x != 999 for x in v):
+                            raise KeyError("value")
+                        self.extra = len(v)
+                    elif tag == 284:
+                        self.planar = self.one(ent, 0xFFFF)
+                        if self.planar not in (1, 2):
+                            raise KeyError("value")
+                    else:
+                        v = self.one(ent, 2 ** 32 - 1)
+                        if tag == 278 and v == 0:
+                            raise KeyError("0")
+                        setattr(self, {256: "w", 257: "h", 322: "tw", 323: "th", 278: "rps"}[tag],
+                                v)
+                except KeyError as ex:
+                    raise bad(f"{_LT_NAMES.get(tag, tag)} {ex.args[0]}") from None
+                ent[4] = True
+            elif tag in codec_tags and not codec_tags[tag]:
+                ent[4] = True
+        if self.w is None or self.h is None:
+            raise bad("no ImageWidth or ImageLength")
+        self.tiled = self.tw is not None or self.th is not None
+        if self.tiled:
+            tw, th = self.tw or 0, self.th or 0
+            n = 0 if not tw or not th else -(-self.w // tw) * -(-self.h // th)
+        else:
+            rps = min(self.rps, self.h)
+            n = 1 if rps == 0 else -(-self.h // rps)
+        if self.planar == 2:
+            n *= self.spp
+        if n == 0 or n > 2 ** 32 - 1:
+            raise bad("no strips or tiles")
+        self.nstrips = n
+        if not ({273, 324} & present):
+            raise bad("no StripOffsets")
+        bps_read = False
+        offsets_ent = counts_ent = None
+        for ent in self.entries:  # the second pass
+            tag = ent[0]
+            if ent[4]:
+                continue
+            try:
+                if tag in (258, 280, 281, 339, 32996):
+                    v = self.per_sample(ent)
+                    if tag == 339 and not 1 <= v <= 6:
+                        raise KeyError("value")
+                    if tag == 258:
+                        self.bps, bps_read = v, True
+                    elif tag == 339:
+                        self.sample_format = v
+                elif tag in (340, 341):
+                    if ent[2] < self.spp:
+                        raise KeyError("count")
+                    self.floats(ent)
+                elif tag in (273, 324):
+                    offsets_ent = ent
+                elif tag in (279, 325):
+                    counts_ent = ent
+                elif tag == 320:
+                    if not bps_read or self.bps > 24 or ent[2] != 3 << self.bps:
+                        continue
+                    try:
+                        self.colormap = self.shorts(ent)
+                    except KeyError:
+                        pass
+                else:
+                    self.normal(ent)
+            except KeyError as ex:
+                raise bad(f"{_LT_NAMES.get(tag, tag)} {ex.args[0]}") from None
+        if self.photo == 3 and self.colormap is None:
+            if self.bps >= 8:
+                self.photo = 2 if self.spp == 3 else 1
+            else:
+                raise bad("a palette without its ColorMap")
+        self.offsets = self.strile(offsets_ent)
+        if counts_ent is None:
+            if (self.planar == 1 and n > 1) or (self.planar == 2 and n != self.spp):
+                raise bad("no StripByteCounts")
+            self.counts = self.estimate()
+        else:
+            self.counts = self.strile(counts_ent)
+            if n == 1 and not self.tiled and self.offsets[0] and not self.counts[0] \
+                    and self.comp != 1:
+                self.counts = self.estimate()
+        if not self.w or not self.h:
+            raise bad("zero scanline or strip size")
+
+    def normal(self, ent):
+        """TIFFFetchNormalTag with recovery: a field that fails is ignored."""
+        tag = ent[0]
+        try:
+            if tag in (262, 266, 317, 274):
+                v = self.one(ent, 0xFFFF)
+                if tag == 266 and v not in (1, 2):
+                    return
+                if tag == 274 and not 1 <= v <= 8:
+                    return
+                name = {262: "photo", 266: "fill", 317: "predictor", 274: "orientation"}[tag]
+                setattr(self, name, v)
+            elif tag in (292, 293):
+                self.t4 = self.one(ent, 2 ** 32 - 1)
+            elif tag == 530:
+                if ent[2] != 2:
+                    return
+                self.sub = tuple(self.shorts(ent))
+            elif tag in (529, 532):
+                if ent[2] != (3 if tag == 529 else 6):
+                    return
+                v = self.floats(ent)
+                if tag == 529:
+                    self.coef = v
+                else:
+                    self.refbw = v
+            elif tag == 347:
+                v = self.values(ent) if ent[1] not in (2, 7) else None
+                if v is None:
+                    raw = self.raw(ent)
+                    if raw is None:
+                        return
+                    v = tuple(raw)
+                if ent[2] == 0 or any(not 0 <= x <= 255 for x in v):
+                    return
+                self.tables = bytes(v)
+        except KeyError:
+            return
+
+    def raw(self, ent):
+        tag, typ, count, field, _ = ent
+        if count <= (8 if self.big else 4):
+            return field[:count]
+        (off,) = struct.unpack(self.e + ("Q" if self.big else "L"), field)
+        return self.data[off:off + count] if off + count <= len(self.data) else None
+
+    def strile(self, ent):
+        """TIFFFetchStripThing: nstrips values, zeros past the entry's."""
+        try:
+            v = self.values(ent, self.nstrips)
+        except KeyError as ex:
+            raise ValueError(f"corrupt TIFF: libtiff fails the strip array ({ex})") from None
+        if any(x < 0 for x in v):
+            raise ValueError("corrupt TIFF: libtiff fails the strip array (range)")
+        if len(v) < self.nstrips and self.nstrips > 1000000:
+            raise ValueError("corrupt TIFF: libtiff fails the strip array (count)")
+        return tuple(v) + (0,) * (self.nstrips - len(v))
+
+    def estimate(self):
+        """EstimateStripByteCounts of a compressed file: what the file holds
+        past its header, directory and out-of-line field data."""
+        if self.comp == 1:
+            raise ValueError("corrupt TIFF: uncompressed without byte counts")
+        space = (16 + 8 + len(self.entries) * 20 + 8) if self.big else \
+            (8 + 2 + len(self.entries) * 12 + 4)
+        for tag, typ, count, field, _ in self.entries:
+            width = _LT_WIDTH.get(typ, 0)
+            if width == 0:
+                raise ValueError(f"corrupt TIFF: libtiff cannot size a field of type {typ}")
+            size = width * count
+            space += size if size > (8 if self.big else 4) else 0
+        size = len(self.data)
+        space = size if size < space else size - space
+        if self.planar == 2:
+            space //= self.spp
+        counts = [space] * self.nstrips
+        last = self.offsets[-1]
+        if last + counts[-1] > size:
+            counts[-1] = 0 if last >= size else size - last
+        if self.rps == 2 ** 32 - 1 and not any(x[0] == 278 for x in self.entries):
+            self.rps = self.h
+        return tuple(counts)
+
+    def layout(self):
+        """(chunk width, chunk rows, chunks across, chunks down, planes,
+        offsets, byte counts) as libtiff lays the strips or tiles out."""
+        if self.tiled:
+            tw, th = self.tw or 0, self.th or 0
+        else:
+            tw, th = self.w, min(self.rps, self.h)
+        planes = self.spp if self.planar == 2 else 1
+        return tw, th, -(-self.w // tw), -(-self.h // th), planes, self.offsets, self.counts
 
 
 def _decode_tiff(data: bytes) -> np.ndarray:
@@ -715,6 +1100,12 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         raise ValueError(f"unsupported TIFF: photometric {t.photo} with {t.spp} samples of "
                          f"{t.bps} bits (sample format {t.sample_format}, extra samples "
                          f"{t.extra}, fill order {t.fill}): Pillow has no mode for it")
+    if mode == "P" and 320 not in t.tags:
+        raise ValueError("corrupt TIFF: a palette image without its ColorMap (Pillow cannot "
+                         "open it)")
+    if mode == "P" and len(t.tags[320][1]) > 770:
+        raise ValueError("corrupt TIFF: a ColorMap of more than 256 colours (Pillow's "
+                         "putpalette refuses it)")
     if mode == "LAB":
         raise ValueError("unsupported TIFF: CIELab (Pillow converts it to RGB through LittleCMS)")
     if mode == "I;12":
@@ -724,17 +1115,27 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     if t.w * t.h > MAX_PIXELS:
         raise ValueError(f"unsupported TIFF: {t.w}x{t.h} pixels exceed the "
                          f"decompression-bomb limit")
-    if t.planar not in (1, 2):
-        raise ValueError(f"corrupt TIFF: PlanarConfiguration {t.planar}")
     tag = t.tags.get(274)
     orient = _orientation_value(t.e, tag[0], tag[2]) if tag else None
     if orient is None:
         xmp = t.tags.get(700)
         orient = orientation(None, xmp[1] if xmp and isinstance(xmp[1], bytes) else None)
     if t.comp == 1:
-        px = _tiff_raw(t, mode)
+        px, covered = _tiff_raw(t, mode)
+        rgb = _tiff_rgb(t, px, mode)
+        if covered is not None:  # what no tile covers is Pillow's image as made: zero
+            zero = _tiff_rgb(t, np.zeros((1, 1, 1), np.uint8), "P")[0, 0] if mode == "P" else \
+                (255 if mode == "CMYK" else 0)
+            rgb[~covered] = zero
+        return _orient(rgb, orient)
     else:
-        px, mode = _tiff_coded(t, mode, orient)
+        # Pillow decodes a compressed file through libtiff, which reads the
+        # directory again, its own way
+        lt = _LibTiff(data)
+        if (lt.w, lt.h) != (t.w, t.h):
+            raise ValueError(f"corrupt TIFF: libtiff reads a {lt.w}x{lt.h} image, Pillow "
+                             f"{t.w}x{t.h}")
+        px, mode = _tiff_coded(t, lt, mode)
     return _orient(_tiff_rgb(t, px, mode), orient)
 
 
@@ -743,7 +1144,11 @@ def _tiff_raw(t: _Tiff, mode: str) -> np.ndarray:
     or tile from its offset, its byte count unread, rows of the bits its raw
     mode takes (bits reversed at FillOrder 2), Predictor not applied. So a
     YCbCr file reads as RGBX (past its strip, into what follows it) and a
-    planar one a byte a sample, as Pillow reads them."""
+    planar one a byte a sample, as Pillow reads them. Returns (samples, the
+    pixels a tile covers, or None for all)."""
+    if 273 not in t.tags and 324 not in t.tags:
+        raise ValueError("corrupt TIFF: no StripOffsets or TileOffsets (Pillow knows no data "
+                         "organization)")
     tw, th, across, down, planes, offsets, _ = t.layout()
     if mode == "RGBa" and t.planar == 2:
         raise ValueError("unsupported TIFF: uncompressed planar premultiplied alpha (Pillow "
@@ -756,35 +1161,52 @@ def _tiff_raw(t: _Tiff, mode: str) -> np.ndarray:
         bits = 8   # a band of the raw mode: one character, 8 bits
     else:
         bits = sum(t.bps)
-    if len(offsets) < planes * across * down:
-        raise ValueError(f"corrupt TIFF: {len(offsets)} strip or tile offsets, "
-                         f"{planes * across * down} needed")
-    out, k = [], 0
-    for _ in range(planes):
-        plane = np.zeros((t.h, (t.w * bits + 7) // 8), np.uint8)
-        for ty in range(down):
-            for tx in range(across):
-                x0, y0 = tx * tw, ty * th
-                x1, y1 = min(x0 + tw, t.w), min(y0 + th, t.h)
-                # an edge tile's rows keep the tile's width
-                stride = ((tw if x0 + tw > t.w else x1 - x0) * bits + 7) // 8
-                off = offsets[k]
-                k += 1
-                chunk = t.data[off:off + stride * (y1 - y0)]
-                if len(chunk) < stride * (y1 - y0):
-                    raise ValueError("truncated TIFF: image data ends early")
-                if t.fill == 2:  # the raw modes ";R": each byte's bits reversed
-                    chunk = chunk.translate(_REVERSED_BITS)
-                nb = ((x1 - x0) * bits + 7) // 8
-                xb = x0 * bits // 8
-                plane[y0:y1, xb:xb + nb] = np.frombuffer(chunk, np.uint8).reshape(
-                    y1 - y0, stride)[:, :nb]
-        out.append(plane)
+    # Pillow's tiles: one an offset, left to right and down, wrapping to the
+    # next plane (and, chunky, over the image again) past the last row; in
+    # file order, a later one over an earlier; what no tile covers zero
+    tiles, x0, y0, layer = [], 0, 0, 0
+    for off in offsets:
+        tiles.append((off, x0, y0, layer))
+        x0 += tw
+        if x0 >= t.w:
+            x0, y0 = 0, y0 + th
+            if y0 >= t.h:
+                y0, layer = 0, layer + 1
+    if t.planar == 2 and tiles[-1][3] >= planes:
+        raise ValueError(f"corrupt TIFF: {len(offsets)} strip or tile offsets for {planes} "
+                         "planes (Pillow has no raw mode past its last band)")
+    out = [np.zeros((t.h, (t.w * bits + 7) // 8), np.uint8) for _ in range(planes)]
+    covered = np.zeros((t.h, t.w), bool)
+    # Pillow's bps_count: the photometric's colour samples and the extra ones
+    bands = {2: 3, 6: 3, 8: 3, 5: 4}.get(t.photo, 1) + len(t.extra)
+    for off, x0, y0, layer in sorted(tiles, key=lambda tile: tile[0]):
+        plane = out[layer if t.planar == 2 else 0]
+        x1, y1 = min(x0 + tw, t.w), min(y0 + th, t.h)
+        covered[y0:y1, x0:x1] = True  # a plane's tile: Pillow sees its band's
+        nb = ((x1 - x0) * bits + 7) // 8
+        stride = nb
+        if x0 + tw > t.w:
+            # an edge tile's rows: Pillow's stride of the tile's width in the
+            # file's bits a pixel (a band's, planar), cut to a whole byte
+            stride = int(tw * sum(t.bps) / 8 / (bands if t.planar == 2 else 1))
+            if stride < nb:
+                raise ValueError("corrupt TIFF: an edge tile's rows are shorter than its raw "
+                                 "mode's (Pillow's raw decoder refuses them)")
+        need = stride * (y1 - y0 - 1) + nb  # the last row's padding is never read
+        chunk = t.data[off:off + need]
+        if len(chunk) < need:
+            raise ValueError("truncated TIFF: image data ends early")
+        if t.fill == 2:  # the raw modes ";R": each byte's bits reversed
+            chunk = chunk.translate(_REVERSED_BITS)
+        rows = np.frombuffer(chunk + bytes(stride - nb), np.uint8).reshape(y1 - y0, stride)
+        xb = x0 * bits // 8
+        plane[y0:y1, xb:xb + nb] = rows[:, :nb]
+    covered = None if covered.all() else covered
     if bits == 32 and t.photo == 6:
-        return out[0].reshape(t.h, t.w, 4)[..., :3]
+        return out[0].reshape(t.h, t.w, 4)[..., :3], covered
     if t.planar == 2:
-        return np.stack(out, -1)
-    return _tiff_unpack(out[0], t.w, t.bps[0], t.spp, t.e, t.sample_format)
+        return np.stack(out, -1), covered
+    return _tiff_unpack(out[0], t.w, t.bps[0], t.spp, t.e, t.sample_format), covered
 
 
 def _tiff_unpack(rows: np.ndarray, w: int, bits: int, spp: int, e: str, sample_format):
@@ -804,94 +1226,121 @@ def _tiff_unpack(rows: np.ndarray, w: int, bits: int, spp: int, e: str, sample_f
     return rows[:, :w * spp * n].copy().view(dt).reshape(h, w, spp)
 
 
-def _tiff_coded(t: _Tiff, mode: str, orient: int):
+def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
     """A compressed TIFF's samples as libtiff gives them to Pillow: each
-    strip or tile decompressed to exactly its bytes, Predictor 2 undone, the
-    chunks assembled; JPEG strips decoded (YCbCr to RGB, as Pillow asks
-    libtiff for JPEGCOLORMODE_RGB), other YCbCr through libtiff's RGBA
-    reader. Returns (samples, mode)."""
-    tw, th, across, down, planes, offsets, counts = t.layout()
-    rps = t.scalar(278, 2 ** 32 - 1)
-    if not t.tiled and 2 ** 31 <= rps < 2 ** 32 - 1:
+    strip or tile decompressed into Pillow's strip or tile buffer, Predictor
+    2 undone, the chunks assembled; JPEG strips decoded (YCbCr to RGB, as
+    Pillow asks libtiff for JPEGCOLORMODE_RGB), other YCbCr through libtiff's
+    RGBA reader. Pillow's directory ``t`` gives the mode, libtiff's ``lt``
+    the strips and the fields they decode by. Returns (samples, mode)."""
+    if len(set(t.bps)) != 1:
+        raise ValueError(f"unsupported TIFF: samples of different depths {t.bps}")
+    jpeg = lt.comp == 7
+    ycbcr = lt.photo == 6 and not jpeg
+    # Pillow reads libtiff's RGBA rows of YCbCr with its own raw mode: a
+    # directory Pillow ends before SamplesPerPixel makes that L
+    rgba_as_l = ycbcr and mode == "L" and t.spp == 1 and lt.spp == 3
+    if (jpeg or ycbcr) and (lt.bps, lt.spp) != (t.bps[0], t.spp) and not rgba_as_l:
+        raise ValueError("unsupported TIFF: libtiff reads the samples' layout apart from Pillow "
+                         f"({lt.spp} of {lt.bps} bits, planar {lt.planar}, photometric "
+                         f"{lt.photo})")
+    tw, th, across, down, _, offsets, counts = lt.layout()
+    rps = lt.rps
+    if not lt.tiled and 2 ** 31 <= rps < 2 ** 32 - 1:
         # Pillow's strip decoder refuses it (decoder error -9), and above
         # 2**32 - 1 - ImageLength libtiff counts no strips
         raise ValueError(f"corrupt TIFF: RowsPerStrip {rps}")
-    if t.tiled and tw * th > MAX_PIXELS:
+    if lt.tiled and tw * th > MAX_PIXELS:
         # a tile is decompressed whole, however little of it the image shows;
         # at 8 bytes a pixel at most, this also keeps it under the 2**31 - 1
         # bytes that Pillow's libtiff decoder takes
         raise ValueError(f"unsupported TIFF: {tw}x{th} tiles exceed the "
                          f"decompression-bomb limit")
-    need = planes * across * down
-    if len(offsets) < need or len(counts) < need:
-        raise ValueError(f"corrupt TIFF: {min(len(offsets), len(counts))} strips or tiles "
-                         f"listed, {need} needed")
-    if len(set(t.bps)) != 1:
-        raise ValueError(f"unsupported TIFF: samples of different depths {t.bps}")
-    b = t.bps[0]
-    if t.predictor not in (1, 2):
-        name = "floating-point" if t.predictor == 3 else "unknown"
-        raise ValueError(f"unsupported TIFF: {name} predictor ({t.predictor})")
-    if t.predictor == 2 and b not in (8, 16, 32):
+    b, pb = lt.bps, t.bps[0]  # libtiff's bits a sample, and Pillow's
+    if lt.predictor not in (1, 2):
+        name = "floating-point" if lt.predictor == 3 else "unknown"
+        raise ValueError(f"unsupported TIFF: {name} predictor ({lt.predictor})")
+    if lt.predictor == 2 and b not in (8, 16, 32):
         raise ValueError(f"corrupt TIFF: Predictor 2 with {b}-bit samples")
-    per = 1 if t.planar == 2 else t.spp
-    if t.planar == 2 and 0 in t.extra:
+    if lt.comp in (2, 3, 4) and b != 1:
+        raise ValueError(f"corrupt TIFF: CCITT with {b}-bit samples (libtiff's Fax3SetupState "
+                         "refuses them)")
+    # Pillow's libtiff decoder unpacks a plane a band where libtiff reads
+    # planes and its mode has more than one band (_pickUnpackers), else its
+    # own raw mode from the start of each of libtiff's rows
+    bands = {"LA": 2, "RGB": 3, "YCbCr": 3, "CMYK": 4, "RGBA": 4, "RGBa": 4}.get(
+        mode, t.spp if mode == "P" else 1)
+    nplanes = (bands if bands > 1 else 1) if lt.planar == 2 else 1
+    per = 1 if lt.planar == 2 else lt.spp  # libtiff's samples a row's pixel
+    pper = 1 if nplanes > 1 else t.spp     # Pillow's
+    if lt.planar == 2 and 0 in t.extra:
         raise ValueError("unsupported TIFF: planar with an unused extra sample (Pillow's "
                          "libtiff decoder fails on it)")
-    if t.planar == 2 and mode == "RGBA" and not t.extra:
+    if not (jpeg or ycbcr):
+        if nplanes > 1 and b not in (8, 16):
+            raise ValueError(f"corrupt TIFF: {b}-bit planes (Pillow's libtiff decoder takes 8 "
+                             "or 16)")
+        if nplanes > lt.spp:
+            raise ValueError(f"corrupt TIFF: {nplanes} planes of {lt.spp} samples")
+        width = tw if lt.tiled else t.w
+        if (width * sum(t.bps) // nplanes + 7) // 8 != (width * per * b + 7) // 8:
+            raise ValueError("corrupt TIFF: Pillow's rows and libtiff's differ in length (its "
+                             "decoder refuses them)")
+    if lt.planar == 2 and mode == "RGBA" and not t.extra:
         mode = "RGBa"  # Pillow reads planar RGBA without ExtraSamples as premultiplied
-    jpeg = t.comp == 7
-    ycbcr = t.photo == 6 and not jpeg
-    if t.photo == 6 and t.spp != 3:
+    if lt.photo == 6 and lt.spp != 3:
         raise ValueError("unsupported TIFF: YCbCr of one sample (libtiff's RGBA reader takes "
                          "three)")
-    sub = tuple(t.seq(530, (2, 2))[:2]) if t.photo == 6 else (1, 1)
+    sub = lt.sub if lt.photo == 6 else (1, 1)
     if ycbcr:
-        if t.planar != 1 or b != 8:
+        if lt.planar != 1 or b != 8:
             raise ValueError("unsupported TIFF: YCbCr (not JPEG) that is planar or not 8-bit")
         if tuple(sub) not in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4)):
             raise ValueError(f"unsupported TIFF: YCbCr subsampling {tuple(sub)}")
-        if orient != 1:
+        if lt.orientation != 1:
             raise ValueError("unsupported TIFF: YCbCr (not JPEG) with an Orientation other than "
                              "1 (libtiff's RGBA reader flips it block by block)")
-        block_rows = th if t.tiled or rps == 2 ** 32 - 1 else rps
+        block_rows = th if lt.tiled or rps == 2 ** 32 - 1 else rps
         if block_rows > (2 ** 31 - 1) // 4 // t.w:
             # Pillow's RGBA decoder sizes its buffer by the unclamped rows
             raise ValueError(f"corrupt TIFF: YCbCr (not JPEG) in blocks of {block_rows} rows "
                              f"{t.w} pixels wide (Pillow's RGBA decoder takes 2**31 - 1 bytes)")
-        ycc = _YCbCr(t)
-    tables = None
-    if jpeg:
-        if t.planar != 1 or t.photo not in (0, 1, 2, 6) or b != 8:
-            raise ValueError(f"unsupported TIFF: JPEG with photometric {t.photo}, planar "
-                             f"configuration {t.planar} and {b}-bit samples")
-        if 347 in t.tags:
-            tables = t.tags[347][2]
-    if t.photo == 3 and b < 8 and len(t.seq(320)) != 3 << b:
-        # libtiff ignores a ColorMap of the wrong size, and then misses it
-        raise ValueError(f"corrupt TIFF: a ColorMap of {len(t.seq(320))} values for "
-                         f"{b}-bit palette samples")
-    t4 = t.scalar(292 if t.comp == 3 else 293, 0) if t.comp in (3, 4) else 0
+        ycc = _YCbCr(lt)
+    if jpeg and (lt.planar != 1 or t.planar != 1 or lt.photo not in (0, 1, 2, 6) or b != 8):
+        raise ValueError(f"unsupported TIFF: JPEG with photometric {lt.photo}, planar "
+                         f"configuration {lt.planar} and {b}-bit samples")
+    t4 = lt.t4 if lt.comp in (3, 4) else 0
     lib, err = library(), _err()
-    dtype = np.uint8 if b <= 8 else np.dtype("=u" + str(b // 8))
+    dtype = np.uint8 if pb <= 8 else np.dtype("=u" + str(pb // 8))
     out = np.empty((t.h, t.w, 3 if ycbcr else t.spp), dtype)
+    # Pillow's strip or tile buffer, one for every chunk: what a decoder
+    # leaves unwritten keeps the last chunk's bytes (zero at first, as a
+    # fresh allocation holds)
+    rowbytes = tw * (1 if t.spp == 1 else 3) if jpeg else (tw * per * b + 7) // 8
+    held = np.zeros(0 if ycbcr else th * rowbytes, np.uint8)
+    # libtiff's CCITT run arrays and its no-EOL mode, kept across strips
+    runs = np.zeros(2 * (2 if lt.comp == 4 or t4 & 1 else 1) * ((tw + 32) // 32 * 32) + 1,
+                    np.uint32) if lt.comp in (2, 3, 4) else None
     k = 0
-    for p in range(planes):
+    for p in range(nplanes):
         for ty in range(down):
+            units = None  # the RGBA reader's buffer, made for each strip or row of tiles
             for tx in range(across):
                 x0, y0 = tx * tw, ty * th
-                rows = th if t.tiled else min(th, t.h - y0)
+                rows = th if lt.tiled else min(th, t.h - y0)
+                w, h = min(tw, t.w - x0), min(rows, t.h - y0)
                 off, cnt = offsets[k], counts[k]
                 k += 1
-                raw = t.data[off:off + cnt]
                 if cnt == 0:
                     raise ValueError("corrupt TIFF: a strip or tile of 0 bytes")
+                raw = t.data[off:off + cnt]
                 if len(raw) < cnt:
                     raise ValueError("truncated TIFF: a strip or tile lies past the end of "
                                      "the file")
                 if jpeg:
-                    last = not t.tiled and y0 + rows >= t.h
-                    block = _tiff_jpeg_chunk(lib, err, raw, tables, tw, rows, last, t, sub)
+                    last = not lt.tiled and y0 + rows >= t.h
+                    block = held[:rows * rowbytes].reshape(rows, tw, -1)
+                    _tiff_jpeg_chunk(lib, err, raw, lt, tw, rows, last, sub, block)
                 elif ycbcr:
                     hs, vs = sub
                     if -(-tw // hs) * (hs * vs + 2) % vs:
@@ -900,59 +1349,166 @@ def _tiff_coded(t: _Tiff, mode: str, orient: int):
                         raise ValueError(f"unsupported TIFF: YCbCr subsampled {hs}x{vs} at "
                                          f"width {tw} (libtiff's RGBA reader reads it short)")
                     size = -(-rows // vs) * -(-tw // hs) * (hs * vs + 2)
-                    block = ycc.rgb(_tiff_decompress(lib, err, t, raw, size, tw, t4, True), tw,
-                                    rows, hs, vs, min(tw, t.w - x0), min(rows, t.h - y0))
+                    if units is None:
+                        if lt.tiled:
+                            _tiff_check_ratio(lt, cnt, size)
+                        units = np.zeros(size, np.uint8)
+                    _tiff_decompress(lib, err, lt, raw, units[:size], tw, t4, tolerant=True)
+                    block = ycc.rgb(units[:size], tw, rows, hs, vs, w, h)
                 else:
-                    rowbytes = (tw * per * b + 7) // 8
-                    dec = _tiff_decompress(lib, err, t, raw, rows * rowbytes, tw, t4).reshape(
-                        rows, rowbytes)
-                    if t.predictor == 2:
-                        dec = _tiff_accumulate(dec, tw, per, b, t.e)
-                    block = _tiff_unpack(dec, tw, b, per, t.e, (1,))
-                x1, y1 = min(x0 + tw, t.w), min(y0 + rows, t.h)
-                if t.planar == 2:
-                    out[y0:y1, x0:x1, p] = block[:y1 - y0, :x1 - x0, 0]
+                    dec = held[:rows * rowbytes]
+                    _tiff_decompress(lib, err, lt, raw, dec, tw, t4, runs=runs)
+                    dec = dec.reshape(rows, rowbytes)
+                    if lt.predictor == 2:
+                        dec[:] = _tiff_accumulate(dec, tw, per, b, t.e)
+                    block = _tiff_unpack(dec, tw, pb, pper, t.e, (1,))
+                if lt.planar == 2:
+                    out[y0:y0 + h, x0:x0 + w, p] = block[:h, :w, 0]
                 else:
-                    out[y0:y1, x0:x1] = block[:y1 - y0, :x1 - x0]
-    if b == 32:  # the words as the sample format reads them
+                    out[y0:y0 + h, x0:x0 + w] = block[:h, :w]
+    if pb == 32:  # the words as the sample format reads them
         out = out.view(np.dtype({2: "=i4", 3: "=f4"}.get(t.sample_format[0], "=u4")))
-    if ycbcr or (jpeg and t.photo == 6):
+    if rgba_as_l:  # each row's first bytes of R, G, B, A
+        rgba = np.concatenate([out, np.full(out.shape[:2] + (1,), 255, np.uint8)], -1)
+        return rgba.reshape(t.h, -1)[:, :t.w, None], mode
+    if ycbcr or (jpeg and lt.photo == 6):
         mode = "RGB"
     return out, mode
 
 
-def _tiff_decompress(lib, err, t: _Tiff, raw: bytes, size: int, width: int, t4: int,
-                     tolerant: bool = False) -> np.ndarray:
-    """One strip or tile decompressed to exactly ``size`` bytes (uint8):
-    Deflate and LZMA here (bounded to ``size``), the rest in tiff.cc.
-    FillOrder 2 reverses the bits of every byte first, as TIFFFillStrip does.
-    ``tolerant``: an LZW or PackBits error keeps what was decoded before it,
-    zeros after (libtiff's RGBA reader); the zeros are pages no one touches
-    until they are read."""
+def _tiff_check_ratio(lt: _LibTiff, cnt: int, size: int) -> None:
+    """The check of _TIFFReadEncodedTileAndAllocBuffer, which libtiff's RGBA
+    reader allocates a row of tiles' buffer through (a strip's has none):
+    above 100,000,000 bytes, data under a thousandth of the tile (a 7000th
+    for LZMA) is a likely invalid byte count, and fails the image."""
+    ratio = 7000 if lt.comp == 34925 else 1000
+    if size > 100_000_000 and cnt < size // ratio:
+        raise ValueError(f"corrupt TIFF: likely invalid tile byte count ({cnt} for a tile of "
+                         f"{size} bytes, libtiff's RGBA reader refuses it)")
+
+
+def _tiff_decompress(lib, err, t, raw: bytes, out: np.ndarray, width: int, t4: int,
+                     tolerant: bool = False, runs: Optional[np.ndarray] = None) -> None:
+    """One strip or tile decompressed into ``out`` (uint8, the strip's
+    bytes): Deflate and LZMA through zlib and liblzma as libtiff calls them,
+    the rest in tiff.cc. FillOrder 2 reverses the bits of every byte first,
+    as TIFFFillStrip does. Raises where libtiff fails the strip, but
+    ``tolerant``: what was decoded before the error stays, the rest of
+    ``out`` as it was (libtiff's RGBA reader converts it all the same).
+    ``runs``: libtiff's CCITT run arrays, kept across a file's strips."""
     comp = t.comp
     if comp in (8, 32946, 34925):
         if t.fill == 2:
             raw = raw.translate(_REVERSED_BITS)
-        try:
-            # a dictionary above 256 MiB is refused, not allocated
-            d = lzma.LZMADecompressor(memlimit=_LZMA_MEMLIMIT) if comp == 34925 else \
-                zlib.decompressobj()
-            out = d.decompress(raw, size)
-        except (zlib.error, lzma.LZMAError) as ex:
-            raise ValueError(f"corrupt TIFF: {_TIFF_COMPRESSION[comp]} data: {ex}") from None
-        if len(out) < size:
-            raise ValueError(f"truncated TIFF: {_TIFF_COMPRESSION[comp]} data ends short of "
-                             f"its strip")
-        return np.frombuffer(out, np.uint8)
-    buf = (np.zeros if tolerant else np.empty)(size, np.uint8)
-    if lib.qie_tiff_decompress(comp, raw, len(raw), buf.ctypes.data, size, width, t4, t.fill,
-                               int(tolerant), err, len(err)) < 0:
+        if not _inflate(comp, raw, out) and not tolerant:
+            raise ValueError(f"corrupt TIFF: {_TIFF_COMPRESSION[comp]} data fails before the "
+                             f"end of its strip")
+        return
+    if lib.qie_tiff_decompress(comp, raw, len(raw), out.ctypes.data, out.size, width, t4,
+                               t.fill, int(tolerant), None if runs is None else runs.ctypes.data,
+                               err, len(err)) < 0:
         raise ValueError(err.value.decode())
-    return buf
 
 
 _REVERSED_BITS = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 _LZMA_MEMLIMIT = 256 << 20
+
+
+class _ZStream(ctypes.Structure):
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_uint),
+                ("total_in", ctypes.c_ulong), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_uint), ("total_out", ctypes.c_ulong),
+                ("msg", ctypes.c_char_p), ("state", ctypes.c_void_p),
+                ("zalloc", ctypes.c_void_p), ("zfree", ctypes.c_void_p),
+                ("opaque", ctypes.c_void_p), ("data_type", ctypes.c_int),
+                ("adler", ctypes.c_ulong), ("reserved", ctypes.c_ulong)]
+
+
+class _LzmaStream(ctypes.Structure):
+    _fields_ = [("next_in", ctypes.c_void_p), ("avail_in", ctypes.c_size_t),
+                ("total_in", ctypes.c_uint64), ("next_out", ctypes.c_void_p),
+                ("avail_out", ctypes.c_size_t), ("total_out", ctypes.c_uint64),
+                ("allocator", ctypes.c_void_p), ("internal", ctypes.c_void_p),
+                ("reserved", ctypes.c_void_p * 4), ("seek_pos", ctypes.c_uint64),
+                ("reserved_int2", ctypes.c_uint64), ("reserved_int3", ctypes.c_size_t * 2),
+                ("reserved_enum", ctypes.c_int * 2)]
+
+
+_stream_libs: dict = {}
+
+
+def _stream_lib(name: str) -> ctypes.CDLL:
+    """zlib (``libz.so.1``) or liblzma (``liblzma.so.5``), the libraries
+    Python's ``zlib`` and ``lzma`` modules are built on (imported above, so
+    the loader finds the copy they loaded), called as libtiff calls them:
+    their errors come after output that Python's wrappers discard."""
+    with _lock:
+        if name not in _stream_libs:
+            lib = ctypes.CDLL(name)
+            if name == "libz.so.1":
+                lib.zlibVersion.restype = ctypes.c_char_p
+                lib.inflateInit_.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
+                lib.inflate.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                lib.inflateEnd.argtypes = [ctypes.c_void_p]
+            else:
+                lib.lzma_stream_decoder.argtypes = [ctypes.c_void_p, ctypes.c_uint64,
+                                                    ctypes.c_uint32]
+                lib.lzma_code.argtypes = [ctypes.c_void_p, ctypes.c_int]
+                lib.lzma_end.argtypes = [ctypes.c_void_p]
+            _stream_libs[name] = lib
+        return _stream_libs[name]
+
+
+def _inflate(comp: int, raw: bytes, out: np.ndarray) -> bool:
+    """Decompress a Deflate or LZMA strip into ``out`` (uint8, its size the
+    strip's) as tif_zip.c's ZIPDecode and tif_lzma.c's LZMADecode do, in one
+    call on the whole strip: Deflate fails on any zlib error, even one after
+    the strip is full, and zeroes what a stream that ends early leaves;
+    LZMA fails only where the strip is not full, so an error liblzma reports
+    in the call that fills it goes unseen. Returns whether libtiff counts the
+    strip decoded; what came out before a failure stays in ``out``."""
+    src = ctypes.create_string_buffer(raw, len(raw))
+    size = out.size
+    if comp == 34925:
+        lib = _stream_lib("liblzma.so.5")
+        s = _LzmaStream()
+        if lib.lzma_stream_decoder(ctypes.byref(s), _LZMA_MEMLIMIT, 0) != 0:
+            raise MemoryError("liblzma could not start a decoder")
+        try:
+            s.next_in, s.avail_in = ctypes.addressof(src), len(raw)
+            s.next_out, s.avail_out = out.ctypes.data, size
+            while s.avail_out > 0:
+                ret = lib.lzma_code(ctypes.byref(s), 0)  # LZMA_RUN
+                if ret == 6:  # LZMA_MEMLIMIT_ERROR
+                    raise ValueError("unsupported TIFF: an LZMA dictionary above "
+                                     f"{_LZMA_MEMLIMIT >> 20} MiB")
+                if ret != 0:  # LZMA_STREAM_END ends the strip, the rest fail it
+                    break
+            return s.avail_out == 0
+        finally:
+            lib.lzma_end(ctypes.byref(s))
+    lib = _stream_lib("libz.so.1")
+    s = _ZStream()
+    if lib.inflateInit_(ctypes.byref(s), lib.zlibVersion(), ctypes.sizeof(s)) != 0:
+        raise MemoryError("zlib could not start a decoder")
+    try:
+        s.next_in, s.avail_in = ctypes.addressof(src), len(raw)
+        s.next_out, left = out.ctypes.data, size
+        while left > 0:
+            s.avail_out = min(left, 0xFFFFFFFF)
+            before = s.avail_out
+            ret = lib.inflate(ctypes.byref(s), 1)  # Z_PARTIAL_FLUSH
+            left -= before - s.avail_out
+            if ret == 1:  # Z_STREAM_END
+                break
+            if ret != 0:  # a data, buffer or dictionary error fails the strip
+                return False
+        if left:
+            out[size - left:] = 0
+            return False
+        return True
+    finally:
+        lib.inflateEnd(ctypes.byref(s))
 
 
 def _tiff_accumulate(rows: np.ndarray, w: int, spp: int, bits: int, e: str) -> np.ndarray:
@@ -969,26 +1525,25 @@ def _tiff_accumulate(rows: np.ndarray, w: int, spp: int, bits: int, e: str) -> n
     return out
 
 
-def _tiff_jpeg_chunk(lib, err, raw: bytes, tables, width: int, rows: int, last: bool,
-                     t: _Tiff, sub) -> np.ndarray:
-    """One JPEG strip or tile as libtiff's tif_jpeg.c decodes it for Pillow:
-    the JPEGTables stream read first, the strip's own stream ending in a
-    fake EOI (libtiff's source manager supplies one where the data runs
-    out), libtiff's checks of the components and sampling factors, a last
-    strip's taller frame cut to the strip; YCbCr converted to RGB
+def _tiff_jpeg_chunk(lib, err, raw: bytes, lt: _LibTiff, width: int, rows: int, last: bool,
+                     sub, out: np.ndarray) -> None:
+    """One JPEG strip or tile as libtiff's tif_jpeg.c decodes it for Pillow,
+    into ``out`` (rows, width, 1 or 3), Pillow's strip buffer: the
+    JPEGTables stream read first, the strip's own stream ending in a fake EOI
+    (libtiff's source manager supplies one where the data runs out),
+    libtiff's checks of the components and sampling factors, a last strip's
+    taller frame cut to the strip, a smaller frame written into its top left
+    (the rest as the buffer held it); YCbCr converted to RGB
     (JPEGCOLORMODE_RGB), other photometrics left as their components."""
-    c = 1 if t.spp == 1 else 3
-    out = np.empty((rows, width, c), np.uint8)
     eoi = b"\xff\xd9" * 256  # what libtiff's source manager supplies past the data
-    tables = tables + eoi if tables else b""
+    tables = lt.tables + eoi if lt.tables else b""
     hs, vs = sub
     data = raw + eoi
-    if lib.qie_tiff_jpeg(tables, len(tables), data, len(data), int(t.photo == 6), hs, vs,
-                         t.spp, width, rows, int(last), out.ctypes.data, err, len(err)) != 0:
+    if lib.qie_tiff_jpeg(tables, len(tables), data, len(data), int(lt.photo == 6), hs, vs,
+                         lt.spp, width, rows, int(last), out.ctypes.data, err, len(err)) != 0:
         msg = err.value.decode()
         raise ValueError(msg if msg.startswith(("corrupt TIFF", "unsupported TIFF"))
                          else "corrupt TIFF: JPEG strip: " + msg)
-    return out
 
 
 class _YCbCr:
@@ -997,14 +1552,12 @@ class _YCbCr:
     16-bit fixed point, each subsampling block's one Cb and Cr on each of its
     luma samples (no interpolation)."""
 
-    def __init__(self, t: _Tiff):
+    def __init__(self, lt: _LibTiff):
         f32 = np.float32
-        luma = [f32(n / d) if d else f32(0) for n, d in t.seq(
-            529, ((299, 1000), (587, 1000), (114, 1000)), rational=True)][:3]
-        ref = [f32(n / d) if d else f32(0) for n, d in t.seq(
-            532, ((0, 1), (255, 1), (128, 1), (255, 1), (128, 1), (255, 1)), rational=True)][:6]
-        if len(luma) < 3 or len(ref) < 6 or not luma[1]:
-            raise ValueError("corrupt TIFF: bad YCbCrCoefficients or ReferenceBlackWhite")
+        luma = list(lt.coef or (f32(0.299), f32(0.587), f32(0.114)))
+        ref = list(lt.refbw or tuple(map(f32, (0, 255, 128, 255, 128, 255))))
+        if not luma[1]:
+            raise ValueError("corrupt TIFF: YCbCrCoefficients with a green of 0")
 
         def fix(x):
             return int(np.float64(f32(min(max(x, f32(0)), f32(2))) * f32(65536)) + 0.5)
@@ -1069,7 +1622,8 @@ def _tiff_rgb(t: _Tiff, px: np.ndarray, mode: str) -> np.ndarray:
         gray = np.where(f <= 0, 0, np.where(f >= 255, 255, np.nan_to_num(f, nan=0.0)))
         gray = gray.astype(np.float32).astype(np.int64)  # Pillow truncates
     elif mode == "P":
-        cmap = np.asarray(t.seq(320), np.int64) // 256
+        # Pillow's palette: each value's high byte (a BYTE field's values are 0)
+        cmap = np.asarray(list(t.tags[320][1]), np.int64) // 256
         n = len(cmap) // 3
         pal = np.zeros((256, 3), np.uint8)
         pal[:min(n, 256)] = np.stack([cmap[:n], cmap[n:2 * n], cmap[2 * n:3 * n]], -1)[:256]

@@ -404,6 +404,7 @@ HuffTable std_table(const uint8_t* bits, const uint8_t* vals, int n) {
 
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
+  int sof_h = 1, sof_v = 1;  // the frame header's factors, before a lone one is 1x1
   int td = 0, ta = 0;       // Huffman tables of the current scan
   int bw = 0, bh = 0;       // blocks of the component (non-interleaved scan)
   int bw_pad = 0, bh_pad = 0;  // blocks covering whole MCUs
@@ -768,8 +769,8 @@ struct Decoder {
     for (int i = 0; i < ncomp; i++) {
       comp[i].id = u8();
       int hv = u8();
-      comp[i].h = hv >> 4;
-      comp[i].v = hv & 15;
+      comp[i].h = comp[i].sof_h = hv >> 4;
+      comp[i].v = comp[i].sof_v = hv & 15;
       comp[i].tq = u8();
       // a lossless file has no quantization tables: its Tq is not read
       if (comp[i].h < 1 || comp[i].h > 4 || comp[i].v < 1 || comp[i].v > 4 ||
@@ -2240,11 +2241,12 @@ int qie_jpeg_decode(const uint8_t* data, long n, uint8_t* out, char* err, int er
 // `tables` (tn bytes, the JPEGTables stream; tn 0 for none) read first, then
 // the strip's own stream, whose end reads as a fake EOI (libtiff's source
 // manager: append FF D9 to `data`). The frame must have `spp` components,
-// the first sampled hs x vs and the rest 1 x 1, `width` columns and `rows`
-// rows, or more rows in the last strip, which libtiff cuts to `rows`.
+// the first sampled hs x vs and the rest 1 x 1, at most `width` columns and
+// `rows` rows, or more rows in the last strip, which libtiff cuts to `rows`.
 // Both streams end in libtiff's fake EOI markers: the caller appends FF D9
 // pairs to each. `ycbcr` converts YCbCr to RGB (JPEGCOLORMODE_RGB), else the components
-// pass through. out: rows x width x (1 or 3). Returns 0, or -1 with err.
+// pass through. out: rows x width x (1 or 3), of which a smaller frame
+// writes its own rows and columns only. Returns 0, or -1 with err.
 int qie_tiff_jpeg(const uint8_t* tables, long tn, const uint8_t* data, long n, int ycbcr,
                   int hs, int vs, int spp, int width, int rows, int last, uint8_t* out,
                   char* err, int errlen) {
@@ -2256,24 +2258,30 @@ int qie_tiff_jpeg(const uint8_t* tables, long tn, const uint8_t* data, long n, i
     if (d.ncomp != spp)
       throw CodecError("corrupt TIFF: a JPEG strip of " + std::to_string(d.ncomp) +
                        " components for " + std::to_string(spp) + " samples");
-    for (int i = 0; i < d.ncomp; i++)
-      if (d.comp[i].h != (i ? 1 : hs) || d.comp[i].v != (i ? 1 : vs))
+    for (int i = 0; i < d.ncomp; i++)  // libtiff reads the frame header's factors
+      if (d.comp[i].sof_h != (i ? 1 : hs) || d.comp[i].sof_v != (i ? 1 : vs))
         throw CodecError("corrupt TIFF: improper JPEG sampling factors (libtiff's check)");
-    if (d.width != width || d.height < rows || (d.height > rows && !last))
-      throw CodecError("unsupported TIFF: a " + std::to_string(d.width) + "x" +
+    // JPEGPreDecode: a smaller frame is decoded with a warning, a taller one
+    // only in the last strip (cut to it), anything larger refused
+    bool const taller_last = d.width == width && d.height > rows && last;
+    if (!taller_last && (d.width > width || d.height > rows))
+      throw CodecError("corrupt TIFF: a " + std::to_string(d.width) + "x" +
                        std::to_string(d.height) + " JPEG in a " + std::to_string(width) + "x" +
                        std::to_string(rows) + " strip or tile");
     Decoder full(data, size_t(n));
     full.force_cs = d.force_cs;
     if (tn > 0) full.load_tables(tables, size_t(tn));
     full.parse();
-    int c = spp == 1 ? 1 : 3;
-    if (full.height == rows) {
+    int const c = spp == 1 ? 1 : 3;
+    if (full.width == width && full.height == rows) {
       full.output(out);
-    } else {  // the last strip's taller frame, cut as libtiff cuts image_height
+    } else {  // each of the frame's rows (up to the strip's) at the start of a
+              // strip row; the rest of out keeps what it held
       std::vector<uint8_t> all(size_t(full.width) * full.height * c);
       full.output(all.data());
-      memcpy(out, all.data(), size_t(width) * rows * c);
+      for (int r = 0; r < std::min(full.height, rows); r++)
+        memcpy(out + size_t(r) * width * c, all.data() + size_t(r) * full.width * c,
+               size_t(full.width) * c);
     }
     return 0;
   } catch (const std::exception& e) {

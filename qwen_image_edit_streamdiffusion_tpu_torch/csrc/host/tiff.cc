@@ -10,15 +10,19 @@
 //   - CCITT modified Huffman RLE (compression 2: every row 1-D and
 //     byte-aligned), Group 3 (compression 3: an EOL before every row, rows
 //     1-D or, with T4Options bit 0, 1-D or 2-D by a tag bit) and Group 4
-//     (compression 4: every row 2-D against the one above), from tif_fax3.c
-//     and ITU T.4 / T.6. White runs are 0 bits, black runs 1 bits.
+//     (compression 4: every row 2-D against the one above), as tif_fax3.c's
+//     state machine (tif_fax3.h's macros) decodes them, damaged data
+//     included: a bad code ends its row, which is padded or cut to the
+//     image's width, and the next row decodes on; data that runs out fails
+//     the strip, but a Group 4 strip that made a row keeps its rows.
+//     White runs are 0 bits, black runs 1 bits.
 // A FillOrder of 2 reverses each input byte's bits first, as TIFFFillStrip
-// does. Each strip or tile decodes to exactly the bytes it covers: its output
-// is bounded by them, and data that ends short of them raises (libtiff's
-// "Not enough data"), as do bad codes.
+// does. Each strip or tile decodes to at most the bytes it covers, and PackBits
+// or LZW data that ends short of them raises (libtiff's "Not enough data"),
+// as do bad LZW codes.
 //
-// Deflate and LZMA strips inflate in core/codec.py through Python's zlib and
-// lzma; JPEG strips go through image_codec.cc.
+// Deflate and LZMA strips inflate in core/codec.py through zlib and liblzma,
+// called as libtiff calls them; JPEG strips go through image_codec.cc.
 //
 // A plain C interface, loaded with ctypes by core/codec.py. Every entry point
 // returns a negative value and writes a message into `err` on failure.
@@ -147,6 +151,7 @@ void lzw(const uint8_t* in, long n, uint8_t* out, long occ) {
 }
 
 // ---------------------------------------------------------------------------
+// ---------------------------------------------------------------------------
 // CCITT Group 3 and 4 (ITU T.4 / T.6)
 // ---------------------------------------------------------------------------
 
@@ -213,193 +218,445 @@ const Code kExtended[] = {
     {"000000010101", 2176}, {"000000010110", 2240}, {"000000010111", 2304},
     {"000000011100", 2368}, {"000000011101", 2432}, {"000000011110", 2496},
     {"000000011111", 2560}};
-// 2-D mode codes: pass, horizontal, vertical a1 - b1 = -3..3, extension
-enum Mode { kPass = 100, kHoriz = 101, kExt = 102, kEol = -1000 };
-const Code kModes[] = {{"0001", kPass}, {"001", kHoriz},    {"1", 0},         {"011", 1},
-                       {"000011", 2},   {"0000011", 3},     {"010", -1},      {"000010", -2},
-                       {"0000010", -3}, {"0000001", kExt}};
+// libtiff's decoder state tables (mkg3states.c): indexed by the next 7, 12
+// or 13 input bits least significant first; a code that is none of these is
+// (S_Null, width 0)
+enum State { S_Null, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW, S_TermB, S_MakeUpW,
+             S_MakeUpB, S_MakeUp, S_EOL };
+struct FaxTab {
+  uint8_t state = S_Null, width = 0;
+  uint32_t param = 0;
+};
 
-constexpr int kLookBits = 13;
-constexpr int kBias = 2048;  // keeps every value of a lookup entry positive
-
-// A code table as a lookup on the next 13 bits: (length << 16) | (value +
-// kBias), 0 for no code; an EOL (000000000001) reads as its 12 bits, kEol.
-struct Lookup {
-  std::vector<int32_t> t;
-  Lookup(std::initializer_list<std::pair<const Code*, int>> tables, bool eol) : t(1 << kLookBits, 0) {
-    for (auto& [codes, count] : tables)
-      for (int i = 0; i < count; i++) add(codes[i].bits, codes[i].value);
-    if (eol) add("000000000001", kEol);
+struct FaxTables {
+  FaxTab main[128], white[4096], black[8192];
+  static void fill(FaxTab* t, int size, const char* bits, int state, uint32_t param) {
+    int const width = int(strlen(bits));
+    int code = 0;
+    for (int i = 0; i < width; i++) code |= (bits[i] - '0') << i;  // least significant first
+    for (int c = code; c < (1 << size); c += 1 << width) t[c] = {uint8_t(state), uint8_t(width), param};
   }
-  void add(const char* bits, int value) {
-    int len = int(strlen(bits)), code = 0;
-    for (int i = 0; i < len; i++) code = code * 2 + (bits[i] - '0');
-    int lo = code << (kLookBits - len);
-    for (int k = 0; k < (1 << (kLookBits - len)); k++)
-      t[size_t(lo + k)] = (len << 16) | (value + kBias);
+  static void runs(FaxTab* t, int size, const Code* codes, int count, bool term, int term_state,
+                   int makeup_state) {
+    for (int i = 0; i < count; i++)
+      if ((codes[i].value < 64) == term)
+        fill(t, size, codes[i].bits, term ? term_state : makeup_state, uint32_t(codes[i].value));
+  }
+  FaxTables() {
+    fill(main, 7, "0001", S_Pass, 0);
+    fill(main, 7, "001", S_Horiz, 0);
+    fill(main, 7, "1", S_V0, 0);
+    fill(main, 7, "011", S_VR, 1);
+    fill(main, 7, "000011", S_VR, 2);
+    fill(main, 7, "0000011", S_VR, 3);
+    fill(main, 7, "010", S_VL, 1);
+    fill(main, 7, "000010", S_VL, 2);
+    fill(main, 7, "0000010", S_VL, 3);
+    fill(main, 7, "0000001", S_Ext, 0);
+    fill(main, 7, "0000000", S_EOL, 0);
+    int const nw = int(sizeof(kWhite) / sizeof(Code)), nb = int(sizeof(kBlack) / sizeof(Code));
+    int const ne = int(sizeof(kExtended) / sizeof(Code));
+    runs(white, 12, kWhite, nw, false, S_TermW, S_MakeUpW);
+    for (int i = 0; i < ne; i++) fill(white, 12, kExtended[i].bits, S_MakeUp, uint32_t(kExtended[i].value));
+    runs(white, 12, kWhite, nw, true, S_TermW, S_MakeUpW);
+    fill(white, 12, "00000000000", S_EOL, 0);
+    runs(black, 13, kBlack, nb, false, S_TermB, S_MakeUpB);
+    for (int i = 0; i < ne; i++) fill(black, 13, kExtended[i].bits, S_MakeUp, uint32_t(kExtended[i].value));
+    runs(black, 13, kBlack, nb, true, S_TermB, S_MakeUpB);
+    fill(black, 13, "00000000000", S_EOL, 0);
   }
 };
 
-const Lookup& white_table() {
-  static const Lookup t({{kWhite, int(sizeof(kWhite) / sizeof(Code))},
-                         {kExtended, int(sizeof(kExtended) / sizeof(Code))}}, true);
-  return t;
-}
-const Lookup& black_table() {
-  static const Lookup t({{kBlack, int(sizeof(kBlack) / sizeof(Code))},
-                         {kExtended, int(sizeof(kExtended) / sizeof(Code))}}, true);
-  return t;
-}
-const Lookup& mode_table() {
-  static const Lookup t({{kModes, int(sizeof(kModes) / sizeof(Code))}}, true);
+const FaxTables& fax_tables() {
+  static const FaxTables t;
   return t;
 }
 
-struct Bits {
-  const uint8_t* p;
-  long n;
-  long pos = 0;  // in bits
-  bool rev;
-  int byte(long i) const { return i < n ? (rev ? reverse_bits(p[i]) : p[i]) : 0; }
-  bool done() const { return pos >= n * 8; }
-  int peek(int k) const {
-    long b = pos >> 3;
-    uint32_t acc = uint32_t(byte(b)) << 24 | uint32_t(byte(b + 1)) << 16 |
-                   uint32_t(byte(b + 2)) << 8 | uint32_t(byte(b + 3));
-    return int((acc << (pos & 7)) >> (32 - k));
-  }
-  void skip(int k) {
-    pos += k;
-    if (pos > n * 8) throw CodecError("truncated TIFF: CCITT data ends short of its strip");
-  }
-  int bit() {
-    int v = peek(1);
-    skip(1);
-    return v;
-  }
-  // a code of `table`: its value (kEol for an EOL); raises on no code
-  int code(const Lookup& table, const char* what) {
-    if (done()) throw CodecError("truncated TIFF: CCITT data ends short of its strip");
-    int e = table.t[size_t(peek(kLookBits))];
-    if (!e) throw CodecError(std::string("corrupt TIFF: bad CCITT ") + what + " code");
-    skip(e >> 16);
-    return (e & 0xFFFF) - kBias;
-  }
-  // a run of one colour, no longer than `limit`: make-up codes, then a
-  // terminating code
-  int run(bool black, int limit) {
-    int total = 0;
-    for (;;) {
-      int v = code(black ? black_table() : white_table(), black ? "black run" : "white run");
-      if (v == kEol) throw CodecError("corrupt TIFF: CCITT row ends early (EOL)");
-      total += v;
-      if (total > limit) throw CodecError("corrupt TIFF: CCITT row longer than the image");
-      if (v < 64) return total;
+// _TIFFFax3fillruns: a row of runs (white, black, ...) into packed bits (1 =
+// black), each run clamped to the row, as libtiff clamps it in the array
+void fill_runs(uint8_t* buf, uint32_t* runs, uint32_t* erun, uint32_t lastx) {
+  if ((erun - runs) & 1) *erun++ = 0;
+  uint32_t x = 0;
+  for (; runs < erun; runs += 2) {
+    for (int k = 0; k < 2; k++) {
+      uint32_t run = runs[k];
+      if (x + run > lastx || run > lastx) run = runs[k] = lastx - x;
+      for (uint32_t i = x; i < x + run; i++) {
+        uint8_t const bit = uint8_t(0x80 >> (i & 7));
+        if (k) buf[i >> 3] |= bit;
+        else buf[i >> 3] &= uint8_t(~bit);
+      }
+      x += runs[k];
     }
   }
-  // past the next EOL: eleven or more zero bits, then a one
-  void sync_eol() {
-    int zeros = 0;
-    for (;;) {
-      if (done()) throw CodecError("truncated TIFF: CCITT data ends short of its strip (no EOL)");
-      if (bit()) {
-        if (zeros >= 11) return;
-        zeros = 0;
+}
+
+struct PrematureEof {};
+struct NoEol {};  // Group 3 data without the EOL SYNC_EOL looks for
+
+// tif_fax3.c's Fax3DecodeRLE (compression 2), Fax3Decode1D / Fax3Decode2D
+// (3) and Fax4Decode (4) over the macros of tif_fax3.h: a bad code ends the
+// row (CLEANUP_RUNS pads or cuts it) and decoding goes on; data that runs
+// out fails the strip, but a Group 4 strip that made a row keeps the rows it
+// made and leaves the rest of `out` as it was. Group 3 data whose EOL search
+// runs out is read again from the strip's start, without EOLs (libtiff's
+// FAXMODE_NOEOL, kept for the image's later strips), into the rows still to
+// be made.
+class Fax {
+ public:
+  Fax(int compression, const uint8_t* in, long n, int width, int t4options, bool reversed,
+      uint32_t* runs)
+      : comp_(compression), cp_(in), ep_(in + n), lastx_(width), runs_(runs),
+        two_d_(compression == 4 || (compression == 3 && (t4options & 1))) {
+    nruns_ = (uint32_t(width) + 1 + 31) / 32 * 32;
+    if (two_d_) nruns_ *= 2;
+    noeol_ = runs_ + 2 * nruns_;  // the slot past the run arrays
+    for (int i = 0; i < 256; i++) bitmap_[i] = reversed ? uint8_t(i) : reverse_bits(uint8_t(i));
+    // Fax3PreDecode
+    cur_ = runs_;
+    if (two_d_) {
+      ref_ = runs_ + nruns_;
+      ref_[0] = uint32_t(width);
+      ref_[1] = 0;
+    }
+  }
+
+  // the strip's rows into buf; false where libtiff fails it
+  bool decode(uint8_t* buf, long occ) {
+    long const rowbytes = (lastx_ + 7) / 8;
+    if (occ % rowbytes) throw CodecError("corrupt TIFF: CCITT fractional scanlines");
+    const FaxTables& t = fax_tables();
+    int const start = line_;
+    const uint8_t* const cp0 = cp_;
+    thisrun_ = cur_;
+    while (occ > 0) {
+      a0_ = 0;
+      rl_ = 0;
+      if (two_d_) thisrun_ = cur_;
+      pa_ = thisrun_;
+      bool one_d = true;
+      try {
+        if (comp_ == 3 && !*noeol_) sync_eol();
+        if (comp_ == 3 && two_d_) {
+          need8(1);
+          one_d = acc_ & 1;
+          clr(1);
+        }
+        if (comp_ == 4) one_d = false;
+      } catch (const PrematureEof&) {  // EOF1D / EOF2D
+        cleanup();
+        fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
+        return false;
+      } catch (const NoEol&) {  // read the strip again without EOLs
+        *noeol_ = 1;
+        cp_ = cp0;
+        acc_ = 0;
+        avail_ = eolcnt_ = 0;
+        continue;
+      }
+      if (two_d_) {
+        pb_ = ref_;
+        b1_ = int(*pb_++);
+      }
+      try {
+        if (one_d) expand1d(t);
+        else expand2d(t);
+      } catch (const PrematureEof&) {
+        if (comp_ != 4) {
+          fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
+          return false;
+        }
+        return end_g4(buf, start);
+      }
+      if (comp_ == 4 && eolcnt_) return end_g4(buf, start);
+      fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
+      if (comp_ == 2) clr(avail_ & 7);  // rows start on a byte
+      if (two_d_) {
+        if (comp_ == 4 || pa_ < thisrun_ + nruns_) setvalue(0);  // imaginary change
+        std::swap(cur_, ref_);
+      }
+      buf += rowbytes;
+      occ -= rowbytes;
+      line_++;
+    }
+    return true;
+  }
+
+ private:
+  int comp_;
+  const uint8_t* cp_;
+  const uint8_t* ep_;
+  int lastx_;
+  uint32_t* runs_;
+  bool two_d_;
+  uint32_t nruns_;
+  uint8_t bitmap_[256];
+  uint32_t* noeol_;
+  uint32_t* cur_;
+  uint32_t* ref_ = nullptr;
+  uint32_t acc_ = 0;
+  int avail_ = 0, eolcnt_ = 0, line_ = 0;
+  int a0_ = 0, rl_ = 0, b1_ = 0;
+  uint32_t* pa_ = nullptr;
+  uint32_t* pb_ = nullptr;
+  uint32_t* thisrun_ = nullptr;
+
+  bool end_g4(uint8_t* buf, int start) {  // EOFG4, then BADG4 where no bits are left
+    need16_soft(13);
+    clr(13);
+    fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
+    return line_ != start;  // a badly-terminated strip keeps its rows
+  }
+
+  bool eod() const { return cp_ >= ep_; }
+  void need8(int n) {
+    if (avail_ < n) {
+      if (eod()) {
+        if (avail_ == 0) throw PrematureEof();
+        avail_ = n;  // pad with zeros
       } else {
-        zeros++;
+        acc_ |= uint32_t(bitmap_[*cp_++]) << avail_;
+        avail_ += 8;
       }
     }
   }
+  bool need16_soft(int n) {
+    if (avail_ < n) {
+      if (eod()) {
+        if (avail_ == 0) return false;
+        avail_ = n;
+      } else {
+        acc_ |= uint32_t(bitmap_[*cp_++]) << avail_;
+        if ((avail_ += 8) < n) {
+          if (eod()) {
+            avail_ = n;
+          } else {
+            acc_ |= uint32_t(bitmap_[*cp_++]) << avail_;
+            avail_ += 8;
+          }
+        }
+      }
+    }
+    return true;
+  }
+  void need16(int n) {
+    if (!need16_soft(n)) throw PrematureEof();
+  }
+  uint32_t get(int n) const { return acc_ & ((1u << n) - 1); }
+  void clr(int n) {
+    avail_ -= n;
+    acc_ >>= n;
+  }
+  const FaxTab& lookup8(const FaxTab* tab, int wid) {
+    need8(wid);
+    const FaxTab& e = tab[get(wid)];
+    clr(e.width);
+    return e;
+  }
+  const FaxTab& lookup16(const FaxTab* tab, int wid) {
+    need16(wid);
+    const FaxTab& e = tab[get(wid)];
+    clr(e.width);
+    return e;
+  }
+
+  [[noreturn]] void overflow() const {
+    throw CodecError("corrupt TIFF: CCITT row has more runs than its buffer");
+  }
+  void setvalue(int x) {
+    if (pa_ >= thisrun_ + nruns_) overflow();
+    *pa_++ = uint32_t(rl_ + x);
+    a0_ += x;
+    rl_ = 0;
+  }
+  void cleanup() {  // CLEANUP_RUNS
+    if (rl_) setvalue(0);
+    if (a0_ != lastx_) {
+      while (a0_ > lastx_ && pa_ > thisrun_) a0_ -= int(*--pa_);
+      if (a0_ < lastx_) {
+        if (a0_ < 0) a0_ = 0;
+        if ((pa_ - thisrun_) & 1) setvalue(0);
+        setvalue(lastx_ - a0_);
+      } else if (a0_ > lastx_) {
+        setvalue(lastx_);
+        setvalue(0);
+      }
+    }
+  }
+  void sync_eol() {  // SYNC_EOL
+    if (eolcnt_ == 0) {
+      for (;;) {
+        need16(11);
+        if (get(11) == 0) break;
+        clr(1);
+      }
+    }
+    for (;;) {
+      try {
+        need8(8);
+      } catch (const PrematureEof&) {
+        throw NoEol();
+      }
+      if (get(8)) break;
+      clr(8);
+    }
+    while (get(1) == 0) clr(1);
+    clr(1);
+    eolcnt_ = 0;
+  }
+
+  // EXPAND1D: a premature EOF cleans the row up and raises
+  void expand1d(const FaxTables& t) {
+    try {
+      for (;;) {
+        for (bool black : {false, true}) {
+          for (;;) {
+            const FaxTab& e = black ? lookup16(t.black, 13) : lookup16(t.white, 12);
+            if (e.state == S_EOL) {
+              eolcnt_ = 1;
+              cleanup();
+              return;
+            }
+            if (e.state == (black ? S_TermB : S_TermW)) {
+              setvalue(int(e.param));
+              break;
+            }
+            if (e.state == (black ? S_MakeUpB : S_MakeUpW) || e.state == S_MakeUp) {
+              a0_ += int(e.param);
+              rl_ += int(e.param);
+              continue;
+            }
+            cleanup();  // unexpected: a bad code ends the row
+            return;
+          }
+          if (a0_ >= lastx_) {
+            cleanup();
+            return;
+          }
+        }
+        if (*(pa_ - 1) == 0 && *(pa_ - 2) == 0) pa_ -= 2;
+      }
+    } catch (const PrematureEof&) {
+      cleanup();
+      throw;
+    }
+  }
+
+  void check_b1() {  // CHECK_b1
+    if (pa_ != thisrun_)
+      while (b1_ <= a0_ && b1_ < lastx_) {
+        if (pb_ + 1 >= ref_ + nruns_) overflow();
+        b1_ += int(pb_[0] + pb_[1]);
+        pb_ += 2;
+      }
+  }
+
+  // one run of colour `black` in horizontal mode: false for a bad code
+  bool horiz_run(const FaxTables& t, bool black) {
+    for (;;) {
+      const FaxTab& e = black ? lookup16(t.black, 13) : lookup16(t.white, 12);
+      if (e.state == (black ? S_TermB : S_TermW)) {
+        setvalue(int(e.param));
+        return true;
+      }
+      if (e.state == (black ? S_MakeUpB : S_MakeUpW) || e.state == S_MakeUp) {
+        a0_ += int(e.param);
+        rl_ += int(e.param);
+        continue;
+      }
+      return false;
+    }
+  }
+
+  // EXPAND2D: a premature EOF cleans the row up and raises
+  void expand2d(const FaxTables& t) {
+    try {
+      while (a0_ < lastx_) {
+        if (pa_ >= thisrun_ + nruns_) overflow();
+        const FaxTab& e = lookup8(t.main, 7);
+        switch (e.state) {
+          case S_Pass:
+            check_b1();
+            if (pb_ + 1 >= ref_ + nruns_) overflow();
+            b1_ += int(*pb_++);
+            rl_ += b1_ - a0_;
+            a0_ = b1_;
+            b1_ += int(*pb_++);
+            break;
+          case S_Horiz: {
+            bool const first_black = (pa_ - thisrun_) & 1;
+            if (!horiz_run(t, first_black) || !horiz_run(t, !first_black)) {
+              cleanup();  // unexpected
+              return;
+            }
+            check_b1();
+            break;
+          }
+          case S_V0:
+            check_b1();
+            setvalue(b1_ - a0_);
+            if (pb_ >= ref_ + nruns_) overflow();
+            b1_ += int(*pb_++);
+            break;
+          case S_VR:
+            check_b1();
+            setvalue(b1_ - a0_ + int(e.param));
+            if (pb_ >= ref_ + nruns_) overflow();
+            b1_ += int(*pb_++);
+            break;
+          case S_VL:
+            check_b1();
+            if (b1_ < int(a0_ + int(e.param))) {
+              cleanup();  // unexpected
+              return;
+            }
+            setvalue(b1_ - a0_ - int(e.param));
+            b1_ -= int(*--pb_);
+            break;
+          case S_Ext:  // uncompressed mode is not decoded: the row ends
+            *pa_++ = uint32_t(lastx_ - a0_);
+            cleanup();
+            return;
+          case S_EOL:
+            *pa_++ = uint32_t(lastx_ - a0_);
+            need8(4);
+            clr(4);
+            eolcnt_ = 1;
+            cleanup();
+            return;
+          default:
+            cleanup();  // unexpected
+            return;
+        }
+      }
+      if (rl_) {
+        if (rl_ + a0_ < lastx_) {  // expect a final V0
+          need8(1);
+          if (!get(1)) {
+            cleanup();
+            return;
+          }
+          clr(1);
+        }
+        setvalue(0);
+      }
+      cleanup();
+    } catch (const PrematureEof&) {
+      cleanup();
+      throw;
+    }
+  }
 };
 
-// One row's changing elements (the columns where the colour flips, the first
-// to black) into `out`, a row of packed bits (1 = black, most significant
-// bit first).
-void fill_row(const std::vector<int>& changes, int width, uint8_t* out) {
-  memset(out, 0, size_t((width + 7) / 8));
-  for (size_t i = 0; i < changes.size(); i += 2) {
-    int b = i + 1 < changes.size() ? changes[i + 1] : width;
-    for (int x = changes[i]; x < b; x++) out[x >> 3] |= uint8_t(0x80 >> (x & 7));
-  }
-}
-
-void row_1d(Bits& bits, int width, std::vector<int>& cur) {
-  cur.clear();
-  int a0 = 0;
-  bool black = false;
-  while (a0 < width) {
-    a0 += bits.run(black, width - a0);
-    if (a0 > width) throw CodecError("corrupt TIFF: CCITT row longer than the image");
-    if (a0 < width) cur.push_back(a0);
-    black = !black;
-  }
-}
-
-// T.4 4.2 / T.6: a row coded against the changes of the row above
-void row_2d(Bits& bits, int width, const std::vector<int>& ref, std::vector<int>& cur) {
-  cur.clear();
-  int a0 = -1;  // before the row's first pixel
-  bool black = false;
-  size_t ri = 0;  // the first change of the row above right of a0
-  auto at = [&](size_t i) { return i < ref.size() ? ref[i] : width; };
-  while (a0 < width) {
-    while (ri < ref.size() && ref[ri] <= a0) ri++;
-    // b1: the first change right of a0 to the colour other than a0's (the
-    // changes at even indices turn black); b2 the change after it
-    size_t b1i = ri + ((ri & 1) != (black ? 1u : 0u) ? 1 : 0);
-    int b1 = at(b1i), b2 = at(b1i + 1);
-    int mode = bits.code(mode_table(), "mode");
-    int start = a0 < 0 ? 0 : a0;
-    if (mode == kPass) {
-      if (b2 > width) throw CodecError("corrupt TIFF: CCITT pass code outside the row");
-      a0 = b2;
-    } else if (mode == kHoriz) {
-      int a1 = start + bits.run(black, width - start);
-      int a2 = a1 + bits.run(!black, width - a1);
-      if (a2 > width) throw CodecError("corrupt TIFF: CCITT row longer than the image");
-      if (a1 < width) cur.push_back(a1);
-      if (a2 < width) cur.push_back(a2);
-      a0 = a2;
-    } else if (mode == kExt) {
-      throw CodecError("unsupported TIFF: CCITT uncompressed mode");
-    } else if (mode == kEol) {
-      throw CodecError("corrupt TIFF: CCITT row ends early (EOL)");
-    } else {
-      int a1 = b1 + mode;
-      if (a1 < start || a1 > width || (a0 >= 0 && a1 <= a0 && a1 != width))
-        throw CodecError("corrupt TIFF: CCITT vertical code outside the row");
-      if (a1 < width) cur.push_back(a1);
-      a0 = a1;
-      black = !black;
-    }
-  }
-}
-
-// compression 2, 3 or 4 into `rows` packed rows of `width` pixels
-void fax(int compression, const uint8_t* in, long n, uint8_t* out, long occ, int width,
-         int t4options, bool rev) {
-  long rowbytes = (width + 7) / 8;
-  if (width <= 0 || occ % rowbytes) throw CodecError("corrupt TIFF: CCITT strip size");
-  long rows = occ / rowbytes;
-  if (compression == 3 && (t4options & 2)) throw CodecError("unsupported TIFF: CCITT uncompressed mode");
-  if (compression == 4 && (t4options & 2)) throw CodecError("unsupported TIFF: CCITT uncompressed mode");
-  Bits bits{in, n, 0, rev};
-  std::vector<int> ref, cur;
-  for (long r = 0; r < rows; r++) {
-    if (compression == 2) {
-      row_1d(bits, width, cur);
-      bits.pos = (bits.pos + 7) & ~7L;  // rows start on a byte
-    } else if (compression == 3) {
-      bits.sync_eol();
-      bool one_d = !(t4options & 1) || bits.bit();
-      if (one_d) row_1d(bits, width, cur);
-      else row_2d(bits, width, ref, cur);
-    } else {
-      row_2d(bits, width, ref, cur);
-    }
-    fill_row(cur, width, out + r * rowbytes);
-    ref.swap(cur);
-  }
+// compression 2, 3 or 4 into `occ` bytes of rows of `width` pixels, through
+// the run arrays `runs` (2 * nruns entries, kept across a TIFF's strips as
+// libtiff keeps them, then the FAXMODE_NOEOL flag); false where libtiff
+// fails the strip
+bool fax(int compression, const uint8_t* in, long n, uint8_t* out, long occ, int width,
+         int t4options, bool reversed, uint32_t* runs) {
+  if (width <= 0) throw CodecError("corrupt TIFF: CCITT strip size");
+  Fax f(compression, in, n, width, t4options, reversed, runs);
+  return f.decode(out, occ);
 }
 
 }  // namespace
@@ -407,16 +664,18 @@ void fax(int compression, const uint8_t* in, long n, uint8_t* out, long occ, int
 extern "C" {
 
 // Decompress one strip or tile: `in` (n bytes) of TIFF compression 2, 3, 4, 5
-// or 32773 into exactly `occ` bytes at out. width is the strip's pixels a row
-// (the CCITT codes), t4options the Group 3 or 4 options, fill_order 2 for
-// bits least significant first. Returns 0, or -1 with a message in err; with
-// `tolerant` set, a decode error returns 1 instead, the bytes decoded before
-// it kept and the rest of out as the caller made it (zero for libtiff's RGBA
-// reader, which Pillow reads YCbCr through and which converts such a strip
-// all the same).
+// or 32773 into `occ` bytes at out. width is the strip's pixels a row (the
+// CCITT codes), t4options the Group 3 or 4 options, fill_order 2 for bits
+// least significant first, `runs` libtiff's CCITT run arrays (kept by the
+// caller across a TIFF's strips). Returns 0, or -1 with a message in err;
+// with `tolerant` set, a decode error returns 1 instead, the bytes decoded
+// before it kept and the rest of out as the caller made it (zero for
+// libtiff's RGBA reader, which Pillow reads YCbCr through and which converts
+// such a strip all the same). A Group 4 strip that ends after a row returns
+// 0, the rest of out as it was.
 int qie_tiff_decompress(int compression, const uint8_t* in, long n, uint8_t* out, long occ,
-                        int width, int t4options, int fill_order, int tolerant, char* err,
-                        int errlen) {
+                        int width, int t4options, int fill_order, int tolerant, uint32_t* runs,
+                        char* err, int errlen) {
   try {
     std::vector<uint8_t> rev;
     bool reversed = fill_order == 2;
@@ -426,7 +685,10 @@ int qie_tiff_decompress(int compression, const uint8_t* in, long n, uint8_t* out
       in = rev.data();
     }
     switch (compression) {
-      case 2: case 3: case 4: fax(compression, in, n, out, occ, width, t4options, reversed); break;
+      case 2: case 3: case 4:
+        if (!fax(compression, in, n, out, occ, width, t4options, reversed, runs))
+          throw CodecError("truncated TIFF: CCITT data ends short of its strip");
+        break;
       case 5: lzw(in, n, out, occ); break;
       case 32773: packbits(in, n, out, occ); break;
       default: throw CodecError("unsupported TIFF: compression " + std::to_string(compression));

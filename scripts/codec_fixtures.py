@@ -983,15 +983,60 @@ def pil_rgb(data: bytes) -> np.ndarray:
     return np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
 
 
-def pil_rgb_c_idct(cases) -> list:
+# realloc with what it adds zeroed, preloaded into a Pillow process
+_FRESH_REALLOC = r"""
+#include <malloc.h>
+#include <string.h>
+extern void *__libc_realloc(void *, size_t);
+void *realloc(void *p, size_t n) {
+  size_t old = p ? malloc_usable_size(p) : 0;
+  void *q = __libc_realloc(p, n);
+  if (q && n > old) memset((char *)q + old, 0, n - old);
+  return q;
+}
+"""
+
+_fresh_lib = {}
+
+
+def _fresh_realloc() -> str:
+    """A shared library, built once a process with the system's C compiler,
+    whose ``realloc`` zeroes the bytes it adds."""
+    import atexit
+    import shutil
+    import subprocess
+    import tempfile
+
+    if "lib" not in _fresh_lib:
+        tmp = tempfile.mkdtemp(prefix="fresh_realloc_")
+        atexit.register(shutil.rmtree, tmp, True)
+        src, lib = os.path.join(tmp, "fresh.c"), os.path.join(tmp, "fresh.so")
+        with open(src, "w") as f:
+            f.write(_FRESH_REALLOC)
+        subprocess.run([os.environ.get("CC", "cc"), "-O1", "-shared", "-fPIC", "-o", lib, src],
+                       check=True)
+        _fresh_lib["lib"] = lib
+    return _fresh_lib["lib"]
+
+
+def pil_rgb_c_idct(cases, fresh_memory: bool = False) -> list:
     """:func:`pil_rgb` of each file (None where Pillow raises), in a
     subprocess with ``JSIMD_FORCENONE=1``: libjpeg-turbo's C code paths (its
     x86 SIMD IDCT differs on the out-of-range coefficients of damaged data),
-    which the port's codec follows."""
+    which the port's codec follows.
+
+    ``fresh_memory``: the process's ``realloc`` zeroes what it adds. Pillow's
+    libtiff decoder grows its strip buffer with ``realloc`` and never clears
+    it, so where a JPEG or Group 4 strip leaves bytes unwritten the first
+    strip's pixels are whatever the heap held (pointers, varying run to
+    run); so they are the zeros a fresh allocation holds, as in the port."""
     import subprocess
     import sys
     import tempfile
 
+    env = {**os.environ, "JSIMD_FORCENONE": "1"}
+    if fresh_memory:
+        env["LD_PRELOAD"] = _fresh_realloc()
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "cases.npz"), os.path.join(tmp, "out.npz")
         np.savez(src, *[np.frombuffer(c, np.uint8) for c in cases])
@@ -1008,8 +1053,8 @@ def pil_rgb_c_idct(cases) -> list:
             "    except Exception:\n"
             "        pass\n"
             "np.savez(sys.argv[2], **out)\n")
-        subprocess.run([sys.executable, "-c", script, src, dst], check=True,
-                       env={**os.environ, "JSIMD_FORCENONE": "1"}, capture_output=True)
+        subprocess.run([sys.executable, "-c", script, src, dst], check=True, env=env,
+                       capture_output=True)
         got = np.load(dst)
         return [got[f"arr_{i}"] if f"arr_{i}" in got.files else None
                 for i in range(len(cases))]
@@ -1070,6 +1115,7 @@ def fixtures() -> dict:
         "lossless_1024.webp": save(Image.fromarray(smooth).quantize(8).convert("RGB"), "WEBP",
                                    lossless=True),
         **tiff_fixtures(),
+        **damaged_tiff_fixtures(),
         **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
     }
 
@@ -1118,8 +1164,141 @@ def tiff_fixtures() -> dict:
         "cmyk.tif": tiff_file(rgba, 5, 8, compression=5),
         "ycbcr_lzw.tif": tiff_file(ycc, 6, 8, compression=5, rows_per_strip=8,
                                    ycbcr_subsampling=(2, 2)),
+        "ycbcr_deflate.tif": tiff_file(ycc, 6, 8, compression=8, rows_per_strip=8,
+                                       ycbcr_subsampling=(2, 2)),
+        "ycbcr_lzma.tif": tiff_file(ycc, 6, 8, compression=34925, rows_per_strip=16,
+                                    ycbcr_subsampling=(2, 1)),
+        "g3_2d.tif": tiff_file(bw, 0, 1, compression=3, t4options=1, rows_per_strip=16),
         "multipage.tif": multi.getvalue(),
         "orient6.tif": tiff_file(rgb, 2, 8, compression=5, orientation=6),
+    }
+
+
+def tiff_strips(data: bytes):
+    """[(offset, byte count)] of a little-endian classic TIFF's strips or
+    tiles (StripOffsets or TileOffsets, LONG)."""
+    ent = tiff_entries(data)
+    offs, counts = (273, 279) if 273 in ent else (324, 325)
+
+    def values(tag):
+        n, at = struct.unpack_from("<L", data, ent[tag] + 4)[0], ent[tag] + 8
+        if n > 1:
+            (at,) = struct.unpack_from("<L", data, at)
+        return struct.unpack_from(f"<{n}L", data, at)
+
+    return list(zip(values(offs), values(counts)))
+
+
+def tiff_entries(data: bytes) -> dict:
+    """{tag: entry position} of a little-endian classic TIFF's first directory."""
+    (pos,) = struct.unpack_from("<L", data, 4)
+    (n,) = struct.unpack_from("<H", data, pos)
+    return {struct.unpack_from("<H", data, pos + 2 + 12 * k)[0]: pos + 2 + 12 * k
+            for k in range(n)}
+
+
+def tiff_set_entry(data: bytes, tag: int, new_tag=None, typ=None, count=None,
+                   value=None) -> bytes:
+    """The file with one directory entry's tag, type, count or value field
+    (LONG) replaced."""
+    at = tiff_entries(data)[tag]
+    out = bytearray(data)
+    t, ty, c = struct.unpack_from("<HHL", data, at)
+    struct.pack_into("<HHL", out, at, t if new_tag is None else new_tag,
+                     ty if typ is None else typ, c if count is None else count)
+    if value is not None:
+        struct.pack_into("<L", out, at + 8, value)
+    return bytes(out)
+
+
+def tiff_damaged(data: bytes, chunk: int, at: float, patch: bytes) -> bytes:
+    """The file with ``patch`` written into strip or tile ``chunk`` at the
+    fraction ``at`` of its data."""
+    off, count = tiff_strips(data)[chunk]
+    out = bytearray(data)
+    i = off + int(count * at)
+    out[i:i + len(patch)] = patch
+    return bytes(out)
+
+
+def tiff_cut(data: bytes, chunk: int) -> bytes:
+    """The file with strip ``chunk``'s byte count halved (StripByteCounts
+    held out of line)."""
+    ent = tiff_entries(data)
+    (at,) = struct.unpack_from("<L", data, ent[279] + 8)
+    out = bytearray(data)
+    (count,) = struct.unpack_from("<L", data, at + 4 * chunk)
+    struct.pack_into("<L", out, at + 4 * chunk, max(1, count // 2))
+    return bytes(out)
+
+
+def jpeg_frames(sizes, subsampling: int = 2) -> callable:
+    """A ``jpeg`` writer for :func:`tiff_file` whose n-th strip or tile is
+    coded from its top-left ``sizes[n]`` (rows, columns), None for whole, by
+    Pillow at quality 90 (``subsampling`` 2 is 4:2:0, and samples a gray
+    frame's one component 2x2)."""
+    from PIL import Image
+
+    sizes = list(sizes)
+
+    def jpeg(block):
+        size = sizes.pop(0) if sizes else None
+        if size is not None:
+            block = block[:size[0], :size[1]]
+        if block.shape[2] == 1:
+            block = block[..., 0]
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(block)).save(buf, "JPEG", quality=90,
+                                                          subsampling=subsampling)
+        return buf.getvalue()
+
+    return jpeg
+
+
+def damaged_tiff_fixtures() -> dict:
+    """Damaged TIFFs that libtiff decodes for Pillow, each of a kind the
+    port once refused or read apart from it: an LZMA strip damaged near its
+    end (liblzma's error comes in the call that fills the strip); Deflate and
+    LZMA YCbCr strips damaged in their data (libtiff's RGBA reader converts
+    what came before the error); JPEG frames smaller than their strips or
+    tiles after the first (the rest keeps the chunk before's bytes); CCITT
+    RLE, Group 3 and Group 4 strips with bad codes (the row ends, decoding
+    goes on) and a Group 4 strip cut short (its rows kept); directories
+    libtiff reads apart from Pillow (an entry whose data lies past the file,
+    a YCbCrSubsampling of one value, which libtiff ignores). Every byte
+    Pillow shows was written: the first strip or tile is whole."""
+    rgb = scene(40, 56, 13)
+    ycc = np.concatenate([rgb[..., :1], rgb[..., 1:] // 2 + 64], -1)
+    bw = (scene(40, 56, 15)[..., 0] > 128).astype(np.uint8)
+
+    def ycbcr(comp):
+        return tiff_file(ycc, 6, 8, compression=comp, rows_per_strip=16,
+                         ycbcr_subsampling=(2, 2))
+
+    def fax(comp, t4=None, fill=1):
+        return tiff_file(bw, 0, 1, compression=comp, t4options=t4, rows_per_strip=16,
+                         fill_order=fill)
+
+    lzma_rgb = tiff_file(rgb, 2, 8, compression=34925)
+    past = tiff_file(rgb, 2, 8, compression=5, predictor=2, tags={305: (2, b"x" * 100)})
+    return {
+        "lzma_damaged.tif": tiff_damaged(lzma_rgb, 0, 1 - 40 / tiff_strips(lzma_rgb)[0][1],
+                                         b"\x55"),
+        "ycbcr_deflate_damaged.tif": tiff_damaged(ycbcr(8), 1, 1 / 3, b"\xff\xff"),
+        "ycbcr_lzma_damaged.tif": tiff_damaged(ycbcr(34925), 1, 1 / 3, b"\xff\xff"),
+        "jpeg_short_strip.tif": tiff_file(rgb, 6, 8, compression=7, rows_per_strip=16,
+                                          ycbcr_subsampling=(2, 2),
+                                          jpeg=jpeg_frames([None, (10, 24), (7, 56)])),
+        "jpeg_short_tile.tif": tiff_file(rgb, 6, 8, compression=7, tile=(16, 16),
+                                         ycbcr_subsampling=(2, 2),
+                                         jpeg=jpeg_frames([None] + [(9, 13)] * 11)),
+        "rle_bad_code.tif": tiff_damaged(fax(2), 1, 0.5, b"\x00\x80"),
+        "g3_bad_code.tif": tiff_damaged(fax(3, 1, 2), 1, 0.5, b"\x01"),
+        "g4_bad_code.tif": tiff_damaged(fax(4), 1, 0.5, b"\x00\x80"),
+        "g4_cut.tif": tiff_cut(fax(4), 2),
+        "dir_past_file.tif": tiff_set_entry(past, 305, value=len(past) + 10),
+        "dir_ycbcr_subsampling.tif": tiff_set_entry(
+            tiff_file(ycc, 6, 8, compression=8, ycbcr_subsampling=(1, 1)), 530, count=1),
     }
 
 

@@ -1,0 +1,57 @@
+"""Run ``chip_smoke.py``'s ``inputs`` phase alone, from a checkout.
+
+    python scripts/inputs_phase.py ROOT [ROOT ...]
+
+Each ROOT holds a ``chip_smoke.py`` and the package beside it; each runs in
+a process of its own, in the order given, so two checkouts (say a parent
+unpacked with ``git archive`` and this one, as parent, change, change,
+parent) are timed on one host in one call. The phase decodes every
+committed codec fixture against its manifest and times the 1024² decode
+set; this prints its JSON lines, then one line a run of the TIFF rows'
+multiples of the baseline JPEG and the phase's seconds.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+RUN = """
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+lines = []
+chip_smoke.emit = lambda d: (lines.append(d), print(json.dumps(d), flush=True))
+t0 = time.perf_counter()
+chip_smoke.phase_inputs()
+print(json.dumps({"inputs_s": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def main(argv=None) -> int:
+    roots = (argv if argv is not None else sys.argv[1:]) or [
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    for root in roots:
+        root = os.path.abspath(root)
+        run = subprocess.run([sys.executable, "-c", RUN, root], cwd=root, capture_output=True,
+                             text=True)
+        sys.stdout.write(run.stdout)
+        if run.returncode != 0:
+            sys.stderr.write(run.stderr)
+            return run.returncode
+        rows = [json.loads(x) for x in run.stdout.splitlines() if x.startswith("{")]
+        formats = next(r for r in rows if r.get("phase") == "inputs_decode_formats")
+        print(json.dumps({
+            "root": root, "inputs_s": next(r["inputs_s"] for r in rows if "inputs_s" in r),
+            "fixtures": sum(r.get("phase") == "inputs_fixture" for r in rows),
+            "baseline_jpeg_ms": formats["baseline_jpeg_ms"],
+            "tiff_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
+                                   if k.startswith("tiff")},
+            "nvidia_smi": formats["nvidia_smi"]}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,10 +13,16 @@ orientations 1-8 from the tag or an XMP packet. Files come from
 ``scripts/codec_fixtures.py``'s writers where Pillow writes no such file.
 What the port refuses raises a ``ValueError`` naming the format and the
 feature: on bytes Pillow refuses too, or, where Pillow decodes them, as a
-divergence that ROADMAP.md lists.
+feature ROADMAP.md lists as not yet ported. Damaged files decode as libtiff
+decodes them for Pillow, or both raise: an LZMA strip damaged in its data,
+Deflate and LZMA YCbCr strips, a likely invalid YCbCr tile byte count, JPEG
+frames smaller than their strips or tiles, damaged CCITT strips and
+directories libtiff reads apart from Pillow, each pinned by cases here, and
+two differential fuzzes of the fixtures with every disagreement counted.
 """
 
 import base64
+import functools
 import io
 import json
 import os
@@ -34,8 +40,9 @@ from qwen_image_edit_streamdiffusion_tpu.core import imaging as jimaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
-from codec_fixtures import (fax_encode, packbits, pil_rgb_c_idct, scene, tiff_file,  # noqa: E402
-                            tiff_lzw)
+from codec_fixtures import (fax_encode, jpeg_frames, packbits, pil_rgb_c_idct,  # noqa: E402
+                            scene, tiff_cut, tiff_damaged, tiff_entries, tiff_file, tiff_lzw,
+                            tiff_set_entry, tiff_strips)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
 
@@ -439,6 +446,8 @@ REFUSED_PORT_ONLY = {
     "zstd": (lambda: _pil_save(Image.fromarray(RGB), compression="zstd"), "ZSTD"),
     "thunderscan": (lambda: _with_tag(tiff_file(RGB[..., 0] >> 4, 1, 4), 259, 32809),
                     "ThunderScan"),
+    "ccitt-rlew": (lambda: _with_tag(tiff_file(BW, 0, 1, compression=2), 259, 32771),
+                   "CCITT RLEW"),
     "cielab": (_lab, "CIELab"),
     "float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32, sample_format=3,
                                           compression=8, tags={317: (3, [3])}),
@@ -595,110 +604,338 @@ FUZZ_FIXTURES = ["lzw_pred.tif", "tiled_deflate_be.tif", "planar_packbits.tif",
                  "orient6.tif"]
 
 
-def _directory(data: bytes):
-    """(header, entry count, entries) of a TIFF's first directory read in
-    full: each entry's (tag, type, count, value field) and whether its
-    data lies in the file, by the size Pillow gives its type."""
-    e = "<" if data[:2] == b"II" else ">"
-    big = data[2:4] in (b"\x00+", b"+\x00")
-    head = data[:16 if big else 8]
-    (pos,) = struct.unpack_from(e + ("Q" if big else "L"), data, 8 if big else 4)
-    if pos + (8 if big else 2) > len(data):
-        return head, None, []
-    (n,) = struct.unpack_from(e + ("Q" if big else "H"), data, pos)
-    size, inline = (20, 8) if big else (12, 4)
-    entries = []
-    for at in range(pos + (8 if big else 2), pos + (8 if big else 2) + size * min(n, 4096),
-                    size):
-        if at + size > len(data):
-            entries.append(None)  # the entry table runs past the file
-            break
-        tag, typ = struct.unpack_from(e + "HH", data, at)
-        (count,) = struct.unpack_from(e + ("Q" if big else "L"), data, at + 4)
-        field = data[at + size - inline:at + size]
-        nbytes = count * codec._TIFF_TYPES.get(typ, (0,))[0]
-        (off,) = struct.unpack(e + ("Q" if big else "L"), field)
-        entries.append((tag, typ, count, field, nbytes <= inline or off + nbytes <= len(data)))
-    return head, n, entries
-
-
-# The fields of a compressed file that libtiff reads itself, each with type
-# and count checks of its own (tif_dirread.c): a field that fails them fails
-# the directory (the size, layout and sample fields) or is ignored (the
-# rest; a ColorMap also at the wrong size).
-_LIBTIFF_FIELDS = {256, 257, 258, 259, 262, 266, 273, 277, 278, 279, 280, 281, 284, 292, 293,
-                   317, 320, 322, 323, 324, 325, 338, 339, 347, 529, 530, 532}
-
-
-def _known_divergence(seed: bytes, edited: bytes, edits, port_error, pillow_decoded) -> bool:
-    """Whether a disagreement is one of the mechanisms ROADMAP.md queue 3
-    lists, each read from the edited bytes and the two outcomes:
-
-    - a compressed file whose directory libtiff reads apart from Pillow's:
-      the header or the entry count changed; an entry's tag changed; an
-      entry's data now lies past the file (Pillow's directory ends there,
-      libtiff skips the entry); or a field of ``_LIBTIFF_FIELDS`` changed
-      its type or count;
-    - a CCITT file the port refuses for a bad or short code and Pillow
-      decodes (libtiff pads or cuts the row and decodes on);
-    - an LZMA strip damaged in its data that the port refuses and Pillow
-      decodes (libtiff stops reading once the strip is full);
-    - a JPEG strip smaller than its strip, which the port refuses by name
-      and libtiff decodes with a warning."""
-    t = codec._Tiff(seed)
-    if port_error and pillow_decoded:
-        _, _, _, _, _, offs, counts = t.layout()
-        inside = any(o <= i < o + c for i in edits for o, c in zip(offs, counts))
-        if t.comp in (2, 3, 4) and "CCITT" in port_error:
-            return True
-        if t.comp == 34925 and inside and "LZMA" in port_error:
-            return True
-        if t.comp == 7 and "JPEG in a" in port_error:
-            return True
-    if t.comp == 1:
-        return False
-    head0, n0, was = _directory(seed)
-    head1, n1, now = _directory(edited)
-    if head0 != head1 or n0 != n1 or None in now:
-        return True
-    for a, b in zip(was, now):
-        if a[0] != b[0] or not b[4]:
-            return True
-        if b[0] in _LIBTIFF_FIELDS and a[1:3] != b[1:3]:
-            return True
-    return False
-
-
-def test_differential_fuzz_against_pillow():
-    """Random byte edits of every TIFF fixture: the port and Pillow both
-    raise, or their pixels are equal, but for the known classes of
-    :func:`_known_divergence`. Pillow decodes in a process where
-    libjpeg-turbo runs its C code (``JSIMD_FORCENONE``), as the port does."""
-    rng = np.random.default_rng(17)
+def _fuzz(names, seed: int, count: int):
+    """``count`` random edits (1 to 3 bytes each) of the fixtures ``names``,
+    in turn, from ``seed``: [(fixture, edited bytes, edited positions)]."""
+    rng = np.random.default_rng(seed)
     seeds = []
-    for name in FUZZ_FIXTURES:
+    for name in names:
         with open(os.path.join(FIXTURES, name), "rb") as f:
             seeds.append(f.read())
-    cases, edits = [], []
-    for it in range(2000):
-        seed = seeds[it % len(seeds)]
-        d = bytearray(seed)
+    cases = []
+    for it in range(count):
+        d = bytearray(seeds[it % len(seeds)])
         at = []
         for _ in range(int(rng.integers(1, 4))):
             i = int(rng.integers(0, len(d)))
             d[i] = int(rng.integers(0, 256))
             at.append(i)
-        cases.append(bytes(d))
-        edits.append(at)
-    want = pil_rgb_c_idct(cases)
+        cases.append((names[it % len(seeds)], bytes(d), at))
+    return cases
+
+
+def _disagreements(cases) -> list:
+    """The cases whose port decode is not Pillow's: both raise, or their
+    pixels are equal. Pillow decodes in a process where libjpeg-turbo runs
+    its C code (``JSIMD_FORCENONE``), as the port does, and where realloc
+    zeroes what it adds (bytes of Pillow's strip buffer that no strip wrote
+    are the zeros a fresh buffer holds, not whatever the heap held)."""
+    want = pil_rgb_c_idct([d for _, d, _ in cases], fresh_memory=True)
     disagree = []
-    for it, (d, w) in enumerate(zip(cases, want)):
+    for (name, d, at), w in zip(cases, want):
         try:
-            got, error = codec.decode(d), None
-        except ValueError as e:
-            got, error = None, str(e)
-        same = (w is None) == (got is None) and (w is None or np.array_equal(w, got))
-        if not same and not _known_divergence(seeds[it % len(seeds)], d, edits[it], error,
-                                              w is not None):
-            disagree.append((FUZZ_FIXTURES[it % len(seeds)], edits[it]))
+            got = codec.decode(d)
+        except ValueError:
+            got = None
+        if (w is None) != (got is None) or (w is not None and not np.array_equal(w, got)):
+            disagree.append((name, at))
+    return disagree
+
+
+def test_differential_fuzz_against_pillow():
+    """Random byte edits of every TIFF fixture: the port and Pillow both
+    raise, or their pixels are equal, every disagreement counted (the strips,
+    the codes and the directory, Pillow's reading and libtiff's)."""
+    disagree = _disagreements(_fuzz(FUZZ_FIXTURES, 17, 2000))
     assert not disagree, f"edits {disagree} decode differently from Pillow"
+
+
+def test_differential_fuzz_of_damaged_codes():
+    """The same over fixtures whose damage the first fuzz reaches least: a
+    YCbCr Deflate and a YCbCr LZMA file (libtiff's RGBA reader converts what
+    a damaged strip decoded) and Group 3 2-D at fill order 1, 500 edits
+    each."""
+    disagree = _disagreements(_fuzz(["ycbcr_deflate.tif", "ycbcr_lzma.tif", "g3_2d.tif"], 19,
+                                    1500))
+    assert not disagree, f"edits {disagree} decode differently from Pillow"
+
+
+# ---------------------------------------------------------------------------
+# Damaged files of each kind libtiff decodes for Pillow its own way
+# ---------------------------------------------------------------------------
+
+_REFERENCE = {}
+
+
+def _pillow(cases: dict) -> dict:
+    """Pillow's pixels (None where it raises) of every case of ``cases``
+    ({name: bytes}), decoded once in one process with fresh memory."""
+    todo = [k for k in cases if k not in _REFERENCE]
+    if todo:
+        for k, w in zip(todo, pil_rgb_c_idct([cases[k] for k in todo], fresh_memory=True)):
+            _REFERENCE[k] = w
+    return {k: _REFERENCE[k] for k in cases}
+
+
+def _held_to_pillow(cases: dict, name: str, decodes=None) -> None:
+    """The port's pixels of ``cases[name]`` are Pillow's, or both raise;
+    ``decodes``: whether Pillow must decode it (the kind the case shows)."""
+    want = _pillow(cases)[name]
+    if decodes is not None:
+        assert (want is not None) == decodes
+    if want is None:
+        with pytest.raises(ValueError):
+            codec.decode(cases[name])
+    else:
+        np.testing.assert_array_equal(codec.decode(cases[name]), want)
+
+
+_SCENE = scene(40, 56, 13)
+_YCC = np.concatenate([_SCENE[..., :1], _SCENE[..., 1:] // 2 + 64], -1)
+_BW = (scene(40, 56, 15)[..., 0] > 128).astype(np.uint8)
+
+
+def _lzma_cases() -> dict:
+    base = tiff_file(_SCENE, 2, 8, compression=34925)
+    (_, count), = tiff_strips(base)
+    return {
+        # the xz footer: liblzma's error comes after the strip is full
+        "footer": tiff_damaged(base, 0, 1 - 8 / count, b"\x55"),
+        # the last chunk's data: the strip fills with what it decodes first
+        "data-end": tiff_damaged(base, 0, 1 - 40 / count, b"\x55"),
+        # the middle: liblzma fails before the strip is full, and so does libtiff
+        "data-middle": tiff_damaged(base, 0, 0.5, b"\x55"),
+    }
+
+
+LZMA_CASES = _lzma_cases()
+
+
+@pytest.mark.parametrize("name,decodes", [("footer", True), ("data-end", True),
+                                          ("data-middle", False)])
+def test_lzma_strip_damaged_in_its_data(name, decodes):
+    """libtiff's LZMADecode stops once the strip is full: an error liblzma
+    reports in the call that filled it is never seen."""
+    _held_to_pillow(LZMA_CASES, name, decodes)
+
+
+_YCBCR_COMP = {"deflate": 8, "lzma": 34925}
+YCBCR_CASES = {
+    f"{name}-strip{k}": tiff_damaged(tiff_file(_YCC, 6, 8, compression=comp, rows_per_strip=16,
+                                               ycbcr_subsampling=(2, 2)), k, 1 / 3, b"\xff\xff")
+    for name, comp in _YCBCR_COMP.items() for k in (0, 1)}
+
+
+@pytest.mark.parametrize("name", YCBCR_CASES)
+def test_damaged_ycbcr_strip_converts_what_was_decoded(name):
+    """A Deflate or LZMA strip of YCbCr (not JPEG) damaged in its data:
+    zlib and liblzma fail on it, and libtiff's RGBA reader converts what the
+    strip decoded before the error, zeros after."""
+    import lzma
+
+    comp = _YCBCR_COMP[name.split("-")[0]]
+    data = YCBCR_CASES[name]
+    off, count = tiff_strips(data)[int(name[-1])]
+    with pytest.raises((zlib.error, lzma.LZMAError)):
+        (zlib.decompress if comp == 8 else lzma.decompress)(data[off:off + count])
+    _held_to_pillow(YCBCR_CASES, name, True)
+
+
+@functools.lru_cache(maxsize=None)
+def _zeros_coded(size: int, comp: int) -> bytes:
+    import lzma
+
+    return zlib.compress(bytes(size), 9) if comp == 8 else lzma.compress(bytes(size),
+                                                                         check=lzma.CHECK_NONE)
+
+
+def _ycbcr_tile(tw: int, th: int, comp: int, count: int) -> bytes:
+    """A 16x16 YCbCr (2x1) file of one ``tw`` x ``th`` tile of zeros whose
+    TileByteCounts is ``count`` (its data padded to it)."""
+    raw = _zeros_coded(th * -(-tw // 2) * 4, comp)
+    data = tiff_file(np.zeros((16, 16, 3), np.uint8), 6, 8, compression=comp, tile=(16, 16),
+                     ycbcr_subsampling=(2, 1))
+    out = data + raw + bytes(max(0, count - len(raw)))
+    for tag, value in ((322, tw), (323, th), (324, len(data)), (325, count)):
+        out = tiff_set_entry(out, tag, typ=4, count=1, value=value)
+    return out
+
+
+# (tile width, tile length, compression, byte count): a tile over
+# 100,000,000 bytes (10000 x 5008 at 2x1, 100,160,000) whose data is under a
+# thousandth of it (a 7000th for LZMA) and at it; a tile of 100,000,000
+# bytes exactly, which libtiff does not check
+BIG_TILES = {"deflate-under": (10000, 5008, 8, 100159, False),
+             "deflate-at": (10000, 5008, 8, 100160, True),
+             "lzma-under": (10000, 5008, 34925, 14307, False),
+             "lzma-at": (10000, 5008, 34925, 14308, True),
+             "100MB-unchecked": (10000, 5000, 8, 97209, True)}
+
+
+@pytest.fixture(scope="module")
+def big_tiles():
+    return {k: _ycbcr_tile(*v[:4]) for k, v in BIG_TILES.items()}
+
+
+@pytest.mark.parametrize("name", BIG_TILES)
+def test_likely_invalid_ycbcr_tile(big_tiles, name):
+    """libtiff's RGBA reader refuses a YCbCr tile of over 100,000,000 bytes
+    whose byte count is under a thousandth of it (a 7000th for LZMA), before
+    allocating it ("Likely invalid tile byte count"); at the ratio, or at
+    100,000,000 bytes, it decodes the tile. (It checks no strip.)"""
+    if not BIG_TILES[name][4]:
+        with pytest.raises(ValueError, match="likely invalid tile byte count"):
+            codec.decode(big_tiles[name])
+    _held_to_pillow(big_tiles, name, BIG_TILES[name][4])
+
+
+JPEG_CASES = {
+    "strips": tiff_file(_SCENE[:32], 6, 8, compression=7, rows_per_strip=16,
+                        ycbcr_subsampling=(2, 2), jpeg=jpeg_frames([(12, 40)] * 2)),
+    "strip-after-the-first": tiff_file(_SCENE, 6, 8, compression=7, rows_per_strip=16,
+                                       ycbcr_subsampling=(2, 2),
+                                       jpeg=jpeg_frames([None, (10, 24), (7, 56)])),
+    "tiles": tiff_file(_SCENE, 6, 8, compression=7, tile=(16, 16), ycbcr_subsampling=(2, 2),
+                       jpeg=jpeg_frames([(8, 8)] * 12)),
+    "tiles-after-the-first": tiff_file(_SCENE, 6, 8, compression=7, tile=(16, 16),
+                                       ycbcr_subsampling=(2, 2),
+                                       jpeg=jpeg_frames([None] + [(9, 13)] * 11)),
+    "gray": tiff_file(_SCENE[..., 0], 1, 8, compression=7, rows_per_strip=16,
+                      jpeg=jpeg_frames([(7, 30)] * 3, subsampling=0)),
+    # a gray frame's component sampled 2x2: libtiff refuses its factors
+    "gray-sampled-2x2": tiff_file(_SCENE[..., 0], 1, 8, compression=7, rows_per_strip=16,
+                                  jpeg=jpeg_frames([(7, 30)] * 3)),
+}
+
+
+@pytest.mark.parametrize("name", JPEG_CASES)
+def test_jpeg_frame_smaller_than_its_strip(name):
+    """A JPEG strip or tile whose frame is narrower or shorter than it:
+    libtiff warns and decodes it into Pillow's strip buffer, whose other
+    bytes keep what the strip or tile before left (zeros at first)."""
+    _held_to_pillow(JPEG_CASES, name, name != "gray-sampled-2x2")
+
+
+CCITT_MODES = {"rle": (2, None), "g3-1d": (3, 0), "g3-2d": (3, 1), "g4": (4, None)}
+# a bad code: 00 80 is no white or black run code (and a Group 4 EOL)
+CCITT_CASES = {
+    f"{mode}-fill{fill}-{damage}": (
+        tiff_damaged(data, 1, 0.5, b"\x00\x80") if damage == "bad-code" else tiff_cut(data, k))
+    for mode, (comp, t4) in CCITT_MODES.items() for fill in (1, 2)
+    for data in [tiff_file(_BW, 0, 1, compression=comp, t4options=t4, rows_per_strip=16,
+                           fill_order=fill)]
+    for damage, k in (("bad-code", 1), ("cut-middle", 1), ("cut-last", 2))}
+
+
+@pytest.mark.parametrize("name", CCITT_CASES)
+def test_damaged_ccitt_decodes_as_libtiff(name):
+    """CCITT RLE, Group 3 (1-D and 2-D) and Group 4 at both fill orders, with
+    a bad code or a strip cut short: libtiff ends the row at a bad code, pads
+    or cuts it and decodes on; data that runs out fails an RLE strip, Group 3
+    reads it again without EOLs, and a Group 4 strip keeps the rows it made
+    (the rest of Pillow's strip buffer the strip before's)."""
+    decodes = True if "bad-code" in name else (False if name.startswith("rle") else None)
+    _held_to_pillow(CCITT_CASES, name, decodes)
+
+
+def _entry_count(data: bytes, delta: int) -> bytes:
+    (pos,) = struct.unpack_from("<L", data, 4)
+    (n,) = struct.unpack_from("<H", data, pos)
+    return data[:pos] + struct.pack("<H", n + delta) + data[pos + 2:]
+
+
+def _colormap(bits: int, entries: int) -> bytes:
+    idx = np.random.default_rng(8).integers(0, 1 << bits, RGB.shape[:2], np.uint8)
+    cmap = np.random.default_rng(9).integers(0, 65536, (entries, 3))
+    return tiff_file(idx, 3, bits, colormap=cmap, compression=5)
+
+
+def _colormap_first() -> bytes:
+    """An 8-bit palette whose ColorMap entry comes before BitsPerSample."""
+    data = bytearray(_colormap(8, 256))
+    ent = tiff_entries(bytes(data))
+    a, b = ent[258], ent[320]
+    data[a:a + 12], data[b:b + 12] = data[b:b + 12], data[a:a + 12]
+    return bytes(data)
+
+
+def _past_file() -> bytes:
+    data = tiff_file(RGB, 2, 8, compression=5, predictor=2, tags={305: (2, b"x" * 100)})
+    return tiff_set_entry(data, 305, value=len(data) + 10)
+
+
+_YCC_SMALL = np.concatenate([RGB[..., :1], RGB[..., 1:] // 2 + 64], -1)
+# (bytes, whether Pillow decodes it, or None where both raise as they should)
+DIRECTORY_CASES = {
+    # an entry whose data lies past the file: Pillow's directory ends there
+    # (without Predictor here), libtiff skips the field
+    "software-past-file": (_past_file, True),
+    # StripByteCounts past the file: libtiff estimates the counts, and
+    # Pillow, its directory ended, reads the planar strips as libtiff's planes
+    "counts-past-file": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=32773, planar=2, rows_per_strip=16), 279,
+        count=1 << 20), True),
+    "offsets-past-file": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=32773, planar=2, rows_per_strip=16), 279,
+        value=1 << 24), False),
+    "orientation-past-file": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=5, orientation=6), 274, typ=4, count=1 << 20), False),
+    # a field libtiff reads of the wrong type or count: the size, layout and
+    # sample fields fail its directory, the rest it ignores (defaults)
+    "ycbcr-subsampling-count": (lambda: tiff_set_entry(
+        tiff_file(_YCC_SMALL, 6, 8, compression=8, ycbcr_subsampling=(1, 1)), 530, count=1),
+        True),
+    "ycbcr-coefficients-type": (lambda: tiff_set_entry(
+        tiff_file(_YCC_SMALL, 6, 8, compression=8, ycbcr_subsampling=(2, 2),
+                  tags={529: (5, [(2990, 10000), (5870, 10000), (1140, 10000)])}), 529, typ=4),
+        True),
+    "predictor-type": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=5, predictor=2),
+                                              317, typ=4), True),
+    "rows-per-strip-type": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=5, rows_per_strip=8), 278, typ=2), False),
+    "rows-per-strip-count": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=5, rows_per_strip=8), 278, count=2), False),
+    "width-rational": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=5), 256, typ=5),
+                       False),
+    "fill-order-3": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=5), 278,
+                                            new_tag=266, typ=3, count=1, value=3), False),
+    # a ColorMap of the wrong size: libtiff ignores it (and a 4-bit palette
+    # then fails its directory); Pillow takes up to 256 colours
+    "colormap-4bit-size": (lambda: _colormap(4, 17), False),
+    "colormap-8bit-short": (lambda: _colormap(8, 255), True),
+    "colormap-8bit-long": (lambda: _colormap(8, 257), False),
+    "colormap-first": (_colormap_first, True),
+    # libtiff keeps the first of duplicate tags, Pillow the last
+    "duplicate-tag": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=5, orientation=3),
+                                             274, new_tag=262, value=2), True),
+    # byte counts libtiff estimates: 0 in a one-strip file, or none
+    "byte-count-zero": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=8), 279,
+                                               value=0), True),
+    "byte-counts-missing": (lambda: tiff_set_entry(tiff_file(RGB, 2, 8, compression=8), 279,
+                                                   new_tag=65000), True),
+    "byte-counts-short": (lambda: tiff_set_entry(
+        tiff_file(RGB, 2, 8, compression=5, rows_per_strip=8), 279, count=2), False),
+    # PackBits ignores a Predictor (LZW, Deflate and LZMA read it)
+    "packbits-predictor": (lambda: tiff_file(RGB, 2, 8, compression=32773,
+                                             tags={317: (3, [2])}), True),
+    # the entry count and the header
+    "entry-count-up": (lambda: _entry_count(tiff_file(RGB, 2, 8, compression=5), 1), False),
+    "entry-count-down": (lambda: _entry_count(tiff_file(RGB, 2, 8, compression=5,
+                                                        orientation=3), -1), True),
+    "entry-count-zero": (lambda: _entry_count(tiff_file(RGB, 2, 8, compression=5), -10),
+                         False),
+    "bigtiff-offset-size": (lambda: (lambda d: d[:4] + b"\x04" + d[5:])(
+        tiff_file(RGB, 2, 8, bigtiff=True, compression=5)), False),
+    "header-version": (lambda: (lambda d: d[:2] + b"\x2b\x00" + d[4:])(
+        tiff_file(RGB, 2, 8, compression=5)), False),
+}
+DIRECTORY_FILES = {k: make() for k, (make, _) in DIRECTORY_CASES.items()}
+
+
+@pytest.mark.parametrize("name", DIRECTORY_CASES)
+def test_libtiff_reads_the_directory_its_own_way(name):
+    """A compressed file's first directory as libtiff reads it for Pillow's
+    decoder, the strips and the fields it decodes by from there, the mode
+    still from Pillow's reading: the port's pixels are Pillow's, or both
+    raise."""
+    _held_to_pillow(DIRECTORY_FILES, name, DIRECTORY_CASES[name][1])
