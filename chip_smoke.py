@@ -2929,7 +2929,7 @@ def phase_serve(pipe) -> dict:
     the pipeline-only call of the same arrays, whose q90 JPEG must decode to
     the served images bit for bit), use_cfg, ref_mode
     condition, num_images 2; misses uploaded as a progressive JPEG, a lossy
-    WebP, a CMYK JPEG and a TIFF (LZW, Predictor 2); a race of two (one
+    WebP, a CMYK JPEG, a TIFF (LZW, Predictor 2) and a PSD (PackBits); a race of two (one
     429); dynamic batching on a second engine; a pipelined stream session
     over HTTP and over the websocket; a profiled /edit; the codec's ms; the
     CLI as a subprocess.
@@ -3015,6 +3015,19 @@ def phase_serve(pipe) -> dict:
             raise AssertionError("the TIFF upload does not decode to its source")
         served(url, "serve", "edit_tiff_miss",
                {"image": base64.b64encode(tif).decode(), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
+        # a PSD (the merged image, PackBits rows), written here
+        src = distinct_image(8009, SERVE_INPUT)
+        psd = psd_upload(src)
+        t0 = time.perf_counter()
+        psd_px = codec.decode(psd)
+        emit({"phase": "serve_psd_upload", "bytes": len(psd), "shape": list(psd_px.shape),
+              "decode_ms": (time.perf_counter() - t0) * 1e3,
+              "equal_to_source": bool(np.array_equal(psd_px, src))})
+        if not np.array_equal(psd_px, src):
+            raise AssertionError("the PSD upload does not decode to its source")
+        served(url, "serve", "edit_psd_miss",
+               {"image": base64.b64encode(psd).decode(), "prompt": PROMPT}, expected(True),
                k1_rows(1))
         serve_race(url, req)
         serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
@@ -3970,7 +3983,8 @@ def decode_set():
     from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
-    from codec_fixtures import (bmp_file, cut_progressive, gif_file, lossless_jpeg, scene,
+    from codec_fixtures import (bmp_file, cut_progressive, gif_file, lossless_jpeg, pcx_file,
+                                ppm_file, psd_file, qoi_file, scene, sgi_file, tga_file,
                                 tiff_file)
 
     n = DECODE_SIZE
@@ -4018,6 +4032,12 @@ def decode_set():
         "gif": (gif_file(idx, pal), pal[idx]),
         "webp_lossy": (fixture("lossy_1024.webp"), None),
         "webp_lossless": (fixture("lossless_1024.webp"), None),
+        "ppm": (ppm_file(rgb), rgb),
+        "tga_rle": (tga_file(rgb, 10, 24, flags=0), rgb),
+        "psd_rle": (psd_file(rgb.transpose(2, 0, 1), 3), rgb),
+        "qoi": (qoi_file(rgb), rgb),
+        "pcx": (pcx_file(rgb, 8, 3), rgb),
+        "sgi_rle": (sgi_file(rgb), rgb),
     }
 
 
@@ -4031,6 +4051,19 @@ def tiff_upload(rgb) -> bytes:
     from codec_fixtures import tiff_file
 
     return tiff_file(rgb, 2, 8, compression=5, predictor=2, rows_per_strip=64)
+
+
+def psd_upload(rgb) -> bytes:
+    """An RGB PSD as Photoshop saves one: the merged image PackBits-coded
+    row by row, after an image resource (``scripts/codec_fixtures.py``'s
+    writer, no Pillow)."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import psd_file, psd_resource
+
+    return psd_file(rgb.transpose(2, 0, 1), 3, compression=1,
+                    resources=psd_resource(1005, bytes(16)))
 
 
 def fixture(name: str) -> bytes:

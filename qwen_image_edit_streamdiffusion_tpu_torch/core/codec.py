@@ -3,20 +3,27 @@
 Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 ``base64_to_pil`` / ``to_pil`` / ``bytes_to_pil`` / ``pil_to_jpeg`` /
 ``pil_to_base64``, on (H, W, 3) uint8 arrays. The card host has no Pillow and
-no cv2, so the entropy coding, the DCTs, the PNG row filters and the BMP,
-GIF, WebP and TIFF decoders run in ``csrc/host/`` (``image_codec.cc``,
-``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``): plain C entry points loaded with
+no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
+WebP and TIFF decoders and the run-length codings of the plain raster
+formats run in ``csrc/host/`` (``image_codec.cc``, ``bmp_gif.cc``,
+``webp.cc``, ``tiff.cc``, ``raster.cc``): plain C entry points loaded with
 ``ctypes``, built at first use with the system C++ compiler (``c++``, or
 ``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
 carries a hash of every source (as ``runtime/kernels.py`` builds the CUDA
 kernels). Nothing is built when this module is imported; a missing compiler
 raises when a call needs the library.
 
-- :func:`decode` sniffs JPEG, PNG, BMP, GIF, WebP or TIFF by its magic
-  bytes, applies the orientation ``ImageOps.exif_transpose`` applies (the
-  EXIF tag, else an XMP packet's ``tiff:Orientation``, as Pillow's
-  ``getexif`` reads them) and returns RGB: its pixels equal Pillow's
-  ``convert("RGB")`` bit for bit.
+- :func:`decode` finds the format as ``Image.open`` finds it: Pillow's
+  plugins in ``Image.ID``'s order (BMP, DIB, GIF, JPEG, PPM, PNG, then the
+  rest as ``Image.init`` registers them, TGA, which has no ``_accept``,
+  near the end), each ``_accept`` on the first 16 bytes, and where a
+  plugin's ``_open`` fails as ``Image.open`` passes over (SyntaxError,
+  IndexError, TypeError, KeyError, EOFError, struct.error, no pixels) the
+  next plugin; a format Pillow opens and the port does not decode raises
+  naming it and goes no further. It applies the orientation
+  ``ImageOps.exif_transpose`` applies (the EXIF tag, else an XMP packet's
+  ``tiff:Orientation``, as Pillow's ``getexif`` reads them) and returns
+  RGB: its pixels equal Pillow's ``convert("RGB")`` bit for bit.
   JPEG (libjpeg-turbo 3's islow IDCT, fancy upsampling and fixed-point
   colour conversion): baseline, 8-bit extended sequential and progressive,
   Huffman or arithmetic-coded (jdarith.c's QM decoder, DAC conditioning),
@@ -60,14 +67,31 @@ raises when a call needs the library.
   liblzma called as libtiff calls them; CCITT rows ended at a bad code and
   decoding on; a JPEG frame smaller than its strip; YCbCr strips converted
   up to their error; a likely invalid YCbCr tile byte count refused.
+  The plain raster formats, as their plugins read them: PBM, PGM, PPM and
+  PFM (P1-P6 and Pf, comments, any maxval, Pillow's private P0CMYK, PyP,
+  PyRGBA and PyCMYK headers; the plain decoder's 1 MiB blocks, comments
+  and token rules; 16-bit gray as mode I, clipped; PFM bottom-up,
+  truncated), DIB (a BMP info header without the file header), ICO (the
+  entry IcoFile sorts first; a PNG image without its orientation, a DIB
+  image's upper half, its AND mask read and dropped) and CUR, TGA (each
+  mode of its table, 15-bit colour, colour maps with their first entry,
+  applied to gray as putpalette applies them, RLE whose literal packets
+  run on across rows, the four origins), PSD's merged image (raw or
+  PackBits; bitmap, gray, duotone, multichannel, palette, RGB(A), CMYK),
+  QOI, PCX (1-bit in 1, 2 or 4 planes, 8-bit gray or with the VGA palette
+  769 bytes before the file's end, RGB planes; padded lines) and DCX's
+  first page, SGI (raw or RLE, 8 or 16 bits, 1, 3 or 4 channels).
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
   other than those above (ZSTD, old-style JPEG, ThunderScan, NeXT,
   PixarLog, SGILog, JBIG, WebP), CIELab, 12-bit gray, the floating-point
   predictor, BMP compressions and bitfield layouts Pillow does not read, a
-  GIF LZW code size above 8, a WebP frame that is not a key frame, and
-  other formats. So does an image above Pillow's decompression-bomb limit
+  GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
+  PSD (Pillow converts it with LittleCMS), a TGA colour map Pillow cannot
+  apply, and the formats Pillow opens and the port does not decode (AVIF,
+  JPEG 2000, BLP, DDS, EPS, ICNS, IM, MSP, PCD, SPIDER, SUN, XBM, XPM and
+  the rest, each named). So does an image above Pillow's decompression-bomb limit
   (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
   whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
   or CCITT stream decompress no further than their image, a TIFF tile no
@@ -101,7 +125,7 @@ import numpy as np
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
-SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc")
+SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc")
 HEADERS = ("codec_common.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
@@ -193,6 +217,16 @@ def library() -> ctypes.CDLL:
         lib.qie_webp_info.restype = ci
         lib.qie_webp_decode.argtypes = [cp, cl, vp, vp, ci]
         lib.qie_webp_decode.restype = ci
+        lib.qie_dib_info.argtypes = [cp, cl, cl, cp, pi, pi, pl, vp, ci]
+        lib.qie_dib_decode.argtypes = [cp, cl, cl, cp, ci, vp, vp, ci]
+        lib.qie_tga_rle.argtypes = [cp, cl, ci, cl, cl, vp, vp, ci]
+        lib.qie_packbits.argtypes = [cp, cl, cl, cl, vp, vp, ci]
+        lib.qie_pcx_rle.argtypes = [cp, cl, cl, cl, ci, cl, vp, vp, ci]
+        lib.qie_sgi_rle.argtypes = [cp, cl, ci, ci, ci, ci, vp, vp, ci]
+        lib.qie_qoi.argtypes = [cp, cl, cl, vp, vp, ci]
+        for name in ("dib_info", "dib_decode", "tga_rle", "packbits", "pcx_rle", "sgi_rle",
+                     "qoi"):
+            getattr(lib, f"qie_{name}").restype = ci
         for fmt in ("bmp", "gif"):
             info, dec = getattr(lib, f"qie_{fmt}_info"), getattr(lib, f"qie_{fmt}_decode")
             info.argtypes, info.restype = [cp, cl, pi, pi, vp, ci], ci
@@ -353,7 +387,9 @@ _PNG_TYPES = {0: (1, "gray"), 2: (3, "RGB"), 3: (1, "palette"), 4: (2, "gray+alp
               6: (4, "RGBA")}
 
 
-def _decode_png(data: bytes) -> np.ndarray:
+def _decode_png(data: bytes, oriented: bool = True) -> np.ndarray:
+    """A PNG's RGB; its EXIF or XMP orientation applied unless ``oriented``
+    is False (an icon's PNG image: the icon keeps none of its info)."""
     pos, idat, palette, exif, hdr, xmp = 8, [], None, None, None, None
     while pos + 8 <= len(data):
         (n,) = struct.unpack_from(">I", data, pos)
@@ -446,7 +482,7 @@ def _decode_png(data: bytes) -> np.ndarray:
         rgb = np.repeat(px[..., :1], 3, axis=2)
     else:
         rgb = np.ascontiguousarray(px[..., :3])
-    return _orient(rgb, orientation(exif, xmp))
+    return _orient(rgb, orientation(exif, xmp)) if oriented else rgb
 
 
 _PNG_CHUNK_TYPE = re.compile(rb"\w\w\w\w")
@@ -1635,32 +1671,914 @@ def _tiff_rgb(t: _Tiff, px: np.ndarray, mode: str) -> np.ndarray:
         if mode == "RGBa":  # premultiplied: divided by alpha, as Pillow's unpacker
             a = v[..., 3:4]
             v = np.where(a == 0, 0, np.minimum(v[..., :3] * 255 // np.maximum(a, 1), 255))
-        elif mode == "CMYK":  # cmyk2rgb, not inverted
-            nk = 255 - v[..., 3:4]
-            t_ = v[..., :3] * nk + 128
-            v = nk - (((t_ >> 8) + t_) >> 8)
+        elif mode == "CMYK":
+            return _cmyk_rgb(v)
         return np.ascontiguousarray(np.clip(v[..., :3], 0, 255).astype(np.uint8))
     return np.repeat(np.asarray(gray, np.uint8)[..., None], 3, axis=2)
 
 
+# ---------------------------------------------------------------------------
+# The plain raster formats: Pillow's plugins' headers and modes here, their
+# run-length codings in raster.cc
+# ---------------------------------------------------------------------------
+
+
+class _NotThisFormat(Exception):
+    """A plugin's ``_open`` failed the way ``Image.open`` passes over: with
+    SyntaxError, IndexError, TypeError, KeyError, EOFError or struct.error,
+    or with no mode or no pixels (ImageFile's own check). Pillow tries the
+    next plugin; so does :func:`decode`."""
+
+
+class _Cursor:
+    """A position in the file, read as a plugin reads its file object:
+    short at the end, and free to stand past it."""
+
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.pos = data, pos
+
+    def read(self, n: int) -> bytes:
+        b = self.data[self.pos:self.pos + n] if n >= 0 else self.data[self.pos:]
+        self.pos += len(b)
+        return b
+
+
+def _u16(e: str, b: bytes, at: int = 0) -> int:
+    return struct.unpack_from(e + "H", b, at)[0]
+
+
+def _u32(e: str, b: bytes, at: int = 0) -> int:
+    return struct.unpack_from(e + "I", b, at)[0]
+
+
+def _bomb(fmt: str, w: int, h: int) -> None:
+    """Image.open's decompression-bomb check, after the plugin opened."""
+    if w * h > MAX_PIXELS:
+        raise ValueError(f"unsupported {fmt}: {w}x{h} pixels exceed the "
+                         f"decompression-bomb limit")
+
+
+def _gray(g: np.ndarray) -> np.ndarray:
+    return np.repeat(np.asarray(g, np.uint8)[..., None], 3, axis=2)
+
+
+def _float_gray(f: np.ndarray) -> np.ndarray:
+    """Mode F's ``convert("RGB")``: clipped to 0..255, NaN to 0, truncated."""
+    f = f.astype(np.float32)
+    g = np.where(f <= 0, 0, np.where(f >= 255, 255, np.nan_to_num(f, nan=0.0)))
+    return _gray(g.astype(np.float32).astype(np.int64))
+
+
+def _cmyk_rgb(v: np.ndarray) -> np.ndarray:
+    """Pillow's cmyk2rgb (not inverted): each of C, M, Y against 255 - K."""
+    v = v.astype(np.int64)
+    nk = 255 - v[..., 3:4]
+    t = v[..., :3] * nk + 128
+    return np.ascontiguousarray((nk - (((t >> 8) + t) >> 8)).astype(np.uint8))
+
+
+def _rows(fmt: str, data: bytes, offset: int, rows: int, row_bytes: int) -> np.ndarray:
+    """Pillow's raw decoder on rows packed end to end: (rows, row_bytes),
+    or a truncated file's error."""
+    if offset + rows * row_bytes > len(data):
+        raise ValueError(f"truncated {fmt}: the pixel rows end early")
+    return np.frombuffer(data, np.uint8, rows * row_bytes, offset).reshape(rows, row_bytes)
+
+
+def _bits(rows: np.ndarray, w: int) -> np.ndarray:
+    """Packed 1-bit samples, most significant first → (rows, w) of 0 and 1."""
+    return np.unpackbits(rows, axis=1)[:, :w]
+
+
+def _raster(name: str, *args) -> None:
+    """A raster.cc entry point; its error as a ValueError."""
+    err = _err()
+    if getattr(library(), f"qie_{name}")(*args, err, len(err)) != 0:
+        raise ValueError(err.value.decode())
+
+
+# --- PPM, PGM, PBM, PFM (PpmImagePlugin) -----------------------------------
+
+_PPM_WHITESPACE = b" \t\n\x0b\x0c\r"
+_PPM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+              b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA",
+              b"PyCMYK": "CMYK"}
+_BANDS = {"1": 1, "L": 1, "I": 1, "F": 1, "P": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}
+_SAFEBLOCK = 1 << 20  # ImageFile.SAFEBLOCK: what the plain decoders read at once
+
+
+def _ppm_token(c: _Cursor) -> bytes:
+    """PpmImageFile._read_token: up to 10 characters, whitespace before
+    skipped, a comment (to CR or LF) dropped wherever it starts."""
+    token = b""
+    while len(token) <= 10:
+        ch = c.read(1)
+        if not ch:
+            break
+        if ch in _PPM_WHITESPACE:
+            if not token:
+                continue
+            break
+        if ch == b"#":
+            while c.read(1) not in b"\r\n":
+                pass
+            continue
+        token += ch
+    if not token:
+        raise ValueError("truncated PPM: the header ends early")
+    if len(token) > 10:
+        raise ValueError(f"corrupt PPM: header token {token!r} is too long")
+    return token
+
+
+def _ppm_number(token: bytes, kind=int):
+    try:
+        return kind(token)
+    except ValueError:
+        raise ValueError(f"corrupt PPM: header token {token!r} is not a number") from None
+
+
+def _open_ppm(data: bytes):
+    c = _Cursor(data)
+    magic = b""
+    for _ in range(6):
+        ch = c.read(1)
+        if not ch or ch in _PPM_WHITESPACE:
+            break
+        magic += ch
+    mode = _PPM_MODES.get(magic)
+    if mode is None:
+        raise _NotThisFormat("not a PPM file")
+    w, h = _ppm_number(_ppm_token(c)), _ppm_number(_ppm_token(c))
+    maxval = scale = None
+    if mode == "F":
+        scale = _ppm_number(_ppm_token(c), float)
+        if scale == 0.0 or not math.isfinite(scale):
+            raise ValueError("corrupt PPM: a PFM scale must be finite and non-zero")
+    elif mode != "1":
+        maxval = _ppm_number(_ppm_token(c))
+        if not 0 < maxval < 65536:
+            raise ValueError(f"corrupt PPM: maxval {maxval} is not in 1..65535")
+        if maxval > 255 and mode == "L":
+            mode = "I"
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("a PPM of no pixels")
+    _bomb("PPM", w, h)
+    return lambda: _ppm_pixels(data, c.pos, magic in (b"P1", b"P2", b"P3"), mode, w, h,
+                               maxval, scale)
+
+
+def _ppm_pixels(data: bytes, offset: int, plain: bool, mode: str, w: int, h: int, maxval,
+                scale) -> np.ndarray:
+    bands = _BANDS[mode]
+    top = 65535 if mode == "I" else 255
+    if plain:
+        dec = _PpmPlain(data, offset)
+        if mode == "1":
+            v = np.frombuffer(dec.bits(w * h), np.uint8)
+            v = (v == ord("0")).astype(np.uint8) * 255
+        else:
+            v = dec.values(w * h * bands, maxval, top)
+        if v.size < w * h * bands:
+            raise ValueError("truncated PPM: the plain data ends before the image is full")
+        px = v.reshape(h, w, bands)
+    elif mode == "1":  # raw "1;I": a set bit is black
+        px = (1 - _bits(_rows("PPM", data, offset, h, (w + 7) // 8), w))[..., None] * 255
+    elif mode == "F":  # bottom-up 32-bit floats, little-endian where the scale is negative
+        f = _rows("PPM", data, offset, h, 4 * w).view("<f4" if scale < 0 else ">f4")
+        return _float_gray(f[::-1])
+    elif maxval == 255 or (maxval == 65535 and mode == "I"):  # the raw decoder
+        n = 1 if maxval == 255 else 2
+        v = _rows("PPM", data, offset, h, w * bands * n)
+        px = (v if n == 1 else v.view(">u2")).reshape(h, w, bands)
+    else:  # PpmDecoder: whole pixels of 1 or 2 bytes a sample, scaled to 255 or 65535
+        n = 1 if maxval < 256 else 2
+        v = _rows("PPM", data, offset, h, w * bands * n)
+        v = v.view(">u2") if n == 2 else v
+        px = np.minimum(top, np.round(v / maxval * top)).astype(np.int64).reshape(h, w, bands)
+    return _mode_rgb(px, mode)
+
+
+def _mode_rgb(px: np.ndarray, mode: str, palette=None) -> np.ndarray:
+    """(H, W, bands) samples of a Pillow mode → its ``convert("RGB")``;
+    ``palette`` (N, 3) for mode P (None: Pillow's empty one, all black)."""
+    if mode in ("1", "L", "LA"):
+        return _gray(px[..., 0])
+    if mode == "I":
+        return _gray(np.clip(px[..., 0].astype(np.int64), 0, 255))
+    if mode == "P":
+        full = np.zeros((256, 3), np.uint8)
+        if palette is not None:
+            full[:len(palette)] = palette[:256]
+        return full[px[..., 0].astype(np.int64)]
+    if mode == "CMYK":
+        return _cmyk_rgb(px)
+    return np.ascontiguousarray(px[..., :3].astype(np.uint8))
+
+
+def _comment_end(block: bytes, start: int = 0) -> int:
+    """PpmPlainDecoder._find_comment_end, its sign test included."""
+    a, b = block.find(b"\n", start), block.find(b"\r", start)
+    return min(a, b) if a * b > 0 else max(a, b)
+
+
+class _PpmPlain:
+    """PpmPlainDecoder: the data read a 1 MiB block at a time, comments cut
+    out of each block (a comment's end joins what stood either side), tokens
+    split on whitespace and a token cut by the block's end carried on."""
+
+    def __init__(self, data: bytes, offset: int):
+        self.c, self.spans = _Cursor(data, offset), False
+
+    def _block(self) -> bytes:
+        return self.c.read(_SAFEBLOCK)
+
+    def _uncommented(self, block: bytes) -> bytes:
+        if self.spans:
+            while block:
+                end = _comment_end(block)
+                if end != -1:
+                    block = block[end + 1:]
+                    break
+                block = self._block()
+        self.spans = False
+        while (start := block.find(b"#")) != -1:
+            end = _comment_end(block, start)
+            if end == -1:
+                block, self.spans = block[:start], True
+                break
+            block = block[:start] + block[end + 1:]
+        return block
+
+    def bits(self, total: int) -> bytes:
+        """P1: one character a pixel, whitespace optional; every character
+        of the block that fills the image must be 0 or 1."""
+        data = b""
+        while len(data) != total:
+            block = self._block()
+            if not block:
+                break
+            tokens = b"".join(self._uncommented(block).split())
+            bad = tokens.translate(None, b"01")
+            if bad:
+                raise ValueError(f"corrupt PPM: plain PBM data holds {bad[:1]!r}")
+            data = (data + tokens)[:total]
+        return data
+
+    def values(self, total: int, maxval: int, top: int) -> np.ndarray:
+        """P2, P3: decimal tokens of up to 10 characters, 0..maxval, each
+        scaled to ``round(value / maxval * top)``."""
+        out, count, half = [], 0, b""
+        while count != total:
+            block = self._block()
+            if not block:
+                if not half:
+                    break
+                block = b" "
+            block = self._uncommented(block)
+            if half:
+                block, half = half + block, b""
+            tokens = block.split()
+            if block and not block[-1:].isspace():
+                half = tokens.pop()
+                if len(half) > 10:
+                    raise ValueError(f"corrupt PPM: data token {half[:11]!r} is too long")
+            tokens = tokens[:total - count]
+            if tokens and max(map(len, tokens)) > 10:
+                raise ValueError("corrupt PPM: a data token is too long")
+            try:
+                v = np.array([int(t) for t in tokens], np.int64)
+            except ValueError:
+                raise ValueError("corrupt PPM: a data token is not a number") from None
+            if v.size and (v.min() < 0 or v.max() > maxval):
+                raise ValueError(f"corrupt PPM: a value outside 0..{maxval}")
+            out.append(np.round(v / maxval * top).astype(np.int64))
+            count += v.size
+        return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+# --- DIB, ICO and CUR (BmpImagePlugin's _bitmap, IcoImagePlugin, CurImagePlugin) ---
+
+def _dib_info(data: bytes, at: int, fmt: str):
+    """(width, height, pixel offset) of the DIB whose info header is at
+    ``at``. The reads _bitmap makes with struct (the header's size, a
+    40-byte header's three masks) pass over to the next plugin where they
+    run past the file; the rest raises, as its OSErrors do."""
+    hs = _u32("<", data, at)
+    if hs == 40 and at + 40 <= len(data) < at + 52 and _u32("<", data, at + 16) == 3:
+        raise _NotThisFormat("a DIB's bitfield masks run past the file")
+    lib, err = library(), _err()
+    w, h, off = ctypes.c_int(), ctypes.c_int(), ctypes.c_long()
+    if lib.qie_dib_info(data, len(data), at, fmt.encode(), ctypes.byref(w), ctypes.byref(h),
+                        ctypes.byref(off), err, len(err)) != 0:
+        raise ValueError(err.value.decode())
+    return w.value, h.value, off.value
+
+
+def _dib_pixels(data: bytes, at: int, fmt: str, w: int, rows: int) -> np.ndarray:
+    out = np.empty((rows, w, 3), np.uint8)
+    _raster("dib_decode", data, len(data), at, fmt.encode(), rows, out.ctypes.data)
+    return out
+
+
+def _open_dib(data: bytes):
+    w, h, _ = _dib_info(data, 0, "DIB")
+    return lambda: _dib_pixels(data, 0, "DIB", w, h)
+
+
+def _open_cur(data: bytes):
+    """CurImageFile: the first entry, or a later one wider and taller; its
+    DIB's upper half (the lower is the mask)."""
+    c = _Cursor(data)
+    s = c.read(6)
+    m = b""
+    for _ in range(_u16("<", s, 4)):
+        e = c.read(16)
+        if not m:
+            m = e
+        elif e[0] > m[0] and e[1] > m[1]:
+            m = e
+    if not m:
+        raise _NotThisFormat("no cursors in the CUR file")
+    # _bitmap seeks to the header unless its offset is 0
+    at = _u32("<", m, 12) or c.pos
+    w, h, _ = _dib_info(data, at, "CUR")
+    if h // 2 <= 0:
+        raise _NotThisFormat("a CUR image of no rows")
+    _bomb("CUR", w, h // 2)
+    return lambda: _dib_pixels(data, at, "CUR", w, h // 2)
+
+
+def _open_ico(data: bytes):
+    """IcoFile: the entries sorted by colour depth, then by area (largest
+    first, a stable sort); IcoImageFile loads the first while it opens.
+    A PNG entry decodes as the PNG from its offset to the file's end,
+    without its orientation (the icon keeps none of the PNG's info); a DIB
+    entry is its upper half, its AND mask (or a 32-bit entry's alpha
+    bytes) read as Pillow reads them and then dropped with the alpha."""
+    c = _Cursor(data)
+    s = c.read(6)
+    entries = []
+    for _ in range(_u16("<", s, 4)):
+        e = c.read(16)
+        width, height, colors = e[0] or 256, e[1] or 256, e[2]
+        bpp, size, offset = _u16("<", e, 6), _u32("<", e, 8), _u32("<", e, 12)
+        depth = bpp or (colors != 0 and math.ceil(math.log(colors, 2))) or 256
+        entries.append((width * height, depth, bpp, size, offset))
+    entries = sorted(entries, key=lambda x: x[1])
+    entries = sorted(entries, key=lambda x: x[0], reverse=True)
+    if not entries:
+        raise _NotThisFormat("no images in the ICO file")
+    _, _, bpp, size, offset = entries[0]
+    if data[offset:offset + 8] == PNG_SIGNATURE:
+        px = _decode_png(data[offset:], oriented=False)
+        return lambda: px
+    w, full, pixels = _dib_info(data, offset, "ICO")
+    h = int(full / 2)
+    if h <= 0:
+        raise ValueError("corrupt ICO: an image of no rows")
+    if bpp == 32:  # the alpha bytes, mapped as a buffer
+        if len(data) - pixels < 4 * w * h:
+            raise ValueError("truncated ICO: the image's alpha bytes end early")
+    else:  # the AND mask, at the entry's end, rows padded to 32 bits
+        wpad = -(-w // 32) * 32
+        total = int(wpad * h / 8)
+        at = offset + size - total
+        if at < 0:
+            raise ValueError("corrupt ICO: the image's mask starts before the file")
+        if len(data[at:at + total]) < (h - 1) * (wpad // 8) + (w + 7) // 8:
+            raise ValueError("truncated ICO: the image's mask ends early")
+    px = _dib_pixels(data, offset, "ICO", w, h)
+    return lambda: px
+
+
+# --- TGA (TgaImagePlugin) ---------------------------------------------------
+
+# (image type & 7, depth) → (raw mode, bytes a pixel); others have no tile
+_TGA_RAW = {(1, 8): ("P", 1), (3, 1): ("1", 0), (3, 8): ("L", 1), (3, 16): ("LA", 2),
+            (2, 16): ("BGRA;15Z", 2), (2, 24): ("BGR", 3), (2, 32): ("BGRA", 4)}
+
+
+def _bgr15(v: np.ndarray) -> np.ndarray:
+    """Little-endian 5-5-5 pixels (B lowest) → RGB, as Pillow's BGR;15 and
+    BGRA;15Z unpackers scale them (alpha dropped)."""
+    v = v.astype(np.int64)
+    return np.stack([((v >> 10) & 31) * 255 // 31, ((v >> 5) & 31) * 255 // 31,
+                     (v & 31) * 255 // 31], -1).astype(np.uint8)
+
+
+def _open_tga(data: bytes):
+    s = data[:18]
+    id_len, cmap_type, itype, depth, flags = s[0], s[1], s[2], s[16], s[17]
+    w, h = _u16("<", s, 12), _u16("<", s, 14)
+    if cmap_type not in (0, 1) or w <= 0 or h <= 0 or depth not in (1, 8, 16, 24, 32):
+        raise _NotThisFormat("not a TGA file")
+    if itype in (3, 11):
+        mode = {1: "1", 16: "LA"}.get(depth, "L")
+    elif itype in (1, 9):
+        mode = "P" if cmap_type else "L"
+    elif itype in (2, 10):
+        mode = "RGB" if depth == 24 else "RGBA"
+    else:
+        raise _NotThisFormat("unknown TGA mode")
+    orient = flags & 0x30
+    c = _Cursor(data, 18)
+    c.read(id_len)
+    palette = map_depth = None
+    if cmap_type:
+        start, count, map_depth = _u16("<", s, 3), _u16("<", s, 5), s[7]
+        if map_depth not in (16, 24, 32):
+            raise _NotThisFormat("unknown TGA map depth")
+        k = map_depth // 8
+        raw = np.frombuffer(bytes(k * start) + c.read(k * count), np.uint8)
+        raw = raw[:len(raw) // k * k].reshape(-1, k)
+        palette = _bgr15(raw.view("<u2")[:, 0]) if k == 2 else raw[:, 2::-1]
+    _bomb("TGA", w, h)
+    return lambda: _tga_pixels(data, c.pos, itype, depth, mode, w, h, orient, palette,
+                               map_depth)
+
+
+def _tga_pixels(data, offset, itype, depth, mode, w, h, orient, palette,
+                map_depth) -> np.ndarray:
+    raw = _TGA_RAW.get((itype & 7, depth))
+    if raw is None:
+        raise ValueError(f"unsupported TGA: image type {itype} at {depth} bits a pixel")
+    rawmode, k = raw
+    if rawmode == "P" and mode != "P":
+        raise ValueError("unsupported TGA: colour-mapped data without a colour map")
+    if palette is not None:  # Pillow's putpalette: on P, and on L or LA, which become P
+        if map_depth == 32 or mode not in ("P", "L", "LA"):
+            raise ValueError(f"unsupported TGA: a {map_depth}-bit colour map on a {mode} image")
+        if len(palette) > 256:
+            raise ValueError(f"unsupported TGA: a colour map of {len(palette)} entries")
+        mode = "P"
+    row_bytes = (w * depth + 7) // 8
+    if itype & 8:
+        rows = np.empty((h, row_bytes), np.uint8)
+        _raster("tga_rle", data[offset:], len(data) - offset, k, row_bytes, h,
+                rows.ctypes.data)
+    else:
+        rows = _rows("TGA", data, offset, h, row_bytes)
+    if orient in (0x00, 0x10):  # bottom-up
+        rows = rows[::-1]
+    if rawmode == "1":
+        rgb = _gray(_bits(rows, w) * 255)
+    elif rawmode == "BGRA;15Z":
+        rgb = _bgr15(rows.view("<u2"))
+    elif rawmode in ("BGR", "BGRA"):
+        rgb = rows.reshape(h, w, k)[..., 2::-1]
+    else:  # P, L, LA
+        rgb = _mode_rgb(rows.reshape(h, w, k), mode, palette)
+    if orient in (0x10, 0x30):  # right to left
+        rgb = rgb[:, ::-1]
+    return np.ascontiguousarray(rgb)
+
+
+# --- PSD (PsdImagePlugin: the merged image) ---------------------------------
+
+# (colour mode, bits) → (Pillow mode, channels)
+_PSD_MODES = {(0, 1): ("1", 1), (0, 8): ("L", 1), (1, 8): ("L", 1), (2, 8): ("P", 1),
+              (3, 8): ("RGB", 3), (4, 8): ("CMYK", 4), (7, 8): ("L", 1), (8, 8): ("L", 1),
+              (9, 8): ("LAB", 3)}
+
+
+def _open_psd(data: bytes):
+    c = _Cursor(data)
+    s = c.read(26)
+    if s[:4] != b"8BPS" or _u16(">", s, 4) != 1:
+        raise _NotThisFormat("not a PSD file")
+    bits, chans, pmode = _u16(">", s, 22), _u16(">", s, 12), _u16(">", s, 24)
+    if (pmode, bits) not in _PSD_MODES:
+        raise _NotThisFormat(f"PSD colour mode {pmode} at {bits} bits has no Pillow mode")
+    mode, channels = _PSD_MODES[(pmode, bits)]
+    if channels > chans:
+        raise ValueError("corrupt PSD: not enough channels")
+    if mode == "RGB" and chans == 4:
+        mode, channels = "RGBA", 4
+    w, h = _u32(">", s, 18), _u32(">", s, 14)
+    palette = None
+    size = _u32(">", c.read(4))
+    if size:
+        colors = c.read(size)
+        if mode == "P" and size == 768:  # planar: 256 reds, then greens, then blues
+            palette = np.frombuffer(colors, np.uint8).reshape(3, 256).T
+    size = _u32(">", c.read(4))  # image resources
+    end = c.pos + size
+    while size and c.pos < end:
+        if len(c.read(6)) < 6:  # the signature, then the id
+            raise _NotThisFormat("a PSD image resource cut short")
+        name = c.read(c.read(1)[0])
+        if not len(name) & 1:
+            c.read(1)
+        if len(c.read(_u32(">", c.read(4)))) & 1:
+            c.read(1)
+    size = _u32(">", c.read(4))  # layer and mask information
+    if size:
+        end = c.pos + size
+        if len(c.read(4)) < 4:  # the layer info's length
+            raise _NotThisFormat("a PSD layer section cut short")
+        c.pos = end
+    comp = _u16(">", c.read(2))
+    row_bytes = (w + 7) // 8 if mode == "1" else w
+    offsets = []
+    if comp == 0:
+        offsets = [c.pos + k * w * h for k in range(channels)]
+    elif comp == 1:  # each channel's rows' byte counts, then the channels
+        counts = c.read(channels * h * 2)
+        at = c.pos
+        for k in range(channels):
+            offsets.append(at)
+            for y in range(h):
+                at += _u16(">", counts, 2 * (k * h + y))
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("a PSD of no pixels")
+    _bomb("PSD", w, h)
+    return lambda: _psd_pixels(data, comp, offsets, mode, w, h, row_bytes, palette)
+
+
+def _psd_pixels(data, comp, offsets, mode, w, h, row_bytes, palette) -> np.ndarray:
+    if mode == "LAB":
+        raise ValueError("unsupported PSD: Lab colour (Pillow converts it with LittleCMS)")
+    if not offsets:
+        raise ValueError(f"unsupported PSD: compression {comp}")
+    planes = []
+    for at in offsets:
+        if comp == 0:
+            planes.append(_rows("PSD", data, at, h, row_bytes))
+        else:
+            rows = np.empty((h, row_bytes), np.uint8)
+            _raster("packbits", data[at:], max(0, len(data) - at), row_bytes, h,
+                    rows.ctypes.data)
+            planes.append(rows)
+    if mode == "1":
+        return _gray(_bits(planes[0], w) * 255)
+    px = np.stack(planes, -1)
+    if mode == "CMYK":  # stored inverted
+        px = 255 - px
+    return _mode_rgb(px, mode, palette)
+
+
+# --- QOI (QoiImagePlugin) ---------------------------------------------------
+
+def _open_qoi(data: bytes):
+    if data[:4] != b"qoif" or len(data) < 13:  # the magic, size and channels
+        raise _NotThisFormat("not a QOI file")
+    w, h = _u32(">", data, 4), _u32(">", data, 8)
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("a QOI of no pixels")
+    _bomb("QOI", w, h)
+
+    def load():
+        out = np.empty((h, w, 4), np.uint8)
+        _raster("qoi", data[14:], max(0, len(data) - 14), w * h, out.ctypes.data)
+        return np.ascontiguousarray(out[..., :3])
+
+    return load
+
+
+# --- PCX and DCX (PcxImagePlugin, DcxImagePlugin: the first page) ------------
+
+def _open_pcx(data: bytes, at: int = 0, fmt: str = "PCX"):
+    s = data[at:at + 68]
+    if not (len(s) >= 2 and s[0] == 10 and s[1] in (0, 2, 3, 5)):
+        raise _NotThisFormat("not a PCX file")
+    x0, y0, x1, y1 = struct.unpack_from("<4H", s, 4)
+    if x1 + 1 <= x0 or y1 + 1 <= y0:
+        raise _NotThisFormat("bad PCX image size")
+    version, bits, planes = s[1], s[3], s[65]
+    provided = _u16("<", s, 66)
+    w, h = x1 + 1 - x0, y1 + 1 - y0
+    palette = None
+    if bits == 1 and planes == 1:
+        mode = "1"
+    elif bits == 1 and planes in (2, 4):
+        mode, palette = f"P;{planes}L", np.frombuffer(s[16:64], np.uint8).reshape(16, 3)
+    elif version == 5 and bits == 8 and planes == 1:
+        mode = "L"  # a VGA palette (marker 12) 769 bytes before the file's end makes it P
+        tail = data[max(0, len(data) - 769):][:769]
+        if len(tail) == 769 and tail[0] == 12:
+            pal = np.frombuffer(tail, np.uint8, 768, 1).reshape(256, 3)
+            if not (pal == np.arange(256, dtype=np.uint8)[:, None]).all():
+                mode, palette = "P", pal
+    elif version == 5 and bits == 8 and planes == 3:
+        mode = "RGB;L"
+    else:
+        raise ValueError(f"unsupported {fmt}: version {version}, {bits} bits, "
+                         f"{planes} planes")
+    stride = (w * bits + 7) // 8
+    if provided != stride:  # Pillow pads its own stride to even where the header's differs
+        stride += stride % 2
+    _bomb(fmt, w, h)
+    return lambda: _pcx_pixels(data, at + 128, mode, w, h, planes * stride, palette)
+
+
+def _pcx_pixels(data, offset, mode, w, h, line_bytes, palette) -> np.ndarray:
+    lines = np.empty((h, line_bytes), np.uint8)
+    bits = {"1": 1, "P;2L": 2, "P;4L": 4, "RGB;L": 24}.get(mode, 8)  # the raw mode's
+    _raster("pcx_rle", data[offset:], max(0, len(data) - offset), line_bytes, w, bits, h,
+            lines.ctypes.data)
+    if mode == "1":
+        return _gray(_bits(lines, w) * 255)
+    if mode.startswith("P;"):  # bit planes, each (w + 7) // 8 bytes on from the last
+        s = (w + 7) // 8
+        idx = sum(_bits(lines[:, k * s:(k + 1) * s], w) << k for k in range(int(mode[2])))
+        return palette[idx]
+    if mode == "RGB;L":  # a row's planes one after another, each w bytes
+        return np.ascontiguousarray(lines[:, :3 * w].reshape(h, 3, w).transpose(0, 2, 1))
+    return _mode_rgb(lines[:, :w, None], mode, palette)  # L or P
+
+
+def _open_dcx(data: bytes):
+    c = _Cursor(data, 4)
+    offsets = []
+    for _ in range(1024):
+        off = _u32("<", c.read(4))
+        if not off:
+            break
+        offsets.append(off)
+    if not offsets:
+        raise _NotThisFormat("a DCX file without pages")
+    return _open_pcx(data, offsets[0], "DCX")
+
+
+# --- SGI (SgiImagePlugin) ---------------------------------------------------
+
+# (bytes a sample, dimension, channels) → mode
+_SGI_MODES = {(1, 1, 1): "L", (1, 2, 1): "L", (2, 1, 1): "L", (2, 2, 1): "L",
+              (1, 3, 3): "RGB", (2, 3, 3): "RGB", (1, 3, 4): "RGBA", (2, 3, 4): "RGBA"}
+
+
+def _open_sgi(data: bytes):
+    s = data[:512]
+    comp, bpc = s[2], s[3]
+    dim, w, h, z = struct.unpack_from(">4H", s, 4)
+    mode = _SGI_MODES.get((bpc, dim, z))
+    if mode is None:
+        raise ValueError(f"unsupported SGI: {bpc} bytes a sample, dimension {dim}, "
+                         f"{z} channels")
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("an SGI image of no pixels")
+    _bomb("SGI", w, h)
+    return lambda: _sgi_pixels(data, comp, bpc, mode, w, h)
+
+
+def _sgi_pixels(data, comp, bpc, mode, w, h) -> np.ndarray:
+    bands = len(mode)
+    if comp == 0:  # each channel's rows, bottom-up
+        page = w * h * bpc
+        px = np.stack([_rows("SGI", data, 512 + k * page, h, w * bpc)
+                       for k in range(bands)], -1).reshape(h, w, bpc, bands)[:, :, 0]
+    elif comp == 1:
+        rows = np.zeros((h, w, bands, bpc), np.uint8)  # rows after an early end stay 0
+        _raster("sgi_rle", data[512:], max(0, len(data) - 512), w, h, bands, bpc,
+                rows.ctypes.data)
+        px = rows[..., 0]
+    else:
+        raise ValueError(f"unsupported SGI: compression {comp}")
+    return _mode_rgb(px[::-1], mode)  # 16-bit samples keep their high byte
+
+
+# --- the formats Pillow opens and the port does not decode -------------------
+
+def _gbr_claims(data: bytes) -> None:
+    """GbrImageFile._open's checks (its ``_accept`` takes much)."""
+    size, version, w, h, depth = struct.unpack_from(">5I", data)
+    if size < 20 or version not in (1, 2) or w == 0 or h == 0 or depth not in (1, 4):
+        raise _NotThisFormat("not a GIMP brush")
+    if version == 2 and (data[20:24] != b"GIMP" or len(data) < 28):
+        raise _NotThisFormat("not a GIMP brush")
+
+
+def _spider_claims(data: bytes) -> None:
+    """SpiderImageFile._open's checks of its 27 header floats."""
+    for e in (">", "<"):
+        h = (99.0,) + struct.unpack(e + "27f", data[:108])
+        ints = all(math.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23))
+        if ints and int(h[5]) in (1, 3, -11, -12, -21, -22) and (
+                int(h[22]) == int(h[13]) * int(h[23])) and int(h[22]):
+            break
+    else:
+        raise _NotThisFormat("not a Spider file")
+    stack, number = int(h[24]), int(h[27])
+    if int(h[5]) != 1 or (stack > 0 and number > 0) or stack < 0 or number < 0 or (
+            int(h[12]) <= 0 or int(h[2]) <= 0):
+        raise _NotThisFormat("not a Spider 2D image")
+
+
+_IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
+_IM_TAGS = {b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)",
+            b"Lut", b"Name", b"Scale (x,y)", b"Image size (x*y)", b"Image type"}
+
+
+def _im_claims(data: bytes) -> None:
+    """ImImageFile._open's header: lines of ``Key: value`` up to a 0x1A,
+    one of them a key it knows."""
+    if b"\n" not in data[:100]:
+        raise _NotThisFormat("not an IM file")
+    c, known = _Cursor(data), 0
+    while True:
+        ch = c.read(1)
+        if ch == b"\r":
+            continue
+        if not ch:
+            raise _NotThisFormat("an IM header without its end")
+        if ch in b"\x00\x1a":
+            break
+        nl = data.find(b"\n", c.pos)
+        line = ch + c.read(nl + 1 - c.pos if nl >= 0 else -1)
+        if len(line) > 100:
+            raise _NotThisFormat("not an IM file")
+        if line.endswith(b"\r\n"):
+            line = line[:-2]
+        elif line.endswith(b"\n"):
+            line = line[:-1]
+        m = _IM_LINE.match(line)
+        if not m:
+            raise _NotThisFormat("not an IM file")
+        known += m[1] in _IM_TAGS
+    if not known or b"\x1a" not in data[c.pos - 1:]:
+        raise _NotThisFormat("not an IM file")
+
+
+def _imt_claims(data: bytes) -> None:
+    """ImtImageFile._open: ``width``, ``height`` and ``pixel n8`` lines up
+    to a line that starts with 0x0C."""
+    if b"\n" not in data[:100]:
+        raise _NotThisFormat("not an IMT file")
+    w = h = pos = 0
+    gray = False
+    while pos < len(data) and data[pos] != 0x0C:
+        nl = data.find(b"\n", pos)
+        line, pos = (data[pos:nl], nl + 1) if nl >= 0 else (data[pos:], len(data))
+        if len(line) <= 1 or len(line) > 100:
+            break
+        if line[:1] == b"*":
+            continue
+        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
+        if not m:
+            break
+        if m[1] in (b"width", b"height"):
+            try:
+                v = int(m[2])
+            except ValueError:
+                return  # Pillow raises: not passed on
+            w, h = (v, h) if m[1] == b"width" else (w, v)
+        gray |= m[1] == b"pixel" and m[2] == b"n8"
+    if not gray or w <= 0 or h <= 0:
+        raise _NotThisFormat("not an IMT file")
+
+
+def _iptc_claims(data: bytes) -> None:
+    """IptcImageFile._open: fields of 0x1C, a tag and a size up to the
+    image's (8, 10); the layers (3, 60) and the size (3, 20), (3, 30) read."""
+    c, info = _Cursor(data), {}
+    while True:
+        s = c.read(5)
+        if not s.strip(b"\x00"):
+            break
+        tag = (s[1], s[2])
+        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            raise _NotThisFormat("not an IPTC file")
+        size = s[3]
+        if size > 132:
+            return  # Pillow raises: not passed on
+        if size == 128:
+            size = 0
+        elif size > 128:
+            size = int.from_bytes(c.read(size - 128)[-4:], "big")
+        else:
+            size = _u16(">", s, 3)
+        if tag == (8, 10):
+            break
+        info[tag] = c.read(size) if size else None
+
+    def number(tag):
+        v = info[tag]
+        if v is None:
+            raise _NotThisFormat("an IPTC field without data")
+        return int.from_bytes(v[-4:], "big")
+
+    if (3, 60) not in info or info[(3, 60)] is None:
+        raise _NotThisFormat("an IPTC record without an image")
+    layers, component = info[(3, 60)][0], info[(3, 60)][1]
+    mode = {(1, False): "L", (3, True): "RGB", (4, True): "CMYK"}.get(
+        (layers, bool(component)), "")
+    w, h = number((3, 20)), number((3, 30))
+    if info.get((3, 120)) is None or number((3, 120)) not in (1, 5):
+        return  # Pillow's OSError: an unknown compression
+    if not mode or w <= 0 or h <= 0:
+        raise _NotThisFormat("an IPTC image of no mode or pixels")
+
+
+def _pcd_claims(data: bytes) -> None:
+    s = data[2048:2048 + 1539]
+    if not s.startswith(b"PCD_") or len(s) < 1539:
+        raise _NotThisFormat("not a PCD file")
+
+
+def _refused(fmt: str, what: str, claims=None):
+    """The open of a format Pillow opens and the port does not decode:
+    refused by name where the plugin's checks (``claims``, else its accept
+    alone) take the file."""
+    def open_(data: bytes):
+        if claims is not None:
+            claims(data)
+        raise _Refused(fmt, what)
+    return open_
+
+
+def _decoded(fn):
+    """A format whose magic settles it, as before the plugin order."""
+    return lambda data: (lambda: fn(data))
+
+
+# Image.ID's order once Image.open has run preinit, then init: (format,
+# its _accept on the first 16 bytes, its open: a loader of the RGB array, or
+# _NotThisFormat, IndexError or struct.error to go on to the next format)
+_FORMATS = (
+    ("BMP", lambda p: p[:2] == b"BM", _decoded(lambda d: _decode_rgb("bmp", d))),
+    ("DIB", lambda p: _u32("<", p) in (12, 40, 52, 56, 64, 108, 124), _open_dib),
+    ("GIF", lambda p: p[:6] in (b"GIF87a", b"GIF89a"), _decoded(lambda d: _decode_rgb("gif", d))),
+    ("JPEG", lambda p: p[:3] == b"\xff\xd8\xff", _decoded(_decode_jpeg)),
+    ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", _open_ppm),
+    ("PNG", lambda p: p[:8] == PNG_SIGNATURE, _decoded(_decode_png)),
+    ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
+     _refused("AVIF", "AV1 intra frames")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _refused("BLP", "Blizzard textures")),
+    ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _refused("BUFR", "a stub Pillow cannot load")),
+    ("CUR", lambda p: p[:4] == b"\0\0\2\0", _open_cur),
+    ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5), _open_pcx),
+    ("DCX", lambda p: len(p) >= 4 and _u32("<", p) == 0x3ADE68B1, _open_dcx),
+    ("DDS", lambda p: p[:4] == b"DDS ", _refused("DDS", "DirectDraw surfaces")),
+    ("EPS", lambda p: p[:4] == b"%!PS" or (len(p) >= 4 and _u32("<", p) == 0xC6D3D0C5),
+     _refused("EPS", "PostScript, which Pillow renders with Ghostscript")),
+    ("FITS", lambda p: p[:6] == b"SIMPLE", _refused("FITS", "astronomy images")),
+    ("FLI", lambda p: len(p) >= 16 and _u16("<", p, 4) in (0xAF11, 0xAF12)
+     and _u16("<", p, 14) in (0, 3), _refused("FLI", "Autodesk animations")),
+    ("FTEX", lambda p: p[:4] == b"FTEX", _refused("FTEX", "Independence War textures")),
+    ("GBR", lambda p: len(p) >= 8 and _u32(">", p) >= 20 and _u32(">", p, 4) in (1, 2),
+     _refused("GBR", "GIMP brushes", _gbr_claims)),
+    ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1,
+     _refused("GRIB", "a stub Pillow cannot load")),
+    ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _refused("HDF5", "a stub Pillow cannot load")),
+    ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51"
+     or p[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _refused("JPEG2000", "JPEG 2000: EBCOT and wavelets")),
+    ("ICNS", lambda p: p[:4] == b"icns", _refused("ICNS", "Apple icons")),
+    ("ICO", lambda p: p[:4] == b"\0\0\1\0", _open_ico),
+    ("IM", lambda p: True, _refused("IM", "IFUNC images", _im_claims)),
+    ("IMT", lambda p: True, _refused("IMT", "IM Tools images", _imt_claims)),
+    ("IPTC", lambda p: True, _refused("IPTC", "IPTC/NAA records", _iptc_claims)),
+    ("MCIDAS", lambda p: p[:8] == b"\x00\x00\x00\x00\x00\x00\x00\x04",
+     _refused("MCIDAS", "McIdas area files")),
+    ("MPEG", lambda p: p[:4] == b"\x00\x00\x01\xb3", _refused("MPEG", "a stub Pillow cannot load")),
+    ("TIFF", lambda p: p[:4] in _TIFF_PREFIXES, _decoded(_decode_tiff)),
+    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _refused("MSP", "Microsoft Paint images")),
+    ("PCD", lambda p: True, _refused("PCD", "Kodak PhotoCD", _pcd_claims)),
+    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _refused("PIXAR", "Pixar images")),
+    ("PSD", lambda p: p[:4] == b"8BPS", _open_psd),
+    ("QOI", lambda p: p[:4] == b"qoif", _open_qoi),
+    ("SGI", lambda p: len(p) >= 2 and _u16(">", p) == 474, _open_sgi),
+    ("SPIDER", lambda p: True, _refused("SPIDER", "Spider 2D images", _spider_claims)),
+    ("SUN", lambda p: len(p) >= 4 and _u32(">", p) == 0x59A66A95,
+     _refused("SUN", "Sun raster images")),
+    ("TGA", lambda p: True, _open_tga),
+    ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _decoded(_decode_webp)),
+    ("WMF", lambda p: p[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or p[:4] == b"\x01\x00\x00\x00",
+     _refused("WMF", "Windows metafiles, which Pillow cannot load here")),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _refused("XBM", "X bitmaps")),
+    ("XPM", lambda p: p[:9] == b"/* XPM */", _refused("XPM", "X pixmaps")),
+    ("XVTHUMB", lambda p: p[:6] == b"P7 332", _refused("XVTHUMB", "XV thumbnails")),
+)
+
+
+class _Refused(ValueError):
+    """A format Pillow opens and the port does not decode."""
+
+    def __init__(self, fmt: str, what: str):
+        super().__init__(f"unsupported image format: {fmt} ({what})")
+        self.format = fmt
+
+
+def _open(data: bytes):
+    """(format, loader) of the first format in Pillow's order whose accept
+    takes the first 16 bytes and whose open does not pass the file on."""
+    head = data[:16]
+    for fmt, accept, open_ in _FORMATS:
+        try:
+            if accept(head):
+                return fmt, open_(data)
+        except (_NotThisFormat, IndexError, struct.error):
+            continue  # Image.open's except clause: the next plugin
+    raise ValueError("unsupported image format: not a JPEG, PNG, BMP, GIF, WebP or TIFF file, "
+                     "nor one of the other formats Pillow opens")
+
+
 def decode(data: bytes) -> np.ndarray:
-    """Raw JPEG, PNG, BMP, GIF, WebP or TIFF bytes → (H, W, 3)
-    uint8 RGB, EXIF orientation applied (the serving input convention: the
-    JAX ``bytes_to_pil``)."""
-    data = bytes(data)
-    if data[:3] == b"\xff\xd8\xff":
-        return _decode_jpeg(data)
-    if data[:8] == PNG_SIGNATURE:
-        return _decode_png(data)
-    if data[:2] == b"BM":
-        return _decode_rgb("bmp", data)
-    if data[:6] in (b"GIF87a", b"GIF89a"):
-        return _decode_rgb("gif", data)
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return _decode_webp(data)
-    if data[:4] in _TIFF_PREFIXES:
-        return _decode_tiff(data)
-    raise ValueError("unsupported image format: not a JPEG, PNG, BMP, GIF, WebP or TIFF file")
+    """Raw image bytes → (H, W, 3) uint8 RGB, EXIF orientation applied (the
+    serving input convention: the JAX ``bytes_to_pil``). The format is the
+    one ``Image.open`` finds, trying Pillow's plugins in its order."""
+    _, load = _open(bytes(data))
+    return load()
 
 
 def decode_base64(s: str) -> np.ndarray:

@@ -8,6 +8,8 @@
 // 24 and 32 bits as BGR(X), BI_BITFIELDS at the layouts Pillow takes, RLE8 and
 // RLE4 as its BmpRleDecoder runs them; rows bottom-up, or top-down for a
 // negative height; alpha dropped. Palette indices past the palette read black.
+// The same reader takes a DIB's info header where it lies (DibImageFile,
+// and an icon's or a cursor's image, whose pixels follow the palette).
 //
 // GIF: the first frame, as GifImagePlugin seeks to it and GifDecode.c
 // decodes it: LZW with Pillow's code-size, clear and table-full rules,
@@ -51,22 +53,32 @@ struct Bmp {
   int rgb_byte[3] = {2, 1, 0};  // 32 bits: the byte of R, G and B in a pixel
   std::vector<uint8_t> palette;  // RGB, 256 entries, black past the file's
 
-  Bmp(const uint8_t* data, size_t len) : d(data), n(len) {}
+  std::string fmt;               // the format named in errors
+
+  Bmp(const uint8_t* data, size_t len, const char* name = "BMP")
+      : d(data), n(len), fmt(name) {}
 
   void need(size_t end) const {
-    if (end > n) throw CodecError("truncated BMP: the headers end early");
+    if (end > n) throw CodecError("truncated " + fmt + ": the headers end early");
   }
 
   void parse() {
     need(18);
     if (d[0] != 'B' || d[1] != 'M') throw CodecError("not a BMP file");
-    uint32_t offset = le32(d + 10);
-    uint32_t hs = le32(d + 14);
+    parse_info(14, le32(d + 10));
+  }
+
+  // The info header at `at` (BmpImagePlugin's _bitmap): past a file header,
+  // or a DIB's own (a DIB file, an icon's or a cursor's image), whose pixels
+  // follow its palette (`offset` 0).
+  void parse_info(size_t at, uint32_t offset) {
+    need(at + 4);
+    uint32_t hs = le32(d + at);
     if (hs != 12 && hs != 40 && hs != 52 && hs != 56 && hs != 64 && hs != 108 && hs != 124)
-      throw CodecError("unsupported BMP: header size " + std::to_string(hs));
-    need(14 + size_t(hs));
-    const uint8_t* h = d + 18;  // the header after its size field
-    size_t pos = 14 + hs;       // the file position Pillow reads on from
+      throw CodecError("unsupported " + fmt + ": header size " + std::to_string(hs));
+    need(at + size_t(hs));
+    const uint8_t* h = d + at + 4;  // the header after its size field
+    size_t pos = at + hs;           // the file position Pillow reads on from
     int pad;
     uint64_t colors = 0;
     uint32_t masks[4] = {0, 0, 0, 0};
@@ -96,13 +108,13 @@ struct Bmp {
         }
       }
     }
-    qie::check_pixels("BMP", width, height);
+    qie::check_pixels(fmt.c_str(), width, height);
     if (!colors) colors = bits < 64 ? uint64_t(1) << bits : 0;
     if (offset == 14 + hs && bits <= 8) offset += uint32_t(4 * colors);
 
     bool paletted = bits == 1 || bits == 4 || bits == 8;
     if (!paletted && bits != 16 && bits != 24 && bits != 32)
-      throw CodecError("unsupported BMP: " + std::to_string(bits) + " bits a pixel");
+      throw CodecError("unsupported " + fmt + ": " + std::to_string(bits) + " bits a pixel");
     raw = bits == 1 ? Raw::P1 : bits == 4 ? Raw::P4 : bits == 8 ? Raw::P8
         : bits == 16 ? Raw::BGR15 : bits == 24 ? Raw::BGR24 : Raw::Bytes32;
     if (compression == 3) {
@@ -129,26 +141,26 @@ struct Bmp {
         else if (is(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
           bytes(0, 1, 2);  // RGBA
         else
-          throw CodecError("unsupported BMP: bitfields layout");
+          throw CodecError("unsupported " + fmt + ": bitfields layout");
       } else if (bits == 24 && rgb_is(0xFF0000, 0xFF00, 0xFF)) {
       } else if (bits == 16 && rgb_is(0xF800, 0x7E0, 0x1F)) {
         raw = Raw::BGR16;
       } else if (bits == 16 && rgb_is(0x7C00, 0x3E0, 0x1F)) {
       } else {
-        throw CodecError("unsupported BMP: bitfields layout");
+        throw CodecError("unsupported " + fmt + ": bitfields layout");
       }
     } else if (compression == 1 || compression == 2) {
       if (!paletted)
-        throw CodecError("unsupported BMP: RLE at " + std::to_string(bits) + " bits a pixel");
+        throw CodecError("unsupported " + fmt + ": RLE at " + std::to_string(bits) + " bits a pixel");
     } else if (compression != 0) {
       const char* names[] = {"", "", "", "", " (JPEG)", " (PNG)"};
-      throw CodecError("unsupported BMP: compression " + std::to_string(compression) +
+      throw CodecError("unsupported " + fmt + ": compression " + std::to_string(compression) +
                        (compression <= 5 ? names[compression] : ""));
     }
     palette.assign(256 * 3, 0);
     if (paletted) {
       if (colors == 0 || colors > 65536)
-        throw CodecError("unsupported BMP: palette size " + std::to_string(colors));
+        throw CodecError("unsupported " + fmt + ": palette size " + std::to_string(colors));
       size_t want = size_t(pad) * colors;
       size_t have = pos < n ? std::min(want, n - pos) : 0;
       const uint8_t* p = d + pos;
@@ -164,7 +176,7 @@ struct Bmp {
       if (gray) raw = colors == 2 ? Raw::Bit1 : Raw::L8;
       // Pillow's putpalette takes at most 256 entries
       if (!gray && have / size_t(pad) > 256)
-        throw CodecError("unsupported BMP: a palette of " + std::to_string(have / pad) +
+        throw CodecError("unsupported " + fmt + ": a palette of " + std::to_string(have / pad) +
                          " colours");
       size_t entries = std::min<size_t>(have / size_t(pad), 256);
       for (size_t i = 0; i < entries; i++) {
@@ -185,6 +197,12 @@ struct Bmp {
 
   void decode(uint8_t* out) {
     parse();
+    decode_pixels(out);
+  }
+
+  // The pixels of a parsed header; `height` may be cut to the rows wanted
+  // (an icon's or a cursor's image without its mask).
+  void decode_pixels(uint8_t* out) {
     if (compression == 1 || compression == 2) return decode_rle(out);
     // Pillow's raw decoder: `stride` bytes a file row, of which the raw
     // mode reads `bytes`
@@ -194,11 +212,11 @@ struct Bmp {
     uint64_t stride = ((uint64_t(width) * bits + 31) >> 3) & ~uint64_t(3);
     uint64_t bytes = (uint64_t(width) * rb + 7) / 8;
     if (stride < bytes)
-      throw CodecError("unsupported BMP: a " + std::to_string(bits) +
+      throw CodecError("unsupported " + fmt + ": a " + std::to_string(bits) +
                        "-bit gray palette (rows shorter than Pillow reads them)");
     // the last row needs its pixels, not its padding (Pillow's RawDecode)
     if (data_off > n || stride * uint64_t(height - 1) + bytes > n - data_off)
-      throw CodecError("truncated BMP: the pixel rows end early");
+      throw CodecError("truncated " + fmt + ": the pixel rows end early");
     std::vector<uint8_t> idx(static_cast<size_t>(width));
     for (int64_t r = 0; r < height; r++) {
       const uint8_t* row = d + data_off + size_t(r) * stride;
@@ -254,7 +272,7 @@ struct Bmp {
   // and absolute runs aligned to an even file position.
   void decode_rle(uint8_t* out) {
     if (raw == Raw::Bit1)
-      throw CodecError("unsupported BMP: RLE with a black-and-white palette");
+      throw CodecError("unsupported " + fmt + ": RLE with a black-and-white palette");
     const bool rle4 = compression == 2;
     const size_t w = size_t(width), total = w * size_t(height);
     std::vector<uint8_t> data;
@@ -279,7 +297,7 @@ struct Bmp {
       } else if (byte == 2) {
         if (left() < 2) break;
         p += 2;
-        if (left() < 2) throw CodecError("truncated BMP: an RLE delta ends early");
+        if (left() < 2) throw CodecError("truncated " + fmt + ": an RLE delta ends early");
         size_t right = d[p], up = d[p + 1];
         p += 2;
         data.insert(data.end(), right + up * w, 0);
@@ -302,7 +320,7 @@ struct Bmp {
       }
     }
     if (data.size() < total)
-      throw CodecError("truncated BMP: the RLE data ends before the image is full");
+      throw CodecError("truncated " + fmt + ": the RLE data ends before the image is full");
     for (int64_t r = 0; r < height; r++)
       rgb_of_index(data.data() + size_t(r) * w,
                    out + size_t(top_down ? r : height - 1 - r) * w * 3, w);
@@ -569,6 +587,33 @@ int qie_bmp_info(const uint8_t* data, long n, int* width, int* height, char* err
 // Decode a BMP into out: height x width x 3 RGB.
 int qie_bmp_decode(const uint8_t* data, long n, uint8_t* out, char* err, int errlen) {
   return guarded(err, errlen, [&] { Bmp(data, size_t(n)).decode(out); });
+}
+
+// Width and height of the DIB whose info header starts at `at` (a DIB file,
+// an icon's or a cursor's image; `name` the format named in errors), and
+// the file offset of its pixels; 0, or -1 with a message in err.
+int qie_dib_info(const uint8_t* data, long n, long at, const char* name, int* width,
+                 int* height, long* pixels, char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    Bmp b(data, size_t(n), name);
+    b.parse_info(size_t(at), 0);
+    *width = int(b.width);
+    *height = int(b.height);
+    *pixels = long(b.data_off);
+  });
+}
+
+// Decode the first `rows` rows of that DIB's image (in the order Pillow
+// reads them: from the bottom unless its height is negative) into out:
+// rows x width x 3 RGB.
+int qie_dib_decode(const uint8_t* data, long n, long at, const char* name, int rows,
+                   uint8_t* out, char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    Bmp b(data, size_t(n), name);
+    b.parse_info(size_t(at), 0);
+    b.height = rows;
+    b.decode_pixels(out);
+  });
 }
 
 // Width and height of a GIF's first frame as Pillow opens it (the logical

@@ -20,12 +20,18 @@ decode on a host without Pillow, as Pillow decodes them:
 - ``lossy_1024.webp`` and ``lossless_1024.webp`` (an 8-colour image: colour
   indexing), a smooth 1024² image: the WebP half of the decode-time set
   beside ``base_1024.jpg`` (``chip_smoke.py`` writes the BMP, GIF and CMYK
-  half itself, without Pillow), and the WebP upload of its /edit.
+  half itself, without Pillow), and the WebP upload of its /edit;
+- the TIFF, JPEG-variant and plain raster files (:func:`raster_fixtures`:
+  PPM, PGM, PBM, PFM, DIB, ICO, CUR, TGA, PSD, QOI, PCX, DCX, SGI).
 
 Pillow writes neither interlaced nor 16-bit RGB PNG, so :func:`png_file`
 writes both here with ``zlib``; BMP and GIF variants Pillow does not write
 come from :func:`bmp_file` and :func:`gif_file`, lossy WebP at encoder
-settings Pillow does not expose from :func:`libwebp_encode`. ``manifest.json`` holds each file's shape and
+settings Pillow does not expose from :func:`libwebp_encode`; PSD, CUR and
+the TGA, PCX and SGI codings Pillow does not write from :func:`psd_file`,
+:func:`icon_file`, :func:`tga_file`, :func:`pcx_file` and :func:`sgi_file`
+(numpy only: ``chip_smoke.py`` writes its 1024² set with them on a host
+without Pillow, as it does with :func:`ppm_file` and :func:`qoi_file`). ``manifest.json`` holds each file's shape and
 the SHA-256 of Pillow's ``ImageOps.exif_transpose(...).convert("RGB")``
 bytes. Run it where Pillow is installed; the images come from a numpy seed.
 """
@@ -391,6 +397,315 @@ def packbits(data: bytes) -> bytes:
             n -= k
     flush()
     return bytes(out)
+
+
+def dib_entry(px: np.ndarray, bits: int, palette=None, mask=None) -> bytes:
+    """An icon's or a cursor's DIB image (:func:`bmp_file` without its file
+    header): the height doubled, the rows bottom-up, then the AND mask
+    (``mask`` (H, W) of 0 and 1, else 0s), 1 bit a pixel in rows padded to
+    32 bits."""
+    h, w = px.shape[:2]
+    dib = bytearray(bmp_file(px, bits, palette=palette)[14:])
+    struct.pack_into("<i", dib, 8, 2 * h)
+    m = np.zeros((h, w), np.uint8) if mask is None else np.asarray(mask, np.uint8)
+    m = np.concatenate([m, np.zeros((h, -w % 32), np.uint8)], 1)
+    return bytes(dib) + np.packbits(m[::-1], axis=1).tobytes()
+
+
+def icon_file(entries, kind: int = 1) -> bytes:
+    """An ICO (``kind`` 1) or a CUR (2) of ``entries``: (width, height,
+    colour count, planes or hotspot x, bits or hotspot y, image bytes),
+    width and height as their directory bytes (0 for 256)."""
+    head = struct.pack("<HHH", 0, kind, len(entries))
+    offset = len(head) + 16 * len(entries)
+    table, body = b"", b""
+    for w, h, colors, planes, bits, image in entries:
+        table += struct.pack("<BBBBHHII", w, h, colors, 0, planes, bits, len(image),
+                             offset + len(body))
+        body += image
+    return head + table + body
+
+
+def ppm_file(px: np.ndarray, maxval: int = 255, plain: bool = False) -> bytes:
+    """A PGM (``px`` (H, W)) or PPM ((H, W, 3)): binary samples of one byte,
+    or two big-endian bytes where ``maxval`` is above 255; or ``plain``
+    decimal tokens, 12 a line, after a comment line."""
+    h, w = px.shape[:2]
+    magic = (b"P2" if plain else b"P5") if px.ndim == 2 else (b"P3" if plain else b"P6")
+    head = magic + b"\n%d %d\n%d\n" % (w, h, maxval)
+    if plain:
+        flat = [str(int(v)).encode() for v in np.asarray(px).reshape(-1)]
+        lines = [b" ".join(flat[i:i + 12]) for i in range(0, len(flat), 12)]
+        return head + b"# written by codec_fixtures.ppm_file\n" + b"\n".join(lines) + b"\n"
+    return head + np.asarray(px).astype(">u2" if maxval > 255 else np.uint8).tobytes()
+
+
+def _rle_packets(units: np.ndarray, row: int, run_max: int, literal_max: int,
+                 literal_rows: bool = False, single_runs=None):
+    """The packets of a run-length coding of ``units`` (N, bytes a unit):
+    runs of two or more equal units within a row of ``row`` units, in
+    pieces of up to ``run_max``; the rest as literal stretches in pieces of
+    up to ``literal_max``, which cross rows unless ``literal_rows``.
+    ``single_runs`` (N,) marks units coded as runs even alone. Returns the
+    packets' first unit, unit count and whether each is a run, in order."""
+    n = len(units)
+    new = np.ones(n, bool)
+    new[1:] = (units[1:] != units[:-1]).any(1)
+    new[::row] = True  # a run never crosses a row
+    starts = np.flatnonzero(new)
+    lens = np.diff(np.append(starts, n))
+    run = lens >= 2
+    if single_runs is not None:
+        run |= single_runs[starts]
+    # a literal stretch starts after a run (and at a row's start where
+    # literals stop at the row's end)
+    first = run | np.concatenate([[True], run[:-1]])
+    if literal_rows:
+        first |= starts % row == 0
+    seg_start = starts[first]
+    seg_len = np.add.reduceat(lens, np.flatnonzero(first))
+    seg_run = run[first]
+    cap = np.where(seg_run, run_max, literal_max)
+    pieces = -(-seg_len // cap)
+    seg = np.repeat(np.arange(len(seg_len)), pieces)
+    k = np.arange(len(seg)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
+    return (seg_start[seg] + k * cap[seg], np.minimum(cap[seg], seg_len[seg] - k * cap[seg]),
+            seg_run[seg])
+
+
+def _emit(units: np.ndarray, heads: np.ndarray, head_bytes: np.ndarray, first: np.ndarray,
+          count: np.ndarray) -> bytes:
+    """Packets end to end: ``head_bytes`` bytes of ``heads`` (P, up to 2),
+    then ``count`` units from unit ``first``."""
+    k = units.shape[1]
+    sizes = head_bytes + count * k
+    offs = np.cumsum(sizes) - sizes
+    out = np.empty(int(sizes.sum()), np.uint8)
+    for j in range(heads.shape[1]):
+        has = head_bytes > j
+        out[offs[has] + j] = heads[has, j]
+    pk = np.repeat(np.arange(len(count)), count)
+    i = np.arange(int(count.sum())) - np.repeat(np.cumsum(count) - count, count)
+    dst = offs[pk] + head_bytes[pk] + i * k
+    out[dst[:, None] + np.arange(k)] = units[first[pk] + i]
+    return out.tobytes()
+
+
+def _tga_rle(units: np.ndarray, w: int) -> bytes:
+    """TGA RLE of (pixels, bytes a pixel) units in file order: runs of two
+    or more equal pixels within a row (a run may not cross a row), literal
+    packets of the rest, which run on across rows; 128 pixels a packet."""
+    first, count, run = _rle_packets(units, w, 128, 128)
+    heads = ((count - 1) | np.where(run, 0x80, 0)).astype(np.uint8)[:, None]
+    return _emit(units, heads, np.ones(len(count), np.int64), first, np.where(run, 1, count))
+
+
+def tga_file(px: np.ndarray, image_type: int, depth: int, colormap=None, first_entry: int = 0,
+             map_depth: int = 24, flags: int = 0x20, image_id: bytes = b"") -> bytes:
+    """A TGA of ``px``: colour-map indices (H, W) for image types 1 and 9,
+    gray (H, W) or gray + alpha (H, W, 2) for 3 and 11, RGB(A) (H, W, 3 or
+    4) for 2 and 10 at 16 (5-5-5 and an attribute bit), 24 or 32 bits;
+    types 9-11 RLE (:func:`_tga_rle`). ``colormap`` (N, 3) RGB, stored from
+    entry ``first_entry`` at ``map_depth`` 16, 24 or 32; ``flags`` bits 4
+    and 5 the origin (0x20 top-left, 0 bottom-left, 0x10 and 0x30 right to
+    left)."""
+    h, w = px.shape[:2]
+    if flags & 0x10:
+        px = px[:, ::-1]
+    if not flags & 0x20:
+        px = px[::-1]
+    base = image_type & 7
+    if base == 2 and depth == 16:
+        v = ((px[..., 0].astype(np.uint16) >> 3) << 10 | (px[..., 1].astype(np.uint16) >> 3) << 5
+             | px[..., 2].astype(np.uint16) >> 3 | (0x8000 if px.shape[2] == 3 else
+                                                     (px[..., 3] > 127).astype(np.uint16) << 15))
+        units = v.astype("<u2").view(np.uint8).reshape(h * w, 2)
+    elif base == 2:
+        units = np.concatenate([px[..., 2::-1], px[..., 3:]], -1).reshape(h * w, -1)
+    elif depth == 1:
+        units = np.packbits(px.astype(np.uint8), axis=1).reshape(-1, 1)
+    else:
+        units = px.reshape(h * w, -1).astype(np.uint8)
+    units = np.ascontiguousarray(units)
+    body = _tga_rle(units, w) if image_type & 8 else units.tobytes()
+    cmap = b""
+    if colormap is not None:
+        c = np.asarray(colormap, np.uint16)
+        if map_depth == 16:
+            cmap = ((c[:, 0] >> 3) << 10 | (c[:, 1] >> 3) << 5 | c[:, 2] >> 3).astype(
+                "<u2").tobytes()
+        else:
+            cmap = np.concatenate([c[:, 2::-1], np.full((len(c), map_depth // 8 - 3), 255)],
+                                  1).astype(np.uint8).tobytes()
+    head = struct.pack("<BBBHHBHHHHBB", len(image_id), int(colormap is not None), image_type,
+                       first_entry, 0 if colormap is None else len(colormap),
+                       map_depth if colormap is not None else 0, 0, 0, w, h, depth, flags)
+    return head + image_id + cmap + body
+
+
+def psd_file(planes: np.ndarray, color_mode: int, bits: int = 8, compression: int = 1,
+             colors: bytes = b"", resources: bytes = b"", layers: bytes = b"",
+             extra_channels: int = 0) -> bytes:
+    """A PSD whose merged image is ``planes`` (C, H, W): bytes, or 0 and 1
+    at ``bits`` 1 (packed); raw (``compression`` 0) or PackBits rows with
+    their byte counts (1). ``colors`` the colour mode data (a 768-byte
+    palette, planar), ``resources`` the image resource blocks, ``layers``
+    the layer and mask section's body; ``extra_channels`` more channels in
+    the header than the merged image holds for its mode."""
+    c, h, w = planes.shape
+    rows = (np.packbits(planes.astype(np.uint8), axis=2) if bits == 1
+            else planes.astype(np.uint8))
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, c + extra_channels, h, w, bits, color_mode)
+    head += struct.pack(">I", len(colors)) + colors + struct.pack(">I", len(resources)) + resources
+    head += struct.pack(">I", len(layers)) + layers
+    if compression == 0:
+        return head + struct.pack(">H", 0) + rows.tobytes()
+    # PackBits row by row: runs of 2 to 128 (257 - n), literals of 1 to 128 (n - 1)
+    units = np.ascontiguousarray(rows).reshape(-1, 1)
+    width = rows.shape[2]
+    first, count, run = _rle_packets(units, width, 128, 128, literal_rows=True)
+    run &= count >= 2
+    heads = np.where(run, 257 - count, count - 1).astype(np.uint8)[:, None]
+    n = np.where(run, 1, count)
+    per_row = np.bincount(first // width, weights=1 + n, minlength=c * h).astype(np.int64)
+    return (head + struct.pack(">H", 1) + per_row.astype(">u2").tobytes()
+            + _emit(units, heads, np.ones(len(n), np.int64), first, n))
+
+
+def psd_resource(rid: int, data: bytes, name: bytes = b"") -> bytes:
+    """One image resource block: 8BIM, its id, a padded Pascal name, its
+    data padded to even."""
+    pname = bytes([len(name)]) + name
+    pname += b"\x00" * (len(pname) % 2)
+    return b"8BIM" + struct.pack(">H", rid) + pname + struct.pack(">I", len(data)) + data + (
+        b"\x00" * (len(data) % 2))
+
+
+def sgi_file(px: np.ndarray, rle: bool = True, dimension=None) -> bytes:
+    """An SGI image of ``px`` (H, W) or (H, W, Z), uint8 (1 byte a sample)
+    or uint16 (2, big-endian), rows bottom-up: verbatim, or RLE with its
+    offset and length tables (rows in table order, channel by channel)."""
+    px = px if px.ndim == 3 else px[..., None]
+    h, w, z = px.shape
+    bpc = px.dtype.itemsize
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHII4x80sI", 474, int(rle), bpc, dim, w, h, z, 0,
+                       (1 << 8 * bpc) - 1, b"fixture", 0).ljust(512, b"\x00")
+    planes = [px[::-1, :, k] for k in range(z)]
+    if not rle:
+        return head + b"".join(p.astype(">u2" if bpc == 2 else np.uint8).tobytes()
+                               for p in planes)
+    # each row of each channel: runs (a count, then the value), literals
+    # (0x80 | count, then the values), up to 127 a packet, then a 0; 16-bit
+    # words at 2 bytes a sample
+    units = np.concatenate(planes, 0).astype(">u2" if bpc == 2 else np.uint8)
+    units = np.ascontiguousarray(units).view(np.uint8).reshape(-1, bpc)
+    first, count, run = _rle_packets(units, w, 127, 127, literal_rows=True)
+    rows = first // w
+    ends = np.flatnonzero(np.append(rows[1:] != rows[:-1], True))  # each row's last packet
+    order = np.argsort(np.concatenate([2 * np.arange(len(first)), 2 * ends + 1]), kind="stable")
+    zeros = np.zeros(len(ends), np.int64)
+    first = np.concatenate([first, zeros])[order]
+    n = np.concatenate([np.where(run, 1, count), zeros])[order]
+    word = np.concatenate([count | np.where(run, 0, 0x80), zeros])[order]
+    heads = word.astype(">u2").view(np.uint8).reshape(-1, 2) if bpc == 2 else \
+        word.astype(np.uint8)[:, None]
+    sizes = bpc + n * bpc
+    starts = np.cumsum(sizes) - sizes
+    row_of = np.concatenate([rows, rows[ends]])[order]
+    row_first = np.flatnonzero(np.append(True, row_of[1:] != row_of[:-1]))
+    row_len = np.diff(np.append(starts[row_first], sizes.sum()))
+    body = _emit(units, heads, np.full(len(n), bpc), first, n)
+    at = 512 + 8 * h * z
+    return (head + np.asarray(starts[row_first] + at, ">u4").tobytes()
+            + np.asarray(row_len, ">u4").tobytes() + body)
+
+
+def pcx_file(px: np.ndarray, bits: int, planes: int, palette=None, vga_palette=None,
+             version: int = 5, stride=None) -> bytes:
+    """A PCX of ``px``: indices (H, W) at ``bits`` 1 in 1, 2 or 4 bit
+    planes (a 16-colour header ``palette`` (16, 3)), bytes (H, W) at 8 bits
+    in one plane (``vga_palette`` (256, 3) appended after the 0x0C marker)
+    or RGB (H, W, 3) in three; each line's planes ``stride`` bytes (default
+    the even length), RLE a line at a time."""
+    h, w = px.shape[:2]
+    stride = stride or ((w * bits + 7) // 8 + 1) // 2 * 2
+    if bits == 1:
+        ps = [(px >> k) & 1 for k in range(planes)]
+        ps = [np.packbits(p.astype(np.uint8), axis=1) for p in ps]
+    else:
+        ps = [px] if px.ndim == 2 else [px[..., k] for k in range(planes)]
+    ps = [np.concatenate([p, np.zeros((h, max(0, stride - p.shape[1])), np.uint8)], 1)[:, :stride]
+          for p in ps]
+    lines = np.concatenate(ps, 1).astype(np.uint8)
+    pal16 = np.zeros((16, 3), np.uint8) if palette is None else np.asarray(palette, np.uint8)
+    head = struct.pack("<BBBBHHHHHH48sBBHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 72, 72,
+                       pal16.tobytes(), 0, planes, stride, 1, 0, 0).ljust(128, b"\x00")
+    # runs of up to 63 within a line, and a lone byte of 0xC0 or more as a
+    # run of 1; the other bytes as they are
+    units = lines.reshape(-1, 1)
+    first, count, run = _rle_packets(units, lines.shape[1], 63, 1 << 30,
+                                     single_runs=units[:, 0] >= 0xC0)
+    heads = (0xC0 | np.where(run, count, 0)).astype(np.uint8)[:, None]
+    body = _emit(units, heads, run.astype(np.int64), first, np.where(run, 1, count))
+    tail = b"" if vga_palette is None else b"\x0c" + np.asarray(vga_palette, np.uint8).tobytes()
+    return head + body + tail
+
+
+def dcx_file(pages) -> bytes:
+    """A DCX of PCX ``pages``: its magic, the pages' offsets and a 0."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for p in pages:
+        offsets.append(at)
+        at += len(p)
+    return struct.pack(f"<I{len(pages) + 1}I", 0x3ADE68B1, *offsets, 0) + b"".join(pages)
+
+
+def qoi_file(px: np.ndarray) -> bytes:
+    """A QOI of RGB or RGBA ``px`` (H, W, 3 or 4), coded with numpy: runs of
+    the previous pixel, DIFF and LUMA where the differences fit, RGB or RGBA
+    otherwise (no INDEX: its table is sequential). Valid QOI: Pillow's
+    decoder and the spec's read it alike."""
+    h, w, ch = px.shape
+    rgba = np.concatenate([px, np.full((h, w, 1), 255, np.uint8)], -1) if ch == 3 else px
+    p = rgba.reshape(-1, 4).astype(np.int16)
+    prev = np.concatenate([[[0, 0, 0, 255]], p[:-1]]).astype(np.int16)
+    same = (p == prev).all(1)
+    # runs: each maximal stretch of pixels equal to the one before, in 62s
+    idx = np.arange(len(p))
+    start = same & ~np.concatenate([[False], same[:-1]])
+    pos_in_run = idx - np.maximum.accumulate(np.where(start, idx, 0))
+    d = (p - prev + 256) % 256
+    d = np.where(d > 127, d - 256, d)
+    dr, dg, db = d[:, 0], d[:, 1], d[:, 2]
+    same_a = d[:, 3] == 0
+    diff = same_a & (abs(dr + 0.5) < 2) & (abs(dg + 0.5) < 2) & (abs(db + 0.5) < 2)
+    luma = same_a & ~diff & (dg >= -32) & (dg <= 31) & (dr - dg >= -8) & (dr - dg <= 7) & (
+        db - dg >= -8) & (db - dg <= 7)
+    ops = np.zeros((len(p), 5), np.uint8)
+    size = np.zeros(len(p), np.int64)
+    last = same & (np.concatenate([~same[1:], [True]]) | (pos_in_run % 62 == 61))
+    run_len = pos_in_run % 62 + 1
+    ops[last, 0] = 0xC0 | (run_len[last] - 1)
+    size[last] = 1
+    m = ~same & diff
+    ops[m, 0] = 0x40 | ((dr[m] + 2) << 4 | (dg[m] + 2) << 2 | (db[m] + 2)).astype(np.uint8)
+    size[m] = 1
+    m = ~same & luma
+    ops[m, 0] = 0x80 | (dg[m] + 32).astype(np.uint8)
+    ops[m, 1] = ((dr[m] - dg[m] + 8) << 4 | (db[m] - dg[m] + 8)).astype(np.uint8)
+    size[m] = 2
+    m = ~same & ~diff & ~luma & same_a
+    ops[m, 0] = 0xFE
+    ops[m, 1:4] = p[m, :3]
+    size[m] = 4
+    m = ~same & ~diff & ~luma & ~same_a
+    ops[m, 0] = 0xFF
+    ops[m, 1:5] = p[m]
+    size[m] = 5
+    body = ops[np.arange(5)[None] < size[:, None]].tobytes()
+    return (b"qoif" + struct.pack(">IIBB", w, h, ch, 0) + body + b"\x00" * 7 + b"\x01")
 
 
 def tiff_lzw(data: bytes) -> bytes:
@@ -1117,6 +1432,59 @@ def fixtures() -> dict:
         **tiff_fixtures(),
         **damaged_tiff_fixtures(),
         **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
+        **raster_fixtures(),
+    }
+
+
+def raster_fixtures() -> dict:
+    """The plain raster formats Pillow opens (PpmImagePlugin, DIB, ICO, CUR,
+    TGA, PSD, QOI, PCX, DCX, SGI): Pillow's own files where it writes the
+    format (PBM, PFM, QOI, a PNG icon), the rest from the writers above."""
+    from PIL import Image
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(21)
+    rgb = scene(40, 56, 22)
+    gray = rgb[..., 1]
+    idx = (rgb[..., 0] >> 2).astype(np.uint8)  # 64 colours
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    rgba = np.concatenate([rgb, rng.integers(0, 256, rgb.shape[:2] + (1,), np.uint8)], -1)
+    sq, small = scene(32, 32, 23), scene(16, 16, 24)
+    png16 = save(Image.fromarray(small), "PNG")
+    icon = icon_file([(16, 16, 0, 1, 32, png16),
+                      (32, 32, 0, 1, 24, dib_entry(sq, 24, mask=sq[..., 0] > 128)),
+                      (32, 32, 16, 1, 4, dib_entry(sq[..., 1] >> 4, 4, palette=pal[:16]))])
+    cursor = icon_file([(16, 16, 0, 2, 3, dib_entry(small, 24)),
+                        (32, 32, 0, 9, 9, dib_entry(np.concatenate([sq, sq[..., :1]], -1), 32))],
+                       kind=2)
+    return {
+        "maxval1000.ppm": ppm_file(rgb.astype(np.uint16) * 1000 // 255, maxval=1000),
+        "plain.pgm": ppm_file(gray[:20, :24].astype(np.uint16) * 200 // 255, maxval=200,
+                              plain=True),
+        "bitmap.pbm": save(Image.fromarray(gray > 120), "PPM"),
+        "gray.pfm": save(Image.fromarray(gray.astype(np.float32) * np.float32(1.13) - 9), "PPM"),
+        "pal8.dib": bmp_file(idx, 8, palette=pal)[14:],
+        "icon.ico": icon,
+        "icon_png.ico": save(Image.fromarray(sq), "ICO", sizes=[(16, 16), (32, 32)]),
+        "cursor.cur": cursor,
+        "cmap_rle.tga": tga_file(idx, 9, 8, colormap=pal[:70], first_entry=3, map_depth=16,
+                                 flags=0),
+        "rgb_rle_rtl.tga": tga_file(rgb, 10, 24, flags=0x30, image_id=b"codec fixture"),
+        "rgb15.tga": tga_file(rgba, 2, 16, flags=0),
+        "rgb_rle.psd": psd_file(rgb.transpose(2, 0, 1), 3,
+                                resources=psd_resource(1005, bytes(16)),
+                                layers=struct.pack(">I", 0)),
+        "cmyk_raw.psd": psd_file(rgba.transpose(2, 0, 1), 4, compression=0),
+        "rgba.qoi": save(Image.fromarray(rgba, "RGBA"), "QOI"),
+        "planes4.pcx": pcx_file(idx & 15, 1, 4, palette=pal[:16]),
+        "vga.pcx": pcx_file(idx, 8, 1, vga_palette=pal),
+        "pages.dcx": dcx_file([pcx_file(rgb, 8, 3), pcx_file(gray, 8, 1)]),
+        "rgb16_rle.sgi": sgi_file(rgb.astype(np.uint16) * 257 + 7, rle=True),
+        "rgba_raw.sgi": sgi_file(rgba, rle=False),
     }
 
 

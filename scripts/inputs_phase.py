@@ -7,8 +7,9 @@ a process of its own, in the order given, so two checkouts (say a parent
 unpacked with ``git archive`` and this one, as parent, change, change,
 parent) are timed on one host in one call. The phase decodes every
 committed codec fixture against its manifest and times the 1024² decode
-set; this prints its JSON lines, then one line a run of the TIFF rows'
-multiples of the baseline JPEG and the phase's seconds.
+set; this prints its JSON lines, then one line a run of the TIFF rows' and
+the plain raster rows' multiples of the baseline JPEG and the phase's
+seconds.
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ import json
 import os
 import subprocess
 import sys
+
+# the decode set's plain raster rows
+RASTER = ("ppm", "tga_rle", "psd_rle", "qoi", "pcx", "sgi_rle")
 
 RUN = """
 import json, sys, time
@@ -49,6 +53,8 @@ def main(argv=None) -> int:
             "baseline_jpeg_ms": formats["baseline_jpeg_ms"],
             "tiff_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
                                    if k.startswith("tiff")},
+            "raster_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
+                                     if k in RASTER},
             "nvidia_smi": formats["nvidia_smi"]}), flush=True)
     return 0
 
