@@ -4038,6 +4038,48 @@ def decode_set():
         "qoi": (qoi_file(rgb), rgb),
         "pcx": (pcx_file(rgb, 8, 3), rgb),
         "sgi_rle": (sgi_file(rgb), rgb),
+        **small_decode_set(n, rgb),
+    }
+
+
+def small_decode_set(n: int, rgb=None):
+    """{name: (bytes, want)}: an ``n``² image in each format of the small
+    decoders and ZSTD TIFF, written without Pillow (``scripts/
+    codec_fixtures.py``'s writers; ZSTD strips through the system's
+    libzstd): each held to its source but the BC1 and BC7 surfaces (lossy:
+    their pixels are held by the committed fixtures' hashes). An ICNS it32
+    member is 128² whatever ``n``: its size is its type's. ``rgb``: the
+    decode set's ``n``² source, made here where not given."""
+    import sys
+
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import (bc1_blocks, bc7_blocks, dds_file, icns_file, icns_rle24,
+                                msp_file, scene, sun_file, tiff_file, xbm_file, xpm_file)
+
+    rgb = scene(n, n, 1) if rgb is None else rgb
+    idx = ((rgb[..., 0] >> 5).astype(np.int64) * 8 + (rgb[..., 1] >> 5)) * 4 + (rgb[..., 2] >> 6)
+    pal = np.random.default_rng(3).integers(0, 256, (256, 3)).astype(np.uint8)
+    bits = rgb[..., 0] > 128
+    white = np.repeat(bits[..., None].astype(np.uint8) * 255, 3, axis=2)
+    icon = scene(128, 128, 2) // 8 * 8  # runs for RLE24
+    bgrx = np.concatenate([rgb[..., ::-1], np.full((n, n, 1), 255, np.uint8)], -1)
+    return {
+        "tiff_zstd_predictor": (tiff_file(rgb, 2, 8, compression=50000, predictor=2,
+                                          rows_per_strip=64), rgb),
+        "sun_rle": (sun_file(rgb, 24, 2), rgb),
+        "msp_v2": (msp_file(bits), white),
+        "xbm": (xbm_file(bits), white),
+        "xpm": (xpm_file(idx, pal), pal[idx]),
+        "icns_it32": (icns_file([(b"it32", bytes(4) + icns_rle24(icon)),
+                                 (b"t8mk", bytes(128 * 128))]), icon),
+        "dds_rgb": (dds_file(n, n, bgrx.tobytes(), 0x41, bitcount=32,
+                             masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000)), rgb),
+        "dds_rgb24": (dds_file(n, n, rgb[..., ::-1].tobytes(), 0x40, bitcount=24,
+                               masks=(0xFF0000, 0xFF00, 0xFF, 0)), rgb),
+        "dds_bc1": (dds_file(n, n, bc1_blocks(rgb), 0x4, b"DXT1"), None),
+        "dds_bc7": (dds_file(n, n, bc7_blocks(rgb), 0x4, dxgi=98), None),
     }
 
 
@@ -4130,7 +4172,7 @@ def phase_inputs() -> None:
     rows = {}
     for name, (data, want) in formats.items():
         px = codec.decode(data)
-        if px.shape != (DECODE_SIZE, DECODE_SIZE, 3) or (
+        if px.shape != (want.shape if want is not None else (DECODE_SIZE, DECODE_SIZE, 3)) or (
                 want is not None and not np.array_equal(px, want)):
             raise AssertionError(f"{name}: decoded {px.shape}, not its source")
         rows[name] = {"ms": host_ms(lambda d=data: codec.decode(d), DECODE_REPS),

@@ -4,9 +4,10 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 ``base64_to_pil`` / ``to_pil`` / ``bytes_to_pil`` / ``pil_to_jpeg`` /
 ``pil_to_base64``, on (H, W, 3) uint8 arrays. The card host has no Pillow and
 no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
-WebP and TIFF decoders and the run-length codings of the plain raster
-formats run in ``csrc/host/`` (``image_codec.cc``, ``bmp_gif.cc``,
-``webp.cc``, ``tiff.cc``, ``raster.cc``): plain C entry points loaded with
+WebP and TIFF decoders, the run-length codings of the plain raster
+formats and the DDS blocks run in ``csrc/host/`` (``image_codec.cc``,
+``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``, ``raster.cc``, ``bcn.cc``): plain
+C entry points loaded with
 ``ctypes``, built at first use with the system C++ compiler (``c++``, or
 ``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
 carries a hash of every source (as ``runtime/kernels.py`` builds the CUDA
@@ -52,8 +53,9 @@ raises when a call needs the library.
   TIFF (the first page; classic or little-endian BigTIFF; strips or padded
   tiles, planar configuration 1 or 2; uncompressed as Pillow's own raw
   decoder reads it, the rest as libtiff decodes it for Pillow: PackBits,
-  LZW, Deflate, LZMA, JPEG with its JPEGTables, CCITT RLE, Group 3 1-D and
-  2-D, Group 4; Predictor 2, FillOrder 2): each mode of Pillow's OPEN_INFO
+  LZW, Deflate, LZMA, ZSTD (through the host's libzstd), JPEG with its
+  JPEGTables, CCITT RLE, Group 3 1-D and 2-D, Group 4; Predictor 2,
+  FillOrder 2): each mode of Pillow's OPEN_INFO
   but CIELab and 12-bit gray, converted as its ``convert("RGB")`` converts
   it (bilevel and 2/4-bit gray scaled, 16-bit gray clipped, float
   truncated, 16-bit colour's high byte, premultiplied alpha divided out,
@@ -81,16 +83,25 @@ raises when a call needs the library.
   QOI, PCX (1-bit in 1, 2 or 4 planes, 8-bit gray or with the VGA palette
   769 bytes before the file's end, RGB planes; padded lines) and DCX's
   first page, SGI (raw or RLE, 8 or 16 bits, 1, 3 or 4 channels).
+  The small formats: SUN (depths 1, 4, 8, 24 and 32, a colour map on 4 and
+  8 bits, rows padded to 16 bits, raw types and RLE), MSP (version 1 raw,
+  version 2's row map and runs), XBM (its header on the first 512 bytes,
+  then the hex bytes), XPM (P, or RGB above 256 colours; any characters a
+  pixel), ICNS (the size ``bestsize()`` picks: RLE24 with its mask read
+  and dropped, or a PNG member without its orientation) and DDS's first
+  surface (RGB by its masks, luminance, an 8-bit palette, DX10 RGBA, and
+  the blocks BC1, BC2, BC3, BC4, BC5, BC5S and BC7).
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
-  other than those above (ZSTD, old-style JPEG, ThunderScan, NeXT,
-  PixarLog, SGILog, JBIG, WebP), CIELab, 12-bit gray, the floating-point
-  predictor, BMP compressions and bitfield layouts Pillow does not read, a
-  GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
+  other than those above (old-style JPEG, ThunderScan, NeXT, PixarLog,
+  SGILog, JBIG, WebP), ZSTD on a host without ``libzstd.so.1``, CIELab,
+  12-bit gray, the floating-point predictor, BMP compressions and bitfield
+  layouts Pillow does not read, a GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
   PSD (Pillow converts it with LittleCMS), a TGA colour map Pillow cannot
-  apply, and the formats Pillow opens and the port does not decode (AVIF,
-  JPEG 2000, BLP, DDS, EPS, ICNS, IM, MSP, PCD, SPIDER, SUN, XBM, XPM and
+  apply, DDS's BC6H blocks and the DXGI formats Pillow does not
+  implement, an ICNS JPEG 2000 member, and the formats Pillow opens and
+  the port does not decode (AVIF, JPEG 2000, BLP, EPS, IM, PCD, SPIDER and
   the rest, each named). So does an image above Pillow's decompression-bomb limit
   (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
   whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
@@ -125,7 +136,7 @@ import numpy as np
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
-SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc")
+SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc")
 HEADERS = ("codec_common.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
@@ -224,8 +235,13 @@ def library() -> ctypes.CDLL:
         lib.qie_pcx_rle.argtypes = [cp, cl, cl, cl, ci, cl, vp, vp, ci]
         lib.qie_sgi_rle.argtypes = [cp, cl, ci, ci, ci, ci, vp, vp, ci]
         lib.qie_qoi.argtypes = [cp, cl, cl, vp, vp, ci]
+        lib.qie_sun_rle.argtypes = [cp, cl, cl, cl, vp, vp, ci]
+        lib.qie_msp_rle.argtypes = [cp, cl, cl, cl, vp, vp, ci]
+        lib.qie_xbm.argtypes = [cp, cl, cl, vp, vp, ci]
+        lib.qie_icns_rle.argtypes = [cp, cl, cl, vp, vp, ci]
+        lib.qie_bcn.argtypes = [cp, cl, cl, cl, ci, ci, vp, vp, ci]
         for name in ("dib_info", "dib_decode", "tga_rle", "packbits", "pcx_rle", "sgi_rle",
-                     "qoi"):
+                     "qoi", "sun_rle", "msp_rle", "xbm", "icns_rle", "bcn"):
             getattr(lib, f"qie_{name}").restype = ci
         for fmt in ("bmp", "gif"):
             info, dec = getattr(lib, f"qie_{fmt}_info"), getattr(lib, f"qie_{fmt}_decode")
@@ -394,6 +410,8 @@ def _decode_png(data: bytes, oriented: bool = True) -> np.ndarray:
     while pos + 8 <= len(data):
         (n,) = struct.unpack_from(">I", data, pos)
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IEND":  # Pillow stops at it, reading none of it
+            break
         if len(body) < n:
             raise ValueError("truncated PNG: a chunk ends early")
         if not _PNG_CHUNK_TYPE.fullmatch(tag):
@@ -422,8 +440,6 @@ def _decode_png(data: bytes, oriented: bool = True) -> np.ndarray:
             exif = body
         elif tag in (b"tEXt", b"zTXt", b"iTXt") and body.startswith(_PNG_XMP_KEY):
             xmp = _png_text(tag, body[len(_PNG_XMP_KEY):])
-        elif tag == b"IEND":
-            break
     if hdr is None:
         raise ValueError("corrupt PNG: no IHDR")
     w, h, depth, ctype, _, _, interlace = hdr
@@ -570,7 +586,7 @@ _TIFF_COMPRESSION = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3",
                      32773: "PackBits", 32809: "ThunderScan", 32908: "PixarFilm",
                      32909: "PixarLog", 32946: "Deflate", 34661: "JBIG", 34676: "SGILog",
                      34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
-_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
+_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
 # the offsets Pillow's raw tiles iterate: a BYTE field's bytes are numbers
 _TIFF_ITERATED = {273, 324}
 # the fields Pillow's mode and codec are looked up by
@@ -1357,6 +1373,10 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
     # libtiff's CCITT run arrays and its no-EOL mode, kept across strips
     runs = np.zeros(2 * (2 if lt.comp == 4 or t4 & 1 else 1) * ((tw + 32) // 32 * 32) + 1,
                     np.uint32) if lt.comp in (2, 3, 4) else None
+    # TIFFStripSize or TIFFTileSize: TIFFFillStrip and TIFFFillTile cut a
+    # byte count over 1 MiB to ten of these and 4 KiB before they read it
+    chunk = (-(-th // sub[1]) * -(-tw // sub[0]) * (sub[0] * sub[1] + 2) if ycbcr
+             else th * ((tw * per * b + 7) // 8))
     k = 0
     for p in range(nplanes):
         for ty in range(down):
@@ -1367,6 +1387,16 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
                 w, h = min(tw, t.w - x0), min(rows, t.h - y0)
                 off, cnt = offsets[k], counts[k]
                 k += 1
+                if cnt > 1 << 20 and (cnt - 4096) // 10 > chunk:
+                    cnt = chunk * 10 + 4096
+                if (ycbcr and lt.tiled and units is not None
+                        and (cnt == 0 or off + cnt > len(t.data))):
+                    # the RGBA reader goes on past a later tile of its row that
+                    # libtiff cannot fill, converting the tile buffer it zeroed
+                    units[:] = 0
+                    block = ycc.rgb(units, tw, rows, *sub, w, h)
+                    out[y0:y0 + h, x0:x0 + w] = block[:h, :w]
+                    continue
                 if cnt == 0:
                     raise ValueError("corrupt TIFF: a strip or tile of 0 bytes")
                 raw = t.data[off:off + cnt]
@@ -1416,8 +1446,9 @@ def _tiff_check_ratio(lt: _LibTiff, cnt: int, size: int) -> None:
     """The check of _TIFFReadEncodedTileAndAllocBuffer, which libtiff's RGBA
     reader allocates a row of tiles' buffer through (a strip's has none):
     above 100,000,000 bytes, data under a thousandth of the tile (a 7000th
-    for LZMA) is a likely invalid byte count, and fails the image."""
-    ratio = 7000 if lt.comp == 34925 else 1000
+    for LZMA, a 33000th for ZSTD) is a likely invalid byte count, and fails
+    the image."""
+    ratio = {34925: 7000, 50000: 33000}.get(lt.comp, 1000)
     if size > 100_000_000 and cnt < size // ratio:
         raise ValueError(f"corrupt TIFF: likely invalid tile byte count ({cnt} for a tile of "
                          f"{size} bytes, libtiff's RGBA reader refuses it)")
@@ -1426,14 +1457,15 @@ def _tiff_check_ratio(lt: _LibTiff, cnt: int, size: int) -> None:
 def _tiff_decompress(lib, err, t, raw: bytes, out: np.ndarray, width: int, t4: int,
                      tolerant: bool = False, runs: Optional[np.ndarray] = None) -> None:
     """One strip or tile decompressed into ``out`` (uint8, the strip's
-    bytes): Deflate and LZMA through zlib and liblzma as libtiff calls them,
+    bytes): Deflate, LZMA and ZSTD through zlib, liblzma and libzstd as
+    libtiff calls them,
     the rest in tiff.cc. FillOrder 2 reverses the bits of every byte first,
     as TIFFFillStrip does. Raises where libtiff fails the strip, but
     ``tolerant``: what was decoded before the error stays, the rest of
     ``out`` as it was (libtiff's RGBA reader converts it all the same).
     ``runs``: libtiff's CCITT run arrays, kept across a file's strips."""
     comp = t.comp
-    if comp in (8, 32946, 34925):
+    if comp in (8, 32946, 34925, 50000):
         if t.fill == 2:
             raw = raw.translate(_REVERSED_BITS)
         if not _inflate(comp, raw, out) and not tolerant:
@@ -1470,18 +1502,39 @@ class _LzmaStream(ctypes.Structure):
                 ("reserved_enum", ctypes.c_int * 2)]
 
 
+class _ZstdBuffer(ctypes.Structure):  # ZSTD_inBuffer and ZSTD_outBuffer
+    _fields_ = [("ptr", ctypes.c_void_p), ("size", ctypes.c_size_t), ("pos", ctypes.c_size_t)]
+
+
 _stream_libs: dict = {}
 
 
 def _stream_lib(name: str) -> ctypes.CDLL:
     """zlib (``libz.so.1``) or liblzma (``liblzma.so.5``), the libraries
     Python's ``zlib`` and ``lzma`` modules are built on (imported above, so
-    the loader finds the copy they loaded), called as libtiff calls them:
-    their errors come after output that Python's wrappers discard."""
+    the loader finds the copy they loaded), or the system's libzstd
+    (``libzstd.so.1``: Python 3.12 has no zstd module), called as libtiff
+    calls them: their errors come after output that Python's wrappers
+    discard."""
     with _lock:
         if name not in _stream_libs:
-            lib = ctypes.CDLL(name)
-            if name == "libz.so.1":
+            try:
+                lib = ctypes.CDLL(name)
+            except OSError:
+                what = {"libzstd.so.1": "ZSTD", "liblzma.so.5": "LZMA"}.get(name, "Deflate")
+                raise ValueError(f"unsupported TIFF: {what} compression needs the system's "
+                                 f"{name}, which this host lacks") from None
+            if name == "libzstd.so.1":
+                lib.ZSTD_createDStream.restype = ctypes.c_void_p
+                lib.ZSTD_freeDStream.argtypes = [ctypes.c_void_p]
+                lib.ZSTD_initDStream.argtypes = [ctypes.c_void_p]
+                lib.ZSTD_initDStream.restype = ctypes.c_size_t
+                lib.ZSTD_decompressStream.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                                      ctypes.c_void_p]
+                lib.ZSTD_decompressStream.restype = ctypes.c_size_t
+                lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
+                lib.ZSTD_isError.restype = ctypes.c_uint
+            elif name == "libz.so.1":
                 lib.zlibVersion.restype = ctypes.c_char_p
                 lib.inflateInit_.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
                 lib.inflate.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -1496,8 +1549,9 @@ def _stream_lib(name: str) -> ctypes.CDLL:
 
 
 def _inflate(comp: int, raw: bytes, out: np.ndarray) -> bool:
-    """Decompress a Deflate or LZMA strip into ``out`` (uint8, its size the
-    strip's) as tif_zip.c's ZIPDecode and tif_lzma.c's LZMADecode do, in one
+    """Decompress a Deflate, LZMA or ZSTD strip into ``out`` (uint8, its
+    size the strip's) as tif_zip.c's ZIPDecode, tif_lzma.c's LZMADecode and
+    tif_zstd.c's ZSTDDecode do, in one
     call on the whole strip: Deflate fails on any zlib error, even one after
     the strip is full, and zeroes what a stream that ends early leaves;
     LZMA fails only where the strip is not full, so an error liblzma reports
@@ -1505,6 +1559,8 @@ def _inflate(comp: int, raw: bytes, out: np.ndarray) -> bool:
     strip decoded; what came out before a failure stays in ``out``."""
     src = ctypes.create_string_buffer(raw, len(raw))
     size = out.size
+    if comp == 50000:
+        return _unzstd(src, len(raw), out)
     if comp == 34925:
         lib = _stream_lib("liblzma.so.5")
         s = _LzmaStream()
@@ -1545,6 +1601,30 @@ def _inflate(comp: int, raw: bytes, out: np.ndarray) -> bool:
         return True
     finally:
         lib.inflateEnd(ctypes.byref(s))
+
+
+def _unzstd(src, n: int, out: np.ndarray) -> bool:
+    """tif_zstd.c's ZSTDDecode: a stream started afresh, then
+    ZSTD_decompressStream while it reports more to come and both buffers
+    have room; an error, or a strip left short, fails it, and what libzstd
+    has not reported written is zeroed (it may have written past that)."""
+    lib = _stream_lib("libzstd.so.1")
+    ds = lib.ZSTD_createDStream()
+    if not ds:
+        raise MemoryError("libzstd could not start a decoder")
+    try:
+        if lib.ZSTD_isError(lib.ZSTD_initDStream(ds)):
+            raise MemoryError("libzstd could not start a decoder")
+        ibuf = _ZstdBuffer(ctypes.addressof(src), n, 0)
+        obuf = _ZstdBuffer(out.ctypes.data, out.size, 0)
+        while True:
+            ret = lib.ZSTD_decompressStream(ds, ctypes.byref(obuf), ctypes.byref(ibuf))
+            if lib.ZSTD_isError(ret) or not (ret != 0 and ibuf.pos < ibuf.size
+                                             and obuf.pos < obuf.size):
+                out[obuf.pos:] = 0
+                return obuf.pos == out.size and not lib.ZSTD_isError(ret)
+    finally:
+        lib.ZSTD_freeDStream(ds)
 
 
 def _tiff_accumulate(rows: np.ndarray, w: int, spp: int, bits: int, e: str) -> np.ndarray:
@@ -1737,12 +1817,16 @@ def _cmyk_rgb(v: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray((nk - (((t >> 8) + t) >> 8)).astype(np.uint8))
 
 
-def _rows(fmt: str, data: bytes, offset: int, rows: int, row_bytes: int) -> np.ndarray:
-    """Pillow's raw decoder on rows packed end to end: (rows, row_bytes),
-    or a truncated file's error."""
-    if offset + rows * row_bytes > len(data):
+def _rows(fmt: str, data: bytes, offset: int, rows: int, row_bytes: int,
+          stride: Optional[int] = None) -> np.ndarray:
+    """Pillow's raw decoder on rows ``stride`` bytes apart (packed end to
+    end by default): (rows, row_bytes), or a truncated file's error; the
+    last row needs none of its padding."""
+    stride = row_bytes if stride is None else stride
+    if offset + max(rows - 1, 0) * stride + (row_bytes if rows > 0 else 0) > len(data):
         raise ValueError(f"truncated {fmt}: the pixel rows end early")
-    return np.frombuffer(data, np.uint8, rows * row_bytes, offset).reshape(rows, row_bytes)
+    return np.lib.stride_tricks.as_strided(
+        np.frombuffer(data, np.uint8, len(data) - offset, offset), (rows, row_bytes), (stride, 1))
 
 
 def _bits(rows: np.ndarray, w: int) -> np.ndarray:
@@ -2338,6 +2422,392 @@ def _sgi_pixels(data, comp, bpc, mode, w, h) -> np.ndarray:
     return _mode_rgb(px[::-1], mode)  # 16-bit samples keep their high byte
 
 
+# --- SUN (SunImagePlugin) ---------------------------------------------------
+
+# depth → (mode, raw mode's unpacking): 1 is "1;I" (a set bit black), 4 is
+# "L;4", 24 and 32 are BGR / BGRX but for type 3's RGB / RGBX
+_SUN_MODES = {1: "1", 4: "L", 8: "L", 24: "RGB", 32: "RGB"}
+
+
+def _open_sun(data: bytes):
+    magic, w, h, depth, _, ftype, ptype, plen = struct.unpack_from(">8I", data)
+    if depth not in _SUN_MODES:
+        raise _NotThisFormat(f"SUN depth {depth}")
+    mode = _SUN_MODES[depth]
+    palette = None
+    if plen:
+        if plen > 1024 or ptype != 1:
+            raise _NotThisFormat("an unsupported SUN palette")
+        raw = data[32:32 + plen]  # planar: the reds, then the greens, then the blues
+        k = len(raw) // 3
+        palette = np.frombuffer(raw, np.uint8, 3 * k).reshape(3, k).T
+        if mode == "L":
+            mode = "P"
+    if ftype not in (0, 1, 2, 3, 4, 5):
+        raise _NotThisFormat(f"SUN file type {ftype}")
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("a SUN image of no pixels")
+    _bomb("SUN", w, h)
+    return lambda: _sun_pixels(data, 32 + plen, mode, depth, ftype, w, h, palette)
+
+
+def _sun_pixels(data, offset, mode, depth, ftype, w, h, palette) -> np.ndarray:
+    if palette is not None and mode != "P":  # Pillow's putpalette refuses the mode
+        raise ValueError(f"corrupt SUN: a colour map on a {depth}-bit image")
+    if palette is not None and len(palette) > 256:
+        raise ValueError(f"corrupt SUN: a colour map of {len(palette)} entries")
+    row_bytes = (w * depth + 7) // 8
+    if ftype == 2:  # RLE rows are not padded
+        rows = np.empty((h, row_bytes), np.uint8)
+        _raster("sun_rle", data[offset:], max(0, len(data) - offset), row_bytes, h,
+                rows.ctypes.data)
+    else:  # rows padded to 16 bits
+        rows = _rows("SUN", data, offset, h, row_bytes, (w * depth + 15) // 16 * 2)
+    if depth == 1:
+        return _gray((1 - _bits(rows, w)) * 255)
+    if depth == 4:
+        px = np.stack([rows >> 4, rows & 15], -1).reshape(h, -1)[:, :w]
+        return _mode_rgb(px[..., None], mode, palette) if mode == "P" else _gray(px * 17)
+    if depth == 8:
+        return _mode_rgb(rows[..., None], mode, palette)
+    px = rows.reshape(h, w, depth // 8)[..., :3]
+    return np.ascontiguousarray(px if ftype == 3 else px[..., ::-1])
+
+
+# --- MSP (MspImagePlugin) ---------------------------------------------------
+
+def _open_msp(data: bytes):
+    s = data[:32]
+    words = struct.unpack("<16H", s)
+    if np.bitwise_xor.reduce(np.array(words)) != 0:
+        raise _NotThisFormat("bad MSP checksum")
+    w, h = words[2], words[3]
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("an MSP image of no pixels")
+    _bomb("MSP", w, h)
+    row_bytes = (w + 7) // 8
+
+    def load():
+        if s[:4] == b"DanM":
+            rows = _rows("MSP", data, 32, h, row_bytes)
+        else:  # LinS: the row map, then each row's runs
+            rows = np.empty((h, row_bytes), np.uint8)
+            _raster("msp_rle", data[32:], max(0, len(data) - 32), row_bytes, h,
+                    rows.ctypes.data)
+        return _gray(_bits(rows, w) * 255)
+
+    return load
+
+
+# --- XBM (XbmImagePlugin) ---------------------------------------------------
+
+_XBM_HEAD = re.compile(
+    rb"\s*#define[ \t]+.*_width[ \t]+(?P<width>[0-9]+)[\r\n]+"
+    rb"#define[ \t]+.*_height[ \t]+(?P<height>[0-9]+)[\r\n]+"
+    rb"(?P<hotspot>"
+    rb"#define[ \t]+[^_]*_x_hot[ \t]+(?P<xhot>[0-9]+)[\r\n]+"
+    rb"#define[ \t]+[^_]*_y_hot[ \t]+(?P<yhot>[0-9]+)[\r\n]+"
+    rb")?"
+    rb"[\000-\377]*_bits\[]")
+
+
+def _open_xbm(data: bytes):
+    """XbmImageFile: its header on the first 512 bytes, the bits from the
+    header's end, each byte's least significant bit first, a set bit white."""
+    m = _XBM_HEAD.match(data[:512])
+    if not m:
+        raise _NotThisFormat("not an XBM file")
+    w, h, at = int(m["width"]), int(m["height"]), m.end()
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("an XBM image of no pixels")
+    _bomb("XBM", w, h)
+
+    def load():
+        row_bytes = (w + 7) // 8
+        rows = np.empty((h, row_bytes), np.uint8)
+        _raster("xbm", data[at:], len(data) - at, rows.size, rows.ctypes.data)
+        return _gray(np.unpackbits(rows, axis=1, bitorder="little")[:, :w] * 255)
+
+    return load
+
+
+# --- XPM (XpmImagePlugin) ---------------------------------------------------
+
+_XPM_HEAD = re.compile(rb'"([0-9]*) ([0-9]*) ([0-9]*) ([0-9]*)')
+
+
+def _readline(c: _Cursor) -> bytes:
+    """A file object's readline: up to and with the next newline."""
+    end = c.data.find(b"\n", c.pos)
+    return c.read(end + 1 - c.pos if end >= 0 else -1)
+
+
+def _open_xpm(data: bytes):
+    """XpmImageFile: the values line, then a colour a line (``c`` and
+    ``#rrggbb`` or ``None``, the transparency key, which no pixel may use);
+    over 256 colours make RGB, else P."""
+    c = _Cursor(data, 9)
+    while True:
+        line = _readline(c)
+        if not line:
+            raise _NotThisFormat("broken XPM file")
+        m = _XPM_HEAD.match(line)
+        if m:
+            break
+    try:
+        w, h, colours, cpp = (int(v) for v in m.groups())
+    except ValueError:
+        raise ValueError("corrupt XPM: a value of its header is empty") from None
+    palette = {}
+    for _ in range(colours):
+        line = _readline(c).rstrip()
+        key, s = line[1:cpp + 1], line[cpp + 1:-2].split()
+        for i in range(0, len(s), 2):
+            if s[i] == b"c":
+                rgb = s[i + 1]  # an IndexError passes the file on, as in Pillow
+                if rgb.startswith(b"#"):
+                    try:
+                        v = int(rgb[1:], 16)
+                    except ValueError:
+                        raise ValueError(f"corrupt XPM: colour {rgb!r}") from None
+                    palette[key] = ((v >> 16) & 255, (v >> 8) & 255, v & 255)
+                elif rgb != b"None":
+                    raise ValueError(f"unsupported XPM: colour {rgb[:20]!r}")
+                break
+        else:
+            raise ValueError("corrupt XPM: a colour line without its colour")
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("an XPM image of no pixels")
+    _bomb("XPM", w, h)
+    return lambda: _xpm_pixels(data, c.pos, w, h, cpp, palette)
+
+
+def _xpm_pixels(data, offset, w, h, cpp, palette) -> np.ndarray:
+    """XpmDecoder: whole lines, their text between the first and the last
+    quote, until the image is full (a "/* pixels */" line skipped once);
+    every key of the lines read must be a colour's."""
+    c, total, texts, header = _Cursor(data, offset), 0, [], False
+    while total < w * h:
+        line = _readline(c)
+        if not line:
+            break
+        if line.rstrip() == b"/* pixels */" and not header:
+            header = True
+            continue
+        text = b'"'.join(line.split(b'"')[1:-1])
+        if cpp <= 0 or len(text) % cpp:
+            raise ValueError("corrupt XPM: a pixel line is not whole keys")
+        texts.append(text)
+        total += len(text) // cpp
+    if total < w * h:
+        raise ValueError("truncated XPM: not enough image data")
+    keys = np.frombuffer(b"".join(texts), np.uint8).reshape(-1, cpp)
+    known = np.frombuffer(b"".join(palette), np.uint8).reshape(-1, cpp)
+    colours = np.array(list(palette.values()), np.uint8).reshape(-1, 3)
+    if cpp <= 2:  # a table of every key
+        lut = np.full(256 ** cpp, -1, np.int64)
+        def code(k):
+            return k[:, 0].astype(np.int64) << 8 | k[:, 1] if cpp == 2 else k[:, 0]
+
+        lut[code(known)] = np.arange(len(known))
+        at = lut[code(keys)]
+        if (at < 0).any():
+            raise ValueError("corrupt XPM: a pixel's key is not one of its colours")
+        return np.ascontiguousarray(colours[at[:w * h]].reshape(h, w, 3))
+    # wider keys compare as raw records
+    keys, known = keys.copy().view(f"V{cpp}")[:, 0], known.copy().view(f"V{cpp}")[:, 0]
+    order = np.argsort(known, kind="stable")
+    at = np.minimum(np.searchsorted(known[order], keys), max(len(known) - 1, 0))
+    if not len(known) or (known[order][at] != keys).any():
+        raise ValueError("corrupt XPM: a pixel's key is not one of its colours")
+    return np.ascontiguousarray(colours[order[at[:w * h]]].reshape(h, w, 3))
+
+
+# --- ICNS (IcnsImagePlugin) -------------------------------------------------
+
+# IcnsFile.SIZES: (width, height, scale) → its members, in the order read
+_ICNS_SIZES = {
+    (512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",), (256, 256, 2): (b"ic14",),
+    (256, 256, 1): (b"ic08",), (128, 128, 2): (b"ic13",),
+    (128, 128, 1): (b"ic07", b"it32", b"t8mk"), (64, 64, 1): (b"icp6",),
+    (32, 32, 2): (b"ic12",), (48, 48, 1): (b"ih32", b"h8mk"),
+    (32, 32, 1): (b"icp5", b"il32", b"l8mk"), (16, 16, 2): (b"ic11",),
+    (16, 16, 1): (b"icp4", b"is32", b"s8mk")}
+_ICNS_RLE = (b"it32", b"ih32", b"il32", b"is32")
+_ICNS_MASKS = (b"t8mk", b"h8mk", b"l8mk", b"s8mk")
+_JPEG2000_SIGNATURES = (b"\xff\x4f\xff\x51", b"\x0d\x0a\x87\x0a")
+_JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
+
+
+def _open_icns(data: bytes):
+    """IcnsFile's members (a later one of a type wins), the size
+    ``bestsize()`` picks; its RGB member (RLE24, ``it32`` after a 4-byte
+    prefix) with its mask read and dropped, or its PNG member decoded from
+    its start to the file's end without the PNG's orientation (the icon
+    keeps none of its info). A JPEG 2000 member is refused by name."""
+    _, filesize = struct.unpack(">4sI", data[:8])
+    members, at = {}, 8
+    while at < filesize:
+        sig, size = struct.unpack(">4sI", data[at:at + 8])
+        if size <= 0:
+            raise _NotThisFormat("invalid ICNS block header")
+        members[sig] = (at + 8, size - 8)
+        at += size
+    sizes = [k for k, v in _ICNS_SIZES.items() if any(t in members for t in v)]
+    if not sizes:
+        raise _NotThisFormat("no 32-bit icon resources in the ICNS file")
+    best = max(sizes)
+    full = (best[0] * best[2], best[1] * best[2])
+    return lambda: _icns_pixels(data, members, best, full, sizes)
+
+
+def _icns_pixels(data, members, best, full, sizes) -> np.ndarray:
+    rgb = png = None
+    for typ in _ICNS_SIZES[best]:
+        if typ not in members:
+            continue
+        start, length = members[typ]
+        n = full[0] * full[1]
+        if typ in _ICNS_MASKS:
+            if len(data[start:start + n]) < n:
+                raise ValueError("truncated ICNS: a mask ends early")
+        elif typ in _ICNS_RLE:
+            if typ == b"it32":
+                if data[start:start + 4] != bytes(4):
+                    raise ValueError("corrupt ICNS: an it32 member without its zero prefix")
+                start, length = start + 4, length - 4
+            rgb = _icns_rgb(data, start, length, full)
+        else:
+            sig = data[start:start + 12]
+            if sig.startswith(PNG_SIGNATURE):
+                png = _decode_png(data[start:], oriented=False)
+            elif sig.startswith(_JPEG2000_SIGNATURES) or sig == _JP2_SIGNATURE:
+                raise _Refused("ICNS", "a JPEG 2000 member")
+            else:
+                raise ValueError("unsupported ICNS: an icon member that is neither PNG nor "
+                                 "JPEG 2000")
+    if png is not None:  # IcnsImageFile takes the PNG's size where its sizes allow it
+        ph, pw = png.shape[:2]
+        if not any((s[1] * s[2]) / ph == (s[0] * s[2]) // pw for s in sizes):
+            raise ValueError(f"corrupt ICNS: a {pw}x{ph} PNG member is none of its sizes")
+        return png
+    if rgb is None:
+        raise ValueError("corrupt ICNS: a mask without its image")
+    return rgb
+
+
+def _icns_rgb(data, start, length, size) -> np.ndarray:
+    """IcnsImagePlugin.read_32: raw RGB where the member is exactly that
+    long, else RLE24, the channels one after another."""
+    w, h = size
+    if length == w * h * 3:
+        return _rows("ICNS", data, start, h, w * 3).reshape(h, w, 3)
+    out = np.empty((h, w, 3), np.uint8)
+    _raster("icns_rle", data[start:], max(0, len(data) - start), w * h, out.ctypes.data)
+    return out
+
+
+# --- DDS (DdsImagePlugin: the first surface) --------------------------------
+
+_DDPF_ALPHAPIXELS, _DDPF_FOURCC, _DDPF_PAL8, _DDPF_RGB, _DDPF_LUMINANCE = (
+    0x1, 0x4, 0x20, 0x40, 0x20000)
+# FourCC → (block kind, signed)
+_DDS_FOURCC = {b"DXT1": (1, 0), b"DXT3": (2, 0), b"DXT5": (3, 0), b"BC4U": (4, 0),
+               b"ATI1": (4, 0), b"BC5S": (5, 1), b"BC5U": (5, 0), b"ATI2": (5, 0)}
+# DXGI format → (block kind, signed), 0 for uncompressed RGBA
+_DDS_DXGI = {70: (1, 0), 71: (1, 0), 73: (2, 0), 74: (2, 0), 76: (3, 0), 77: (3, 0),
+             79: (4, 0), 80: (4, 0), 82: (5, 0), 83: (5, 0), 84: (5, 1), 97: (7, 0),
+             98: (7, 0), 99: (7, 0), 27: (0, 0), 28: (0, 0), 29: (0, 0)}
+
+
+def _open_dds(data: bytes):
+    """DdsImageFile: the 124-byte header, then uncompressed RGB by its masks,
+    luminance (L, LA), an 8-bit palette of 1024 RGBA bytes, or blocks of a
+    FourCC or of a DX10 header's DXGI format; what Pillow does not decode,
+    or raises on, raises naming it. The pixels start where the header (and
+    palette) ends: the first surface."""
+    (hsize,) = struct.unpack("<I", data[4:8])
+    if hsize != 124:
+        raise ValueError(f"unsupported DDS: a header of {hsize} bytes")
+    header = data[8:128]
+    if len(header) != 120:
+        raise ValueError(f"truncated DDS: a header of {len(header)} bytes")
+    h, w = struct.unpack_from("<2I", header, 4)
+    pfflags, fourcc, bitcount = struct.unpack_from("<I4sI", header, 72)
+    offset, kind, sign, palette = 128, None, 0, None
+    if pfflags & _DDPF_RGB:
+        n = 4 if pfflags & _DDPF_ALPHAPIXELS else 3
+        masks = struct.unpack_from(f"<{n}I", header, 84)[:3]
+        load = lambda: _dds_rgb(data, w, h, bitcount // 8, masks)  # noqa: E731
+    elif pfflags & _DDPF_LUMINANCE:
+        if bitcount == 8:
+            bands = 1
+        elif bitcount == 16 and pfflags & _DDPF_ALPHAPIXELS:
+            bands = 2
+        else:
+            raise ValueError(f"unsupported DDS: {bitcount}-bit luminance")
+        load = lambda: _gray(_rows("DDS", data, offset, h, w * bands)[:, ::bands])  # noqa: E731
+    elif pfflags & _DDPF_PAL8:
+        raw = data[128:128 + 1024]
+        palette = np.frombuffer(raw, np.uint8, len(raw) // 4 * 4).reshape(-1, 4)[:, :3]
+        offset += len(raw)
+        load = lambda: _mode_rgb(_rows("DDS", data, offset, h, w)[..., None], "P",  # noqa: E731
+                                 palette)
+    elif pfflags & _DDPF_FOURCC:
+        if fourcc == b"DX10":
+            (dxgi,) = struct.unpack("<I", data[128:132])
+            offset = 148
+            if dxgi in (94, 95, 96):
+                raise _Refused("DDS", f"BC6H HDR float blocks (DXGI format {dxgi})")
+            if dxgi not in _DDS_DXGI:
+                raise ValueError(f"unsupported DDS: DXGI format {dxgi}, which Pillow does not "
+                                 "implement")
+            kind, sign = _DDS_DXGI[dxgi]
+            if not kind:
+                load = lambda: np.ascontiguousarray(  # noqa: E731
+                    _rows("DDS", data, offset, h, w * 4).reshape(h, w, 4)[..., :3])
+        elif fourcc in _DDS_FOURCC:
+            kind, sign = _DDS_FOURCC[fourcc]
+        else:
+            raise ValueError(f"unsupported DDS: pixel format {fourcc!r}, which Pillow does not "
+                             "implement")
+        if kind:
+            load = lambda: _dds_blocks(data, offset, w, h, kind, sign)  # noqa: E731
+    else:
+        raise ValueError(f"unsupported DDS: pixel format flags {pfflags:#x}")
+    if w <= 0 or h <= 0:
+        raise _NotThisFormat("a DDS of no pixels")
+    _bomb("DDS", w, h)
+    return load
+
+
+def _dds_rgb(data: bytes, w: int, h: int, step: int, masks) -> np.ndarray:
+    """DdsRgbDecoder: ``step`` bytes a pixel read as a little-endian number
+    (past the file's end, zero), each mask's bits scaled to 255 and
+    truncated."""
+    size = max(0, len(data) - 128)
+    n = min(w * h, -(-size // step)) if step else 0  # the pixels the file reaches
+    px = np.frombuffer(data, np.uint8, min(size, n * step), 128)
+    if px.size < n * step:  # the last pixel cut short: its missing bytes are zero
+        px = np.concatenate([px, np.zeros(n * step - px.size, np.uint8)])
+    low = np.zeros((w * h, 4), np.uint8)  # the masks are 32 bits: a number's low 4 bytes
+    low[:n, :min(step, 4)] = px.reshape(n, step)[:, :4]
+    v = low.view("<u4")[:, 0]
+    out = np.zeros((w * h, 3), np.uint8)
+    for k, mask in enumerate(masks):
+        if mask:
+            shift = (mask & -mask).bit_length() - 1
+            out[:, k] = ((v & np.uint32(mask)) >> np.uint32(shift)) / (mask >> shift) * 255
+    return out.reshape(h, w, 3)
+
+
+def _dds_blocks(data, offset, w, h, kind, sign) -> np.ndarray:
+    out = np.empty((h, w, 3), np.uint8)
+    _raster("bcn", data[offset:], max(0, len(data) - offset), w, h, kind, sign,
+            out.ctypes.data)
+    return out
+
+
 # --- the formats Pillow opens and the port does not decode -------------------
 
 def _gbr_claims(data: bytes) -> None:
@@ -2509,7 +2979,7 @@ _FORMATS = (
     ("CUR", lambda p: p[:4] == b"\0\0\2\0", _open_cur),
     ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5), _open_pcx),
     ("DCX", lambda p: len(p) >= 4 and _u32("<", p) == 0x3ADE68B1, _open_dcx),
-    ("DDS", lambda p: p[:4] == b"DDS ", _refused("DDS", "DirectDraw surfaces")),
+    ("DDS", lambda p: p[:4] == b"DDS ", _open_dds),
     ("EPS", lambda p: p[:4] == b"%!PS" or (len(p) >= 4 and _u32("<", p) == 0xC6D3D0C5),
      _refused("EPS", "PostScript, which Pillow renders with Ghostscript")),
     ("FITS", lambda p: p[:6] == b"SIMPLE", _refused("FITS", "astronomy images")),
@@ -2523,7 +2993,7 @@ _FORMATS = (
     ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _refused("HDF5", "a stub Pillow cannot load")),
     ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51"
      or p[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _refused("JPEG2000", "JPEG 2000: EBCOT and wavelets")),
-    ("ICNS", lambda p: p[:4] == b"icns", _refused("ICNS", "Apple icons")),
+    ("ICNS", lambda p: p[:4] == b"icns", _open_icns),
     ("ICO", lambda p: p[:4] == b"\0\0\1\0", _open_ico),
     ("IM", lambda p: True, _refused("IM", "IFUNC images", _im_claims)),
     ("IMT", lambda p: True, _refused("IMT", "IM Tools images", _imt_claims)),
@@ -2532,21 +3002,20 @@ _FORMATS = (
      _refused("MCIDAS", "McIdas area files")),
     ("MPEG", lambda p: p[:4] == b"\x00\x00\x01\xb3", _refused("MPEG", "a stub Pillow cannot load")),
     ("TIFF", lambda p: p[:4] in _TIFF_PREFIXES, _decoded(_decode_tiff)),
-    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _refused("MSP", "Microsoft Paint images")),
+    ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _open_msp),
     ("PCD", lambda p: True, _refused("PCD", "Kodak PhotoCD", _pcd_claims)),
     ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _refused("PIXAR", "Pixar images")),
     ("PSD", lambda p: p[:4] == b"8BPS", _open_psd),
     ("QOI", lambda p: p[:4] == b"qoif", _open_qoi),
     ("SGI", lambda p: len(p) >= 2 and _u16(">", p) == 474, _open_sgi),
     ("SPIDER", lambda p: True, _refused("SPIDER", "Spider 2D images", _spider_claims)),
-    ("SUN", lambda p: len(p) >= 4 and _u32(">", p) == 0x59A66A95,
-     _refused("SUN", "Sun raster images")),
+    ("SUN", lambda p: len(p) >= 4 and _u32(">", p) == 0x59A66A95, _open_sun),
     ("TGA", lambda p: True, _open_tga),
     ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _decoded(_decode_webp)),
     ("WMF", lambda p: p[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or p[:4] == b"\x01\x00\x00\x00",
      _refused("WMF", "Windows metafiles, which Pillow cannot load here")),
-    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _refused("XBM", "X bitmaps")),
-    ("XPM", lambda p: p[:9] == b"/* XPM */", _refused("XPM", "X pixmaps")),
+    ("XBM", lambda p: p.lstrip().startswith(b"#define"), _open_xbm),
+    ("XPM", lambda p: p[:9] == b"/* XPM */", _open_xpm),
     ("XVTHUMB", lambda p: p[:6] == b"P7 332", _refused("XVTHUMB", "XV thumbnails")),
 )
 

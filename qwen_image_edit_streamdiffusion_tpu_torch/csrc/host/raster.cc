@@ -10,10 +10,17 @@
 //   padded past their length moved together before the line is read;
 // - SGI RLE (SgiRleDecode.c): each row of each channel from its offset and
 //   length tables, expandrow's bounds and its early ends;
-// - QOI (QoiImagePlugin.QoiDecoder).
+// - QOI (QoiImagePlugin.QoiDecoder);
+// - SUN RLE (SunRleDecode.c): 0x80 escapes a run or a literal 0x80, a run
+//   past the row's end runs on into the next rows;
+// - MSP version 2 (MspImagePlugin.MspDecoder): each row of the row map
+//   decoded on from the last, an empty row white;
+// - XBM (XbmDecode.c): the two characters after each 'x' as hex digits;
+// - ICNS RLE24 (IcnsImagePlugin.read_32): three channels one after another.
 //
 // Every entry point returns 0, or a negative value with a message in `err`.
 
+#include <algorithm>
 #include <cstring>
 #include <vector>
 
@@ -264,6 +271,137 @@ void qoi(const uint8_t* p, size_t n, size_t pixels, uint8_t* out) {
   }
 }
 
+// SunRleDecode.c: `rows` rows of `row_bytes` (not padded, as the decoder
+// counts them).
+void sun_rle(const uint8_t* p, size_t n, size_t row_bytes, size_t rows, uint8_t* out) {
+  std::vector<uint8_t> row(row_bytes);
+  size_t x = 0, y = 0;
+  auto truncated = [] {
+    return CodecError("truncated SUN: the RLE data ends before the image is full");
+  };
+  while (true) {
+    if (n < 1) throw truncated();
+    size_t count = 1, extra = 0;
+    uint8_t value = p[0];
+    if (p[0] == 0x80) {
+      if (n < 2) throw truncated();
+      if (p[1] == 0) {  // a literal 0x80
+        p += 2;
+        n -= 2;
+      } else {  // a run of p[1] + 1
+        if (n < 3) throw truncated();
+        count = size_t(p[1]) + 1;
+        value = p[2];
+        if (x + count > row_bytes) {
+          extra = count - (row_bytes - x);
+          count = row_bytes - x;
+        }
+        p += 3;
+        n -= 3;
+      }
+    } else {
+      p++;
+      n--;
+    }
+    memset(&row[x], value, count);
+    while (true) {
+      x += count;
+      if (x >= row_bytes) {
+        memcpy(out + y * row_bytes, row.data(), row_bytes);
+        x = 0;
+        if (++y >= rows) return;
+      }
+      if (extra == 0 || x > 0) break;
+      count = std::min(extra, row_bytes);
+      memset(&row[x], value, count);
+      extra -= count;
+    }
+  }
+}
+
+// MspDecoder: `rows` row lengths (little-endian 16-bit) from the start of
+// `p`, then each row's packets; the rows' output joined end to end into
+// `out` (`size` bytes, the image's rows of `row_bytes`), what is past it
+// dropped. Every row is decoded, whatever it adds, as Pillow decodes them.
+void msp_rle(const uint8_t* p, size_t n, size_t row_bytes, size_t rows, uint8_t* out) {
+  const size_t size = row_bytes * rows;
+  if (n < 2 * rows) throw CodecError("truncated MSP: the row map ends early");
+  size_t at = 2 * rows, done = 0;
+  auto put = [&](const uint8_t* src, uint8_t value, size_t k) {
+    size_t take = std::min(k, size - done);
+    if (src)
+      memcpy(out + done, src, take);
+    else
+      memset(out + done, value, take);
+    done += take;
+  };
+  for (size_t r = 0; r < rows; r++) {
+    size_t len = qie::le16(p + 2 * r);
+    if (len == 0) {  // a blank line
+      put(nullptr, 0xFF, row_bytes);
+      continue;
+    }
+    if (n - at < len) throw CodecError("truncated MSP: a row ends early");
+    const uint8_t* row = p + at;
+    at += len;
+    for (size_t i = 0; i < len;) {
+      uint8_t type = row[i++];
+      if (type == 0) {
+        if (i + 2 > len) throw CodecError("corrupt MSP: a run is cut by its row's end");
+        put(nullptr, row[i + 1], row[i]);
+        i += 2;
+      } else {
+        put(row + i, 0, std::min(size_t(type), len - i));
+        i += type;
+      }
+    }
+  }
+  if (done < size) throw CodecError("corrupt MSP: not enough image data");
+}
+
+int hex_digit(uint8_t v) {
+  if (v >= '0' && v <= '9') return v - '0';
+  if (v >= 'a' && v <= 'f') return v - 'a' + 10;
+  if (v >= 'A' && v <= 'F') return v - 'A' + 10;
+  return 0;
+}
+
+// XbmDecode.c: `size` bytes, each the two characters after the next 'x'
+// (anything not a hex digit reads 0), the scan going on three past it.
+void xbm(const uint8_t* p, size_t n, size_t size, uint8_t* out) {
+  size_t at = 0;
+  for (size_t k = 0; k < size; k++) {
+    const void* x = at < n ? memchr(p + at, 'x', n - at) : nullptr;
+    if (!x) throw CodecError("truncated XBM: the bits end before the image is full");
+    at = size_t(static_cast<const uint8_t*>(x) - p);
+    if (n - at < 3) throw CodecError("truncated XBM: the bits end before the image is full");
+    out[k] = uint8_t(hex_digit(p[at + 1]) << 4 | hex_digit(p[at + 2]));
+    at += 3;
+  }
+}
+
+// IcnsImagePlugin.read_32's RLE: three channels of `pixels` bytes, one
+// after another from `p`, into RGB `out`; a literal of c + 1 bytes
+// (c < 0x80), a run of c - 125. A channel must end exactly at its size and
+// every read be whole.
+void icns_rle(const uint8_t* p, size_t n, size_t pixels, uint8_t* out) {
+  size_t at = 0;
+  for (int band = 0; band < 3; band++) {
+    size_t x = 0;
+    while (x < pixels) {
+      if (at >= n) throw CodecError("truncated ICNS: an RLE channel ends early");
+      uint8_t c = p[at++];
+      size_t k = c & 0x80 ? size_t(c) - 125 : size_t(c) + 1;
+      if (x + k > pixels) throw CodecError("corrupt ICNS: an RLE channel runs past its size");
+      if (n - at < (c & 0x80 ? 1 : k))
+        throw CodecError("truncated ICNS: an RLE channel ends early");
+      for (size_t i = 0; i < k; i++) out[3 * (x + i) + band] = p[c & 0x80 ? at : at + i];
+      at += c & 0x80 ? 1 : k;
+      x += k;
+    }
+  }
+}
+
 template <typename F>
 int guarded(char* err, int errlen, F&& f) {
   try {
@@ -306,6 +444,26 @@ int qie_sgi_rle(const uint8_t* data, long n, int xsize, int ysize, int bands, in
 
 int qie_qoi(const uint8_t* data, long n, long pixels, uint8_t* out, char* err, int errlen) {
   return guarded(err, errlen, [&] { qoi(data, size_t(n), size_t(pixels), out); });
+}
+
+int qie_sun_rle(const uint8_t* data, long n, long row_bytes, long rows, uint8_t* out,
+                char* err, int errlen) {
+  return guarded(err, errlen,
+                 [&] { sun_rle(data, size_t(n), size_t(row_bytes), size_t(rows), out); });
+}
+
+int qie_msp_rle(const uint8_t* data, long n, long row_bytes, long rows, uint8_t* out,
+                char* err, int errlen) {
+  return guarded(err, errlen,
+                 [&] { msp_rle(data, size_t(n), size_t(row_bytes), size_t(rows), out); });
+}
+
+int qie_xbm(const uint8_t* data, long n, long size, uint8_t* out, char* err, int errlen) {
+  return guarded(err, errlen, [&] { xbm(data, size_t(n), size_t(size), out); });
+}
+
+int qie_icns_rle(const uint8_t* data, long n, long pixels, uint8_t* out, char* err, int errlen) {
+  return guarded(err, errlen, [&] { icns_rle(data, size_t(n), size_t(pixels), out); });
 }
 
 }  // extern "C"

@@ -22,7 +22,8 @@ decode on a host without Pillow, as Pillow decodes them:
   beside ``base_1024.jpg`` (``chip_smoke.py`` writes the BMP, GIF and CMYK
   half itself, without Pillow), and the WebP upload of its /edit;
 - the TIFF, JPEG-variant and plain raster files (:func:`raster_fixtures`:
-  PPM, PGM, PBM, PFM, DIB, ICO, CUR, TGA, PSD, QOI, PCX, DCX, SGI).
+  PPM, PGM, PBM, PFM, DIB, ICO, CUR, TGA, PSD, QOI, PCX, DCX, SGI) and the
+  small formats (:func:`small_fixtures`: SUN, MSP, XBM, XPM, ICNS, DDS).
 
 Pillow writes neither interlaced nor 16-bit RGB PNG, so :func:`png_file`
 writes both here with ``zlib``; BMP and GIF variants Pillow does not write
@@ -31,7 +32,11 @@ settings Pillow does not expose from :func:`libwebp_encode`; PSD, CUR and
 the TGA, PCX and SGI codings Pillow does not write from :func:`psd_file`,
 :func:`icon_file`, :func:`tga_file`, :func:`pcx_file` and :func:`sgi_file`
 (numpy only: ``chip_smoke.py`` writes its 1024² set with them on a host
-without Pillow, as it does with :func:`ppm_file` and :func:`qoi_file`). ``manifest.json`` holds each file's shape and
+without Pillow, as it does with :func:`ppm_file` and :func:`qoi_file`, and
+with :func:`sun_file`, :func:`msp_file`, :func:`xbm_file`,
+:func:`xpm_file`, :func:`icns_file`, :func:`dds_file` and its block
+encoders :func:`bc1_blocks` and :func:`bc7_blocks`; ZSTD strips come from
+the system's libzstd through :func:`zstd_compress`). ``manifest.json`` holds each file's shape and
 the SHA-256 of Pillow's ``ImageOps.exif_transpose(...).convert("RGB")``
 bytes. Run it where Pillow is installed; the images come from a numpy seed.
 """
@@ -42,6 +47,7 @@ import argparse
 import hashlib
 import io
 import json
+import math
 import os
 import struct
 import zlib
@@ -441,11 +447,11 @@ def ppm_file(px: np.ndarray, maxval: int = 255, plain: bool = False) -> bytes:
 
 
 def _rle_packets(units: np.ndarray, row: int, run_max: int, literal_max: int,
-                 literal_rows: bool = False, single_runs=None):
+                 literal_rows: bool = False, single_runs=None, min_run: int = 2):
     """The packets of a run-length coding of ``units`` (N, bytes a unit):
-    runs of two or more equal units within a row of ``row`` units, in
-    pieces of up to ``run_max``; the rest as literal stretches in pieces of
-    up to ``literal_max``, which cross rows unless ``literal_rows``.
+    runs of ``min_run`` or more equal units within a row of ``row`` units,
+    in pieces of up to ``run_max``; the rest as literal stretches in pieces
+    of up to ``literal_max``, which cross rows unless ``literal_rows``.
     ``single_runs`` (N,) marks units coded as runs even alone. Returns the
     packets' first unit, unit count and whether each is a run, in order."""
     n = len(units)
@@ -454,7 +460,7 @@ def _rle_packets(units: np.ndarray, row: int, run_max: int, literal_max: int,
     new[::row] = True  # a run never crosses a row
     starts = np.flatnonzero(new)
     lens = np.diff(np.append(starts, n))
-    run = lens >= 2
+    run = lens >= min_run
     if single_runs is not None:
         run |= single_runs[starts]
     # a literal stretch starts after a run (and at a row's start where
@@ -469,8 +475,11 @@ def _rle_packets(units: np.ndarray, row: int, run_max: int, literal_max: int,
     pieces = -(-seg_len // cap)
     seg = np.repeat(np.arange(len(seg_len)), pieces)
     k = np.arange(len(seg)) - np.repeat(np.cumsum(pieces) - pieces, pieces)
-    return (seg_start[seg] + k * cap[seg], np.minimum(cap[seg], seg_len[seg] - k * cap[seg]),
-            seg_run[seg])
+    count = np.minimum(cap[seg], seg_len[seg] - k * cap[seg])
+    run = seg_run[seg]
+    if min_run > 2:  # a run's last piece too short to be one is a literal
+        run = run & (count >= min_run)
+    return seg_start[seg] + k * cap[seg], count, run
 
 
 def _emit(units: np.ndarray, heads: np.ndarray, head_bytes: np.ndarray, first: np.ndarray,
@@ -708,6 +717,251 @@ def qoi_file(px: np.ndarray) -> bytes:
     return (b"qoif" + struct.pack(">IIBB", w, h, ch, 0) + body + b"\x00" * 7 + b"\x01")
 
 
+def sun_file(px: np.ndarray, depth: int, file_type: int = 1, palette=None,
+             palette_type: int = 1) -> bytes:
+    """A Sun raster of ``px``: bits (H, W) at depth 1 (a set bit black),
+    4-bit values (H, W) at 4, bytes (H, W) at 8 (indices where a
+    ``palette`` (N, 3) is given: planar, the reds first), RGB (H, W, 3) at
+    24 and 32 (stored BGR and BGRX, RGB and RGBX for type 3). Rows padded to
+    16 bits; type 2 codes the rows as Pillow reads them (unpadded) with
+    0x80 escapes: a run of 3 to 256 as 0x80, count - 1, value (across
+    rows), a lone 0x80 as 0x80 0x00, any other byte as itself."""
+    h, w = px.shape[:2]
+    if depth == 1:
+        rows = np.packbits(px.astype(np.uint8), axis=1)
+    elif depth == 4:
+        v = np.concatenate([px, np.zeros((h, w % 2), px.dtype)], 1).astype(np.uint8)
+        rows = v[:, 0::2] << 4 | v[:, 1::2]
+    elif depth == 8:
+        rows = px.astype(np.uint8)
+    else:
+        rgb = px if file_type == 3 else px[..., ::-1]
+        if depth == 32:
+            rgb = np.concatenate([rgb, np.zeros((h, w, 1), np.uint8)], -1)
+        rows = rgb.reshape(h, -1)
+    if file_type == 2:
+        body = _sun_rle(rows.ravel())
+    else:
+        stride = (w * depth + 15) // 16 * 2
+        body = np.concatenate([rows, np.zeros((h, stride - rows.shape[1]), np.uint8)], 1).tobytes()
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), file_type,
+                       palette_type if pal else 0, len(pal)) + pal + body
+
+
+def _sun_rle(units: np.ndarray) -> bytes:
+    """SUN RLE of a byte stream: each stretch of equal bytes as runs of 256,
+    then a run of the rest where it is 3 or more, else that many literal
+    bytes (0x80 as 0x80 0x00)."""
+    n = len(units)
+    starts = np.flatnonzero(np.concatenate([[True], units[1:] != units[:-1]]))
+    lens = np.diff(np.append(starts, n))
+    vals = units[starts].astype(np.int64)
+    big = lens >= 3
+    full = np.where(big, lens // 256, 0)
+    rem = np.where(big, lens % 256, lens)
+    tail = big & (rem >= 3)
+    runs, lits = full + tail, np.where(tail, 0, rem)
+    seg = np.repeat(np.arange(len(lens)), runs + lits)  # each packet's stretch
+    k = np.arange(len(seg)) - np.repeat(np.cumsum(runs + lits) - runs - lits, runs + lits)
+    v = vals[seg]
+    run = k < runs[seg]
+    count = np.where(k < full[seg], 256, rem[seg])
+    size = np.where(run, 3, np.where(v == 0x80, 2, 1))
+    at = np.cumsum(size) - size
+    out = np.zeros(int(size.sum()), np.uint8)
+    out[at] = np.where(run | (v == 0x80), 0x80, v)
+    out[at[run] + 1] = count[run] - 1
+    out[at[run] + 2] = v[run]
+    return out.tobytes()
+
+
+def msp_file(bits: np.ndarray, version: int = 2) -> bytes:
+    """A Windows Paint file of ``bits`` (H, W), 1 white: version 1 (DanM)
+    raw, or version 2 (LinS): its row map, then each row's packets (a run as
+    0, count, value; a literal as count, bytes), up to 255 a packet."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1)
+    words = [*struct.unpack("<2H", b"DanM" if version == 1 else b"LinS"), w, h, 1, 1, 1, 1, w, h,
+             0, 0, 0, 0, 0, 0]
+    words[12] = int(np.bitwise_xor.reduce(np.array(words)))
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    units = rows.reshape(-1, 1)
+    rb = rows.shape[1]
+    first, count, run = _rle_packets(units, rb, 255, 255, literal_rows=True, min_run=3)
+    heads = np.stack([np.where(run, 0, count), np.where(run, count, 0)], 1).astype(np.uint8)
+    head_bytes = np.where(run, 2, 1)
+    body = _emit(units, heads, head_bytes, first, np.where(run, 1, count))
+    sizes = head_bytes + np.where(run, 1, count)
+    row_len = np.bincount(first // rb, weights=sizes, minlength=h).astype("<u2")
+    return head + row_len.tobytes() + body
+
+
+def xbm_file(bits: np.ndarray, hotspot=None) -> bytes:
+    """An X bitmap of ``bits`` (H, W), 1 white as Pillow reads it: its
+    defines, then each row's bytes, least significant bit first, as hex."""
+    h, w = bits.shape
+    rows = np.packbits(bits.astype(np.uint8), axis=1, bitorder="little").ravel()
+    table = [b"0x%02x" % i for i in range(256)]
+    body = b",\n".join(b", ".join(table[v] for v in rows[i:i + 12])
+                       for i in range(0, len(rows), 12))
+    hot = b"" if hotspot is None else b"#define im_x_hot %d\n#define im_y_hot %d\n" % hotspot
+    return (b"#define im_width %d\n#define im_height %d\n" % (w, h) + hot
+            + b"static char im_bits[] = {\n" + body + b"\n};\n")
+
+
+XPM_CHARS = bytes(c for c in range(0x21, 0x7F) if c not in b'"\\')
+
+
+def xpm_file(indices: np.ndarray, palette: np.ndarray, cpp=None, transparent: bool = False,
+             pixels_comment: bool = True) -> bytes:
+    """An X pixmap of ``indices`` (H, W) into ``palette`` (N, 3): ``cpp``
+    characters a pixel (the fewest that name N colours by default), a
+    ``#rrggbb`` colour a line, an unused ``None`` colour where
+    ``transparent``, a "/* pixels */" line, then a quoted row a line."""
+    h, w = indices.shape
+    n = len(palette)
+    base = len(XPM_CHARS)
+    cpp = cpp or max(1, math.ceil(math.log(n + transparent, base)) if n > 1 else 1)
+    codes = np.arange(n + transparent)[:, None] // base ** np.arange(cpp) % base
+    keys = np.frombuffer(XPM_CHARS, np.uint8)[codes]
+    lines = [b"/* XPM */", b"static char *image[] = {",
+             b'"%d %d %d %d",' % (w, h, n + transparent, cpp)]
+    for k in range(n):
+        lines.append(b'"' + keys[k].tobytes() + b" c #%02x%02x%02x" % tuple(palette[k]) + b'",')
+    if transparent:
+        lines.append(b'"' + keys[n].tobytes() + b' c None",')
+    if pixels_comment:
+        lines.append(b"/* pixels */")
+    body = keys[indices].reshape(h, w * cpp)
+    lines += [b'"' + r.tobytes() + b'",' for r in body]
+    return b"\n".join(lines) + b"\n};\n"
+
+
+def icns_rle24(rgb: np.ndarray) -> bytes:
+    """IcnsImagePlugin's RLE24: each channel in turn, runs of 3 to 130 as
+    count + 125 then the byte, literals of up to 128 as count - 1 then the
+    bytes."""
+    out = b""
+    for k in range(3):
+        units = np.ascontiguousarray(rgb[..., k]).reshape(-1, 1)
+        first, count, run = _rle_packets(units, len(units), 130, 128, min_run=3)
+        heads = np.where(run, count + 125, count - 1).astype(np.uint8)[:, None]
+        out += _emit(units, heads, np.ones(len(count), np.int64), first, np.where(run, 1, count))
+    return out
+
+
+def icns_file(members) -> bytes:
+    """An Apple icon file of ``members`` [(type, data)], in order."""
+    body = b"".join(t + struct.pack(">I", len(d) + 8) + d for t, d in members)
+    return b"icns" + struct.pack(">I", len(body) + 8) + body
+
+
+def dds_file(w: int, h: int, data: bytes, pfflags: int, fourcc: bytes = b"\0" * 4,
+             bitcount: int = 0, masks=(0, 0, 0, 0), dxgi=None, palette=None) -> bytes:
+    """A DirectDraw surface: the 124-byte header (the pixel format's
+    ``pfflags``, ``fourcc``, ``bitcount`` and RGBA ``masks``), a DX10
+    header where ``dxgi`` is given (FourCC DX10), a 256-entry RGBA
+    ``palette`` (bytes), then ``data``, the first surface."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    head = struct.pack("<4sI6I44x2I4sI4I4I4x", b"DDS ", 124, 0x1007, h, w, 0, 0, 0, 32, pfflags,
+                       fourcc, bitcount, *masks, 0x1000, 0, 0, 0)
+    ext = b"" if dxgi is None else struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return head + ext + (palette or b"") + data
+
+
+def _blocks(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) → (blocks, 16, 3): 4x4 blocks left to right, top to bottom,
+    the image padded with its edge."""
+    h, w = rgb.shape[:2]
+    p = np.pad(rgb, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge").astype(np.int64)
+    bh, bw = p.shape[0] // 4, p.shape[1] // 4
+    return p.reshape(bh, 4, bw, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+
+
+def bc1_blocks(rgb: np.ndarray) -> bytes:
+    """A plain BC1 (DXT1) coding of ``rgb``: each block's darkest and
+    brightest pixel as 5:6:5 endpoints (the brighter first, four-colour
+    mode), each pixel's index by its projection on the line between them."""
+    b = _blocks(rgb)
+    luma = b @ np.array([2, 4, 1])
+    hi = b[np.arange(len(b)), luma.argmax(1)]
+    lo = b[np.arange(len(b)), luma.argmin(1)]
+    c565 = lambda c: (c[:, 0] >> 3) << 11 | (c[:, 1] >> 2) << 5 | c[:, 2] >> 3  # noqa: E731
+    c0, c1 = c565(hi), c565(lo)
+    c0, c1 = np.maximum(c0, c1), np.minimum(c0, c1)
+
+    def widen(c):
+        r, g, bl = (c >> 11 & 31) << 3, (c >> 5 & 63) << 2, (c & 31) << 3
+        return np.stack([r | r >> 5, g | g >> 6, bl | bl >> 5], -1)
+
+    e0, e1 = widen(c0), widen(c1)
+    d = (e1 - e0)[:, None, :]  # each pixel's place from e0 (0) to e1 (3) on their line
+    t = ((b - e0[:, None, :]) * d).sum(-1) * 3 / np.maximum((d * d).sum(-1), 1)
+    idx = np.array([0, 2, 3, 1])[np.clip(np.rint(t), 0, 3).astype(np.int64)]
+    idx = np.where((c0 == c1)[:, None], 0, idx)
+    lut = (idx << (2 * np.arange(16))).sum(1)
+    out = np.zeros((len(b), 8), np.uint8)
+    out[:, 0:2] = c0.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 2:4] = c1.astype("<u2").view(np.uint8).reshape(-1, 2)
+    out[:, 4:8] = lut.astype("<u4").view(np.uint8).reshape(-1, 4)
+    return out.tobytes()
+
+
+def bc7_blocks(rgb: np.ndarray) -> bytes:
+    """A plain BC7 coding of ``rgb`` in mode 6 (one subset, 7-bit RGBA
+    endpoints with a p-bit each, 4-bit indices): each block's per-channel
+    minimum and maximum as endpoints, each pixel's nearest of the 16
+    weights between them by each pixel's projection on the line from one
+    to the other; the first pixel's index kept under 8 by swapping the
+    endpoints."""
+    b = _blocks(rgb)
+    lo, hi = b.min(1) >> 1, b.max(1) >> 1  # 7 bits
+    e0, e1 = lo << 1 | 1, hi << 1 | 1       # p-bit 1
+    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+    d = (e1 - e0)[:, None, :]
+    t = ((b - e0[:, None, :]) * d).sum(-1) * 64 / np.maximum((d * d).sum(-1), 1)
+    idx = np.searchsorted((weights[1:] + weights[:-1]) / 2, t)
+    swap = idx[:, 0] >= 8
+    lo, hi = np.where(swap[:, None], hi, lo), np.where(swap[:, None], lo, hi)
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    fields = [(np.full(len(b), 64), 7)]  # mode 6: bit 6 set
+    for c in range(3):
+        fields += [(lo[:, c], 7), (hi[:, c], 7)]
+    fields += [(np.full(len(b), 127), 7), (np.full(len(b), 127), 7), (np.ones(len(b)), 1),
+               (np.ones(len(b)), 1), (idx[:, 0], 3)]
+    fields += [(idx[:, i], 4) for i in range(1, 16)]
+    bits = np.zeros((len(b), 128), np.uint8)
+    at = 0
+    for v, n in fields:
+        v = np.asarray(v, np.int64)
+        bits[:, at:at + n] = (v[:, None] >> np.arange(n)) & 1
+        at += n
+    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+
+
+def zstd_compress(data: bytes, level: int = 9) -> bytes:
+    """A zstd frame of ``data`` through the system's libzstd (ctypes)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libzstd.so.1")
+    lib.ZSTD_compressBound.argtypes, lib.ZSTD_compressBound.restype = [ctypes.c_size_t], \
+        ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char_p,
+                                  ctypes.c_size_t, ctypes.c_int]
+    lib.ZSTD_compress.restype = ctypes.c_size_t
+    lib.ZSTD_isError.argtypes, lib.ZSTD_isError.restype = [ctypes.c_size_t], ctypes.c_uint
+    cap = lib.ZSTD_compressBound(len(data))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress(out, cap, data, len(data), level)
+    if lib.ZSTD_isError(n):
+        raise RuntimeError("ZSTD_compress failed")
+    return out.raw[:n]
+
+
 def tiff_lzw(data: bytes) -> bytes:
     """TIFF LZW: a clear code first, codes of 9 to 12 bits written most
     significant bit first, each width taken one code early (as libtiff's
@@ -941,9 +1195,9 @@ def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression:
     ``planar`` 1 (chunky) or 2 (a plane a sample); Predictor 2 (horizontal
     differencing); ``compression`` 1 (none), 2/3/4 (CCITT, ``bits`` 1, 1 =
     black pixels), 5 (LZW), 8/32946 (Deflate), 32773 (PackBits), 34925
-    (LZMA, an xz stream) or 7 (JPEG: ``jpeg(block) -> JPEG bytes`` codes each
-    strip or tile, its tables going to JPEGTables); FillOrder 2 reverses each
-    coded byte's bits; big-endian (``MM``) or little-endian, classic or
+    (LZMA, an xz stream), 50000 (ZSTD, a zstd frame) or 7 (JPEG:
+    ``jpeg(block) -> JPEG bytes`` codes each strip or tile, its tables going
+    to JPEGTables); FillOrder 2 reverses each coded byte's bits; big-endian (``MM``) or little-endian, classic or
     BigTIFF; an Orientation tag, an XMP packet, a ColorMap (N, 3) of 16-bit
     entries and any more ``tags`` ({tag: (type, values)}). YCbCr samples
     (photometric 6) not coded as JPEG are written as the data units of
@@ -987,6 +1241,8 @@ def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression:
                     elif compression == 34925:
                         import lzma
                         raw = lzma.compress(raw, check=lzma.CHECK_NONE)
+                    elif compression == 50000:
+                        raw = zstd_compress(raw)
                 if fill_order == 2 and compression != 7:
                     raw = bytes(int(f"{b:08b}"[::-1], 2) for b in raw)
                 blobs.append(raw)
@@ -1334,7 +1590,7 @@ def _fresh_realloc() -> str:
     return _fresh_lib["lib"]
 
 
-def pil_rgb_c_idct(cases, fresh_memory: bool = False) -> list:
+def pil_rgb_c_idct(cases, fresh_memory: bool = False, host_zstd: bool = True) -> list:
     """:func:`pil_rgb` of each file (None where Pillow raises), in a
     subprocess with ``JSIMD_FORCENONE=1``: libjpeg-turbo's C code paths (its
     x86 SIMD IDCT differs on the out-of-range coefficients of damaged data),
@@ -1344,14 +1600,19 @@ def pil_rgb_c_idct(cases, fresh_memory: bool = False) -> list:
     libtiff decoder grows its strip buffer with ``realloc`` and never clears
     it, so where a JPEG or Group 4 strip leaves bytes unwritten the first
     strip's pixels are whatever the heap held (pointers, varying run to
-    run); so they are the zeros a fresh allocation holds, as in the port."""
+    run); so they are the zeros a fresh allocation holds, as in the port.
+
+    ``host_zstd``: the host's libzstd is preloaded, so that Pillow's libtiff
+    calls it for ZSTD strips, as the port does (libzstd releases decode a
+    damaged frame apart, and Pillow bundles a release of its own); False
+    runs Pillow as it is installed."""
     import subprocess
     import sys
     import tempfile
 
-    env = {**os.environ, "JSIMD_FORCENONE": "1"}
-    if fresh_memory:
-        env["LD_PRELOAD"] = _fresh_realloc()
+    preload = ([_fresh_realloc()] if fresh_memory else []) + (["libzstd.so.1"] if host_zstd
+                                                              else [])
+    env = {**os.environ, "JSIMD_FORCENONE": "1", "LD_PRELOAD": " ".join(preload)}
     with tempfile.TemporaryDirectory() as tmp:
         src, dst = os.path.join(tmp, "cases.npz"), os.path.join(tmp, "out.npz")
         np.savez(src, *[np.frombuffer(c, np.uint8) for c in cases])
@@ -1433,6 +1694,7 @@ def fixtures() -> dict:
         **damaged_tiff_fixtures(),
         **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
         **raster_fixtures(),
+        **small_fixtures(),
     }
 
 
@@ -1539,6 +1801,55 @@ def tiff_fixtures() -> dict:
         "g3_2d.tif": tiff_file(bw, 0, 1, compression=3, t4options=1, rows_per_strip=16),
         "multipage.tif": multi.getvalue(),
         "orient6.tif": tiff_file(rgb, 2, 8, compression=5, orientation=6),
+        "zstd_pred.tif": tiff_file(rgb, 2, 8, compression=50000, predictor=2,
+                                   rows_per_strip=16),
+        "ycbcr_zstd_tiled.tif": tiff_file(ycc, 6, 8, compression=50000, tile=(16, 16),
+                                          ycbcr_subsampling=(2, 2)),
+    }
+
+
+def small_fixtures() -> dict:
+    """The small formats (SunImagePlugin, MSP, XBM, XPM, ICNS, DDS): Pillow's
+    own files where it writes the format (MSP version 1, XBM, DDS's DXT5
+    and uncompressed RGB), the rest from the writers above; DDS blocks of
+    each kind (BC1, BC4, BC5S and BC7 from random bytes, where every bit
+    pattern is a block)."""
+    from PIL import Image
+
+    def save(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    rng = np.random.default_rng(21)
+    rgb = scene(40, 56, 25)
+    gray = rgb[..., 1]
+    pal = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    bits = gray > 120
+    blocks = rng.integers(0, 256, 14 * 10 * 16, np.uint8).tobytes()  # 56 x 40 at 16 bytes
+    sq = scene(128, 128, 26) // 32 * 32  # runs for the RLE
+    small = scene(16, 16, 27)
+    return {
+        "pal8_rle.ras": sun_file(gray >> 2, 8, 2, palette=pal[:64]),
+        "bgr24.ras": sun_file(rgb[:, :55], 24),
+        "v1.msp": save(Image.fromarray(bits), "MSP"),
+        "v2.msp": msp_file(bits),
+        "hotspot.xbm": save(Image.fromarray(bits), "XBM", hotspot=(3, 5)),
+        "pal.xpm": xpm_file(gray >> 3, pal[:32], transparent=True),
+        "rgb300.xpm": xpm_file((gray.astype(np.int64) * 300) >> 8, rng.integers(0, 256, (300, 3))),
+        "it32.icns": icns_file([(b"is32", icns_rle24(small)), (b"s8mk", bytes(256)),
+                                (b"it32", bytes(4) + icns_rle24(sq)),
+                                (b"t8mk", bytes(128 * 128))]),
+        "png.icns": icns_file([(b"icp4", save(Image.fromarray(small), "PNG")),
+                               (b"ic11", save(Image.fromarray(scene(32, 32, 28)), "PNG"))]),
+        "dxt5.dds": save(Image.fromarray(rgb), "DDS", pixel_format="DXT5"),
+        "rgb.dds": save(Image.fromarray(rgb), "DDS"),
+        "bc1.dds": dds_file(56, 40, bc1_blocks(rgb), 0x4, b"DXT1"),
+        "bc4.dds": dds_file(56, 40, blocks[:len(blocks) // 2], 0x4, dxgi=80),
+        "bc5s.dds": dds_file(56, 40, blocks, 0x4, b"BC5S"),
+        "bc7.dds": dds_file(56, 40, blocks, 0x4, dxgi=98),
+        "pal8.dds": dds_file(56, 40, (gray >> 2).tobytes(), 0x20,
+                             palette=np.concatenate([pal, pal[:, :1]], 1).tobytes()),
     }
 
 

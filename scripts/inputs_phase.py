@@ -7,9 +7,9 @@ a process of its own, in the order given, so two checkouts (say a parent
 unpacked with ``git archive`` and this one, as parent, change, change,
 parent) are timed on one host in one call. The phase decodes every
 committed codec fixture against its manifest and times the 1024² decode
-set; this prints its JSON lines, then one line a run of the TIFF rows' and
-the plain raster rows' multiples of the baseline JPEG and the phase's
-seconds.
+set; this prints its JSON lines, then one line a run of the TIFF rows',
+the plain raster rows' and the small decoders' multiples of the baseline
+JPEG (the small decoders' ms too) and the phase's seconds.
 """
 
 from __future__ import annotations
@@ -19,8 +19,10 @@ import os
 import subprocess
 import sys
 
-# the decode set's plain raster rows
+# the decode set's plain raster rows, and the small decoders' and ZSTD TIFF's
 RASTER = ("ppm", "tga_rle", "psd_rle", "qoi", "pcx", "sgi_rle")
+SMALL = ("tiff_zstd_predictor", "sun_rle", "msp_v2", "xbm", "xpm", "icns_it32", "dds_rgb",
+         "dds_rgb24", "dds_bc1", "dds_bc7")
 
 RUN = """
 import json, sys, time
@@ -55,6 +57,9 @@ def main(argv=None) -> int:
                                    if k.startswith("tiff")},
             "raster_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
                                      if k in RASTER},
+            "small_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in SMALL},
+            "small_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
+                                    if k in SMALL},
             "nvidia_smi": formats["nvidia_smi"]}), flush=True)
     return 0
 

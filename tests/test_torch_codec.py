@@ -406,7 +406,7 @@ def test_unsupported_inputs_raise_named_errors():
     arr = _image(24, 24)
     base = _pil_jpeg(arr, quality=90)
     tiff = io.BytesIO()
-    Image.fromarray(arr).save(tiff, "TIFF", compression="zstd")
+    Image.fromarray(arr).convert("LAB").save(tiff, "TIFF")  # CIELab
     gif, bmp, webp = io.BytesIO(), io.BytesIO(), io.BytesIO()
     Image.fromarray(arr).save(gif, "GIF")
     Image.fromarray(arr).save(bmp, "BMP")

@@ -31,9 +31,9 @@ from qwen_image_edit_streamdiffusion_tpu.core import imaging as jimaging
 from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
-from codec_fixtures import (bmp_file, dcx_file, dib_entry, icon_file, pcx_file,  # noqa: E402
-                            ppm_file, psd_file, psd_resource, qoi_file, scene, sgi_file,
-                            tga_file)
+from codec_fixtures import (bmp_file, dcx_file, dds_file, dib_entry, icon_file,  # noqa: E402
+                            pcx_file, ppm_file, psd_file, psd_resource, qoi_file, scene,
+                            sgi_file, tga_file)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
 
@@ -432,6 +432,8 @@ def _order_cases() -> dict:
         "IPTC_open_fails_TGA_opens": (iptc_then_tga, "TGA"),
         "DDS": (_save(Image.fromarray(rgb), "DDS"), "DDS"),
         "XBM_after_TGA": (_save(Image.fromarray(rgb).convert("1"), "XBM"), "XBM"),
+        # a BC6H surface, which the port still refuses by name
+        "DDS_BC6H": (dds_file(11, 9, bytes(16 * 9), 4, dxgi=95), "DDS"),
         "JPEG2000": (_save(Image.fromarray(rgb), "JPEG2000"), "JPEG2000"),
         "IM": (_save(Image.fromarray(rgb), "IM"), "IM"),
         "SPIDER": (_save(Image.fromarray(rgb).convert("F"), "SPIDER"), "SPIDER"),
@@ -440,9 +442,10 @@ def _order_cases() -> dict:
 
 def test_format_follows_pillows_plugin_order():
     """Every committed fixture, old and new, and the files above open as
-    the format ``Image.open(...).format`` names; a refused format ahead of
-    TGA raises naming itself and never reaches TGA; a file whose _open a
-    plugin fails goes on to the next plugin."""
+    the format ``Image.open(...).format`` names, those the port decodes to
+    Pillow's pixels; a refused format ahead of TGA raises naming itself and
+    never reaches TGA; a file whose _open a plugin fails goes on to the next
+    plugin."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         names = list(json.load(f))
     for name in names:
@@ -453,7 +456,7 @@ def test_format_follows_pillows_plugin_order():
         assert _pil_format(data) == fmt, label
         assert _port_format(data) == fmt, label
         want = _pil_or_none(data)
-        if fmt in ("DIB", "TGA"):
+        if label != "DDS_BC6H" and fmt in ("DIB", "TGA", "DDS", "XBM"):
             np.testing.assert_array_equal(codec.decode(data), want, err_msg=label)
         else:
             with pytest.raises(ValueError, match=f"unsupported image format: {fmt}"):
@@ -462,12 +465,19 @@ def test_format_follows_pillows_plugin_order():
 
 def test_refused_formats_never_reach_a_later_decoder():
     """Each refused plugin ahead of TGA whose _accept takes a file names it:
-    a file with its magic and TGA-valid bytes after is refused by name."""
+    a file with its magic and TGA-valid bytes after is refused by name. Of
+    the magics the port now decodes, the outcome is Pillow's: DDS's _open
+    raises on the header (an OSError Image.open does not pass on), while
+    ICNS, MSP and SUN pass the file on and no plugin takes it."""
     tail = tga_file(scene(4, 4, 1), 2, 24)[4:]
-    for magic, fmt in ((b"BLP1", "BLP"), (b"DDS ", "DDS"), (b"FTEX", "FTEX"), (b"icns", "ICNS"),
-                       (b"\x00\x00\x01\xb3", "MPEG"), (b"DanM", "MSP"),
-                       (b"\x59\xa6\x6a\x95", "SUN")):
+    for magic, fmt in ((b"BLP1", "BLP"), (b"FTEX", "FTEX"), (b"\x00\x00\x01\xb3", "MPEG")):
         with pytest.raises(ValueError, match=f"unsupported image format: {fmt}"):
+            codec.decode(magic + tail)
+    for magic, match in ((b"DDS ", "unsupported DDS: a header of"),
+                         (b"icns", "not a JPEG, PNG"), (b"DanM", "not a JPEG, PNG"),
+                         (b"\x59\xa6\x6a\x95", "not a JPEG, PNG")):
+        assert _pil_or_none(magic + tail) is None and _pil_format(magic + tail) is None
+        with pytest.raises(ValueError, match=match):
             codec.decode(magic + tail)
 
 

@@ -5,8 +5,8 @@ Pillow reads an uncompressed TIFF itself and a compressed one through
 libtiff).
 
 Every case must equal Pillow's bytes exactly: each compression the port
-decodes (none, PackBits, LZW, Deflate, LZMA, JPEG, CCITT RLE, Group 3 1-D
-and 2-D, Group 4), big- and little-endian, BigTIFF, strips and padded tiles,
+decodes (none, PackBits, LZW, Deflate, LZMA, ZSTD, JPEG, CCITT RLE, Group 3
+1-D and 2-D, Group 4), big- and little-endian, BigTIFF, strips and padded tiles,
 planar configuration 2, Predictor 2, FillOrder 2, every photometric and
 depth of Pillow's OPEN_INFO but CIELab, a multi-page file's first page and
 orientations 1-8 from the tag or an XMP packet. Files come from
@@ -16,9 +16,11 @@ feature: on bytes Pillow refuses too, or, where Pillow decodes them, as a
 feature ROADMAP.md lists as not yet ported. Damaged files decode as libtiff
 decodes them for Pillow, or both raise: an LZMA strip damaged in its data,
 Deflate and LZMA YCbCr strips, a likely invalid YCbCr tile byte count, JPEG
-frames smaller than their strips or tiles, damaged CCITT strips and
-directories libtiff reads apart from Pillow, each pinned by cases here, and
-two differential fuzzes of the fixtures with every disagreement counted.
+frames smaller than their strips or tiles, damaged CCITT strips, damaged
+and cut ZSTD strips, byte counts of 0, past the file's end or over 1 MiB
+(which libtiff cuts) and directories libtiff reads apart from Pillow, each
+pinned by cases here, and differential fuzzes of the fixtures with every
+disagreement counted.
 """
 
 import base64
@@ -42,7 +44,7 @@ from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
 from codec_fixtures import (fax_encode, jpeg_frames, packbits, pil_rgb_c_idct,  # noqa: E402
                             scene, tiff_cut, tiff_damaged, tiff_entries, tiff_file, tiff_lzw,
-                            tiff_set_entry, tiff_strips)
+                            tiff_set_entry, tiff_strips, zstd_compress)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
 
@@ -86,6 +88,9 @@ COMPRESSIONS = {
     "deflate-fillorder2": dict(compression=8, fill_order=2),
     "packbits-fillorder2": dict(compression=32773, fill_order=2),
     "none-fillorder2": dict(compression=1, fill_order=2),
+    "zstd": dict(compression=50000),
+    "zstd-predictor": dict(compression=50000, predictor=2, rows_per_strip=9),
+    "zstd-fillorder2": dict(compression=50000, fill_order=2),
 }
 
 
@@ -105,6 +110,8 @@ LAYOUTS = {
     "planar-none": dict(planar=2, rows_per_strip=7),
     "partial-last-strip": dict(rows_per_strip=10, compression=32773),
     "one-row-strips": dict(rows_per_strip=1, compression=5),
+    "tiles-planar-zstd-predictor": dict(tile=(16, 16), planar=2, compression=50000,
+                                        predictor=2),
 }
 
 
@@ -229,7 +236,8 @@ def test_ccitt_matches_pillow(comp, t4, photo, fill):
 
 
 @pytest.mark.parametrize("name", ["group3", "group4", "tiff_ccitt", "packbits", "tiff_lzw",
-                                  "tiff_deflate", "tiff_adobe_deflate", "lzma", "jpeg", "raw"])
+                                  "tiff_deflate", "tiff_adobe_deflate", "lzma", "jpeg", "raw",
+                                  "zstd"])
 def test_pillow_written_matches_pillow(name):
     """Files libtiff writes (through Pillow), bilevel and RGB."""
     if name in ("group3", "group4", "tiff_ccitt"):
@@ -443,7 +451,6 @@ def _lab() -> bytes:
 
 REFUSED_PORT_ONLY = {
     # Pillow decodes these; the port refuses them by name (ROADMAP.md queue 1)
-    "zstd": (lambda: _pil_save(Image.fromarray(RGB), compression="zstd"), "ZSTD"),
     "thunderscan": (lambda: _with_tag(tiff_file(RGB[..., 0] >> 4, 1, 4), 259, 32809),
                     "ThunderScan"),
     "ccitt-rlew": (lambda: _with_tag(tiff_file(BW, 0, 1, compression=2), 259, 32771),
@@ -452,6 +459,10 @@ REFUSED_PORT_ONLY = {
     "float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32, sample_format=3,
                                           compression=8, tags={317: (3, [3])}),
                         "floating-point predictor"),
+    "zstd-float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32,
+                                               sample_format=3, compression=50000,
+                                               tags={317: (3, [3])}),
+                             "floating-point predictor"),
     "ycbcr-rotated": (lambda: tiff_file(RGB, 6, 8, compression=5, ycbcr_subsampling=(1, 1),
                                         orientation=3), "Orientation"),
     "ycbcr-4x4-odd": (lambda: tiff_file(RGB[:, :49], 6, 8, compression=5, rows_per_strip=8,
@@ -523,7 +534,7 @@ HUGE_TILES = {
 }
 
 
-@pytest.mark.parametrize("comp", [5, 32773, 8, 34925, 4, *HUGE_TILES])
+@pytest.mark.parametrize("comp", [5, 32773, 8, 34925, 50000, 4, *HUGE_TILES])
 def test_strip_output_is_bounded(comp):
     """A 2x2 image whose strip holds the coding of 16 MiB: each decoder stops
     at the strip's bytes, as libtiff does, and the pixels are Pillow's. A
@@ -544,13 +555,14 @@ def test_strip_output_is_bounded(comp):
         raw = fax_encode(rows, 4)
     else:
         zeros = bytes(16 << 20)
-        raw = {5: tiff_lzw, 32773: packbits, 8: zlib.compress,
+        raw = {5: tiff_lzw, 32773: packbits, 8: zlib.compress, 50000: zstd_compress,
                34925: lambda b: __import__("lzma").compress(b)}[comp](zeros) if comp != 5 else \
             tiff_lzw(zeros[:1 << 20])
     px = np.zeros((2, 2, 1 if comp == 4 else 3), np.uint8)
     data = tiff_file(px, 0 if comp == 4 else 2, 1 if comp == 4 else 8, compression=comp)
     small = {4: fax_encode(px[..., 0], 4), 5: tiff_lzw(px.tobytes()),
              32773: packbits(px.tobytes()), 8: zlib.compress(px.tobytes(), 9),
+             50000: zstd_compress(px.tobytes()),
              34925: __import__("lzma").compress(px.tobytes(), check=0)}[comp]
     assert small in data
     i = data.index(small)
@@ -624,13 +636,13 @@ def _fuzz(names, seed: int, count: int):
     return cases
 
 
-def _disagreements(cases) -> list:
+def _disagreements(cases, host_zstd: bool = True) -> list:
     """The cases whose port decode is not Pillow's: both raise, or their
     pixels are equal. Pillow decodes in a process where libjpeg-turbo runs
     its C code (``JSIMD_FORCENONE``), as the port does, and where realloc
     zeroes what it adds (bytes of Pillow's strip buffer that no strip wrote
     are the zeros a fresh buffer holds, not whatever the heap held)."""
-    want = pil_rgb_c_idct([d for _, d, _ in cases], fresh_memory=True)
+    want = pil_rgb_c_idct([d for _, d, _ in cases], fresh_memory=True, host_zstd=host_zstd)
     disagree = []
     for (name, d, at), w in zip(cases, want):
         try:
@@ -719,7 +731,68 @@ def test_lzma_strip_damaged_in_its_data(name, decodes):
     _held_to_pillow(LZMA_CASES, name, decodes)
 
 
-_YCBCR_COMP = {"deflate": 8, "lzma": 34925}
+def _zstd_cases() -> dict:
+    base = tiff_file(_SCENE, 2, 8, compression=50000, rows_per_strip=20)
+    return {
+        # a block's data: libzstd fails before the strip is full
+        "zstd-data-middle": tiff_damaged(base, 0, 0.5, b"\x55\xaa\x55"),
+        # the strip's bytes end before its frame: "Not enough data"
+        "zstd-cut": tiff_cut(base, 1),
+        # a frame of 40 rows in a strip of 20 (ImageLength cut): decoding
+        # stops once the strip is full
+        "zstd-longer-frame": tiff_set_entry(tiff_file(_SCENE[:40], 2, 8, compression=50000),
+                                            257, value=20),
+        # the frame's magic damaged
+        "zstd-magic": tiff_damaged(base, 0, 0.0, b"\x00"),
+    }
+
+
+ZSTD_CASES = _zstd_cases()
+
+
+@pytest.mark.parametrize("name", ZSTD_CASES)
+def test_damaged_zstd_strip_matches_libtiff(name):
+    """tif_zstd.c's ZSTDDecode: an error from ZSTD_decompressStream fails
+    the strip, and so does a strip its frame leaves short; a frame longer
+    than the strip stops once the strip is full."""
+    _held_to_pillow(ZSTD_CASES, name)
+
+
+def test_zstd_without_libzstd_is_refused_by_name(monkeypatch):
+    """A host without libzstd.so.1 refuses a ZSTD TIFF naming ZSTD and the
+    library: a refusal, not a fallback."""
+    import ctypes
+
+    real = ctypes.CDLL
+
+    def cdll(name, *a, **kw):
+        if name == "libzstd.so.1":
+            raise OSError(f"{name}: cannot open shared object file")
+        return real(name, *a, **kw)
+
+    data = tiff_file(RGB, 2, 8, compression=50000)
+    monkeypatch.setattr(codec, "_stream_libs", {})
+    monkeypatch.setattr(codec.ctypes, "CDLL", cdll)
+    with pytest.raises(ValueError, match="ZSTD compression needs the system's libzstd.so.1"):
+        codec.decode(data)
+
+
+def test_differential_fuzz_of_zstd():
+    """Random byte edits of the ZSTD fixtures (Predictor 2 strips, YCbCr
+    tiles) at seed 21, every disagreement counted, against Pillow calling
+    the host's libzstd as the port does. Pillow as installed calls the
+    libzstd it bundles, another release, which decodes some damaged frames
+    to other bytes: its disagreements are counted too and reported as a
+    warning, not asserted."""
+    cases = _fuzz(["zstd_pred.tif", "ycbcr_zstd_tiled.tif"], 21, 200)
+    disagree = _disagreements(cases)
+    assert not disagree, f"edits {disagree} decode differently from Pillow"
+    stock = _disagreements(cases, host_zstd=False)
+    warnings.warn(f"{len(stock)} of {len(cases)} ZSTD fuzz edits decode differently from "
+                  "Pillow with its bundled libzstd", UserWarning)
+
+
+_YCBCR_COMP = {"deflate": 8, "lzma": 34925, "zstd": 50000}
 YCBCR_CASES = {
     f"{name}-strip{k}": tiff_damaged(tiff_file(_YCC, 6, 8, compression=comp, rows_per_strip=16,
                                                ycbcr_subsampling=(2, 2)), k, 1 / 3, b"\xff\xff")
@@ -728,23 +801,89 @@ YCBCR_CASES = {
 
 @pytest.mark.parametrize("name", YCBCR_CASES)
 def test_damaged_ycbcr_strip_converts_what_was_decoded(name):
-    """A Deflate or LZMA strip of YCbCr (not JPEG) damaged in its data:
-    zlib and liblzma fail on it, and libtiff's RGBA reader converts what the
-    strip decoded before the error, zeros after."""
+    """A Deflate, LZMA or ZSTD strip of YCbCr (not JPEG) damaged in its
+    data: zlib, liblzma and libzstd fail on it, and libtiff's RGBA reader
+    converts what the strip decoded before the error, zeros after."""
     import lzma
 
     comp = _YCBCR_COMP[name.split("-")[0]]
     data = YCBCR_CASES[name]
     off, count = tiff_strips(data)[int(name[-1])]
-    with pytest.raises((zlib.error, lzma.LZMAError)):
-        (zlib.decompress if comp == 8 else lzma.decompress)(data[off:off + count])
+    if comp == 50000:
+        assert not codec._inflate(comp, data[off:off + count], np.zeros(1 << 16, np.uint8))
+    else:
+        with pytest.raises((zlib.error, lzma.LZMAError)):
+            (zlib.decompress if comp == 8 else lzma.decompress)(data[off:off + count])
     _held_to_pillow(YCBCR_CASES, name, True)
+
+
+def _set_count(data: bytes, chunk: int, count: int) -> bytes:
+    """The file with strip or tile ``chunk``'s byte count (LONG) set to
+    ``count``."""
+    ent = tiff_entries(data)
+    tag = 279 if 279 in ent else 325
+    n, at = struct.unpack_from("<L", data, ent[tag] + 4)[0], ent[tag] + 8
+    if n > 1:
+        (at,) = struct.unpack_from("<L", data, at)
+    out = bytearray(data)
+    struct.pack_into("<L", out, at + 4 * chunk, count)
+    return bytes(out)
+
+
+# (file, chunk, libtiff's strip or tile size): the first of two 20-row RGB
+# strips (56 x 20 x 3 bytes), and the first and a later tile of a row of
+# 16x16 YCbCr tiles subsampled 2x2 (8 x 8 units of 6 bytes), where the RGBA
+# reader goes on past a tile libtiff cannot fill
+_COUNT_LAYOUTS = {
+    "strip0": (lambda comp: tiff_file(_SCENE, 2, 8, compression=comp, rows_per_strip=20), 0,
+               3360),
+    "tile0": (lambda comp: tiff_file(_YCC, 6, 8, compression=comp, tile=(16, 16),
+                                     ycbcr_subsampling=(2, 2)), 0, 384),
+    "tile1": (lambda comp: tiff_file(_YCC, 6, 8, compression=comp, tile=(16, 16),
+                                     ycbcr_subsampling=(2, 2)), 1, 384),
+}
+
+
+def _count_cases() -> dict:
+    """Each branch of TIFFFillStrip's and TIFFFillTile's byte count: 0;
+    past the file's end; over 1 MiB, cut to ten strips or tiles and 4 KiB
+    that end at the file's end (data padded after it); and so cut, still
+    past the end."""
+    cases = {}
+    for cname, comp in (("deflate", 8), ("zstd", 50000)):
+        for lname, (make, chunk, size) in _COUNT_LAYOUTS.items():
+            base = make(comp)
+            off, _ = tiff_strips(base)[chunk]
+            cut = size * 10 + 4096
+            assert off + cut > len(base)
+            padded = base + bytes(off + cut - len(base))  # the cut span ends at the file's
+            cases[f"{cname}-{lname}-zero"] = _set_count(base, chunk, 0)
+            cases[f"{cname}-{lname}-past-end"] = _set_count(base, chunk, len(base) - off + 1)
+            cases[f"{cname}-{lname}-limited"] = _set_count(padded, chunk, 2 << 20)
+            cases[f"{cname}-{lname}-limited-past-end"] = _set_count(base, chunk, 2 << 20)
+    return cases
+
+
+COUNT_CASES = _count_cases()
+
+
+@pytest.mark.parametrize("name", COUNT_CASES)
+def test_byte_count_read_as_libtiff_reads_it(name):
+    """libtiff fills every strip and tile alike: a byte count of 0, or one
+    past the file's end, fails it (the RGBA reader goes on past a later
+    YCbCr tile of its row, converting zeros), and a count over 1 MiB is cut
+    to ten strips or tiles and 4 KiB first, so a file holding that much
+    decodes."""
+    decodes = not name.endswith(("zero", "past-end")) or "tile1" in name
+    _held_to_pillow(COUNT_CASES, name, decodes)
 
 
 @functools.lru_cache(maxsize=None)
 def _zeros_coded(size: int, comp: int) -> bytes:
     import lzma
 
+    if comp == 50000:
+        return zstd_compress(bytes(size))
     return zlib.compress(bytes(size), 9) if comp == 8 else lzma.compress(bytes(size),
                                                                          check=lzma.CHECK_NONE)
 
@@ -763,12 +902,15 @@ def _ycbcr_tile(tw: int, th: int, comp: int, count: int) -> bytes:
 
 # (tile width, tile length, compression, byte count): a tile over
 # 100,000,000 bytes (10000 x 5008 at 2x1, 100,160,000) whose data is under a
-# thousandth of it (a 7000th for LZMA) and at it; a tile of 100,000,000
-# bytes exactly, which libtiff does not check
+# thousandth of it (a 7000th for LZMA, a 33000th for ZSTD, where the count
+# also cuts the frame short) and at it; a tile of 100,000,000 bytes exactly,
+# which libtiff does not check
 BIG_TILES = {"deflate-under": (10000, 5008, 8, 100159, False),
              "deflate-at": (10000, 5008, 8, 100160, True),
              "lzma-under": (10000, 5008, 34925, 14307, False),
              "lzma-at": (10000, 5008, 34925, 14308, True),
+             "zstd-under": (10000, 5008, 50000, 3034, False),
+             "zstd-at": (10000, 5008, 50000, 3035, True),
              "100MB-unchecked": (10000, 5000, 8, 97209, True)}
 
 
@@ -780,7 +922,8 @@ def big_tiles():
 @pytest.mark.parametrize("name", BIG_TILES)
 def test_likely_invalid_ycbcr_tile(big_tiles, name):
     """libtiff's RGBA reader refuses a YCbCr tile of over 100,000,000 bytes
-    whose byte count is under a thousandth of it (a 7000th for LZMA), before
+    whose byte count is under a thousandth of it (a 7000th for LZMA, a
+    33000th for ZSTD), before
     allocating it ("Likely invalid tile byte count"); at the ratio, or at
     100,000,000 bytes, it decodes the tile. (It checks no strip.)"""
     if not BIG_TILES[name][4]:
