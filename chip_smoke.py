@@ -4039,7 +4039,22 @@ def decode_set():
         "pcx": (pcx_file(rgb, 8, 3), rgb),
         "sgi_rle": (sgi_file(rgb), rgb),
         **small_decode_set(n, rgb),
+        **jpeg2000_decode_set(),
     }
+
+
+def jpeg2000_decode_set():
+    """{name: (bytes, want)}: the committed 1024² JPEG 2000 pair (Pillow wrote
+    them; this host has none): the smooth scene as a 5/3 JP2, held to its
+    source, and the baseline JPEG's textured scene as a 9/7 codestream at
+    rate 40, whose pixels the manifest's hash holds."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import smooth_scene
+
+    return {"jpeg2000_53": (fixture("rev53_1024.jp2"), smooth_scene(1024)),
+            "jpeg2000_97": (fixture("irr97_1024.j2k"), None)}
 
 
 def small_decode_set(n: int, rgb=None):

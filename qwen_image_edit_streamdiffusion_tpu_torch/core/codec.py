@@ -5,8 +5,9 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 ``pil_to_base64``, on (H, W, 3) uint8 arrays. The card host has no Pillow and
 no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
 WebP and TIFF decoders, the run-length codings of the plain raster
-formats and the DDS blocks run in ``csrc/host/`` (``image_codec.cc``,
-``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``, ``raster.cc``, ``bcn.cc``): plain
+formats, the DDS blocks and JPEG 2000's tiles run in ``csrc/host/``
+(``image_codec.cc``, ``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``, ``raster.cc``,
+``bcn.cc``, ``jpeg2000.cc``): plain
 C entry points loaded with
 ``ctypes``, built at first use with the system C++ compiler (``c++``, or
 ``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
@@ -91,6 +92,13 @@ raises when a call needs the library.
   and dropped, or a PNG member without its orientation) and DDS's first
   surface (RGB by its masks, luminance, an 8-bit palette, DX10 RGBA, and
   the blocks BC1, BC2, BC3, BC4, BC5, BC5S and BC7).
+  JPEG 2000, a raw codestream or a JP2 file (and an ICNS member of either),
+  to the integers OpenJPEG 2.5.4 gives Pillow: every progression and POC,
+  tiles and tile-parts, precincts, layers, each code-block style, ROI,
+  5/3 and 9/7 at any number of levels, RCT and ICT, 1 to 31 bits, signed
+  or not, subsampled components; then Pillow's unpacking (its mode from
+  the SIZ or the JP2 header: L, I;16, LA, RGB, RGBA, CMYK, sYCC through
+  its YCbCr tables, a palette as its ``ImagePalette`` builds it).
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
@@ -100,9 +108,11 @@ raises when a call needs the library.
   layouts Pillow does not read, a GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
   PSD (Pillow converts it with LittleCMS), a TGA colour map Pillow cannot
   apply, DDS's BC6H blocks and the DXGI formats Pillow does not
-  implement, an ICNS JPEG 2000 member, and the formats Pillow opens and
-  the port does not decode (AVIF, JPEG 2000, BLP, EPS, IM, PCD, SPIDER and
-  the rest, each named). So does an image above Pillow's decompression-bomb limit
+  implement, JPEG 2000's HTJ2K (a CAP or CPF marker, an HT code-block),
+  Part 2 transforms (MCT, MCC, MCO, CBD) and packed packet headers (PPM,
+  PPT), and the formats Pillow opens and the port
+  does not decode (AVIF, BLP, EPS, IM, PCD, SPIDER and the rest, each
+  named). So does an image above Pillow's decompression-bomb limit
   (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
   whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
   or CCITT stream decompress no further than their image, a TIFF tile no
@@ -136,7 +146,8 @@ import numpy as np
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
-SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc")
+SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc",
+           "jpeg2000.cc")
 HEADERS = ("codec_common.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
@@ -240,8 +251,9 @@ def library() -> ctypes.CDLL:
         lib.qie_xbm.argtypes = [cp, cl, cl, vp, vp, ci]
         lib.qie_icns_rle.argtypes = [cp, cl, cl, vp, vp, ci]
         lib.qie_bcn.argtypes = [cp, cl, cl, cl, ci, ci, vp, vp, ci]
+        lib.qie_j2k_tile.argtypes = [vp, cl, cp, cl, vp, vp, vp, ci]
         for name in ("dib_info", "dib_decode", "tga_rle", "packbits", "pcx_rle", "sgi_rle",
-                     "qoi", "sun_rle", "msp_rle", "xbm", "icns_rle", "bcn"):
+                     "qoi", "sun_rle", "msp_rle", "xbm", "icns_rle", "bcn", "j2k_tile"):
             getattr(lib, f"qie_{name}").restype = ci
         for fmt in ("bmp", "gif"):
             info, dec = getattr(lib, f"qie_{fmt}_info"), getattr(lib, f"qie_{fmt}_decode")
@@ -2623,6 +2635,924 @@ def _xpm_pixels(data, offset, w, h, cpp, palette) -> np.ndarray:
     return np.ascontiguousarray(colours[order[at[:w * h]]].reshape(h, w, 3))
 
 
+# --- JPEG 2000 (Jpeg2KImagePlugin over OpenJPEG 2.5.4) ---------------------
+#
+# Pillow opens the file in Python (_open, _parse_codestream,
+# _parse_jp2_header, _parse_comment); OpenJPEG then reads it again, the JP2
+# boxes and every marker segment, and decodes tile by tile
+# (opj_read_tile_header / opj_decode_tile_data), each tile unpacked by
+# Pillow's Jpeg2KDecode.c. The boxes, the markers and the unpacking are
+# here, each tile's packets, code-blocks and wavelets in jpeg2000.cc.
+
+_J2K_SOC_SIZ = b"\xff\x4f\xff\x51"
+_J2K_MAXRES, _J2K_MAXBANDS = 33, 97
+# OpenJPEG's decoder states, as its marker table lists them
+_J2K_MHSIZ, _J2K_MH, _J2K_TPHSOT, _J2K_TPH, _J2K_NEOC, _J2K_EOC = 0x2, 0x4, 0x8, 0x10, 0x40, 0x100
+_J2K_SOT, _J2K_SOD, _J2K_EOC_MARKER = 0xFF90, 0xFF93, 0xFFD9
+# marker → the states it may come in (opj_j2k_memory_marker_handler_tab)
+_J2K_MARKERS = {
+    0xFF90: _J2K_MH | _J2K_TPHSOT, 0xFF52: _J2K_MH | _J2K_TPH, 0xFF53: _J2K_MH | _J2K_TPH,
+    0xFF5E: _J2K_MH | _J2K_TPH, 0xFF5C: _J2K_MH | _J2K_TPH, 0xFF5D: _J2K_MH | _J2K_TPH,
+    0xFF5F: _J2K_MH | _J2K_TPH, 0xFF51: _J2K_MHSIZ, 0xFF55: _J2K_MH, 0xFF57: _J2K_MH,
+    0xFF58: _J2K_TPH, 0xFF60: _J2K_MH, 0xFF61: _J2K_TPH, 0xFF91: 0, 0xFF63: _J2K_MH,
+    0xFF64: _J2K_MH | _J2K_TPH, 0xFF74: _J2K_MH | _J2K_TPH, 0xFF78: _J2K_MH,
+    0xFF50: _J2K_MH, 0xFF59: _J2K_MH, 0xFF75: _J2K_MH | _J2K_TPH, 0xFF77: _J2K_MH | _J2K_TPH}
+_J2K_UNKNOWN_STATES = _J2K_MH | _J2K_TPH
+# refused by name: HTJ2K's capabilities, Part 2's multi-component transforms,
+# packed packet headers
+_J2K_REFUSED = {0xFF50: "HTJ2K (Part 15: the CAP marker)",
+                0xFF59: "HTJ2K (Part 15: the CPF marker)",
+                0xFF74: "Part 2 multi-component transforms (the MCT marker)",
+                0xFF75: "Part 2 multi-component transforms (the MCC marker)",
+                0xFF77: "Part 2 multi-component transforms (the MCO marker)",
+                0xFF78: "Part 2 component bit depths (the CBD marker)",
+                0xFF60: "packed packet headers (PPM)", 0xFF61: "packed packet headers (PPT)"}
+# Pillow's unpackers: (mode, colour space, components) → how the tile unpacks
+_J2K_UNPACK = {("L", "gray", 1): "gray", ("P", "srgb", 1): "gray", ("PA", "srgb", 2): "gray",
+               ("I;16", "gray", 1): "i16", ("LA", "gray", 2): "gray",
+               ("RGB", "gray", 1): "gray", ("RGB", "gray", 2): "gray",
+               ("RGB", "srgb", 3): "rgb", ("RGB", "sycc", 3): "ycc", ("RGB", "srgb", 4): "rgb",
+               ("RGB", "sycc", 4): "ycc", ("RGBA", "gray", 1): "gray",
+               ("RGBA", "gray", 2): "gray", ("RGBA", "srgb", 3): "rgb",
+               ("RGBA", "sycc", 3): "ycc", ("RGBA", "srgb", 4): "rgb",
+               ("RGBA", "sycc", 4): "ycc", ("CMYK", "cmyk", 4): "cmyk"}
+_J2K_ENUMCS = {16: "srgb", 17: "gray", 18: "sycc", 24: "eycc", 12: "cmyk"}
+
+
+def _j2k_error(what: str) -> ValueError:
+    return ValueError(f"corrupt JPEG2000: {what}")
+
+
+class _BoxReader:
+    """Jpeg2KImagePlugin.BoxReader over a cursor."""
+
+    def __init__(self, c: _Cursor, length: int = -1):
+        self.c, self.has_length, self.length, self.remaining = c, length >= 0, length, -1
+
+    def _can_read(self, n: int) -> bool:
+        if self.has_length and self.c.pos + n > self.length:
+            return False
+        return n <= self.remaining if self.remaining >= 0 else True
+
+    def read(self, n: int) -> bytes:
+        if not self._can_read(n):
+            raise _NotThisFormat("JPEG2000: not enough data in header")
+        b = self.c.read(n)
+        if len(b) < n:
+            raise ValueError(f"truncated JPEG2000: expected to read {n} bytes but only got "
+                             f"{len(b)}")
+        if self.remaining > 0:
+            self.remaining -= n
+        return b
+
+    def fields(self, fmt: str):
+        return struct.unpack(fmt, self.read(struct.calcsize(fmt)))
+
+    def boxes(self) -> "_BoxReader":
+        size = self.remaining
+        return _BoxReader(_Cursor(self.read(size)), size)
+
+    def has_next(self) -> bool:
+        return self.c.pos + self.remaining < self.length if self.has_length else True
+
+    def next_type(self) -> bytes:
+        if self.remaining > 0:
+            self.c.pos += self.remaining
+        self.remaining = -1
+        lbox, tbox = self.fields(">I4s")
+        hlen = 8
+        if lbox == 1:
+            lbox, hlen = self.fields(">Q")[0], 16
+        if lbox < hlen or not self._can_read(lbox - hlen):
+            raise _NotThisFormat("JPEG2000: invalid header length")
+        self.remaining = lbox - hlen
+        return tbox
+
+
+def _j2k_getcolor(palette: bytearray, colors: dict, mode: str, color: tuple) -> None:
+    """ImagePalette.getcolor on a new palette: a colour seen before adds
+    nothing; a short colour is stored as short as it is."""
+    if mode == "RGB" and len(color) == 4:
+        if color[3] != 255:
+            raise ValueError("JPEG2000: cannot add non-opaque RGBA color to RGB palette")
+        color = color[:3]
+    elif mode == "RGBA" and len(color) == 3:
+        color += (255,)
+    if color in colors:
+        return
+    n = len(mode)
+    index = len(palette) // n
+    if index >= 256:
+        raise ValueError("JPEG2000: cannot allocate more than 256 colors")
+    colors[color] = index
+    if index * n < len(palette):
+        palette[index * n:index * n + n] = bytes(color)
+    else:
+        palette += bytes(color)
+
+
+def _j2k_jp2_header(c: _Cursor):
+    """_parse_jp2_header: (size, mode, palette (N, 3) or None)."""
+    reader, header = _BoxReader(c), None
+    while reader.has_next():
+        tbox = reader.next_type()
+        if tbox == b"jp2h":
+            header = reader.boxes()
+            break
+        if tbox == b"ftyp":
+            reader.fields(">4s")
+    if header is None:
+        raise ValueError("corrupt JPEG2000: no JP2 header box")
+    size = mode = nc = None
+    palette = None
+    while header.has_next():
+        tbox = header.next_type()
+        if tbox == b"ihdr":
+            height, width, nc, bpc = header.fields(">IIHB")
+            size = (width, height)
+            mode = ("I;16" if nc == 1 and (bpc & 0x7F) > 8 else
+                    {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}.get(nc, mode))
+        elif tbox == b"colr" and nc == 4:
+            meth, _, _, enumcs = header.fields(">BBBI")
+            if meth == 1 and enumcs == 12:
+                mode = "CMYK"
+        elif tbox == b"pclr" and mode in ("L", "LA"):
+            ne, npc = header.fields(">HB")
+            if max(header.fields(">" + "B" * npc), default=0) <= 8:
+                pmode = "RGBA" if npc == 4 else "RGB"
+                raw, colors = bytearray(), {}
+                for _ in range(ne):
+                    _j2k_getcolor(raw, colors, pmode, header.fields(">" + "B" * npc))
+                n = 4 if pmode == "RGBA" else 3
+                palette = np.frombuffer(bytes(raw[:len(raw) // n * n]), np.uint8).reshape(
+                    -1, n)[:, :3]
+                mode = "P" if mode == "L" else "PA"
+        elif tbox == b"res ":
+            res = header.boxes()
+            while res.has_next():
+                if res.next_type() == b"resc":
+                    vrcn, vrcd, hrcn, hrcd, vrce, hrce = res.fields(">HHHHBB")
+                    for num, den, e in ((hrcn, hrcd, hrce), (vrcn, vrcd, vrce)):
+                        if den:  # _res_to_dpi, whose float may overflow
+                            try:
+                                (254 * num * (10 ** e)) / (10000 * den)
+                            except OverflowError as exc:
+                                raise ValueError(f"corrupt JPEG2000: {exc}") from None
+                    break
+    if size is None or mode is None:
+        raise _NotThisFormat("JPEG2000: malformed JP2 header")
+    return size, mode, palette
+
+
+def _j2k_comment(c: _Cursor) -> None:
+    """_parse_comment's reads (its struct and index errors pass the file on)."""
+    while True:
+        marker = c.read(2)
+        if not marker:
+            return
+        if marker[1] in (0x90, 0xD9):
+            return
+        length = _u16(">", c.read(2))
+        if marker[1] == 0x64:
+            return
+        c.pos += length - 2
+
+
+def _open_jpeg2000(data: bytes):
+    """Jpeg2KImageFile._open: the raw codestream's SIZ or the JP2 header for
+    the size and mode (Pillow's rules: one component is L, or I;16 above 8
+    bits; two LA, three RGB, four RGBA or CMYK; a palette makes L P and LA
+    PA); then OpenJPEG decodes it (:func:`_j2k_decode`)."""
+    c = _Cursor(data, 4)
+    palette = None
+    if data[:4] == _J2K_SOC_SIZ:
+        jp2 = False
+        lsiz = _u16(">", c.read(2))
+        siz = data[4:6] + c.read(lsiz - 2)
+        _, _, xsiz, ysiz, xosiz, yosiz, _, _, _, _, csiz = struct.unpack_from(">HHIIIIIIIIH", siz)
+        size = (xsiz - xosiz, ysiz - yosiz)
+        if csiz == 1:
+            mode = "I;16" if (struct.unpack_from(">B", siz, 38)[0] & 0x7F) + 1 > 8 else "L"
+        elif csiz in (2, 3, 4):
+            mode = {2: "LA", 3: "RGB", 4: "RGBA"}[csiz]
+        else:
+            raise _NotThisFormat("unable to determine J2K image mode")
+        _j2k_comment(c)
+    elif data[:12] == _JP2_SIGNATURE:
+        jp2 = True
+        c.pos = 12
+        size, mode, palette = _j2k_jp2_header(c)
+        if c.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
+            length = _u16(">", c.read(2))
+            c.pos = max(0, c.pos + length - 2)
+            _j2k_comment(c)
+    else:
+        raise _NotThisFormat("not a JPEG 2000 file")
+    if size[0] <= 0 or size[1] <= 0:
+        raise _NotThisFormat("JPEG2000: a width or height of zero or less")
+    _bomb("JPEG2000", *size)
+    return lambda: _j2k_decode(data, jp2, mode, size, palette)
+
+
+# --- OpenJPEG: the JP2 boxes (opj_jp2_read_header_procedure) ---
+
+def _jp2_boxes(data: bytes):
+    """OpenJPEG's reading of a JP2 file's boxes up to the codestream:
+    (offset of the codestream, ihdr (w, h, components), colour space or
+    None). Its errors are ValueErrors."""
+    pos, state = 0, 0  # 1 signature, 2 file type, 4 header
+    ihdr = None
+    colr = {"has": False, "enumcs": 0}
+    pclr = {"nch": None, "cmap": False, "cdef": False}
+    while len(data) - pos >= 8:
+        length, typ = struct.unpack_from(">I4s", data, pos)
+        hdr = 8
+        if length == 1:
+            if len(data) - pos < 16:
+                break
+            hi, length = struct.unpack_from(">II", data, pos + 8)
+            if hi:
+                raise _j2k_error("a box larger than 2^32 bytes")
+            hdr = 16
+        elif length == 0:  # the last box
+            length = len(data) - pos
+            if length - 8 > 0xFFFFFFFF - 8:
+                raise _j2k_error("a box larger than 2^32 bytes")
+        if typ == b"jp2c":
+            if not state & 4:
+                raise _j2k_error("a codestream box before the JP2 header box")
+            return pos + hdr, ihdr, colr["enumcs"]
+        if length == 0:
+            raise _j2k_error("a box of undefined size")
+        if length < hdr:
+            raise _j2k_error(f"an invalid box size {length}")
+        body = length - hdr
+        if typ in (b"jP  ", b"ftyp", b"jp2h"):
+            handler = typ
+        elif typ in (b"ihdr", b"colr", b"bpcc", b"pclr", b"cmap", b"cdef"):
+            if not state & 4:
+                if pos + length > len(data):
+                    raise _j2k_error("a box past the end of the file")
+                pos += length
+                continue
+            handler = typ
+        else:
+            if not state & 1:
+                raise _j2k_error("the first box is not the JPEG 2000 signature box")
+            if not state & 2:
+                raise _j2k_error("the second box is not the file type box")
+            if pos + length > len(data):
+                raise _j2k_error("a box past the end of the file")
+            pos += length
+            continue
+        if body > len(data) - pos - hdr:
+            raise _j2k_error(f"a {typ.decode('latin-1')} box past the end of the file")
+        box = data[pos + hdr:pos + length]
+        if handler == b"jP  ":
+            if state != 0:
+                raise _j2k_error("the signature box is not the first box")
+            if len(box) != 4 or box != b"\x0d\x0a\x87\x0a":
+                raise _j2k_error("a bad signature box")
+            state |= 1
+        elif handler == b"ftyp":
+            if state != 1:
+                raise _j2k_error("the file type box is not the second box")
+            if len(box) < 8 or (len(box) - 8) & 3:
+                raise _j2k_error("a bad file type box")
+            state |= 2
+        elif handler == b"jp2h":
+            if not state & 2:
+                raise _j2k_error("a JP2 header box before the file type box")
+            at, has_ihdr = 0, False
+            while at < len(box):
+                left = len(box) - at
+                if left < 8:
+                    raise _j2k_error("a box of less than 8 bytes in the JP2 header")
+                blen, btyp = struct.unpack_from(">I4s", box, at)
+                bhdr = 8
+                if blen == 1:
+                    if left < 16:
+                        raise _j2k_error("an XL box of less than 16 bytes in the JP2 header")
+                    hi, blen = struct.unpack_from(">II", box, at + 8)
+                    if hi:
+                        raise _j2k_error("a box larger than 2^32 bytes")
+                    bhdr = 16
+                if blen == 0:
+                    raise _j2k_error("a box of undefined size in the JP2 header")
+                if blen < bhdr or blen > left:
+                    raise _j2k_error("a box length past the JP2 header")
+                ihdr = _jp2_inner(btyp, box[at + bhdr:at + blen], ihdr, colr, pclr)
+                has_ihdr |= btyp == b"ihdr"
+                at += blen
+            if not has_ihdr:
+                raise _j2k_error("no ihdr box in the JP2 header")
+            state |= 4
+        else:  # an image header box past the JP2 header, read anyway
+            ihdr = _jp2_inner(handler, box, ihdr, colr, pclr)
+        pos += length
+    if not state & 4:
+        raise _j2k_error("no JP2 header box")
+    raise ValueError("truncated JPEG2000: no codestream box")
+
+
+def _jp2_inner(typ: bytes, box: bytes, ihdr, colr: dict, pclr: dict):
+    """One box of the JP2 header (opj_jp2_read_ihdr, _colr, _bpcc, _pclr,
+    _cmap, _cdef): the ihdr read so far."""
+    if typ == b"ihdr":
+        if ihdr is not None:
+            return ihdr
+        if len(box) != 14:
+            raise _j2k_error("a bad image header box")
+        h, w, nc = struct.unpack_from(">IIH", box)
+        if not 1 <= nc <= 16384:
+            raise _j2k_error("an invalid number of components in ihdr")
+        return (w, h, nc)
+    if typ == b"colr":
+        if len(box) < 3:
+            raise _j2k_error("a bad colour specification box")
+        if colr["has"]:
+            return ihdr
+        meth = box[0]
+        if meth == 1:
+            if len(box) < 7:
+                raise _j2k_error("a bad colour specification box")
+            colr["enumcs"] = _u32(">", box, 3)
+            colr["has"] = True
+        elif meth == 2:
+            colr["has"] = True
+    elif typ == b"bpcc":
+        if len(box) != (ihdr[2] if ihdr else 0):
+            raise _j2k_error("a bad bits per component box")
+    elif typ == b"pclr":
+        if pclr["nch"] is not None or len(box) < 3:
+            raise _j2k_error("a bad palette box")
+        ne, nch = _u16(">", box), box[2]
+        if not 1 <= ne <= 1024 or nch == 0 or len(box) < 3 + nch:
+            raise _j2k_error("a bad palette box")
+        width = sum(min(4, ((b & 0x7F) + 8) >> 3) for b in box[3:3 + nch])
+        if len(box) < 3 + nch + ne * width:
+            raise _j2k_error("a palette box shorter than its entries")
+        pclr["nch"] = nch
+    elif typ == b"cmap":
+        if pclr["nch"] is None:
+            raise _j2k_error("a component mapping box before the palette box")
+        if pclr["cmap"] or len(box) < pclr["nch"] * 4:
+            raise _j2k_error("a bad component mapping box")
+        pclr["cmap"] = True
+    elif typ == b"cdef":
+        if pclr["cdef"] or len(box) < 2:
+            raise _j2k_error("a bad channel definition box")
+        n = _u16(">", box)
+        if n == 0 or len(box) < 2 + n * 6:
+            raise _j2k_error("a bad channel definition box")
+        pclr["cdef"] = True
+    return ihdr
+
+
+# --- OpenJPEG: the codestream's markers (opj_j2k_read_header, _tile_header) ---
+
+def _j2k_tccp() -> dict:
+    return {"csty": 0, "numres": 0, "cblkw": 0, "cblkh": 0, "cblksty": 0, "qmfbid": 0,
+            "prcw": [0] * _J2K_MAXRES, "prch": [0] * _J2K_MAXRES, "qntsty": 0, "numgbits": 0,
+            "expn": [0] * _J2K_MAXBANDS, "mant": [0] * _J2K_MAXBANDS, "roishift": 0}
+
+
+def _j2k_tcp(nc: int) -> dict:
+    return {"csty": 0, "prg": 0, "numlayers": 0, "mct": 0, "cod": False, "pocs": [],
+            "tccps": [_j2k_tccp() for _ in range(nc)]}
+
+
+def _j2k_copy_tcp(tcp: dict) -> dict:
+    out = dict(tcp, cod=False, pocs=list(tcp["pocs"]))
+    out["tccps"] = [dict(t, prcw=list(t["prcw"]), prch=list(t["prch"]), expn=list(t["expn"]),
+                         mant=list(t["mant"])) for t in tcp["tccps"]]
+    return out
+
+
+def _j2k_spcod(t: dict, seg: bytes) -> int:
+    """opj_j2k_read_SPCod_SPCoc into ``t``: the bytes it read."""
+    if len(seg) < 5:
+        raise _j2k_error("a short coding style")
+    t["numres"] = seg[0] + 1
+    if t["numres"] > _J2K_MAXRES:
+        raise _j2k_error(f"{t['numres']} resolution levels")
+    t["cblkw"], t["cblkh"] = seg[1] + 2, seg[2] + 2
+    if t["cblkw"] > 10 or t["cblkh"] > 10 or t["cblkw"] + t["cblkh"] > 12:
+        raise _j2k_error("an invalid code-block size")
+    t["cblksty"] = seg[3]
+    if t["cblksty"] & 0x80:
+        raise _j2k_error("mixed HT code-blocks")
+    t["qmfbid"] = seg[4]
+    if t["qmfbid"] > 1:
+        raise _j2k_error("an invalid wavelet transformation")
+    n = 5
+    if t["csty"] & 1:
+        if len(seg) - 5 < t["numres"]:
+            raise _j2k_error("a short precinct size list")
+        for i in range(t["numres"]):
+            v = seg[5 + i]
+            if i and (v & 0xF == 0 or v >> 4 == 0):
+                raise _j2k_error("an invalid precinct size")
+            t["prcw"][i], t["prch"][i] = v & 0xF, v >> 4
+        n += t["numres"]
+    else:
+        t["prcw"][:t["numres"]] = [15] * t["numres"]
+        t["prch"][:t["numres"]] = [15] * t["numres"]
+    return n
+
+
+def _j2k_sqcd(t: dict, seg: bytes) -> int:
+    """opj_j2k_read_SQcd_SQcc into ``t``: the bytes it read."""
+    if len(seg) < 1:
+        raise _j2k_error("a short quantization marker")
+    t["qntsty"], t["numgbits"] = seg[0] & 0x1F, seg[0] >> 5
+    size = len(seg) - 1
+    nb = 1 if t["qntsty"] == 1 else (size if t["qntsty"] == 0 else size // 2)
+    if t["qntsty"] == 0:
+        if size < nb:
+            raise _j2k_error("a short quantization marker")
+        for b in range(min(nb, _J2K_MAXBANDS)):
+            t["expn"][b], t["mant"][b] = seg[1 + b] >> 3, 0
+        read = 1 + nb
+    else:
+        if size < 2 * nb:
+            raise _j2k_error("a short quantization marker")
+        for b in range(min(nb, _J2K_MAXBANDS)):
+            v = _u16(">", seg, 1 + 2 * b)
+            t["expn"][b], t["mant"][b] = v >> 11, v & 0x7FF
+        read = 1 + 2 * nb
+    if t["qntsty"] == 1:  # scalar derived: the other bands' exponents from the first
+        for b in range(1, _J2K_MAXBANDS):
+            t["expn"][b] = max(t["expn"][0] - (b - 1) // 3, 0)
+            t["mant"][b] = t["mant"][0]
+    return read
+
+
+class _J2kHeader:
+    """What OpenJPEG has read of a codestream: the image (SIZ), the tile
+    grid, the default coding parameters (the main header's COD, COC, QCD,
+    QCC, RGN, POC), and the tile-parts' walk (:meth:`tiles`)."""
+
+    def __init__(self, data: bytes, start: int, ihdr):
+        self.data, self.pos, self.ihdr = data, start, ihdr
+        self.state = _J2K_MHSIZ
+        marker = self._marker_id()
+        if marker != 0xFF4F:
+            raise _j2k_error("no SOC marker")
+        marker = self._marker_id()
+        has = set()
+        while marker != _J2K_SOT:
+            if marker < 0xFF00:
+                raise _j2k_error(f"a marker ID expected, not {marker:#x}")
+            if marker not in _J2K_MARKERS:
+                marker = self._unknown()
+                if marker == _J2K_SOT:
+                    break
+            if marker in _J2K_REFUSED:
+                raise _Refused("JPEG2000", _J2K_REFUSED[marker])
+            has.add(marker)
+            if not self.state & _J2K_MARKERS[marker]:
+                raise _j2k_error(f"marker {marker:#x} out of place")
+            self._segment(marker, self._segment_bytes())
+            marker = self._marker_id()
+        for m, name in ((0xFF51, "SIZ"), (0xFF52, "COD"), (0xFF5C, "QCD")):
+            if m not in has:
+                raise _j2k_error(f"no {name} marker in the main header")
+        self.state = _J2K_TPHSOT
+
+    # the stream
+    def _left(self) -> int:
+        return len(self.data) - self.pos
+
+    def _take(self, n: int) -> bytes:
+        if n > self._left():
+            raise ValueError("truncated JPEG2000: the stream ends early")
+        b = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return b
+
+    def _marker_id(self) -> int:
+        return _u16(">", self._take(2))
+
+    def _segment_bytes(self) -> bytes:
+        size = self._marker_id()
+        if size < 2:
+            raise _j2k_error("an invalid marker size")
+        return self._take(size - 2)
+
+    def _unknown(self) -> int:
+        """opj_j2k_read_unk: the next known marker, two bytes at a time."""
+        while True:
+            m = self._marker_id()
+            if m >= 0xFF00:
+                states = _J2K_MARKERS.get(m, _J2K_UNKNOWN_STATES)
+                if not self.state & states:
+                    raise _j2k_error(f"marker {m:#x} out of place")
+                if m in _J2K_MARKERS:
+                    return m
+
+    def _tcp(self) -> dict:
+        if self.state != _J2K_TPH:
+            return self.default
+        return self._tile_tcp(self.tile)
+
+    def _tile_tcp(self, tile: int) -> dict:
+        """The tile's coding parameters: a copy of the main header's, made
+        the first time the tile needs one of its own."""
+        tcp = self.tcps.get(tile)
+        if tcp is None:
+            tcp = self.tcps[tile] = _j2k_copy_tcp(self.default)
+        return tcp
+
+    def _segment(self, marker: int, seg: bytes) -> None:
+        if marker == 0xFF51:
+            self._siz(seg)
+            self.state = _J2K_MH
+            return
+        nc = len(self.comps)
+        room = 1 if nc <= 256 else 2
+        tcp = self._tcp() if marker != 0xFF90 else None
+        if marker == 0xFF52:  # COD
+            if len(seg) < 5:
+                raise _j2k_error("a short COD marker")
+            if tcp["cod"]:
+                raise _j2k_error("a second COD marker")
+            tcp["cod"] = True
+            csty, prg, layers, mct = seg[0], seg[1], _u16(">", seg, 2), seg[4]
+            if csty & ~0x7:
+                raise _j2k_error("an unknown Scod value")
+            tcp["csty"], tcp["prg"] = csty, prg if prg <= 4 else -1
+            if layers < 1:
+                raise _j2k_error("no quality layers")
+            if mct > 1:
+                raise _j2k_error("an invalid multiple component transformation")
+            tcp["numlayers"], tcp["mct"] = layers, mct
+            for t in tcp["tccps"]:
+                t["csty"] = csty & 1
+            if 5 + _j2k_spcod(tcp["tccps"][0], seg[5:]) != len(seg):
+                raise _j2k_error("a COD marker of the wrong size")
+            ref = tcp["tccps"][0]
+            for t in tcp["tccps"][1:]:
+                for k in ("numres", "cblkw", "cblkh", "cblksty", "qmfbid"):
+                    t[k] = ref[k]
+                t["prcw"][:ref["numres"]] = ref["prcw"][:ref["numres"]]
+                t["prch"][:ref["numres"]] = ref["prch"][:ref["numres"]]
+        elif marker == 0xFF53:  # COC
+            if len(seg) < room + 1:
+                raise _j2k_error("a short COC marker")
+            comp = seg[0] if room == 1 else _u16(">", seg)
+            if comp >= nc:
+                raise _j2k_error("a COC marker for a component past the image's")
+            t = tcp["tccps"][comp]
+            t["csty"] = seg[room]
+            if room + 1 + _j2k_spcod(t, seg[room + 1:]) != len(seg):
+                raise _j2k_error("a COC marker of the wrong size")
+        elif marker == 0xFF5C:  # QCD
+            if _j2k_sqcd(tcp["tccps"][0], seg) != len(seg):
+                raise _j2k_error("a QCD marker of the wrong size")
+            ref = tcp["tccps"][0]
+            for t in tcp["tccps"][1:]:
+                t["qntsty"], t["numgbits"] = ref["qntsty"], ref["numgbits"]
+                t["expn"], t["mant"] = list(ref["expn"]), list(ref["mant"])
+        elif marker == 0xFF5D:  # QCC
+            if len(seg) < room:
+                raise _j2k_error("a short QCC marker")
+            comp = seg[0] if room == 1 else _u16(">", seg)
+            if comp >= nc:
+                raise _j2k_error("a QCC marker for a component past the image's")
+            if room + _j2k_sqcd(tcp["tccps"][comp], seg[room:]) != len(seg):
+                raise _j2k_error("a QCC marker of the wrong size")
+        elif marker == 0xFF5E:  # RGN
+            if len(seg) != 2 + room:
+                raise _j2k_error("a bad RGN marker")
+            comp = seg[0] if room == 1 else _u16(">", seg)
+            if comp >= nc:
+                raise _j2k_error("an RGN marker for a component past the image's")
+            tcp["tccps"][comp]["roishift"] = seg[room + 1]
+        elif marker == 0xFF5F:  # POC
+            chunk = 5 + 2 * room
+            if len(seg) < chunk or len(seg) % chunk:
+                raise _j2k_error("a bad POC marker")
+            if len(tcp["pocs"]) + len(seg) // chunk >= 32:
+                raise _j2k_error("too many progression order changes")
+            for at in range(0, len(seg), chunk):
+                e = seg[at:at + chunk]
+                c0 = e[1] if room == 1 else _u16(">", e, 1)
+                c1 = e[4 + room] if room == 1 else _u16(">", e, 4 + room)
+                tcp["pocs"].append((e[0], c0, _u16(">", e, 1 + room), e[3 + room],
+                                    min(c1, nc), e[4 + 2 * room]))
+        elif marker == 0xFF57:  # PLM
+            if len(seg) < 1:
+                raise _j2k_error("a bad PLM marker")
+        elif marker == 0xFF58:  # PLT
+            if len(seg) < 1:
+                raise _j2k_error("a bad PLT marker")
+            plen = 0
+            for b in seg[1:]:
+                plen = ((plen | (b & 0x7F)) << 7) if b & 0x80 else 0
+            if plen:
+                raise _j2k_error("a bad PLT marker")
+        elif marker == 0xFF63:  # CRG
+            if len(seg) != nc * 4:
+                raise _j2k_error("a bad CRG marker")
+        elif marker == 0xFF90:
+            self._sot(seg)
+
+    def _siz(self, seg: bytes) -> None:
+        """opj_j2k_read_siz."""
+        if len(seg) < 36 or (len(seg) - 36) % 3:
+            raise _j2k_error("a bad SIZ marker")
+        (self.rsiz, x1, y1, x0, y0, self.tdx, self.tdy, self.ttx0, self.tty0,
+         nc) = struct.unpack_from(">HIIIIIIIIH", seg)
+        if nc >= 16385 or nc != (len(seg) - 36) // 3 or nc == 0:
+            raise _j2k_error("a bad number of components")
+        if x0 >= x1 or y0 >= y1:
+            raise _j2k_error("a negative or zero image size")
+        if self.tdx == 0 or self.tdy == 0:
+            raise _j2k_error("a zero tile size")
+        if (self.ttx0 > x0 or self.tty0 > y0 or min(self.ttx0 + self.tdx, 0xFFFFFFFF) <= x0
+                or min(self.tty0 + self.tdy, 0xFFFFFFFF) <= y0):
+            raise _j2k_error("an illegal tile offset")
+        if self.ihdr is not None and self.ihdr[0] > 0 and self.ihdr[1] > 0 and (
+                self.ihdr[0] != x1 - x0 or self.ihdr[1] != y1 - y0):
+            raise _j2k_error("the ihdr box's size is not SIZ's")
+        self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
+        self.comps = []
+        for i in range(nc):
+            ssiz, dx, dy = seg[36 + 3 * i:39 + 3 * i]
+            prec, sgnd = (ssiz & 0x7F) + 1, ssiz >> 7
+            if not (1 <= dx <= 255 and 1 <= dy <= 255):
+                raise _j2k_error("an invalid component subsampling")
+            if prec > 31:
+                raise _j2k_error(f"a {prec}-bit component")
+            self.comps.append((prec, sgnd, dx, dy))
+        self.tw = -(-(x1 - self.ttx0) // self.tdx)
+        self.th = -(-(y1 - self.tty0) // self.tdy)
+        if self.tw == 0 or self.th == 0 or self.tw > 65535 // self.th:
+            raise _j2k_error(f"{self.tw} x {self.th} tiles")
+        self.subsampled = any(dx != 1 or dy != 1 for _, _, dx, dy in self.comps)
+        self.default = _j2k_tcp(nc)
+
+    # --- tile-parts ---
+    def _sot(self, seg: bytes) -> None:
+        """opj_j2k_read_sot."""
+        if len(seg) != 8:
+            raise _j2k_error("a bad SOT marker")
+        tile, psot, part, nparts = struct.unpack(">HIBB", seg)
+        if tile >= self.tw * self.th:
+            raise _j2k_error(f"tile {tile} of {self.tw * self.th}")
+        tp = self.parts.setdefault(tile, {"current": -1, "count": 0})
+        if tp["current"] + 1 != part:
+            raise _j2k_error(f"tile {tile}'s part {part}, not {tp['current'] + 1}")
+        tp["current"] += 1
+        if psot and psot < 14 and psot != 12:
+            raise _j2k_error(f"a tile-part length of {psot}")
+        self.last_part = psot == 0
+        if tp["count"] and part >= tp["count"]:
+            raise _j2k_error("a tile-part past its tile's count")
+        if nparts:
+            if part >= nparts:
+                raise _j2k_error("a tile-part past its tile's count")
+            tp["count"] = nparts
+        if tp["count"] and tp["count"] == part + 1:
+            self.can_decode = True
+        self.sot_length = 0 if self.last_part else psot - 12
+        self.tile = tile
+        self.state = _J2K_TPH
+
+    def _sod(self) -> None:
+        """opj_j2k_read_sod (strict): the tile-part's bytes onto its tile's."""
+        if self.last_part:
+            n = self._left() - 2
+            if n < 0:
+                raise ValueError("truncated JPEG2000: a tile-part runs past the stream")
+        else:
+            n = self.sot_length - 2 if self.sot_length >= 2 else 0
+        if n:
+            if n > self._left():
+                raise ValueError("truncated JPEG2000: a tile-part runs past the stream")
+            self.tdata.setdefault(self.tile, []).append(self.data[self.pos:self.pos + n])
+            self.pos += n
+        self.state = _J2K_TPHSOT
+
+    def tiles(self):
+        """opj_read_tile_header then opj_decode_tile_data's tail, as Pillow
+        calls them: (tile index, its coding parameters, its bytes) in the
+        order OpenJPEG decodes them."""
+        ntiles = self.tw * self.th
+        # per tile, keyed by its index and made when a tile-part reaches it:
+        # a header of a few bytes can declare 65535 tiles
+        self.tcps, self.parts, self.tdata = {}, {}, {}
+        self.tile, self.can_decode, self.last_part, self.sot_length = 0, False, False, 0
+        marker = _J2K_SOT
+        while True:
+            if self.state == _J2K_EOC:
+                marker = _J2K_EOC_MARKER
+            elif self.state != _J2K_TPHSOT:
+                raise ValueError("truncated JPEG2000: the stream does not end with EOC")
+            while not self.can_decode and marker != _J2K_EOC_MARKER:
+                while marker != _J2K_SOD:
+                    if self._left() == 0:
+                        self.state = _J2K_NEOC
+                        break
+                    seg = self._segment_bytes()
+                    if marker in _J2K_REFUSED:
+                        raise _Refused("JPEG2000", _J2K_REFUSED[marker])
+                    states = _J2K_MARKERS.get(marker, _J2K_UNKNOWN_STATES)
+                    if not self.state & states:
+                        raise _j2k_error(f"marker {marker:#x} out of place")
+                    if marker not in _J2K_MARKERS:
+                        raise _j2k_error(f"an unknown marker {marker:#x} in a tile-part header")
+                    if self.state == _J2K_TPH and self.sot_length:
+                        if self.sot_length < len(seg) + 4:
+                            raise _j2k_error("a tile-part shorter than its header")
+                        self.sot_length -= len(seg) + 4
+                    self._segment(marker, seg)
+                    marker = self._marker_id()
+                if self._left() == 0 and self.state == _J2K_NEOC:
+                    break
+                self._sod()
+                if not self.can_decode:
+                    marker = self._marker_id()
+            if marker == _J2K_EOC_MARKER and self.state != _J2K_EOC:
+                self.tile, self.state = 0, _J2K_EOC
+            if not self.can_decode:
+                while self.tile < ntiles and self.tile not in self.tdata:
+                    self.tile += 1
+                if self.tile == ntiles:
+                    return
+            t = self.tile
+            if t not in self.tdata:
+                raise ValueError(f"truncated JPEG2000: tile {t} has no data")
+            yield t, self._tile_tcp(t), b"".join(self.tdata.pop(t))
+            self.can_decode = False
+            if self._left() == 0 and self.state == _J2K_NEOC:
+                continue
+            if self.state != _J2K_EOC:
+                m = self._marker_id()
+                if m == _J2K_EOC_MARKER:
+                    self.tile, self.state = 0, _J2K_EOC
+                elif m != _J2K_SOT:
+                    if self._left() == 0:
+                        self.state = _J2K_NEOC
+                        continue
+                    raise ValueError("truncated JPEG2000: no SOT marker after a tile")
+                marker = m
+
+
+def _j2k_params(h: _J2kHeader, t: int, tcp: dict):
+    """The tile's rectangle and jpeg2000.cc's parameters."""
+    p, q = t % h.tw, t // h.tw
+    x0 = max(h.ttx0 + p * h.tdx, h.x0)
+    y0 = max(h.tty0 + q * h.tdy, h.y0)
+    x1 = min(h.ttx0 + (p + 1) * h.tdx, h.x1)
+    y1 = min(h.tty0 + (q + 1) * h.tdy, h.y1)
+    if tcp["prg"] < 0 and not tcp["pocs"]:
+        raise _j2k_error("an unknown progression order")
+    out = [x0, y0, x1, y1, len(h.comps), tcp["prg"], tcp["numlayers"], tcp["mct"],
+           tcp["csty"], len(tcp["pocs"])]
+    for (prec, sgnd, dx, dy), tc in zip(h.comps, tcp["tccps"]):
+        if tc["numres"] == 0:
+            raise _j2k_error("a component without a coding style")
+        if tc["cblksty"] & 0x40:
+            raise _Refused("JPEG2000", "HTJ2K (Part 15) code-blocks")
+        out += [dx, dy, prec, sgnd, tc["numres"], tc["cblkw"], tc["cblkh"], tc["cblksty"],
+                tc["qmfbid"], tc["qntsty"], tc["numgbits"], tc["roishift"]]
+        out += tc["prcw"] + tc["prch"] + tc["expn"] + tc["mant"]
+    for poc in tcp["pocs"]:
+        out += list(poc)
+    return (x0, y0, x1, y1), np.array(out, np.int32)
+
+
+def _j2k_unpack(v: np.ndarray, prec: int, sgnd: int, bits: int = 8) -> np.ndarray:
+    """Jpeg2KDecode.c's j2ku_shift of one component's tile: OpenJPEG's
+    stored word (1, 2 or 4 bytes), plus the signed offset and the rounding
+    half, shifted to ``bits`` and kept to them as Pillow's store keeps it."""
+    csiz = (prec + 7) >> 3
+    csiz = 4 if csiz == 3 else csiz
+    x = v.view(np.uint32) if v.dtype == np.int32 else v.astype(np.uint32)
+    if csiz < 4:
+        x = x & np.uint32((1 << (8 * csiz)) - 1)
+    shift = bits - prec
+    offset = (1 << (prec - 1)) if sgnd else 0
+    if shift < 0:
+        offset += 1 << (-shift - 1)
+    x = x + np.uint32(offset)  # unsigned, wrapping as in C
+    x = x >> np.uint32(-shift) if shift < 0 else x << np.uint32(shift)
+    return (x & np.uint32((1 << bits) - 1)).astype(np.uint16 if bits > 8 else np.uint8)
+
+
+def _j2k_ycc(ycc: np.ndarray) -> np.ndarray:
+    """Pillow's ImagingConvertYCbCr2RGB (ConvertYCbCr.c's tables)."""
+    i = np.arange(256) - 128
+    tab = [np.trunc(k * i * 64 + 0.5).astype(np.int64) for k in (1.402, -0.34414, -0.71414,
+                                                                    1.772)]
+    y, cb, cr = (ycc[..., k].astype(np.int64) for k in range(3))
+    rgb = np.stack([y + (tab[0][cr] >> 6), y + ((tab[1][cb] + tab[2][cr]) >> 6),
+                    y + (tab[3][cb] >> 6)], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _j2k_decode(data: bytes, jp2: bool, mode: str, size, palette) -> np.ndarray:
+    """Pillow's jpeg2k decoder: OpenJPEG reads the header (its colour space,
+    its component count against Pillow's unpackers), then each tile is
+    decoded and unpacked into the image (a tile never decoded stays 0)."""
+    space = None
+    ihdr = None
+    start = 0
+    if jp2:
+        start, ihdr, enumcs = _jp2_boxes(data)
+        space = _J2K_ENUMCS.get(enumcs)  # any other: unspecified, as for a codestream
+    h = _J2kHeader(data, start, ihdr)
+    nc = len(h.comps)
+    if nc > 4:
+        raise ValueError(f"unsupported JPEG2000: {nc} components in colour space "
+                         f"{space or 'unspecified'}, which Pillow does not unpack")
+    if space is None:  # Pillow's guess: sYCC where the first subsampled component is 1 or 2
+        first = next((c for c, (_, _, dx, dy) in enumerate(h.comps) if (dx, dy) != (1, 1)), -1)
+        space = "gray" if nc <= 2 else "sycc" if first in (1, 2) else "srgb"
+    kind = _J2K_UNPACK.get((mode, space, nc))
+    if h.subsampled and kind in ("gray", "i16"):
+        kind = None  # Pillow's one- and two-component unpackers take no subsampling
+    if kind is None:
+        raise ValueError(f"unsupported JPEG2000: a {mode} image of {nc} components in "
+                         f"colour space {space}, which Pillow does not unpack")
+    lib, err = library(), _err()
+    w, hgt = size
+    bands = {"gray": 2 if mode in ("PA", "LA") or (mode == "RGBA" and nc == 2) else 1,
+             "i16": 1, "rgb": 3, "ycc": 3, "cmyk": 4}[kind]
+    img = np.zeros((hgt, w, bands), np.uint16 if kind == "i16" else np.uint8)
+    resno = np.zeros(nc, np.int32)
+    csiz = [4 if (prec + 7) >> 3 == 3 else (prec + 7) >> 3 for prec, _, _, _ in h.comps]
+    words = {1: np.uint8, 2: np.uint16, 4: np.uint32}
+    bits = 16 if kind == "i16" else 8
+    for t, tcp, tile in h.tiles():
+        (x0, y0, x1, y1), params = _j2k_params(h, t, tcp)
+        tw, th = x1 - x0, y1 - y0
+        # each component's tile, on its own grid
+        dims = [(-(-x1 // dx) - -(-x0 // dx), -(-y1 // dy) - -(-y0 // dy))
+                for _, _, dx, dy in h.comps]
+        out = np.empty(sum(cw * ch for cw, ch in dims), np.int32)
+        if lib.qie_j2k_tile(params.ctypes.data, params.size, tile, len(tile), out.ctypes.data,
+                            resno.ctypes.data, err, len(err)) != 0:
+            raise ValueError(err.value.decode())
+        ox, oy = x0 - h.x0, y0 - h.y0
+        if ox < 0 or oy < 0 or x1 - h.x0 > w or y1 - h.y0 > hgt:
+            raise _j2k_error("a tile outside the image")
+        region = img[oy:oy + th, ox:ox + tw]
+        planes, at = [], 0
+        for cw, ch in dims:
+            planes.append(out[at:at + cw * ch].reshape(ch, cw))
+            at += cw * ch
+        if not h.subsampled and all(int(resno[c]) + 1 == tcp["tccps"][c]["numres"]
+                                    for c in range(nc)):
+            for b in range(bands):  # the buffer holds the planes as they are
+                region[..., b] = _j2k_unpack(planes[b], *h.comps[b][:2], bits=bits)
+            continue
+        # OpenJPEG writes the resolution each component reached (a smaller
+        # one where the highest levels had no packets), packed, each sample
+        # in csiz bytes, into a zeroed buffer of the whole tile's size
+        buf = np.zeros(sum(csiz) * tw * th, np.uint8)
+        at = 0
+        for c in range(nc):
+            level = tcp["tccps"][c]["numres"] - 1 - int(resno[c])
+            cx0, cy0 = -(-x0 // h.comps[c][2]), -(-y0 // h.comps[c][3])
+            rw = -(-(cx0 + dims[c][0]) // (1 << level)) - -(-cx0 // (1 << level))
+            rh = -(-(cy0 + dims[c][1]) // (1 << level)) - -(-cy0 // (1 << level))
+            plane = planes[c][:rh, :rw].astype(np.int64) & ((1 << (8 * csiz[c])) - 1)
+            raw = plane.astype(words[csiz[c]]).reshape(-1).view(np.uint8)
+            buf[at:at + len(raw)] = raw
+            at += len(raw)
+        # Pillow reads each component as its unpacker sees it: the
+        # subsampling-aware ones (3 and 4 components) rows of w // dx
+        # samples, h // dy of them, sample (x // dx, y // dy) (the last
+        # column or row past them reads on into what follows); the rest a
+        # whole tile's plane
+        at = 0
+        for b in range(nc):
+            dx, dy = h.comps[b][2:] if kind in ("rgb", "ycc", "cmyk") else (1, 1)
+            cw, ch = tw // dx, th // dy
+            if b < bands:
+                flat = np.frombuffer(buf, words[csiz[b]], (len(buf) - at) // csiz[b], at)
+                v = flat[(np.arange(th) // dy)[:, None] * cw + (np.arange(tw) // dx)[None]]
+                region[..., b] = _j2k_unpack(v, *h.comps[b][:2], bits=bits)
+            at += csiz[b] * cw * ch
+    if kind == "i16":
+        return _gray(np.minimum(img[..., 0], 255))
+    if kind == "gray":
+        if mode in ("P", "PA"):
+            full = np.zeros((256, 3), np.uint8)
+            if palette is not None:
+                full[:min(len(palette), 256)] = palette[:256]
+            return full[img[..., 0]]
+        return _gray(img[..., 0])
+    if kind == "ycc":
+        return _j2k_ycc(img)
+    if mode == "CMYK":
+        return _cmyk_rgb(img)
+    return np.ascontiguousarray(img[..., :3].astype(np.uint8))
+
+
 # --- ICNS (IcnsImagePlugin) -------------------------------------------------
 
 # IcnsFile.SIZES: (width, height, scale) → its members, in the order read
@@ -2644,7 +3574,7 @@ def _open_icns(data: bytes):
     ``bestsize()`` picks; its RGB member (RLE24, ``it32`` after a 4-byte
     prefix) with its mask read and dropped, or its PNG member decoded from
     its start to the file's end without the PNG's orientation (the icon
-    keeps none of its info). A JPEG 2000 member is refused by name."""
+    keeps none of its info), or its JPEG 2000 member's bytes alone."""
     _, filesize = struct.unpack(">4sI", data[:8])
     members, at = {}, 8
     while at < filesize:
@@ -2682,7 +3612,10 @@ def _icns_pixels(data, members, best, full, sizes) -> np.ndarray:
             if sig.startswith(PNG_SIGNATURE):
                 png = _decode_png(data[start:], oriented=False)
             elif sig.startswith(_JPEG2000_SIGNATURES) or sig == _JP2_SIGNATURE:
-                raise _Refused("ICNS", "a JPEG 2000 member")
+                try:  # read_png_or_jpeg2000: the member's bytes alone
+                    png = _open_jpeg2000(data[start:start + length])()
+                except (_NotThisFormat, IndexError, struct.error) as e:
+                    raise ValueError(f"corrupt ICNS: a JPEG 2000 member: {e}") from None
             else:
                 raise ValueError("unsupported ICNS: an icon member that is neither PNG nor "
                                  "JPEG 2000")
@@ -2992,7 +3925,7 @@ _FORMATS = (
      _refused("GRIB", "a stub Pillow cannot load")),
     ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _refused("HDF5", "a stub Pillow cannot load")),
     ("JPEG2000", lambda p: p[:4] == b"\xff\x4f\xff\x51"
-     or p[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _refused("JPEG2000", "JPEG 2000: EBCOT and wavelets")),
+     or p[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _open_jpeg2000),
     ("ICNS", lambda p: p[:4] == b"icns", _open_icns),
     ("ICO", lambda p: p[:4] == b"\0\0\1\0", _open_ico),
     ("IM", lambda p: True, _refused("IM", "IFUNC images", _im_claims)),

@@ -371,6 +371,168 @@ def libwebp_encode(rgb: np.ndarray, **config) -> bytes:
         lib.WebPMemoryWriterClear(ctypes.byref(wr))
 
 
+# opj_cparameters_t (OpenJPEG 2.5): byte offsets of the fields the writer sets
+_OPJ_PARAMS = {"tile_size_on": 0, "cp_tx0": 4, "cp_ty0": 8, "cp_tdx": 12, "cp_tdy": 16,
+               "cp_disto_alloc": 20, "csty": 48, "prog_order": 52, "POC": 56, "numpocs": 4792,
+               "tcp_numlayers": 4796, "tcp_rates": 4800, "numresolution": 5600,
+               "cblockw_init": 5604, "cblockh_init": 5608, "mode": 5612, "irreversible": 5616,
+               "roi_compno": 5620, "roi_shift": 5624, "res_spec": 5628, "prcw_init": 5632,
+               "prch_init": 5764, "image_offset_x0": 18188, "image_offset_y0": 18192,
+               "subsampling_dx": 18196, "subsampling_dy": 18200, "tcp_mct": 18698}
+_OPJ_POC_SIZE = 148  # opj_poc_t
+
+
+def openjpeg_encode(planes: np.ndarray, *, jp2: bool = False, mode: int = 0,
+                    irreversible: bool = False, resolutions: int = 6, cblk=(64, 64),
+                    rates=(), progression: int = 0, pocs=(), roi=None, prec: int = 8,
+                    signed: bool = False, mct=None, precincts=(), tile=None,
+                    offset=(0, 0), subsampling=None) -> bytes:
+    """A JPEG 2000 codestream (or JP2 file) of ``planes`` (C, H, W) written by
+    the libopenjp2 that Pillow bundles, through ``ctypes``, with encoder
+    parameters Pillow does not expose: ``mode`` the code-block style (1
+    bypass, 2 reset, 4 termination on each pass, 8 vertically causal, 16
+    predictable termination, 32 segmentation symbols), ``roi`` (component,
+    shift) for an RGN marker, ``pocs`` (resno0, compno0, layno1, resno1,
+    compno1, progression) entries for a POC marker, ``rates`` one per
+    quality layer, ``precincts`` ((w, h), ...) from the highest resolution
+    down, ``subsampling`` (dx, dy) of every component but the first, or a
+    list of each component's."""
+    import ctypes
+    import glob
+    import tempfile
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    path = glob.glob(os.path.join(libs, "libopenjp2-*.so*"))
+    if not path:
+        raise RuntimeError("Pillow's bundled libopenjp2 was not found")
+    lib = ctypes.CDLL(path[0])
+    u32, vp = ctypes.c_uint32, ctypes.c_void_p
+
+    class CompParm(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd")]
+
+    class Comp(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("dx", "dy", "w", "h", "x0", "y0", "prec", "bpp", "sgnd",
+                                       "resno_decoded", "factor")] + [
+            ("data", ctypes.POINTER(ctypes.c_int32)), ("alpha", ctypes.c_uint16)]
+
+    class Image(ctypes.Structure):
+        _fields_ = [(n, u32) for n in ("x0", "y0", "x1", "y1", "numcomps")] + [
+            ("color_space", ctypes.c_int), ("comps", ctypes.POINTER(Comp))]
+
+    lib.opj_image_create.restype = ctypes.POINTER(Image)
+    lib.opj_create_compress.restype = vp
+    lib.opj_stream_create_default_file_stream.restype = vp
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    planes = np.asarray(planes)
+    nc, h, w = planes.shape
+    ox, oy = offset
+    if subsampling is None or isinstance(subsampling[0], int):
+        subsampling = [(1, 1)] + [subsampling or (1, 1)] * (nc - 1)
+    parms = (CompParm * nc)()
+    for i in range(nc):
+        dx, dy = subsampling[i]
+        parms[i] = CompParm(dx, dy, -(-w // dx), -(-h // dy), -(-ox // dx), -(-oy // dy), prec,
+                            prec, int(signed))
+    image = lib.opj_image_create(nc, parms, 1 if nc >= 3 else 2)
+    im = image.contents
+    im.x0, im.y0, im.x1, im.y1 = ox, oy, ox + w, oy + h
+    for i in range(nc):
+        c = im.comps[i]
+        dx, dy = subsampling[i]
+        plane = np.ascontiguousarray(planes[i][::dy, ::dx], np.int32)
+        ctypes.memmove(c.data, plane.ctypes.data, plane.nbytes)
+    raw = ctypes.create_string_buffer(1 << 15)
+    lib.opj_set_default_encoder_parameters(raw)
+
+    def put(name, value, fmt="i", at=0):
+        struct.pack_into(fmt, raw, _OPJ_PARAMS[name] + at, value)
+
+    put("numresolution", resolutions)
+    put("cblockw_init", cblk[0])
+    put("cblockh_init", cblk[1])
+    put("mode", mode)
+    put("irreversible", int(irreversible))
+    put("prog_order", progression)
+    put("tcp_numlayers", max(1, len(rates)))
+    if rates:
+        put("cp_disto_alloc", 1)
+        for k, r in enumerate(rates):
+            put("tcp_rates", float(r), "f", 4 * k)
+    if roi is not None:
+        put("roi_compno", roi[0])
+        put("roi_shift", roi[1])
+    if precincts:
+        put("csty", 1)
+        put("res_spec", len(precincts))
+        for k, (pw, ph) in enumerate(precincts):
+            put("prcw_init", pw, at=4 * k)
+            put("prch_init", ph, at=4 * k)
+    for k, (r0, c0, l1, r1, c1, prg) in enumerate(pocs):
+        base = _OPJ_POC_SIZE * k
+        for j, v in enumerate((r0, c0, l1, r1, c1)):
+            put("POC", v, "I", base + 4 * j)
+        put("POC", prg, "i", base + 36)  # prg (after prg1)
+    put("numpocs", len(pocs))
+    if tile is not None:
+        put("tile_size_on", 1)
+        put("cp_tdx", tile[0])
+        put("cp_tdy", tile[1])
+    put("image_offset_x0", ox)
+    put("image_offset_y0", oy)
+    put("tcp_mct", int(nc >= 3) if mct is None else mct, "b")
+    codec = lib.opj_create_compress(2 if jp2 else 0)
+    fd, out = tempfile.mkstemp()
+    os.close(fd)
+    stream = None
+    try:
+        if not lib.opj_setup_encoder(vp(codec), raw, image):
+            raise RuntimeError("opj_setup_encoder failed")
+        stream = lib.opj_stream_create_default_file_stream(out.encode(), 0)
+        if not (lib.opj_start_compress(vp(codec), image, vp(stream))
+                and lib.opj_encode(vp(codec), vp(stream))
+                and lib.opj_end_compress(vp(codec), vp(stream))):
+            raise RuntimeError("OpenJPEG failed to encode")
+        lib.opj_stream_destroy(vp(stream))
+        stream = None
+        with open(out, "rb") as f:
+            return f.read()
+    finally:
+        if stream is not None:
+            lib.opj_stream_destroy(vp(stream))
+        lib.opj_destroy_codec(vp(codec))
+        lib.opj_image_destroy(image)
+        os.unlink(out)
+
+
+def jp2_box(typ: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + typ + body
+
+
+def jp2_file(codestream: bytes, width: int, height: int, comps: int, bits: int = 8,
+             colr=None, palette=None, extra: bytes = b"") -> bytes:
+    """A JP2 file around a raw codestream: the signature and file type
+    boxes, a JP2 header of ``ihdr`` (``bits`` a component), a colour box
+    (``colr``: an enumerated colour space, 16 sRGB, 17 greyscale, 18 sYCC,
+    12 CMYK; bytes for an ICC profile; None for none), ``palette`` ((N, C)
+    uint8 entries: a ``pclr`` box and a ``cmap`` box mapping component 0
+    through it) and ``extra`` boxes, then the codestream box."""
+    head = jp2_box(b"ihdr", struct.pack(">IIHBBBB", height, width, comps, bits - 1, 7, 0, 0))
+    if isinstance(colr, int):
+        head += jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr))
+    elif colr is not None:
+        head += jp2_box(b"colr", struct.pack(">BBB", 2, 0, 0) + colr)
+    if palette is not None:
+        palette = np.asarray(palette, np.uint8)
+        n, c = palette.shape
+        head += jp2_box(b"pclr", struct.pack(">HB", n, c) + bytes([7] * c) + palette.tobytes())
+        head += jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k) for k in range(c)))
+    return (jp2_box(b"jP  ", b"\x0d\x0a\x87\x0a") + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", head + extra) + jp2_box(b"jp2c", codestream))
+
+
 def packbits(data: bytes) -> bytes:
     """PackBits: repeats of two or more as runs, the rest as literals of up
     to 128 bytes."""
@@ -1548,6 +1710,15 @@ def scene(h: int, w: int, seed: int = 0) -> np.ndarray:
     return np.clip(a + rng.normal(0, 2, a.shape), 0, 255).astype(np.uint8)
 
 
+def smooth_scene(n: int) -> np.ndarray:
+    """A smooth n² colour image with no noise: compresses far in lossless
+    codings."""
+    y = np.linspace(0, 1, n)[:, None]
+    x = np.linspace(0, 1, n)[None]
+    return np.stack([128 + 90 * np.sin(3 * x + y), 128 + 90 * np.cos(2 * y + 1.5 * x),
+                     128 + 70 * np.sin(4.5 * x * y)], -1).astype(np.uint8)
+
+
 def pil_rgb(data: bytes) -> np.ndarray:
     from PIL import Image, ImageOps
 
@@ -1666,10 +1837,7 @@ def fixtures() -> dict:
     pal = rng.integers(0, 256, (256, 3))
     idx = np.asarray(Image.fromarray(scene(33, 45, 9)).quantize(200))
     alpha = np.concatenate([small, rng.integers(0, 256, small.shape[:2] + (1,), np.uint8)], -1)
-    y = np.linspace(0, 1, 1024)[:, None]
-    x = np.linspace(0, 1, 1024)[None]
-    smooth = np.stack([128 + 90 * np.sin(3 * x + y), 128 + 90 * np.cos(2 * y + 1.5 * x),
-                       128 + 70 * np.sin(4.5 * x * y)], -1).astype(np.uint8)
+    smooth = smooth_scene(1024)
     return {
         "prog_512_420.jpg": jpeg(scene(512, 512, 0), progressive=True),
         "prog_1024.jpg": jpeg(big, progressive=True),
@@ -1695,6 +1863,8 @@ def fixtures() -> dict:
         **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
         **raster_fixtures(),
         **small_fixtures(),
+        **jpeg2000_fixtures(),
+        **jpeg2000_decode_pair(),
     }
 
 
@@ -1851,6 +2021,71 @@ def small_fixtures() -> dict:
         "pal8.dds": dds_file(56, 40, (gray >> 2).tobytes(), 0x20,
                              palette=np.concatenate([pal, pal[:, :1]], 1).tobytes()),
     }
+
+
+def jpeg2000_fixtures() -> dict:
+    """JPEG 2000 files at most 128² (Jpeg2KImagePlugin over OpenJPEG 2.5.4):
+    Pillow's own (5/3 and 9/7, JP2 and raw codestream, I;16, signed LA,
+    RGBA, CMYK, tiles with image and tile offsets, quality layers under
+    RPCL with precincts, cinema 4K with its POC marker and six tile-parts),
+    OpenJPEG's through :func:`openjpeg_encode` (every code-block style at
+    once, an RGN marker) and JP2 boxes built around a codestream by
+    :func:`jp2_file` (sYCC, a palette)."""
+    from PIL import Image
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    rgb = scene(48, 64, 22)
+    gray16 = (scene(40, 56, 23)[..., 0].astype(np.uint16) * 257
+              + np.random.default_rng(22).integers(0, 256, (40, 56), np.uint16))
+    rgba = np.concatenate([rgb, rgb[..., :1] // 2], -1)
+    planes = rgb.transpose(2, 0, 1)
+    codestream = openjpeg_encode(planes, resolutions=4)
+    idx = openjpeg_encode(planes[:1] >> 3, prec=5, resolutions=4)
+    pal = np.random.default_rng(23).integers(0, 256, (32, 3))
+    return {
+        "rev53.jp2": save(Image.fromarray(rgb)),
+        "irr97_layers.j2k": save(Image.fromarray(rgb), irreversible=True, no_jp2=True,
+                                 quality_layers=[40, 10, 2], mct=1),
+        "gray16.jp2": save(Image.fromarray(gray16)),
+        "signed_la.jp2": save(Image.fromarray(rgb[..., :2].copy(), "LA"), signed=True),
+        "rgba.j2k": save(Image.fromarray(rgba, "RGBA"), no_jp2=True, irreversible=True),
+        "cmyk.jp2": save(Image.fromarray(rgba, "CMYK")),
+        "tiles_offsets.jp2": save(Image.fromarray(rgb), tile_size=(24, 20), offset=(5, 3),
+                                  tile_offset=(2, 1), num_resolutions=3),
+        "rpcl_precincts.jp2": save(Image.fromarray(rgb), progression="RPCL",
+                                   precinct_size=(32, 32), num_resolutions=3,
+                                   quality_layers=[30, 5], codeblock_size=(16, 16)),
+        "cinema4k.j2k": save(Image.fromarray(scene(128, 128, 24)), no_jp2=True,
+                             cinema_mode="cinema4k-24"),
+        "styles_roi.j2k": openjpeg_encode(planes, mode=63, irreversible=True, rates=(20, 4),
+                                          cblk=(16, 16), resolutions=4, roi=(0, 3)),
+        "sycc.jp2": jp2_file(codestream, 64, 48, 3, colr=18),
+        "palette.jp2": jp2_file(idx, 64, 48, 1, bits=5, colr=16, palette=pal),
+    }
+
+
+def jpeg2000_decode_pair() -> dict:
+    """The 1024² JPEG 2000 pair ``chip_smoke.py`` times (the card host has no
+    Pillow): the smooth scene as a 5/3 JP2 (184 KB, 1.40 bits a pixel),
+    which decodes to its source, and the baseline JPEG's textured scene as
+    a 9/7 codestream that fills its rate of 40 (79 KB, 0.60 bits a pixel),
+    held by its manifest hash. Tier 1's time follows the coded bytes: the
+    smooth scene codes to 0.16 bits a pixel at rate 20. (Rate 40 keeps the
+    fixture tree under its 1 MB budget.)"""
+    from PIL import Image
+
+    out = {}
+    for name, img, kw in (("rev53_1024.jp2", smooth_scene(1024), {}),
+                          ("irr97_1024.j2k", scene(1024, 1024, 1),
+                           {"irreversible": True, "no_jp2": True, "quality_layers": [40]})):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "JPEG2000", **kw)
+        out[name] = buf.getvalue()
+    return out
 
 
 def tiff_strips(data: bytes):

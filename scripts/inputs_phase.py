@@ -8,8 +8,9 @@ unpacked with ``git archive`` and this one, as parent, change, change,
 parent) are timed on one host in one call. The phase decodes every
 committed codec fixture against its manifest and times the 1024² decode
 set; this prints its JSON lines, then one line a run of the TIFF rows',
-the plain raster rows' and the small decoders' multiples of the baseline
-JPEG (the small decoders' ms too) and the phase's seconds.
+the plain raster rows', the small decoders' and the JPEG 2000 rows'
+multiples of the baseline JPEG (the small decoders' and JPEG 2000's ms
+too, and JPEG 2000's coded bits a pixel) and the phase's seconds.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import sys
 RASTER = ("ppm", "tga_rle", "psd_rle", "qoi", "pcx", "sgi_rle")
 SMALL = ("tiff_zstd_predictor", "sun_rle", "msp_v2", "xbm", "xpm", "icns_it32", "dds_rgb",
          "dds_rgb24", "dds_bc1", "dds_bc7")
+JPEG2000 = ("jpeg2000_53", "jpeg2000_97")
 
 RUN = """
 import json, sys, time
@@ -60,6 +62,11 @@ def main(argv=None) -> int:
             "small_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in SMALL},
             "small_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
                                     if k in SMALL},
+            "jpeg2000_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in JPEG2000},
+            "jpeg2000_over_baseline": {k: v["over_baseline"]
+                                       for k, v in formats["formats"].items() if k in JPEG2000},
+            "jpeg2000_bits_per_pixel": {k: v["bytes"] * 8 / formats["size"] ** 2
+                                        for k, v in formats["formats"].items() if k in JPEG2000},
             "nvidia_smi": formats["nvidia_smi"]}), flush=True)
     return 0
 

@@ -414,20 +414,24 @@ def test_bc7_every_mode_is_reached():
 
 
 def test_kept_refusals_are_named():
-    """BC6H (unsigned and signed) and an ICNS JPEG 2000 member: Pillow
-    decodes them, the port raises naming them (ROADMAP.md queue 1)."""
+    """BC6H (unsigned and signed): Pillow decodes it, the port raises naming
+    it (ROADMAP.md queue 1). An ICNS JPEG 2000 member, once refused here
+    too, now decodes to Pillow's pixels (``test_icns_jpeg2000_member``)."""
     rng = np.random.default_rng(21)
     for dxgi in (95, 96):
         data = dds_file(8, 8, rng.integers(0, 256, 64, np.uint8).tobytes(), DDS_FOURCC, dxgi=dxgi)
         assert _pil_or_none(data) is not None
         with pytest.raises(ValueError, match="unsupported image format: DDS .*BC6H"):
             codec.decode(data)
+
+
+def test_icns_jpeg2000_member():
+    """The ICNS JPEG 2000 members the refusal above used to pin, a JP2 file
+    and a raw codestream, decode as Pillow's IcnsImagePlugin reads them."""
     j2k = _save(Image.fromarray(scene(16, 16, 3)), "JPEG2000")
     for member in (j2k, _save(Image.fromarray(scene(16, 16, 3)), "JPEG2000", no_jp2=True)):
         data = icns_file([(b"icp4", member)])
-        assert _pil_or_none(data) is not None
-        with pytest.raises(ValueError, match="unsupported image format: ICNS .*JPEG 2000"):
-            codec.decode(data)
+        np.testing.assert_array_equal(codec.decode(data), _pil(data))
 
 
 @pytest.mark.parametrize("dxgi", [2, 10, 24, 72, 75, 78, 81, 87, 88, 91])
