@@ -55,13 +55,17 @@ raises when a call needs the library.
   tiles, planar configuration 1 or 2; uncompressed as Pillow's own raw
   decoder reads it, the rest as libtiff decodes it for Pillow: PackBits,
   LZW, Deflate, LZMA, ZSTD (through the host's libzstd), JPEG with its
-  JPEGTables, CCITT RLE, Group 3 1-D and 2-D, Group 4; Predictor 2,
-  FillOrder 2): each mode of Pillow's OPEN_INFO
-  but CIELab and 12-bit gray, converted as its ``convert("RGB")`` converts
-  it (bilevel and 2/4-bit gray scaled, 16-bit gray clipped, float
-  truncated, 16-bit colour's high byte, premultiplied alpha divided out,
-  palettes' 16-bit entries' high bytes, CMYK not inverted, YCbCr through
-  libtiff's RGBA reader's fixed point), the Orientation tag (else XMP's)
+  JPEGTables, CCITT RLE, RLEW (its rows aligned as libtiff aligns them),
+  Group 3 1-D and 2-D, Group 4, ThunderScan; Predictor 2 and the
+  floating-point Predictor 3, FillOrder 2): each mode of Pillow's OPEN_INFO
+  but CIELab, converted as its ``convert("RGB")`` converts it (bilevel and
+  2/4-bit gray scaled, 12- and 16-bit gray clipped, float truncated, 16-bit
+  colour's high byte, premultiplied alpha divided out, palettes' 16-bit
+  entries' high bytes, CMYK not inverted, YCbCr through libtiff's RGBA
+  reader's fixed point, at any Orientation, 4x4-subsampled strips read
+  short where libtiff reads them short; big-endian signed and float samples
+  of a compressed file byte-swapped, as Pillow reads libtiff's native
+  ones), the Orientation tag (else XMP's)
   applied once. A damaged TIFF decodes, or raises, as it does through
   Pillow: the mode from Pillow's reading of the first directory, the strips
   and the fields they decode by from libtiff's own reading of it (which
@@ -102,9 +106,9 @@ raises when a call needs the library.
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
-  other than those above (old-style JPEG, ThunderScan, NeXT, PixarLog,
-  SGILog, JBIG, WebP), ZSTD on a host without ``libzstd.so.1``, CIELab,
-  12-bit gray, the floating-point predictor, BMP compressions and bitfield
+  other than those above (old-style JPEG, NeXT, PixarLog, SGILog, JBIG,
+  WebP), ZSTD on a host without ``libzstd.so.1``, CIELab, an uncompressed
+  TIFF whose FillOrder-2 raw mode Pillow lacks, BMP compressions and bitfield
   layouts Pillow does not read, a GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
   PSD (Pillow converts it with LittleCMS), a TGA colour map Pillow cannot
   apply, DDS's BC6H blocks and the DXGI formats Pillow does not
@@ -598,7 +602,8 @@ _TIFF_COMPRESSION = {1: "uncompressed", 2: "CCITT RLE", 3: "CCITT Group 3",
                      32773: "PackBits", 32809: "ThunderScan", 32908: "PixarFilm",
                      32909: "PixarLog", 32946: "Deflate", 34661: "JBIG", 34676: "SGILog",
                      34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
-_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34925, 50000)
+_TIFF_FAX = (2, 3, 4, 32771)
 # the offsets Pillow's raw tiles iterate: a BYTE field's bytes are numbers
 _TIFF_ITERATED = {273, 324}
 # the fields Pillow's mode and codec are looked up by
@@ -933,7 +938,7 @@ class _LibTiff:
         self.tw = self.th = None
         self.extra = 0
         self.bps, self.sample_format, self.photo, self.fill = 1, 1, None, 1
-        self.predictor, self.t4, self.orientation = 1, 0, 1
+        self.predictor, self.t4 = 1, 0
         self.sub, self.coef, self.refbw, self.tables = (2, 2), None, None, None
         self.colormap = None
         ent = self.find(277)
@@ -1057,13 +1062,11 @@ class _LibTiff:
         """TIFFFetchNormalTag with recovery: a field that fails is ignored."""
         tag = ent[0]
         try:
-            if tag in (262, 266, 317, 274):
+            if tag in (262, 266, 317):
                 v = self.one(ent, 0xFFFF)
                 if tag == 266 and v not in (1, 2):
                     return
-                if tag == 274 and not 1 <= v <= 8:
-                    return
-                name = {262: "photo", 266: "fill", 317: "predictor", 274: "orientation"}[tag]
+                name = {262: "photo", 266: "fill", 317: "predictor"}[tag]
                 setattr(self, name, v)
             elif tag in (292, 293):
                 self.t4 = self.one(ent, 2 ** 32 - 1)
@@ -1172,8 +1175,6 @@ def _decode_tiff(data: bytes) -> np.ndarray:
                          "putpalette refuses it)")
     if mode == "LAB":
         raise ValueError("unsupported TIFF: CIELab (Pillow converts it to RGB through LittleCMS)")
-    if mode == "I;12":
-        raise ValueError("unsupported TIFF: 12-bit gray")
     if t.w <= 0 or t.h <= 0:
         raise ValueError("corrupt TIFF: zero width or height")
     if t.w * t.h > MAX_PIXELS:
@@ -1185,6 +1186,9 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         xmp = t.tags.get(700)
         orient = orientation(None, xmp[1] if xmp and isinstance(xmp[1], bytes) else None)
     if t.comp == 1:
+        if t.fill == 2 and (mode, t.bps[0]) in (("L;I", 8), ("P", 1), ("P", 2), ("P", 4)):
+            raise ValueError(f"unsupported TIFF: uncompressed {mode} of {t.bps[0]} bits at "
+                             "FillOrder 2 (Pillow has no raw mode for it)")
         px, covered = _tiff_raw(t, mode)
         rgb = _tiff_rgb(t, px, mode)
         if covered is not None:  # what no tile covers is Pillow's image as made: zero
@@ -1282,6 +1286,11 @@ def _tiff_unpack(rows: np.ndarray, w: int, bits: int, spp: int, e: str, sample_f
         shifts = np.arange(8 - bits, -1, -bits, dtype=np.uint8)
         v = ((rows[:, :, None] >> shifts) & ((1 << bits) - 1)).reshape(h, -1)[:, :w * spp]
         return v.reshape(h, w, spp)
+    if bits == 12:  # Pillow's I;12 unpacker: three nibbles a sample, the first the highest
+        n = (w * spp * 12 + 7) // 8
+        nib = np.stack([rows[:, :n] >> 4, rows[:, :n] & 15], -1).reshape(h, -1).astype(np.uint16)
+        nib = np.pad(nib, ((0, 0), (0, -nib.shape[1] % 3)))[:, :w * spp * 3].reshape(h, -1, 3)
+        return (nib[..., 0] << 8 | nib[..., 1] << 4 | nib[..., 2]).reshape(h, w, spp)
     n = bits // 8
     if n == 1:
         return rows[:, :w * spp].reshape(h, w, spp)
@@ -1321,14 +1330,25 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
         raise ValueError(f"unsupported TIFF: {tw}x{th} tiles exceed the "
                          f"decompression-bomb limit")
     b, pb = lt.bps, t.bps[0]  # libtiff's bits a sample, and Pillow's
-    if lt.predictor not in (1, 2):
-        name = "floating-point" if lt.predictor == 3 else "unknown"
-        raise ValueError(f"unsupported TIFF: {name} predictor ({lt.predictor})")
+    if lt.predictor not in (1, 2, 3):
+        raise ValueError(f"unsupported TIFF: unknown predictor ({lt.predictor})")
+    # tif_predict.c's PredictorSetup
     if lt.predictor == 2 and b not in (8, 16, 32):
         raise ValueError(f"corrupt TIFF: Predictor 2 with {b}-bit samples")
-    if lt.comp in (2, 3, 4) and b != 1:
+    if lt.predictor == 3 and lt.sample_format != 3:
+        raise ValueError(f"corrupt TIFF: floating-point Predictor 3 with sample format "
+                         f"{lt.sample_format} (libtiff takes IEEE floats only)")
+    if lt.predictor == 3 and b not in (16, 24, 32, 64):
+        raise ValueError(f"corrupt TIFF: floating-point Predictor 3 with {b}-bit samples")
+    if lt.comp in _TIFF_FAX and b != 1:
         raise ValueError(f"corrupt TIFF: CCITT with {b}-bit samples (libtiff's Fax3SetupState "
                          "refuses them)")
+    if lt.comp == 32809 and b != 4:
+        raise ValueError(f"corrupt TIFF: ThunderScan with {b}-bit samples (libtiff's "
+                         "ThunderSetupDecode refuses them)")
+    if lt.comp == 32809 and lt.tiled:
+        raise ValueError("corrupt TIFF: ThunderScan in tiles (libtiff decodes it in strips "
+                         "only)")
     # Pillow's libtiff decoder unpacks a plane a band where libtiff reads
     # planes and its mode has more than one band (_pickUnpackers), else its
     # own raw mode from the start of each of libtiff's rows
@@ -1361,9 +1381,6 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
             raise ValueError("unsupported TIFF: YCbCr (not JPEG) that is planar or not 8-bit")
         if tuple(sub) not in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2), (4, 4)):
             raise ValueError(f"unsupported TIFF: YCbCr subsampling {tuple(sub)}")
-        if lt.orientation != 1:
-            raise ValueError("unsupported TIFF: YCbCr (not JPEG) with an Orientation other than "
-                             "1 (libtiff's RGBA reader flips it block by block)")
         block_rows = th if lt.tiled or rps == 2 ** 32 - 1 else rps
         if block_rows > (2 ** 31 - 1) // 4 // t.w:
             # Pillow's RGBA decoder sizes its buffer by the unclamped rows
@@ -1375,7 +1392,14 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
                          f"configuration {lt.planar} and {b}-bit samples")
     t4 = lt.t4 if lt.comp in (3, 4) else 0
     lib, err = library(), _err()
-    dtype = np.uint8 if pb <= 8 else np.dtype("=u" + str(pb // 8))
+    dtype = np.dtype("=u" + str(-(-pb // 8)))
+    # libtiff hands Pillow native (little-endian) samples; Pillow reads them
+    # in the file's order where its raw mode is a big-endian signed or float
+    # one (it makes only the unsigned 16-bit ones native): their bytes swapped
+    swapped = t.e == ">" and pb in (16, 32) and t.sample_format[0] in (2, 3)
+    # the order the strip's bytes are read in: the file's, or, once fpAcc
+    # put them together, native
+    order = ("<" if swapped else t.e) if lt.predictor != 3 else (">" if swapped else "<")
     out = np.empty((t.h, t.w, 3 if ycbcr else t.spp), dtype)
     # Pillow's strip or tile buffer, one for every chunk: what a decoder
     # leaves unwritten keeps the last chunk's bytes (zero at first, as a
@@ -1384,7 +1408,7 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
     held = np.zeros(0 if ycbcr else th * rowbytes, np.uint8)
     # libtiff's CCITT run arrays and its no-EOL mode, kept across strips
     runs = np.zeros(2 * (2 if lt.comp == 4 or t4 & 1 else 1) * ((tw + 32) // 32 * 32) + 1,
-                    np.uint32) if lt.comp in (2, 3, 4) else None
+                    np.uint32) if lt.comp in _TIFF_FAX else None
     # TIFFStripSize or TIFFTileSize: TIFFFillStrip and TIFFFillTile cut a
     # byte count over 1 MiB to ten of these and 4 KiB before they read it
     chunk = (-(-th // sub[1]) * -(-tw // sub[0]) * (sub[0] * sub[1] + 2) if ycbcr
@@ -1421,31 +1445,39 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
                     _tiff_jpeg_chunk(lib, err, raw, lt, tw, rows, last, sub, block)
                 elif ycbcr:
                     hs, vs = sub
-                    if -(-tw // hs) * (hs * vs + 2) % vs:
-                        # TIFFScanlineSize rounds down: the RGBA reader reads the
-                        # strip short and converts bytes it never read
-                        raise ValueError(f"unsupported TIFF: YCbCr subsampled {hs}x{vs} at "
-                                         f"width {tw} (libtiff's RGBA reader reads it short)")
-                    size = -(-rows // vs) * -(-tw // hs) * (hs * vs + 2)
+                    unit_row = -(-tw // hs) * (hs * vs + 2)
+                    size = -(-rows // vs) * unit_row
+                    # a strip is read in rows of TIFFScanlineSize, which rounds
+                    # down (4x4 at an odd number of units a row): the rest of
+                    # the units converted are the zeros of libtiff's cleared
+                    # strip buffer
+                    read = size if lt.tiled else -(-rows // vs) * vs * (unit_row // vs)
                     if units is None:
                         if lt.tiled:
                             _tiff_check_ratio(lt, cnt, size)
                         units = np.zeros(size, np.uint8)
-                    _tiff_decompress(lib, err, lt, raw, units[:size], tw, t4, tolerant=True)
+                    else:  # a tile that fails shows zeros past its error, not the tile before's
+                        units[:] = 0
+                    _tiff_decompress(lib, err, lt, raw, units[:read], tw, t4, tolerant=True)
                     block = ycc.rgb(units[:size], tw, rows, hs, vs, w, h)
                 else:
                     dec = held[:rows * rowbytes]
-                    _tiff_decompress(lib, err, lt, raw, dec, tw, t4, runs=runs)
+                    # RLEW aligns its rows by the address: the offset's parity
+                    _tiff_decompress(lib, err, lt, raw, dec, tw,
+                                     off & 1 if lt.comp == 32771 else t4, runs=runs)
                     dec = dec.reshape(rows, rowbytes)
                     if lt.predictor == 2:
                         dec[:] = _tiff_accumulate(dec, tw, per, b, t.e)
-                    block = _tiff_unpack(dec, tw, pb, pper, t.e, (1,))
+                    elif lt.predictor == 3:
+                        dec[:] = _tiff_fp_accumulate(dec, per, b)
+                    block = _tiff_unpack(dec, tw, pb, pper, order, (1,))
                 if lt.planar == 2:
                     out[y0:y0 + h, x0:x0 + w, p] = block[:h, :w, 0]
                 else:
                     out[y0:y0 + h, x0:x0 + w] = block[:h, :w]
-    if pb == 32:  # the words as the sample format reads them
-        out = out.view(np.dtype({2: "=i4", 3: "=f4"}.get(t.sample_format[0], "=u4")))
+    if pb in (16, 32):  # the words as the sample format reads them
+        n = str(pb // 8)
+        out = out.view(np.dtype({2: "=i" + n, 3: "=f" + n}.get(t.sample_format[0], "=u" + n)))
     if rgba_as_l:  # each row's first bytes of R, G, B, A
         rgba = np.concatenate([out, np.full(out.shape[:2] + (1,), 255, np.uint8)], -1)
         return rgba.reshape(t.h, -1)[:, :t.w, None], mode
@@ -1653,6 +1685,18 @@ def _tiff_accumulate(rows: np.ndarray, w: int, spp: int, bits: int, e: str) -> n
     return out
 
 
+def _tiff_fp_accumulate(rows: np.ndarray, stride: int, bits: int) -> np.ndarray:
+    """Undo the floating-point predictor (Predictor 3) as tif_predict.c's
+    fpAcc does, row by row: each byte plus the one ``stride`` bytes before it
+    (mod 256), then the row's planes of bytes (every sample's most
+    significant byte first, then the next) put back together as native,
+    little-endian, samples."""
+    n, (h, size) = bits // 8, rows.shape
+    acc = np.cumsum(rows.reshape(h, size // stride, stride), axis=1, dtype=np.uint8)
+    planes = acc.reshape(h, n, size // n)
+    return np.ascontiguousarray(planes[:, ::-1].transpose(0, 2, 1)).reshape(h, size)
+
+
 def _tiff_jpeg_chunk(lib, err, raw: bytes, lt: _LibTiff, width: int, rows: int, last: bool,
                      sub, out: np.ndarray) -> None:
     """One JPEG strip or tile as libtiff's tif_jpeg.c decodes it for Pillow,
@@ -1740,7 +1784,7 @@ def _tiff_rgb(t: _Tiff, px: np.ndarray, mode: str) -> np.ndarray:
         gray = ((((1 << bits) - 1) - v) if mode.endswith("I") else v) * scale
     elif mode in ("L", "L;I", "LA"):
         gray = 255 - px[..., 0] if mode == "L;I" else px[..., 0]
-    elif mode in ("I;16", "I"):
+    elif mode in ("I;16", "I;12", "I"):
         v = px[..., 0]
         if v.dtype.kind == "u" and v.dtype.itemsize == 4:  # mode I is signed ("I;32N" too)
             v = v.astype(np.uint32).view(np.int32)

@@ -7,9 +7,12 @@
 //     9 to 12 bits wide, the width growing one code early, a clear code
 //     resetting the table; a strip that starts like the old-style
 //     (compatibility) LZW is refused by name;
+//   - ThunderScan (tif_thunder.c ThunderDecode: 4-bit runs, 2- and 3-bit
+//     deltas and raw values, a row at a time);
 //   - CCITT modified Huffman RLE (compression 2: every row 1-D and
-//     byte-aligned), Group 3 (compression 3: an EOL before every row, rows
-//     1-D or, with T4Options bit 0, 1-D or 2-D by a tag bit) and Group 4
+//     byte-aligned; 32771, RLEW: aligned to a 16-bit word), Group 3
+//     (compression 3: an EOL before every row, rows 1-D or, with T4Options
+//     bit 0, 1-D or 2-D by a tag bit) and Group 4
 //     (compression 4: every row 2-D against the one above), as tif_fax3.c's
 //     state machine (tif_fax3.h's macros) decodes them, damaged data
 //     included: a bad code ends its row, which is padded or cut to the
@@ -151,6 +154,80 @@ void lzw(const uint8_t* in, long n, uint8_t* out, long occ) {
 }
 
 // ---------------------------------------------------------------------------
+// ThunderScan
+// ---------------------------------------------------------------------------
+
+// tif_thunder.c's ThunderDecode: one row of `maxpixels` 4-bit pixels from
+// the bytes at `bp` (each a 2-bit code and 6 bits of data), two a byte, the
+// first in the high nibble. A run that would pass the row's end writes
+// nothing; false (the rest of the row zeroed) where the row gets too few or
+// too many pixels
+bool thunder_row(const uint8_t*& bp, long& cc, uint8_t* op0, long maxpixels) {
+  static const int kTwoBit[4] = {0, 1, 0, -1};
+  static const int kThreeBit[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  uint8_t* op = op0;
+  unsigned lastpixel = 0;
+  long npixels = 0;
+  auto setpixel = [&](unsigned v) {  // SETPIXEL
+    lastpixel = v & 0xf;
+    if (npixels < maxpixels) {
+      if (npixels++ & 1) *op++ |= uint8_t(lastpixel);
+      else op[0] = uint8_t(lastpixel << 4);
+    }
+  };
+  while (cc > 0 && npixels < maxpixels) {
+    int n = *bp++;
+    cc--;
+    switch (n & 0xc0) {
+      case 0x00:  // a run of the last pixel, n times
+        if (npixels & 1) {
+          op[0] |= uint8_t(lastpixel);
+          lastpixel = *op++;
+          npixels++;
+          n--;
+        } else {
+          lastpixel |= lastpixel << 4;
+        }
+        npixels += n;
+        if (npixels <= maxpixels)
+          for (; n > 0; n -= 2) *op++ = uint8_t(lastpixel);
+        if (n == -1) *--op &= 0xf0;
+        lastpixel &= 0xf;
+        break;
+      case 0x40:  // three 2-bit deltas, 2 skipping
+        for (int shift : {4, 2, 0})
+          if (int const d = (n >> shift) & 3; d != 2)
+            setpixel(unsigned(int(lastpixel) + kTwoBit[d]));
+        break;
+      case 0x80:  // two 3-bit deltas, 4 skipping
+        for (int shift : {3, 0})
+          if (int const d = (n >> shift) & 7; d != 4)
+            setpixel(unsigned(int(lastpixel) + kThreeBit[d]));
+        break;
+      default:  // a raw value
+        setpixel(unsigned(n));
+        break;
+    }
+  }
+  if (npixels != maxpixels) {
+    memset(op, 0, size_t(op0 + (maxpixels + 1) / 2 - op));
+    return false;
+  }
+  return true;
+}
+
+// ThunderDecodeRow: the strip's rows of `width` pixels, each from where the
+// row before it ended
+void thunder(const uint8_t* in, long n, uint8_t* out, long occ, int width) {
+  long const rowbytes = (long(width) + 1) / 2;
+  if (width <= 0 || occ % rowbytes)
+    throw CodecError("corrupt TIFF: ThunderScan fractional scanlines");
+  for (long row = 0; occ > 0; row++, out += rowbytes, occ -= rowbytes)
+    if (!thunder_row(in, n, out, width))
+      throw CodecError("corrupt TIFF: ThunderScan row " + std::to_string(row) +
+                       " decodes to the wrong number of pixels");
+}
+
 // ---------------------------------------------------------------------------
 // CCITT Group 3 and 4 (ITU T.4 / T.6)
 // ---------------------------------------------------------------------------
@@ -294,20 +371,24 @@ void fill_runs(uint8_t* buf, uint32_t* runs, uint32_t* erun, uint32_t lastx) {
 struct PrematureEof {};
 struct NoEol {};  // Group 3 data without the EOL SYNC_EOL looks for
 
-// tif_fax3.c's Fax3DecodeRLE (compression 2), Fax3Decode1D / Fax3Decode2D
-// (3) and Fax4Decode (4) over the macros of tif_fax3.h: a bad code ends the
-// row (CLEANUP_RUNS pads or cuts it) and decoding goes on; data that runs
-// out fails the strip, but a Group 4 strip that made a row keeps the rows it
+// tif_fax3.c's Fax3DecodeRLE (compression 2 and 32771), Fax3Decode1D /
+// Fax3Decode2D (3) and Fax4Decode (4) over the macros of tif_fax3.h: a bad
+// code ends the row (CLEANUP_RUNS pads or cuts it) and decoding goes on;
+// data that runs out fails the strip, but a Group 4 strip that made a row keeps the rows it
 // made and leaves the rest of `out` as it was. Group 3 data whose EOL search
 // runs out is read again from the strip's start, without EOLs (libtiff's
 // FAXMODE_NOEOL, kept for the image's later strips), into the rows still to
-// be made.
+// be made. RLEW rows end on a 16-bit word of the data's address, as
+// FAXMODE_WORDALIGN aligns them: with no whole word left in the bit
+// accumulator, an odd address is skipped (libtiff reads the strip where the
+// file is mapped, at an even address: `odd_` is the strip's offset mod 2).
 class Fax {
  public:
   Fax(int compression, const uint8_t* in, long n, int width, int t4options, bool reversed,
       uint32_t* runs)
-      : comp_(compression), cp_(in), ep_(in + n), lastx_(width), runs_(runs),
-        two_d_(compression == 4 || (compression == 3 && (t4options & 1))) {
+      : comp_(compression), cp_(in), ep_(in + n), in_(in), lastx_(width), runs_(runs),
+        two_d_(compression == 4 || (compression == 3 && (t4options & 1))),
+        odd_(compression == 32771 && (t4options & 1)) {
     nruns_ = (uint32_t(width) + 1 + 31) / 32 * 32;
     if (two_d_) nruns_ *= 2;
     noeol_ = runs_ + 2 * nruns_;  // the slot past the run arrays
@@ -371,6 +452,10 @@ class Fax {
       if (comp_ == 4 && eolcnt_) return end_g4(buf, start);
       fill_runs(buf, thisrun_, pa_, uint32_t(lastx_));
       if (comp_ == 2) clr(avail_ & 7);  // rows start on a byte
+      if (comp_ == 32771) {  // or on a word
+        clr(avail_ & 15);
+        if (avail_ == 0 && ((cp_ - in_) + odd_) & 1) cp_++;
+      }
       if (two_d_) {
         if (comp_ == 4 || pa_ < thisrun_ + nruns_) setvalue(0);  // imaginary change
         std::swap(cur_, ref_);
@@ -386,9 +471,11 @@ class Fax {
   int comp_;
   const uint8_t* cp_;
   const uint8_t* ep_;
+  const uint8_t* in_;
   int lastx_;
   uint32_t* runs_;
   bool two_d_;
+  bool odd_;
   uint32_t nruns_;
   uint8_t bitmap_[256];
   uint32_t* noeol_;
@@ -648,7 +735,7 @@ class Fax {
   }
 };
 
-// compression 2, 3 or 4 into `occ` bytes of rows of `width` pixels, through
+// compression 2, 3, 4 or 32771 into `occ` bytes of rows of `width` pixels, through
 // the run arrays `runs` (2 * nruns entries, kept across a TIFF's strips as
 // libtiff keeps them, then the FAXMODE_NOEOL flag); false where libtiff
 // fails the strip
@@ -663,9 +750,10 @@ bool fax(int compression, const uint8_t* in, long n, uint8_t* out, long occ, int
 
 extern "C" {
 
-// Decompress one strip or tile: `in` (n bytes) of TIFF compression 2, 3, 4, 5
-// or 32773 into `occ` bytes at out. width is the strip's pixels a row (the
-// CCITT codes), t4options the Group 3 or 4 options, fill_order 2 for bits
+// Decompress one strip or tile: `in` (n bytes) of TIFF compression 2, 3, 4, 5,
+// 32771, 32773 or 32809 into `occ` bytes at out. width is the strip's pixels a
+// row (the CCITT and ThunderScan codes), t4options the Group 3 or 4 options
+// (for 32771, the strip's offset in the file mod 2), fill_order 2 for bits
 // least significant first, `runs` libtiff's CCITT run arrays (kept by the
 // caller across a TIFF's strips). Returns 0, or -1 with a message in err;
 // with `tolerant` set, a decode error returns 1 instead, the bytes decoded
@@ -679,18 +767,21 @@ int qie_tiff_decompress(int compression, const uint8_t* in, long n, uint8_t* out
   try {
     std::vector<uint8_t> rev;
     bool reversed = fill_order == 2;
-    if (reversed && compression != 2 && compression != 3 && compression != 4) {
+    bool const fax_codes = compression == 2 || compression == 3 || compression == 4 ||
+                           compression == 32771;
+    if (reversed && !fax_codes) {
       rev.assign(in, in + n);
       for (auto& b : rev) b = reverse_bits(b);
       in = rev.data();
     }
     switch (compression) {
-      case 2: case 3: case 4:
+      case 2: case 3: case 4: case 32771:
         if (!fax(compression, in, n, out, occ, width, t4options, reversed, runs))
           throw CodecError("truncated TIFF: CCITT data ends short of its strip");
         break;
       case 5: lzw(in, n, out, occ); break;
       case 32773: packbits(in, n, out, occ); break;
+      case 32809: thunder(in, n, out, occ, width); break;
       default: throw CodecError("unsupported TIFF: compression " + std::to_string(compression));
     }
     return 0;

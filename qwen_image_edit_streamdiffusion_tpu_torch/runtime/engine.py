@@ -40,7 +40,9 @@ decides on rank 0 alone (a skipped frame is not sent), and the host fetch
 and the preview upscale run there only; a follower waits for its copy of
 a frame when rank 0 collects it, and drops it. An evicted session, or one
 whose websocket closed (:meth:`InferenceEngine.end_session`), ends on
-every rank.
+every rank. A closed socket's session ends under the device lock when it
+is free, else as its holder releases it; a request that finds a teardown
+holding the lock waits for it instead of getting 429.
 
 Not ported: the JAX package's device watchdog (its dispatch deadline and
 probe thread answer a wedged accelerator link), so there is no
@@ -127,6 +129,12 @@ class InferenceEngine:
     # per-session in-flight frame handle of stream_pipeline=true requests
     _session_pending: Dict[str, Any] = field(default_factory=dict)
     _lock: threading.Lock = field(default_factory=threading.Lock)
+    # sessions ended while the device lock was held, not yet dropped; the
+    # teardowns under way (each may hold the device lock) and those done
+    _ended: set = field(default_factory=set)
+    _teardown: threading.Condition = field(default_factory=threading.Condition)
+    _tearing: int = 0
+    _teardowns: int = 0
     total_requests: int = 0
     last_elapsed: Optional[float] = None
 
@@ -272,10 +280,39 @@ class InferenceEngine:
             sess.lockstep.end()
 
     def end_session(self, sid: str) -> None:
-        """End the stream session ``sid`` (a closed websocket's), under the
-        device lock: on every rank of a world."""
-        with self._lock:
-            self._drop_session(sid)
+        """End the stream session ``sid`` (a closed websocket's) under the
+        device lock, on every rank of a world: now if the lock is free, else
+        as its holder releases it. A request never fails for it: one that
+        finds the lock held by a teardown waits for it."""
+        with self._teardown:
+            self._ended.add(sid)
+        self._end_sessions()
+
+    def _end_sessions(self) -> None:
+        """Drop the ended sessions while the device lock is free to take.
+        Counted as a teardown from before its claim to after its release,
+        so that a request refused the lock meanwhile waits and tries again
+        (:meth:`_acquire_device`)."""
+        with self._teardown:
+            self._tearing += 1
+        try:
+            # an end marked while the lock was held here is dropped on the
+            # next turn; one marked while a request holds it, on its release
+            while self._ended and self._lock.acquire(blocking=False):
+                try:
+                    while True:
+                        with self._teardown:
+                            if not self._ended:
+                                break
+                            sid = self._ended.pop()
+                        self._drop_session(sid)
+                finally:
+                    self._lock.release()
+        finally:
+            with self._teardown:
+                self._tearing -= 1
+                self._teardowns += 1
+                self._teardown.notify_all()
 
     def _warmup_stream_graphs(self) -> None:
         """Run a throwaway stream session (keyframe, then a temporal frame,
@@ -324,12 +361,24 @@ class InferenceEngine:
     # ------------------------------------------------------------------
 
     def _acquire_device(self, blocking: bool) -> bool:
-        """Claim the single-flight device lock: atomically (→ False when
-        busy) or waiting for it."""
-        return self._lock.acquire(blocking=blocking)
+        """Claim the single-flight device lock: atomically (→ False when a
+        request holds it) or waiting for it. A session teardown that held
+        it when the claim failed, or ended since, is waited out and the
+        claim made again."""
+        while True:
+            with self._teardown:
+                done = self._teardowns
+            if self._lock.acquire(blocking=blocking):
+                return True
+            with self._teardown:
+                if not self._tearing and self._teardowns == done:
+                    return False
+                self._teardown.wait_for(lambda: not self._tearing)
 
     def _release_device(self) -> None:
         self._lock.release()
+        if self._ended:
+            self._end_sessions()
 
     def _join_leader_queue(self, entry: _Pending) -> bool:
         """Dynamic-batching follower path: block until this thread holds

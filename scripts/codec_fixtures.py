@@ -1200,6 +1200,11 @@ FAX_VERTICAL = {0: "1", 1: "011", 2: "000011", 3: "0000011", -1: "010", -2: "000
 
 
 def _fax_run(n: int, black: bool) -> str:
+    return "".join(_fax_run_codes(n, black))
+
+
+def _fax_run_codes(n: int, black: bool) -> list:
+    """A run's make-up codes, then its terminating code."""
     codes = FAX_BLACK if black else FAX_WHITE
     out = []
     while n >= 2560:
@@ -1211,7 +1216,7 @@ def _fax_run(n: int, black: bool) -> str:
     elif n >= 64:
         out.append(codes[63 + n // 64])
         n %= 64
-    return "".join(out) + codes[n]
+    return out + [codes[n]]
 
 
 def _fax_changes(row: np.ndarray) -> list:
@@ -1231,6 +1236,36 @@ def _fax_1d(row: np.ndarray) -> str:
         if c >= w:
             break
     return "".join(out)
+
+
+def _rlew(black: np.ndarray) -> str:
+    """CCITT RLEW rows (compression 32771) where libtiff 4.7's Fax3DecodeRLE
+    looks for them. Its FAXMODE_WORDALIGN keeps the whole 16-bit words of its
+    bit accumulator and, where none are left, skips an odd byte: so a row
+    starts after the bytes its decoder loaded for the row before (up to two
+    for each code, to hold 12 bits for a white code and 13 for a black one),
+    on a word of the strip (at an even offset) only where none was left over.
+    A writer that pads every row to a word reads apart from it."""
+    bits, pos, loaded, avail = [], 0, 0, 0
+    for row in black:
+        w = len(row)
+        a0, colour = 0, False
+        for c in _fax_changes(row) + [w]:
+            for code in _fax_run_codes(c - a0, colour):
+                for _ in range(2):  # NeedBits16
+                    if avail < (13 if colour else 12):
+                        loaded, avail = loaded + 1, avail + 8
+                bits.append(code)
+                pos, avail = pos + len(code), avail - len(code)
+            a0, colour = c, not colour
+            if c >= w:
+                break
+        avail -= avail & 15
+        if avail == 0 and loaded & 1:
+            loaded += 1
+        bits.append("0" * (8 * loaded - avail - pos))
+        pos = 8 * loaded - avail
+    return "".join(bits)
 
 
 def _fax_2d(row: np.ndarray, ref: np.ndarray) -> str:
@@ -1262,9 +1297,11 @@ def fax_encode(black: np.ndarray, compression: int, t4options: int = 0, k: int =
     """Rows of 0/1 pixels (1 = black) as CCITT modified Huffman RLE
     (compression 2: each row 1-D, byte-aligned), Group 3 (3: an EOL before
     each row; with T4Options bit 0 a tag bit after it and every ``k``-th
-    row 1-D, the rest 2-D; bit 2 pads each EOL to end a byte; RTC last) or
-    Group 4 (4: every row 2-D, EOFB last)."""
+    row 1-D, the rest 2-D; bit 2 pads each EOL to end a byte; RTC last),
+    Group 4 (4: every row 2-D, EOFB last) or RLEW (32771: :func:`_rlew`)."""
     bits, ref = [], np.zeros(black.shape[1], np.uint8)
+    if compression == 32771:
+        bits, black = [_rlew(black)], ()
 
     def eol():
         if t4options & 4:  # fill bits: the EOL ends on a byte boundary
@@ -1272,7 +1309,7 @@ def fax_encode(black: np.ndarray, compression: int, t4options: int = 0, k: int =
             bits.append("0" * ((4 - n) % 8))
         bits.append(FAX_EOL)
     for y, row in enumerate(black):
-        if compression == 2:
+        if compression == 2:  # rows end on a byte
             code = _fax_1d(row)
             code += "0" * (-len(code) % 8)
         elif compression == 3:
@@ -1296,6 +1333,43 @@ def fax_encode(black: np.ndarray, compression: int, t4options: int = 0, k: int =
     return int(s, 2).to_bytes(len(s) // 8, "big") if s else b""
 
 
+_THUNDER_2BIT = {0: 0, 1: 1, -1: 3}
+_THUNDER_3BIT = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+
+
+def thunder_encode(rows: np.ndarray) -> bytes:
+    """4-bit rows (H, W) as ThunderScan (compression 32809) codes, each row
+    from a last pixel of 0: runs of the last pixel (up to 63), three 2-bit
+    deltas, two 3-bit deltas (or one, the second skipped), else a raw
+    value."""
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, i, w = 0, 0, len(row)
+        while i < w:
+            n = 0
+            while i + n < w and n < 63 and row[i + n] == last:
+                n += 1
+            if n >= 2:
+                out.append(n)
+                i += n
+                continue
+            d = [int((row[i + k] - (last if k == 0 else row[i + k - 1]) + 8) % 16 - 8)
+                 for k in range(min(3, w - i))]
+            if len(d) == 3 and all(x in _THUNDER_2BIT for x in d):
+                out.append(0x40 | _THUNDER_2BIT[d[0]] << 4 | _THUNDER_2BIT[d[1]] << 2
+                           | _THUNDER_2BIT[d[2]])
+                i += 3
+            elif d[0] in _THUNDER_3BIT:
+                second = len(d) > 1 and d[1] in _THUNDER_3BIT
+                out.append(0x80 | _THUNDER_3BIT[d[0]] << 3 | (_THUNDER_3BIT[d[1]] if second else 4))
+                i += 2 if second else 1
+            else:
+                out.append(0xC0 | int(row[i]))
+                i += 1
+            last = int(row[i - 1])
+    return bytes(out)
+
+
 def jpeg_tables_split(jpeg: bytes):
     """A JPEG cut as JPEG-in-TIFF stores it: (JPEGTables, strip): the
     quantization and Huffman tables as an abbreviated table-only stream,
@@ -1316,9 +1390,15 @@ def jpeg_tables_split(jpeg: bytes):
 
 def _tiff_pack(plane: np.ndarray, bits: int, order: str) -> bytes:
     """Rows of samples (H, W*spp) as bytes: packed most significant bit
-    first below 8 bits (each row padded to a byte), in ``order`` above."""
+    first below 8 bits and at 12 (each row padded to a byte), in ``order``
+    at 16 and 32."""
     if bits < 8:
         return b"".join(_row_bytes(r[:, None], bits).tobytes() for r in plane)
+    if bits == 12:  # two samples in three bytes, most significant bits first
+        v = plane.astype(np.uint16)
+        nib = np.stack([v >> 8, v >> 4 & 15, v & 15], -1).reshape(v.shape[0], -1)
+        nib = np.pad(nib, ((0, 0), (0, nib.shape[1] % 2)))
+        return ((nib[:, 0::2] << 4) | nib[:, 1::2]).astype(np.uint8).tobytes()
     if bits == 8:
         return plane.astype(np.uint8).tobytes()
     if plane.dtype.kind == "f":
@@ -1345,25 +1425,41 @@ def _tiff_diff(block: np.ndarray, spp: int, bits: int) -> np.ndarray:
     return (d % (1 << bits)).astype(np.uint64)
 
 
+def _tiff_fp_diff(block: np.ndarray, spp: int, bits: int) -> bytes:
+    """The floating-point predictor (Predictor 3) of (rows, W*spp) floats,
+    as tif_predict.c's fpDiff writes it: each row's bytes as planes (every
+    sample's most significant byte, then the next), then each byte less the
+    one ``spp`` bytes before it."""
+    n = bits // 8
+    h = block.shape[0]
+    be = np.ascontiguousarray(block.astype(">f" + str(n))).view(np.uint8).reshape(h, -1, n)
+    planes = be.transpose(0, 2, 1).reshape(h, -1).astype(np.int64)
+    planes[:, spp:] -= planes[:, :-spp].copy()
+    return (planes % 256).astype(np.uint8).tobytes()
+
+
 def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression: int = 1,
               big_endian: bool = False, bigtiff: bool = False, rows_per_strip: int = None,
               tile=None, planar: int = 1, predictor: int = 1, extra=(), sample_format=None,
               fill_order: int = 1, colormap=None, orientation: int = None, xmp: bytes = None,
-              t4options: int = None, ycbcr_subsampling=None, jpeg=None, tags=None) -> bytes:
+              t4options: int = None, ycbcr_subsampling=None, jpeg=None, tags=None,
+              lead: int = 0) -> bytes:
     """A one-page TIFF of ``samples`` (H, W, spp) at ``bits`` a sample.
 
     Strips of ``rows_per_strip`` rows (all rows by default), or tiles of
     ``tile`` (width, height) padded past the image's edge; PlanarConfiguration
     ``planar`` 1 (chunky) or 2 (a plane a sample); Predictor 2 (horizontal
-    differencing); ``compression`` 1 (none), 2/3/4 (CCITT, ``bits`` 1, 1 =
-    black pixels), 5 (LZW), 8/32946 (Deflate), 32773 (PackBits), 34925
-    (LZMA, an xz stream), 50000 (ZSTD, a zstd frame) or 7 (JPEG:
+    differencing) or 3 (floating point, of float samples); ``compression`` 1
+    (none), 2/3/4/32771 (CCITT, ``bits`` 1, 1 = black pixels), 32809
+    (ThunderScan, ``bits`` 4), 5 (LZW), 8/32946 (Deflate), 32773 (PackBits),
+    34925 (LZMA, an xz stream), 50000 (ZSTD, a zstd frame) or 7 (JPEG:
     ``jpeg(block) -> JPEG bytes`` codes each strip or tile, its tables going
     to JPEGTables); FillOrder 2 reverses each coded byte's bits; big-endian (``MM``) or little-endian, classic or
     BigTIFF; an Orientation tag, an XMP packet, a ColorMap (N, 3) of 16-bit
     entries and any more ``tags`` ({tag: (type, values)}). YCbCr samples
     (photometric 6) not coded as JPEG are written as the data units of
-    ``ycbcr_subsampling``."""
+    ``ycbcr_subsampling``. ``lead`` bytes come before the first strip or tile
+    (an odd number puts every one at an odd offset)."""
     samples = np.asarray(samples)
     if samples.ndim == 2:
         samples = samples[..., None]
@@ -1388,12 +1484,15 @@ def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression:
                     rows = _ycbcr_units(block, *ycbcr_subsampling)
                 if predictor == 2:
                     rows = _tiff_diff(rows, block.shape[2], bits)
-                if compression in (2, 3, 4):
+                if compression in (2, 3, 4, 32771):
                     raw = fax_encode(rows, compression, t4options or 0)
+                elif compression == 32809:
+                    raw = thunder_encode(rows)
                 elif compression == 7:
                     tables, raw = jpeg_tables_split(jpeg(block))
                 else:
-                    raw = _tiff_pack(rows, bits, order)
+                    raw = (_tiff_fp_diff(rows, block.shape[2], bits) if predictor == 3
+                           else _tiff_pack(rows, bits, order))
                     if compression == 5:
                         raw = tiff_lzw(raw)
                     elif compression in (8, 32946):
@@ -1434,7 +1533,7 @@ def tiff_file(samples: np.ndarray, photometric: int, bits: int = 8, compression:
     entries.update(tags or {})
     off_type = 16 if bigtiff else 4
     head = 16 if bigtiff else 8
-    data, offsets = b"", []
+    data, offsets = bytes(lead), []
     for b in blobs:
         offsets.append(head + len(data))
         data += b + (b"\x00" if len(b) % 2 else b"")
@@ -1859,6 +1958,7 @@ def fixtures() -> dict:
         "lossless_1024.webp": save(Image.fromarray(smooth).quantize(8).convert("RGB"), "WEBP",
                                    lossless=True),
         **tiff_fixtures(),
+        **tiff_more_fixtures(),
         **damaged_tiff_fixtures(),
         **jpeg_variant_fixtures(jpeg(scene(48, 64, 14), progressive=True), smooth),
         **raster_fixtures(),
@@ -1975,6 +2075,56 @@ def tiff_fixtures() -> dict:
                                    rows_per_strip=16),
         "ycbcr_zstd_tiled.tif": tiff_file(ycc, 6, 8, compression=50000, tile=(16, 16),
                                           ycbcr_subsampling=(2, 2)),
+    }
+
+
+def tiff_more_fixtures() -> dict:
+    """The TIFF cases past :func:`tiff_fixtures`, small (the fixture tree
+    keeps under 1 MB): the floating-point predictor (Pillow's own LZW and
+    Deflate files, big-endian LZMA tiles, ZSTD tiles), 12-bit gray
+    (uncompressed, LZW tiles), YCbCr at an Orientation other than 1 (strips,
+    tiles), 4x4-subsampled YCbCr strips an odd number of units wide (libtiff
+    reads them short), ThunderScan (gray, and a palette at FillOrder 2) and
+    CCITT RLEW (strips at even and at odd offsets)."""
+    from PIL import Image
+
+    def save(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "TIFF", **kw)
+        return buf.getvalue()
+
+    rgb = smooth_scene(32)[:20, :24]
+    f32 = rgb[..., 0].astype(np.float32) * np.float32(1.37) - np.float32(40.25)
+    ycc = np.concatenate([rgb[..., :1], rgb[..., 1:] // 2 + 64], -1)
+    g12 = (rgb[..., 1].astype(np.int64) * 3 - 100) % 4096
+    g4 = rgb[..., 2] >> 4
+    bw = (scene(20, 40, 15)[..., 0] > 128).astype(np.uint8)
+    cmap = np.random.default_rng(23).integers(0, 65536, (16, 3))
+    return {
+        "fpred_lzw.tif": save(Image.fromarray(f32[:12, :16], "F"), compression="tiff_lzw",
+                              tiffinfo={317: 3}),
+        "fpred_deflate.tif": save(Image.fromarray(f32[:12, :16], "F"),
+                                  compression="tiff_adobe_deflate", tiffinfo={317: 3}),
+        "fpred_lzma_be_tiled.tif": tiff_file(f32[:16], 0, 32, sample_format=3,
+                                             compression=34925, predictor=3, tile=(16, 16),
+                                             big_endian=True),
+        "fpred_zstd_tiled.tif": tiff_file(f32[:16], 1, 32, sample_format=3, compression=50000,
+                                          predictor=3, tile=(16, 16)),
+        "gray12.tif": tiff_file(g12, 1, 12),
+        "gray12_lzw_tiled.tif": tiff_file(g12, 1, 12, compression=5, tile=(16, 16)),
+        "ycbcr_orient3.tif": tiff_file(ycc, 6, 8, compression=5, rows_per_strip=8,
+                                       ycbcr_subsampling=(2, 2), orientation=3),
+        "ycbcr_orient6_tiled.tif": tiff_file(ycc, 6, 8, compression=8, tile=(16, 16),
+                                             ycbcr_subsampling=(2, 1), orientation=6),
+        "ycbcr44_short.tif": tiff_file(ycc[:, :20], 6, 8, compression=5, rows_per_strip=8,
+                                       ycbcr_subsampling=(4, 4)),
+        "ycbcr44_short_deflate.tif": tiff_file(ycc[:, :18], 6, 8, compression=8,
+                                               rows_per_strip=12, ycbcr_subsampling=(4, 4)),
+        "thunderscan.tif": tiff_file(g4, 1, 4, compression=32809, rows_per_strip=8),
+        "thunderscan_palette_fill2.tif": tiff_file(g4, 3, 4, compression=32809, fill_order=2,
+                                                   colormap=cmap),
+        "rlew.tif": tiff_file(bw, 0, 1, compression=32771, rows_per_strip=8),
+        "rlew_odd.tif": tiff_file(bw, 1, 1, compression=32771, rows_per_strip=7, lead=1),
     }
 
 

@@ -589,6 +589,175 @@ def test_raw_response_flag_not_exposed_via_http(ws_server):
 
 
 # ---------------------------------------------------------------------------
+# a closed socket's session teardown against the frames of other sockets
+# ---------------------------------------------------------------------------
+
+
+class _RefusalSpy:
+    """The engine's device lock itself, setting ``refused`` when a claim
+    that does not wait fails."""
+
+    def __init__(self, lock):
+        self.lock, self.refused = lock, threading.Event()
+
+    def acquire(self, blocking=True):
+        got = self.lock.acquire(blocking)
+        if not got:
+            self.refused.set()
+        return got
+
+    def release(self):
+        self.lock.release()
+
+    def locked(self):
+        return self.lock.locked()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+
+def _ws_client(host, port, **config):
+    c = ws.WSClient(host, port, timeout=120)
+    sid = c.recv()["session"]
+    c.send_config(**config)
+    assert c.recv()["status"] == "ok"
+    return c, sid
+
+
+def test_stream_websocket_teardown_never_refuses_another_frame(ws_server, monkeypatch):
+    """A socket closes, and its session's teardown holds the device until a
+    frame of a second socket has been refused the device lock once: the
+    frame is served all the same (it waits the teardown out), and the closed
+    socket's session is gone."""
+    host, port, engine = ws_server
+    c2, _ = _ws_client(host, port, prompt="sketch style", pipeline=False)
+    c1, sid = _ws_client(host, port, prompt="make it noir")
+    c1.send_image(_frame(0))
+    assert c1.recv()[0]["status"] == "success" and sid in engine._sessions
+    spy = _RefusalSpy(engine._lock)
+    monkeypatch.setattr(engine, "_lock", spy)
+    tearing, waited = threading.Event(), []
+    drop = engine._drop_session
+
+    def held_drop(s):
+        if s == sid:
+            tearing.set()
+            waited.append(spy.refused.wait(60))
+        drop(s)
+
+    monkeypatch.setattr(engine, "_drop_session", held_drop)
+    c1.close()
+    assert tearing.wait(60)
+    c2.send_image(_frame(1))
+    reply = c2.recv()
+    assert isinstance(reply, tuple), reply  # not the 429 error dict
+    meta, jpeg = reply
+    assert meta["status"] == "success" and _is_jpeg_of(jpeg, (64, 64, 3))
+    assert waited == [True] and sid not in engine._sessions
+    c2.close()
+
+
+def test_stream_websocket_frame_overlapping_a_request_is_429(ws_server, monkeypatch):
+    """With ``queue_requests`` False (the default) a frame that finds another
+    request holding the device still gets 429, and the request is served."""
+    host, port, engine = ws_server
+    assert engine.queue_requests is False
+    c1, _ = _ws_client(host, port, session=False, prompt="a painting")
+    c2, _ = _ws_client(host, port, prompt="sketch style", pipeline=False)
+    entered, go = threading.Event(), threading.Event()
+    parse = engine._parse_edit
+
+    def held_parse(request):
+        entered.set()
+        assert go.wait(60)
+        return parse(request)
+
+    monkeypatch.setattr(engine, "_parse_edit", held_parse)
+    try:
+        c1.send_image(_frame(0))
+        assert entered.wait(60)
+        c2.send_image(_frame(1))
+        err = c2.recv()
+    finally:
+        go.set()
+    assert err["status"] == "error" and err["code"] == 429 and err["frame"] is True
+    assert c1.recv()[0]["status"] == "success"
+    c1.close()
+    c2.close()
+
+
+def test_session_ended_while_a_request_holds_the_device(ws_server):
+    """``end_session`` while a request holds the device returns at once and
+    leaves the session to the holder, which drops it as it releases."""
+    host, port, engine = ws_server
+    c, sid = _ws_client(host, port, prompt="make it noir", pipeline=False)
+    c.send_image(_frame(0))
+    assert c.recv()[0]["status"] == "success"
+    assert engine._acquire_device(False)
+    try:
+        ender = threading.Thread(target=engine.end_session, args=(sid,), daemon=True)
+        ender.start()
+        ender.join(30)
+        assert not ender.is_alive()
+        assert sid in engine._sessions
+    finally:
+        engine._release_device()
+    assert sid not in engine._sessions
+    c.close()
+
+
+def test_teardowns_never_refuse_a_lone_request_under_stress():
+    """16 threads end 50 sessions each (yielding while they hold the lock)
+    while one thread claims and releases the device 2000 times without
+    waiting, the switch interval at 1 µs: the lone request is never refused
+    (no other request overlaps it), and every ended session is dropped,
+    none left marked."""
+    from types import SimpleNamespace
+
+    engine = InferenceEngine(pipeline=None)
+    engine._sessions.update({f"s{t}-{k}": SimpleNamespace(lockstep=None)
+                             for t in range(16) for k in range(50)})
+    drop = engine._drop_session
+
+    def yielding_drop(sid):
+        time.sleep(0)  # the other threads run while the teardown holds the lock
+        drop(sid)
+
+    engine._drop_session = yielding_drop
+    refused = []
+
+    def requests():
+        for _ in range(2000):
+            if engine._acquire_device(False):
+                engine._release_device()
+            else:
+                refused.append(1)
+
+    def teardowns(t):
+        for k in range(50):
+            engine.end_session(f"s{t}-{k}")
+
+    threads = [threading.Thread(target=requests)] + [
+        threading.Thread(target=teardowns, args=(t,)) for t in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not refused
+    assert not engine._sessions and not engine._ended
+
+
+# ---------------------------------------------------------------------------
 # jax, PIL and cv2 blocked
 # ---------------------------------------------------------------------------
 
