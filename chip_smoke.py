@@ -2929,7 +2929,8 @@ def phase_serve(pipe) -> dict:
     the pipeline-only call of the same arrays, whose q90 JPEG must decode to
     the served images bit for bit), use_cfg, ref_mode
     condition, num_images 2; misses uploaded as a progressive JPEG, a lossy
-    WebP, a CMYK JPEG, a TIFF (LZW, Predictor 2) and a PSD (PackBits); a race of two (one
+    WebP, a CMYK JPEG, a TIFF (LZW, Predictor 2), a PSD (PackBits) and a BLP2
+    (256 colours, held to its quantized source); a race of two (one
     429); dynamic batching on a second engine; a pipelined stream session
     over HTTP and over the websocket; a profiled /edit; the codec's ms; the
     CLI as a subprocess.
@@ -3028,6 +3029,18 @@ def phase_serve(pipe) -> dict:
             raise AssertionError("the PSD upload does not decode to its source")
         served(url, "serve", "edit_psd_miss",
                {"image": base64.b64encode(psd).decode(), "prompt": PROMPT}, expected(True),
+               k1_rows(1))
+        # a BLP2 texture (the image in 256 colours, an uncompressed palette), written here
+        blp, src = blp_upload(distinct_image(8010, SERVE_INPUT))
+        t0 = time.perf_counter()
+        blp_px = codec.decode(blp)
+        emit({"phase": "serve_blp_upload", "bytes": len(blp), "shape": list(blp_px.shape),
+              "decode_ms": (time.perf_counter() - t0) * 1e3,
+              "equal_to_source": bool(np.array_equal(blp_px, src))})
+        if not np.array_equal(blp_px, src):
+            raise AssertionError("the BLP upload does not decode to its quantized source")
+        served(url, "serve", "edit_blp_miss",
+               {"image": base64.b64encode(blp).decode(), "prompt": PROMPT}, expected(True),
                k1_rows(1))
         serve_race(url, req)
         serve_dynamic(pipe, [{"image": b64[i], "prompt": PROMPT} for i in (8005, 8006)])
@@ -3970,8 +3983,9 @@ def cmyk_rgb(c, m, y, k):
 def decode_set():
     """{name: (bytes, want)}: a 1024² image in each format the codec gained,
     ``want`` the RGB it must decode to where this host can tell without
-    Pillow (None for the committed WebP and arithmetic-coded JPEG files,
-    whose hashes phase inputs checks, and for the cut progressive JPEG).
+    Pillow, else its shape where that is not 1024² (None for the committed
+    WebP and arithmetic-coded JPEG files, whose hashes phase inputs checks,
+    and for the cut progressive JPEG).
     BMP, GIF, TIFF, the lossless JPEG and the 4-component JPEGs are written
     here: the writers of ``scripts/codec_fixtures.py`` and
     :func:`cmyk_jpeg`. A lossless coding is held to its source; the
@@ -4040,6 +4054,7 @@ def decode_set():
         "sgi_rle": (sgi_file(rgb), rgb),
         **small_decode_set(n, rgb),
         **jpeg2000_decode_set(),
+        **rare_decode_set(n, rgb),
     }
 
 
@@ -4096,6 +4111,73 @@ def small_decode_set(n: int, rgb=None):
         "dds_bc1": (dds_file(n, n, bc1_blocks(rgb), 0x4, b"DXT1"), None),
         "dds_bc7": (dds_file(n, n, bc7_blocks(rgb), 0x4, dxgi=98), None),
     }
+
+
+def rare_decode_set(n: int, rgb=None):
+    """{name: (bytes, want)}: an ``n``² image in each of the rare formats
+    Pillow decodes, written without Pillow (``scripts/codec_fixtures.py``'s
+    writers): ``want`` its source where the coding is lossless (IM, the
+    palettes of BLP2 and FLI, FITS raw and GZIP_1, GIMP brush, IM Tools,
+    IPTC, McIdas, Pixar, SPIDER, XV), else its shape (BLP2 DXT1, BLP1 JPEG,
+    FTEX DXT1; PhotoCD's fixed 768 x 512 base image). An XV thumbnail is 80
+    x 60, the largest xv writes. ``rgb``: the decode set's ``n``² source,
+    made here where not given."""
+    import sys
+
+    import numpy as np
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import (bc1_blocks, blp_file, fits_file, fli_brun, fli_file, fli_frame,
+                                fli_palette_chunk, ftex_file, gbr_file, im_file, imt_file,
+                                iptc_file, mcidas_file, pcd_file, photo_ycc, pixar_file, scene,
+                                spider_file, xv_indices, xv_palette, xvthumb_file)
+
+    rgb = scene(n, n, 1) if rgb is None else rgb
+    gray = np.ascontiguousarray(rgb[..., 1])
+    gray3 = np.repeat(gray[..., None], 3, axis=2)
+    idx, xv = xv_indices(rgb), xv_palette()
+    thumb = np.ascontiguousarray(idx[:60, :80])
+    jpeg = codec.encode_jpeg(rgb, 90)
+    sos = jpeg.index(b"\xff\xda")
+    bc1 = bc1_blocks(rgb)
+    return {
+        "im_rgb": (im_file(b"RGB", n, n, rgb[::-1].transpose(0, 2, 1).tobytes()), rgb),
+        "blp2_palette": (blp_file(2, n, n, idx.astype(np.uint8).tobytes(), palette=xv),
+                         xv[idx]),
+        "blp2_dxt1": (blp_file(2, n, n, bc1, encoding=2), None),
+        "blp1_jpeg": (blp_file(1, n, n, jpeg[sos:], compression=0, jpeg_header=jpeg[:sos]),
+                      None),
+        "fits_8": (fits_file(gray, 8), gray3),
+        "fits_gzip": (fits_file(gray, 8, gzip_tile=True), gray3),
+        "fli_brun": (fli_file([fli_frame(fli_palette_chunk(xv >> 2), fli_brun(idx))], n, n,
+                              flc=False), (xv >> 2 << 2)[idx]),
+        "ftex_dxt1": (ftex_file(n, n, bc1), None),
+        "gbr_rgba": (gbr_file(np.concatenate([rgb, gray[..., None]], -1)), rgb),
+        "imt": (imt_file(gray), gray3),
+        "iptc_raw": (iptc_file(n, n, gray.tobytes()), gray3),
+        "mcidas": (mcidas_file(gray), gray3),
+        "pcd": (pcd_file(*photo_ycc(scene(512, 768, 2))), (512, 768, 3)),
+        "pixar": (pixar_file(rgb), rgb),
+        "spider": (spider_file(gray.astype(np.float32)), gray3),
+        "xvthumb": (xvthumb_file(thumb), xv[thumb]),
+    }
+
+
+def blp_upload(rgb):
+    """(bytes, source): a BLP2 texture of ``rgb`` in 256 colours (XV's
+    3:3:2 palette), uncompressed indices, as a game's asset tools write one
+    (``scripts/codec_fixtures.py``'s writer, no Pillow); the source it must
+    decode to is the quantized image."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import blp_file, xv_indices, xv_palette
+
+    h, w = rgb.shape[:2]
+    idx, palette = xv_indices(rgb), xv_palette()
+    return blp_file(2, w, h, idx.astype("uint8").tobytes(), palette=palette), palette[idx]
 
 
 def tiff_upload(rgb) -> bytes:
@@ -4187,11 +4269,12 @@ def phase_inputs() -> None:
     rows = {}
     for name, (data, want) in formats.items():
         px = codec.decode(data)
-        if px.shape != (want.shape if want is not None else (DECODE_SIZE, DECODE_SIZE, 3)) or (
-                want is not None and not np.array_equal(px, want)):
+        source = isinstance(want, np.ndarray)
+        shape = want.shape if source else want or (DECODE_SIZE, DECODE_SIZE, 3)
+        if px.shape != tuple(shape) or (source and not np.array_equal(px, want)):
             raise AssertionError(f"{name}: decoded {px.shape}, not its source")
         rows[name] = {"ms": host_ms(lambda d=data: codec.decode(d), DECODE_REPS),
-                      "bytes": len(data), "held_to_source": want is not None}
+                      "bytes": len(data), "held_to_source": source}
         rows[name]["over_baseline"] = rows[name]["ms"] / ms["baseline"]
     emit({"phase": "inputs_decode_formats", "size": DECODE_SIZE, "baseline_jpeg_ms":
           ms["baseline"], "formats": rows, "write_s": write_s, "nvidia_smi": smi})

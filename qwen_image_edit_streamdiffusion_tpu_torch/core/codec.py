@@ -5,9 +5,10 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 ``pil_to_base64``, on (H, W, 3) uint8 arrays. The card host has no Pillow and
 no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
 WebP and TIFF decoders, the run-length codings of the plain raster
-formats, the DDS blocks and JPEG 2000's tiles run in ``csrc/host/``
-(``image_codec.cc``, ``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``, ``raster.cc``,
-``bcn.cc``, ``jpeg2000.cc``): plain
+formats, the DDS blocks, JPEG 2000's tiles, FLI frames and PhotoCD's base
+image run in ``csrc/host/`` (``image_codec.cc``, ``bmp_gif.cc``,
+``webp.cc``, ``tiff.cc``, ``raster.cc``, ``bcn.cc``, ``jpeg2000.cc``,
+``fli_pcd.cc``): plain
 C entry points loaded with
 ``ctypes``, built at first use with the system C++ compiler (``c++``, or
 ``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
@@ -103,6 +104,16 @@ raises when a call needs the library.
   or not, subsampled components; then Pillow's unpacking (its mode from
   the SIZ or the JP2 header: L, I;16, LA, RGB, RGBA, CMYK, sYCC through
   its YCbCr tables, a palette as its ``ImagePalette`` builds it).
+  The rare formats, each as its plugin reads it: IM (the types of its
+  OPEN table Pillow decodes, line-interleaved and bit-packed samples, a
+  ``Lut``'s palette, rows bottom-up), BLP (BLP1's JPEG, unoriented and re-read
+  as BGR, or palette; BLP2's palette or DXT1/3/5 through Pillow's Python
+  arithmetic), FITS (BITPIX 8 to -64 read with the mode as raw mode,
+  bottom-up; GZIP_1 tiles), FLI/FLC (the first frame's chunks), FTEX,
+  GIMP brushes, IM Tools, IPTC records (raw or a band of RGB or CMYK, or a
+  JPEG or another file read as ``Image.open`` reads it), McIdas areas,
+  PhotoCD's base image at its orientation, Pixar's dumped RGB, SPIDER and
+  XV thumbnails.
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
@@ -114,13 +125,18 @@ raises when a call needs the library.
   apply, DDS's BC6H blocks and the DXGI formats Pillow does not
   implement, JPEG 2000's HTJ2K (a CAP or CPF marker, an HT code-block),
   Part 2 transforms (MCT, MCC, MCO, CBD) and packed packet headers (PPM,
-  PPT), and the formats Pillow opens and the port
-  does not decode (AVIF, BLP, EPS, IM, PCD, SPIDER and the rest, each
+  PPT), an IPTC band from a record of one band that is not L or 1 as
+  the first band (Image.merge takes its bytes) or from a record of a
+  format whose mode the port does not read (any but PPM, JPEG, PNG, TIFF
+  and BMP), an IM image of mode LAB, and the formats Pillow opens and
+  the port does not decode (AVIF, BUFR, EPS, GRIB, HDF5, MPEG, WMF, each
   named). So does an image above Pillow's decompression-bomb limit
   (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
   whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
   or CCITT stream decompress no further than their image, a TIFF tile no
-  further than the tile, and data that runs out
+  further than the tile, a FITS GZIP_1 heap keeps no more than its image
+  while each member is inflated in bounded steps to its CRC, and data
+  that runs out
   (truncated) raises naming its format, as does a progressive JPEG without
   its EOI.
 - :func:`encode_jpeg` writes what Pillow's ``save(format="JPEG",
@@ -151,7 +167,7 @@ import numpy as np
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
 SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc",
-           "jpeg2000.cc")
+           "jpeg2000.cc", "fli_pcd.cc")
 HEADERS = ("codec_common.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
@@ -229,8 +245,13 @@ def library() -> ctypes.CDLL:
         pi, pl = ctypes.POINTER(ci), ctypes.POINTER(cl)
         lib.qie_jpeg_info.argtypes = [cp, cl, pi, pi, pi, pl, pl, vp, ci]
         lib.qie_jpeg_info.restype = ci
-        lib.qie_jpeg_decode.argtypes = [cp, cl, vp, vp, ci]
+        lib.qie_jpeg_decode.argtypes = [cp, cl, ci, vp, vp, ci]
         lib.qie_jpeg_decode.restype = ci
+        lib.qie_fli_frame.argtypes = [cp, cl, vp, cl, cl, vp, ci]
+        lib.qie_pcd.argtypes = [cp, cl, vp, vp, ci]
+        lib.qie_im_bits.argtypes = [cp, cl, ci, cl, cl, vp, vp, ci]
+        for name in ("qie_fli_frame", "qie_pcd", "qie_im_bits"):
+            getattr(lib, name).restype = cl
         lib.qie_tiff_jpeg.argtypes = [cp, cl, cp, cl, ci, ci, ci, ci, ci, ci, ci, vp, vp, ci]
         lib.qie_tiff_jpeg.restype = ci
         lib.qie_tiff_decompress.argtypes = [ci, cp, cl, vp, cl, ci, ci, ci, ci, vp, vp, ci]
@@ -389,19 +410,31 @@ def _jpeg_app1(data: bytes):
     return exif, xmp, dpi
 
 
-def _decode_jpeg(data: bytes) -> np.ndarray:
-    lib = library()
+def _jpeg_info(data: bytes) -> tuple:
+    """A JPEG's (width, height, components out: 1 for gray, else 3)."""
     w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    off, ln = ctypes.c_long(), ctypes.c_long()
+    off, ln, err = ctypes.c_long(), ctypes.c_long(), _err()
+    if library().qie_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h),
+                               ctypes.byref(c), ctypes.byref(off), ctypes.byref(ln), err,
+                               len(err)) != 0:
+        raise ValueError(err.value.decode())
+    return w.value, h.value, c.value
+
+
+def _decode_jpeg(data: bytes, oriented: bool = True, plain_cmyk: bool = False) -> np.ndarray:
+    """A JPEG's RGB; its EXIF or XMP orientation applied unless
+    ``oriented`` is false; ``plain_cmyk`` reads 4 components as CMYK
+    whatever the Adobe marker (Pillow's jpegmode "CMYK")."""
+    w, h, c = _jpeg_info(data)
+    out = np.empty((h, w, c), np.uint8)
     err = _err()
-    if lib.qie_jpeg_info(data, len(data), ctypes.byref(w), ctypes.byref(h), ctypes.byref(c),
-                         ctypes.byref(off), ctypes.byref(ln), err, len(err)) != 0:
+    if library().qie_jpeg_decode(data, len(data), int(plain_cmyk), out.ctypes.data, err,
+                                 len(err)) != 0:
         raise ValueError(err.value.decode())
-    out = np.empty((h.value, w.value, c.value), np.uint8)
-    if lib.qie_jpeg_decode(data, len(data), out.ctypes.data, err, len(err)) != 0:
-        raise ValueError(err.value.decode())
-    if c.value == 1:
+    if c == 1:
         out = np.repeat(out, 3, axis=2)
+    if not oriented:
+        return out
     exif, xmp, dpi = _jpeg_app1(data)
     try:
         o = orientation(exif, xmp)
@@ -576,7 +609,7 @@ def _decode_rgb(fmt: str, data: bytes) -> np.ndarray:
     return out
 
 
-def _decode_webp(data: bytes) -> np.ndarray:
+def _decode_webp(data: bytes, oriented: bool = True) -> np.ndarray:
     lib, err = library(), _err()
     w, h = ctypes.c_int(), ctypes.c_int()
     eo, el, xo, xl = ctypes.c_long(), ctypes.c_long(), ctypes.c_long(), ctypes.c_long()
@@ -589,7 +622,7 @@ def _decode_webp(data: bytes) -> np.ndarray:
         raise ValueError(err.value.decode())
     exif = data[eo.value:eo.value + el.value] if eo.value >= 0 else None
     xmp = data[xo.value:xo.value + xl.value] if xo.value >= 0 else None
-    return _orient(out, orientation(exif, xmp))
+    return _orient(out, orientation(exif, xmp)) if oriented else out
 
 
 # ---------------------------------------------------------------------------
@@ -1938,7 +1971,9 @@ def _ppm_number(token: bytes, kind=int):
         raise ValueError(f"corrupt PPM: header token {token!r} is not a number") from None
 
 
-def _open_ppm(data: bytes):
+def _ppm_header(data: bytes) -> tuple:
+    """PpmImageFile's header: (magic, mode, width, height, maxval, scale,
+    the data's offset)."""
     c = _Cursor(data)
     magic = b""
     for _ in range(6):
@@ -1961,10 +1996,15 @@ def _open_ppm(data: bytes):
             raise ValueError(f"corrupt PPM: maxval {maxval} is not in 1..65535")
         if maxval > 255 and mode == "L":
             mode = "I"
+    return magic, mode, w, h, maxval, scale, c.pos
+
+
+def _open_ppm(data: bytes):
+    magic, mode, w, h, maxval, scale, offset = _ppm_header(data)
     if w <= 0 or h <= 0:
         raise _NotThisFormat("a PPM of no pixels")
     _bomb("PPM", w, h)
-    return lambda: _ppm_pixels(data, c.pos, magic in (b"P1", b"P2", b"P3"), mode, w, h,
+    return lambda: _ppm_pixels(data, offset, magic in (b"P1", b"P2", b"P3"), mode, w, h,
                                maxval, scale)
 
 
@@ -3785,151 +3825,943 @@ def _dds_blocks(data, offset, w, h, kind, sign) -> np.ndarray:
     return out
 
 
-# --- the formats Pillow opens and the port does not decode -------------------
+# --- the rare formats Pillow decodes ------------------------------------------
+#
+# Each opener follows its plugin's ``_open`` step by step (``_plugin``: what
+# ``Image.open`` passes over goes on to the next format, what it lets through
+# raises a ValueError naming the format), then ``Image.open``'s checks (a
+# mode and pixels, the decompression-bomb limit); its loader follows the
+# plugin's decoder, and whatever the decoder raises is a ValueError naming
+# the format.
 
-def _gbr_claims(data: bytes) -> None:
-    """GbrImageFile._open's checks (its ``_accept`` takes much)."""
-    size, version, w, h, depth = struct.unpack_from(">5I", data)
-    if size < 20 or version not in (1, 2) or w == 0 or h == 0 or depth not in (1, 4):
-        raise _NotThisFormat("not a GIMP brush")
-    if version == 2 and (data[20:24] != b"GIMP" or len(data) < 28):
-        raise _NotThisFormat("not a GIMP brush")
+
+def _named(fmt: str, e: Exception) -> ValueError:
+    if isinstance(e, ValueError) and fmt in str(e):
+        return e
+    return ValueError(f"corrupt {fmt}: {e}")
 
 
-def _spider_claims(data: bytes) -> None:
-    """SpiderImageFile._open's checks of its 27 header floats."""
+def _plugin(fmt: str):
+    """``fmt``'s opener as ``ImageFile.__init__`` and ``ImageFile.load`` run
+    a plugin: IndexError, TypeError, KeyError, EOFError and struct.error in
+    ``_open`` pass the file on; anything else ``_open`` or the decoder
+    raises is a ValueError naming ``fmt``."""
+    def wrap(open_):
+        def run(data: bytes):
+            try:
+                load = open_(data)
+            except (IndexError, TypeError, KeyError, EOFError, struct.error) as e:
+                raise _NotThisFormat(f"{fmt}: {e}") from None
+            except (ValueError, OverflowError) as e:
+                raise _named(fmt, e) from None
+
+            def loaded():
+                try:
+                    return load()
+                except (ValueError, OverflowError, EOFError, OSError, IndexError, KeyError,
+                        TypeError, struct.error, zlib.error, _NotThisFormat) as e:
+                    raise _named(fmt, e) from None
+            return loaded
+        return run
+    return wrap
+
+
+def _identified(fmt: str, mode: str, w, h) -> None:
+    """ImageFile's check (a mode and pixels, else the next plugin), then
+    Image.open's decompression-bomb check."""
+    if not mode or w <= 0 or h <= 0:
+        raise _NotThisFormat(f"not identified as {fmt}")
+    _bomb(fmt, w, h)
+
+
+# XV's fixed palette: 3 bits of red and green, 2 of blue
+_XV_PALETTE = np.array([((r * 255) // 7, (g * 255) // 7, (b * 255) // 3)
+                        for r in range(8) for g in range(8) for b in range(4)], np.uint8)
+
+
+@_plugin("XVTHUMB")
+def _open_xvthumb(data: bytes):
+    """XVThumbImageFile: the magic's line, ``#`` lines, then the width and
+    height; one byte a pixel into XV's palette from the next line on."""
+    c = _Cursor(data, 6)
+    _readline(c)
+    while True:
+        s = _readline(c)
+        if not s:
+            raise _NotThisFormat("an XV thumbnail header without its end")
+        if s[0] != 35:
+            break
+    w, h = s.strip().split(maxsplit=2)[:2]
+    w, h = int(w), int(h)
+    _identified("XVTHUMB", "P", w, h)
+    return lambda: _XV_PALETTE[_rows("XVTHUMB", data, c.pos, h, w)]
+
+
+@_plugin("PIXAR")
+def _open_pixar(data: bytes):
+    """PixarImageFile: only the dumped 8-bit RGB layout (channels 14, depth
+    2), its rows from byte 1024."""
+    s = data[:512]
+    w, h = _u16("<", s, 418), _u16("<", s, 416)
+    mode = "RGB" if (_u16("<", s, 424), _u16("<", s, 426)) == (14, 2) else ""
+    _identified("PIXAR", mode, w, h)
+    return lambda: np.ascontiguousarray(_rows("PIXAR", data, 1024, h, 3 * w)).reshape(h, w, 3)
+
+
+_MCIDAS_MODES = {1: ("L", "u1"), 2: ("I;16B", ">u2"), 4: ("I", ">i4")}
+
+
+@_plugin("MCIDAS")
+def _open_mcidas(data: bytes):
+    """McIdasImageFile: the area directory's 64 big-endian words; 1, 2 or
+    4 bytes a sample (L, I;16B, I from I;32B), the rows at the data
+    offset plus the line prefix, a stride apart."""
+    s = data[:256]
+    if len(s) != 256:
+        raise _NotThisFormat("not a McIdas area file")
+    w = (0,) + struct.unpack(">64i", s)
+    if w[11] not in _MCIDAS_MODES:
+        raise _NotThisFormat("an unsupported McIdas format")
+    mode, dtype = _MCIDAS_MODES[w[11]]
+    width, height = w[10], w[9]
+    offset, stride = w[34] + w[15], w[15] + w[10] * w[11] * w[14]
+    _identified("MCIDAS", mode, width, height)
+
+    def load():
+        row = width * w[11]
+        if not -2 ** 31 <= stride < 2 ** 31 or (stride and stride < row):
+            raise ValueError(f"corrupt MCIDAS: a stride of {stride} bytes for rows of {row}")
+        if offset < 0:
+            raise ValueError("corrupt MCIDAS: a negative data offset")
+        v = np.ascontiguousarray(_rows("MCIDAS", data, offset, height, row, stride or row))
+        return _mode_rgb(v.view(dtype)[..., None], "I")
+    return load
+
+
+def _spider_int(f: float) -> bool:
+    """SpiderImagePlugin.isInt."""
+    try:
+        return f - int(f) == 0
+    except (ValueError, OverflowError):
+        return False
+
+
+def _spider_header(t) -> int:
+    """isSpiderHeader: the header's length in bytes, 0 where it is none."""
+    h = (99,) + t
+    if not all(_spider_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)):
+        return 0
+    if int(h[5]) not in (1, 3, -11, -12, -21, -22):
+        return 0
+    if int(h[22]) != int(h[13]) * int(h[23]):
+        return 0
+    return int(h[22])
+
+
+@_plugin("SPIDER")
+def _open_spider(data: bytes):
+    """SpiderImageFile: 27 header floats, big-endian tried first; a 2-D
+    image (iform 1) of 32-bit floats after the header, or a stack's first
+    image after twice its length."""
     for e in (">", "<"):
-        h = (99.0,) + struct.unpack(e + "27f", data[:108])
-        ints = all(math.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23))
-        if ints and int(h[5]) in (1, 3, -11, -12, -21, -22) and (
-                int(h[22]) == int(h[13]) * int(h[23])) and int(h[22]):
+        t = struct.unpack(e + "27f", data[:108])
+        hdrlen = _spider_header(t)
+        if hdrlen:
             break
     else:
-        raise _NotThisFormat("not a Spider file")
-    stack, number = int(h[24]), int(h[27])
-    if int(h[5]) != 1 or (stack > 0 and number > 0) or stack < 0 or number < 0 or (
-            int(h[12]) <= 0 or int(h[2]) <= 0):
+        raise _NotThisFormat("not a valid Spider file")
+    h = (99,) + t
+    if int(h[5]) != 1:
         raise _NotThisFormat("not a Spider 2D image")
+    w, ht = int(h[12]), int(h[2])
+    stack, number = int(h[24]), int(h[27])
+    if stack == 0 and number == 0:
+        offset = hdrlen
+    elif stack > 0 and number == 0:
+        int(h[26])  # the stack's number of images
+        offset = 2 * hdrlen
+    elif stack == 0 and number > 0:  # Pillow's AttributeError: no stack offset yet
+        raise ValueError("unsupported SPIDER: an image of a stack, without its stack")
+    else:
+        raise _NotThisFormat("inconsistent stack header values")
+    _identified("SPIDER", "F", w, ht)
 
+    def load():
+        if offset < 0:
+            raise ValueError("corrupt SPIDER: a negative header length")
+        return _float_gray(np.ascontiguousarray(_rows("SPIDER", data, offset, ht, 4 * w))
+                           .view(e + "f4"))
+    return load
+
+
+_FITS_MODES = {8: ("L", "u1"), 16: ("I;16", "<u2"), 32: ("I", "<i4"), -32: ("F", "<f4"),
+               -64: ("F", "<f4")}
+
+
+def _fits_size(headers: dict, prefix: bytes):
+    naxis = int(headers[prefix + b"NAXIS"])
+    if naxis == 0:
+        return None
+    if naxis == 1:
+        return 1, int(headers[prefix + b"NAXIS1"])
+    return int(headers[prefix + b"NAXIS1"]), int(headers[prefix + b"NAXIS2"])
+
+
+def _fits_parse(headers: dict):
+    """FitsImageFile._parse_headers: None where the unit has no axes, else
+    (gzip, the data's offset within the unit, BITPIX, size, mode)."""
+    prefix, gz, offset = b"", False, 0
+    if (headers.get(b"XTENSION") == b"'BINTABLE'" and headers.get(b"ZIMAGE") == b"T"
+            and headers[b"ZCMPTYPE"] == b"'GZIP_1  '"):
+        w, h = _fits_size(headers, prefix) or (0, 0)
+        offset = w * h * (int(headers[b"BITPIX"]) // 8)
+        prefix, gz = b"Z", True
+    size = _fits_size(headers, prefix)
+    if not size:
+        return None
+    bits = int(headers[prefix + b"BITPIX"])
+    return gz, offset, bits, size, _FITS_MODES.get(bits, ("", ""))
+
+
+_GZIP_STEP = 1 << 16
+_NONZERO = re.compile(rb"[^\x00]")
+
+
+def _gunzip_head(data: bytes, pos: int, limit: int) -> bytes:
+    """``gzip.decompress(data[pos:])[:limit]`` in bounded memory. Each
+    member is inflated to its end, in steps of ``_GZIP_STEP`` bytes in and
+    out, and its header, CRC and length are checked as gzip.decompress
+    checks them, so a stream raises where it raises; the output past
+    ``limit`` is dropped as it comes. Zeros between members are skipped."""
+    view, out = memoryview(data), bytearray()
+    while pos < len(data):
+        if data[pos:pos + 2] != b"\x1f\x8b" or len(data) < pos + 10 or data[pos + 2] != 8:
+            raise ValueError("corrupt gzip: a member without its header")
+        flag, pos = data[pos + 3], pos + 10
+        if flag & 4:  # FEXTRA: its length, then the field
+            pos += 2 + (_u16("<", data, pos) if pos + 2 <= len(data) else len(data))
+        for bit in (8, 16):  # FNAME, FCOMMENT: up to a zero byte, or the end
+            if flag & bit:
+                k = data.find(b"\0", pos)
+                pos = len(data) if k < 0 else k + 1
+        pos += 2 if flag & 2 else 0  # FHCRC, not checked
+        if pos > len(data):
+            raise ValueError("truncated gzip: a member's header is cut")
+        do, crc, size = zlib.decompressobj(-zlib.MAX_WBITS), 0, 0
+        while not do.eof:
+            chunk = do.unconsumed_tail
+            if not chunk:
+                chunk = view[pos:pos + _GZIP_STEP]
+                pos += len(chunk)
+            piece = do.decompress(chunk, _GZIP_STEP)
+            if not piece and not chunk:
+                raise ValueError("truncated gzip: a member ends before its stream")
+            crc, size = zlib.crc32(piece, crc), size + len(piece)
+            out += piece[:max(0, limit - len(out))]
+        pos -= len(do.unused_data)
+        trailer = data[pos:pos + 8]
+        if len(trailer) < 8 or struct.unpack("<II", trailer) != (crc, size & 0xFFFFFFFF):
+            raise ValueError("corrupt gzip: a member's CRC or length does not match")
+        found = _NONZERO.search(data, pos + 8)
+        pos = found.start() if found else len(data)
+    return bytes(out)
+
+
+@_plugin("FITS")
+def _open_fits(data: bytes):
+    """FitsImageFile: 80-byte cards; the first header unit with axes sets
+    the size and mode (BITPIX 8, 16, 32, -32, -64: L, I;16, I, F, F), its
+    data read after the first card past the units; the raw decoder's rows
+    bottom-up with the mode as raw mode (little-endian; 4-byte floats even
+    at -64), or a GZIP_1 tile-compressed table's heap through gzip (all its
+    members checked, only the image's bytes kept), each pixel the low bytes
+    of a 4-byte word. BSCALE and BZERO are not read."""
+    c, headers, in_header, parsed = _Cursor(data), {}, False, None
+    while True:
+        card = c.read(80)
+        if not card:
+            raise ValueError("truncated FITS: the file ends in its header")
+        keyword = card[:8].strip()
+        if keyword in (b"SIMPLE", b"XTENSION"):
+            in_header = True
+        elif headers and not in_header:
+            break
+        elif keyword == b"END":
+            c.pos = math.ceil(c.pos / 2880) * 2880
+            if not parsed:
+                parsed = _fits_parse(headers)
+            in_header = False
+            continue
+        if parsed:
+            continue
+        value = card[8:].split(b"/")[0].strip()
+        if value.startswith(b"="):
+            value = value[1:].strip()
+        if not headers and (not keyword.startswith(b"SIMPLE") or value != b"T"):
+            raise _NotThisFormat("not a FITS file")
+        headers[keyword] = value
+    if not parsed:
+        raise ValueError("unsupported FITS: no image data")
+    gz, offset, bits, (w, h), (mode, dtype) = parsed
+    offset += c.pos - 80
+    _identified("FITS", mode, w, h)
+
+    def load():
+        if offset < 0:
+            raise ValueError("corrupt FITS: a negative data offset")
+        n = np.dtype(dtype).itemsize
+        if gz:
+            value = _gunzip_head(data, offset, 4 * w * h)
+            if bits <= 0 or len(value) < 4 * w * h:
+                raise ValueError("truncated FITS: not enough image data")
+            rows = np.frombuffer(value, np.uint8, 4 * w * h).reshape(h, w, 4)[..., 4 - n:]
+            rows = rows.reshape(h, w * n)
+        else:
+            rows = _rows("FITS", data, offset, h, w * n)
+        v = np.ascontiguousarray(rows[::-1]).view(dtype)
+        return _float_gray(v) if mode == "F" else _mode_rgb(v[..., None], "I")
+    return load
+
+
+@_plugin("GBR")
+def _open_gbr(data: bytes):
+    """GbrImageFile: a big-endian header (version 1, or 2 with ``GIMP`` and
+    the spacing), the name, then L (depth 1) or RGBA (depth 4) samples."""
+    c = _Cursor(data)
+    header_size = _u32(">", c.read(4))
+    if header_size < 20:
+        raise _NotThisFormat("not a GIMP brush")
+    version = _u32(">", c.read(4))
+    if version not in (1, 2):
+        raise _NotThisFormat("an unsupported GIMP brush version")
+    w = _u32(">", c.read(4))
+    h = _u32(">", c.read(4))
+    depth = _u32(">", c.read(4))
+    if w == 0 or h == 0 or depth not in (1, 4):
+        raise _NotThisFormat("not a GIMP brush")
+    if version == 2:
+        if c.read(4) != b"GIMP":
+            raise _NotThisFormat("not a GIMP brush: no GIMP magic")
+        _u32(">", c.read(4))  # the spacing
+    c.read(header_size - (20 if version == 1 else 28))  # the name (the rest where negative)
+    _identified("GBR", "L", w, h)
+    start, size = c.pos, w * h * depth
+
+    def load():
+        raw = data[start:start + size]
+        if len(raw) < size:
+            raise ValueError("truncated GBR: not enough image data")
+        px = np.frombuffer(raw, np.uint8).reshape(h, w, depth)
+        return _gray(px[..., 0]) if depth == 1 else np.ascontiguousarray(px[..., :3])
+    return load
+
+
+_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
+
+
+@_plugin("IMT")
+def _open_imt(data: bytes):
+    """ImtImageFile: ``key value`` lines (``*`` a comment) read through its
+    100-byte buffer up to a line that starts with 0x0C; gray bytes after
+    it (``pixel n8``)."""
+    c = _Cursor(data)
+    buffer = c.read(100)
+    if b"\n" not in buffer:
+        raise _NotThisFormat("not an IM Tools file")
+    w = h = 0
+    mode, offset = "", None
+    while True:
+        if buffer:
+            s, buffer = buffer[:1], buffer[1:]
+        else:
+            s = c.read(1)
+        if not s:
+            break
+        if s == b"\x0c":
+            offset = c.pos - len(buffer)
+            break
+        if b"\n" not in buffer:
+            buffer += c.read(100)
+        lines = buffer.split(b"\n")
+        s += lines.pop(0)
+        buffer = b"\n".join(lines)
+        if len(s) == 1 or len(s) > 100:
+            break
+        if s[0] == ord(b"*"):
+            continue
+        m = _IMT_FIELD.match(s)
+        if not m:
+            break
+        k, v = m.group(1, 2)
+        if k == b"width":
+            w = int(v)
+        elif k == b"height":
+            h = int(v)
+        elif k == b"pixel" and v == b"n8":
+            mode = "L"
+    _identified("IMT", mode, w, h)
+
+    def load():
+        if offset is None:
+            raise ValueError("corrupt IMT: no image data after the header")
+        return _gray(_rows("IMT", data, offset, h, w))
+    return load
+
+
+@_plugin("FTEX")
+def _open_ftex(data: bytes):
+    """FtexImageFile: one format's first mipmap, DXT1 (Pillow's bcn decoder:
+    ``bcn.cc``'s BC1) or raw RGB."""
+    c = _Cursor(data, 4)
+    struct.unpack("<i", c.read(4))  # the version
+    w, h = struct.unpack("<2i", c.read(8))
+    _, formats = struct.unpack("<2i", c.read(8))
+    if formats != 1:  # Pillow's assert
+        raise ValueError(f"unsupported FTEX: {formats} formats, not one")
+    kind, where = struct.unpack("<2i", c.read(8))
+    if where < 0:
+        raise ValueError("corrupt FTEX: a negative mipmap offset")
+    c.pos = where
+    (size,) = struct.unpack("<i", c.read(4))
+    mip = c.read(size)  # all that is left where the size is negative
+    if kind not in (0, 1):
+        raise ValueError(f"unsupported FTEX: texture format {kind}")
+    _identified("FTEX", "RGBA" if kind == 0 else "RGB", w, h)
+
+    def load():
+        if kind == 1:
+            return np.ascontiguousarray(_rows("FTEX", mip, 0, h, 3 * w)).reshape(h, w, 3)
+        if len(mip) < ((w + 3) // 4) * ((h + 3) // 4) * 8:
+            raise ValueError("truncated FTEX: the DXT1 blocks end before the image is full")
+        out = np.empty((h, w, 3), np.uint8)
+        _raster("bcn", mip, len(mip), w, h, 1, 0, out.ctypes.data)
+        return out
+    return load
+
+
+# IM: ImImagePlugin's OPEN table, "Image type" → (mode, raw mode)
+_IM_OPEN = {
+    "0 1 image": ("1", "1"), "L 1 image": ("1", "1"), "Greyscale image": ("L", "L"),
+    "Grayscale image": ("L", "L"), "RGB image": ("RGB", "RGB;L"), "RLB image": ("RGB", "RLB"),
+    "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"), "B2 image": ("P", "P;2"),
+    "B4 image": ("P", "P;4"), "X 24 image": ("RGB", "RGB"), "L 32 S image": ("I", "I;32"),
+    "L 32 F image": ("F", "F;32"), "RGB3 image": ("RGB", "RGB;T"),
+    "RYB3 image": ("RGB", "RYB;T"), "LA image": ("LA", "LA;L"), "PA image": ("LA", "PA;L"),
+    "RGBA image": ("RGBA", "RGBA;L"), "RGBX image": ("RGB", "RGBX;L"),
+    "CMYK image": ("CMYK", "CMYK;L"), "YCC image": ("YCbCr", "YCbCr;L"),
+}
+for _i in ("8", "8S", "16", "16S", "32", "32F"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+for _i in ("16", "16L", "16B"):
+    _IM_OPEN[f"L {_i} image"] = _IM_OPEN[f"L*{_i} image"] = (f"I;{_i}", f"I;{_i}")
+_IM_OPEN["L 32S image"] = _IM_OPEN["L*32S image"] = ("I", "I;32S")
+for _i in range(2, 33):
+    _IM_OPEN[f"L*{_i} image"] = ("F", f"F;{_i}")
+del _i
+
+# raw mode → (bits a pixel, planes a line or None for interleaved, dtype)
+_IM_RAW = {
+    "1": (1, None, "u1"), "L": (8, None, "u1"), "P": (8, None, "u1"), "P;2": (2, None, "u1"),
+    "P;4": (4, None, "u1"), "LA;L": (16, 2, "u1"), "PA;L": (16, 2, "u1"),
+    "RGB;L": (24, 3, "u1"), "YCbCr;L": (24, 3, "u1"), "RGBA;L": (32, 4, "u1"),
+    "RGBX;L": (32, 4, "u1"), "CMYK;L": (32, 4, "u1"), "RGB": (24, None, "u1"),
+    "I;16": (16, None, "<u2"), "I;16L": (16, None, "<u2"), "I;16B": (16, None, ">u2"),
+    "I;32": (32, None, "<i4"), "I;32S": (32, None, "<i4"), "F;8": (8, None, "u1"),
+    "F;8S": (8, None, "i1"), "F;16": (16, None, "<u2"), "F;16S": (16, None, "<i2"),
+    "F;32": (32, None, "<u4"), "F;32F": (32, None, "<f4"),
+}
+# the (mode, raw mode) pairs Pillow has an unpacker for, of those an IM
+# header can name
+_IM_PAIRS = {
+    ("1", "1"), ("L", "L"), ("P", "L"), ("P", "P"), ("P", "P;2"), ("P", "P;4"),
+    ("LA", "LA;L"), ("PA", "PA;L"), ("RGB", "RGB"), ("RGBX", "RGB"), ("RGB", "RGB;L"),
+    ("RGBX", "RGB;L"), ("RGB", "RGBA;L"), ("RGBA", "RGBA;L"), ("RGB", "RGBX;L"),
+    ("RGBX", "RGBX;L"), ("CMYK", "CMYK;L"), ("YCbCr", "YCbCr;L"), ("I", "I;16"),
+    ("I;16", "I;16"), ("I", "I;16B"), ("I;16", "I;16B"), ("I;16B", "I;16B"),
+    ("I;16L", "I;16L"), ("I", "I;32"), ("I", "I;32S"), ("F", "F;8"), ("F", "F;8S"),
+    ("F", "F;16"), ("F", "F;16S"), ("F", "F;32"), ("F", "F;32F"),
+} | {(m, r) for m in ("RGB", "RGBA", "RGBX") for r in ("RGB;T", "RYB;T")} | {
+    ("F", f"F;{n}") for n in range(2, 33)}
 
 _IM_LINE = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = {b"Comment", b"Date", b"Digitalization equipment", b"File size (no of images)",
-            b"Lut", b"Name", b"Scale (x,y)", b"Image size (x*y)", b"Image type"}
+_IM_TAGS = {"Comment", "Date", "Digitalization equipment", "File size (no of images)", "Lut",
+            "Name", "Scale (x,y)", "Image size (x*y)", "Image type"}
 
 
-def _im_claims(data: bytes) -> None:
-    """ImImageFile._open's header: lines of ``Key: value`` up to a 0x1A,
-    one of them a key it knows."""
+def _im_number(s: str):
+    """ImImagePlugin.number."""
+    try:
+        return int(s)
+    except ValueError:
+        return float(s)
+
+
+@_plugin("IM")
+def _open_im(data: bytes):
+    """ImImageFile: ``Key: value`` lines up to a 0x00 or 0x1A (the type from
+    its OPEN table, the size, ...), the data after the next 0x1A, a ``Lut``'s
+    768 bytes first (a palette unless it is gray, making L or LA into P or
+    PA); the first frame, its rows bottom-up."""
     if b"\n" not in data[:100]:
         raise _NotThisFormat("not an IM file")
-    c, known = _Cursor(data), 0
+    c, n, rawmode = _Cursor(data), 0, "L"
+    info = {"Image type": "L", "Image size (x*y)": (512, 512), "File size (no of images)": 1}
     while True:
-        ch = c.read(1)
-        if ch == b"\r":
+        s = c.read(1)
+        if s == b"\r":
             continue
-        if not ch:
-            raise _NotThisFormat("an IM header without its end")
-        if ch in b"\x00\x1a":
+        if not s or s in (b"\0", b"\x1a"):
             break
-        nl = data.find(b"\n", c.pos)
-        line = ch + c.read(nl + 1 - c.pos if nl >= 0 else -1)
-        if len(line) > 100:
+        s += _readline(c)
+        if len(s) > 100:
             raise _NotThisFormat("not an IM file")
-        if line.endswith(b"\r\n"):
-            line = line[:-2]
-        elif line.endswith(b"\n"):
-            line = line[:-1]
-        m = _IM_LINE.match(line)
+        s = s[:-2] if s.endswith(b"\r\n") else s[:-1] if s.endswith(b"\n") else s
+        m = _IM_LINE.match(s)
         if not m:
-            raise _NotThisFormat("not an IM file")
-        known += m[1] in _IM_TAGS
-    if not known or b"\x1a" not in data[c.pos - 1:]:
+            raise _NotThisFormat("a syntax error in an IM header")
+        k, v = (g.decode("latin-1", "replace") for g in m.group(1, 2))
+        if k in ("File size (no of images)", "Scale (x,y)", "Image size (x*y)"):
+            v = tuple(map(_im_number, v.replace("*", ",").split(",")))
+            v = v[0] if len(v) == 1 else v
+        elif k == "Image type" and v in _IM_OPEN:
+            v, rawmode = _IM_OPEN[v]
+        info[k] = v
+        n += k in _IM_TAGS
+    if not n:
         raise _NotThisFormat("not an IM file")
+    size, mode = info["Image size (x*y)"], info["Image type"]
+    k = data.find(b"\x1a", c.pos) if s == b"\0" else c.pos - 1  # the data follows a 0x1A
+    if not s or k < 0:
+        raise _NotThisFormat("an IM file cut in its header")
+    c.pos = k + 1
+    palette = None
+    if "Lut" in info:
+        lut = c.read(768)
+        gray = linear = True
+        for i in range(256):
+            if lut[i] == lut[i + 256] == lut[i + 512]:
+                linear &= lut[i] == i
+            else:
+                gray = False
+        if mode in ("L", "LA", "P", "PA") and not gray:
+            mode, rawmode = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
+            palette = np.frombuffer(lut, np.uint8).reshape(3, 256).T
+    offset = c.pos
+    if not isinstance(size, tuple):  # one number: the plugin's tile raises TypeError
+        raise _NotThisFormat("an IM size of one number")
+    _identified("IM", mode, size[0], size[1])
+    return lambda: _im_pixels(data, offset, mode, rawmode, size, palette)
 
 
-def _imt_claims(data: bytes) -> None:
-    """ImtImageFile._open: ``width``, ``height`` and ``pixel n8`` lines up
-    to a line that starts with 0x0C."""
-    if b"\n" not in data[:100]:
-        raise _NotThisFormat("not an IMT file")
-    w = h = pos = 0
-    gray = False
-    while pos < len(data) and data[pos] != 0x0C:
-        nl = data.find(b"\n", pos)
-        line, pos = (data[pos:nl], nl + 1) if nl >= 0 else (data[pos:], len(data))
-        if len(line) <= 1 or len(line) > 100:
-            break
-        if line[:1] == b"*":
-            continue
-        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
-        if not m:
-            break
-        if m[1] in (b"width", b"height"):
-            try:
-                v = int(m[2])
-            except ValueError:
-                return  # Pillow raises: not passed on
-            w, h = (v, h) if m[1] == b"width" else (w, v)
-        gray |= m[1] == b"pixel" and m[2] == b"n8"
-    if not gray or w <= 0 or h <= 0:
-        raise _NotThisFormat("not an IMT file")
+def _im_pixels(data, offset, mode, rawmode, size, palette) -> np.ndarray:
+    if len(size) != 2 or not all(isinstance(v, int) for v in size):
+        raise ValueError(f"unsupported IM: an image size of {size}")
+    if (mode, rawmode) not in _IM_PAIRS:
+        raise ValueError(f"unsupported IM: raw mode {rawmode!r} into mode {mode!r}")
+    w, h = size
+    if rawmode in ("RGB;T", "RYB;T"):  # three tiles: green, red, blue planes
+        planes = [_rows("IM", data, offset + k * w * h, h, w) for k in range(3)]
+        px = np.stack([planes[1], planes[0], planes[2]], -1)[::-1]
+    elif rawmode.startswith("F;") and rawmode[2:].isdigit() and int(rawmode[2:]) not in (
+            8, 16, 32):  # the bit decoder
+        px = np.empty((h, w), np.float32)
+        err = _err()
+        if library().qie_im_bits(data[offset:], max(0, len(data) - offset), int(rawmode[2:]), w,
+                                 h, px.ctypes.data, err, len(err)) != 0:
+            raise ValueError(err.value.decode())
+        px = px[..., None]
+    else:
+        bits, planes, dtype = _IM_RAW[rawmode]
+        rows = _rows("IM", data, offset, h, (w * bits + 7) // 8)[::-1]
+        if bits < 8:
+            px = np.unpackbits(rows, axis=1).reshape(h, -1, bits)[:, :w]
+            px = (px << np.arange(bits - 1, -1, -1, dtype=np.uint8)).sum(-1)
+            px = (px * 255 if rawmode == "1" else px)[..., None]
+        elif planes:
+            px = np.ascontiguousarray(rows).reshape(h, planes, w).transpose(0, 2, 1)
+        else:
+            px = np.ascontiguousarray(rows).view(dtype).reshape(h, w, -1)
+    return _im_rgb(px, mode, palette)
 
 
-def _iptc_claims(data: bytes) -> None:
-    """IptcImageFile._open: fields of 0x1C, a tag and a size up to the
-    image's (8, 10); the layers (3, 60) and the size (3, 20), (3, 30) read."""
+def _im_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
+    """An IM image's samples (H, W, bands) in ``mode`` → ``convert("RGB")``."""
+    if mode in ("P", "PA"):
+        return _mode_rgb(px, "P", palette)
+    if mode == "F":
+        return _float_gray(px[..., 0].astype(np.float32))
+    if mode.startswith("I"):  # I, I;16, I;16L, I;16B: clipped to 0..255
+        return _mode_rgb(px, "I")
+    if mode == "YCbCr":
+        return _j2k_ycc(px)
+    return _mode_rgb(px, mode)
+
+
+# BLP2's DXT1, DXT3 and DXT5 through BlpImagePlugin's Python decoders:
+# 5:6:5 endpoints shifted without bit replication, integer means
+def _blp_565(c: np.ndarray) -> np.ndarray:
+    return np.stack([(c >> 11 & 0x1F) << 3, (c >> 5 & 0x3F) << 2, (c & 0x1F) << 3], -1)
+
+
+def _blp_dxt(raw: bytes, kind: int, alpha: bool) -> np.ndarray:
+    """(blocks, 16, bytes a pixel) of decode_dxt1 (kind 0), decode_dxt3 (1)
+    or decode_dxt5 (2) on ``raw``'s whole blocks: RGBA, or RGB for DXT1
+    without alpha."""
+    size = 8 if kind == 0 else 16
+    b = np.frombuffer(raw, np.uint8, len(raw) // size * size).reshape(-1, size).astype(np.int64)
+    col = b[:, size - 8:]
+    c0, c1 = col[:, 0] | col[:, 1] << 8, col[:, 2] | col[:, 3] << 8
+    code = col[:, 4] | col[:, 5] << 8 | col[:, 6] << 16 | col[:, 7] << 24
+    idx = code[:, None] >> (2 * np.arange(16)) & 3
+    e0, e1 = _blp_565(c0), _blp_565(c1)
+    four = (c0 > c1)[:, None] if kind == 0 else np.ones((len(b), 1), bool)
+    table = np.stack([e0, e1, np.where(four, (2 * e0 + e1) // 3, (e0 + e1) // 2),
+                      np.where(four, (2 * e1 + e0) // 3, 0)], 1)
+    rgb = np.take_along_axis(table, idx[..., None], 1)
+    if kind == 0:
+        if not alpha:
+            return rgb.astype(np.uint8)
+        a = np.where((idx == 3) & ~four, 0, 255)
+    elif kind == 1:  # 4 bits a pixel, the low nibble first
+        a = ((b[:, :8, None] >> np.array([0, 4])) & 0xF).reshape(-1, 16) * 17
+    else:  # two endpoints, 3-bit codes
+        a0, a1 = b[:, :1], b[:, 1:2]
+        ac = sum(b[:, 2 + k, None] << (8 * k) for k in range(6)) >> (3 * np.arange(16)) & 7
+        a = np.where(ac == 0, a0, np.where(ac == 1, a1, np.where(
+            a0 > a1, ((8 - ac) * a0 + (ac - 1) * a1) // 7, np.where(
+                ac == 6, 0, np.where(ac == 7, 255, ((6 - ac) * a0 + (ac - 1) * a1) // 5)))))
+    return np.concatenate([rgb, a[..., None]], -1).astype(np.uint8)
+
+
+@_plugin("BLP")
+def _open_blp(data: bytes):
+    """BlpImageFile: BLP1 (JPEG or an 8-bit palette) or BLP2 (a palette,
+    or DXT1/3/5); RGBA where the header says alpha, else RGB."""
+    magic, c = data[:4], _Cursor(data, 4)
+    (compression,) = struct.unpack("<i", c.read(4))
+    if magic == b"BLP1":
+        alpha = struct.unpack("<I", c.read(4))[0] != 0
+        encoding = alpha_encoding = None
+    else:
+        encoding, alpha, alpha_encoding = struct.unpack("<3b", c.read(1) + c.read(1) + c.read(1))
+        alpha = alpha != 0
+        c.pos += 1  # the mipmap flag
+    w, h = struct.unpack("<II", c.read(8))
+    if magic == b"BLP1":
+        (encoding,) = struct.unpack("<i", c.read(4))
+    _identified("BLP", "RGBA" if alpha else "RGB", w, h)
+    args = (compression, encoding, alpha, alpha_encoding)
+    return lambda: (_blp1 if magic == b"BLP1" else _blp2)(data, w, h, *args)
+
+
+def _safe_read(c: _Cursor, n: int) -> bytes:
+    """ImageFile._safe_read: nothing for n <= 0, else n bytes or an error."""
+    if n <= 0:
+        return b""
+    b = c.read(n)
+    if len(b) < n:
+        raise ValueError("truncated BLP: a read past the end of the file")
+    return b
+
+
+def _blp_palette(c: _Cursor) -> np.ndarray:
+    """_read_palette: 256 BGRA entries → (256, 3) RGB."""
+    return np.frombuffer(_safe_read(c, 1024), np.uint8).reshape(256, 4)[:, 2::-1]
+
+
+def _blp_raw(flat: np.ndarray, w: int, h: int, mb: int) -> np.ndarray:
+    """set_as_raw: ``mb`` bytes a pixel of the mode from the stream, RGB
+    kept."""
+    if flat.size < w * h * mb:
+        raise ValueError("truncated BLP: not enough image data")
+    return np.ascontiguousarray(flat[:w * h * mb].reshape(h, w, mb)[..., :3])
+
+
+def _blp_indexed(c: _Cursor, n: int, palette: np.ndarray, w: int, h: int) -> np.ndarray:
+    """_read_bgra: ``n`` index bytes into the palette (RGB, or RGBA: the
+    same pixels a byte)."""
+    idx = np.frombuffer(_safe_read(c, n), np.uint8)
+    if idx.size < w * h:
+        raise ValueError("truncated BLP: not enough image data")
+    return palette[idx[:w * h]].reshape(h, w, 3)
+
+
+def _blp1(data, w, h, compression, encoding, alpha, _) -> np.ndarray:
+    c = _Cursor(data, 28)
+    offsets = struct.unpack("<16I", _safe_read(c, 64))
+    lengths = struct.unpack("<16I", _safe_read(c, 64))
+    if compression == 0:  # the shared JPEG header, then mipmap 0
+        (n,) = struct.unpack("<I", _safe_read(c, 4))
+        jpeg = _safe_read(c, n)
+        _safe_read(c, offsets[0] - c.pos)
+        jpeg += _safe_read(c, lengths[0])
+        if jpeg[:3] != b"\xff\xd8\xff":
+            raise ValueError("corrupt BLP: mipmap 0 is not a JPEG")
+        rgb = _decode_jpeg(jpeg, oriented=False, plain_cmyk=True)
+        # its RGB bytes re-read as BGR at the BLP's size
+        return np.ascontiguousarray(_blp_raw(rgb.reshape(-1), w, h, 3)[..., ::-1])
+    if compression == 1 and encoding in (4, 5):
+        return _blp_indexed(c, lengths[0], _blp_palette(c), w, h)  # no seek to the mipmap
+    raise ValueError(f"unsupported BLP: BLP1 compression {compression}, encoding {encoding}")
+
+
+def _blp2(data, w, h, compression, encoding, alpha, alpha_encoding) -> np.ndarray:
+    c = _Cursor(data, 20)
+    offsets = struct.unpack("<16I", _safe_read(c, 64))
+    lengths = struct.unpack("<16I", _safe_read(c, 64))
+    palette = _blp_palette(c)
+    c.pos = offsets[0]
+    if compression != 1:
+        raise ValueError(f"unsupported BLP: BLP2 compression {compression}")
+    if encoding == 1:
+        return _blp_indexed(c, lengths[0], palette, w, h)
+    if encoding != 2 or alpha_encoding not in (0, 1, 7):
+        raise ValueError(f"unsupported BLP: BLP2 encoding {encoding}, alpha encoding "
+                         f"{alpha_encoding}")
+    kind = {0: 0, 1: 1, 7: 2}[alpha_encoding]
+    across, down = (w + 3) // 4, (h + 3) // 4
+    px = _blp_dxt(_safe_read(c, across * (8 if kind == 0 else 16) * down), kind, alpha)
+    # rows of (w + 3) // 4 * 4 pixels, read w a row: sheared where w % 4
+    rows = px.reshape(down, across, 4, 4, -1).transpose(0, 2, 1, 3, 4).reshape(-1)
+    return _blp_raw(rows, w, h, 4 if alpha else 3)
+
+
+def _fli_palette(c: _Cursor, palette: np.ndarray, shift: int) -> None:
+    """FliImageFile._palette: packets of a skip and a count of RGB triples."""
+    i = 0
+    for _ in range(_u16("<", c.read(2))):
+        s = c.read(2)
+        i += s[0]
+        n = s[1] or 256
+        s = c.read(n * 3)
+        for k in range(0, len(s), 3):
+            palette[i] = (s[k] << shift, s[k + 1] << shift, s[k + 2] << shift)
+            i += 1
+
+
+@_plugin("FLI")
+def _open_fli(data: bytes):
+    """FliImageFile: the 128-byte header, the palette of the first frame's
+    colour chunk (4: 8-bit, 11: 6-bit) over a gray ramp, then the first
+    frame at byte 128 (even after a prefix chunk) through ``fli_pcd.cc``,
+    read as ImageFile.load reads it: the frame's size a block."""
+    s = data[:128]
+    if not (len(s) >= 16 and _u16("<", s, 4) in (0xAF11, 0xAF12) and _u16("<", s, 14) in (0, 3)
+            and s[20:22] == b"\0\0" and s[42:80] == bytes(38) and s[88:] == bytes(40)):
+        raise _NotThisFormat("not an FLI/FLC file")
+    frames, w, h = _u16("<", s, 6), _u16("<", s, 8), _u16("<", s, 10)
+    palette = np.repeat(np.arange(256, dtype=np.int64)[:, None], 3, axis=1)
+    c = _Cursor(data, 128)
+    s = c.read(16)
+    if _u16("<", s, 4) == 0xF100:  # a prefix chunk: the frame after it
+        c.pos = 128 + _u32("<", s)
+        s = c.read(16)
+    if _u16("<", s, 4) == 0xF1FA:
+        size = None
+        for _ in range(_u16("<", s, 6)):
+            if size is not None:
+                c.pos = max(0, c.pos + size - 6)
+            s = c.read(6)
+            kind = _u16("<", s, 4)
+            if kind in (4, 11):
+                _fli_palette(c, palette, 2 if kind == 11 else 0)
+                break
+            size = _u32("<", s)
+            if not size:
+                break
+    if frames == 0:
+        raise _NotThisFormat("an FLI file of no frames")
+    if not data[128:132]:
+        raise _NotThisFormat("an FLI file without its first frame")
+    block = _u32("<", data[128:132])
+    _identified("FLI", "P", w, h)
+    rgb = (palette & 0xFF).astype(np.uint8)
+    return lambda: rgb[_fli_frame(data, block, w, h)]
+
+
+def _fli_frame(data: bytes, block: int, w: int, h: int) -> np.ndarray:
+    """ImageFile.load's loop over FliDecode: reads of ``block`` bytes joined
+    to what the decoder left (``data[start:end]``), the decoder called after
+    each. A call that would ask for more (fewer than 4 bytes held, or fewer
+    than the frame size they give, one pad byte allowed) is not made: the
+    reads go on at once to the first length that reaches it, so a small
+    block costs no more calls than a large one."""
+    im = np.zeros((h, w), np.uint8)
+    lib, err = library(), _err()
+    start = end = 128
+    while True:
+        if block == 0 or end >= len(data):
+            raise ValueError("truncated FLI: the frame ends before its data")
+        held, frame = end - start, int.from_bytes(data[start:start + 4], "little")
+        k = max(1, -(-(max(4, frame - 1) - held) // block))
+        if held + k * block < max(4, frame) and (held + k * block) % 2 == 0:
+            k += 1  # one byte short of the frame is enough only at an odd length
+        end = min(end + k * block, len(data))
+        n = lib.qie_fli_frame(data[start:end], end - start, im.ctypes.data, w, h, err, len(err))
+        if n == -2:
+            raise ValueError(err.value.decode())
+        if n < 0:
+            return im
+        start += n
+
+
+@_plugin("PCD")
+def _open_pcd(data: bytes):
+    """PcdImageFile: the 768 x 512 base image (``fli_pcd.cc``: PcdDecode.c
+    and the PhotoYCC unpacker), turned 90 or 270 degrees as the
+    orientation byte says."""
+    s = data[2048:2048 + 1539]
+    if not s.startswith(b"PCD_"):
+        raise _NotThisFormat("not a PCD file")
+    orientation = s[1538] & 3
+
+    def load():
+        out = np.empty((512, 768, 3), np.uint8)
+        base = data[96 * 2048:]
+        _raster("pcd", base, len(base), out.ctypes.data)
+        return np.ascontiguousarray(np.rot90(out, {1: 1, 3: -1}.get(orientation, 0)))
+    return load
+
+
+# the formats whose decode applies the orientation Image.open does not (a
+# TIFF's load applies its own): their decode without it
+_UNORIENTED = {"JPEG": _decode_jpeg, "PNG": _decode_png, "WEBP": _decode_webp}
+_IPTC_RECORDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
+
+
+def _iptc_field(c: _Cursor):
+    """IptcImageFile.field: (tag, size), or (None, 0) at zeros or the end."""
+    s = c.read(5)
+    if not s.strip(b"\x00"):
+        return None, 0
+    tag = s[1], s[2]
+    if s[0] != 0x1C or tag[0] not in _IPTC_RECORDS:
+        raise _NotThisFormat("not an IPTC/NAA file")
+    size = s[3]
+    if size > 132:
+        raise ValueError("corrupt IPTC: an illegal field length")
+    if size == 128:
+        size = 0
+    elif size > 128:
+        size = _u32(">", (bytes(4) + c.read(size - 128))[-4:])
+    else:
+        size = _u16(">", s, 3)
+    return tag, size
+
+
+def _iptc_int(v) -> int:
+    return _u32(">", (bytes(4) + v)[-4:])
+
+
+@_plugin("IPTC")
+def _open_iptc(data: bytes):
+    """IptcImageFile: datasets up to the image's (8, 10); the layers (3,
+    60), size (3, 20) and (3, 30), compression (3, 120: raw or JPEG) and
+    band (3, 65). The image's data is reopened as a file of its own: raw
+    bytes behind a P5 header, or the JPEG; one band of RGB or CMYK is that
+    image, the others zero."""
     c, info = _Cursor(data), {}
     while True:
-        s = c.read(5)
-        if not s.strip(b"\x00"):
+        offset = c.pos
+        tag, size = _iptc_field(c)
+        if not tag or tag == (8, 10):
             break
-        tag = (s[1], s[2])
-        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            raise _NotThisFormat("not an IPTC file")
-        size = s[3]
-        if size > 132:
-            return  # Pillow raises: not passed on
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = int.from_bytes(c.read(size - 128)[-4:], "big")
+        v = c.read(size) if size else None
+        if tag in info:
+            info[tag] = (info[tag] if isinstance(info[tag], list) else [info[tag]]) + [v]
         else:
-            size = _u16(">", s, 3)
-        if tag == (8, 10):
-            break
-        info[tag] = c.read(size) if size else None
-
-    def number(tag):
-        v = info[tag]
-        if v is None:
-            raise _NotThisFormat("an IPTC field without data")
-        return int.from_bytes(v[-4:], "big")
-
-    if (3, 60) not in info or info[(3, 60)] is None:
-        raise _NotThisFormat("an IPTC record without an image")
+            info[tag] = v
     layers, component = info[(3, 60)][0], info[(3, 60)][1]
-    mode = {(1, False): "L", (3, True): "RGB", (4, True): "CMYK"}.get(
-        (layers, bool(component)), "")
-    w, h = number((3, 20)), number((3, 30))
-    if info.get((3, 120)) is None or number((3, 120)) not in (1, 5):
-        return  # Pillow's OSError: an unknown compression
-    if not mode or w <= 0 or h <= 0:
-        raise _NotThisFormat("an IPTC image of no mode or pixels")
+    band = None
+    if layers == 1 and not component:
+        mode = "L"
+    else:
+        mode = "RGB" if layers == 3 and component else "CMYK" if layers == 4 and component else ""
+        band = info[(3, 65)][0] - 1 if (3, 65) in info else 0
+    w, h = _iptc_int(info[(3, 20)]), _iptc_int(info[(3, 30)])
+    if (3, 120) not in info:
+        raise ValueError("unsupported IPTC: no image compression")
+    compression = _iptc_int(info[(3, 120)])
+    if compression not in (1, 5):
+        raise ValueError(f"unsupported IPTC: image compression {compression}")
+    _identified("IPTC", mode, w, h)
+    return lambda: _iptc_pixels(data, offset if tag == (8, 10) else None, compression, mode, band,
+                                w, h)
 
 
-def _pcd_claims(data: bytes) -> None:
-    s = data[2048:2048 + 1539]
-    if not s.startswith(b"PCD_") or len(s) < 1539:
-        raise _NotThisFormat("not a PCD file")
+def _iptc_pixels(data, offset, compression, mode, band, w, h) -> np.ndarray:
+    if offset is None:
+        raise ValueError("corrupt IPTC: no image record")
+    c = _Cursor(data, offset)
+    chunks = [b"P5\n%d %d\n255\n" % (w, h)] if compression == 1 else []
+    while True:
+        tag, size = _iptc_field(c)
+        if tag != (8, 10):
+            break
+        chunks.append(c.read(size) if size > 0 else b"")
+    inner = b"".join(chunks)
+    fmt, load = _open(inner)
+    unoriented = _UNORIENTED.get(fmt)  # Image.open of the record: no exif_transpose
+    rgb = unoriented(inner, oriented=False) if unoriented else load()
+    if band is None:
+        return rgb
+    # Image.merge: the record as one band of RGB or CMYK, the others zero L
+    # images of its size. Another band than the first must be an L image
+    # ("mode mismatch"); the first may be any image of one band, whose bytes
+    # ImagingMerge takes as they are: the port takes those of L and 1 only
+    planes = [np.zeros(rgb.shape[:2], np.uint8)] * len(mode)
+    planes[band] = rgb[..., 0]
+    record, first = _record_mode(fmt, inner), band % len(mode) == 0
+    if record == "L" or (record == "1" and first):
+        return _mode_rgb(np.stack(planes, -1), mode)
+    if record is None or (first and (len(record) == 1 or record.startswith("I;"))):
+        raise ValueError(f"unsupported IPTC: a {fmt} record of mode {record or 'unread'} as "
+                         f"band {band + 1} of {mode}")
+    raise ValueError(f"corrupt IPTC: a {record} record cannot be band {band + 1} of {mode}")
 
 
-def _refused(fmt: str, what: str, claims=None):
+def _record_mode(fmt: str, data: bytes) -> Optional[str]:
+    """The Pillow mode of an IPTC record that opened as ``fmt``, where the
+    port reads it from the header (PPM, JPEG, PNG, TIFF, BMP), else None."""
+    if fmt == "PPM":
+        return _ppm_header(data)[1]
+    if fmt == "JPEG":
+        return "L" if _jpeg_info(data)[2] == 1 else "RGB"
+    if fmt == "PNG":
+        pos = 8
+        while pos + 18 <= len(data):
+            n, tag = struct.unpack_from(">I4s", data, pos)
+            if tag == b"IHDR":  # gray by its bit depth, the rest by the colour type
+                depth, kind = data[pos + 16], data[pos + 17]
+                if kind == 0:
+                    return {1: "1", 16: "I;16"}.get(depth, "L")
+                return {3: "P", 4: "LA", 6: "RGBA"}.get(kind, "RGB")
+            pos += 12 + n
+        return None
+    if fmt == "TIFF":
+        t = _Tiff(data)
+        return _TIFF_OPEN.get((t.e, t.photo, t.sample_format, t.fill, t.bps, t.extra))
+    if fmt == "BMP":  # a palette of Pillow's gray ramp (black and white for 2) reads as L or 1
+        size = _u32("<", data, 14)
+        bits = _u16("<", data, 24 if size == 12 else 28)
+        if bits > 8:
+            return "RGB"
+        colors = (0 if size == 12 else _u32("<", data, 46)) or 1 << bits
+        pad = 3 if size == 12 else 4
+        pal = data[14 + size:14 + size + pad * colors]
+        ramp = (0, 255) if colors == 2 else range(colors)
+        if all(pal[k * pad:k * pad + 3] == bytes((v & 255,)) * 3 for k, v in enumerate(ramp)):
+            return "1" if colors == 2 else "L"
+        return "P"
+    return None
+
+
+# --- the formats Pillow opens and the port does not decode -------------------
+
+def _refused(fmt: str, what: str):
     """The open of a format Pillow opens and the port does not decode:
-    refused by name where the plugin's checks (``claims``, else its accept
-    alone) take the file."""
+    refused by name where the plugin's accept takes the file."""
     def open_(data: bytes):
-        if claims is not None:
-            claims(data)
         raise _Refused(fmt, what)
     return open_
 
@@ -3951,7 +4783,7 @@ _FORMATS = (
     ("PNG", lambda p: p[:8] == PNG_SIGNATURE, _decoded(_decode_png)),
     ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
      _refused("AVIF", "AV1 intra frames")),
-    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _refused("BLP", "Blizzard textures")),
+    ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _open_blp),
     ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _refused("BUFR", "a stub Pillow cannot load")),
     ("CUR", lambda p: p[:4] == b"\0\0\2\0", _open_cur),
     ("PCX", lambda p: len(p) >= 2 and p[0] == 10 and p[1] in (0, 2, 3, 5), _open_pcx),
@@ -3959,12 +4791,12 @@ _FORMATS = (
     ("DDS", lambda p: p[:4] == b"DDS ", _open_dds),
     ("EPS", lambda p: p[:4] == b"%!PS" or (len(p) >= 4 and _u32("<", p) == 0xC6D3D0C5),
      _refused("EPS", "PostScript, which Pillow renders with Ghostscript")),
-    ("FITS", lambda p: p[:6] == b"SIMPLE", _refused("FITS", "astronomy images")),
+    ("FITS", lambda p: p[:6] == b"SIMPLE", _open_fits),
     ("FLI", lambda p: len(p) >= 16 and _u16("<", p, 4) in (0xAF11, 0xAF12)
-     and _u16("<", p, 14) in (0, 3), _refused("FLI", "Autodesk animations")),
-    ("FTEX", lambda p: p[:4] == b"FTEX", _refused("FTEX", "Independence War textures")),
+     and _u16("<", p, 14) in (0, 3), _open_fli),
+    ("FTEX", lambda p: p[:4] == b"FTEX", _open_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32(">", p) >= 20 and _u32(">", p, 4) in (1, 2),
-     _refused("GBR", "GIMP brushes", _gbr_claims)),
+     _open_gbr),
     ("GRIB", lambda p: len(p) >= 8 and p[:4] == b"GRIB" and p[7] == 1,
      _refused("GRIB", "a stub Pillow cannot load")),
     ("HDF5", lambda p: p[:8] == b"\x89HDF\r\n\x1a\n", _refused("HDF5", "a stub Pillow cannot load")),
@@ -3972,20 +4804,19 @@ _FORMATS = (
      or p[:12] == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a", _open_jpeg2000),
     ("ICNS", lambda p: p[:4] == b"icns", _open_icns),
     ("ICO", lambda p: p[:4] == b"\0\0\1\0", _open_ico),
-    ("IM", lambda p: True, _refused("IM", "IFUNC images", _im_claims)),
-    ("IMT", lambda p: True, _refused("IMT", "IM Tools images", _imt_claims)),
-    ("IPTC", lambda p: True, _refused("IPTC", "IPTC/NAA records", _iptc_claims)),
-    ("MCIDAS", lambda p: p[:8] == b"\x00\x00\x00\x00\x00\x00\x00\x04",
-     _refused("MCIDAS", "McIdas area files")),
+    ("IM", lambda p: True, _open_im),
+    ("IMT", lambda p: True, _open_imt),
+    ("IPTC", lambda p: True, _open_iptc),
+    ("MCIDAS", lambda p: p[:8] == b"\x00\x00\x00\x00\x00\x00\x00\x04", _open_mcidas),
     ("MPEG", lambda p: p[:4] == b"\x00\x00\x01\xb3", _refused("MPEG", "a stub Pillow cannot load")),
     ("TIFF", lambda p: p[:4] in _TIFF_PREFIXES, _decoded(_decode_tiff)),
     ("MSP", lambda p: p[:4] in (b"DanM", b"LinS"), _open_msp),
-    ("PCD", lambda p: True, _refused("PCD", "Kodak PhotoCD", _pcd_claims)),
-    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _refused("PIXAR", "Pixar images")),
+    ("PCD", lambda p: True, _open_pcd),
+    ("PIXAR", lambda p: p[:4] == b"\200\350\000\000", _open_pixar),
     ("PSD", lambda p: p[:4] == b"8BPS", _open_psd),
     ("QOI", lambda p: p[:4] == b"qoif", _open_qoi),
     ("SGI", lambda p: len(p) >= 2 and _u16(">", p) == 474, _open_sgi),
-    ("SPIDER", lambda p: True, _refused("SPIDER", "Spider 2D images", _spider_claims)),
+    ("SPIDER", lambda p: True, _open_spider),
     ("SUN", lambda p: len(p) >= 4 and _u32(">", p) == 0x59A66A95, _open_sun),
     ("TGA", lambda p: True, _open_tga),
     ("WEBP", lambda p: p[:4] == b"RIFF" and p[8:12] == b"WEBP", _decoded(_decode_webp)),
@@ -3993,7 +4824,7 @@ _FORMATS = (
      _refused("WMF", "Windows metafiles, which Pillow cannot load here")),
     ("XBM", lambda p: p.lstrip().startswith(b"#define"), _open_xbm),
     ("XPM", lambda p: p[:9] == b"/* XPM */", _open_xpm),
-    ("XVTHUMB", lambda p: p[:6] == b"P7 332", _refused("XVTHUMB", "XV thumbnails")),
+    ("XVTHUMB", lambda p: p[:6] == b"P7 332", _open_xvthumb),
 )
 
 

@@ -697,6 +697,7 @@ struct Decoder {
   int adobe_transform = -1;
   bool rgb = false;   // 3 components coded as RGB, not YCbCr
   bool ycck = false;  // 4 components coded as YCCK, not CMYK
+  bool plain_cmyk = false;  // 4 components read as CMYK whatever the Adobe transform
   long exif_off = -1, exif_len = 0;
   Component comp[4];
   uint16_t qt[4][64];
@@ -883,7 +884,7 @@ struct Decoder {
         else rgb = lossless || (comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B');
       }
     } else if (ncomp == 4) {
-      ycck = adobe && adobe_transform != 0;
+      ycck = adobe && adobe_transform != 0 && !plain_cmyk;
     }
     // jdcolor.c: libjpeg-turbo converts no colour space in lossless mode
     if (lossless && (ycck || (ncomp == 3 && !rgb)))
@@ -2224,10 +2225,14 @@ int qie_jpeg_info(const uint8_t* data, long n, int* width, int* height, int* com
 }
 
 // Decode a JPEG into out: height x width x comps uint8 (comps from
-// qie_jpeg_info). Returns 0, or -1 with a message in err.
-int qie_jpeg_decode(const uint8_t* data, long n, uint8_t* out, char* err, int errlen) {
+// qie_jpeg_info). A non-zero plain_cmyk sets the colour space of a
+// 4-component file to CMYK (Pillow's jpegmode "CMYK"): no YCCK transform
+// whatever the Adobe marker says. Returns 0, or -1 with a message in err.
+int qie_jpeg_decode(const uint8_t* data, long n, int plain_cmyk, uint8_t* out, char* err,
+                    int errlen) {
   try {
     Decoder d(data, size_t(n));
+    d.plain_cmyk = plain_cmyk != 0;
     d.parse();
     d.output(out);
     return 0;

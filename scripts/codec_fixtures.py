@@ -35,8 +35,12 @@ the TGA, PCX and SGI codings Pillow does not write from :func:`psd_file`,
 without Pillow, as it does with :func:`ppm_file` and :func:`qoi_file`, and
 with :func:`sun_file`, :func:`msp_file`, :func:`xbm_file`,
 :func:`xpm_file`, :func:`icns_file`, :func:`dds_file` and its block
-encoders :func:`bc1_blocks` and :func:`bc7_blocks`; ZSTD strips come from
-the system's libzstd through :func:`zstd_compress`). ``manifest.json`` holds each file's shape and
+encoders :func:`bc1_blocks` and :func:`bc7_blocks`, and with the rare
+formats' writers, :func:`im_file`, :func:`blp_file`, :func:`fits_file`,
+:func:`fli_file`, :func:`ftex_file`, :func:`gbr_file`, :func:`imt_file`,
+:func:`iptc_file`, :func:`mcidas_file`, :func:`pcd_file`,
+:func:`pixar_file`, :func:`spider_file` and :func:`xvthumb_file`; ZSTD
+strips come from the system's libzstd through :func:`zstd_compress`). ``manifest.json`` holds each file's shape and
 the SHA-256 of Pillow's ``ImageOps.exif_transpose(...).convert("RGB")``
 bytes. Run it where Pillow is installed; the images come from a numpy seed.
 """
@@ -1122,6 +1126,345 @@ def zstd_compress(data: bytes, level: int = 9) -> bytes:
     if lib.ZSTD_isError(n):
         raise RuntimeError("ZSTD_compress failed")
     return out.raw[:n]
+
+
+# --- the rare formats (numpy and the standard library only) -----------------
+
+
+def xv_indices(rgb: np.ndarray) -> np.ndarray:
+    """RGB → indices into XV's fixed 3:3:2 palette (its top bits)."""
+    return (rgb[..., 0] >> 5) << 5 | (rgb[..., 1] >> 5) << 2 | rgb[..., 2] >> 6
+
+
+def xv_palette() -> np.ndarray:
+    return np.array([((r * 255) // 7, (g * 255) // 7, (b * 255) // 3)
+                     for r in range(8) for g in range(8) for b in range(4)], np.uint8)
+
+
+def xvthumb_file(indices: np.ndarray, comments=(b"#XVVERSION:Version 2.28",)) -> bytes:
+    """An XV thumbnail as xv writes one: ``P7 332``, comment lines, the
+    size line, then a byte a pixel into the 3:3:2 palette."""
+    h, w = indices.shape
+    return (b"P7 332\n" + b"".join(c + b"\n" for c in comments) + b"#END_OF_COMMENTS\n"
+            + b"%d %d 255\n" % (w, h) + indices.astype(np.uint8).tobytes())
+
+
+def pixar_file(rgb: np.ndarray, channels: int = 14, depth: int = 2) -> bytes:
+    """A Pixar image in the dumped layout: a 1024-byte header (the size at
+    416, the channel and depth codes at 424), then RGB rows."""
+    h, w = rgb.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<4H", head, 416, h, w, 0, 0)
+    struct.pack_into("<2H", head, 424, channels, depth)
+    return bytes(head) + rgb.astype(np.uint8).tobytes()
+
+
+def mcidas_file(px: np.ndarray, nbytes: int = 1, prefix: int = 0, bands: int = 1,
+                offset: int = 256) -> bytes:
+    """A McIdas area file: the 64-word directory (lines, elements, bytes an
+    element, bands, the line prefix, the data offset), then each line's
+    prefix and its samples, big-endian, the first band of ``bands``."""
+    h, w = px.shape
+    words = [0] * 64
+    words[1] = 4
+    words[8], words[9], words[10], words[13], words[14], words[33] = (
+        h, w, nbytes, bands, prefix, offset)
+    line = np.zeros((h, prefix + w * nbytes * bands), np.uint8)
+    v = px.astype(">" + {1: "u1", 2: "u2", 4: "i4"}[nbytes]).view(np.uint8).reshape(h, -1)
+    line[:, prefix:prefix + w * nbytes] = v
+    return struct.pack(">64i", *words) + bytes(offset - 256) + line.tobytes()
+
+
+def spider_file(f: np.ndarray, big_endian: bool = False, stack: int = 0) -> bytes:
+    """A Spider 2-D image as Pillow's makeSpiderHeader lays it out: records
+    of a row's bytes, enough of them for 1024 bytes of header, then 32-bit
+    floats; ``stack`` > 0 writes a stack's header before the first image's."""
+    h, w = f.shape
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    e = ">" if big_endian else "<"
+
+    def header(values):
+        hdr = np.zeros(labbyt // 4, e + "f4")
+        for k, v in values.items():
+            hdr[k - 1] = v
+        return hdr.tobytes()
+    image = {1: 1.0, 2: h, 3: h, 5: 1.0, 12: w, 13: labrec, 22: labbyt, 23: lenbyt}
+    body = header(image) + f.astype(e + "f4").tobytes()
+    if stack:
+        return header({**image, 24: stack, 26: 1.0}) + body
+    return body
+
+
+def _fits_card(key: bytes, value: bytes = b"") -> bytes:
+    card = key.ljust(8) + (b"= " + value.rjust(20) if value else b"")
+    return card.ljust(80)
+
+
+def _fits_unit(cards, body: bytes = b"") -> bytes:
+    head = b"".join(_fits_card(k, v) for k, v in cards) + _fits_card(b"END")
+    head += b" " * (-len(head) % 2880)
+    return head + body + bytes(-len(body) % 2880)
+
+
+_FITS_TYPES = {8: ">u1", 16: ">i2", 32: ">i4", -32: ">f4", -64: ">f8"}
+
+
+def fits_file(px: np.ndarray, bitpix: int = 8, gzip_tile: bool = False) -> bytes:
+    """A FITS image (its rows bottom-up, big-endian, as the standard lays
+    them out), or a GZIP_1 tile-compressed table of one tile: each pixel a
+    big-endian 4-byte word in the gzip stream of the table's heap."""
+    h, w = px.shape
+    rows = np.ascontiguousarray(px[::-1])
+    if not gzip_tile:
+        return _fits_unit([(b"SIMPLE", b"T"), (b"BITPIX", b"%d" % bitpix), (b"NAXIS", b"2"),
+                           (b"NAXIS1", b"%d" % w), (b"NAXIS2", b"%d" % h)],
+                          rows.astype(_FITS_TYPES[bitpix]).tobytes())
+    import gzip
+
+    heap = gzip.compress(rows.astype(">i4").tobytes(), compresslevel=1, mtime=0)
+    table = struct.pack(">ii", len(heap), 0)  # the tile's descriptor: length and heap offset
+    primary = _fits_unit([(b"SIMPLE", b"T"), (b"BITPIX", b"8"), (b"NAXIS", b"0")])
+    ext = _fits_unit([(b"XTENSION", b"'BINTABLE'"), (b"BITPIX", b"8"), (b"NAXIS", b"2"),
+                      (b"NAXIS1", b"8"), (b"NAXIS2", b"1"), (b"PCOUNT", b"%d" % len(heap)),
+                      (b"TFIELDS", b"1"), (b"TFORM1", b"'1PB(%d)'" % len(heap)),
+                      (b"ZIMAGE", b"T"), (b"ZCMPTYPE", b"'GZIP_1  '"),
+                      (b"ZBITPIX", b"%d" % bitpix), (b"ZNAXIS", b"2"),
+                      (b"ZNAXIS1", b"%d" % w), (b"ZNAXIS2", b"%d" % h)], table + heap)
+    return primary + ext
+
+
+def fli_chunk(kind: int, body: bytes) -> bytes:
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_palette_chunk(palette: np.ndarray, kind: int = 11, first: int = 0) -> bytes:
+    """A colour chunk (11: 6-bit entries, 4: 8-bit) of one packet setting
+    ``palette``'s entries from ``first`` on."""
+    n = len(palette)
+    return fli_chunk(kind, struct.pack("<HBB", 1, first, n & 0xFF)
+                     + palette.astype(np.uint8).tobytes())
+
+
+def _fli_runs(row: np.ndarray, run_min: int = 3):
+    """(start, length, is_run) spans of ``row``: runs of one value at least
+    ``run_min`` long, literals between, each span at most 127."""
+    starts = np.flatnonzero(np.diff(row.astype(np.int64), prepend=-1))
+    lengths = np.diff(np.append(starts, len(row)))
+    spans, lit = [], None
+    for x, n in zip(starts.tolist(), lengths.tolist()):
+        if n >= run_min:
+            if lit is not None:
+                spans += [(k, min(127, x - k), False) for k in range(lit, x, 127)]
+                lit = None
+            spans += [(k, min(127, x + n - k), True) for k in range(x, x + n, 127)]
+        elif lit is None:
+            lit = x
+    if lit is not None:
+        spans += [(k, min(127, len(row) - k), False) for k in range(lit, len(row), 127)]
+    return spans
+
+
+def fli_brun(indices: np.ndarray) -> bytes:
+    """A BRUN chunk: each line a packet count byte, then runs (a positive
+    count and a byte) and literals (a negative count and the bytes)."""
+    out = bytearray()
+    for row in indices.astype(np.uint8):
+        spans = _fli_runs(row)
+        out.append(len(spans) & 0xFF)
+        for x, n, run in spans:
+            out += bytes((n, row[x])) if run else bytes((256 - n,)) + row[x:x + n].tobytes()
+    return fli_chunk(15, bytes(out))
+
+
+def fli_lc(new: np.ndarray, old: np.ndarray) -> bytes:
+    """An LC chunk (byte deltas): the first changed line and the number of
+    lines, each line's packets of a skip, then a count of bytes (or a
+    negative count and one byte repeated)."""
+    changed = np.flatnonzero((new != old).any(1))
+    y0, y1 = (int(changed[0]), int(changed[-1]) + 1) if changed.size else (0, 0)
+    out = bytearray(struct.pack("<HH", y0, y1 - y0))
+    for y in range(y0, y1):
+        row, diff, packets, x = new[y].astype(np.uint8), new[y] != old[y], bytearray(), 0
+        count = 0
+        cols = np.flatnonzero(diff)
+        while cols.size:
+            start = int(cols[0])
+            while start - x > 255:  # a skip too long for one packet: copy a byte
+                packets += bytes((255, 1, row[x + 255]))
+                x += 256
+                count += 1
+            end = min(start + 127, int(cols[-1]) + 1)
+            n = end - start
+            if n >= 3 and (row[start:end] == row[start]).all():
+                packets += bytes((start - x, 256 - n, row[start]))
+            else:
+                packets += bytes((start - x, n)) + row[start:end].tobytes()
+            count += 1
+            x = end
+            cols = cols[cols >= x]
+        out += bytes((count,)) + packets
+    return fli_chunk(12, bytes(out))
+
+
+def fli_ss2(new: np.ndarray, old: np.ndarray) -> bytes:
+    """An SS2 chunk (word deltas) of an even-width image: for each changed
+    line, a skip word (0xC000 | -lines) where lines were skipped, the
+    packet count, then packets of a column skip and a count of words (or
+    a negative count and one word repeated)."""
+    h, w = new.shape
+    lines, out, y = 0, bytearray(), 0
+    changed = np.flatnonzero((new != old).any(1))
+    for yc in changed:
+        words = bytearray()
+        if yc > y:
+            words += struct.pack("<H", 0x10000 - (int(yc) - y))
+        row = new[yc].astype(np.uint8)
+        pairs = row.reshape(-1, 2)
+        diff = (new[yc] != old[yc]).reshape(-1, 2).any(1)
+        packets, x = bytearray(), 0
+        count = 0
+        cols = np.flatnonzero(diff)
+        while cols.size:
+            start = int(cols[0])
+            end = min(start + 127, int(cols[-1]) + 1)
+            n = end - start
+            if n >= 2 and (pairs[start:end] == pairs[start]).all():
+                packets += bytes((2 * start - x, 256 - n)) + pairs[start].tobytes()
+            else:
+                packets += bytes((2 * start - x, n)) + pairs[start:end].tobytes()
+            count += 1
+            x = 2 * end
+            cols = cols[cols >= end]
+        out += words + struct.pack("<H", count) + packets
+        lines += 1
+        y = int(yc) + 1
+    return fli_chunk(7, struct.pack("<H", lines) + bytes(out))
+
+
+def fli_frame(*chunks: bytes) -> bytes:
+    body = b"".join(chunks)
+    return struct.pack("<IHH8x", 16 + len(body), 0xF1FA, len(chunks)) + body
+
+
+def fli_file(frames, w: int, h: int, flc: bool = True, prefix: bytes = b"") -> bytes:
+    """An FLC (magic 0xAF12) or FLI (0xAF11) animation of ``frames`` (each
+    :func:`fli_frame`), an optional prefix chunk first."""
+    body = prefix + b"".join(frames)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(body), 0xAF12 if flc else 0xAF11,
+                     len(frames), w, h, 8, 3 if flc else 0, 70)
+    return bytes(head) + body
+
+
+def ftex_file(w: int, h: int, mip: bytes, kind: int = 0, formats: int = 1) -> bytes:
+    """An FTEX texture: the header, one format (0: DXT1, 1: raw RGB) whose
+    mipmap sits after it with its size in front."""
+    head = b"FTEX" + struct.pack("<5i", 0x100, w, h, 1, formats) + struct.pack("<2i", kind, 32)
+    return head + struct.pack("<i", len(mip)) + mip
+
+
+def gbr_file(px: np.ndarray, version: int = 2, name: bytes = b"brush", spacing: int = 25) -> bytes:
+    """A GIMP brush: gray (depth 1) or RGBA (depth 4) samples after the
+    header and the brush's name."""
+    h, w = px.shape[:2]
+    depth = 1 if px.ndim == 2 else px.shape[2]
+    size = (20 if version == 1 else 28) + len(name) + 1
+    head = struct.pack(">5I", size, version, w, h, depth)
+    if version == 2:
+        head += b"GIMP" + struct.pack(">I", spacing)
+    return head + name + b"\0" + px.astype(np.uint8).tobytes()
+
+
+def imt_file(gray: np.ndarray, comment: bytes = b"* an IM Tools image") -> bytes:
+    """An IM Tools image: ``key value`` lines, then 0x0C and the bytes."""
+    h, w = gray.shape
+    return (comment + b"\nwidth %d\nheight %d\npixel n8\n\x0c" % (w, h)
+            + gray.astype(np.uint8).tobytes())
+
+
+def iptc_dataset(record: int, dataset: int, data: bytes) -> bytes:
+    """One IPTC dataset: 0x1C, its numbers, a 2-byte size; past 32767 bytes
+    the size in 4 bytes after it, flagged as IptcImagePlugin reads the
+    flag: 0x80 plus the size's length in the first byte of the two."""
+    if len(data) < 0x8000:
+        return struct.pack(">BBBH", 0x1C, record, dataset, len(data)) + data
+    return struct.pack(">BBBBBI", 0x1C, record, dataset, 0x84, 0, len(data)) + data
+
+
+def iptc_file(w: int, h: int, image: bytes, layers: int = 1, component: int = 0,
+              compression: int = 1, band=None) -> bytes:
+    """An IPTC/NAA record of an image: the object name, the layers and
+    sampling (3, 60), the size, the compression (1 raw, 5 JPEG), a band
+    (3, 65) if given, then the image's data (8, 10)."""
+    out = (iptc_dataset(2, 5, b"picture") + iptc_dataset(3, 60, bytes((layers, component)))
+           + iptc_dataset(3, 20, struct.pack(">H", w)) + iptc_dataset(3, 30, struct.pack(">H", h))
+           + iptc_dataset(3, 120, bytes((compression,))))
+    if band is not None:
+        out += iptc_dataset(3, 65, bytes((band,)))
+    return out + iptc_dataset(8, 10, image)
+
+
+def pcd_file(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, orientation: int = 0) -> bytes:
+    """A Kodak PhotoCD's base image: ``PCD_`` at 2048 and the orientation
+    byte, then at 96 x 2048 each pair of 768-wide luma rows followed by a
+    384-wide row of each chroma."""
+    head = bytearray(96 * 2048)
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    rows = np.concatenate([y.astype(np.uint8).reshape(256, 2 * 768),
+                           cb.astype(np.uint8).reshape(256, 384),
+                           cr.astype(np.uint8).reshape(256, 384)], 1)
+    return bytes(head) + rows.tobytes()
+
+
+def photo_ycc(rgb: np.ndarray):
+    """(Y, C1, C2) of a 512 x 768 RGB image, PhotoYCC's ranges roughly (the
+    chroma halved in both directions): an image for :func:`pcd_file`."""
+    v = rgb.astype(np.float64)
+    luma = v @ [0.299, 0.587, 0.114]
+    c1 = (v[..., 2] - luma) / 2.2179 + 156
+    c2 = (v[..., 0] - luma) / 1.8215 + 137
+    half = lambda c: c.reshape(256, 2, 384, 2).mean((1, 3))  # noqa: E731
+    clip = lambda c: np.clip(np.rint(c), 0, 255).astype(np.uint8)  # noqa: E731
+    return clip(luma / 1.3584), clip(half(c1)), clip(half(c2))
+
+
+def im_file(image_type: bytes, w: int, h: int, body: bytes, lut: bytes = b"",
+            lines=()) -> bytes:
+    """An IFUNC IM file as Pillow's save lays it out: the header lines,
+    zeros up to a 0x1A at byte 511, a ``Lut``'s 768 bytes, then ``body``
+    (its rows bottom-up, as the caller gives them)."""
+    head = (b"Image type: %s image\r\nImage size (x*y): %d*%d\r\nFile size (no of images): 1\r\n"
+            % (image_type, w, h) + b"".join(line + b"\r\n" for line in lines)
+            + (b"Lut: 1\r\n" if lut else b""))
+    return head + bytes(511 - len(head)) + b"\x1a" + lut + body
+
+
+def blp_file(version: int, w: int, h: int, mip: bytes, *, palette=None, alpha: int = 0,
+             compression: int = 1, encoding: int = 1, alpha_encoding: int = 0,
+             jpeg_header: bytes = b"") -> bytes:
+    """A BLP1 or BLP2 texture of one mipmap: BLP1 as JPEG (compression 0,
+    ``jpeg_header`` shared) or indexed (encoding 4 or 5, ``palette`` (256,
+    3) RGB stored BGRA); BLP2 indexed (encoding 1) or DXT (2) with alpha
+    encoding 0, 1 or 7."""
+    pal = np.zeros((256, 4), np.uint8)
+    if palette is not None:
+        pal[:len(palette), :3] = np.asarray(palette, np.uint8)[:, ::-1]
+        pal[:, 3] = 255
+    if version == 1:
+        head = b"BLP1" + struct.pack("<iIIIii", compression, alpha, w, h, encoding, 0)
+        extra = (struct.pack("<I", len(jpeg_header)) + jpeg_header if compression == 0
+                 else pal.tobytes())
+    else:
+        head = b"BLP2" + struct.pack("<i4bII", compression, encoding, alpha, alpha_encoding, 0,
+                                     w, h)
+        extra = pal.tobytes()
+    start = len(head) + 128 + len(extra)
+    return (head + struct.pack("<16I", start, *[0] * 15) + struct.pack("<16I", len(mip), *[0] * 15)
+            + extra + mip)
 
 
 def tiff_lzw(data: bytes) -> bytes:

@@ -8,9 +8,10 @@ unpacked with ``git archive`` and this one, as parent, change, change,
 parent) are timed on one host in one call. The phase decodes every
 committed codec fixture against its manifest and times the 1024² decode
 set; this prints its JSON lines, then one line a run of the TIFF rows',
-the plain raster rows', the small decoders' and the JPEG 2000 rows'
-multiples of the baseline JPEG (the small decoders' and JPEG 2000's ms
-too, and JPEG 2000's coded bits a pixel) and the phase's seconds.
+the plain raster rows', the small decoders', the JPEG 2000 rows' and
+the rare formats' multiples of the baseline JPEG (the small decoders',
+JPEG 2000's and the rare formats' ms too, and JPEG 2000's coded bits a
+pixel) and the phase's seconds.
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ RASTER = ("ppm", "tga_rle", "psd_rle", "qoi", "pcx", "sgi_rle")
 SMALL = ("tiff_zstd_predictor", "sun_rle", "msp_v2", "xbm", "xpm", "icns_it32", "dds_rgb",
          "dds_rgb24", "dds_bc1", "dds_bc7")
 JPEG2000 = ("jpeg2000_53", "jpeg2000_97")
+# the rare formats' rows (chip_smoke.rare_decode_set)
+RARE = ("im_rgb", "blp2_palette", "blp2_dxt1", "blp1_jpeg", "fits_8", "fits_gzip", "fli_brun",
+        "ftex_dxt1", "gbr_rgba", "imt", "iptc_raw", "mcidas", "pcd", "pixar", "spider",
+        "xvthumb")
 
 RUN = """
 import json, sys, time
@@ -67,7 +72,10 @@ def main(argv=None) -> int:
                                        for k, v in formats["formats"].items() if k in JPEG2000},
             "jpeg2000_bits_per_pixel": {k: v["bytes"] * 8 / formats["size"] ** 2
                                         for k, v in formats["formats"].items() if k in JPEG2000},
-            "nvidia_smi": formats["nvidia_smi"]}), flush=True)
+            "rare_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in RARE},
+            "rare_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
+                                   if k in RARE},
+            "write_s": formats["write_s"], "nvidia_smi": formats["nvidia_smi"]}), flush=True)
     return 0
 
 

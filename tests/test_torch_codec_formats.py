@@ -590,16 +590,21 @@ def test_manifest_covers_each_new_kind():
 
 def test_chip_script_inputs_match_pillow(monkeypatch):
     """The files ``chip_smoke.py`` writes without Pillow on the card's host
-    (4-component JPEGs from the port's own gray scans, BMP, RLE8 BMP, GIF)
-    and the committed 1024² WebP files decode as Pillow decodes them, and
-    the sources it holds them to are Pillow's pixels."""
+    (4-component JPEGs from the port's own gray scans, BMP, RLE8 BMP, GIF,
+    and each rare format of ``rare_decode_set``) and the committed 1024²
+    WebP files decode as Pillow decodes them, and the sources it holds them
+    to are Pillow's pixels (the shapes it holds the others to, theirs)."""
     import chip_smoke
 
     monkeypatch.setattr(chip_smoke, "DECODE_SIZE", 80)
-    for name, (data, want) in chip_smoke.decode_set().items():
+    rows = chip_smoke.decode_set()
+    assert set(chip_smoke.rare_decode_set(8)) <= set(rows)
+    for name, (data, want) in rows.items():
         got = _same(data)
-        if want is not None:
+        if isinstance(want, np.ndarray):
             np.testing.assert_array_equal(got, want, err_msg=name)
+        elif want is not None:
+            assert got.shape == want, name
     rgb = scene(37, 29, 3)
     for transform in (0, 2):
         _same(chip_smoke.cmyk_jpeg([rgb[..., 0], rgb[..., 1], rgb[..., 2], rgb[..., 1] // 4],

@@ -443,9 +443,10 @@ def _order_cases() -> dict:
 def test_format_follows_pillows_plugin_order():
     """Every committed fixture, old and new, and the files above open as
     the format ``Image.open(...).format`` names, those the port decodes to
-    Pillow's pixels; a refused format ahead of TGA raises naming itself and
-    never reaches TGA; a file whose _open a plugin fails goes on to the next
-    plugin."""
+    Pillow's pixels, those Pillow cannot load (a PCD cut short) raising
+    naming their format; a refused kind (DDS's BC6H) raises naming its
+    format and never reaches TGA; a file whose _open a plugin fails goes on
+    to the next plugin."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         names = list(json.load(f))
     for name in names:
@@ -456,24 +457,31 @@ def test_format_follows_pillows_plugin_order():
         assert _pil_format(data) == fmt, label
         assert _port_format(data) == fmt, label
         want = _pil_or_none(data)
-        if label != "DDS_BC6H" and fmt in ("DIB", "TGA", "DDS", "XBM", "JPEG2000"):
-            np.testing.assert_array_equal(codec.decode(data), want, err_msg=label)
-        else:
+        if label == "DDS_BC6H":
             with pytest.raises(ValueError, match=f"unsupported image format: {fmt}"):
                 codec.decode(data)
+        elif want is None:
+            with pytest.raises(ValueError, match=fmt):
+                codec.decode(data)
+        else:
+            np.testing.assert_array_equal(codec.decode(data), want, err_msg=label)
 
 
 def test_refused_formats_never_reach_a_later_decoder():
     """Each refused plugin ahead of TGA whose _accept takes a file names it:
     a file with its magic and TGA-valid bytes after is refused by name. Of
     the magics the port now decodes, the outcome is Pillow's: DDS's _open
-    raises on the header (an OSError Image.open does not pass on), while
-    ICNS, MSP and SUN pass the file on and no plugin takes it."""
+    raises on the header (an OSError Image.open does not pass on), BLP's
+    header reads past the decompression-bomb limit, FTEX's format count is
+    not one (Pillow's assert), while ICNS, MSP and SUN pass the file on and
+    no plugin takes it."""
     tail = tga_file(scene(4, 4, 1), 2, 24)[4:]
-    for magic, fmt in ((b"BLP1", "BLP"), (b"FTEX", "FTEX"), (b"\x00\x00\x01\xb3", "MPEG")):
+    for magic, fmt in ((b"BUFR", "BUFR"), (b"\x00\x00\x01\xb3", "MPEG")):
         with pytest.raises(ValueError, match=f"unsupported image format: {fmt}"):
             codec.decode(magic + tail)
     for magic, match in ((b"DDS ", "unsupported DDS: a header of"),
+                         (b"BLP1", "unsupported BLP: .* decompression-bomb limit"),
+                         (b"FTEX", "unsupported FTEX: .* formats, not one"),
                          (b"icns", "not a JPEG, PNG"), (b"DanM", "not a JPEG, PNG"),
                          (b"\x59\xa6\x6a\x95", "not a JPEG, PNG")):
         assert _pil_or_none(magic + tail) is None and _pil_format(magic + tail) is None
