@@ -4055,6 +4055,7 @@ def decode_set():
         **small_decode_set(n, rgb),
         **jpeg2000_decode_set(),
         **rare_decode_set(n, rgb),
+        **lab_decode_set(n, rgb),
     }
 
 
@@ -4165,6 +4166,63 @@ def rare_decode_set(n: int, rgb=None):
     }
 
 
+# SHA-256 of Pillow 12.1's RGB of each 1024² file of lab_decode_set (its
+# CIELab through LittleCMS 2.17, BC6H through its bcn decoder), and of
+# Pillow's RGB of all 2^24 Lab8 inputs (L, a + 128, b + 128 of i >> 16,
+# i >> 8 & 255, i & 255) in order. The card's host has no Pillow: they are
+# computed on a host that has it (tests/test_torch_codec_lab.py holds them to
+# it)
+LAB_DECODE_SHA256 = {
+    "tiff_lab": "64d904aabda27252338d3821734107399dd83eec84bd67b65783c449b26178a1",
+    "psd_lab": "97f6e5cafd7a6dd59eeac5f362c01e69af448819e972de969aac30692fca6b27",
+    "dds_bc6h": "e6dcadf6279d11c75edce62d23f131020567f53cd8a4b006cbf5e0d1bb89b212",
+    "dds_bc6hs": "759e6c1245aeaec5afa28b5a4eea77c3b08ccf02fa532f23be1bdf5922fb3fb4",
+}
+LAB_SWEEP_SHA256 = "f1ae0609778284fb45d7ac0f0ab7e164dae97539e23c975eef6fd284ccf16101"
+
+
+def lab_decode_set(n: int, rgb=None):
+    """{name: (bytes, None)}: an ``n``² CIELab TIFF (Adobe Deflate, horizontal
+    differencing, 64-row strips, as prepress tools write one) and Lab PSD
+    (PackBits rows, Photoshop's Lab mode), their samples the decode set's
+    source taken as L, a and b, and DDS surfaces of BC6H_UF16 and BC6H_SF16
+    blocks of the source, written without Pillow (``scripts/
+    codec_fixtures.py``'s writers); at 1024² phase inputs holds each to
+    :data:`LAB_DECODE_SHA256`. ``rgb``: the decode set's ``n``² source,
+    made here where not given."""
+    import sys
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from codec_fixtures import bc6h_blocks, dds_file, psd_file, scene, tiff_file
+
+    rgb = scene(n, n, 1) if rgb is None else rgb
+    return {
+        "tiff_lab": (tiff_file(rgb, 8, 8, compression=32946, predictor=2, rows_per_strip=64),
+                     None),
+        "psd_lab": (psd_file(rgb.transpose(2, 0, 1), 9, compression=1), None),
+        "dds_bc6h": (dds_file(n, n, bc6h_blocks(rgb), 0x4, dxgi=95), None),
+        "dds_bc6hs": (dds_file(n, n, bc6h_blocks(rgb, signed=True), 0x4, dxgi=96), None),
+    }
+
+
+def lab_sweep():
+    """(SHA-256, ms) of the port's RGB of all 2^24 Lab8 inputs in order,
+    the conversion's tables built first."""
+    import hashlib
+
+    import numpy as np
+
+    from qwen_image_edit_streamdiffusion_tpu_torch.core import codec
+
+    i = np.arange(1 << 24, dtype=np.uint32)
+    lab = np.stack([i >> 16, (i >> 8) & 255, i & 255], -1).astype(np.uint8)
+    codec.lab_to_rgb(lab[:1])
+    t0 = time.perf_counter()
+    rgb = codec.lab_to_rgb(lab)
+    ms = (time.perf_counter() - t0) * 1e3
+    return hashlib.sha256(rgb.tobytes()).hexdigest(), ms
+
+
 def blp_upload(rgb):
     """(bytes, source): a BLP2 texture of ``rgb`` in 256 colours (XV's
     3:3:2 palette), uncompressed indices, as a game's asset tools write one
@@ -4232,8 +4290,11 @@ def phase_inputs() -> None:
     nor transformers: each committed codec fixture decoded to its manifest's
     shape and SHA-256 of Pillow's bytes; the decode ms of a 1024² progressive
     JPEG against the same image as baseline, and of a 1024² image in each
-    format the codec gained (:func:`decode_set`); a full-size Qwen2-layout
-    tokenizer.json written, its load ms and the ms of PROMPT's encode (cold,
+    format the codec gained (:func:`decode_set`; the CIELab and BC6H files
+    held to :data:`LAB_DECODE_SHA256`); all 2^24 Lab8 inputs converted, their
+    SHA-256 held to Pillow's (:data:`LAB_SWEEP_SHA256`: a compiler that
+    rounds the conversion's arithmetic otherwise shows here); a full-size
+    Qwen2-layout tokenizer.json written, its load ms and the ms of PROMPT's encode (cold,
     then cached) and of its chat template, PROMPT's ids as the CPU tests hold
     them; the same tokenizer as vocab.json + merges.txt, its load ms and
     ids, equal to the tokenizer.json form's."""
@@ -4273,11 +4334,20 @@ def phase_inputs() -> None:
         shape = want.shape if source else want or (DECODE_SIZE, DECODE_SIZE, 3)
         if px.shape != tuple(shape) or (source and not np.array_equal(px, want)):
             raise AssertionError(f"{name}: decoded {px.shape}, not its source")
+        pinned = LAB_DECODE_SHA256.get(name) if DECODE_SIZE == 1024 else None
+        if pinned and hashlib.sha256(px.tobytes()).hexdigest() != pinned:
+            raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
         rows[name] = {"ms": host_ms(lambda d=data: codec.decode(d), DECODE_REPS),
-                      "bytes": len(data), "held_to_source": source}
+                      "bytes": len(data), "held_to_source": source,
+                      "held_to_pillow_sha256": bool(pinned)}
         rows[name]["over_baseline"] = rows[name]["ms"] / ms["baseline"]
     emit({"phase": "inputs_decode_formats", "size": DECODE_SIZE, "baseline_jpeg_ms":
           ms["baseline"], "formats": rows, "write_s": write_s, "nvidia_smi": smi})
+    digest, sweep_ms = lab_sweep()
+    emit({"phase": "inputs_lab_sweep", "inputs": 1 << 24, "ms": sweep_ms, "sha256": digest,
+          "equal_to_pillow": digest == LAB_SWEEP_SHA256, "nvidia_smi": smi})
+    if digest != LAB_SWEEP_SHA256:
+        raise AssertionError("Lab8 -> sRGB: the 2^24 inputs convert to other bytes than Pillow's")
 
     t0 = time.perf_counter()
     path = write_qwen2_tokenizer(TOKENIZER_DIR)

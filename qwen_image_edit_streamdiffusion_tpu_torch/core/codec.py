@@ -5,10 +5,11 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 ``pil_to_base64``, on (H, W, 3) uint8 arrays. The card host has no Pillow and
 no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
 WebP and TIFF decoders, the run-length codings of the plain raster
-formats, the DDS blocks, JPEG 2000's tiles, FLI frames and PhotoCD's base
-image run in ``csrc/host/`` (``image_codec.cc``, ``bmp_gif.cc``,
-``webp.cc``, ``tiff.cc``, ``raster.cc``, ``bcn.cc``, ``jpeg2000.cc``,
-``fli_pcd.cc``): plain
+formats, the DDS blocks, JPEG 2000's tiles, FLI frames, PhotoCD's base
+image and the CIELab to sRGB conversion run in ``csrc/host/``
+(``image_codec.cc``, ``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``,
+``raster.cc``, ``bcn.cc``, ``jpeg2000.cc``, ``fli_pcd.cc``,
+``lab_srgb.cc``): plain
 C entry points loaded with
 ``ctypes``, built at first use with the system C++ compiler (``c++``, or
 ``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
@@ -58,15 +59,17 @@ raises when a call needs the library.
   LZW, Deflate, LZMA, ZSTD (through the host's libzstd), JPEG with its
   JPEGTables, CCITT RLE, RLEW (its rows aligned as libtiff aligns them),
   Group 3 1-D and 2-D, Group 4, ThunderScan; Predictor 2 and the
-  floating-point Predictor 3, FillOrder 2): each mode of Pillow's OPEN_INFO
-  but CIELab, converted as its ``convert("RGB")`` converts it (bilevel and
+  floating-point Predictor 3, FillOrder 2): each mode of Pillow's OPEN_INFO,
+  converted as its ``convert("RGB")`` converts it (bilevel and
   2/4-bit gray scaled, 12- and 16-bit gray clipped, float truncated, 16-bit
   colour's high byte, premultiplied alpha divided out, palettes' 16-bit
   entries' high bytes, CMYK not inverted, YCbCr through libtiff's RGBA
   reader's fixed point, at any Orientation, 4x4-subsampled strips read
-  short where libtiff reads them short; big-endian signed and float samples
-  of a compressed file byte-swapped, as Pillow reads libtiff's native
-  ones), the Orientation tag (else XMP's)
+  short where libtiff reads them short; 8-bit CIELab with a and b signed in
+  a chunky file and taken as they are from planes, then converted as
+  LittleCMS 2.17 converts Pillow's LAB images (:func:`lab_to_rgb`);
+  big-endian signed and float samples of a compressed file byte-swapped,
+  as Pillow reads libtiff's native ones), the Orientation tag (else XMP's)
   applied once. A damaged TIFF decodes, or raises, as it does through
   Pillow: the mode from Pillow's reading of the first directory, the strips
   and the fields they decode by from libtiff's own reading of it (which
@@ -85,7 +88,8 @@ raises when a call needs the library.
   mode of its table, 15-bit colour, colour maps with their first entry,
   applied to gray as putpalette applies them, RLE whose literal packets
   run on across rows, the four origins), PSD's merged image (raw or
-  PackBits; bitmap, gray, duotone, multichannel, palette, RGB(A), CMYK),
+  PackBits; bitmap, gray, duotone, multichannel, palette, RGB(A), CMYK,
+  Lab),
   QOI, PCX (1-bit in 1, 2 or 4 planes, 8-bit gray or with the VGA palette
   769 bytes before the file's end, RGB planes; padded lines) and DCX's
   first page, SGI (raw or RLE, 8 or 16 bits, 1, 3 or 4 channels).
@@ -96,7 +100,8 @@ raises when a call needs the library.
   pixel), ICNS (the size ``bestsize()`` picks: RLE24 with its mask read
   and dropped, or a PNG member without its orientation) and DDS's first
   surface (RGB by its masks, luminance, an 8-bit palette, DX10 RGBA, and
-  the blocks BC1, BC2, BC3, BC4, BC5, BC5S and BC7).
+  the blocks BC1, BC2, BC3, BC4, BC5, BC5S, BC6H unsigned and signed (half
+  floats to 8 bits as Pillow's decoder maps them) and BC7).
   JPEG 2000, a raw codestream or a JP2 file (and an ICNS member of either),
   to the integers OpenJPEG 2.5.4 gives Pillow: every progression and POC,
   tiles and tile-parts, precincts, layers, each code-block style, ROI,
@@ -105,7 +110,8 @@ raises when a call needs the library.
   the SIZ or the JP2 header: L, I;16, LA, RGB, RGBA, CMYK, sYCC through
   its YCbCr tables, a palette as its ``ImagePalette`` builds it).
   The rare formats, each as its plugin reads it: IM (the types of its
-  OPEN table Pillow decodes, line-interleaved and bit-packed samples, a
+  OPEN table Pillow decodes, and LAB: its L band, a and b zero;
+  line-interleaved and bit-packed samples, a
   ``Lut``'s palette, rows bottom-up), BLP (BLP1's JPEG, unoriented and re-read
   as BGR, or palette; BLP2's palette or DXT1/3/5 through Pillow's Python
   arithmetic), FITS (BITPIX 8 to -64 read with the mode as raw mode,
@@ -118,19 +124,20 @@ raises when a call needs the library.
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
   other than those above (old-style JPEG, NeXT, PixarLog, SGILog, JBIG,
-  WebP), ZSTD on a host without ``libzstd.so.1``, CIELab, an uncompressed
-  TIFF whose FillOrder-2 raw mode Pillow lacks, BMP compressions and bitfield
-  layouts Pillow does not read, a GIF LZW code size above 8, a WebP frame that is not a key frame, a Lab
-  PSD (Pillow converts it with LittleCMS), a TGA colour map Pillow cannot
-  apply, DDS's BC6H blocks and the DXGI formats Pillow does not
-  implement, JPEG 2000's HTJ2K (a CAP or CPF marker, an HT code-block),
-  Part 2 transforms (MCT, MCC, MCO, CBD) and packed packet headers (PPM,
-  PPT), an IPTC band from a record of one band that is not L or 1 as
-  the first band (Image.merge takes its bytes) or from a record of a
-  format whose mode the port does not read (any but PPM, JPEG, PNG, TIFF
-  and BMP), an IM image of mode LAB, and the formats Pillow opens and
-  the port does not decode (AVIF, BUFR, EPS, GRIB, HDF5, MPEG, WMF, each
-  named). So does an image above Pillow's decompression-bomb limit
+  WebP), JPEG in a TIFF whose photometric is not gray, RGB, YCbCr or
+  CIELab, ZSTD
+  on a host without ``libzstd.so.1``, an uncompressed TIFF whose FillOrder-2
+  raw mode Pillow lacks, BMP compressions and bitfield layouts Pillow does
+  not read, a GIF LZW code size above 8, a WebP frame that is not a key
+  frame, a TGA colour map Pillow cannot apply, the DXGI formats Pillow
+  does not implement (BC6H's typeless one among them), JPEG 2000's HTJ2K
+  (a CAP or CPF marker, an HT code-block), Part 2 transforms (MCT, MCC,
+  MCO, CBD) and packed packet headers (PPM, PPT), an IPTC band from a
+  record of one band that is not L or 1 as the first band (Image.merge
+  takes its bytes) or from a record of a format whose mode the port does
+  not read (any but PPM, JPEG, PNG, TIFF, BMP, PSD and IM), and the formats
+  Pillow opens and the port does not decode (AVIF, BUFR, EPS, GRIB, HDF5,
+  MPEG, WMF, each named). So does an image above Pillow's decompression-bomb limit
   (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
   whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
   or CCITT stream decompress no further than their image, a TIFF tile no
@@ -167,10 +174,13 @@ import numpy as np
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
 SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc",
-           "jpeg2000.cc", "fli_pcd.cc")
+           "jpeg2000.cc", "fli_pcd.cc", "lab_srgb.cc")
 HEADERS = ("codec_common.h",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
+# a source's own flags: the CIELab transform rounds each product as
+# LittleCMS does, so no multiply-add is fused there
+SOURCE_FLAGS = {"lab_srgb.cc": ("-ffp-contract=off",)}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -202,7 +212,8 @@ def _compiler() -> str:
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for name in SOURCES + HEADERS:
-        h.update(name.encode() + b"\0" + (SOURCE_DIR / name).read_bytes())
+        h.update(name.encode() + b"\0" + " ".join(SOURCE_FLAGS.get(name, ())).encode() + b"\0"
+                 + (SOURCE_DIR / name).read_bytes())
     return BUILD_DIR / f"libqie_codec_{h.hexdigest()[:16]}.so"
 
 
@@ -214,8 +225,8 @@ def _build(path: Path) -> None:
     work.mkdir(exist_ok=True)
     try:
         objs = [work / f"{name}.o" for name in SOURCES]
-        procs = [subprocess.Popen([_compiler(), *CXX_FLAGS, "-c", "-o", str(obj),
-                                   str(SOURCE_DIR / name)],
+        procs = [subprocess.Popen([_compiler(), *CXX_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+                                   "-o", str(obj), str(SOURCE_DIR / name)],
                                   stderr=subprocess.PIPE, text=True)
                  for name, obj in zip(SOURCES, objs)]
         errors = [err for proc in procs for err in [proc.communicate()[1]]
@@ -277,6 +288,14 @@ def library() -> ctypes.CDLL:
         lib.qie_icns_rle.argtypes = [cp, cl, cl, vp, vp, ci]
         lib.qie_bcn.argtypes = [cp, cl, cl, cl, ci, ci, vp, vp, ci]
         lib.qie_j2k_tile.argtypes = [vp, cl, cp, cl, vp, vp, vp, ci]
+        lib.qie_lab_srgb.argtypes = [vp, cl, vp]
+        lib.qie_lab_srgb.restype = None
+        lib.qie_lab_srgb_eval16.argtypes = [vp, cl, vp]
+        lib.qie_lab_srgb_eval16.restype = None
+        lib.qie_lab_srgb_grid.argtypes = [vp]
+        lib.qie_lab_srgb_grid.restype = cl
+        lib.qie_lab_srgb_colorants.argtypes = [vp]
+        lib.qie_lab_srgb_colorants.restype = None
         for name in ("dib_info", "dib_decode", "tga_rle", "packbits", "pcx_rle", "sgi_rle",
                      "qoi", "sun_rle", "msp_rle", "xbm", "icns_rle", "bcn", "j2k_tile"):
             getattr(lib, f"qie_{name}").restype = ci
@@ -290,6 +309,17 @@ def library() -> ctypes.CDLL:
 
 def _err() -> ctypes.Array:
     return ctypes.create_string_buffer(256)
+
+
+def lab_to_rgb(lab: np.ndarray) -> np.ndarray:
+    """(..., 3) uint8 CIELab as Pillow's LAB mode holds it (LittleCMS's
+    TYPE_Lab_8: L 0..255 for 0..100, a and b plus 128) → the same shape of
+    sRGB, as Pillow's ``convert("RGB")`` converts it through LittleCMS
+    (``lab_srgb.cc`` carries that arithmetic)."""
+    lab = np.ascontiguousarray(lab, np.uint8)
+    out = np.empty(lab.shape, np.uint8)
+    library().qie_lab_srgb(lab.ctypes.data, lab.size // 3, out.ctypes.data)
+    return out
 
 
 # the TIFF headers Pillow's ImageFileDirectory_v2 accepts
@@ -1206,8 +1236,6 @@ def _decode_tiff(data: bytes) -> np.ndarray:
     if mode == "P" and len(t.tags[320][1]) > 770:
         raise ValueError("corrupt TIFF: a ColorMap of more than 256 colours (Pillow's "
                          "putpalette refuses it)")
-    if mode == "LAB":
-        raise ValueError("unsupported TIFF: CIELab (Pillow converts it to RGB through LittleCMS)")
     if t.w <= 0 or t.h <= 0:
         raise ValueError("corrupt TIFF: zero width or height")
     if t.w * t.h > MAX_PIXELS:
@@ -1225,8 +1253,8 @@ def _decode_tiff(data: bytes) -> np.ndarray:
         px, covered = _tiff_raw(t, mode)
         rgb = _tiff_rgb(t, px, mode)
         if covered is not None:  # what no tile covers is Pillow's image as made: zero
-            zero = _tiff_rgb(t, np.zeros((1, 1, 1), np.uint8), "P")[0, 0] if mode == "P" else \
-                (255 if mode == "CMYK" else 0)
+            zero = (_tiff_rgb(t, np.zeros((1, 1, 3), np.uint8), mode)[0, 0]
+                    if mode in ("P", "LAB") else 255 if mode == "CMYK" else 0)
             rgb[~covered] = zero
         return _orient(rgb, orient)
     else:
@@ -1305,9 +1333,16 @@ def _tiff_raw(t: _Tiff, mode: str) -> np.ndarray:
     covered = None if covered.all() else covered
     if bits == 32 and t.photo == 6:
         return out[0].reshape(t.h, t.w, 4)[..., :3], covered
-    if t.planar == 2:
+    if t.planar == 2:  # a plane a band: the LAB planes go in as they are
         return np.stack(out, -1), covered
-    return _tiff_unpack(out[0], t.w, t.bps[0], t.spp, t.e, t.sample_format), covered
+    px = _tiff_unpack(out[0], t.w, t.bps[0], t.spp, t.e, t.sample_format)
+    return (_tiff_lab(px) if mode == "LAB" else px), covered
+
+
+def _tiff_lab(px: np.ndarray) -> np.ndarray:
+    """Pillow's raw mode LAB: a and b are signed in a TIFF, unsigned in its
+    image (a chunky file's; planes are copied as they are)."""
+    return px ^ np.uint8([0, 128, 128])
 
 
 def _tiff_unpack(rows: np.ndarray, w: int, bits: int, spp: int, e: str, sample_format):
@@ -1385,7 +1420,7 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
     # Pillow's libtiff decoder unpacks a plane a band where libtiff reads
     # planes and its mode has more than one band (_pickUnpackers), else its
     # own raw mode from the start of each of libtiff's rows
-    bands = {"LA": 2, "RGB": 3, "YCbCr": 3, "CMYK": 4, "RGBA": 4, "RGBa": 4}.get(
+    bands = {"LA": 2, "RGB": 3, "YCbCr": 3, "LAB": 3, "CMYK": 4, "RGBA": 4, "RGBa": 4}.get(
         mode, t.spp if mode == "P" else 1)
     nplanes = (bands if bands > 1 else 1) if lt.planar == 2 else 1
     per = 1 if lt.planar == 2 else lt.spp  # libtiff's samples a row's pixel
@@ -1420,7 +1455,7 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
             raise ValueError(f"corrupt TIFF: YCbCr (not JPEG) in blocks of {block_rows} rows "
                              f"{t.w} pixels wide (Pillow's RGBA decoder takes 2**31 - 1 bytes)")
         ycc = _YCbCr(lt)
-    if jpeg and (lt.planar != 1 or t.planar != 1 or lt.photo not in (0, 1, 2, 6) or b != 8):
+    if jpeg and (lt.planar != 1 or t.planar != 1 or lt.photo not in (0, 1, 2, 6, 8) or b != 8):
         raise ValueError(f"unsupported TIFF: JPEG with photometric {lt.photo}, planar "
                          f"configuration {lt.planar} and {b}-bit samples")
     t4 = lt.t4 if lt.comp in (3, 4) else 0
@@ -1516,6 +1551,8 @@ def _tiff_coded(t: _Tiff, lt: _LibTiff, mode: str):
         return rgba.reshape(t.h, -1)[:, :t.w, None], mode
     if ycbcr or (jpeg and lt.photo == 6):
         mode = "RGB"
+    if mode == "LAB" and nplanes == 1:
+        out = _tiff_lab(out)
     return out, mode
 
 
@@ -1826,6 +1863,8 @@ def _tiff_rgb(t: _Tiff, px: np.ndarray, mode: str) -> np.ndarray:
         f = px[..., 0].astype(np.float32)
         gray = np.where(f <= 0, 0, np.where(f >= 255, 255, np.nan_to_num(f, nan=0.0)))
         gray = gray.astype(np.float32).astype(np.int64)  # Pillow truncates
+    elif mode == "LAB":
+        return lab_to_rgb(px)
     elif mode == "P":
         # Pillow's palette: each value's high byte (a BYTE field's values are 0)
         cmap = np.asarray(list(t.tags[320][1]), np.int64) // 256
@@ -2053,6 +2092,8 @@ def _mode_rgb(px: np.ndarray, mode: str, palette=None) -> np.ndarray:
         return full[px[..., 0].astype(np.int64)]
     if mode == "CMYK":
         return _cmyk_rgb(px)
+    if mode == "LAB":
+        return lab_to_rgb(px[..., :3])
     return np.ascontiguousarray(px[..., :3].astype(np.uint8))
 
 
@@ -2377,8 +2418,6 @@ def _open_psd(data: bytes):
 
 
 def _psd_pixels(data, comp, offsets, mode, w, h, row_bytes, palette) -> np.ndarray:
-    if mode == "LAB":
-        raise ValueError("unsupported PSD: Lab colour (Pillow converts it with LittleCMS)")
     if not offsets:
         raise ValueError(f"unsupported PSD: compression {comp}")
     planes = []
@@ -3733,8 +3772,9 @@ _DDS_FOURCC = {b"DXT1": (1, 0), b"DXT3": (2, 0), b"DXT5": (3, 0), b"BC4U": (4, 0
                b"ATI1": (4, 0), b"BC5S": (5, 1), b"BC5U": (5, 0), b"ATI2": (5, 0)}
 # DXGI format → (block kind, signed), 0 for uncompressed RGBA
 _DDS_DXGI = {70: (1, 0), 71: (1, 0), 73: (2, 0), 74: (2, 0), 76: (3, 0), 77: (3, 0),
-             79: (4, 0), 80: (4, 0), 82: (5, 0), 83: (5, 0), 84: (5, 1), 97: (7, 0),
-             98: (7, 0), 99: (7, 0), 27: (0, 0), 28: (0, 0), 29: (0, 0)}
+             79: (4, 0), 80: (4, 0), 82: (5, 0), 83: (5, 0), 84: (5, 1), 95: (6, 0),
+             96: (6, 1), 97: (7, 0), 98: (7, 0), 99: (7, 0), 27: (0, 0), 28: (0, 0),
+             29: (0, 0)}
 
 
 def _open_dds(data: bytes):
@@ -3774,8 +3814,6 @@ def _open_dds(data: bytes):
         if fourcc == b"DX10":
             (dxgi,) = struct.unpack("<I", data[128:132])
             offset = 148
-            if dxgi in (94, 95, 96):
-                raise _Refused("DDS", f"BC6H HDR float blocks (DXGI format {dxgi})")
             if dxgi not in _DDS_DXGI:
                 raise ValueError(f"unsupported DDS: DXGI format {dxgi}, which Pillow does not "
                                  "implement")
@@ -4279,7 +4317,7 @@ _IM_PAIRS = {
     ("RGBX", "RGBX;L"), ("CMYK", "CMYK;L"), ("YCbCr", "YCbCr;L"), ("I", "I;16"),
     ("I;16", "I;16"), ("I", "I;16B"), ("I;16", "I;16B"), ("I;16B", "I;16B"),
     ("I;16L", "I;16L"), ("I", "I;32"), ("I", "I;32S"), ("F", "F;8"), ("F", "F;8S"),
-    ("F", "F;16"), ("F", "F;16S"), ("F", "F;32"), ("F", "F;32F"),
+    ("F", "F;16"), ("F", "F;16S"), ("F", "F;32"), ("F", "F;32F"), ("LAB", "L"),
 } | {(m, r) for m in ("RGB", "RGBA", "RGBX") for r in ("RGB;T", "RYB;T")} | {
     ("F", f"F;{n}") for n in range(2, 33)}
 
@@ -4301,7 +4339,16 @@ def _open_im(data: bytes):
     """ImImageFile: ``Key: value`` lines up to a 0x00 or 0x1A (the type from
     its OPEN table, the size, ...), the data after the next 0x1A, a ``Lut``'s
     768 bytes first (a palette unless it is gray, making L or LA into P or
-    PA); the first frame, its rows bottom-up."""
+    PA); the first frame, its rows bottom-up. A type the table lacks is the
+    mode itself, read with the raw mode L: of those, LAB (into its L band,
+    a and b left zero) is a mode Pillow has."""
+    mode, rawmode, size, offset, palette = _im_header(data)
+    _identified("IM", mode, size[0], size[1])
+    return lambda: _im_pixels(data, offset, mode, rawmode, size, palette)
+
+
+def _im_header(data: bytes):
+    """(mode, raw mode, size, data offset, palette or None) of an IM file."""
     if b"\n" not in data[:100]:
         raise _NotThisFormat("not an IM file")
     c, n, rawmode = _Cursor(data), 0, "L"
@@ -4346,11 +4393,9 @@ def _open_im(data: bytes):
         if mode in ("L", "LA", "P", "PA") and not gray:
             mode, rawmode = ("P", "P") if mode in ("L", "P") else ("PA", "PA;L")
             palette = np.frombuffer(lut, np.uint8).reshape(3, 256).T
-    offset = c.pos
     if not isinstance(size, tuple):  # one number: the plugin's tile raises TypeError
         raise _NotThisFormat("an IM size of one number")
-    _identified("IM", mode, size[0], size[1])
-    return lambda: _im_pixels(data, offset, mode, rawmode, size, palette)
+    return mode, rawmode, size, c.pos, palette
 
 
 def _im_pixels(data, offset, mode, rawmode, size, palette) -> np.ndarray:
@@ -4394,6 +4439,8 @@ def _im_rgb(px: np.ndarray, mode: str, palette) -> np.ndarray:
         return _mode_rgb(px, "I")
     if mode == "YCbCr":
         return _j2k_ycc(px)
+    if mode == "LAB":  # the L band read, a and b as Image.core.new made them
+        return lab_to_rgb(np.concatenate([px, np.zeros(px.shape[:2] + (2,), np.uint8)], -1))
     return _mode_rgb(px, mode)
 
 
@@ -4704,6 +4751,8 @@ def _iptc_pixels(data, offset, compression, mode, band, w, h) -> np.ndarray:
     unoriented = _UNORIENTED.get(fmt)  # Image.open of the record: no exif_transpose
     rgb = unoriented(inner, oriented=False) if unoriented else load()
     if band is None:
+        # exif_transpose copies the record's image, LAB included, so its
+        # convert("RGB") is the record's own
         return rgb
     # Image.merge: the record as one band of RGB or CMYK, the others zero L
     # images of its size. Another band than the first must be an L image
@@ -4722,7 +4771,8 @@ def _iptc_pixels(data, offset, compression, mode, band, w, h) -> np.ndarray:
 
 def _record_mode(fmt: str, data: bytes) -> Optional[str]:
     """The Pillow mode of an IPTC record that opened as ``fmt``, where the
-    port reads it from the header (PPM, JPEG, PNG, TIFF, BMP), else None."""
+    port reads it from the header (PPM, JPEG, PNG, TIFF, BMP, PSD, IM),
+    else None."""
     if fmt == "PPM":
         return _ppm_header(data)[1]
     if fmt == "JPEG":
@@ -4741,6 +4791,11 @@ def _record_mode(fmt: str, data: bytes) -> Optional[str]:
     if fmt == "TIFF":
         t = _Tiff(data)
         return _TIFF_OPEN.get((t.e, t.photo, t.sample_format, t.fill, t.bps, t.extra))
+    if fmt == "PSD":
+        mode, _ = _PSD_MODES[(_u16(">", data, 24), _u16(">", data, 22))]
+        return "RGBA" if mode == "RGB" and _u16(">", data, 12) == 4 else mode
+    if fmt == "IM":
+        return _im_header(data)[0]
     if fmt == "BMP":  # a palette of Pillow's gray ramp (black and white for 2) reads as L or 1
         size = _u32("<", data, 14)
         bits = _u16("<", data, 24 if size == 12 else 28)

@@ -1,7 +1,8 @@
 // The block-compressed DDS surfaces on the host (core/codec.py reads the
 // header and picks the kind): BC1 (DXT1), BC2 (DXT3), BC3 (DXT5), BC4
-// (ATI1), BC5 and BC5S (ATI2) and BC7, each 4x4 block decoded as Pillow's
-// bcn decoder decodes it, written from the block layouts:
+// (ATI1), BC5 and BC5S (ATI2), BC6H and BC6HS, and BC7, each 4x4 block
+// decoded as Pillow's bcn decoder decodes it, written from the block
+// layouts:
 //
 // - BC1 colours: two 5:6:5 endpoints widened by bit replication, the two
 //   between them by integer thirds where the first endpoint is the larger
@@ -13,12 +14,20 @@
 //   endpoints as signed and adds 128;
 // - BC7: the mode is the first set bit of the first byte (a zero byte is
 //   opaque black), then the mode's partition, rotation, index selection,
-//   endpoints, p-bits and two index sets, as the format defines them.
+//   endpoints, p-bits and two index sets, as the format defines them;
+// - BC6H: the mode from the first 2 or 5 bits (a reserved one is
+//   transparent black), its endpoint bits, transformed (delta) endpoints
+//   added to the first and masked to its width, unquantized signed or
+//   not, one or two regions (BC7's first 32 two-subset partitions and
+//   anchors), 3- or 4-bit indices; then each half float to 8 bits as
+//   Pillow maps it: the finished 16-bit value (x 31/64, or x 31/32 with
+//   its sign) read as a half, clipped to 0..1 and truncated x 255.
 //
 // Pixels past the image's right or bottom edge are dropped. The output is
 // RGB, what Pillow's convert("RGB") keeps of its RGBA, L or RGB image.
 // Every entry point returns 0, or a negative value with a message in `err`.
 
+#include <cmath>
 #include <cstring>
 #include <utility>
 
@@ -235,6 +244,153 @@ void bc7_block(Rgba* col, const uint8_t* src) {
   }
 }
 
+// BC6H: (regions, transformed endpoints, endpoint bits, delta bits of red,
+// green and blue) of modes 1-14, and where each endpoint bit lies. Endpoint
+// fields are numbered r0 g0 b0 r1 g1 b1 r2 g2 b2 r3 g3 b3 (region 0 from
+// 0 to 1, region 1 from 2 to 3); a run {field, first, last} takes the
+// stream's next bits into bits `first` to `last` of the field, stepping
+// down where `first` is the larger (modes 13 and 14 store their top bits
+// reversed).
+struct Bc6Mode {
+  int ns, transformed, epb, rb, gb, bb;
+};
+constexpr Bc6Mode kBc6Modes[14] = {
+    {2, 1, 10, 5, 5, 5}, {2, 1, 7, 6, 6, 6},  {2, 1, 11, 5, 4, 4}, {2, 1, 11, 4, 5, 4},
+    {2, 1, 11, 4, 4, 5}, {2, 1, 9, 5, 5, 5},  {2, 1, 8, 6, 5, 5},  {2, 1, 8, 5, 6, 5},
+    {2, 1, 8, 5, 5, 6},  {2, 0, 6, 6, 6, 6},  {1, 0, 10, 10, 10, 10}, {1, 1, 11, 9, 9, 9},
+    {1, 1, 12, 8, 8, 8}, {1, 1, 16, 4, 4, 4}};
+struct Bc6Run {
+  uint8_t field, first, last;
+};
+enum : uint8_t { R0, G0, B0, R1, G1, B1, R2, G2, B2, R3, G3, B3 };
+// each mode's runs, ended by a run of field 255
+constexpr Bc6Run kBc6Layout[14][26] = {
+    {{G2, 4, 4}, {B2, 4, 4}, {B3, 4, 4}, {R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 4},
+     {G3, 4, 4}, {G2, 0, 3}, {G1, 0, 4}, {B3, 0, 0}, {G3, 0, 3}, {B1, 0, 4}, {B3, 1, 1},
+     {B2, 0, 3}, {R2, 0, 4}, {B3, 2, 2}, {R3, 0, 4}, {B3, 3, 3}, {255, 0, 0}},
+    {{G2, 5, 5}, {G3, 4, 5}, {R0, 0, 6}, {B3, 0, 1}, {B2, 4, 4}, {G0, 0, 6}, {B2, 5, 5},
+     {B3, 2, 2}, {G2, 4, 4}, {B0, 0, 6}, {B3, 3, 3}, {B3, 5, 5}, {B3, 4, 4}, {R1, 0, 5},
+     {G2, 0, 3}, {G1, 0, 5}, {G3, 0, 3}, {B1, 0, 5}, {B2, 0, 3}, {R2, 0, 5}, {R3, 0, 5},
+     {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 4}, {R0, 10, 10}, {G2, 0, 3}, {G1, 0, 3},
+     {G0, 10, 10}, {B3, 0, 0}, {G3, 0, 3}, {B1, 0, 3}, {B0, 10, 10}, {B3, 1, 1}, {B2, 0, 3},
+     {R2, 0, 4}, {B3, 2, 2}, {R3, 0, 4}, {B3, 3, 3}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 3}, {R0, 10, 10}, {G3, 4, 4}, {G2, 0, 3},
+     {G1, 0, 4}, {G0, 10, 10}, {G3, 0, 3}, {B1, 0, 3}, {B0, 10, 10}, {B3, 1, 1}, {B2, 0, 3},
+     {R2, 0, 3}, {B3, 0, 0}, {B3, 2, 2}, {R3, 0, 3}, {G2, 4, 4}, {B3, 3, 3}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 3}, {R0, 10, 10}, {B2, 4, 4}, {G2, 0, 3},
+     {G1, 0, 3}, {G0, 10, 10}, {B3, 0, 0}, {G3, 0, 3}, {B1, 0, 4}, {B0, 10, 10}, {B2, 0, 3},
+     {R2, 0, 3}, {B3, 1, 2}, {R3, 0, 3}, {B3, 4, 4}, {B3, 3, 3}, {255, 0, 0}},
+    {{R0, 0, 8}, {B2, 4, 4}, {G0, 0, 8}, {G2, 4, 4}, {B0, 0, 8}, {B3, 4, 4}, {R1, 0, 4},
+     {G3, 4, 4}, {G2, 0, 3}, {G1, 0, 4}, {B3, 0, 0}, {G3, 0, 3}, {B1, 0, 4}, {B3, 1, 1},
+     {B2, 0, 3}, {R2, 0, 4}, {B3, 2, 2}, {R3, 0, 4}, {B3, 3, 3}, {255, 0, 0}},
+    {{R0, 0, 7}, {G3, 4, 4}, {B2, 4, 4}, {G0, 0, 7}, {B3, 2, 2}, {G2, 4, 4}, {B0, 0, 7},
+     {B3, 3, 4}, {R1, 0, 5}, {G2, 0, 3}, {G1, 0, 4}, {B3, 0, 0}, {G3, 0, 3}, {B1, 0, 4},
+     {B3, 1, 1}, {B2, 0, 3}, {R2, 0, 5}, {R3, 0, 5}, {255, 0, 0}},
+    {{R0, 0, 7}, {B3, 0, 0}, {B2, 4, 4}, {G0, 0, 7}, {G2, 5, 5}, {G2, 4, 4}, {B0, 0, 7},
+     {G3, 5, 5}, {B3, 4, 4}, {R1, 0, 4}, {G3, 4, 4}, {G2, 0, 3}, {G1, 0, 5}, {G3, 0, 3},
+     {B1, 0, 4}, {B3, 1, 1}, {B2, 0, 3}, {R2, 0, 4}, {B3, 2, 2}, {R3, 0, 4}, {B3, 3, 3},
+     {255, 0, 0}},
+    {{R0, 0, 7}, {B3, 1, 1}, {B2, 4, 4}, {G0, 0, 7}, {B2, 5, 5}, {G2, 4, 4}, {B0, 0, 7},
+     {B3, 5, 5}, {B3, 4, 4}, {R1, 0, 4}, {G3, 4, 4}, {G2, 0, 3}, {G1, 0, 4}, {B3, 0, 0},
+     {G3, 0, 3}, {B1, 0, 5}, {B2, 0, 3}, {R2, 0, 4}, {B3, 2, 2}, {R3, 0, 4}, {B3, 3, 3},
+     {255, 0, 0}},
+    {{R0, 0, 5}, {G3, 4, 4}, {B3, 0, 1}, {B2, 4, 4}, {G0, 0, 5}, {G2, 5, 5}, {B2, 5, 5},
+     {B3, 2, 2}, {G2, 4, 4}, {B0, 0, 5}, {G3, 5, 5}, {B3, 3, 3}, {B3, 5, 5}, {B3, 4, 4},
+     {R1, 0, 5}, {G2, 0, 3}, {G1, 0, 5}, {G3, 0, 3}, {B1, 0, 5}, {B2, 0, 3}, {R2, 0, 5},
+     {R3, 0, 5}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 9}, {G1, 0, 9}, {B1, 0, 9}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 8}, {R0, 10, 10}, {G1, 0, 8}, {G0, 10, 10},
+     {B1, 0, 8}, {B0, 10, 10}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 7}, {R0, 11, 10}, {G1, 0, 7}, {G0, 11, 10},
+     {B1, 0, 7}, {B0, 11, 10}, {255, 0, 0}},
+    {{R0, 0, 9}, {G0, 0, 9}, {B0, 0, 9}, {R1, 0, 3}, {R0, 15, 10}, {G1, 0, 3}, {G0, 15, 10},
+     {B1, 0, 3}, {B0, 15, 10}, {255, 0, 0}}};
+
+int sign_extend(int v, int bits) { return (v & (1 << (bits - 1))) ? v - (1 << bits) : v; }
+
+// an endpoint of `bits` to 16 bits (unsigned) or 15 bits and a sign
+int bc6_unquantize(int v, int bits, bool sign) {
+  if (!sign) {
+    if (bits >= 15) return v;
+    if (v == 0) return 0;
+    if (v == (1 << bits) - 1) return 0xffff;
+    return ((v << 16) + 0x8000) >> bits;
+  }
+  v = int16_t(uint16_t(v));  // the endpoints are 16-bit words, read as signed
+  if (bits >= 16) return v;
+  bool neg = v < 0;
+  if (neg) v = -v;
+  int u = v == 0 ? 0 : v >= (1 << (bits - 1)) - 1 ? 0x7fff : ((v << 15) + 0x4000) >> (bits - 1);
+  return neg ? -u : u;
+}
+
+// a finished value is at most 0x7bff in magnitude: never infinite or NaN
+float half_to_float(uint16_t h) {
+  int e = (h >> 10) & 31, m = h & 1023;
+  float v = std::ldexp(float(e ? m | 1024 : m), (e ? e : 1) - 25);
+  return (h & 0x8000) ? -v : v;
+}
+
+// a half float to 8 bits as Pillow's bcn decoder maps it
+uint8_t bc6_byte(int v, bool sign) {
+  uint16_t h;
+  if (sign)
+    h = uint16_t(v < 0 ? 0x8000 | ((-v) * 31 / 32) : v * 31 / 32);
+  else
+    h = uint16_t(v * 31 / 64);
+  float f = half_to_float(h);
+  if (f < 0.0f) return 0;
+  if (f > 1.0f) return 255;
+  return uint8_t(f * 255.0f);
+}
+
+void bc6_block(Rgba* col, const uint8_t* src, bool sign) {
+  int mode = src[0] & 0x1f, bit = 5;
+  if ((mode & 3) < 2) {
+    mode &= 3;
+    bit = 2;
+  } else {
+    mode = (mode & 3) == 2 ? 2 + (mode >> 2) : 10 + (mode >> 2);
+  }
+  if (mode >= 14) {  // a reserved mode
+    for (int i = 0; i < 16; i++) col[i] = {0, 0, 0, 0};
+    return;
+  }
+  const Bc6Mode& m = kBc6Modes[mode];
+  int ep[12] = {0};
+  for (const Bc6Run* r = kBc6Layout[mode]; r->field != 255; r++) {
+    int step = r->first <= r->last ? 1 : -1;
+    for (int b = r->first;; b += step) {
+      ep[r->field] |= bits_at(src, bit++, 1) << b;
+      if (b == r->last) break;
+    }
+  }
+  int numep = m.ns * 6, partition = bits_at(src, bit, m.ns == 2 ? 5 : 0);
+  bit += m.ns == 2 ? 5 : 0;
+  const int delta[3] = {m.rb, m.gb, m.bb}, mask = (1 << m.epb) - 1;
+  if (sign)
+    for (int c = 0; c < 3; c++) ep[c] = sign_extend(ep[c], m.epb);
+  if (sign || m.transformed)
+    for (int i = 3; i < numep; i++) ep[i] = sign_extend(ep[i], delta[i % 3]);
+  if (m.transformed) {
+    for (int i = 3; i < numep; i++) ep[i] = (ep[i] + ep[i % 3]) & mask;
+  }
+  for (int i = 0; i < numep; i++) ep[i] = bc6_unquantize(ep[i], m.epb, sign);
+  const int ib = m.ns == 2 ? 3 : 4;
+  const uint8_t* w = weights(ib);
+  for (int i = 0; i < 16; i++) {
+    int s = bc7_subset(m.ns, partition, i) * 6, n = ib;
+    if (i == 0 || (m.ns == 2 && i == kBc7Anchor2[partition])) n--;
+    int wt = w[bits_at(src, bit, n)];
+    bit += n;
+    uint8_t c[3];
+    for (int k = 0; k < 3; k++)
+      c[k] = bc6_byte((ep[s + k] * (64 - wt) + ep[s + 3 + k] * wt) >> 6, sign);
+    col[i] = {c[0], c[1], c[2], 255};
+  }
+}
+
 // One block of kind `n` (1-5, 7) into 16 RGBA pixels.
 void block(int n, bool sign, const uint8_t* src, Rgba* col) {
   memset(col, sign ? 128 : 0, 16 * sizeof(Rgba));
@@ -262,6 +418,9 @@ void block(int n, bool sign, const uint8_t* src, Rgba* col) {
     case 5:
       bc3_channel(bytes, src, 4, 0, sign);
       bc3_channel(bytes, src + 8, 4, 1, sign);
+      break;
+    case 6:
+      bc6_block(col, src, sign);
       break;
     case 7:
       bc7_block(col, src);

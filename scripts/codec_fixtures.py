@@ -1077,6 +1077,33 @@ def bc1_blocks(rgb: np.ndarray) -> bytes:
     return out.tobytes()
 
 
+_WEIGHTS4 = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+
+
+def _one_subset_indices(px: np.ndarray, e0: np.ndarray, e1: np.ndarray):
+    """(indices, swap) of blocks of one subset: each pixel's nearest of the
+    16 weights by its projection on the line from ``e0`` to ``e1``; where
+    the first pixel's index is 8 or more (``swap``), the block's endpoints
+    are to be swapped, and its indices are already 15 - index."""
+    d = (e1 - e0)[:, None, :]
+    t = ((px - e0[:, None, :]) * d).sum(-1) * 64 / np.maximum((d * d).sum(-1), 1)
+    idx = np.searchsorted((_WEIGHTS4[1:] + _WEIGHTS4[:-1]) / 2, t)
+    swap = idx[:, 0] >= 8
+    return np.where(swap[:, None], 15 - idx, idx), swap
+
+
+def _packed_blocks(fields, n: int) -> bytes:
+    """``n`` 16-byte blocks of ``fields`` [(values a block, bits)], least
+    significant bit first."""
+    bits = np.zeros((n, 128), np.uint8)
+    at = 0
+    for v, k in fields:
+        bits[:, at:at + k] = (np.broadcast_to(np.asarray(v, np.int64), (n,))[:, None]
+                              >> np.arange(k)) & 1
+        at += k
+    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+
+
 def bc7_blocks(rgb: np.ndarray) -> bytes:
     """A plain BC7 coding of ``rgb`` in mode 6 (one subset, 7-bit RGBA
     endpoints with a p-bit each, 4-bit indices): each block's per-channel
@@ -1086,27 +1113,36 @@ def bc7_blocks(rgb: np.ndarray) -> bytes:
     endpoints."""
     b = _blocks(rgb)
     lo, hi = b.min(1) >> 1, b.max(1) >> 1  # 7 bits
-    e0, e1 = lo << 1 | 1, hi << 1 | 1       # p-bit 1
-    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
-    d = (e1 - e0)[:, None, :]
-    t = ((b - e0[:, None, :]) * d).sum(-1) * 64 / np.maximum((d * d).sum(-1), 1)
-    idx = np.searchsorted((weights[1:] + weights[:-1]) / 2, t)
-    swap = idx[:, 0] >= 8
+    idx, swap = _one_subset_indices(b, lo << 1 | 1, hi << 1 | 1)  # p-bit 1
     lo, hi = np.where(swap[:, None], hi, lo), np.where(swap[:, None], lo, hi)
-    idx = np.where(swap[:, None], 15 - idx, idx)
-    fields = [(np.full(len(b), 64), 7)]  # mode 6: bit 6 set
+    fields = [(64, 7)]  # mode 6: bit 6 set
     for c in range(3):
         fields += [(lo[:, c], 7), (hi[:, c], 7)]
-    fields += [(np.full(len(b), 127), 7), (np.full(len(b), 127), 7), (np.ones(len(b)), 1),
-               (np.ones(len(b)), 1), (idx[:, 0], 3)]
+    fields += [(127, 7), (127, 7), (1, 1), (1, 1), (idx[:, 0], 3)]
     fields += [(idx[:, i], 4) for i in range(1, 16)]
-    bits = np.zeros((len(b), 128), np.uint8)
-    at = 0
-    for v, n in fields:
-        v = np.asarray(v, np.int64)
-        bits[:, at:at + n] = (v[:, None] >> np.arange(n)) & 1
-        at += n
-    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+    return _packed_blocks(fields, len(b))
+
+
+def bc6h_blocks(rgb: np.ndarray, signed: bool = False) -> bytes:
+    """A plain BC6H coding of ``rgb`` in mode 11 (one region, 10-bit
+    endpoints, 4-bit indices, no deltas): each 8-bit value v taken as the
+    half float nearest (v + 0.5) / 255, and given the endpoint whose
+    unquantized value (e * 64 + 32) comes nearest it; each block's least
+    and greatest endpoint a channel, each pixel's index as in
+    :func:`bc7_blocks`. ``signed``: BC6H_SF16's endpoints (positive, under
+    512)."""
+    b = _blocks(rgb)
+    half = ((b + 0.5) / 255).astype(np.float16).view(np.uint16).astype(np.int64)
+    # the value that finalizes to the half: * 31 / 64 unsigned, * 31 / 32 signed
+    v = -(-half * (32 if signed else 64) // 31)
+    e = np.clip(np.rint((v - 32) / 64), 0, 510 if signed else 1022).astype(np.int64)
+    lo, hi = e.min(1), e.max(1)
+    idx, swap = _one_subset_indices(e, lo, hi)
+    lo, hi = np.where(swap[:, None], hi, lo), np.where(swap[:, None], lo, hi)
+    fields = [(0b00011, 5)] + [(lo[:, c], 10) for c in range(3)]
+    fields += [(hi[:, c], 10) for c in range(3)] + [(idx[:, 0], 3)]
+    fields += [(idx[:, i], 4) for i in range(1, 16)]
+    return _packed_blocks(fields, len(b))
 
 
 def zstd_compress(data: bytes, level: int = 9) -> bytes:
@@ -2165,6 +2201,84 @@ def pil_rgb(data: bytes) -> np.ndarray:
     from PIL import Image, ImageOps
 
     return np.asarray(ImageOps.exif_transpose(Image.open(io.BytesIO(data))).convert("RGB"))
+
+
+# --- LittleCMS, the library Pillow converts CIELab with (test oracles) -------
+#
+# Pillow's wheel bundles liblcms2 2.17; these call it through ctypes, as
+# Pillow's ImageCms builds the transform of ``convert("RGB")`` on a LAB image
+# (cmsCreateLab2Profile(NULL) to cmsCreate_sRGBProfile(), perceptual). Only
+# tests use them; they return None where the library is absent.
+
+TYPE_LAB_8, TYPE_LAB_16 = (10 << 16) | (3 << 3) | 1, (10 << 16) | (3 << 3) | 2
+TYPE_RGB_8, TYPE_RGB_16 = (4 << 16) | (3 << 3) | 1, (4 << 16) | (3 << 3) | 2
+CMS_FLAGS_NOOPTIMIZE = 0x0100
+_lcms = {}
+
+
+def lcms():
+    """Pillow's bundled liblcms2 (ctypes), or None."""
+    import ctypes
+    import glob
+
+    if "lib" not in _lcms:
+        try:
+            import PIL
+        except ImportError:
+            _lcms["lib"] = None
+            return None
+        found = glob.glob(os.path.join(os.path.dirname(PIL.__file__), os.pardir, "pillow.libs",
+                                       "liblcms2-*.so*"))
+        lib = ctypes.CDLL(found[0]) if found else None
+        if lib is not None:
+            vp, u32 = ctypes.c_void_p, ctypes.c_uint32
+            for name in ("cmsCreateLab2Profile", "cmsCreate_sRGBProfile", "cmsCreateTransform",
+                         "cmsReadTag"):
+                getattr(lib, name).restype = vp
+            lib.cmsCreateLab2Profile.argtypes = [vp]
+            lib.cmsCreateTransform.argtypes = [vp, u32, vp, u32, u32, u32]
+            lib.cmsDoTransform.argtypes = [vp, vp, vp, u32]
+            lib.cmsReadTag.argtypes = [vp, u32]
+            for name in ("cmsDeleteTransform", "cmsCloseProfile"):
+                getattr(lib, name).argtypes = [vp]
+        _lcms["lib"] = lib
+    return _lcms["lib"]
+
+
+def lcms_lab_to_rgb(lab: np.ndarray, lab_type: int = TYPE_LAB_8, rgb_type: int = TYPE_RGB_8,
+                    flags: int = 0):
+    """(N, 3) Lab → (N, 3) RGB through LittleCMS's transform from its Lab v2
+    profile to its sRGB profile at ``lab_type`` / ``rgb_type`` (uint8 at 8
+    bits, uint16 at 16) with ``flags``; None without the library."""
+    lib = lcms()
+    if lib is None:
+        return None
+    lab_p, srgb_p = lib.cmsCreateLab2Profile(None), lib.cmsCreate_sRGBProfile()
+    xform = lib.cmsCreateTransform(lab_p, lab_type, srgb_p, rgb_type, 0, flags)
+    lab = np.ascontiguousarray(lab)
+    out = np.empty(lab.shape, np.uint16 if rgb_type == TYPE_RGB_16 else np.uint8)
+    lib.cmsDoTransform(xform, lab.ctypes.data, out.ctypes.data, len(lab))
+    lib.cmsDeleteTransform(xform)
+    lib.cmsCloseProfile(lab_p)
+    lib.cmsCloseProfile(srgb_p)
+    return out
+
+
+def lcms_srgb_colorants():
+    """The built-in sRGB profile's rXYZ, gXYZ and bXYZ tags as LittleCMS
+    holds them (doubles), as the columns of a (3, 3) RGB → XYZ matrix; None
+    without the library."""
+    import ctypes
+
+    lib = lcms()
+    if lib is None:
+        return None
+    srgb = lib.cmsCreate_sRGBProfile()
+    cols = [np.ctypeslib.as_array(ctypes.cast(lib.cmsReadTag(srgb, tag),
+                                              ctypes.POINTER(ctypes.c_double)), (3,)).copy()
+            for tag in (0x7258595A, 0x6758595A, 0x6258595A)]
+    lib.cmsCloseProfile(srgb)
+    return np.stack(cols, 1)
 
 
 # realloc with what it adds zeroed, preloaded into a Pillow process

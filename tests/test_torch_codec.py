@@ -17,6 +17,7 @@ import base64
 import io
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -24,6 +25,9 @@ import pytest
 from PIL import Image, ImageOps
 
 from qwen_image_edit_streamdiffusion_tpu_torch.core import codec, imaging
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+from codec_fixtures import tiff_file  # noqa: E402
 
 SIZES = [(64, 64), (333, 517), (17, 9)]
 
@@ -405,8 +409,9 @@ def _patched_sof(data: bytes, marker: int = None, precision: int = None) -> byte
 def test_unsupported_inputs_raise_named_errors():
     arr = _image(24, 24)
     base = _pil_jpeg(arr, quality=90)
-    tiff = io.BytesIO()
-    Image.fromarray(arr).convert("LAB").save(tiff, "TIFF")  # CIELab
+    # a 16-bit CIELab TIFF: Pillow has no mode for it (its 8-bit one decodes:
+    # test_cielab_tiff_decodes_to_pillows_pixels)
+    tiff = tiff_file(arr, 8, 16)
     gif, bmp, webp = io.BytesIO(), io.BytesIO(), io.BytesIO()
     Image.fromarray(arr).save(gif, "GIF")
     Image.fromarray(arr).save(bmp, "BMP")
@@ -416,7 +421,7 @@ def test_unsupported_inputs_raise_named_errors():
         "arithmetic-coded lossless": _patched_sof(base, marker=0xCB),
         "12-bit": _patched_sof(base, precision=12),
         "lossless": _patched_sof(base, marker=0xC3),
-        "TIFF": tiff.getvalue(),
+        "TIFF": tiff,
         "truncated": base[:len(base) // 2],
         "truncated GIF": gif.getvalue()[:len(gif.getvalue()) // 2],
         "truncated BMP": bmp.getvalue()[:len(bmp.getvalue()) // 2],
@@ -428,6 +433,15 @@ def test_unsupported_inputs_raise_named_errors():
             codec.decode(data)
     with pytest.raises(ValueError):
         codec.decode_base64("!!!not-base64!!!")
+
+
+def test_cielab_tiff_decodes_to_pillows_pixels():
+    """Pillow's LAB mode saved as TIFF (CIELab, a and b signed), once refused
+    here: the port's LittleCMS arithmetic gives Pillow's RGB."""
+    buf = io.BytesIO()
+    Image.fromarray(_image(24, 24)).convert("LAB").save(buf, "TIFF")
+    np.testing.assert_array_equal(codec.decode(buf.getvalue()),
+                                  np.asarray(Image.open(buf).convert("RGB")))
 
 
 def _png_chunk(tag: bytes, body: bytes) -> bytes:

@@ -699,12 +699,12 @@ def test_fuzz_agrees_with_pillow(fmt):
 def test_divergences_that_stay():
     """Readings Pillow has and the port refuses by name: an IPTC record of
     one band that is not L or 1 as the first band of RGB or CMYK
-    (ImagingMerge takes a palette image's indices as the band), a record
-    of a format whose mode the port does not read (a GIF's), and an IM
-    image of mode LAB (converted through LittleCMS, ROADMAP queue 1 item
-    4.2). A 16-bit or float record as the first band is refused too:
-    there Pillow's merge crashes the process (run apart, so as not to
-    crash this one)."""
+    (ImagingMerge takes a palette image's indices as the band) and a
+    record of a format whose mode the port does not read (a GIF's). An IM
+    image of mode LAB, once refused here, now converts to Pillow's pixels
+    through the port's LittleCMS arithmetic. A 16-bit or float record as
+    the first band is refused: there Pillow's merge crashes the process
+    (run apart, so as not to crash this one)."""
     rgb = scene(12, 10, 3)
     gif = iptc_file(10, 12, _save(Image.fromarray(rgb).quantize(16), "GIF"), 3, 1,
                     compression=5, band=1)
@@ -712,10 +712,11 @@ def test_divergences_that_stay():
                       compression=5, band=1)
     lab = im_file(b"Greyscale", 10, 12, rgb[..., 0].tobytes()).replace(
         b"Image type: Greyscale image", b"Image type: LAB")
-    for data, fmt in ((gif, "IPTC"), (png_p, "IPTC"), (lab, "IM")):
+    for data, fmt in ((gif, "IPTC"), (png_p, "IPTC")):
         assert _pil_or_none(data) is not None
         with pytest.raises(ValueError, match=f"unsupported {fmt}"):
             codec.decode(data)
+    np.testing.assert_array_equal(codec.decode(lab), _pil(lab))
     pgm16 = iptc_file(10, 12, _save(Image.fromarray(rgb[..., 0].astype(np.uint16) * 200),
                                     "PPM"), 3, 1, compression=5, band=1)
     with pytest.raises(ValueError, match="unsupported IPTC: a PPM record of mode I"):

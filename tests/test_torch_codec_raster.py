@@ -277,13 +277,11 @@ def test_only_the_cases_meant_to_fail_fail():
 
 
 def test_lab_psd_is_refused_by_name():
-    """Pillow converts a Lab PSD through LittleCMS; the port refuses it by
-    name (ROADMAP queue 3), as it refuses a 16-bit PSD, which has no
-    Pillow mode."""
+    """A Lab PSD, once refused by name here, converts through the port's
+    LittleCMS arithmetic to Pillow's pixels; a 16-bit PSD, which has no
+    Pillow mode, stays refused."""
     lab = psd_file(scene(8, 9, 1).transpose(2, 0, 1), 9)
-    assert _pil_or_none(lab) is not None
-    with pytest.raises(ValueError, match="unsupported PSD: Lab"):
-        codec.decode(lab)
+    np.testing.assert_array_equal(codec.decode(lab), _pil(lab))
     with pytest.raises(ValueError, match="unsupported image format"):
         codec.decode(psd_file(scene(8, 9, 1).transpose(2, 0, 1), 3, bits=16, compression=0))
 
@@ -432,7 +430,7 @@ def _order_cases() -> dict:
         "IPTC_open_fails_TGA_opens": (iptc_then_tga, "TGA"),
         "DDS": (_save(Image.fromarray(rgb), "DDS"), "DDS"),
         "XBM_after_TGA": (_save(Image.fromarray(rgb).convert("1"), "XBM"), "XBM"),
-        # a BC6H surface, which the port still refuses by name
+        # a BC6H surface (refused by name until the port decoded BC6H)
         "DDS_BC6H": (dds_file(11, 9, bytes(16 * 9), 4, dxgi=95), "DDS"),
         "JPEG2000": (_save(Image.fromarray(rgb), "JPEG2000"), "JPEG2000"),
         "IM": (_save(Image.fromarray(rgb), "IM"), "IM"),
@@ -444,9 +442,9 @@ def test_format_follows_pillows_plugin_order():
     """Every committed fixture, old and new, and the files above open as
     the format ``Image.open(...).format`` names, those the port decodes to
     Pillow's pixels, those Pillow cannot load (a PCD cut short) raising
-    naming their format; a refused kind (DDS's BC6H) raises naming its
-    format and never reaches TGA; a file whose _open a plugin fails goes on
-    to the next plugin."""
+    naming their format; a DDS of BC6H blocks opens as DDS and never
+    reaches TGA; a file whose _open a plugin fails goes on to the next
+    plugin."""
     with open(os.path.join(FIXTURES, "manifest.json")) as f:
         names = list(json.load(f))
     for name in names:
@@ -457,10 +455,7 @@ def test_format_follows_pillows_plugin_order():
         assert _pil_format(data) == fmt, label
         assert _port_format(data) == fmt, label
         want = _pil_or_none(data)
-        if label == "DDS_BC6H":
-            with pytest.raises(ValueError, match=f"unsupported image format: {fmt}"):
-                codec.decode(data)
-        elif want is None:
+        if want is None:
             with pytest.raises(ValueError, match=fmt):
                 codec.decode(data)
         else:

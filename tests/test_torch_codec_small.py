@@ -13,8 +13,8 @@ blocks BC1-BC5, BC5S and BC7). The format is the one ``Image.open`` finds,
 in its plugins' order. Files come from Pillow's ``save`` where it writes
 the format, else from ``scripts/codec_fixtures.py``'s writers. Random
 blocks of each BC kind, where every bit pattern is a block, are held to
-Pillow's ``bcn`` decoder; what the port keeps refused (BC6H, an ICNS
-JPEG 2000 member) raises naming it; damaged, cut and bomb files raise a
+Pillow's ``bcn`` decoder (BC6H's in ``tests/test_torch_codec_lab.py``);
+damaged, cut and bomb files raise a
 ``ValueError`` naming the format where Pillow raises; a fuzz of each format
 counts every disagreement.
 """
@@ -414,15 +414,20 @@ def test_bc7_every_mode_is_reached():
 
 
 def test_kept_refusals_are_named():
-    """BC6H (unsigned and signed): Pillow decodes it, the port raises naming
-    it (ROADMAP.md queue 1). An ICNS JPEG 2000 member, once refused here
-    too, now decodes to Pillow's pixels (``test_icns_jpeg2000_member``)."""
+    """BC6H (unsigned and signed), once refused here by name, decodes to
+    Pillow's pixels (every mode: ``tests/test_torch_codec_lab.py``); BC6H's
+    typeless format (DXGI 94), which Pillow does not implement, raises in
+    both, the port naming DDS and the format. An ICNS JPEG 2000 member, once
+    refused here too, decodes to Pillow's pixels
+    (``test_icns_jpeg2000_member``)."""
     rng = np.random.default_rng(21)
     for dxgi in (95, 96):
         data = dds_file(8, 8, rng.integers(0, 256, 64, np.uint8).tobytes(), DDS_FOURCC, dxgi=dxgi)
-        assert _pil_or_none(data) is not None
-        with pytest.raises(ValueError, match="unsupported image format: DDS .*BC6H"):
-            codec.decode(data)
+        np.testing.assert_array_equal(codec.decode(data), _pil(data))
+    data = dds_file(8, 8, rng.integers(0, 256, 64, np.uint8).tobytes(), DDS_FOURCC, dxgi=94)
+    assert _pil_or_none(data) is None
+    with pytest.raises(ValueError, match="unsupported DDS: DXGI format 94"):
+        codec.decode(data)
 
 
 def test_icns_jpeg2000_member():

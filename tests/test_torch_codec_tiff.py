@@ -8,7 +8,8 @@ Every case must equal Pillow's bytes exactly: each compression the port
 decodes (none, PackBits, LZW, Deflate, LZMA, ZSTD, JPEG, CCITT RLE, Group 3
 1-D and 2-D, Group 4), big- and little-endian, BigTIFF, strips and padded tiles,
 planar configuration 2, Predictor 2, FillOrder 2, every photometric and
-depth of Pillow's OPEN_INFO but CIELab, a multi-page file's first page and
+depth of Pillow's OPEN_INFO (CIELab's conversion in
+``tests/test_torch_codec_lab.py``), a multi-page file's first page and
 orientations 1-8 from the tag or an XMP packet. Files come from
 ``scripts/codec_fixtures.py``'s writers where Pillow writes no such file.
 What the port refuses raises a ``ValueError`` naming the format and the
@@ -450,12 +451,13 @@ def _lab() -> bytes:
 
 
 REFUSED_PORT_ONLY = {
-    # Pillow decodes these; the port refuses them by name (ROADMAP.md queue
-    # 1), or, with no name, decodes them since (tests/test_torch_codec_tiff_more.py)
+    # Pillow decodes these; the port refuses them by name, or, with no name,
+    # decodes them since (tests/test_torch_codec_tiff_more.py, and CIELab
+    # through LittleCMS's arithmetic: tests/test_torch_codec_lab.py)
     "thunderscan": (lambda: _with_tag(tiff_file(RGB[..., 0] >> 4, 1, 4), 259, 32809),
                     "ThunderScan"),
     "ccitt-rlew": (lambda: _with_tag(tiff_file(BW, 0, 1, compression=2), 259, 32771), None),
-    "cielab": (_lab, "CIELab"),
+    "cielab": (_lab, None),
     "float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32, sample_format=3,
                                           compression=8, tags={317: (3, [3])}), None),
     "zstd-float-predictor": (lambda: tiff_file(RGB[..., 0].astype(np.float32), 1, 32,
@@ -470,9 +472,10 @@ REFUSED_PORT_ONLY = {
 
 @pytest.mark.parametrize("case", REFUSED_PORT_ONLY.values(), ids=REFUSED_PORT_ONLY.keys())
 def test_refusals_where_pillow_decodes_are_named(case):
-    """CIELab is refused by name; the cases decoded since equal Pillow's
-    pixels; the ThunderScan case (raw samples labelled 32809, more pixels
-    than a row) fails in Pillow too, and in the port naming ThunderScan."""
+    """The cases decoded since they were refused (CIELab among them) equal
+    Pillow's pixels; the ThunderScan case (raw samples labelled 32809, more
+    pixels than a row) fails in Pillow too, and in the port naming
+    ThunderScan."""
     make, match = case
     if match is None:
         _same(make())

@@ -128,8 +128,20 @@ def test_bad_base64_500(server_url):
 
 
 def test_unsupported_image_500(server_url):
-    """An image the codec refuses (here a CIELab TIFF) is the wrapped 500
-    an undecodable image is, with the feature named."""
+    """An image the codec refuses (here an AVIF ``ftyp`` header: Pillow opens
+    AVIF, the port names it) is the wrapped 500 an undecodable image is,
+    with the feature named."""
+    import base64
+
+    avif = struct.pack(">I", 24) + b"ftypavif" + bytes(4) + b"avifmif1" + bytes(32)
+    url, _ = server_url
+    code, body = _post(url + "/edit", {"image": base64.b64encode(avif).decode()})
+    assert code == 500 and "AVIF" in body["detail"]
+
+
+def test_lab_tiff_edit_200(server_url):
+    """A CIELab TIFF upload (Pillow's LAB mode saved as TIFF) is decoded
+    through the port's LittleCMS arithmetic and edited like any image."""
     import base64
 
     from PIL import Image
@@ -137,8 +149,10 @@ def test_unsupported_image_500(server_url):
     buf = io.BytesIO()
     Image.fromarray(imaging.make_test_image(64, 64, "circle")).convert("LAB").save(buf, "TIFF")
     url, _ = server_url
-    code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode()})
-    assert code == 500 and "TIFF" in body["detail"]
+    code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode(),
+                                       "steps": 2})
+    assert code == 200, body
+    assert codec.decode_base64(body["image"]).shape == (64, 64, 3)
 
 
 def test_unknown_ref_mode_422(server_url):
