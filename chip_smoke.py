@@ -97,10 +97,13 @@ toolkit. Phases, each printing one JSON line:
              keyframe (K1 120, K3 20) and a temporal frame (K1 60, K3 20)
              checked call by call; a keyframe and a temporal
              ``submit_frame`` under ``set_sync_debug_mode("error")`` and
-             torch.profiler must return with their work still running on
-             the card, with no runtime call that waits for it and no
-             pageable copy in their host window (a planted blocking
-             pageable upload must show there); sequential and pipelined ``run_benchmark``
+             torch.profiler, each with the card held by a device-side spin
+             before the frame's pixel pack (``scripts/sync_hold.cu``), must
+             return before the host releases it, with no runtime call that
+             waits for the card and no pageable copy in their host window
+             (a planted blocking pageable upload must show there, and a
+             planted submit that waits for its own pixels must meet the
+             hold's time-out); sequential and pipelined ``run_benchmark``
              (12 frames: s/frame, fps, keyframes and temporal frames timed
              apart) and a profiled pipelined run;
              then a guided rcfg-self stream (K1 at 1 row, K2 over the pos+neg
@@ -2005,45 +2008,155 @@ def host_waits(fn):
     return out, waits, copies
 
 
+# the hold's own time-out (s): a submit's host time is about 0.25 s on the
+# card's host, so an honest submit returns well inside it
+HOLD_TIMEOUT_S = 8.0
+HOLD_SOURCE = "scripts/sync_hold.cu"
+
+
+class SyncHold:
+    """A device-side hold (``scripts/sync_hold.cu``, built at first use with
+    nvcc for sm_90a into ``build/kernels/`` and loaded with ctypes, as
+    ``runtime/kernels.py`` builds the port's kernels; no fallback): one
+    thread spins on a flag in mapped pinned host memory until the host sets
+    it or HOLD_TIMEOUT_S pass on the card's clock, and records which came
+    first. :meth:`around_pack` launches it just before a stream frame's pixel
+    pack, so only the pack's few launches queue behind it."""
+
+    def __init__(self):
+        import ctypes
+        import hashlib
+
+        from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+        src = os.path.join(ROOT, HOLD_SOURCE)
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(f.read() + " ".join(kernels.ARCH_FLAGS).encode()).hexdigest()[:16]
+        lib = os.path.join(ROOT, "build", "kernels", f"sync_hold-{tag}.so")
+        if not os.path.exists(lib):
+            os.makedirs(os.path.dirname(lib), exist_ok=True)
+            tmp = f"{lib}.{os.getpid()}.tmp"
+            subprocess.run([kernels._nvcc(), *kernels.ARCH_FLAGS, "-std=c++17", "-O2",
+                            "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src],
+                           check=True, timeout=300)
+            os.replace(tmp, lib)
+        self.lib = ctypes.CDLL(lib)
+        self.lib.qie_hold_launch.argtypes = (ctypes.c_void_p, ctypes.c_ulonglong,
+                                             ctypes.c_void_p)
+        ptr = ctypes.c_void_p()
+        kernels.check(self.lib.qie_hold_alloc(ctypes.byref(ptr)), "cudaHostAlloc (hold)")
+        self.state = (ctypes.c_uint32 * 4).from_address(ptr.value)
+        self.ptr, self.launches = ptr.value, 0
+
+    def arm(self) -> None:
+        for i in range(4):
+            self.state[i] = 0
+        self.launches = 0
+
+    def launch(self) -> None:
+        import torch
+
+        from qwen_image_edit_streamdiffusion_tpu_torch.runtime import kernels
+
+        kernels.check(self.lib.qie_hold_launch(
+            self.ptr, int(HOLD_TIMEOUT_S * 1e9), torch.cuda.current_stream().cuda_stream),
+            "hold kernel launch")
+        self.launches += 1
+
+    def release(self) -> None:
+        self.state[0] = 1
+
+    def outcome(self) -> dict:
+        """After the card ran the hold: released or timed out, and its spin."""
+        word = self.state[1]
+        return {"outcome": {0: "not run", 1: "released", 2: "timed out"}[word],
+                "spun_ms": (self.state[2] | self.state[3] << 32) / 1e6,
+                "launches": self.launches}
+
+    def around_pack(self, fn):
+        """``fn()`` with the hold launched before the stream's pixel pack
+        (``colorspace.rgb_to_yuv420``, patched for the call) and released
+        once ``fn`` has returned; (its result, its host seconds)."""
+        from qwen_image_edit_streamdiffusion_tpu_torch.ops import colorspace
+
+        real = colorspace.rgb_to_yuv420
+
+        def held_pack(x32):
+            self.launch()
+            return real(x32)
+
+        self.arm()
+        colorspace.rgb_to_yuv420 = held_pack
+        t0 = time.time()
+        try:
+            out = fn()
+            return out, time.time() - t0
+        finally:
+            self.release()
+            colorspace.rgb_to_yuv420 = real
+
+
+def held_verdict(name: str, held: dict) -> list:
+    """What a held window says is wrong: a hold that did not run once, or a
+    submit that did not return while the card was held."""
+    if held["launches"] != 1:
+        return [f"{name}: the hold ran {held['launches']} times, not once"]
+    if held["outcome"] != "released":
+        return [f"{name}: the submit returned only after the card was free "
+                f"({held['outcome']} after {held['spun_ms']:.1f} ms)"]
+    return []
+
+
 def stream_sync_check(rt) -> None:
-    """After warm-up: a keyframe and a temporal ``submit_frame`` under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a sync PyTorch sees
-    raises) and under torch.profiler: no runtime call that waits for the
-    card and no pageable copy in their host window (:func:`host_waits`). An
-    event recorded right after them must still be pending when they return
-    (neither waited for its own frame); then both are collected. The host
-    can run only a bounded queue of launches ahead of the card, so a submit
-    still waits for the card once that queue is full: that is back-pressure,
-    not a sync. Then two planted faults, each a temporal submit: uploads
-    from pageable memory as before this slice (blocking), whose
-    ``cudaStreamSynchronize`` :func:`host_waits` must show, and non-blocking
-    from pageable memory, where the driver may wait unseen by the debug
-    mode (printed: whether the profile caught it). Last, one more temporal submit on an idle card: its
-    host seconds, and the device seconds its work needs after it returns."""
+    """After warm-up: a keyframe and a temporal ``submit_frame``, each in a
+    held window of its own (:class:`SyncHold`: the card spins just before
+    the frame's pixel pack until the host releases it once the submit has
+    returned, so a submit that waits for its own frame meets the hold's
+    time-out instead), under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    sync PyTorch sees raises) and under torch.profiler: no runtime call that
+    waits for the card and no pageable copy in their host window
+    (:func:`host_waits`), and each hold released, not timed out; then both
+    are collected. The host can run only a bounded queue of launches ahead
+    of the card, so a submit still waits for the card once that queue is
+    full: that is back-pressure, not a sync, and the hold sits after the
+    frame's launch-heavy stages so that the few launches behind it cannot
+    fill the queue. Then three planted faults, each a temporal submit:
+    uploads from pageable memory as before the stream's pinned uploads
+    (blocking), whose ``cudaStreamSynchronize`` :func:`host_waits` must
+    show, non-blocking from pageable memory, where the CUDA driver may wait
+    unseen by the debug mode (printed: whether the profile caught it), and a
+    submit that polls an event behind its own pixels before it returns (a
+    wait neither the debug mode nor the runtime calls show), whose held
+    window must time out and fail :func:`held_verdict`. Last, one more
+    temporal submit on an idle card: its host seconds, and the device
+    seconds its work needs after it returns."""
     import torch
 
     from qwen_image_edit_streamdiffusion_tpu_torch.pipeline import edit_pipeline as tep
 
+    if rt.config.transfer_format != "yuv420":
+        raise AssertionError("sync check: the hold sits before the yuv420 pack")
+    hold = SyncHold()
     img = stream_image()
     rt.frame_count, rt.prev_latent = 0, None
-    done = torch.cuda.Event()
-    flags, stamps = [], []
+    flags, seconds, held, waits, copies, handles = [], [], {}, {}, {}, []
 
-    def submits():
-        t0 = time.time()
+    def submit():
         torch.cuda.set_sync_debug_mode("error")
         try:
-            handles = []
-            for _ in range(2):
-                handles.append(rt.submit_frame(img))
-                flags.append(rt.is_keyframe)
-                stamps.append(time.time() - t0)
-            done.record()
-            return handles, not done.query()
+            return hold.around_pack(lambda: rt.submit_frame(img))
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
-    (handles, pending), waits, copies = host_waits(submits)
+    for name in ("keyframe", "temporal"):
+        (handle, dt), seen, seen_copies = host_waits(submit)
+        handles.append(handle)
+        flags.append(rt.is_keyframe)
+        seconds.append(dt)
+        held[name] = {**hold.outcome(), "submit_s": dt}
+        for k, v in seen.items():
+            waits[k] = waits.get(k, 0) + v
+        copies[name] = seen_copies
     t0 = time.time()
     outs = [rt._collect(h) for h in handles]
     t_collect = time.time() - t0
@@ -2057,6 +2170,20 @@ def stream_sync_check(rt) -> None:
             tep.to_device = real
         rt._collect(handle)
         planted[name] = {"waits": seen, "copies": seen_copies}
+
+    def self_syncing():
+        handle = rt.submit_frame(img)
+        own = torch.cuda.Event()
+        own.record()
+        while not own.query():
+            time.sleep(1e-4)
+        return handle
+
+    (handle, dt), seen, _ = host_waits(lambda: hold.around_pack(self_syncing))
+    rt._collect(handle)
+    caught = held_verdict("self_sync", hold.outcome())
+    planted["self_sync"] = {**hold.outcome(), "submit_s": dt, "waits": seen,
+                            "verdict": caught}
     # a temporal submit on an idle card: its host time, then the device time
     # its work still needs once it returns
     torch.cuda.synchronize()
@@ -2066,17 +2193,18 @@ def stream_sync_check(rt) -> None:
     torch.cuda.synchronize()
     left = time.time() - t0 - idle_submit
     rt._collect(handle)
-    emit({"phase": "stream_sync_check", "keyframe_submit_s": stamps[0],
-          "temporal_submit_s": stamps[1] - stamps[0], "collect_s": t_collect,
-          "work_pending_at_return": pending, "flags": flags,
-          "host_waits": waits, "copies": copies, "planted_uploads": planted,
-          "shapes": [list(o.shape) for o in outs],
+    emit({"phase": "stream_sync_check", "keyframe_submit_s": seconds[0],
+          "temporal_submit_s": seconds[1], "collect_s": t_collect,
+          "held": held, "flags": flags, "host_waits": waits, "copies": copies,
+          "planted": planted, "shapes": [list(o.shape) for o in outs],
           "idle_card_temporal_submit_s": idle_submit, "device_s_left_after_it": left})
-    if (flags != [True, False] or not pending or waits
-            or not planted["pageable_blocking"]["waits"].get("cudaStreamSynchronize")):
-        raise AssertionError(f"sync check: keyframe/temporal {flags}, work pending when "
-                             f"the submits returned: {pending}, host waits {waits}, "
-                             f"copies {copies}, planted uploads {planted}")
+    problems = [p for name in held for p in held_verdict(name, held[name])]
+    if (flags != [True, False] or problems or waits
+            or not planted["pageable_blocking"]["waits"].get("cudaStreamSynchronize")
+            or not caught):
+        raise AssertionError(f"sync check: keyframe/temporal {flags}, held windows "
+                             f"{problems or 'released'}, host waits {waits}, copies "
+                             f"{copies}, planted faults {planted}")
 
 
 def stream_batched(pipe, lk: int) -> None:
@@ -3980,12 +4108,18 @@ def cmyk_rgb(c, m, y, k):
     return np.clip(np.stack([nk - muldiv255(p) for p in (c, m, y)], -1), 0, 255).astype(np.uint8)
 
 
+# decode-set rows that are committed fixtures, each held to its manifest's
+# SHA-256 of Pillow's pixels: the lossless 1024² AVIF (2x2 tiles; the card's
+# host has no AV1 encoder to write one)
+FIXTURE_ROWS = {"avif_lossless": "avif_1024.avif"}
+
+
 def decode_set():
     """{name: (bytes, want)}: a 1024² image in each format the codec gained,
     ``want`` the RGB it must decode to where this host can tell without
     Pillow, else its shape where that is not 1024² (None for the committed
-    WebP and arithmetic-coded JPEG files, whose hashes phase inputs checks,
-    and for the cut progressive JPEG).
+    WebP, arithmetic-coded JPEG and lossless AVIF files, whose hashes phase
+    inputs checks, and for the cut progressive JPEG).
     BMP, GIF, TIFF, the lossless JPEG and the 4-component JPEGs are written
     here: the writers of ``scripts/codec_fixtures.py`` and
     :func:`cmyk_jpeg`. A lossless coding is held to its source; the
@@ -4056,6 +4190,7 @@ def decode_set():
         **jpeg2000_decode_set(),
         **rare_decode_set(n, rgb),
         **lab_decode_set(n, rgb),
+        **{row: (fixture(name), None) for row, name in FIXTURE_ROWS.items()},
     }
 
 
@@ -4291,7 +4426,8 @@ def phase_inputs() -> None:
     shape and SHA-256 of Pillow's bytes; the decode ms of a 1024² progressive
     JPEG against the same image as baseline, and of a 1024² image in each
     format the codec gained (:func:`decode_set`; the CIELab and BC6H files
-    held to :data:`LAB_DECODE_SHA256`); all 2^24 Lab8 inputs converted, their
+    held to :data:`LAB_DECODE_SHA256`, the lossless AVIF of
+    :data:`FIXTURE_ROWS` to its manifest's); all 2^24 Lab8 inputs converted, their
     SHA-256 held to Pillow's (:data:`LAB_SWEEP_SHA256`: a compiler that
     rounds the conversion's arithmetic otherwise shows here); a full-size
     Qwen2-layout tokenizer.json written, its load ms and the ms of PROMPT's encode (cold,
@@ -4335,6 +4471,8 @@ def phase_inputs() -> None:
         if px.shape != tuple(shape) or (source and not np.array_equal(px, want)):
             raise AssertionError(f"{name}: decoded {px.shape}, not its source")
         pinned = LAB_DECODE_SHA256.get(name) if DECODE_SIZE == 1024 else None
+        if name in FIXTURE_ROWS:
+            pinned = manifest[FIXTURE_ROWS[name]]["sha256"]
         if pinned and hashlib.sha256(px.tobytes()).hexdigest() != pinned:
             raise AssertionError(f"{name}: decoded to other pixels than Pillow's")
         rows[name] = {"ms": host_ms(lambda d=data: codec.decode(d), DECODE_REPS),

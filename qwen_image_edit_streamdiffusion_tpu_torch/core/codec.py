@@ -6,15 +6,14 @@ Counterpart of ``qwen_image_edit_streamdiffusion_tpu/core/imaging.py``'s
 no cv2, so the entropy coding, the DCTs, the PNG row filters, the BMP, GIF,
 WebP and TIFF decoders, the run-length codings of the plain raster
 formats, the DDS blocks, JPEG 2000's tiles, FLI frames, PhotoCD's base
-image and the CIELab to sRGB conversion run in ``csrc/host/``
-(``image_codec.cc``, ``bmp_gif.cc``, ``webp.cc``, ``tiff.cc``,
-``raster.cc``, ``bcn.cc``, ``jpeg2000.cc``, ``fli_pcd.cc``,
-``lab_srgb.cc``): plain
-C entry points loaded with
-``ctypes``, built at first use with the system C++ compiler (``c++``, or
-``$CXX``) into ``build/host/`` at the root of the checkout, under a name that
-carries a hash of every source (as ``runtime/kernels.py`` builds the CUDA
-kernels). Nothing is built when this module is imported; a missing compiler
+image, the CIELab to sRGB conversion and AV1 key frames run in
+``csrc/host/`` (``image_codec.cc``, ``bmp_gif.cc``, ``webp.cc``,
+``tiff.cc``, ``raster.cc``, ``bcn.cc``, ``jpeg2000.cc``, ``fli_pcd.cc``,
+``lab_srgb.cc``, ``av1.cc`` with its tables in ``av1_tables.h``): plain C
+entry points loaded with ``ctypes``, built at first use with the system C++
+compiler (``c++``, or ``$CXX``) into ``build/host/`` at the root of the
+checkout, under a name that carries a hash of every source (as
+``runtime/kernels.py`` builds the CUDA kernels). Nothing is built when this module is imported; a missing compiler
 raises when a call needs the library.
 
 - :func:`decode` finds the format as ``Image.open`` finds it: Pillow's
@@ -119,7 +118,7 @@ raises when a call needs the library.
   GIMP brushes, IM Tools, IPTC records (raw or a band of RGB or CMYK, or a
   JPEG or another file read as ``Image.open`` reads it), McIdas areas,
   PhotoCD's base image at its orientation, Pixar's dumped RGB, SPIDER and
-  XV thumbnails.
+  XV thumbnails. Lossless AVIF, as ``core/avif.py`` says.
   Anything else raises a ``ValueError`` that names the format and the
   feature: 12- and 16-bit JPEG, hierarchical and arithmetic lossless JPEG,
   lossless YCbCr or YCCK, a fractional sampling ratio, TIFF compressions
@@ -135,17 +134,16 @@ raises when a call needs the library.
   MCO, CBD) and packed packet headers (PPM, PPT), an IPTC band from a
   record of one band that is not L or 1 as the first band (Image.merge
   takes its bytes) or from a record of a format whose mode the port does
-  not read (any but PPM, JPEG, PNG, TIFF, BMP, PSD and IM), and the formats
-  Pillow opens and the port does not decode (AVIF, BUFR, EPS, GRIB, HDF5,
-  MPEG, WMF, each named). So does an image above Pillow's decompression-bomb limit
-  (:data:`MAX_PIXELS`), before anything of it is allocated, and a TIFF
-  whose tiles are; a PNG, a TIFF strip and an LZW, prefix, LZ77, PackBits
-  or CCITT stream decompress no further than their image, a TIFF tile no
-  further than the tile, a FITS GZIP_1 heap keeps no more than its image
-  while each member is inflated in bounded steps to its CRC, and data
-  that runs out
-  (truncated) raises naming its format, as does a progressive JPEG without
-  its EOI.
+  not read (any but PPM, JPEG, PNG, TIFF, BMP, PSD and IM), the AVIF files
+  ``core/avif.py`` lists, and the formats Pillow opens and the port does
+  not decode (BUFR, EPS, GRIB, HDF5, MPEG, WMF, each named). So does an
+  image above Pillow's decompression-bomb limit (:data:`MAX_PIXELS`),
+  before anything of it is allocated, and a TIFF whose tiles are; a PNG, a
+  TIFF strip and an LZW, prefix, LZ77, PackBits or CCITT stream decompress
+  no further than their image, a TIFF tile no further than the tile, a FITS
+  GZIP_1 heap keeps no more than its image while each member is inflated in
+  bounded steps to its CRC, and data that runs out (truncated) raises
+  naming its format, as does a progressive JPEG without its EOI.
 - :func:`encode_jpeg` writes what Pillow's ``save(format="JPEG",
   quality=q)`` writes (JFIF, the scaled Annex K tables, 4:2:0, standard
   Huffman tables), so Pillow decodes the two files to the same pixels.
@@ -171,11 +169,13 @@ from typing import Optional
 
 import numpy as np
 
+from qwen_image_edit_streamdiffusion_tpu_torch.core import avif
+
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc" / "host"
 # one library of every decoder (and the shared header, which the hash covers)
 SOURCES = ("image_codec.cc", "bmp_gif.cc", "webp.cc", "tiff.cc", "raster.cc", "bcn.cc",
-           "jpeg2000.cc", "fli_pcd.cc", "lab_srgb.cc")
-HEADERS = ("codec_common.h",)
+           "jpeg2000.cc", "fli_pcd.cc", "lab_srgb.cc", "av1.cc")
+HEADERS = ("codec_common.h", "av1_tables.h")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
 # a source's own flags: the CIELab transform rounds each product as
@@ -4837,7 +4837,7 @@ _FORMATS = (
     ("PPM", lambda p: len(p) >= 2 and p[:1] == b"P" and p[1] in b"0123456fy", _open_ppm),
     ("PNG", lambda p: p[:8] == PNG_SIGNATURE, _decoded(_decode_png)),
     ("AVIF", lambda p: p[4:8] == b"ftyp" and p[8:12] in (b"avif", b"avis", b"mif1", b"msf1"),
-     _refused("AVIF", "AV1 intra frames")),
+     avif.open_avif),
     ("BLP", lambda p: p[:4] in (b"BLP1", b"BLP2"), _open_blp),
     ("BUFR", lambda p: p[:4] in (b"BUFR", b"ZCZC"), _refused("BUFR", "a stub Pillow cannot load")),
     ("CUR", lambda p: p[:4] == b"\0\0\2\0", _open_cur),

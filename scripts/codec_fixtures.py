@@ -2422,6 +2422,7 @@ def fixtures() -> dict:
         **small_fixtures(),
         **jpeg2000_fixtures(),
         **jpeg2000_decode_pair(),
+        **avif_fixtures(),
     }
 
 
@@ -2774,6 +2775,377 @@ def jpeg_frames(sizes, subsampling: int = 2) -> callable:
         return buf.getvalue()
 
     return jpeg
+
+
+# --- AVIF: Pillow's files, their boxes edited, and files Pillow does not write ---
+
+def avif_save(rgb: np.ndarray, mode: str = "RGB", **kw) -> bytes:
+    """Pillow's AVIF file (libavif 1.3 over aom), lossless unless ``quality``
+    says otherwise."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(rgb, mode).save(buf, "AVIF", **{"quality": 100, **kw})
+    return buf.getvalue()
+
+
+def bmff_boxes(data: bytes, start: int = 0, end: int = None) -> list:
+    """[(type, box start, body start, box end)] of the boxes in data[start:end]."""
+    end = len(data) if end is None else end
+    out = []
+    while start + 8 <= end:
+        size, typ = struct.unpack_from(">I4s", data, start)
+        head = 8
+        if size == 1:
+            size, head = struct.unpack_from(">Q", data, start + 8)[0], 16
+        size = size or end - start
+        out.append((typ, start, start + head, start + size))
+        start += size
+    return out
+
+
+def avif_parts(data: bytes) -> dict:
+    """A Pillow AVIF file's primary item: its OBUs and its property boxes
+    (bytes, in ipco order) as :func:`avif_file` takes them."""
+    meta = next(b for b in bmff_boxes(data) if b[0] == b"meta")
+    inner = {b[0]: b for b in bmff_boxes(data, meta[2] + 4, meta[3])}
+    ipco = next(b for b in bmff_boxes(data, inner[b"iprp"][2], inner[b"iprp"][3])
+                if b[0] == b"ipco")
+    props = [data[b[1]:b[3]] for b in bmff_boxes(data, ipco[2], ipco[3])]
+    iloc = data[inner[b"iloc"][2]:inner[b"iloc"][3]]
+    version = iloc[0]
+    sizes = iloc[4], iloc[5]
+    count_at = 6
+    count = struct.unpack_from(">H", iloc, count_at)[0]
+    pos, items = count_at + 2, {}
+    for _ in range(count):
+        item_id = struct.unpack_from(">H", iloc, pos)[0]
+        pos += 2 + (2 if version else 0) + 2 + (sizes[1] >> 4)
+        extents = struct.unpack_from(">H", iloc, pos)[0]
+        pos += 2
+        chunks = []
+        for _ in range(extents):
+            off = int.from_bytes(iloc[pos:pos + (sizes[0] >> 4)], "big")
+            pos += sizes[0] >> 4
+            length = int.from_bytes(iloc[pos:pos + (sizes[0] & 15)], "big")
+            pos += sizes[0] & 15
+            chunks.append(data[off:off + length])
+        items[item_id] = b"".join(chunks)
+    pitm = data[inner[b"pitm"][2]:inner[b"pitm"][3]]
+    types = {}
+    for b in bmff_boxes(data, inner[b"iinf"][2] + 6, inner[b"iinf"][3]):
+        item_id, typ = struct.unpack_from(">H", data, b[2] + 4)[0], data[b[2] + 8:b[2] + 12]
+        types[item_id] = typ
+    ipma = next(b for b in bmff_boxes(data, inner[b"iprp"][2], inner[b"iprp"][3])
+                if b[0] == b"ipma")
+    assoc, pos = {}, ipma[2] + 8
+    for _ in range(struct.unpack_from(">I", data, ipma[2] + 4)[0]):
+        item_id, n = struct.unpack_from(">HB", data, pos)
+        assoc[item_id] = [(v & 0x7F, bool(v >> 7)) for v in data[pos + 3:pos + 3 + n]]
+        pos += 3 + n
+    refs = []
+    if b"iref" in inner:
+        for b in bmff_boxes(data, inner[b"iref"][2] + 4, inner[b"iref"][3]):
+            src, n = struct.unpack_from(">HH", data, b[2])
+            refs.append((b[0], src, list(struct.unpack_from(f">{n}H", data, b[2] + 4))))
+    primary = struct.unpack_from(">H", pitm, 4)[0]
+    return {"obus": items[primary], "props": props, "items": items, "types": types,
+            "assoc": assoc, "refs": refs, "primary": primary}
+
+
+def avif_remux(parts: dict, **kw) -> bytes:
+    """:func:`avif_file` of :func:`avif_parts`, fields replaced by ``kw``
+    (``items``, ``props``, ``assoc``, ``refs``, ``primary``, ...)."""
+    p = {**parts, **kw}
+    items = p.get("item_list") or [(i, p["types"][i], p["items"][i]) for i in sorted(p["items"])]
+    extra = {k: v for k, v in kw.items() if k in ("major", "brands", "idat", "extents")}
+    return avif_file(items, p["props"], p["assoc"], primary=p["primary"], refs=p["refs"], **extra)
+
+
+def _bmff_box(typ: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + typ + body
+
+
+def _bmff_full(typ: bytes, body: bytes, version: int = 0, flags: int = 0) -> bytes:
+    return _bmff_box(typ, bytes([version]) + flags.to_bytes(3, "big") + body)
+
+
+def avif_property(typ: bytes, body: bytes, version=None) -> bytes:
+    """A property box: full (with version 0) where ``version`` is given."""
+    return _bmff_box(typ, body) if version is None else _bmff_full(typ, body, version)
+
+
+def avif_file(items, props, assoc, primary: int = 1, refs=(), major: bytes = b"avif",
+              brands=(b"avif", b"mif1", b"miaf"), idat: bool = False, extents: int = 1) -> bytes:
+    """A HEIF file as libavif lays one out: ``items`` [(id, type, payload)]
+    (a ``mime`` item's type as (b"mime", content type)), ``props`` the ipco
+    boxes, ``assoc`` {item id: [(1-based property index, essential)]},
+    ``refs`` [(type, from, [to, ...])]; payloads in ``mdat`` (or ``idat``,
+    construction method 1), each in ``extents`` pieces."""
+    ftyp = _bmff_box(b"ftyp", major + b"\0\0\0\0" + b"".join(brands))
+    hdlr = _bmff_full(b"hdlr", b"\0" * 4 + b"pict" + b"\0" * 12 + b"\0")
+    pitm = _bmff_full(b"pitm", struct.pack(">H", primary))
+    infe = []
+    for item_id, typ, _ in items:
+        kind, extra = (typ, b"") if isinstance(typ, bytes) else (typ[0], typ[1] + b"\0")
+        infe.append(_bmff_full(b"infe", struct.pack(">HH", item_id, 0) + kind + b"\0" + extra,
+                               version=2))
+    iinf = _bmff_full(b"iinf", struct.pack(">H", len(items)) + b"".join(infe))
+    iref = b""
+    if refs:
+        iref = _bmff_full(b"iref", b"".join(
+            _bmff_box(t, struct.pack(">HH", src, len(dst)) + b"".join(struct.pack(">H", d) for d in dst))
+            for t, src, dst in refs))
+    ipma_body = struct.pack(">I", len(assoc))
+    for item_id, entries in assoc.items():
+        ipma_body += struct.pack(">HB", item_id, len(entries))
+        ipma_body += bytes((0x80 if ess else 0) | idx for idx, ess in entries)
+    iprp = _bmff_box(b"iprp", _bmff_box(b"ipco", b"".join(props)) + _bmff_full(b"ipma", ipma_body))
+
+    def meta(offsets):
+        body = struct.pack(">BBH", 0x44, 0x00, len(items))
+        for (item_id, _, payload), off in zip(items, offsets):
+            cuts = [len(payload) * k // extents for k in range(extents + 1)]
+            body += struct.pack(">HHHH", item_id, 1 if idat else 0, 0, extents)
+            body += b"".join(struct.pack(">II", off + a, b - a) for a, b in zip(cuts, cuts[1:]))
+        iloc = _bmff_full(b"iloc", body, version=1)
+        idat_box = _bmff_box(b"idat", b"".join(p for _, _, p in items)) if idat else b""
+        return _bmff_full(b"meta", hdlr + pitm + iloc + iinf + iref + iprp + idat_box)
+
+    size = len(meta([0] * len(items)))
+    offsets, at = [], 0 if idat else len(ftyp) + size + 8
+    for _, _, payload in items:
+        offsets.append(at)
+        at += len(payload)
+    mdat = b"" if idat else _bmff_box(b"mdat", b"".join(p for _, _, p in items))
+    return ftyp + meta(offsets) + mdat
+
+
+class _BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def f(self, n: int, v: int) -> None:
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def bytes(self, trailing: bool = True) -> bytes:
+        bits = self.bits + ([1] if trailing else [])
+        bits += [0] * (-len(bits) % 8)
+        return bytes(int("".join(map(str, bits[i:i + 8])), 2) for i in range(0, len(bits), 8))
+
+
+class _BitReader:
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | ((self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1)
+            self.pos += 1
+        return v
+
+
+def av1_obus(data: bytes) -> list:
+    """[(type, body)] of a stream of OBUs with size fields."""
+    out, pos = [], 0
+    while pos < len(data):
+        head = data[pos]
+        pos += 1 + ((head >> 2) & 1)
+        size = shift = 0
+        while True:
+            b = data[pos]
+            pos += 1
+            size |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        out.append(((head >> 3) & 15, data[pos:pos + size]))
+        pos += size
+    return out
+
+
+def av1_join(obus) -> bytes:
+    out = b""
+    for typ, body in obus:
+        n, size = len(body), b""
+        while True:
+            size += bytes([(n & 0x7F) | (0x80 if n > 0x7F else 0)])
+            n >>= 7
+            if not n:
+                break
+        out += bytes([(typ << 3) | 2]) + size + body
+    return out
+
+
+def av1_reduced_sequence(body: bytes) -> dict:
+    """The fields of a reduced still-picture sequence header (aom's, as
+    Pillow writes it)."""
+    r = _BitReader(body)
+    s = {"profile": r.f(3), "still": r.f(1), "reduced": r.f(1), "level": r.f(5)}
+    assert s["reduced"], "not a reduced still-picture header"
+    s["wbits"], s["hbits"] = r.f(4) + 1, r.f(4) + 1
+    s["w"], s["h"] = r.f(s["wbits"]) + 1, r.f(s["hbits"]) + 1
+    for k in ("sb128", "filter_intra", "edge_filter", "superres", "cdef", "restoration"):
+        s[k] = r.f(1)
+    s["high"] = r.f(1)
+    s["twelve"] = r.f(1) if s["profile"] == 2 and s["high"] else 0
+    s["mono"] = 0 if s["profile"] == 1 else r.f(1)
+    s["desc"] = r.f(1)
+    if s["desc"]:
+        s["cp"], s["tc"], s["mc"] = r.f(8), r.f(8), r.f(8)
+    s["range"] = r.f(1)
+    s["ssx"], s["ssy"] = {0: (1, 1), 1: (0, 0)}.get(s["profile"], (1, 0))
+    if s["mono"]:
+        s["ssx"] = s["ssy"] = 1
+    elif s["profile"] == 2 and s["twelve"]:
+        s["ssx"] = r.f(1)
+        s["ssy"] = r.f(1) if s["ssx"] else 0
+    if not s["mono"] and s["ssx"] and s["ssy"]:
+        s["csp"] = r.f(2)
+    if not s["mono"]:
+        s["sep_uv"] = r.f(1)
+    s["grain"] = r.f(1)
+    return s
+
+
+def av1_write_sequence(s: dict) -> bytes:
+    """:func:`av1_reduced_sequence`'s fields back to a header."""
+    w = _BitWriter()
+    w.f(3, s["profile"]), w.f(1, 1), w.f(1, 1), w.f(5, s["level"])
+    w.f(4, s["wbits"] - 1), w.f(4, s["hbits"] - 1)
+    w.f(s["wbits"], s["w"] - 1), w.f(s["hbits"], s["h"] - 1)
+    for k in ("sb128", "filter_intra", "edge_filter", "superres", "cdef", "restoration"):
+        w.f(1, s[k])
+    w.f(1, s["high"])
+    if s["profile"] == 2 and s["high"]:
+        w.f(1, s["twelve"])
+    if s["profile"] != 1:
+        w.f(1, s["mono"])
+    w.f(1, s["desc"])
+    if s["desc"]:
+        w.f(8, s["cp"]), w.f(8, s["tc"]), w.f(8, s["mc"])
+    w.f(1, s["range"])
+    if not s["mono"] and s["profile"] == 2 and s["twelve"]:
+        w.f(1, s["ssx"])
+        if s["ssx"]:
+            w.f(1, s["ssy"])
+    if not s["mono"] and s["ssx"] and s["ssy"]:
+        w.f(2, s.get("csp", 0))
+    if not s["mono"]:
+        w.f(1, s.get("sep_uv", 0))
+    w.f(1, s["grain"])
+    return w.bytes()
+
+
+def av1_frame_header_bits(body: bytes, s: dict) -> tuple:
+    """(bits of the frame header, the tile group's bytes) of a lossless
+    reduced still frame as aom writes it (no screen content, no segmentation,
+    no quantizer matrices)."""
+    r = _BitReader(body)
+    r.f(1)  # disable_cdf_update
+    assert r.f(1) == 0, "screen content"
+    if s["superres"]:
+        assert r.f(1) == 0
+    if r.f(1):  # render_and_frame_size_different
+        r.f(32)
+    mi_cols, mi_rows = 2 * ((s["w"] + 7) >> 3), 2 * ((s["h"] + 7) >> 3)
+    sb = 5 if s["sb128"] else 4
+    sb_cols, sb_rows = -(-mi_cols // (1 << sb)), -(-mi_rows // (1 << sb))
+
+    def log2_of(blk, target):
+        k = 0
+        while (blk << k) < target:
+            k += 1
+        return k
+
+    min_cols = log2_of(4096 >> (sb + 2), sb_cols)
+    max_cols, max_rows = log2_of(1, min(sb_cols, 64)), log2_of(1, min(sb_rows, 64))
+    min_tiles = max(min_cols, log2_of((4096 * 2304) >> (2 * (sb + 2)), sb_rows * sb_cols))
+    assert r.f(1), "explicit tile spacing"
+    cols = min_cols
+    while cols < max_cols and r.f(1):
+        cols += 1
+    rows = max(min_tiles - cols, 0)
+    while rows < max_rows and r.f(1):
+        rows += 1
+    if cols or rows:
+        r.f(cols + rows), r.f(2)
+    assert r.f(8) == 0, "lossy"
+    for _ in range(1 if s["mono"] else 3):
+        assert r.f(1) == 0
+    assert r.f(1) == 0 and r.f(1) == 0  # using_qmatrix, segmentation_enabled
+    r.f(1)  # reduced_tx_set
+    if s["grain"]:
+        assert r.f(1) == 0
+    header = [(body[i >> 3] >> (7 - (i & 7))) & 1 for i in range(r.pos)]
+    return header, body[(r.pos + 7) // 8:]
+
+
+def av1_rewrite(obus: bytes, seq=None, insert=None, append=()) -> bytes:
+    """A Pillow AV1 item with its sequence header's fields replaced by
+    ``seq`` and its frame header's bits changed: ``insert`` (bit position
+    after the screen-content flag, bits) and ``append`` (bits after
+    reduced_tx_set), then byte-aligned before the tile data."""
+    parts = av1_obus(obus)
+    s = av1_reduced_sequence(next(b for t, b in parts if t == 1))
+    out = []
+    for typ, body in parts:
+        if typ == 1:
+            body = av1_write_sequence({**s, **(seq or {})})
+        elif typ == 6:
+            bits, tiles = av1_frame_header_bits(body, s)
+            if insert:
+                at, extra = insert
+                bits = bits[:at] + list(extra) + bits[at:]
+            bits = bits + list(append)
+            w = _BitWriter()
+            w.bits = bits
+            body = w.bytes(trailing=False) + tiles
+        out.append((typ, body))
+    return av1_join(out)
+
+
+def av1_config(seq: dict) -> bytes:
+    """The av1C box of a sequence header's fields."""
+    b1 = (seq["profile"] << 5) | seq["level"]
+    b2 = ((seq["high"] << 6) | (seq.get("twelve", 0) << 5) | (seq["mono"] << 4)
+          | (seq["ssx"] << 3) | (seq["ssy"] << 2) | seq.get("csp", 0))
+    return _bmff_box(b"av1C", bytes([0x81, b1, b2, 0]))
+
+
+def avif_fixtures() -> dict:
+    """Lossless AVIF files Pillow writes (libavif 1.3 over aom at quality
+    100): 4:2:0, 4:2:2, 4:4:4 and 4:0:0 at an odd and an even size, the
+    1024² scene (2x2 tiles), an RGBA file, an EXIF-rotated file (irot), a
+    mirrored one (imir added), and ``colr`` variants made by editing the
+    nclx box (identity over 4:4:4, BT.709, BT.2020, limited range, none)."""
+    out = {}
+    for name, (h, w) in (("odd", (29, 45)), ("even", (48, 64))):
+        img = scene(h, w, 31)
+        for ss in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+            out[f"avif_{ss.replace(':', '')}_{name}.avif"] = avif_save(img, subsampling=ss)
+    out["avif_1024.avif"] = avif_save(scene(1024, 1024, 1))
+    rgba = np.concatenate([scene(40, 52, 32), scene(40, 52, 33)[..., :1]], -1)
+    out["avif_rgba.avif"] = avif_save(rgba, "RGBA")
+    from PIL import Image
+
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    rotated = avif_save(scene(36, 28, 34), exif=exif.tobytes())
+    out["avif_irot.avif"] = rotated
+    parts = avif_parts(rotated)
+    props = parts["props"] + [avif_property(b"imir", b"\x01")]
+    assoc = {1: [(i + 1, p[4:8] in (b"av1C", b"irot", b"imir")) for i, p in enumerate(props)]}
+    out["avif_imir.avif"] = avif_file([(1, b"av01", parts["obus"])], props, assoc)
+    base = avif_save(scene(30, 34, 35), subsampling="4:4:4")
+    nclx = base.index(b"colrnclx") + 8
+    for name, (mc, full) in (("identity", (0, 1)), ("bt709", (1, 1)), ("bt2020", (9, 1)),
+                             ("limited", (6, 0))):
+        out[f"avif_colr_{name}.avif"] = (base[:nclx + 4] + struct.pack(">H", mc)
+                                         + bytes([full << 7]) + base[nclx + 7:])
+    out["avif_no_colr.avif"] = base.replace(b"colrnclx", b"freenclx")
+    return out
 
 
 def damaged_tiff_fixtures() -> dict:

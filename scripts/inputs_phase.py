@@ -9,9 +9,9 @@ parent) are timed on one host in one call. The phase decodes every
 committed codec fixture against its manifest and times the 1024² decode
 set; this prints its JSON lines, then one line a run of the TIFF rows',
 the plain raster rows', the small decoders', the JPEG 2000 rows', the
-rare formats' and the CIELab and BC6H rows' multiples of the baseline JPEG
-(the small decoders', JPEG 2000's, the rare formats' and the CIELab and
-BC6H rows' ms too, and JPEG 2000's coded bits a pixel), the 2^24 Lab8
+rare formats', the CIELab and BC6H rows' and the lossless AVIF row's
+multiples of the baseline JPEG (the small decoders', JPEG 2000's, the rare
+formats', the CIELab and BC6H rows' and the AVIF row's ms too, and JPEG 2000's coded bits a pixel), the 2^24 Lab8
 sweep's ms and whether its hash is Pillow's, and the phase's seconds.
 """
 
@@ -33,6 +33,8 @@ RARE = ("im_rgb", "blp2_palette", "blp2_dxt1", "blp1_jpeg", "fits_8", "fits_gzip
         "xvthumb")
 # the CIELab and BC6H rows (chip_smoke.lab_decode_set)
 LAB = ("tiff_lab", "psd_lab", "dds_bc6h", "dds_bc6hs")
+# the lossless AVIF row (the committed 1024² fixture, 2x2 tiles)
+AVIF = ("avif_lossless",)
 
 RUN = """
 import json, sys, time
@@ -81,6 +83,9 @@ def main(argv=None) -> int:
             "lab_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in LAB},
             "lab_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
                                   if k in LAB},
+            "avif_ms": {k: v["ms"] for k, v in formats["formats"].items() if k in AVIF},
+            "avif_over_baseline": {k: v["over_baseline"] for k, v in formats["formats"].items()
+                                   if k in AVIF},
             "lab_sweep": next(({"ms": r["ms"], "equal_to_pillow": r["equal_to_pillow"]}
                                for r in rows if r.get("phase") == "inputs_lab_sweep"), None),
             "write_s": formats["write_s"], "nvidia_smi": formats["nvidia_smi"]}), flush=True)

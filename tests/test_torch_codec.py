@@ -764,7 +764,8 @@ def test_committed_fixtures_match_their_manifest_and_pillow():
     root = os.path.join(os.path.dirname(__file__), "fixtures", "codec")
     with open(os.path.join(root, "manifest.json")) as f:
         manifest = json.load(f)
-    assert sum(e["bytes"] for e in manifest.values()) < 1_000_000  # the fixture tree's budget
+    # the fixture tree's budget: 1 MB, and 0.8 MB more for the AVIF fixtures
+    assert sum(e["bytes"] for e in manifest.values()) < 1_800_000
     for name, entry in manifest.items():
         with open(os.path.join(root, name), "rb") as f:
             data = f.read()

@@ -128,15 +128,34 @@ def test_bad_base64_500(server_url):
 
 
 def test_unsupported_image_500(server_url):
-    """An image the codec refuses (here an AVIF ``ftyp`` header: Pillow opens
-    AVIF, the port names it) is the wrapped 500 an undecodable image is,
-    with the feature named."""
+    """An image the codec refuses (here a lossy AVIF: Pillow decodes it, the
+    port names the feature it lacks) is the wrapped 500 an undecodable
+    image is, with the format and the feature named."""
     import base64
 
-    avif = struct.pack(">I", 24) + b"ftypavif" + bytes(4) + b"avifmif1" + bytes(32)
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(imaging.make_test_image(64, 64, "circle")).save(buf, "AVIF", quality=90)
     url, _ = server_url
-    code, body = _post(url + "/edit", {"image": base64.b64encode(avif).decode()})
-    assert code == 500 and "AVIF" in body["detail"]
+    code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode()})
+    assert code == 500 and "AVIF" in body["detail"] and "lossy" in body["detail"]
+
+
+def test_lossless_avif_edit_200(server_url):
+    """A lossless AVIF upload (Pillow's quality 100) is decoded by the
+    port's AV1 decoder and edited like any image."""
+    import base64
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(imaging.make_test_image(64, 64, "circle")).save(buf, "AVIF", quality=100)
+    url, _ = server_url
+    code, body = _post(url + "/edit", {"image": base64.b64encode(buf.getvalue()).decode(),
+                                       "steps": 2})
+    assert code == 200, body
+    assert codec.decode_base64(body["image"]).shape == (64, 64, 3)
 
 
 def test_lab_tiff_edit_200(server_url):
